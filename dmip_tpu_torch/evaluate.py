@@ -1,0 +1,207 @@
+"""Evaluation harnesses: histogram KL, NLPD, score-MSE and sliced W2.
+
+Port of the single-device paths of ``dmip_tpu/evaluate.py``:
+``histogramdd_flat`` (:37), ``kl_pair`` (:56), ``sliced_w2`` (:93),
+``evaluate_linear`` (:439-563) and ``evaluate_scatterometry`` (:566-772).
+For each condition y, ``n_repeats`` x (posterior sampling + reference
+samples), 75^d histograms on a fixed box, the eps-smoothed forward and
+reverse histogram KL, the NLL under the true posterior (linear) or the MCMC
+energy (scatterometry), score-MSE at t = 0 and sliced W2.  Both harnesses
+write ``results.csv`` with the JAX package's columns.  Plotting is not
+ported.
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .models.diffusion import DiffusionModel
+
+Tensor = torch.Tensor
+
+
+def histogramdd_flat(x: Tensor, nbins: int, lo: float, hi: float) -> Tensor:
+    """d-dimensional fixed-range histogram, flattened to (nbins**d,) int64
+    counts, with np.histogramdd's edges: out-of-range points are dropped and
+    points exactly on the upper edge land in the last bin."""
+    d = x.shape[-1]
+    width = (hi - lo) / nbins
+    idx = torch.floor((x - lo) / width).to(torch.int64).clamp_(0, nbins - 1)
+    in_range = torch.all((x >= lo) & (x <= hi), dim=-1)
+    flat = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+    for i in range(d):
+        flat = flat * nbins + idx[..., i]
+    return torch.bincount(flat[in_range], minlength=nbins**d)
+
+
+def kl_pair(
+    hist_true: Tensor, hist_model: Tensor, epsilon: float = 1e-10
+) -> Tuple[Tensor, Tensor]:
+    """(forward KL, reverse KL) in float32: normalize, add eps, renormalize,
+    sum the relative entropy.  An empty histogram becomes uniform-eps."""
+    ht = hist_true.to(torch.float32)
+    hm = hist_model.to(torch.float32)
+    p = ht / torch.clamp(ht.sum(), min=1.0) + epsilon
+    q = hm / torch.clamp(hm.sum(), min=1.0) + epsilon
+    p = p / p.sum()
+    q = q / q.sum()
+    kl = torch.sum(p * (torch.log(p) - torch.log(q)))
+    kl_rev = torch.sum(q * (torch.log(q) - torch.log(p)))
+    return kl, kl_rev
+
+
+def sliced_w2(
+    x: Tensor,
+    y: Tensor,
+    n_proj: int = 128,
+    generator: Optional[torch.Generator] = None,
+    dirs: Optional[Tensor] = None,
+) -> Tensor:
+    """Sliced 2-Wasserstein distance between two equal-size sample sets:
+    the exact 1-D W2 (sorted quantiles) averaged over random unit
+    directions, given as ``dirs`` (n_proj, d) or drawn from ``generator``."""
+    if dirs is None:
+        gen_dev = generator.device if generator is not None else x.device
+        dirs = torch.randn(n_proj, x.shape[-1], generator=generator, device=gen_dev).to(x.device)
+    dirs = dirs / torch.linalg.norm(dirs, dim=1, keepdim=True)
+    px = torch.sort(x @ dirs.T, dim=0).values
+    py = torch.sort(y @ dirs.T, dim=0).values
+    return torch.sqrt(torch.mean((px - py) ** 2))
+
+
+def _score_mse(model: DiffusionModel, params, x_true: Tensor, ys: Tensor, score_true: Tensor) -> Tensor:
+    t0 = torch.zeros(x_true.shape[0], 1, device=x_true.device)
+    g0 = model.sde.base.g(t0)
+    score_pred = (model.apply_a(params, x_true, ys, t0) / g0)[:, : x_true.shape[-1]]
+    return torch.mean(torch.sum((score_pred - score_true) ** 2, dim=1))
+
+
+def _write_results_csv(path: str, columns: Dict[str, Sequence[float]]) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    keys = list(columns.keys())
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow([""] + keys)
+        for i in range(len(columns[keys[0]])):
+            w.writerow([i] + [columns[k][i] for k in keys])
+
+
+@torch.no_grad()
+def evaluate_linear(
+    model: DiffusionModel,
+    params,
+    problem,
+    ys: Tensor,
+    generator: Optional[torch.Generator] = None,
+    out_dir: Optional[str] = None,
+    n_samples_x: int = 5000,
+    n_repeats: int = 10,
+    num_steps: int = 200,
+    nbins: int = 75,
+    xlim: Tuple[float, float] = (-3.5, 3.5),
+    verbose: bool = True,
+    method: str = "auto",
+) -> Tuple[float, float, float]:
+    """Linear evaluation against the analytic posterior; returns (mean KL,
+    mean NLPD, mean score-MSE).  Runs on ys's device.  results.csv columns:
+    KL2, NLL_true, NLL_diffusion, MSE, W2."""
+    lo, hi = xlim
+    cols = {"KL2": [], "NLL_true": [], "NLL_diffusion": [], "MSE": [], "W2": []}
+    for i in range(ys.shape[0]):
+        y = ys[i]
+        hist_t = hist_p = 0
+        stats = []
+        for _ in range(n_repeats):
+            x_pred = model.sample(
+                params, y, n_samples_x, num_steps, generator=generator,
+                device=ys.device, method=method,
+            )
+            x_true = problem.sample_posterior(y, n_samples_x, generator)
+            w2 = sliced_w2(x_pred, x_true, generator=generator)
+            ys_tiled = y.expand(n_samples_x, y.shape[-1])
+            mse = _score_mse(model, params, x_true, ys_tiled, problem.score_posterior(x_true, ys_tiled))
+            hist_t = hist_t + histogramdd_flat(x_true, nbins, lo, hi)
+            hist_p = hist_p + histogramdd_flat(x_pred, nbins, lo, hi)
+            nll_t = -torch.mean(problem.posterior_log_prob(x_true, y))
+            nll_p = -torch.mean(problem.posterior_log_prob(x_pred, y))
+            stats.append(torch.stack([nll_t, nll_p, mse, w2]))
+        kl, _ = kl_pair(hist_t, hist_p)
+        nll_t, nll_p, mse, w2 = torch.stack(stats).mean(0).tolist()
+        for k, v in zip(cols, (float(kl), nll_t, nll_p, mse, w2)):
+            cols[k].append(v)
+    kl_arr = np.asarray(cols["KL2"])
+    nlpd = np.abs(np.asarray(cols["NLL_true"]) - np.asarray(cols["NLL_diffusion"]))
+    if out_dir is not None:
+        _write_results_csv(os.path.join(out_dir, "results.csv"), cols)
+    if verbose:
+        var = np.sum((kl_arr - kl_arr.mean()) ** 2) / len(kl_arr)
+        print(f"KL2: {kl_arr.mean()} +- {var}")
+    return float(kl_arr.mean()), float(nlpd.mean()), float(np.mean(cols["MSE"]))
+
+
+@torch.no_grad()
+def evaluate_scatterometry(
+    model: DiffusionModel,
+    params,
+    forward_model: Callable[[Tensor], Tensor],
+    fparams: Dict[str, float],
+    score_posterior_fn: Callable[[Tensor, Tensor], Tensor],
+    ys: Tensor,
+    gt_loader: Callable[[int, int], np.ndarray],
+    generator: Optional[torch.Generator] = None,
+    out_dir: Optional[str] = None,
+    n_samples_x: int = 30000,
+    n_repeats: int = 10,
+    num_steps: int = 200,
+    nbins: int = 75,
+    xlim: Tuple[float, float] = (-1.2, 1.2),
+    verbose: bool = True,
+    method: str = "auto",
+) -> Tuple[float, float, float]:
+    """Scatterometry evaluation against MCMC ground truth; ``gt_loader(i, j)``
+    gives condition i's repeat j.  Returns (mean KL, mean NLPD, mean
+    score-MSE).  Runs on ys's device.  results.csv columns: KL2,
+    KL_reverse, NLL_mcmc, NLL_diffusion, MSE, W2."""
+    from .problems.scatterometry import get_log_posterior
+
+    lo, hi = xlim
+    dev = ys.device
+    a, b, lambd_bd = fparams["a"], fparams["b"], fparams["lambd_bd"]
+    cols = {"KL2": [], "KL_reverse": [], "NLL_mcmc": [], "NLL_diffusion": [], "MSE": [], "W2": []}
+    for i in range(ys.shape[0]):
+        y = ys[i]
+
+        def energy(x):
+            return get_log_posterior(x, forward_model, a, b, y.expand(x.shape[0], -1), lambd_bd)
+
+        hist_t = hist_p = 0
+        stats = []
+        for j in range(n_repeats):
+            x_true = torch.as_tensor(gt_loader(i, j), dtype=torch.float32, device=dev)
+            x_pred = model.sample(
+                params, y, n_samples_x, num_steps, generator=generator, device=dev, method=method
+            )
+            n_w2 = min(n_samples_x, x_true.shape[0])
+            w2 = sliced_w2(x_pred[:n_w2], x_true[:n_w2], generator=generator)
+            ys_true = y.expand(x_true.shape[0], -1)
+            mse = _score_mse(model, params, x_true, ys_true, score_posterior_fn(x_true, ys_true))
+            hist_t = hist_t + histogramdd_flat(x_true, nbins, lo, hi)
+            hist_p = hist_p + histogramdd_flat(x_pred, nbins, lo, hi)
+            stats.append(torch.stack([torch.mean(energy(x_true)), torch.mean(energy(x_pred)), mse, w2]))
+        kl, kl_rev = kl_pair(hist_t, hist_p)
+        nll_t, nll_p, mse, w2 = torch.stack(stats).mean(0).tolist()
+        for k, v in zip(cols, (float(kl), float(kl_rev), nll_t, nll_p, mse, w2)):
+            cols[k].append(v)
+    kl_arr = np.asarray(cols["KL2"])
+    nlpd = np.abs(np.asarray(cols["NLL_diffusion"]) - np.asarray(cols["NLL_mcmc"]))
+    if out_dir is not None:
+        _write_results_csv(os.path.join(out_dir, "results.csv"), cols)
+    if verbose:
+        var = np.sum((kl_arr - kl_arr.mean()) ** 2) / len(kl_arr)
+        print(f"KL2: {kl_arr.mean()} +- {var}  W2: {np.mean(cols['W2']):.4f}")
+    return float(kl_arr.mean()), float(nlpd.mean()), float(np.mean(cols["MSE"]))

@@ -1,0 +1,79 @@
+"""Ground-truth MCMC samples for the scatterometry test conditions.
+
+Port of ``mains/generate_scatterometry_ground_truth.py``: for each of the
+``n_samples_y`` test conditions, run ``METR_STEPS`` Metropolis steps on
+``n_repeats`` x ``n_samples_x`` chains annealing to the posterior energy,
+and save each repeat as ``<gt_dir>/<i>/<j>.npy``.  All of a condition's
+chains (every repeat) go through one launch of the fused MH kernel.
+
+Usage: python -m dmip_tpu_torch.mains.generate_scatterometry_ground_truth \
+          [--config configs/config_scatterometry.yml] [--gt_dir data/gt...] \
+          [--n_samples_y N] [--device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from .. import data, resolve_device
+from ..ops.mh_kernel import fused_mh_scatterometry
+from ..problems import scatterometry as scat
+from ..utils import load_config
+
+
+def test_conditions(config: dict, forward_model, fparams, device) -> torch.Tensor:
+    """The ``n_samples_y`` scatterometry test observations (n, 23), drawn
+    from a CPU generator seeded with ``RANDOM_STATE``, so the ground-truth
+    generator and the evaluation driver see the same conditions."""
+    gen = torch.Generator().manual_seed(int(config.get("RANDOM_STATE", 13)))
+    _, y_test = data.generate_dataset_scatterometry(
+        forward_model, fparams["a"], fparams["b"], size=int(config["n_samples_y"]),
+        generator=gen, device=device,
+    )
+    return y_test
+
+
+def run(config: dict, gt_dir: str, device=None) -> None:
+    dev = resolve_device(device)
+    forward_model, fparams = scat.load_forward_model(device=dev)
+    y_test = test_conditions(config, forward_model, fparams, dev)
+    # chains draw from their own stream, apart from the conditions'
+    gen = torch.Generator().manual_seed(int(config.get("RANDOM_STATE", 13)) + 1)
+    n_repeats = int(config.get("n_repeats", 10))
+    n_x = int(config["n_samples_x"])
+    for i in range(y_test.shape[0]):
+        x0 = (torch.rand(n_repeats * n_x, 3, generator=gen) * 2.0 - 1.0).to(dev)
+        x = fused_mh_scatterometry(
+            forward_model.weights, x0, y_test[i], int(config["METR_STEPS"]),
+            noise_std=float(config["NOISE_STD_MCMC"]), a=fparams["a"], b=fparams["b"],
+            lambd_bd=fparams["lambd_bd"],
+            seed=int(torch.randint(0, 2**62, (1,), generator=gen)),
+        )
+        x = x.reshape(n_repeats, n_x, 3).cpu().numpy()
+        out_dir = os.path.join(gt_dir, str(i))
+        os.makedirs(out_dir, exist_ok=True)
+        for j in range(n_repeats):
+            np.save(os.path.join(out_dir, f"{j}.npy"), x[j])
+        print(f"gt {i + 1}/{y_test.shape[0]} done", flush=True)
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config", default="configs/config_scatterometry.yml")
+    p.add_argument("--gt_dir", default="data/gt_samples_scatterometry")
+    p.add_argument("--n_samples_y", type=int, default=None,
+                   help="generate only the first N conditions")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+    config = load_config(args.config)
+    if args.n_samples_y is not None:
+        config["n_samples_y"] = args.n_samples_y
+    run(config, args.gt_dir, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

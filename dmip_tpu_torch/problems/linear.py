@@ -1,0 +1,83 @@
+"""Linear-Gaussian toy inverse problem with an analytic posterior.
+
+Port of ``dmip_tpu/problems/linear.py:29-176`` (forward model, posterior
+moments, sampling, log density and score).  f(x) = A x + b with
+A = [[1, .5], [0, 1]], b = (0.3, 0.5), noise covariance Sigma = 0.3 I and a
+standard-normal prior.  Constants are built on the device the caller's
+tensors live on.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearForwardProblem:
+    xdim: int = 2
+    ydim: int = 2
+    scale: float = 0.3
+    epsilon: float = 1e-6
+
+    # -- constants, on the device/dtype of a reference tensor ---------------
+    def A(self, like: Tensor) -> Tensor:
+        return torch.tensor([[1.0, 0.5], [0.0, 1.0]], dtype=like.dtype, device=like.device)
+
+    def b(self, like: Tensor) -> Tensor:
+        return torch.tensor([0.3, 0.5], dtype=like.dtype, device=like.device)
+
+    def Sigma(self, like: Tensor) -> Tensor:
+        return self.scale * torch.eye(self.ydim, dtype=like.dtype, device=like.device)
+
+    def Sigma_inv(self, like: Tensor) -> Tensor:
+        return (1.0 / self.scale) * torch.eye(self.ydim, dtype=like.dtype, device=like.device)
+
+    @property
+    def noise_std(self) -> float:
+        """Observation noise std consistent with Sigma (sqrt(scale)); see the
+        JAX docstring for the reference's std/covariance mix-up."""
+        return math.sqrt(self.scale)
+
+    def Sigma_y_inv(self, like: Tensor) -> Tensor:
+        A = self.A(like)
+        eye = torch.eye(self.ydim, dtype=like.dtype, device=like.device)
+        return torch.linalg.inv(self.Sigma(like) + A @ A.T + self.epsilon * eye)
+
+    # -- forward model -------------------------------------------------------
+    def __call__(self, x: Tensor) -> Tensor:
+        return self.forward(x)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return x @ self.A(x).T + self.b(x)
+
+    # -- analytic posterior --------------------------------------------------
+    def posterior_moments(self, y: Tensor) -> Tuple[Tensor, Tensor]:
+        """N(mean, cov) of x | y (prior mean 0, prior covariance I)."""
+        A, Sy = self.A(y), self.Sigma_y_inv(y)
+        mean = A.T @ Sy @ (y - self.b(y))
+        cov = torch.eye(self.xdim, dtype=y.dtype, device=y.device) - A.T @ Sy @ A
+        return mean, cov
+
+    def sample_posterior(
+        self, y: Tensor, n: int, generator: Optional[torch.Generator] = None
+    ) -> Tensor:
+        mean, cov = self.posterior_moments(y)
+        gen_dev = generator.device if generator is not None else y.device
+        z = torch.randn(n, self.xdim, generator=generator, device=gen_dev, dtype=y.dtype)
+        return mean + z.to(y.device) @ torch.linalg.cholesky(cov).T
+
+    def posterior_log_prob(self, x: Tensor, y: Tensor) -> Tensor:
+        mean, cov = self.posterior_moments(y)
+        return torch.distributions.MultivariateNormal(mean, covariance_matrix=cov).log_prob(x)
+
+    def score_posterior(self, x: Tensor, y: Tensor) -> Tensor:
+        """grad_x log p(x|y) = -x + A^T Sigma^-1 (y - A x - b)."""
+        A = self.A(x)
+        y_res = y - (x @ A.T + self.b(x))
+        return -x + (y_res @ self.Sigma_inv(x).T) @ A

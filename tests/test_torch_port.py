@@ -1,0 +1,108 @@
+"""dmip_tpu_torch as a package: import hygiene (no JAX, no dmip_tpu, nothing
+built at import), the CUDA-by-default entry points, and the drivers end to
+end on the CPU at a tiny size."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from dmip_tpu_torch import resolve_device
+from dmip_tpu_torch.mains import eval_diffusion
+from dmip_tpu_torch.mains import generate_scatterometry_ground_truth as gt
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_IMPORT = r"""
+import sys, pkgutil, importlib
+for name in ("jax", "jaxlib", "dmip_tpu", "triton"):
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+import dmip_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(dmip_tpu_torch.__path__, "dmip_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+from dmip_tpu_torch.ops import build
+assert not build._loaded
+assert not any(k.startswith(("jax", "dmip_tpu.")) for k in sys.modules if sys.modules[k] is not None)
+print(len(mods))
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax_or_dmip_tpu():
+    """Every submodule and chip_smoke.py import in a process where jax,
+    dmip_tpu and triton cannot be imported, and nothing is built."""
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT.format(repo=REPO)],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 18
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without a CUDA device")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    cfg = yaml.safe_load(open(os.path.join(REPO, "configs/config_linear.yml")))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_diffusion.run("linear", os.path.join(REPO, "benchmarks/checkpoints/linear_refined_winner"), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gt.run(yaml.safe_load(open(os.path.join(REPO, "configs/config_scatterometry.yml"))), str(tmp_path))
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_exits_nonzero_without_a_card():
+    _no_cuda()
+    out = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_drivers_end_to_end_on_cpu(tmp_path):
+    """GT generation and both evaluations through the drivers' main() on the
+    CPU, at a tiny size, reading the repository's configs unchanged apart
+    from the sizes."""
+    scat_cfg = yaml.safe_load(open(os.path.join(REPO, "configs/config_scatterometry.yml")))
+    scat_cfg.update(n_samples_x=300, n_repeats=2, METR_STEPS=20, eval_num_steps=10)
+    scat_path = tmp_path / "scat.yml"
+    scat_path.write_text(yaml.safe_dump(scat_cfg))
+    gt_dir = tmp_path / "gt"
+    gt.main(["--config", str(scat_path), "--gt_dir", str(gt_dir), "--n_samples_y", "2", "--device", "cpu"])
+    arrs = [np.load(gt_dir / str(i) / f"{j}.npy") for i in range(2) for j in range(2)]
+    assert all(a.shape == (300, 3) and np.isfinite(a).all() for a in arrs)
+    assert not np.array_equal(arrs[0], arrs[1])
+    eval_diffusion.main(["--problem", "scatterometry", "--config", str(scat_path),
+                         "--checkpoint", os.path.join(REPO, "benchmarks/checkpoints/cde_500k"),
+                         "--gt_dir", str(gt_dir), "--n_samples_y", "2", "--device", "cpu",
+                         "--out_dir", str(tmp_path / "scat_out")])
+    rows = (tmp_path / "scat_out" / "results.csv").read_text().splitlines()
+    assert rows[0] == ",KL2,KL_reverse,NLL_mcmc,NLL_diffusion,MSE,W2" and len(rows) == 3
+    lin_cfg = yaml.safe_load(open(os.path.join(REPO, "configs/config_linear.yml")))
+    lin_cfg.update(n_samples_x=500, n_repeats=2, eval_num_steps=10, dataset_size=1000)
+    lin_path = tmp_path / "lin.yml"
+    lin_path.write_text(yaml.safe_dump(lin_cfg))
+    eval_diffusion.main(["--problem", "linear", "--config", str(lin_path),
+                         "--checkpoint", os.path.join(REPO, "benchmarks/checkpoints/linear_refined_winner"),
+                         "--n_samples_y", "3", "--device", "cpu", "--out_dir", str(tmp_path / "lin_out")])
+    rows = (tmp_path / "lin_out" / "results.csv").read_text().splitlines()
+    assert rows[0] == ",KL2,NLL_true,NLL_diffusion,MSE,W2" and len(rows) == 4
+
+
+def test_eval_driver_rejects_a_mismatched_checkpoint():
+    cfg = yaml.safe_load(open(os.path.join(REPO, "configs/config_linear.yml")))
+    cfg.update(hidden_layers=[256, 256])
+    with pytest.raises(ValueError, match="does not match"):
+        eval_diffusion.run("linear", os.path.join(REPO, "benchmarks/checkpoints/linear_refined_winner"),
+                           cfg, device="cpu")
