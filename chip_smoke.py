@@ -8,8 +8,13 @@ the serving path through its entry points at full width:
   * linear evaluation of ``benchmarks/checkpoints/linear_refined_winner``
     (30k samples x 200 E-M steps x 10 repeats per condition);
   * scatterometry ground truth through the MH kernel (30k chains x 1000
-    steps x 10 repeats per condition) and evaluation of
-    ``benchmarks/checkpoints/cde_500k`` against it.
+    steps x 10 repeats per condition, all in one launch of 300k chains) and
+    evaluation of ``benchmarks/checkpoints/cde_500k`` against it.
+
+The E-M kernel is held against its plain version at both nets' shapes and
+the MH kernel at the 300k chains the ground-truth driver gives it.  The
+E-M kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are per launch, averaged
+over the serving path's launches of each shape.
 
 Launch counts are zeroed just before the serving path and read just after;
 the plain path then reruns the same conditions for comparison.  Prints one
@@ -40,6 +45,7 @@ MH_STEPS = 1000
 LIN_CONDITIONS = 5
 SCAT_CONDITIONS = 3
 REPEATS = 10
+MH_CHAINS = REPEATS * N_SAMPLES   # one ground-truth launch per condition
 
 # tolerances, with their reasons
 # B1, same noise: bf16 activations round at slightly different sums (f32
@@ -57,7 +63,9 @@ B2_STEP_TOL = 1e-5
 # follows another path.
 B2_MISMATCH_SHARE = 0.02
 LIN_KL_BOUND = 0.03          # near the ~0.01 finite-sample floor of this net
-LIN_KL_AGREE = 0.01          # kernel vs plain path, same conditions
+# kernel vs plain path, same conditions: the KL's spread over repeats is
+# ~1e-7 and the bf16 kernel sat 1.6e-4 above the f32 plain path.
+LIN_KL_AGREE = 3e-3
 SCAT_KL_AGREE = 0.1          # kernel (bf16) vs plain (f32) path, same GT
 
 
@@ -118,10 +126,13 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float):
 
 
 def check_b1(torch, params, y, gen):
+    """B1 against its plain version on the net ``params`` and condition y,
+    at the serving path's 30k samples x 200 steps."""
     from dmip_tpu_torch.ops.em_kernel import em_sampler_reference, fused_em_sampler
 
-    x0 = torch.randn(N_SAMPLES, 3, generator=gen, device="cuda")
-    noise = torch.randn(EM_STEPS, N_SAMPLES, 3, generator=gen, device="cuda")
+    xdim = params[-1][0].shape[1]
+    x0 = torch.randn(N_SAMPLES, xdim, generator=gen, device="cuda")
+    noise = torch.randn(EM_STEPS, N_SAMPLES, xdim, generator=gen, device="cuda")
     out_k = fused_em_sampler(params, x0, y, EM_STEPS, noise=noise)
     out_p = em_sampler_reference(params, x0, y, EM_STEPS, noise=noise)
     torch.cuda.synchronize()
@@ -148,10 +159,10 @@ def check_b2(torch, weights, y, gen, fparams):
     from dmip_tpu_torch.problems.scatterometry import get_log_posterior, surrogate_apply
 
     kw = dict(noise_std=0.5, a=fparams["a"], b=fparams["b"], lambd_bd=fparams["lambd_bd"])
-    x0 = torch.rand(N_SAMPLES, 3, generator=gen, device="cuda") * 2 - 1
+    x0 = torch.rand(MH_CHAINS, 3, generator=gen, device="cuda") * 2 - 1
     # one step, uniforms moved >= 1e-3 away from the plain accept threshold
-    z1 = torch.randn(1, N_SAMPLES, 3, generator=gen, device="cuda")
-    u1 = torch.rand(1, N_SAMPLES, generator=gen, device="cuda")
+    z1 = torch.randn(1, MH_CHAINS, 3, generator=gen, device="cuda")
+    u1 = torch.rand(1, MH_CHAINS, generator=gen, device="cuda")
     energy = lambda x: get_log_posterior(x, lambda v: surrogate_apply(weights, v), kw["a"], kw["b"],
                                          y.reshape(1, -1), kw["lambd_bd"])
     thr = torch.exp(energy(x0) - energy(x0 + 0.5 * z1[0])).clamp(max=2.0)
@@ -162,8 +173,8 @@ def check_b2(torch, weights, y, gen, fparams):
     step_err = float((s_k - s_p).abs().max())
     check(step_err <= B2_STEP_TOL, f"B2 one-step vs plain: max abs err {step_err}")
     # full run, same randomness
-    z = torch.randn(MH_STEPS, N_SAMPLES, 3, generator=gen, device="cuda")
-    u = torch.rand(MH_STEPS, N_SAMPLES, generator=gen, device="cuda")
+    z = torch.randn(MH_STEPS, MH_CHAINS, 3, generator=gen, device="cuda")
+    u = torch.rand(MH_STEPS, MH_CHAINS, generator=gen, device="cuda")
     f_k = fused_mh_scatterometry(weights, x0, y, MH_STEPS, noise=z, uniforms=u, **kw)
     f_p = mh_chains_reference(weights, x0, y, MH_STEPS, noise=z, uniforms=u, **kw)
     torch.cuda.synchronize()
@@ -199,16 +210,18 @@ def serve(torch, lin_cfg, scat_cfg) -> dict:
         t0 = time.time()
         lin_k = eval_diffusion.run("linear", lin_ckpt, lin, device="cuda", out_dir=os.path.join(gt_dir, "lin"))
         torch.cuda.synchronize()
+        em_linear = fused_em_sampler.launches
         phase("serve_linear", t0, conditions=LIN_CONDITIONS, KL=lin_k[0], NLPD=lin_k[1], score_MSE=lin_k[2])
         t0 = time.time()
         gt.run(sc, gt_dir, device="cuda")
         torch.cuda.synchronize()
-        phase("serve_scat_gt", t0, conditions=SCAT_CONDITIONS, chains=REPEATS * N_SAMPLES, steps=MH_STEPS)
+        phase("serve_scat_gt", t0, conditions=SCAT_CONDITIONS, chains=MH_CHAINS, steps=MH_STEPS)
         t0 = time.time()
         scat_k = eval_diffusion.run("scatterometry", scat_ckpt, sc, gt_dir=gt_dir, device="cuda",
                                     out_dir=os.path.join(gt_dir, "scat"))
         torch.cuda.synchronize()
-        launches = {"em": fused_em_sampler.launches, "mh": fused_mh_scatterometry.launches}
+        launches = {"em": fused_em_sampler.launches, "mh": fused_mh_scatterometry.launches,
+                    "em_linear": em_linear}
         with open(os.path.join(gt_dir, "scat", "results.csv")) as f:
             rows = [ln.strip().split(",") for ln in f][1:]
         kl_rev = sum(float(r[2]) for r in rows) / len(rows)
@@ -216,7 +229,8 @@ def serve(torch, lin_cfg, scat_cfg) -> dict:
         phase("serve_scat_eval", t0, conditions=SCAT_CONDITIONS, KL=scat_k[0], KL_reverse=kl_rev,
               NLPD=scat_k[1], score_MSE=scat_k[2], W2=w2, launches=launches)
         check(launches["em"] > 0 and launches["mh"] > 0, f"a kernel was not launched: {launches}")
-        check(launches["em"] == REPEATS * (LIN_CONDITIONS + SCAT_CONDITIONS)
+        check(launches["em_linear"] == REPEATS * LIN_CONDITIONS
+              and launches["em"] == REPEATS * (LIN_CONDITIONS + SCAT_CONDITIONS)
               and launches["mh"] == SCAT_CONDITIONS, f"unexpected launch counts {launches}")
 
         t0 = time.time()
@@ -239,10 +253,12 @@ def run() -> list:
     import torch
 
     from dmip_tpu_torch.checkpoints import load_archived_params
+    from dmip_tpu_torch.mains import eval_diffusion
     from dmip_tpu_torch.mains import generate_scatterometry_ground_truth as gt
     from dmip_tpu_torch.ops import build, fused_em_sampler, fused_mh_scatterometry
     from dmip_tpu_torch.ops.em_kernel import em_sampler_reference
     from dmip_tpu_torch.ops.mh_kernel import mh_chains_reference
+    from dmip_tpu_torch.problems import LinearForwardProblem
     from dmip_tpu_torch.problems import scatterometry as scat
     from dmip_tpu_torch.utils import load_config
 
@@ -260,37 +276,55 @@ def run() -> list:
     forward_model, fparams = scat.load_forward_model(device="cuda")
     weights = forward_model.weights
     y0 = gt.test_conditions(scat_cfg, forward_model, fparams, "cuda")[0]
-    cde = load_archived_params(os.path.join(REPO, "benchmarks/checkpoints/cde_500k"), device="cuda")
+    y_lin = eval_diffusion.linear_test_conditions(lin_cfg, LinearForwardProblem(), "cuda")[0]
+    nets = {
+        "cde_500k": (load_archived_params(os.path.join(REPO, "benchmarks/checkpoints/cde_500k"),
+                                          device="cuda"), y0),
+        "linear_refined_winner": (load_archived_params(
+            os.path.join(REPO, "benchmarks/checkpoints/linear_refined_winner"), device="cuda"), y_lin),
+    }
     kw = dict(noise_std=0.5, a=fparams["a"], b=fparams["b"], lambd_bd=fparams["lambd_bd"])
-    t0 = time.time()
-    b1 = check_b1(torch, cde, y0, gen)
-    phase("b1_vs_plain", t0, **b1)
+    b1 = {}
+    for name, (params, y) in nets.items():
+        t0 = time.time()
+        b1[name] = check_b1(torch, params, y, gen)
+        phase("b1_vs_plain", t0, net=name, **b1[name])
     t0 = time.time()
     b2 = check_b2(torch, weights, y0, gen, fparams)
-    phase("b2_vs_plain", t0, **b2)
+    phase("b2_vs_plain", t0, chains=MH_CHAINS, **b2)
 
     launches = serve(torch, lin_cfg, scat_cfg)
 
-    # timings at the main path's shapes, after the counts were read
+    # timings at the main path's shapes, after the counts were read; B1's
+    # numbers are per launch, weighted by the launches of each net
     t0 = time.time()
-    x0 = torch.randn(N_SAMPLES, 3, generator=gen, device="cuda")
-    em_ms = cuda_ms(lambda: fused_em_sampler(cde, x0, y0, EM_STEPS, seed=7), 5)
-    em_plain_ms = cuda_ms(lambda: em_sampler_reference(cde, x0, y0, EM_STEPS, generator=gen), 2)
-    c0 = torch.rand(N_SAMPLES, 3, generator=gen, device="cuda") * 2 - 1
+    em_n = {"linear_refined_winner": launches["em_linear"], "cde_500k": launches["em"] - launches["em_linear"]}
+    em_t, em_flops, em_bytes = {}, 0.0, 0.0
+    for name, (params, y) in nets.items():
+        x0 = torch.randn(N_SAMPLES, params[-1][0].shape[1], generator=gen, device="cuda")
+        em_t[name] = (cuda_ms(lambda: fused_em_sampler(params, x0, y, EM_STEPS, seed=7), 5),
+                      cuda_ms(lambda: em_sampler_reference(params, x0, y, EM_STEPS, generator=gen), 2))
+        flops, nbytes = em_work(params, N_SAMPLES, EM_STEPS)
+        em_flops, em_bytes = em_flops + em_n[name] * flops, em_bytes + em_n[name] * nbytes
+    em_ms = sum(em_n[k] * em_t[k][0] for k in nets) / launches["em"]
+    em_plain_ms = sum(em_n[k] * em_t[k][1] for k in nets) / launches["em"]
+    em_bound, em_by = bound_ms(em_flops, em_bytes, H100_BF16_FLOPS)
+    em_bound /= launches["em"]
+    c0 = torch.rand(MH_CHAINS, 3, generator=gen, device="cuda") * 2 - 1
     mh_ms = cuda_ms(lambda: fused_mh_scatterometry(weights, c0, y0, MH_STEPS, seed=7, **kw), 3)
     mh_plain_ms = cuda_ms(lambda: mh_chains_reference(weights, c0, y0, MH_STEPS, generator=gen, **kw), 1)
-    em_bound, em_by = bound_ms(*em_work(cde, N_SAMPLES, EM_STEPS), H100_BF16_FLOPS)
-    mh_bound, mh_by = bound_ms(*mh_work(weights, N_SAMPLES, MH_STEPS), H100_F32_FLOPS)
+    mh_bound, mh_by = bound_ms(*mh_work(weights, MH_CHAINS, MH_STEPS), H100_F32_FLOPS)
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    phase("timing", t0, em_ms=em_ms, em_plain_ms=em_plain_ms, mh_ms=mh_ms, mh_plain_ms=mh_plain_ms,
-          sm_clock_power_temp=clocks)
+    phase("timing", t0, em_ms_by_net={k: v[0] for k, v in em_t.items()},
+          em_plain_ms_by_net={k: v[1] for k, v in em_t.items()}, em_launches_by_net=em_n,
+          mh_chains=MH_CHAINS, mh_ms=mh_ms, mh_plain_ms=mh_plain_ms, sm_clock_power_temp=clocks)
 
     return [
         {"name": "fused_em_sampler", "route": "cuda", "source": "dmip_tpu_torch/csrc/em_kernel.cu",
          "replaces": "dmip_tpu/ops/em_kernel.py:421", "launches": launches["em"],
-         "max_abs_err": b1["max_abs_err"], "ms": em_ms, "plain_ms": em_plain_ms,
+         "max_abs_err": max(r["max_abs_err"] for r in b1.values()), "ms": em_ms, "plain_ms": em_plain_ms,
          "bound_ms": em_bound, "bound_by": em_by, "library_ms": None},
         {"name": "fused_mh_scatterometry", "route": "cuda", "source": "dmip_tpu_torch/csrc/mh_kernel.cu",
          "replaces": "dmip_tpu/ops/mh_kernel.py:154", "launches": launches["mh"],

@@ -47,6 +47,16 @@ def _load_net(config: dict, dims: dict, checkpoint: str, dev):
     return model, params
 
 
+def linear_test_conditions(config: dict, prob: LinearForwardProblem, device) -> torch.Tensor:
+    """The linear test observations: the held-out split of the dataset drawn
+    from ``random_state``, as the training driver splits it."""
+    dgen = torch.Generator().manual_seed(int(config.get("random_state", 7)))
+    xs, ys = data.generate_dataset_linear(
+        prob.xdim, prob.forward, int(config["dataset_size"]), dgen, device
+    )
+    return data.train_test_split(xs, ys, float(config["train_size"]), dgen)[3]
+
+
 def run(
     problem: str,
     checkpoint: str,
@@ -68,11 +78,7 @@ def run(
     out_dir = out_dir or config.get("out_dir")
     if problem == "linear":
         prob = LinearForwardProblem()
-        dgen = torch.Generator().manual_seed(int(config.get("random_state", 7)))
-        xs, ys = data.generate_dataset_linear(
-            prob.xdim, prob.forward, int(config["dataset_size"]), dgen, dev
-        )
-        _, _, _, y_test = data.train_test_split(xs, ys, float(config["train_size"]), dgen)
+        y_test = linear_test_conditions(config, prob, dev)
         model, params = _load_net(config, {"xdim": prob.xdim, "ydim": prob.ydim}, checkpoint, dev)
         return evaluate.evaluate_linear(
             model, params, prob, y_test[: int(config["n_samples_y"])], gen,
