@@ -2,22 +2,30 @@
 """Smoke test of dmip_tpu_torch on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from ``dmip_tpu_torch/csrc``, holds each
-against its plain PyTorch version at the serving path's shapes, then drives
-the serving path through its entry points at full width:
+against its plain PyTorch version at the main paths' shapes, then drives
+the serving and the training paths through their entry points at full
+width:
 
   * linear evaluation of ``benchmarks/checkpoints/linear_refined_winner``
     (30k samples x 200 E-M steps x 10 repeats per condition);
   * scatterometry ground truth through the MH kernel (30k chains x 1000
     steps x 10 repeats per condition, all in one launch of 300k chains) and
-    evaluation of ``benchmarks/checkpoints/cde_500k`` against it.
+    evaluation of ``benchmarks/checkpoints/cde_500k`` against it;
+  * DSM training of the 512x3 CDE through the fused training kernel
+    (``train_backend: fused_pallas``): the linear config's full 1500 epochs,
+    scatterometry cut to 2000 epochs, each followed by evaluation through
+    the E-M kernel; then the autograd engine (``train_backend: xla``) for a
+    few epochs, on DSM and on the unchanged linear config (PINNLoss).
 
-The E-M kernel is held against its plain version at both nets' shapes and
-the MH kernel at the 300k chains the ground-truth driver gives it.  The
-E-M kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are per launch, averaged
-over the serving path's launches of each shape.
+The E-M kernel is held against its plain version at both nets' shapes, the
+MH kernel at the 300k chains the ground-truth driver gives it, and the
+training kernel at both nets' shapes (f32 and bf16, a masked epoch, a
+poisoned batch under both guards).  Each kernel's ``ms``, ``plain_ms`` and
+``bound_ms`` are per launch, averaged over the main path's launches of each
+shape.
 
-Launch counts are zeroed just before the serving path and read just after;
-the plain path then reruns the same conditions for comparison.  Prints one
+Launch counts are zeroed just before each path and read just after; the
+plain serving path then reruns the same conditions for comparison.  Prints one
 line per phase with its seconds, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero.  Run from the repository root:
@@ -67,6 +75,25 @@ LIN_KL_BOUND = 0.03          # near the ~0.01 finite-sample floor of this net
 # ~1e-7 and the bf16 kernel sat 1.6e-4 above the f32 plain path.
 LIN_KL_AGREE = 3e-3
 SCAT_KL_AGREE = 0.1          # kernel (bf16) vs plain (f32) path, same GT
+B3_BATCH = 1000
+B3_LR = 1e-4
+# B3 vs plain, f32, 10 steps: the same arithmetic in another f32 sum order;
+# an Adam step moves a weight by at most ~lr, so 1e-5 is a tenth of a step.
+B3_F32_PARAM_TOL = 1e-5
+B3_F32_MOMENT_REL = 1e-4
+B3_F32_LOSS_REL = 1e-5
+# B3 vs plain, bf16, 2 epochs: identical bf16 operands, but an f32 sum-order
+# difference can move a tanh output across a bf16 rounding edge, and Adam
+# turns a small gradient difference into up to one lr-sized step.
+B3_BF16_LOSS_REL = 1e-3
+B3_BF16_PARAM_TOL = 2e-3
+B3_LIN = (5, 2, 90, 25)       # in, out, batches per epoch, epochs per launch
+B3_SCAT = (27, 3, 8, 100)
+LIN_TRAIN_EPOCHS = 1500       # the config's full schedule: 60 launches of 2250 steps
+SCAT_TRAIN_EPOCHS = 2000      # cut from 20000: 20 launches of 800 steps
+# the JAX package's DSM net reaches ~0.011 at 1500 epochs; ~0.01 is the
+# evaluation's finite-sample floor
+TRAIN_LIN_KL_BOUND = 0.03
 
 
 class CheckFailed(Exception):
@@ -192,61 +219,243 @@ def check_b2(torch, weights, y, gen, fparams):
     return res
 
 
-def serve(torch, lin_cfg, scat_cfg) -> dict:
+def b3_inputs(torch, in_dim, out_dim, n_batches, n_epochs, gen, hidden=(512, 512, 512)):
+    """A net of random weights, Adam moments as after a few steps, and
+    n_epochs x n_batches batches of DSM inputs at B = 1000: h0 = [z_t, y, t]
+    with t in the debiased sampler's range, eps ~ N(0, 1), s1 = std/g."""
+    from dmip_tpu_torch.nets import mlp_init
+    from dmip_tpu_torch.sde import VPSDE
+
+    params = mlp_init(in_dim, out_dim, hidden, generator=torch.Generator().manual_seed(11), device="cuda")
+    mu = tuple((1e-3 * torch.randn(w.shape, generator=gen, device="cuda"),
+                1e-3 * torch.randn(b.shape, generator=gen, device="cuda")) for w, b in params)
+    nu = tuple((m[0] ** 2, m[1] ** 2) for m in mu)
+    rows = n_epochs * n_batches * B3_BATCH
+    t = 1e-4 + torch.rand(rows, 1, generator=gen, device="cuda") * (1 - 1e-4)
+    h0 = torch.cat([torch.randn(rows, in_dim - 1, generator=gen, device="cuda"), t], 1).contiguous()
+    eps = torch.randn(rows, out_dim, generator=gen, device="cuda")
+    base = VPSDE()
+    s1 = (base.std(t) / base.g(t)).expand(rows, out_dim).contiguous()
+    return params, mu, nu, h0, eps, s1
+
+
+def _max_err(a, b):
+    return max(float((x - y).abs().max()) for pa, pb in zip(a, b) for x, y in zip(pa, pb))
+
+
+def _rel_err(a, b):
+    return max(float((x - y).abs().max() / (y.abs().max() + 1e-30)) for pa, pb in zip(a, b) for x, y in zip(pa, pb))
+
+
+def check_b3(torch, in_dim, out_dim, n_batches, gen, full=True):
+    """B3 against its plain version at one net's shapes, from the same
+    params, moments and count on the same batches: f32 for 10 steps, and
+    with ``full`` bf16 for 2 epochs, the masked epoch and a poisoned batch
+    under both guards."""
+    from dmip_tpu_torch.ops.dsm_train_kernel import dsm_train_epochs_reference, fused_dsm_train_epochs
+
+    res = {}
+    params, mu, nu, h0, eps, s1 = b3_inputs(torch, in_dim, out_dim, n_batches, 2, gen)
+    kw = dict(batch_real=B3_BATCH, lr=B3_LR)
+    steps = min(10, n_batches)
+    rows = steps * B3_BATCH
+    one = (h0[:rows], eps[:rows], s1[:rows])
+    k = fused_dsm_train_epochs(params, mu, nu, 7, *one, n_epochs=1, n_batches=steps, n_active=1,
+                               compute_dtype=torch.float32, **kw)
+    r = dsm_train_epochs_reference(params, mu, nu, 7, *one, n_epochs=1, n_batches=steps, n_active=1,
+                                   compute_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    res["f32_params_max_abs"] = _max_err(k[0], r[0])
+    res["f32_mu_rel"] = _rel_err(k[1], r[1])
+    res["f32_nu_rel"] = _rel_err(k[2], r[2])
+    res["f32_loss_rel"] = float(((k[4] - r[4]).abs() / r[4].abs()).max())
+    res["moved"] = _max_err(k[0], params)
+    check(int(k[3]) == int(r[3]) == 7 + steps, f"B3 f32 counts {int(k[3])} vs {int(r[3])}")
+    check(res["f32_params_max_abs"] <= B3_F32_PARAM_TOL and res["f32_mu_rel"] <= B3_F32_MOMENT_REL
+          and res["f32_nu_rel"] <= B3_F32_MOMENT_REL and res["f32_loss_rel"] <= B3_F32_LOSS_REL,
+          f"B3 f32 vs plain out of tolerance: {res}")
+    if not full:
+        return res
+    args = (params, mu, nu, 7, h0, eps, s1)
+    k = fused_dsm_train_epochs(*args, n_epochs=2, n_batches=n_batches, n_active=2, **kw)
+    r = dsm_train_epochs_reference(*args, n_epochs=2, n_batches=n_batches, n_active=2, **kw)
+    torch.cuda.synchronize()
+    res["bf16_params_max_abs"] = _max_err(k[0], r[0])
+    res["bf16_loss_rel"] = float(((k[4] - r[4]).abs() / r[4].abs()).max())
+    check(int(k[3]) == int(r[3]) == 7 + 2 * n_batches, "B3 bf16 counts differ")
+    check(res["bf16_loss_rel"] <= B3_BF16_LOSS_REL and res["bf16_params_max_abs"] <= B3_BF16_PARAM_TOL,
+          f"B3 bf16 vs plain out of tolerance: {res}")
+    # n_active = 1 of 2: the second epoch computes but does not update
+    masked = fused_dsm_train_epochs(*args, n_epochs=2, n_batches=n_batches, n_active=1, **kw)
+    rows = n_batches * B3_BATCH
+    first = fused_dsm_train_epochs(params, mu, nu, 7, h0[:rows], eps[:rows], s1[:rows], n_epochs=1,
+                                   n_batches=n_batches, n_active=1, **kw)
+    res["masked_vs_one_epoch"] = max(_max_err(masked[j], first[j]) for j in range(3))
+    check(res["masked_vs_one_epoch"] == 0.0 and int(masked[3]) == int(first[3]) == 7 + n_batches,
+          f"B3 masked epoch moved the state: {res}")
+    # a NaN in batch 1 of 3: under both guards the step leaves everything as
+    # it was, so the result equals the run on batches 0 and 2 alone
+    b = B3_BATCH
+    h0p = h0[:3 * b].clone()
+    h0p[b + 17, 0] = float("nan")
+    clean = [torch.cat([x[:b], x[2 * b:3 * b]]) for x in (h0, eps, s1)]
+    skip = fused_dsm_train_epochs(params, mu, nu, 7, *clean, n_epochs=1, n_batches=2, n_active=1, **kw)
+    for guard in (True, "loss"):
+        out = fused_dsm_train_epochs(params, mu, nu, 7, h0p, eps[:3 * b], s1[:3 * b], n_epochs=1,
+                                     n_batches=3, n_active=1, skip_nonfinite=guard, **kw)
+        err = max(_max_err(out[j], skip[j]) for j in range(3))
+        res[f"poisoned_{guard}"] = err
+        check(err == 0.0 and int(out[3]) == 7 + 2, f"B3 guard {guard!r} let the NaN step through: {res}")
+    return res
+
+
+def serve(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
     """The serving path through its entry points, kernel launches counted
-    from zero; then the plain path on the same conditions.  Returns the
-    launch counts."""
+    from zero; then the plain path on the same conditions.  Leaves the
+    scatterometry GT in ``gt_dir``.  Returns the launch counts."""
     from dmip_tpu_torch.mains import eval_diffusion
     from dmip_tpu_torch.mains import generate_scatterometry_ground_truth as gt
     from dmip_tpu_torch.ops import fused_em_sampler, fused_mh_scatterometry
 
     lin_ckpt = os.path.join(REPO, "benchmarks/checkpoints/linear_refined_winner")
     scat_ckpt = os.path.join(REPO, "benchmarks/checkpoints/cde_500k")
-    with tempfile.TemporaryDirectory(prefix="dmip_gt_", dir=REPO) as gt_dir:
-        lin = dict(lin_cfg, n_samples_y=LIN_CONDITIONS, n_samples_x=N_SAMPLES, n_repeats=REPEATS)
-        sc = dict(scat_cfg, n_samples_y=SCAT_CONDITIONS, n_samples_x=N_SAMPLES, n_repeats=REPEATS)
-        fused_em_sampler.launches = 0
-        fused_mh_scatterometry.launches = 0
-        t0 = time.time()
-        lin_k = eval_diffusion.run("linear", lin_ckpt, lin, device="cuda", out_dir=os.path.join(gt_dir, "lin"))
-        torch.cuda.synchronize()
-        em_linear = fused_em_sampler.launches
-        phase("serve_linear", t0, conditions=LIN_CONDITIONS, KL=lin_k[0], NLPD=lin_k[1], score_MSE=lin_k[2])
-        t0 = time.time()
-        gt.run(sc, gt_dir, device="cuda")
-        torch.cuda.synchronize()
-        phase("serve_scat_gt", t0, conditions=SCAT_CONDITIONS, chains=MH_CHAINS, steps=MH_STEPS)
-        t0 = time.time()
-        scat_k = eval_diffusion.run("scatterometry", scat_ckpt, sc, gt_dir=gt_dir, device="cuda",
-                                    out_dir=os.path.join(gt_dir, "scat"))
-        torch.cuda.synchronize()
-        launches = {"em": fused_em_sampler.launches, "mh": fused_mh_scatterometry.launches,
-                    "em_linear": em_linear}
-        with open(os.path.join(gt_dir, "scat", "results.csv")) as f:
-            rows = [ln.strip().split(",") for ln in f][1:]
-        kl_rev = sum(float(r[2]) for r in rows) / len(rows)
-        w2 = sum(float(r[6]) for r in rows) / len(rows)
-        phase("serve_scat_eval", t0, conditions=SCAT_CONDITIONS, KL=scat_k[0], KL_reverse=kl_rev,
-              NLPD=scat_k[1], score_MSE=scat_k[2], W2=w2, launches=launches)
-        check(launches["em"] > 0 and launches["mh"] > 0, f"a kernel was not launched: {launches}")
-        check(launches["em_linear"] == REPEATS * LIN_CONDITIONS
-              and launches["em"] == REPEATS * (LIN_CONDITIONS + SCAT_CONDITIONS)
-              and launches["mh"] == SCAT_CONDITIONS, f"unexpected launch counts {launches}")
+    lin = dict(lin_cfg, n_samples_y=LIN_CONDITIONS, n_samples_x=N_SAMPLES, n_repeats=REPEATS)
+    sc = dict(scat_cfg, n_samples_y=SCAT_CONDITIONS, n_samples_x=N_SAMPLES, n_repeats=REPEATS)
+    fused_em_sampler.launches = 0
+    fused_mh_scatterometry.launches = 0
+    t0 = time.time()
+    lin_k = eval_diffusion.run("linear", lin_ckpt, lin, device="cuda", out_dir=os.path.join(gt_dir, "lin"))
+    torch.cuda.synchronize()
+    em_linear = fused_em_sampler.launches
+    phase("serve_linear", t0, conditions=LIN_CONDITIONS, KL=lin_k[0], NLPD=lin_k[1], score_MSE=lin_k[2])
+    t0 = time.time()
+    gt.run(sc, gt_dir, device="cuda")
+    torch.cuda.synchronize()
+    phase("serve_scat_gt", t0, conditions=SCAT_CONDITIONS, chains=MH_CHAINS, steps=MH_STEPS)
+    t0 = time.time()
+    scat_k = eval_diffusion.run("scatterometry", scat_ckpt, sc, gt_dir=gt_dir, device="cuda",
+                                out_dir=os.path.join(gt_dir, "scat"))
+    torch.cuda.synchronize()
+    launches = {"em": fused_em_sampler.launches, "mh": fused_mh_scatterometry.launches,
+                "em_linear": em_linear}
+    with open(os.path.join(gt_dir, "scat", "results.csv")) as f:
+        rows = [ln.strip().split(",") for ln in f][1:]
+    kl_rev = sum(float(r[2]) for r in rows) / len(rows)
+    w2 = sum(float(r[6]) for r in rows) / len(rows)
+    phase("serve_scat_eval", t0, conditions=SCAT_CONDITIONS, KL=scat_k[0], KL_reverse=kl_rev,
+          NLPD=scat_k[1], score_MSE=scat_k[2], W2=w2, launches=launches)
+    check(launches["em"] > 0 and launches["mh"] > 0, f"a kernel was not launched: {launches}")
+    check(launches["em_linear"] == REPEATS * LIN_CONDITIONS
+          and launches["em"] == REPEATS * (LIN_CONDITIONS + SCAT_CONDITIONS)
+          and launches["mh"] == SCAT_CONDITIONS, f"unexpected launch counts {launches}")
 
-        t0 = time.time()
-        lin_p = eval_diffusion.run("linear", lin_ckpt, lin, device="cuda", method="plain",
-                                   out_dir=os.path.join(gt_dir, "lin_plain"))
-        scat_p = eval_diffusion.run("scatterometry", scat_ckpt, sc, gt_dir=gt_dir, device="cuda",
-                                    method="plain", out_dir=os.path.join(gt_dir, "scat_plain"))
-        phase("serve_plain", t0, linear_KL=lin_p[0], linear_NLPD=lin_p[1], scat_KL=scat_p[0],
-              scat_NLPD=scat_p[1])
-        check(lin_k[0] < LIN_KL_BOUND, f"linear KL {lin_k[0]} above {LIN_KL_BOUND}")
-        check(abs(lin_k[0] - lin_p[0]) <= LIN_KL_AGREE, f"linear KL kernel {lin_k[0]} vs plain {lin_p[0]}")
-        finite = all(v == v and abs(v) != float("inf") for v in (*scat_k, kl_rev, w2))
-        check(finite, f"non-finite scatterometry metrics {scat_k}")
-        check(abs(scat_k[0] - scat_p[0]) <= SCAT_KL_AGREE,
-              f"scatterometry KL kernel {scat_k[0]} vs plain {scat_p[0]}")
+    t0 = time.time()
+    lin_p = eval_diffusion.run("linear", lin_ckpt, lin, device="cuda", method="plain",
+                               out_dir=os.path.join(gt_dir, "lin_plain"))
+    scat_p = eval_diffusion.run("scatterometry", scat_ckpt, sc, gt_dir=gt_dir, device="cuda",
+                                method="plain", out_dir=os.path.join(gt_dir, "scat_plain"))
+    phase("serve_plain", t0, linear_KL=lin_p[0], linear_NLPD=lin_p[1], scat_KL=scat_p[0],
+          scat_NLPD=scat_p[1])
+    check(lin_k[0] < LIN_KL_BOUND, f"linear KL {lin_k[0]} above {LIN_KL_BOUND}")
+    check(abs(lin_k[0] - lin_p[0]) <= LIN_KL_AGREE, f"linear KL kernel {lin_k[0]} vs plain {lin_p[0]}")
+    finite = all(v == v and abs(v) != float("inf") for v in (*scat_k, kl_rev, w2))
+    check(finite, f"non-finite scatterometry metrics {scat_k}")
+    check(abs(scat_k[0] - scat_p[0]) <= SCAT_KL_AGREE,
+          f"scatterometry KL kernel {scat_k[0]} vs plain {scat_p[0]}")
     return launches
+
+
+def train_log(cfg):
+    """(epochs, losses, seconds) of the run's Train/Loss events, in order."""
+    with open(os.path.join(cfg["train_dir"], "logs", "events.jsonl")) as f:
+        ev = [json.loads(ln) for ln in f]
+    ev = [e for e in ev if e["tag"] == "Train/Loss"]
+    return [e["step"] for e in ev], [e["value"] for e in ev], [e["t"] for e in ev]
+
+
+def epochs_per_s(cfg) -> float:
+    """Steady-state rate: epochs between the end of the first call to the
+    epoch engine and the end of the last, over the time between them."""
+    steps, _, ts = train_log(cfg)
+    epc = int(cfg["epochs_per_call"])
+    ends = [(s, t) for s, t in zip(steps, ts) if s % epc == epc - 1 or s == steps[-1]]
+    return (ends[-1][0] - ends[0][0]) / (ends[-1][1] - ends[0][1])
+
+
+def train(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
+    """The training path through the drivers: DSM on the fused kernel for
+    both problems (launches counted from zero around each), then the
+    autograd engine on the same overrides and on the unchanged linear config.
+    Returns the launch counts."""
+    from dmip_tpu_torch.mains import main_diffusion_linear as mlin
+    from dmip_tpu_torch.mains import main_diffusion_scatterometry as mscat
+    from dmip_tpu_torch.ops import fused_dsm_train_epochs, fused_em_sampler
+
+    def dirs(name):
+        return dict(train_dir=os.path.join(gt_dir, "train_" + name), out_dir=os.path.join(gt_dir, "out_" + name))
+
+    fused = dict(loss_fn="DSM", train_backend="fused_pallas")
+    lin = dict(lin_cfg, n_epochs=LIN_TRAIN_EPOCHS, n_samples_y=LIN_CONDITIONS, n_samples_x=N_SAMPLES,
+               n_repeats=REPEATS, **fused, **dirs("lin"))
+    fused_dsm_train_epochs.launches = fused_em_sampler.launches = 0
+    t0 = time.time()
+    _, lin_m = mlin.run(lin, device="cuda")
+    torch.cuda.synchronize()
+    n_lin = {"dsm_train": fused_dsm_train_epochs.launches, "em": fused_em_sampler.launches}
+    _, losses, _ = train_log(lin)
+    phase("train_linear", t0, epochs=LIN_TRAIN_EPOCHS, launches=n_lin, first_loss=losses[0], last_loss=losses[-1],
+          epochs_per_s=epochs_per_s(lin), KL=lin_m[0], NLPD=lin_m[1], score_MSE=lin_m[2])
+    check(n_lin == {"dsm_train": LIN_TRAIN_EPOCHS // lin["epochs_per_call"], "em": REPEATS * LIN_CONDITIONS},
+          f"train_linear launches {n_lin}")
+    check(lin_m[0] <= TRAIN_LIN_KL_BOUND, f"trained linear KL {lin_m[0]} above {TRAIN_LIN_KL_BOUND}")
+    check(losses[-1] < losses[0], f"linear DSM loss did not fall: {losses[0]} -> {losses[-1]}")
+
+    sc = dict(scat_cfg, n_epochs=SCAT_TRAIN_EPOCHS, n_samples_y=SCAT_CONDITIONS, n_samples_x=N_SAMPLES,
+              n_repeats=REPEATS, **fused, **dirs("scat"))
+    fused_dsm_train_epochs.launches = fused_em_sampler.launches = 0
+    t0 = time.time()
+    _, scat_m = mscat.run(sc, gt_dir, device="cuda")
+    torch.cuda.synchronize()
+    n_scat = {"dsm_train": fused_dsm_train_epochs.launches, "em": fused_em_sampler.launches}
+    _, losses, _ = train_log(sc)
+    phase("train_scat", t0, epochs=SCAT_TRAIN_EPOCHS, launches=n_scat, first_loss=losses[0], last_loss=losses[-1],
+          epochs_per_s=epochs_per_s(sc), KL=scat_m[0], NLPD=scat_m[1], score_MSE=scat_m[2])
+    check(n_scat == {"dsm_train": SCAT_TRAIN_EPOCHS // sc["epochs_per_call"], "em": REPEATS * SCAT_CONDITIONS},
+          f"train_scat launches {n_scat}")
+    check(all(v == v and abs(v) != float("inf") for v in scat_m), f"non-finite scatterometry metrics {scat_m}")
+    check(losses[-1] < losses[0], f"scatterometry DSM loss did not fall: {losses[0]} -> {losses[-1]}")
+
+    # the autograd engine, one epoch per call; evaluation cut to one small condition
+    small = dict(train_backend="xla", epochs_per_call=1, n_samples_y=1, n_samples_x=2000, n_repeats=1)
+    runs = {
+        "linear_dsm": (mlin.run, dict(lin_cfg, loss_fn="DSM", n_epochs=2)),
+        "scat_dsm": (lambda c, device: mscat.run(c, gt_dir, device=device), dict(scat_cfg, loss_fn="DSM", n_epochs=2)),
+        "linear_config": (mlin.run, dict(lin_cfg, n_epochs=3)),
+    }
+    t0 = time.time()
+    plain = {}
+    for name, (fn, cfg) in runs.items():
+        cfg = dict(cfg, **small, **dirs("plain_" + name))
+        fused_dsm_train_epochs.launches = 0
+        _, m = fn(cfg, device="cuda")
+        _, losses, _ = train_log(cfg)
+        plain[name] = {"losses": losses, "epochs_per_s": epochs_per_s(cfg), "KL": m[0]}
+        check(fused_dsm_train_epochs.launches == 0, f"{name}: the autograd engine launched B3")
+        check(all(v == v and abs(v) != float("inf") for v in losses) and losses[-1] < losses[0],
+              f"{name}: losses not finite and falling: {losses}")
+    phase("train_plain", t0, loss_fn_linear_config=lin_cfg["loss_fn"], **plain)
+    return {"linear": n_lin["dsm_train"], "scat": n_scat["dsm_train"]}
+
+
+def b3_work(in_dim, out_dim, hidden, batch: int, n_steps: int):
+    """(FLOPs, bytes) of one B3 launch: per step the forward, dW for every
+    layer and da below the top layer; params, m and v read and written
+    once, h0, eps and s1 read once."""
+    dims = [in_dim, *hidden, out_dim]
+    macs = sum(k * n for k, n in zip(dims[:-1], dims[1:]))
+    n_par = macs + sum(dims[1:])
+    flops = 2.0 * batch * n_steps * (2 * macs + macs - in_dim * dims[1])
+    return flops, 2 * 3 * 4 * n_par + 4 * n_steps * batch * (in_dim + 2 * out_dim)
 
 
 def run() -> list:
@@ -255,7 +464,8 @@ def run() -> list:
     from dmip_tpu_torch.checkpoints import load_archived_params
     from dmip_tpu_torch.mains import eval_diffusion
     from dmip_tpu_torch.mains import generate_scatterometry_ground_truth as gt
-    from dmip_tpu_torch.ops import build, fused_em_sampler, fused_mh_scatterometry
+    from dmip_tpu_torch.ops import build, fused_dsm_train_epochs, fused_em_sampler, fused_mh_scatterometry
+    from dmip_tpu_torch.ops.dsm_train_kernel import dsm_train_epochs_reference
     from dmip_tpu_torch.ops.em_kernel import em_sampler_reference
     from dmip_tpu_torch.ops.mh_kernel import mh_chains_reference
     from dmip_tpu_torch.problems import LinearForwardProblem
@@ -292,8 +502,15 @@ def run() -> list:
     t0 = time.time()
     b2 = check_b2(torch, weights, y0, gen, fparams)
     phase("b2_vs_plain", t0, chains=MH_CHAINS, **b2)
+    b3 = {}
+    for name, (in_dim, out_dim, nb, _) in (("linear", B3_LIN), ("scat", B3_SCAT)):
+        t0 = time.time()
+        b3[name] = check_b3(torch, in_dim, out_dim, nb, gen, full=name == "linear")
+        phase("b3_vs_plain", t0, net=name, **b3[name])
 
-    launches = serve(torch, lin_cfg, scat_cfg)
+    with tempfile.TemporaryDirectory(prefix="dmip_gt_", dir=REPO) as work:
+        launches = serve(torch, lin_cfg, scat_cfg, work)
+        b3_launches = train(torch, lin_cfg, scat_cfg, work)
 
     # timings at the main path's shapes, after the counts were read; B1's
     # numbers are per launch, weighted by the launches of each net
@@ -314,12 +531,30 @@ def run() -> list:
     mh_ms = cuda_ms(lambda: fused_mh_scatterometry(weights, c0, y0, MH_STEPS, seed=7, **kw), 3)
     mh_plain_ms = cuda_ms(lambda: mh_chains_reference(weights, c0, y0, MH_STEPS, generator=gen, **kw), 1)
     mh_bound, mh_by = bound_ms(*mh_work(weights, MH_CHAINS, MH_STEPS), H100_F32_FLOPS)
+    # B3 per launch at each problem's launch shape, weighted by its launches
+    b3_t, b3_flops, b3_bytes = {}, 0.0, 0.0
+    for name, (in_dim, out_dim, nb, epochs) in (("linear", B3_LIN), ("scat", B3_SCAT)):
+        params, mu, nu, h0, eps, s1 = b3_inputs(torch, in_dim, out_dim, nb, epochs, gen)
+        args = (params, mu, nu, 7, h0, eps, s1)
+        bkw = dict(n_epochs=epochs, n_batches=nb, batch_real=B3_BATCH, lr=B3_LR, n_active=epochs)
+        b3_t[name] = (cuda_ms(lambda: fused_dsm_train_epochs(*args, **bkw), 3),
+                      cuda_ms(lambda: dsm_train_epochs_reference(*args, **bkw), 1))
+        flops, nbytes = b3_work(in_dim, out_dim, (512, 512, 512), B3_BATCH, epochs * nb)
+        b3_flops, b3_bytes = b3_flops + b3_launches[name] * flops, b3_bytes + b3_launches[name] * nbytes
+        del params, mu, nu, h0, eps, s1
+    n_b3 = sum(b3_launches.values())
+    b3_ms = sum(b3_launches[k] * b3_t[k][0] for k in b3_t) / n_b3
+    b3_plain_ms = sum(b3_launches[k] * b3_t[k][1] for k in b3_t) / n_b3
+    b3_bound, b3_by = bound_ms(b3_flops, b3_bytes, H100_BF16_FLOPS)
+    b3_bound /= n_b3
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     phase("timing", t0, em_ms_by_net={k: v[0] for k, v in em_t.items()},
           em_plain_ms_by_net={k: v[1] for k, v in em_t.items()}, em_launches_by_net=em_n,
-          mh_chains=MH_CHAINS, mh_ms=mh_ms, mh_plain_ms=mh_plain_ms, sm_clock_power_temp=clocks)
+          mh_chains=MH_CHAINS, mh_ms=mh_ms, mh_plain_ms=mh_plain_ms,
+          b3_ms_by_net={k: v[0] for k, v in b3_t.items()}, b3_plain_ms_by_net={k: v[1] for k, v in b3_t.items()},
+          b3_launches_by_net=b3_launches, sm_clock_power_temp=clocks)
 
     return [
         {"name": "fused_em_sampler", "route": "cuda", "source": "dmip_tpu_torch/csrc/em_kernel.cu",
@@ -330,6 +565,10 @@ def run() -> list:
          "replaces": "dmip_tpu/ops/mh_kernel.py:154", "launches": launches["mh"],
          "max_abs_err": b2["max_abs_err"], "ms": mh_ms, "plain_ms": mh_plain_ms,
          "bound_ms": mh_bound, "bound_by": mh_by, "library_ms": None},
+        {"name": "fused_dsm_train_epochs", "route": "cuda", "source": "dmip_tpu_torch/csrc/dsm_train_kernel.cu",
+         "replaces": "dmip_tpu/ops/dsm_train_kernel.py:283", "launches": n_b3,
+         "max_abs_err": max(r["f32_params_max_abs"] for r in b3.values()), "ms": b3_ms, "plain_ms": b3_plain_ms,
+         "bound_ms": b3_bound, "bound_by": b3_by, "library_ms": None},
     ]
 
 

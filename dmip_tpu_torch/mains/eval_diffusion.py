@@ -47,14 +47,20 @@ def _load_net(config: dict, dims: dict, checkpoint: str, dev):
     return model, params
 
 
-def linear_test_conditions(config: dict, prob: LinearForwardProblem, device) -> torch.Tensor:
-    """The linear test observations: the held-out split of the dataset drawn
-    from ``random_state``, as the training driver splits it."""
+def linear_split(config: dict, prob: LinearForwardProblem, device):
+    """(x_train, x_test, y_train, y_test): the linear dataset drawn from a
+    CPU generator seeded with ``random_state``, split as the training
+    driver splits it."""
     dgen = torch.Generator().manual_seed(int(config.get("random_state", 7)))
     xs, ys = data.generate_dataset_linear(
         prob.xdim, prob.forward, int(config["dataset_size"]), dgen, device
     )
-    return data.train_test_split(xs, ys, float(config["train_size"]), dgen)[3]
+    return data.train_test_split(xs, ys, float(config["train_size"]), dgen)
+
+
+def linear_test_conditions(config: dict, prob: LinearForwardProblem, device) -> torch.Tensor:
+    """The linear test observations: the held-out split of ``linear_split``."""
+    return linear_split(config, prob, device)[3]
 
 
 def run(

@@ -1,9 +1,10 @@
-"""Score-based diffusion models for inverse problems: the CDE, for sampling.
+"""Score-based diffusion models for inverse problems: the CDE.
 
-Port of ``dmip_tpu/models/diffusion.py:36-237``: ``LossConfig`` (config
-only; the losses come with the training slice), ``DiffusionModel`` and
-``CDE`` with ``init``, ``apply_a`` and ``sample``.  Parameters live outside
-the model, as a tuple of (W, b) tensors.
+Port of ``dmip_tpu/models/diffusion.py:36-237``: ``LossConfig``,
+``DiffusionModel`` and ``CDE`` with ``init``, ``apply_a``,
+``diffusion_state``, ``make_loss_fn`` (DSM, DSM_PDE, PINNLoss, PINNLoss2)
+and ``sample``.  Parameters live outside the model, as a tuple of (W, b)
+tensors.
 
 ``sample(method="auto")`` launches the fused E-M kernel for a CUDA device
 and runs the plain Euler-Maruyama scan for the CPU.
@@ -12,12 +13,13 @@ and runs the plain Euler-Maruyama scan for the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
+from .. import losses as L
 from .. import nets, samplers
-from ..sde import ReverseSDE
+from ..sde import ReverseSDE, sample_t
 
 Tensor = torch.Tensor
 
@@ -60,6 +62,56 @@ class DiffusionModel:
     def apply_a(self, params, z: Tensor, cond: Optional[Tensor], t) -> Tensor:
         """Learned drift a(z, cond, t); the net predicts g * score."""
         return nets.score_mlp_apply(params, z, cond, t)
+
+    def diffusion_state(self, x: Tensor, y: Tensor):
+        """(z0, cond): what is diffused and what conditions the net.  The
+        CDE diffuses x conditioned on y."""
+        return x, y
+
+    def make_loss_fn(
+        self,
+        cfg: LossConfig,
+        initial_condition: Optional[Callable[[Tensor, Tensor], Tensor]] = None,
+    ):
+        """loss(params, generator, x, y, *, t=None, eps=None, v=None) ->
+        (scalar, info dict).
+
+        Draws from ``generator``, in this order, whatever is not given: t
+        (one ``torch.rand((batch, 1))`` through ``sample_t``), eps (normal,
+        the shape of z0), and for a Hutchinson divergence the Rademacher
+        probe v.  DSM draws no probe.  Passing t, eps and v (generator None)
+        is the injection form the tests feed with another package's draws.
+        """
+        if cfg.name not in ("DSM", "DSM_PDE", "PINNLoss", "PINNLoss2"):
+            raise ValueError(f"unsupported loss {cfg.name!r} for {type(self).__name__}")
+        base = self.sde.base
+        hutchinson = cfg.divergence_method != "exact" and cfg.pde_loss != "cScoreFPE"
+        pde_kw = dict(pde_loss=cfg.pde_loss, pde_metric=cfg.pde_metric,
+                      divergence_method=cfg.divergence_method)
+        pinn_kw = dict(initial_condition=initial_condition, lam=cfg.lam, lam2=cfg.lam2,
+                       ic_metric=cfg.ic_metric, **pde_kw)
+
+        def loss_fn(params, generator: Optional[torch.Generator], x: Tensor, y: Tensor, *,
+                    t: Optional[Tensor] = None, eps: Optional[Tensor] = None, v: Optional[Tensor] = None):
+            z0, cond_y = self.diffusion_state(x, y)
+            gen_dev = generator.device if generator is not None else "cpu"
+            if t is None:
+                t = sample_t(self.sde, z0.shape[0], generator).to(z0.device)
+            if eps is None:
+                eps = torch.randn(z0.shape, generator=generator, device=gen_dev, dtype=z0.dtype).to(z0.device)
+            if cfg.name == "DSM":
+                z_t = base.diffuse(t, z0, eps)
+                cond = cond_y if z0.shape[-1] == x.shape[-1] else None
+                score = self.apply_a(params, z_t, cond, t) / base.g(t)
+                return torch.mean(L.dsm_loss(score, base.std(t), eps)), {}
+            if v is None and hutchinson:
+                v = L.rademacher_like(z0.shape, generator, device=z0.device, dtype=z0.dtype)
+            if cfg.name == "DSM_PDE":
+                return L.dsm_pde_loss(self.apply_a, params, base, x, y, z0, eps, t, lam=cfg.lam, v=v, **pde_kw)
+            fn = L.pinn_loss if cfg.name == "PINNLoss" else L.pinn2_loss
+            return fn(self.apply_a, params, base, x, y, z0, eps, t, v=v, **pinn_kw)
+
+        return loss_fn
 
     def sample(
         self,

@@ -2,8 +2,9 @@
 
 Port of ``dmip_tpu/problems/scatterometry.py:41-158``: a 3 -> 256 -> 256 ->
 256 -> 23 ReLU MLP forward operator, heteroscedastic noise
-y = f(x) + b xi1 + a f(x) xi2 (a = 0.2, b = 0.01), and the negative log
-posterior energy with the boundary prior of strength lambd_bd = 1000.
+y = f(x) + b xi1 + a f(x) xi2 (a = 0.2, b = 0.01), the negative log
+posterior energy with the boundary prior of strength lambd_bd = 1000, and
+the prior's inverse-CDF sampler.
 
 The weights are read from the committed ``.npz`` by its path in the
 repository; nothing is imported from the JAX package.
@@ -89,6 +90,28 @@ def get_log_posterior(
         torch.relu(samples - 1.0) + torch.relu(-1.0 - samples), dim=-1
     )
     return p + p2 + p3
+
+
+def inverse_cdf_prior(u: Tensor, lambd_bd: float) -> Tensor:
+    """Inverse CDF of the smoothed-uniform (boundary-loss) prior: u in
+    (0, 1) -> x, uniform on [-1, 1] with exp(-lambd_bd |x|)-like tails."""
+    v = u * (2.0 * lambd_bd + 2.0) / lambd_bd
+    left = torch.log(torch.clamp(v * lambd_bd, min=1e-38)) - 1.0
+    middle = v - 1.0 / lambd_bd - 1.0
+    right = -torch.log(torch.clamp(((2.0 + 2.0 / lambd_bd) - v) * lambd_bd, min=1e-38)) + 1.0
+    out = torch.where(v < 1.0 / lambd_bd, left, middle)
+    return torch.where(v >= 2.0 + 1.0 / lambd_bd, right, out)
+
+
+def sample_prior(
+    n: int, lambd_bd: float, xdim: int = 3, generator: Optional[torch.Generator] = None, device=None
+) -> Tensor:
+    """n prior samples by the inverse CDF.  u is kept in [1e-7, 1 - 1e-7]:
+    a uniform of exactly 0 would map to x ~ -88 and give an inf loss."""
+    gen_dev = generator.device if generator is not None else "cpu"
+    u = torch.rand(n, xdim, generator=generator, device=gen_dev)
+    u = 1e-7 + u * (1.0 - 2e-7)
+    return inverse_cdf_prior(u, lambd_bd).to(device)
 
 
 def noisy_forward(

@@ -1,9 +1,13 @@
-"""Variance-preserving SDE, sampling-time closed forms.
+"""Variance-preserving SDE: closed forms, marginals and the t samplers.
 
-Port of ``dmip_tpu/sde.py`` (``VPSDE`` :30-127, ``ReverseSDE`` :131-165):
-the parts the posterior sampler needs.  The training-time samplers
-(``sample_debiasing_t``, ``sample_t``, the ELBO/DSM helpers) come with the
-training slice.
+Port of ``dmip_tpu/sde.py``: ``VPSDE`` (:30-127) with ``marginal_sample``,
+``diffuse`` and the debiased t sampler, ``ReverseSDE`` (:131-165) and
+``sample_t`` (:254-270).  Every draw takes an explicit ``torch.Generator``
+and happens on the generator's device; the t samplers also take the
+uniforms ``u`` themselves, so two implementations can be fed the same
+numbers.  The ELBO helpers (``log_normal``, ``sample_v``,
+``reverse_sde_dsm``, ``elbo_random_t_slice``) are not ported yet (ROADMAP.md
+§A item 8).
 """
 
 from __future__ import annotations
@@ -48,6 +52,38 @@ class VPSDE:
     def g(self, t: Tensor) -> Tensor:
         return torch.sqrt(self.beta(t))
 
+    def marginal_sample(self, t: Tensor, y0: Tensor, generator: Optional[torch.Generator] = None):
+        """(y_t, epsilon, std, g) with y_t = mean_weight(t) y0 + std(t) epsilon."""
+        gen_dev = generator.device if generator is not None else y0.device
+        epsilon = torch.randn(y0.shape, generator=generator, device=gen_dev, dtype=y0.dtype).to(y0.device)
+        std = self.std(t)
+        return epsilon * std + self.mean_weight(t) * y0, epsilon, std, self.g(t) * torch.ones_like(y0)
+
+    def diffuse(self, t: Tensor, y0: Tensor, epsilon: Tensor) -> Tensor:
+        """y_t as a differentiable function of t, given the noise."""
+        return self.mean_weight(t) * y0 + self.std(t) * epsilon
+
+    def sample_debiasing_t(
+        self, shape, generator: Optional[torch.Generator] = None, u: Optional[Tensor] = None
+    ) -> Tensor:
+        """t with density proportional to g(t)^2 / var(t) on [t_epsilon, T],
+        by the closed-form inverse CDF: u ~ U(Q(t_eps), Q(T)) with
+        Q(t) = log(e^B(t) - 1), then B(t) = softplus(u) solved for t.
+        ``u`` in [0, 1) replaces the uniform draw."""
+        if u is None:
+            gen_dev = generator.device if generator is not None else "cpu"
+            u = torch.rand(shape, generator=generator, device=gen_dev)
+        u0 = self._Q(torch.tensor(self.t_epsilon, dtype=u.dtype, device=u.device))
+        u1 = self._Q(torch.tensor(self.T, dtype=u.dtype, device=u.device))
+        b = torch.nn.functional.softplus(u0 + (u1 - u0) * u)
+        bd = self.beta_max - self.beta_min
+        t = (-self.beta_min + torch.sqrt(self.beta_min**2 + 2.0 * bd * b)) / bd
+        return torch.clamp(t, self.t_epsilon, self.T)
+
+    def _Q(self, t: Tensor) -> Tensor:
+        b = self.int_beta(t)
+        return b + torch.log1p(-torch.exp(-b))
+
 
 @dataclasses.dataclass(frozen=True)
 class ReverseSDE:
@@ -74,3 +110,25 @@ class ReverseSDE:
 
     def sigma(self, t: Tensor, lmbd: float = 0.0) -> Tensor:
         return math.sqrt(1.0 - lmbd) * self.base.g(self.T - t)
+
+
+def sample_t(
+    sde: ReverseSDE,
+    batch: int,
+    generator: Optional[torch.Generator] = None,
+    eps: float = 1e-4,
+    u: Optional[Tensor] = None,
+) -> Tensor:
+    """Per-example diffusion times (batch, 1): the debiased sampler shifted
+    by ``eps`` with values above T shifted back, or uniform on [eps, T] with
+    values above T mapped to T - eps.  The uniforms are one
+    ``torch.rand((batch, 1))`` draw from ``generator`` on its device, or
+    ``u`` of any shape when given."""
+    if u is None:
+        gen_dev = generator.device if generator is not None else "cpu"
+        u = torch.rand((batch, 1), generator=generator, device=gen_dev)
+    if sde.debias:
+        t = sde.base.sample_debiasing_t(u.shape, u=u) + eps
+        return torch.where(t > sde.T, t - eps, t)
+    t = eps + u * sde.T
+    return torch.where(t > sde.T, torch.full_like(t, sde.T - eps), t)

@@ -1,3 +1,4 @@
 from .config import load_config, set_directories
+from .metrics import MetricsWriter
 
-__all__ = ["load_config", "set_directories"]
+__all__ = ["MetricsWriter", "load_config", "set_directories"]

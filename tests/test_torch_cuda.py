@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from dmip_tpu_torch.nets import mlp_init
+from dmip_tpu_torch.ops.dsm_train_kernel import dsm_train_epochs_reference, fused_dsm_train_epochs
 from dmip_tpu_torch.ops.em_kernel import em_sampler_reference, fused_em_sampler
 from dmip_tpu_torch.ops.mh_kernel import fused_mh_scatterometry, mh_chains_reference
 from dmip_tpu_torch.problems import scatterometry as scat
@@ -87,3 +88,42 @@ def test_mh_kernel_matches_plain(cuda):
     with pytest.raises(ValueError):
         fused_mh_scatterometry(weights, x0, y, 5, noise=z[:5], **KW)
     assert np.isfinite(out.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("dtype,param_tol,moment_rel,loss_rel", [
+    # f32: the same arithmetic in another f32 sum order
+    (torch.float32, 1e-5, 1e-4, 1e-5),
+    # bf16: identical bf16 operands; a sum-order difference can move a tanh
+    # output across a bf16 rounding edge, which Adam turns into at most an
+    # lr-sized step
+    (torch.bfloat16, 2e-3, 1e-2, 1e-3),
+])
+def test_dsm_train_kernel_matches_plain(cuda, dtype, param_tol, moment_rel, loss_rel):
+    """2 epochs x 3 batches of 200 rows (not a multiple of the 64-row tile)
+    on a 7 -> 96 -> 80 -> 3 net, the second epoch masked; params, moments,
+    count and the active epoch's loss against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = mlp_init(7, 3, (96, 80), generator=torch.Generator().manual_seed(3), device=cuda)
+    mu = tuple((1e-3 * torch.randn(w.shape, generator=gen, device=cuda),
+                1e-3 * torch.randn(b.shape, generator=gen, device=cuda)) for w, b in params)
+    nu = tuple((m ** 2, n ** 2) for m, n in mu)
+    rows = 2 * 3 * 200
+    h0 = torch.randn(rows, 7, generator=gen, device=cuda)
+    eps = torch.randn(rows, 3, generator=gen, device=cuda)
+    s1 = torch.rand(rows, 3, generator=gen, device=cuda)
+    kw = dict(n_epochs=2, n_batches=3, batch_real=200, lr=1e-3, n_active=1, compute_dtype=dtype)
+    before = fused_dsm_train_epochs.launches
+    out = fused_dsm_train_epochs(params, mu, nu, 4, h0, eps, s1, **kw)
+    ref = dsm_train_epochs_reference(params, mu, nu, 4, h0, eps, s1, **kw)
+    torch.cuda.synchronize()
+    assert fused_dsm_train_epochs.launches == before + 1
+    assert int(out[3]) == int(ref[3]) == 7
+    pairs = lambda j: [(x, y) for a, b in zip(out[j], ref[j]) for x, y in zip(a, b)]
+    assert max(float((x - y).abs().max()) for x, y in pairs(0)) <= param_tol
+    for j in (1, 2):
+        assert max(float((x - y).abs().max() / y.abs().max()) for x, y in pairs(j)) <= moment_rel
+    assert float((out[4][0] - ref[4][0]).abs() / ref[4][0].abs()) <= loss_rel
+    with pytest.raises(ValueError):
+        fused_dsm_train_epochs(params, mu, nu, 4, h0[:-1], eps, s1, **kw)
+    with pytest.raises(ValueError):
+        fused_dsm_train_epochs(params, mu, nu, 4, h0.double(), eps, s1, **kw)
