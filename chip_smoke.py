@@ -11,18 +11,26 @@ width:
   * scatterometry ground truth through the MH kernel (30k chains x 1000
     steps x 10 repeats per condition, all in one launch of 300k chains) and
     evaluation of ``benchmarks/checkpoints/cde_500k`` against it;
+  * scatterometry serving of ``benchmarks/checkpoints/cdiffe_scat`` (CDiffE,
+    27 -> 512^3 -> 26) through the CDiffE kernel, and of
+    ``benchmarks/checkpoints/dps_prior`` under analytic DPS guidance
+    (``configs/config_scatterometry_dps.yml``: clip 100, 'dps') through the
+    guided kernel, against the same ground truth;
   * DSM training of the 512x3 CDE through the fused training kernel
     (``train_backend: fused_pallas``): the linear config's full 1500 epochs,
     scatterometry cut to 2000 epochs, each followed by evaluation through
     the E-M kernel; then the autograd engine (``train_backend: xla``) for a
-    few epochs, on DSM and on the unchanged linear config (PINNLoss).
+    few epochs, on DSM and on the unchanged linear config (PINNLoss); then
+    the CDiffE (27 -> 26) for 2 launches of the fused training kernel.
 
 The E-M kernel is held against its plain version at both nets' shapes, the
-MH kernel at the 300k chains the ground-truth driver gives it, and the
-training kernel at both nets' shapes (f32 and bf16, a masked epoch, a
-poisoned batch under both guards).  Each kernel's ``ms``, ``plain_ms`` and
-``bound_ms`` are per launch, averaged over the main path's launches of each
-shape.
+MH kernel at the 300k chains the ground-truth driver gives it, the training
+kernel at both nets' shapes (f32 and bf16, a masked epoch, a poisoned batch
+under both guards) and at the CDiffE's, the CDiffE kernel at
+``cdiffe_scat``'s and a linear CDiffE's shapes, and the guided kernel at the
+``dps_prior`` + surrogate shapes in both guidance modes.  Each kernel's
+``ms``, ``plain_ms`` and ``bound_ms`` are per launch, averaged over the main
+path's launches of each shape.
 
 Launch counts are zeroed just before each path and read just after; the
 plain serving path then reruns the same conditions for comparison.  Prints one
@@ -89,11 +97,40 @@ B3_BF16_LOSS_REL = 1e-3
 B3_BF16_PARAM_TOL = 2e-3
 B3_LIN = (5, 2, 90, 25)       # in, out, batches per epoch, epochs per launch
 B3_SCAT = (27, 3, 8, 100)
+B3_CDIFFE = (27, 26, 8, 100)
 LIN_TRAIN_EPOCHS = 1500       # the config's full schedule: 60 launches of 2250 steps
 SCAT_TRAIN_EPOCHS = 2000      # cut from 20000: 20 launches of 800 steps
 # the JAX package's DSM net reaches ~0.011 at 1500 epochs; ~0.01 is the
 # evaluation's finite-sample floor
 TRAIN_LIN_KL_BOUND = 0.03
+# B4, same noise and noise off: the same bf16 rounding rule as B1, so B1's
+# tolerances; the linear CDiffE net has random weights
+B4_MEAN_ABS_TOL = 2e-3
+B4_P999_TOL = 5e-2
+B4_LIN_NET = (5, 4)           # linear CDiffE: [x, y, t] = 5 -> 512^3 -> xdim + ydim = 4
+# CDiffE serving, kernel (bf16) vs plain (f32) KL on the same GT: at least
+# SCAT_KL_AGREE, widened to 3x the plain path's own spread between two seeds
+SCAT_CDIFFE_SPREAD_FACTOR = 3.0
+DPS_REPEATS = 2               # analytic-DPS serving: n_repeats cut from 10
+CDIFFE_TRAIN = dict(n_epochs=200, epochs_per_call=100)  # 2 B3 launches of 100 epochs x 8 steps
+CDIFFE_TRAIN_REPEATS = 2
+# B5 over 200 steps, per condition, as tools/fused_dps_sanity.py judges the
+# Pallas kernel: fail if the sliced W2 between kernel and plain samples is
+# above 0.02 (the GT-vs-GT floor at 30k samples is ~0.003) and above 2.5x
+# the plain-vs-plain W2 under an independent noise stream
+B5_W2_ABS = 0.02
+B5_W2_RATIO = 2.5
+B5_MODES = (("dps", 100.0), ("dps", 10.0), ("pgdm", 100.0))
+# B5, same x0 and noise, short horizon: the last 20 steps of the 200-step
+# grid (T = 0.1, 20 steps of 0.005) from x0 uniform on the prior's box.
+# Over the whole grid the guided SDE is stiff near s = T (alpha ~ 0.007,
+# guidance norms of 1e4 capped to 100), so f32 sum-order differences there
+# turn whole trajectories; here the two versions' arithmetic differs only in
+# f32 sum order, except where a ReLU pre-activation sits at 0 and flips its
+# mask in one version only, which moves that row by up to a step.
+B5_SHORT_STEPS, B5_SHORT_T = 20, 0.1
+B5_SHORT_P999_TOL = 1e-5
+B5_SHORT_SHARE = 1e-3          # of rows further apart than 1e-3
 
 
 class CheckFailed(Exception):
@@ -145,6 +182,34 @@ def mh_work(weights, n: int, steps: int):
     macs = sum(w.shape[0] * w.shape[1] for w, _ in weights)
     wbytes = 4 * sum(w.numel() + b.numel() for w, b in weights)
     return 2.0 * n * (steps + 1) * macs, 2 * n * 3 * 4 + wbytes
+
+
+def cdiffe_work(params, xdim: int, n: int, steps: int):
+    """(FLOPs, bytes) of the CDiffE sampler: per step the first layer over
+    [x, y_t], the hidden products and the output's x block; x0 read and x
+    written once, the weights read once."""
+    width, h1 = params[0][0].shape[0] - 1, params[0][0].shape[1]
+    hidden = sum(w.numel() for w, _ in params[1:-1])
+    macs = width * h1 + hidden + params[-1][0].shape[0] * xdim
+    weight_bytes = 2 * hidden + 4 * (params[0][0].numel() + params[-1][0].numel() + sum(b.numel() for _, b in params))
+    return 2.0 * n * steps * macs, 2 * n * xdim * 4 + weight_bytes
+
+
+def guided_work(prior, surr, n: int, steps: int, guidance: str):
+    """(FLOPs, bytes) of the guided sampler per launch.  Per sample-step:
+    'dps' a prior forward, three prior VJPs, a surrogate forward and three
+    surrogate VJPs; 'pgdm' a prior forward and one VJP, a surrogate forward
+    and three Jacobian tangents (the first ReLU layer's tangent is a mask,
+    no product).  x0 read and x written once, both nets read once (f32)."""
+    xdim = prior[-1][0].shape[1]
+    p_macs = xdim * prior[0][0].shape[1] + sum(w.numel() for w, _ in prior[1:])
+    s_macs = sum(w.numel() for w, _ in surr)
+    if guidance == "dps":
+        macs = 4 * p_macs + 4 * s_macs
+    else:
+        macs = 2 * p_macs + s_macs + 3 * sum(w.numel() for w, _ in surr[1:])
+    nbytes = 2 * n * xdim * 4 + 4 * sum(w.numel() + b.numel() for w, b in (*prior, *surr))
+    return 2.0 * n * steps * macs, nbytes
 
 
 def bound_ms(flops: float, nbytes: float, peak_flops: float):
@@ -216,6 +281,90 @@ def check_b2(torch, weights, y, gen, fparams):
     res = {"max_abs_err": step_err, "mismatch_share_1000_steps": share,
            "philox_mean_diff": dm, "philox_std_diff": ds}
     check(dm <= MOMENT_TOL and ds <= MOMENT_TOL, f"B2 Philox moments off: {res}")
+    return res
+
+
+def check_b4(torch, params, y, gen, moments=True):
+    """B4 against its plain version on the joint net ``params`` and
+    condition y at the serving path's 30k samples x 200 steps: the same x0
+    and (steps, N, xdim + ydim) noise, and the noise-off trajectory; with
+    ``moments``, the Philox stream's moments against torch's."""
+    from dmip_tpu_torch.ops.em_kernel import em_cdiffe_reference, fused_em_sampler_cdiffe
+
+    width = params[0][0].shape[0] - 1
+    xdim = width - y.numel()
+    x0 = torch.randn(N_SAMPLES, xdim, generator=gen, device="cuda")
+    noise = torch.randn(EM_STEPS, N_SAMPLES, width, generator=gen, device="cuda")
+    res = {}
+    for label, kw in (("same_noise", dict(noise=noise)), ("noise_off", dict(noise_scale=0.0))):
+        out_k = fused_em_sampler_cdiffe(params, x0, y, EM_STEPS, **kw)
+        out_p = em_cdiffe_reference(params, x0, y, EM_STEPS, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out_k).all()), f"B4 ({label}) produced non-finite samples")
+        err = (out_k - out_p).abs().amax(dim=1)
+        r = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+             "p999_abs_err": float(torch.quantile(err, 0.999))}
+        res.update({f"{label}_{k}": v for k, v in r.items()})
+        check(r["mean_abs_err"] <= B4_MEAN_ABS_TOL and r["p999_abs_err"] <= B4_P999_TOL,
+              f"B4 vs plain ({label}) out of tolerance: {r}")
+    del noise
+    res["max_abs_err"] = max(res["same_noise_max_abs_err"], res["noise_off_max_abs_err"])
+    if moments:
+        xk = fused_em_sampler_cdiffe(params, x0, y, EM_STEPS, seed=1234)
+        xp = em_cdiffe_reference(params, x0, y, EM_STEPS, generator=gen)
+        dm = float((xk.mean(0) - xp.mean(0)).abs().max())
+        dc = float((torch.cov(xk.T) - torch.cov(xp.T)).abs().max())
+        res.update(philox_mean_diff=dm, philox_cov_diff=dc)
+        check(dm <= MOMENT_TOL and dc <= MOMENT_TOL, f"B4 Philox moments off: {res}")
+    return res
+
+
+def check_b5_short(torch, prior, weights, y, gen, kw):
+    from dmip_tpu_torch.ops.dps_kernel import fused_guided_em_sampler, guided_em_reference
+
+    x0 = torch.rand(N_SAMPLES, 3, generator=gen, device="cuda") * 2 - 1
+    noise = torch.randn(B5_SHORT_STEPS, N_SAMPLES, 3, generator=gen, device="cuda")
+    run = dict(num_steps=B5_SHORT_STEPS, T=B5_SHORT_T, noise=noise, **kw)
+    out_k = fused_guided_em_sampler(prior, weights, x0, y, **run)
+    out_p = guided_em_reference(prior, weights, x0, y, **run)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out_k).all()), "B5 (short) produced non-finite samples")
+    err = (out_k - out_p).abs().amax(dim=1)
+    res = {"short_max_abs_err": float(err.max()), "short_p999_abs_err": float(torch.quantile(err, 0.999)),
+           "short_share_above_1e-3": float((err > 1e-3).float().mean())}
+    check(res["short_p999_abs_err"] <= B5_SHORT_P999_TOL and res["short_share_above_1e-3"] <= B5_SHORT_SHARE,
+          f"B5 vs plain (short horizon, {kw}) out of tolerance: {res}")
+    return res
+
+
+def check_b5(torch, prior, weights, ys, gen):
+    """B5 against its plain version at the dps_prior + surrogate shapes, f32,
+    for each guidance mode: the same x0 and noise over a short horizon, and
+    over the full 200 steps the per-condition sliced-W2 criterion."""
+    from dmip_tpu_torch.evaluate import sliced_w2
+    from dmip_tpu_torch.ops.dps_kernel import fused_guided_em_sampler, guided_em_reference
+
+    res = {}
+    dirs = torch.randn(128, 3, generator=gen, device="cuda")
+    for guidance, clip in B5_MODES:
+        mode = f"{guidance}_clip{clip:g}"
+        kw = dict(a=0.2, b=0.01, guidance_clip=clip, guidance=guidance)
+        short = check_b5_short(torch, prior, weights, ys[0], gen, kw)
+        res.update({f"{mode}_{k}": v for k, v in short.items()})
+        w2 = []
+        for i in range(SCAT_CONDITIONS):
+            x0 = torch.randn(N_SAMPLES, 3, generator=gen, device="cuda")
+            xk = fused_guided_em_sampler(prior, weights, x0, ys[i], num_steps=EM_STEPS, seed=100 + i, **kw)
+            xp = guided_em_reference(prior, weights, x0, ys[i], num_steps=EM_STEPS, generator=gen, **kw)
+            xq = guided_em_reference(prior, weights, x0, ys[i], num_steps=EM_STEPS, generator=gen, **kw)
+            check(bool(torch.isfinite(xk).all()), f"B5 {mode} produced non-finite samples")
+            kp, pp = float(sliced_w2(xk, xp, dirs=dirs)), float(sliced_w2(xq, xp, dirs=dirs))
+            w2.append((kp, pp))
+            check(not (kp > B5_W2_ABS and kp > B5_W2_RATIO * pp),
+                  f"B5 {mode} condition {i}: sliced W2 kernel-plain {kp} vs plain-plain floor {pp}")
+        res[f"{mode}_w2_kernel_plain"] = [a for a, _ in w2]
+        res[f"{mode}_w2_plain_plain"] = [b for _, b in w2]
+    res["max_abs_err"] = max(v for k, v in res.items() if k.endswith("short_max_abs_err"))
     return res
 
 
@@ -365,6 +514,93 @@ def serve(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
     return launches
 
 
+def _results(path):
+    """Column means of a results.csv."""
+    with open(path) as f:
+        rows = [ln.strip().split(",") for ln in f]
+    cols = rows[0][1:]
+    return {c: sum(float(r[j + 1]) for r in rows[1:]) / (len(rows) - 1) for j, c in enumerate(cols)}
+
+
+def _finite(values) -> bool:
+    return all(v == v and abs(v) != float("inf") for v in values)
+
+
+def serve_cdiffe_dps(torch, gt_dir) -> dict:
+    """CDiffE and analytic-DPS serving through the eval driver against the
+    serving phase's GT (same RANDOM_STATE, same conditions), launches
+    counted from zero around each; then the CDiffE's plain path twice (two
+    seeds) for the KL comparison.  Returns the launch counts."""
+    from dmip_tpu_torch.mains import eval_diffusion
+    from dmip_tpu_torch.ops import fused_em_sampler_cdiffe, fused_guided_em_sampler
+    from dmip_tpu_torch.utils import load_config
+
+    ckpt = lambda name: os.path.join(REPO, "benchmarks/checkpoints", name)
+    cd = dict(load_config(os.path.join(REPO, "configs/config_scatterometry_cdiffe.yml")),
+              n_samples_y=SCAT_CONDITIONS, n_samples_x=N_SAMPLES, n_repeats=REPEATS)
+    fused_em_sampler_cdiffe.launches = 0
+    t0 = time.time()
+    k = eval_diffusion.run("scatterometry", ckpt("cdiffe_scat"), cd, gt_dir=gt_dir, device="cuda",
+                           out_dir=os.path.join(gt_dir, "cdiffe"))
+    torch.cuda.synchronize()
+    n_b4 = fused_em_sampler_cdiffe.launches
+    cols = _results(os.path.join(gt_dir, "cdiffe", "results.csv"))
+    phase("serve_scat_cdiffe", t0, conditions=SCAT_CONDITIONS, repeats=REPEATS, KL=k[0], KL_reverse=cols["KL_reverse"],
+          NLPD=k[1], score_MSE=k[2], W2=cols["W2"], launches=n_b4)
+    check(n_b4 == REPEATS * SCAT_CONDITIONS, f"serve_scat_cdiffe: {n_b4} B4 launches")
+    check(_finite([*k, *cols.values()]), f"non-finite CDiffE metrics {cols}")
+    t0 = time.time()
+    p = [eval_diffusion.run("scatterometry", ckpt("cdiffe_scat"), cd, gt_dir=gt_dir, device="cuda", method="plain",
+                            seed=s, out_dir=os.path.join(gt_dir, f"cdiffe_plain{s}")) for s in (0, 1)]
+    tol = max(SCAT_KL_AGREE, SCAT_CDIFFE_SPREAD_FACTOR * abs(p[0][0] - p[1][0]))
+    phase("serve_scat_cdiffe_plain", t0, KL_seed0=p[0][0], KL_seed1=p[1][0], NLPD_seed0=p[0][1], KL_tolerance=tol)
+    check(fused_em_sampler_cdiffe.launches == n_b4, "the plain path launched B4")
+    check(abs(k[0] - p[0][0]) <= tol, f"CDiffE KL kernel {k[0]} vs plain {p[0][0]} (tolerance {tol})")
+
+    dps = dict(load_config(os.path.join(REPO, "configs/config_scatterometry_dps.yml")),
+               n_samples_y=SCAT_CONDITIONS, n_samples_x=N_SAMPLES, n_repeats=DPS_REPEATS)
+    fused_guided_em_sampler.launches = 0
+    t0 = time.time()
+    d = eval_diffusion.run("scatterometry", ckpt("dps_prior"), dps, gt_dir=gt_dir, device="cuda",
+                           out_dir=os.path.join(gt_dir, "dps"))
+    torch.cuda.synchronize()
+    n_b5 = fused_guided_em_sampler.launches
+    cols = _results(os.path.join(gt_dir, "dps_analytic", "results.csv"))
+    phase("serve_scat_dps", t0, conditions=SCAT_CONDITIONS, repeats=DPS_REPEATS, guidance="dps",
+          guidance_clip=dps["guidance_clip"], KL=d[0], KL_reverse=cols["KL_reverse"], NLPD=d[1], score_MSE=d[2],
+          W2=cols["W2"], launches=n_b5)
+    check(n_b5 == DPS_REPEATS * SCAT_CONDITIONS, f"serve_scat_dps: {n_b5} B5 launches")
+    check(_finite([*d, *cols.values()]), f"non-finite analytic-DPS metrics {cols}")
+    return {"em_cdiffe": n_b4, "guided": n_b5}
+
+
+def train_cdiffe(torch, gt_dir, gen) -> dict:
+    """B3 against its plain version at the CDiffE's 27 -> 26 shapes (f32, 8
+    steps), then CDiffE DSM training through the driver on the fused engine
+    (2 launches), evaluated through B4."""
+    from dmip_tpu_torch.mains import main_diffusion_scatterometry as mscat
+    from dmip_tpu_torch.ops import fused_dsm_train_epochs, fused_em_sampler_cdiffe
+    from dmip_tpu_torch.utils import load_config
+
+    t0 = time.time()
+    b3 = check_b3(torch, B3_CDIFFE[0], B3_CDIFFE[1], B3_CDIFFE[2], gen, full=False)
+    cfg = dict(load_config(os.path.join(REPO, "configs/config_scatterometry_cdiffe.yml")), **CDIFFE_TRAIN,
+               train_backend="fused_pallas", n_samples_y=SCAT_CONDITIONS, n_samples_x=N_SAMPLES,
+               n_repeats=CDIFFE_TRAIN_REPEATS, train_dir=os.path.join(gt_dir, "train_cdiffe"),
+               out_dir=os.path.join(gt_dir, "out_cdiffe"))
+    fused_dsm_train_epochs.launches = fused_em_sampler_cdiffe.launches = 0
+    _, m = mscat.run(cfg, gt_dir, device="cuda")
+    torch.cuda.synchronize()
+    n = {"dsm_train": fused_dsm_train_epochs.launches, "em_cdiffe": fused_em_sampler_cdiffe.launches}
+    _, losses, _ = train_log(cfg)
+    phase("train_cdiffe", t0, b3_vs_plain=b3, epochs=cfg["n_epochs"], launches=n, first_loss=losses[0],
+          last_loss=losses[-1], KL=m[0], NLPD=m[1], score_MSE=m[2])
+    check(n == {"dsm_train": cfg["n_epochs"] // cfg["epochs_per_call"],
+                "em_cdiffe": CDIFFE_TRAIN_REPEATS * SCAT_CONDITIONS}, f"train_cdiffe launches {n}")
+    check(_finite(m) and losses[-1] < losses[0], f"CDiffE training: metrics {m}, losses {losses[0]} -> {losses[-1]}")
+    return n
+
+
 def train_log(cfg):
     """(epochs, losses, seconds) of the run's Train/Loss events, in order."""
     with open(os.path.join(cfg["train_dir"], "logs", "events.jsonl")) as f:
@@ -464,9 +700,12 @@ def run() -> list:
     from dmip_tpu_torch.checkpoints import load_archived_params
     from dmip_tpu_torch.mains import eval_diffusion
     from dmip_tpu_torch.mains import generate_scatterometry_ground_truth as gt
-    from dmip_tpu_torch.ops import build, fused_dsm_train_epochs, fused_em_sampler, fused_mh_scatterometry
+    from dmip_tpu_torch.nets import mlp_init
+    from dmip_tpu_torch.ops import (build, fused_dsm_train_epochs, fused_em_sampler, fused_em_sampler_cdiffe,
+                                    fused_guided_em_sampler, fused_mh_scatterometry)
+    from dmip_tpu_torch.ops.dps_kernel import guided_em_reference
     from dmip_tpu_torch.ops.dsm_train_kernel import dsm_train_epochs_reference
-    from dmip_tpu_torch.ops.em_kernel import em_sampler_reference
+    from dmip_tpu_torch.ops.em_kernel import em_cdiffe_reference, em_sampler_reference
     from dmip_tpu_torch.ops.mh_kernel import mh_chains_reference
     from dmip_tpu_torch.problems import LinearForwardProblem
     from dmip_tpu_torch.problems import scatterometry as scat
@@ -485,7 +724,8 @@ def run() -> list:
     lin_cfg = load_config(os.path.join(REPO, "configs/config_linear.yml"))
     forward_model, fparams = scat.load_forward_model(device="cuda")
     weights = forward_model.weights
-    y0 = gt.test_conditions(scat_cfg, forward_model, fparams, "cuda")[0]
+    ys = gt.test_conditions(scat_cfg, forward_model, fparams, "cuda")[:SCAT_CONDITIONS]
+    y0 = ys[0]
     y_lin = eval_diffusion.linear_test_conditions(lin_cfg, LinearForwardProblem(), "cuda")[0]
     nets = {
         "cde_500k": (load_archived_params(os.path.join(REPO, "benchmarks/checkpoints/cde_500k"),
@@ -507,10 +747,28 @@ def run() -> list:
         t0 = time.time()
         b3[name] = check_b3(torch, in_dim, out_dim, nb, gen, full=name == "linear")
         phase("b3_vs_plain", t0, net=name, **b3[name])
+    cdiffe_nets = {
+        "cdiffe_scat": (load_archived_params(os.path.join(REPO, "benchmarks/checkpoints/cdiffe_scat"),
+                                             device="cuda"), y0),
+        "linear_cdiffe": (mlp_init(*B4_LIN_NET, (512, 512, 512),
+                                   generator=torch.Generator().manual_seed(13), device="cuda"), y_lin),
+    }
+    b4 = {}
+    for name, (params, y) in cdiffe_nets.items():
+        t0 = time.time()
+        # the random linear net's samples are heavy-tailed: same-noise checks only
+        b4[name] = check_b4(torch, params, y, gen, moments=name == "cdiffe_scat")
+        phase("b4_vs_plain", t0, net=name, **b4[name])
+    prior = load_archived_params(os.path.join(REPO, "benchmarks/checkpoints/dps_prior"), device="cuda")["prior"]
+    t0 = time.time()
+    b5 = check_b5(torch, prior, weights, ys, gen)
+    phase("b5_vs_plain", t0, samples=N_SAMPLES, **b5)
 
     with tempfile.TemporaryDirectory(prefix="dmip_gt_", dir=REPO) as work:
         launches = serve(torch, lin_cfg, scat_cfg, work)
+        launches.update(serve_cdiffe_dps(torch, work))
         b3_launches = train(torch, lin_cfg, scat_cfg, work)
+        cdiffe_train = train_cdiffe(torch, work, gen)
 
     # timings at the main path's shapes, after the counts were read; B1's
     # numbers are per launch, weighted by the launches of each net
@@ -547,6 +805,21 @@ def run() -> list:
     b3_plain_ms = sum(b3_launches[k] * b3_t[k][1] for k in b3_t) / n_b3
     b3_bound, b3_by = bound_ms(b3_flops, b3_bytes, H100_BF16_FLOPS)
     b3_bound /= n_b3
+    # B4 at the serving shape (cdiffe_scat, the only shape the main path
+    # launches); B5 in both guidance modes at the dps_prior shapes
+    cd_params = cdiffe_nets["cdiffe_scat"][0]
+    x0 = torch.randn(N_SAMPLES, 3, generator=gen, device="cuda")
+    b4_ms = cuda_ms(lambda: fused_em_sampler_cdiffe(cd_params, x0, y0, EM_STEPS, seed=7), 5)
+    b4_plain_ms = cuda_ms(lambda: em_cdiffe_reference(cd_params, x0, y0, EM_STEPS, generator=gen), 1)
+    b4_bound, b4_by = bound_ms(*cdiffe_work(cd_params, 3, N_SAMPLES, EM_STEPS), H100_BF16_FLOPS)
+    b5_t = {}
+    for guidance in ("dps", "pgdm"):
+        gkw = dict(a=fparams["a"], b=fparams["b"], guidance_clip=100.0, num_steps=EM_STEPS, guidance=guidance)
+        b5_t[guidance] = (
+            cuda_ms(lambda: fused_guided_em_sampler(prior, weights, x0, y0, seed=7, **gkw), 2),
+            cuda_ms(lambda: guided_em_reference(prior, weights, x0, y0, generator=gen, **gkw), 1),
+            *bound_ms(*guided_work(prior, weights, N_SAMPLES, EM_STEPS, guidance), H100_F32_FLOPS),
+        )
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -554,7 +827,11 @@ def run() -> list:
           em_plain_ms_by_net={k: v[1] for k, v in em_t.items()}, em_launches_by_net=em_n,
           mh_chains=MH_CHAINS, mh_ms=mh_ms, mh_plain_ms=mh_plain_ms,
           b3_ms_by_net={k: v[0] for k, v in b3_t.items()}, b3_plain_ms_by_net={k: v[1] for k, v in b3_t.items()},
-          b3_launches_by_net=b3_launches, sm_clock_power_temp=clocks)
+          b3_launches_by_net=b3_launches, b3_launches_cdiffe_train=cdiffe_train["dsm_train"],
+          b4_ms=b4_ms, b4_plain_ms=b4_plain_ms, b4_bound_ms=b4_bound,
+          b5_ms_by_guidance={k: v[0] for k, v in b5_t.items()},
+          b5_plain_ms_by_guidance={k: v[1] for k, v in b5_t.items()},
+          b5_bound_ms_by_guidance={k: v[2] for k, v in b5_t.items()}, sm_clock_power_temp=clocks)
 
     return [
         {"name": "fused_em_sampler", "route": "cuda", "source": "dmip_tpu_torch/csrc/em_kernel.cu",
@@ -569,6 +846,14 @@ def run() -> list:
          "replaces": "dmip_tpu/ops/dsm_train_kernel.py:283", "launches": n_b3,
          "max_abs_err": max(r["f32_params_max_abs"] for r in b3.values()), "ms": b3_ms, "plain_ms": b3_plain_ms,
          "bound_ms": b3_bound, "bound_by": b3_by, "library_ms": None},
+        {"name": "fused_em_sampler_cdiffe", "route": "cuda", "source": "dmip_tpu_torch/csrc/em_kernel.cu",
+         "replaces": "dmip_tpu/ops/em_kernel.py:319", "launches": launches["em_cdiffe"],
+         "max_abs_err": max(r["max_abs_err"] for r in b4.values()), "ms": b4_ms, "plain_ms": b4_plain_ms,
+         "bound_ms": b4_bound, "bound_by": b4_by, "library_ms": None},
+        {"name": "fused_guided_em_sampler", "route": "cuda", "source": "dmip_tpu_torch/csrc/dps_kernel.cu",
+         "replaces": "dmip_tpu/ops/dps_kernel.py:380", "launches": launches["guided"],
+         "max_abs_err": b5["max_abs_err"], "ms": b5_t["dps"][0], "plain_ms": b5_t["dps"][1],
+         "bound_ms": b5_t["dps"][2], "bound_by": b5_t["dps"][3], "library_ms": None},
     ]
 
 

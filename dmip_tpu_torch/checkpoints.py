@@ -13,6 +13,13 @@ port writes params as the (W, b) pairs, W of shape (fan_in, fan_out), and an
 so each package restores the other's checkpoint.  The training seed, an int
 in the port, goes into the manifest as ``seed``; the JAX package's PRNG key
 file is left to the JAX package.
+
+Archived params may also be a dict of MLPs, as the JAX package writes a
+``PosteriorDiffusionEstimator``'s ``{'likelihood', 'prior'}`` tree: JAX
+flattens a dict in sorted-key order, so ``leaf_0 ..`` are the first key's
+(W, b) pairs, then the next key's.  :func:`load_archived_params` reads such
+a tree into a dict of pair tuples; writing one is not ported (ROADMAP.md §A
+item 11).
 """
 
 from __future__ import annotations
@@ -20,20 +27,27 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Any, Dict, Iterable, Optional, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .nets import MLPParams
 
-_PAIRS_TREEDEF = re.compile(r"^PyTreeDef\(\((\(\*, \*\)(, )?)+\)\)$")
+_PAIRS = r"\((?:\(\*, \*\)(?:, )?)+\)"
+_PAIRS_TREEDEF = re.compile(rf"^PyTreeDef\({_PAIRS}\)$")
+_DICT_TREEDEF = re.compile(rf"^PyTreeDef\(\{{((?:'\w+': {_PAIRS}(?:, )?)+)\}}\)$")
+_DICT_ENTRY = re.compile(rf"'(\w+)': ({_PAIRS})")
 
 
 def params_from_numpy(
-    pairs: Iterable[Tuple[np.ndarray, np.ndarray]], device=None, dtype=torch.float32
-) -> MLPParams:
-    """JAX (W, b) numpy pairs -> the port's tuple of (W, b) tensors."""
+    pairs: Union[Iterable[Tuple[np.ndarray, np.ndarray]], Dict[str, Iterable]], device=None,
+    dtype=torch.float32,
+):
+    """JAX (W, b) numpy pairs -> the port's tuple of (W, b) tensors; a dict
+    of such pair lists -> a dict of tuples with the same keys."""
+    if isinstance(pairs, dict):
+        return {k: params_from_numpy(v, device, dtype) for k, v in pairs.items()}
     return tuple(
         (
             torch.as_tensor(np.array(w, order="C"), dtype=dtype, device=device),
@@ -55,23 +69,32 @@ def adam_state_from_numpy(count, mu, nu, schedule_count=None, device=None):
     )
 
 
-def load_archived_params(ckpt_dir: str, device=None, dtype=torch.float32) -> MLPParams:
+def load_archived_params(ckpt_dir: str, device=None, dtype=torch.float32):
     """Read ``<ckpt_dir>/params.npz`` written by the JAX package, e.g.
-    ``benchmarks/checkpoints/cde_500k``.  Only MLP trees (a tuple of (W, b)
-    pairs) are accepted; anything else raises."""
+    ``benchmarks/checkpoints/cde_500k`` (an MLP: a tuple of (W, b) pairs) or
+    ``benchmarks/checkpoints/dps_prior`` (a dict of MLPs, returned as a dict
+    of pair tuples).  Any other tree raises."""
     with open(os.path.join(ckpt_dir, "params.treedef.json")) as f:
         treedef = json.load(f)
-    if not _PAIRS_TREEDEF.match(treedef):
-        raise ValueError(f"{ckpt_dir}: not an MLP (W, b) pair tree: {treedef}")
-    n_pairs = treedef.count("(*, *)")
+    if _PAIRS_TREEDEF.match(treedef):
+        counts = {None: treedef.count("(*, *)")}
+    elif _DICT_TREEDEF.match(treedef):
+        counts = {k: v.count("(*, *)") for k, v in _DICT_ENTRY.findall(treedef)}
+        if list(counts) != sorted(counts):
+            raise ValueError(f"{ckpt_dir}: dict keys not in JAX's sorted order: {treedef}")
+    else:
+        raise ValueError(f"{ckpt_dir}: not an MLP (W, b) pair tree or a dict of such trees: {treedef}")
     leaves = _read_leaves(ckpt_dir, "params")
-    if len(leaves) != 2 * n_pairs:
+    if len(leaves) != 2 * sum(counts.values()):
         raise ValueError(
-            f"{ckpt_dir}: {len(leaves)} leaves for {n_pairs} (W, b) pairs"
+            f"{ckpt_dir}: {len(leaves)} leaves for {sum(counts.values())} (W, b) pairs"
         )
-    return params_from_numpy(
-        zip(leaves[0::2], leaves[1::2]), device=device, dtype=dtype
-    )
+    out, i = {}, 0
+    for key, n in counts.items():
+        part = leaves[i : i + 2 * n]
+        out[key] = params_from_numpy(zip(part[0::2], part[1::2]), device=device, dtype=dtype)
+        i += 2 * n
+    return out[None] if None in out else out
 
 
 def _leaves(tree) -> list:

@@ -22,7 +22,13 @@ Semantics, as in the JAX package:
   * ``pinn2_loss`` takes ``ic_metric`` explicitly, default 'L1'.
 
 Every random number (t, eps, the probe v) is an argument; the model's
-``make_loss_fn`` draws them.  The DPS losses are not ported yet (ROADMAP.md
+``make_loss_fn`` draws them.
+
+The DPS guidance terms (``dmip_tpu/losses.py:556-678``) are here too:
+``likelihood_score_target`` (the Tweedie point-estimate likelihood
+gradient) and ``pgdm_likelihood_score`` (its variance-corrected form).
+They are the plain drift of ``AnalyticGuidanceDPS``.  ``posterior_loss``,
+which trains a likelihood net on the first, is not ported yet (ROADMAP.md
 §A item 11).
 """
 
@@ -286,3 +292,94 @@ def pinn2_loss(
         dsm_eval = dsm_loss(_batched_score(apply_a, params, base_sde, z_t, cond, t), base_sde.std(t), eps)
     info = {"PDE-Loss": torch.mean(pde), "Initial Condition": torch.mean(ic), "DSM_eval": torch.mean(dsm_eval)}
     return torch.mean(ic + pde), info
+
+
+def likelihood_score_target(
+    prior_apply: Callable[..., Tensor],
+    prior_params,
+    base_sde: VPSDE,
+    forward_fn: Callable[[Tensor], Tensor],
+    x_t: Tensor,
+    y: Tensor,
+    t: Tensor,
+    *,
+    a: float,
+    b: float,
+    s_prior: Optional[Tensor] = None,
+) -> Tensor:
+    """alpha * grad_{x_t} log p(y | x_hat_0(x_t)), the DPS likelihood score.
+
+    Tweedie estimate x_hat_0 = (x_t + std^2 s_prior) / alpha, then the exact
+    gradient of log N(y; f(x_0), (a f)^2 + b^2) through the surrogate (three
+    VJPs, with the corrected v3 = (y - f)^2 f / prefactor^2) and through
+    x_hat_0 (three VJPs of the prior net at x_t).  ``prior_apply(params, x,
+    t)`` and ``forward_fn`` act on batches whose rows are independent, so one
+    batched VJP per cotangent gives every row's VJP.  x_t (batch, xdim), y
+    (batch, ydim), t (batch, 1).
+    """
+    t = t.reshape(x_t.shape[0], 1)
+    std = base_sde.std(t)
+    alpha = base_sde.mean_weight(t)
+    if s_prior is None:
+        s_prior = prior_apply(prior_params, x_t, t)
+    x_0 = (x_t + std**2 * s_prior) / alpha
+    f_x, vjp_f = vjp(forward_fn, x_0)
+    prefactor = (a * f_x) ** 2 + b**2
+    v1 = f_x / prefactor
+    v2 = (y - f_x) / prefactor
+    v3 = (y - f_x) ** 2 * f_x / prefactor**2
+    vjp1, vjp2, vjp3 = (vjp_f(v)[0] for v in (v1, v2, v3))
+    _, vjp_s = vjp(lambda xt: prior_apply(prior_params, xt, t), x_t)
+    vhp1, vhp2, vhp3 = (vjp_s(v)[0] for v in (vjp1, vjp2, vjp3))
+    sig2 = std**2
+    return -(a**2) * (sig2 * vhp1 + vjp1) + sig2 * vhp2 + vjp2 + a**2 * (sig2 * vhp3 + vjp3)
+
+
+def pgdm_likelihood_score(
+    prior_apply: Callable[..., Tensor],
+    prior_params,
+    base_sde: VPSDE,
+    forward_fn: Callable[[Tensor], Tensor],
+    x_t: Tensor,
+    y: Tensor,
+    t: Tensor,
+    *,
+    a: float,
+    b: float,
+) -> Tensor:
+    """Variance-corrected DPS guidance grad_{x_t} log p(y | x_t) (PiGDM).
+
+    p(y | x_t) ~= N(f(x_hat_0), D + r^2 J J^T), D = (a f)^2 + b^2 diagonal,
+    J = df/dx_0 at x_hat_0, r^2 = std^2 / (alpha^2 + std^2); the covariance
+    is held constant in x_t and solved by Woodbury with the xdim x xdim
+    inner matrix M = I + r^2 J^T D^-1 J.  Per sample, as the JAX function:
+    ``vmap`` of ``grad`` of -1/2 r^T C^-1 r with ``jacfwd`` for J.
+    """
+    batch = x_t.shape[0]
+    t = t.reshape(batch, 1)
+    std = base_sde.std(t).reshape(batch)
+    alpha = base_sde.mean_weight(t).reshape(batch)
+    r2 = std**2 / (alpha**2 + std**2)
+
+    def per_sample(xt_i, y_i, t_i, sig_i, al_i, r2_i):
+        def x0_of(xt):
+            s = prior_apply(prior_params, xt[None], t_i.reshape(1, 1))[0]
+            return (xt + sig_i**2 * s) / al_i
+
+        x0 = x0_of(xt_i)
+        f0 = forward_fn(x0)
+        jac = torch.func.jacfwd(forward_fn)(x0)  # (ydim, xdim)
+        dinv = 1.0 / ((a * f0) ** 2 + b**2)
+        dinv_j = dinv[:, None] * jac
+        m = torch.eye(jac.shape[1], dtype=jac.dtype, device=jac.device) + r2_i * (jac.T @ dinv_j)
+
+        def cov_solve(v):
+            return dinv * v - r2_i * (dinv_j @ torch.linalg.solve(m, dinv_j.T @ v))
+
+        def ell(xt):
+            resid = y_i - forward_fn(x0_of(xt))
+            return -0.5 * torch.dot(resid, cov_solve(resid))
+
+        return grad(ell)(xt_i)
+
+    return torch.func.vmap(per_sample)(x_t, y, t.reshape(batch), std, alpha, r2)

@@ -1,11 +1,19 @@
-"""Evaluate a trained CDE checkpoint on the linear or scatterometry problem.
+"""Evaluate a trained checkpoint on the linear or scatterometry problem.
 
 Serving-only driver: loads ``benchmarks/checkpoints/<name>/params.npz``
 (written by the JAX package), builds the model from the YAML config, draws
 the test conditions as the training drivers do, samples each posterior
-with the fused E-M kernel and scores it.  Linear is scored against the
+with the model's fused kernel and scores it.  Linear is scored against the
 analytic posterior; scatterometry against the MCMC ground truth in
 ``--gt_dir`` (see ``generate_scatterometry_ground_truth``).
+
+The config's ``model`` picks the net: ``CDE`` (kernel B1), ``CDiffE``
+(B4), or ``Posterior`` (a {'prior', 'likelihood'} checkpoint).  A Posterior
+config with ``eval_analytic_guidance: True`` (scatterometry) evaluates the
+prior net under analytic DPS guidance through the surrogate, with the
+config's ``guidance_clip`` (kernel B5), and writes to ``out_dir +
+"_analytic"``; without it the learned likelihood net is sampled by the
+plain scan.
 
 Usage: python -m dmip_tpu_torch.mains.eval_diffusion --problem linear \
           --checkpoint benchmarks/checkpoints/linear_refined_winner \
@@ -13,6 +21,8 @@ Usage: python -m dmip_tpu_torch.mains.eval_diffusion --problem linear \
        python -m dmip_tpu_torch.mains.eval_diffusion --problem scatterometry \
           --checkpoint benchmarks/checkpoints/cde_500k --gt_dir data/gt... \
           [--config configs/config_scatterometry.yml] [--n_samples_y N]
+       (--checkpoint benchmarks/checkpoints/cdiffe_scat --config configs/config_scatterometry_cdiffe.yml,
+        --checkpoint benchmarks/checkpoints/dps_prior --config configs/config_scatterometry_dps.yml)
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import torch
 
 from .. import data, evaluate, resolve_device, train
 from ..checkpoints import load_archived_params
+from ..models import AnalyticGuidanceDPS, PosteriorDiffusionEstimator
 from ..problems import LinearForwardProblem
 from ..problems import scatterometry as scat
 from ..utils import load_config
@@ -35,15 +46,29 @@ DEFAULT_CONFIGS = {
 }
 
 
+def _check_mlp(checkpoint: str, name: str, params, n_in: int, hidden, n_out: int) -> None:
+    if not isinstance(params, tuple):
+        raise ValueError(f"{checkpoint}: {name} is not an MLP (W, b) pair tree")
+    got = [params[0][0].shape[0], *[w.shape[1] for w, _ in params]]
+    want = [n_in, *hidden, n_out]
+    if got != want:
+        raise ValueError(f"{checkpoint}: {name} net {got} does not match the config's {want}")
+
+
 def _load_net(config: dict, dims: dict, checkpoint: str, dev):
+    """(model, params) with the checkpoint's shapes checked against the
+    config: one MLP, or for the Posterior model the {'prior',
+    'likelihood'} dict (the prior takes [x, t], the likelihood [x, y, t])."""
     model, _ = train.get_model_from_args(config, dims)
     params = load_archived_params(checkpoint, device=dev)
-    widths = [w.shape[1] for w, _ in params[:-1]]
-    if params[0][0].shape[0] != model.net_in or list(model.hidden_layers) != widths:
-        raise ValueError(
-            f"{checkpoint}: net {params[0][0].shape[0]}->{widths} does not match the "
-            f"config's {model.net_in}->{list(model.hidden_layers)}"
-        )
+    hidden = list(model.hidden_layers)
+    if isinstance(model, PosteriorDiffusionEstimator):
+        if not isinstance(params, dict) or sorted(params) != ["likelihood", "prior"]:
+            raise ValueError(f"{checkpoint}: a Posterior checkpoint holds {{'likelihood', 'prior'}} nets")
+        _check_mlp(checkpoint, "prior", params["prior"], model.xdim + 1, hidden, model.xdim)
+        _check_mlp(checkpoint, "likelihood", params["likelihood"], model.net_in, hidden, model.xdim)
+    else:
+        _check_mlp(checkpoint, "the", params, model.net_in, hidden, model.net_out)
     return model, params
 
 
@@ -71,12 +96,13 @@ def run(
     device=None,
     out_dir: Optional[str] = None,
     method: Optional[str] = None,
+    seed: int = 0,
 ) -> Tuple[float, float, float]:
     """Returns (mean KL, mean NLPD, mean score-MSE) over the conditions.
     ``method`` overrides the config's ``eval_method`` ('auto', 'kernel' or
-    'plain')."""
+    'plain'); ``seed`` seeds the sampling generator."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     n_x = int(config["n_samples_x"])
     n_repeats = int(config.get("n_repeats", 10))
     num_steps = int(config.get("eval_num_steps", 200))
@@ -97,6 +123,12 @@ def run(
         forward_model, fparams = scat.load_forward_model(device=dev)
         y_test = test_conditions(config, forward_model, fparams, dev)
         model, params = _load_net(config, fparams, checkpoint, dev)
+        if isinstance(model, PosteriorDiffusionEstimator) and config.get("eval_analytic_guidance"):
+            model = AnalyticGuidanceDPS(
+                model, forward_model, fparams, guidance_clip=float(config.get("guidance_clip", 100.0)),
+                surrogate_weights=forward_model.weights,
+            )
+            out_dir = None if out_dir is None else out_dir + "_analytic"
         score_post = scat.score_posterior(
             forward_model, fparams["a"], fparams["b"], fparams["lambd_bd"]
         )

@@ -1,11 +1,12 @@
-"""Linear-problem diffusion experiment: train a CDE, checkpoint, evaluate.
+"""Linear-problem diffusion experiment: train a CDE or CDiffE, checkpoint, evaluate.
 
 Port of ``mains/main_diffusion_linear.py``: load the config, draw the
 dataset, build the (model, loss) pair from the config keys, train with the
 epoch engine of ``train_backend`` (``xla``: autograd; ``fused_pallas``: the
 fused DSM training kernel), save the full training state, and evaluate
 against the analytic posterior (KL / NLPD / score-MSE into results.csv)
-through the fused E-M sampler.
+through the model's fused E-M sampler (B1 for the CDE, B4 for the CDiffE).
+``model: Posterior`` raises: its PosteriorLoss training is not ported.
 
 Usage: python -m dmip_tpu_torch.mains.main_diffusion_linear \
           [--config configs/config_linear.yml] [--device cuda|cpu]

@@ -1,4 +1,4 @@
-"""Scatterometry diffusion experiment: train a CDE, checkpoint, evaluate.
+"""Scatterometry diffusion experiment: train a CDE or CDiffE, checkpoint, evaluate.
 
 Port of ``mains/main_diffusion_scatterometry.py``: every epoch draws a fresh
 prior sample and simulates it through the surrogate (8 batches), the lr
@@ -27,8 +27,13 @@ def run(config: dict, gt_dir: str, device=None) -> tuple:
     """Train and evaluate; returns (params, (KL, NLPD, score-MSE))."""
     if config.get("refine"):
         raise NotImplementedError("refine is not ported yet; see ROADMAP.md §A item 8")
-    if config.get("eval_analytic_guidance") and config.get("model") == "Posterior":
-        raise NotImplementedError("eval_analytic_guidance is not ported yet; see ROADMAP.md §A item 11")
+    if config.get("model") == "Posterior":
+        raise NotImplementedError(
+            "training the Posterior model (PosteriorLoss) is not ported yet: the optimizer and the "
+            "checkpoints take a tuple of (W, b) pairs, not its {'prior', 'likelihood'} dict; see "
+            "ROADMAP.md §A item 11.  A trained checkpoint (e.g. benchmarks/checkpoints/dps_prior) "
+            "is served, with analytic guidance, by dmip_tpu_torch.mains.eval_diffusion"
+        )
     dev = resolve_device(device)
     forward_model, fparams = scat.load_forward_model(device=dev)
     seed = int(config.get("RANDOM_STATE", 13))

@@ -1,3 +1,3 @@
-from .diffusion import CDE, DiffusionModel, LossConfig
+from .diffusion import CDE, AnalyticGuidanceDPS, CDiffE, DiffusionModel, LossConfig, PosteriorDiffusionEstimator
 
-__all__ = ["CDE", "DiffusionModel", "LossConfig"]
+__all__ = ["AnalyticGuidanceDPS", "CDE", "CDiffE", "DiffusionModel", "LossConfig", "PosteriorDiffusionEstimator"]

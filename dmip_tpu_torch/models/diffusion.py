@@ -1,19 +1,23 @@
-"""Score-based diffusion models for inverse problems: the CDE.
+"""Score-based diffusion models for inverse problems: CDE, CDiffE and DPS.
 
-Port of ``dmip_tpu/models/diffusion.py:36-237``: ``LossConfig``,
+Port of ``dmip_tpu/models/diffusion.py``: ``LossConfig``,
 ``DiffusionModel`` and ``CDE`` with ``init``, ``apply_a``,
 ``diffusion_state``, ``make_loss_fn`` (DSM, DSM_PDE, PINNLoss, PINNLoss2)
-and ``sample``.  Parameters live outside the model, as a tuple of (W, b)
-tensors.
+and ``sample``; ``CDiffE`` (the joint diffusion of [x, y]);
+``PosteriorDiffusionEstimator`` (prior + likelihood nets, sampling only);
+``AnalyticGuidanceDPS`` (a prior net guided by the exact likelihood
+gradient through the frozen surrogate).  Parameters live outside the model:
+a tuple of (W, b) tensors, or for the posterior models a dict of them.
 
-``sample(method="auto")`` launches the fused E-M kernel for a CUDA device
-and runs the plain Euler-Maruyama scan for the CPU.
+``sample(method="auto")`` launches the model's fused kernel for a CUDA
+device (B1 for the CDE, B4 for the CDiffE, B5 for analytic guidance with
+surrogate weights) and runs the plain Euler-Maruyama scan for the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -24,6 +28,34 @@ from ..sde import ReverseSDE, sample_t
 Tensor = torch.Tensor
 
 _LATER = "is not ported yet; see ROADMAP.md §A"
+
+
+def _device_of(params, y: Optional[Tensor], device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    if y is not None:
+        return y.device
+    first = params["prior"] if isinstance(params, dict) else params
+    return first[0][0].device
+
+
+def _resolve_method(method: str, dev: torch.device, kernel_ok: bool = True) -> str:
+    if method == "heun" or method.startswith("expint"):
+        raise NotImplementedError(f"sampler {method!r} {_LATER}")
+    if method == "auto":
+        return "kernel" if dev.type == "cuda" and kernel_ok else "plain"
+    if method not in ("kernel", "plain"):
+        raise ValueError(f"unknown sampler method {method!r}")
+    return method
+
+
+def _kernel_draws(generator, num_samples: int, xdim: int, mean: float, std: float, dev):
+    """x0 ~ N(mean, std^2) and an int seed for a kernel's Philox stream,
+    both from ``generator`` (on its device), x0 moved to ``dev``."""
+    gen_dev = generator.device if generator is not None else "cpu"
+    x0 = torch.randn(num_samples, xdim, generator=generator, device=gen_dev)
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=gen_dev))
+    return (x0 * std + mean).to(dev), seed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,15 +166,8 @@ class DiffusionModel:
         kernel's weight/activation dtype; its sums and state stay f32.  The
         plain scan computes in f32.
         """
-        if method == "heun" or method.startswith("expint"):
-            raise NotImplementedError(f"sampler {method!r} {_LATER}")
-        dev = torch.device(device) if device is not None else (
-            y.device if y is not None else params[0][0].device)
-        if method == "auto":
-            method = "kernel" if dev.type == "cuda" else "plain"
-        if method not in ("kernel", "plain"):
-            raise ValueError(f"unknown sampler method {method!r}")
-        if method == "plain":
+        dev = _device_of(params, y, device)
+        if _resolve_method(method, dev) == "plain":
             return samplers.euler_maruyama(
                 self.sde, lambda z, c, s: self.apply_a(params, z, c, s), y,
                 num_samples, self.xdim, num_steps, mean=mean, std=std,
@@ -150,10 +175,7 @@ class DiffusionModel:
             )
         from ..ops.em_kernel import fused_em_sampler
 
-        gen_dev = generator.device if generator is not None else "cpu"
-        x0 = torch.randn(num_samples, self.xdim, generator=generator, device=gen_dev)
-        x0 = (x0 * std + mean).to(dev)
-        seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=gen_dev))
+        x0, seed = _kernel_draws(generator, num_samples, self.xdim, mean, std, dev)
         base = self.sde.base
         return fused_em_sampler(
             params, x0, y, num_steps, T=self.sde.T, beta_min=base.beta_min,
@@ -165,3 +187,184 @@ class DiffusionModel:
 @dataclasses.dataclass(frozen=True)
 class CDE(DiffusionModel):
     """Conditional Denoising Estimator: score net on [x, y, t] -> xdim."""
+
+
+@dataclasses.dataclass(frozen=True)
+class CDiffE(DiffusionModel):
+    """Conditional Diffusive Estimator: diffuses the joint z = [x, y].
+
+    The net maps [z, t] -> xdim + ydim; the loss passes cond=None because
+    the condition is part of the diffused state.
+    """
+
+    @property
+    def net_out(self) -> int:
+        return self.xdim + self.ydim
+
+    def diffusion_state(self, x: Tensor, y: Tensor):
+        return torch.cat([x, y], dim=1), y
+
+    def sample(
+        self,
+        params,
+        y: Tensor,
+        num_samples: int = 2000,
+        num_steps: int = 200,
+        mean: float = 0.0,
+        std: float = 1.0,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+        method: str = "auto",
+        compute_dtype="auto",
+    ) -> Tensor:
+        """Posterior samples (num_samples, xdim) for y (ydim,): each step
+        re-diffuses y to T - t with fresh noise and advances the x block of
+        the joint reverse SDE.  method: 'auto' (the fused CDiffE kernel on a
+        CUDA device, the plain ``euler_maruyama_cdiffe`` on the CPU),
+        'kernel' or 'plain'; no Heun or exponential integrator, as in the
+        JAX package (the re-diffusion is SDE-specific)."""
+        if method not in ("auto", "kernel", "plain"):
+            raise ValueError(f"CDiffE sampler method {method!r} unsupported")
+        dev = _device_of(params, y, device)
+        if _resolve_method(method, dev) == "plain":
+            return samplers.euler_maruyama_cdiffe(
+                self.sde, lambda z, c, s: self.apply_a(params, z, c, s), y,
+                num_samples, self.xdim, num_steps, mean=mean, std=std,
+                generator=generator, device=dev,
+            )
+        from ..ops.em_kernel import fused_em_sampler_cdiffe
+
+        x0, seed = _kernel_draws(generator, num_samples, self.xdim, mean, std, dev)
+        base = self.sde.base
+        return fused_em_sampler_cdiffe(
+            params, x0, y, num_steps, T=self.sde.T, beta_min=base.beta_min,
+            beta_max=base.beta_max, seed=seed,
+            compute_dtype=torch.bfloat16 if compute_dtype == "auto" else compute_dtype,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class PosteriorDiffusionEstimator(DiffusionModel):
+    """DPS model: prior net (x, t) + likelihood net (x, y, t), the scores
+    summed and times g(t).  Params are {'prior': mlp, 'likelihood': mlp}.
+    Sampling is the plain Euler-Maruyama scan (the JAX package has no kernel
+    for it either); training with the PosteriorLoss is not ported yet."""
+
+    def init(self, generator: Optional[torch.Generator] = None, device=None):
+        prior = nets.mlp_init(self.xdim + 1, self.xdim, self.hidden_layers, generator=generator, device=device)
+        lik = nets.mlp_init(self.net_in, self.xdim, self.hidden_layers, generator=generator, device=device)
+        return {"prior": prior, "likelihood": lik}
+
+    def apply_a(self, params, z: Tensor, cond: Optional[Tensor], t) -> Tensor:
+        return nets.posterior_score_apply(params["prior"], params["likelihood"], self.sde.base.g, z, cond, t)
+
+    def make_loss_fn(self, cfg: LossConfig, initial_condition=None):
+        raise NotImplementedError(
+            "training the Posterior model (PosteriorLoss) is not ported yet: it needs the "
+            "optimizer and the checkpoints to handle a dict of parameter trees; see ROADMAP.md §A item 11"
+        )
+
+    def sample(self, params, y: Optional[Tensor], num_samples: int = 2000, num_steps: int = 200,
+               mean: float = 0.0, std: float = 1.0, generator: Optional[torch.Generator] = None,
+               device=None, method: str = "auto", compute_dtype="auto") -> Tensor:
+        if _resolve_method(method, _device_of(params, y, device), kernel_ok=False) == "kernel":
+            raise ValueError("the Posterior model has no sampling kernel; use method 'plain'")
+        return super().sample(params, y, num_samples, num_steps, mean, std, generator, device, "plain")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class AnalyticGuidanceDPS:
+    """DPS with analytic likelihood guidance (Chung & Kim's algorithm): the
+    posterior score is prior_net(x_t, t) + grad_{x_t} log p(y | x_hat_0(x_t))
+    through the frozen forward model, with no learned likelihood net.
+
+    Wraps a :class:`PosteriorDiffusionEstimator` and uses its
+    ``params['prior']``.  ``guidance``: 'dps' (Tweedie point estimate,
+    ``losses.likelihood_score_target``) or 'pgdm' (variance-corrected,
+    ``losses.pgdm_likelihood_score``).  ``guidance_clip`` caps each sample's
+    guidance norm (None: no cap).  ``surrogate_weights``: the surrogate's
+    (W, b) pairs; with them, sampling on a CUDA device runs the fused guided
+    kernel (B5), which computes the surrogate's derivatives itself.
+    Duck-types the model surface the evaluation harness needs (sde, xdim,
+    apply_a, sample).
+    """
+
+    base_model: PosteriorDiffusionEstimator
+    forward_model: Callable[[Tensor], Tensor]
+    forward_params: Dict[str, float]
+    guidance_clip: Optional[float] = 100.0
+    guidance: str = "dps"
+    surrogate_weights: Optional[tuple] = None
+
+    @property
+    def sde(self) -> ReverseSDE:
+        return self.base_model.sde
+
+    @property
+    def xdim(self) -> int:
+        return self.base_model.xdim
+
+    @property
+    def ydim(self) -> int:
+        return self.base_model.ydim
+
+    def apply_a(self, params, z: Tensor, cond: Tensor, t) -> Tensor:
+        """g(t) (s_prior + clip(s_lik)); the derivatives are ``torch.func``
+        transforms, so this also works under ``torch.no_grad``."""
+        base = self.sde.base
+        fp = self.forward_params
+        t = nets._as_t_column(t, z.shape[0], z)
+        s_prior = nets.prior_mlp_apply(params["prior"], z, t)
+        if self.guidance == "pgdm":
+            s_lik = L.pgdm_likelihood_score(
+                nets.prior_mlp_apply, params["prior"], base, self.forward_model, z, cond, t, a=fp["a"], b=fp["b"])
+        else:
+            target = L.likelihood_score_target(
+                nets.prior_mlp_apply, params["prior"], base, self.forward_model, z, cond, t,
+                a=fp["a"], b=fp["b"], s_prior=s_prior)
+            s_lik = target / base.mean_weight(t)
+        if self.guidance_clip is not None:
+            norm = torch.linalg.norm(s_lik, dim=-1, keepdim=True)
+            s_lik = s_lik * torch.clamp(self.guidance_clip / (norm + 1e-12), max=1.0)
+        return base.g(t) * (s_prior + s_lik)
+
+    def sample(
+        self,
+        params,
+        y: Tensor,
+        num_samples: int = 2000,
+        num_steps: int = 200,
+        mean: float = 0.0,
+        std: float = 1.0,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+        method: str = "auto",
+    ) -> Tensor:
+        """method: 'auto' (the fused guided kernel on a CUDA device when
+        surrogate weights are given, else the plain scan), 'kernel' or
+        'plain'.  No Heun variant: the clipped guidance is not a smooth ODE
+        field."""
+        kernel_ok = self.guidance in ("dps", "pgdm") and self.surrogate_weights is not None
+        dev = _device_of(params, y, device)
+        method = _resolve_method(method, dev, kernel_ok)
+        if method == "plain":
+            return samplers.euler_maruyama(
+                self.sde, lambda z, c, s: self.apply_a(params, z, c, s), y,
+                num_samples, self.xdim, num_steps, mean=mean, std=std,
+                generator=generator, device=dev,
+            )
+        if not kernel_ok:
+            raise ValueError(
+                "method 'kernel' needs guidance 'dps' or 'pgdm' and surrogate_weights "
+                "(the fused kernel computes the surrogate's derivatives itself)"
+            )
+        from ..ops.dps_kernel import fused_guided_em_sampler
+
+        x0, seed = _kernel_draws(generator, num_samples, self.xdim, mean, std, dev)
+        base = self.sde.base
+        fp = self.forward_params
+        return fused_guided_em_sampler(
+            params["prior"], self.surrogate_weights, x0, y, a=fp["a"], b=fp["b"],
+            guidance_clip=self.guidance_clip, num_steps=num_steps, T=self.sde.T,
+            beta_min=base.beta_min, beta_max=base.beta_max, seed=seed, guidance=self.guidance,
+        )

@@ -1,6 +1,6 @@
 """Score networks as plain functions on (W, b) tensor pairs.
 
-Port of ``dmip_tpu/nets.py:41-87``.  Parameters are a tuple of (W, b) pairs
+Port of ``dmip_tpu/nets.py:41-116``.  Parameters are a tuple of (W, b) pairs
 with W of shape (fan_in, fan_out), the JAX ``x @ W`` layout, so weights
 carry over from the JAX checkpoints unchanged and the tests compare like
 with like.
@@ -65,3 +65,17 @@ def score_mlp_apply(
         parts.append(y)
     parts.append(_as_t_column(t, x.shape[0], x))
     return mlp_apply(params, torch.cat(parts, dim=-1), activation)
+
+
+def prior_mlp_apply(params: MLPParams, x: Tensor, t, activation=torch.tanh) -> Tensor:
+    """Unconditional score net a(x, t) on the concatenation [x, t]."""
+    return mlp_apply(params, torch.cat([x, _as_t_column(t, x.shape[0], x)], dim=-1), activation)
+
+
+def posterior_score_apply(
+    prior_params: MLPParams, likelihood_params: MLPParams, g_fn, x: Tensor, y: Tensor, t
+) -> Tensor:
+    """g(t) * (prior(x, t) + likelihood(x, y, t)); ``g_fn`` is the forward
+    SDE's diffusion coefficient."""
+    s = prior_mlp_apply(prior_params, x, t) + score_mlp_apply(likelihood_params, x, y, t)
+    return g_fn(_as_t_column(t, x.shape[0], x)) * s

@@ -19,7 +19,7 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_kernels_build")
-KERNELS = ("em_kernel", "mh_kernel", "dsm_train_kernel")
+KERNELS = ("em_kernel", "mh_kernel", "dsm_train_kernel", "dps_kernel")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",

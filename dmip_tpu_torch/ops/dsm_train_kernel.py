@@ -289,16 +289,20 @@ def make_fused_dsm_epoch_fn(
     def prep_epoch(gen):
         xb, yb = batch_fn(gen)
         dev = xb.device
-        ts, eps = [], []
+        z0s, ts, eps = [], [], []
         for x, y in zip(xb, yb):
             z0, _ = model.diffusion_state(x, y)
+            z0s.append(z0)
             # the loss's draws, in its order: t, then eps
             ts.append(torch.rand((z0.shape[0], 1), generator=gen, device=gen.device).to(dev))
             eps.append(torch.randn(z0.shape, generator=gen, device=gen.device, dtype=z0.dtype).to(dev))
         t = sample_t(model.sde, xb.shape[1], u=torch.stack(ts))
         ep = torch.stack(eps)
-        z_t = base.diffuse(t, xb, ep)
-        h0 = torch.cat([z_t, yb, t], dim=-1) if yb.shape[-1] else torch.cat([z_t, t], dim=-1)
+        z_t = base.diffuse(t, torch.stack(z0s), ep)
+        # the net is conditioned on y only when x alone is diffused (the CDE);
+        # the CDiffE's diffused state already holds y
+        cond = yb.shape[-1] > 0 and ep.shape[-1] == xb.shape[-1]
+        h0 = torch.cat([z_t, yb, t], dim=-1) if cond else torch.cat([z_t, t], dim=-1)
         s1 = (base.std(t) / base.g(t)).expand(ep.shape)
         return h0, ep, s1
 

@@ -29,7 +29,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from .models.diffusion import CDE, DiffusionModel, LossConfig
+from .models.diffusion import CDE, CDiffE, DiffusionModel, LossConfig, PosteriorDiffusionEstimator
 
 Tensor = torch.Tensor
 Pairs = Tuple[Tuple[Tensor, Tensor], ...]
@@ -238,8 +238,8 @@ def select_epoch_fn(
     keeps the JAX package's name; in the port it is the autograd engine.
     ``train_backend: fused_pallas`` -- the fused DSM training kernel
     (``ops/dsm_train_kernel.py``), whole epochs per launch.  Only for DSM
-    with plain Adam at a constant lr (no grad_clip, no schedule), a CDE and
-    one device; any other combination raises with the reasons.
+    with plain Adam at a constant lr (no grad_clip, no schedule), a CDE or a
+    CDiffE, and one device; any other combination raises with the reasons.
 
     ``train_guard`` (fused engine only): 'grads' (default; the autograd
     engine's skip-nonfinite rule), 'loss' (skip a step whose batch loss is
@@ -317,31 +317,39 @@ def fit(
     return params, opt_state, last_info
 
 
+_MODELS = {"CDE": CDE, "CDiffE": CDiffE, "Posterior": PosteriorDiffusionEstimator}
+
+
 def get_model_from_args(
     config: Dict[str, Any], forward_model_params: Dict[str, Any]
 ) -> Tuple[DiffusionModel, LossConfig]:
     """Map the YAML keys ``model``, ``hidden_layers`` and ``loss_fn`` (and
-    the loss weights) to (model, loss config)."""
+    the loss weights) to (model, loss config).  The Posterior model takes
+    the PosteriorLoss, its default; another loss name raises."""
     name = config["model"]
-    if name in ("CDiffE", "Posterior"):
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet; see ROADMAP.md §A"
-        )
-    if name != "CDE":
+    if name not in _MODELS:
         raise ValueError(
             'No valid value for "model" passed. Has to be one of '
             '"CDE", "CDiffE" or "Posterior".'
         )
-    model = CDE(
+    model = _MODELS[name](
         xdim=int(forward_model_params["xdim"]),
         ydim=int(forward_model_params["ydim"]),
         hidden_layers=tuple(config.get("hidden_layers", (512, 512, 512))),
     )
     loss_name = config.get("loss_fn")
+    if name == "Posterior":
+        if loss_name not in (None, "PosteriorLoss"):
+            raise ValueError(
+                "PosteriorDiffusionEstimator trains with the PosteriorLoss; "
+                f"got loss_fn={loss_name!r}"
+            )
+        loss_name = "PosteriorLoss"
     if loss_name is None:
         raise ValueError(
             'No valid loss_fn was specified. Options are: "PINNLoss", '
-            '"PINNLoss2", "DSM" or "DSM_PDE".'
+            '"PINNLoss2", "DSM" or "DSM_PDE". When the model is '
+            "PosteriorDiffusionEstimator, the PosteriorLoss is used as default."
         )
     cfg = LossConfig(
         name=loss_name,

@@ -11,7 +11,9 @@ import torch
 
 from dmip_tpu_torch.nets import mlp_init
 from dmip_tpu_torch.ops.dsm_train_kernel import dsm_train_epochs_reference, fused_dsm_train_epochs
-from dmip_tpu_torch.ops.em_kernel import em_sampler_reference, fused_em_sampler
+from dmip_tpu_torch.ops.dps_kernel import fused_guided_em_sampler, guided_em_reference
+from dmip_tpu_torch.ops.em_kernel import (em_cdiffe_reference, em_sampler_reference, fused_em_sampler,
+                                          fused_em_sampler_cdiffe)
 from dmip_tpu_torch.ops.mh_kernel import fused_mh_scatterometry, mh_chains_reference
 from dmip_tpu_torch.problems import scatterometry as scat
 
@@ -127,3 +129,62 @@ def test_dsm_train_kernel_matches_plain(cuda, dtype, param_tol, moment_rel, loss
         fused_dsm_train_epochs(params, mu, nu, 4, h0[:-1], eps, s1, **kw)
     with pytest.raises(ValueError):
         fused_dsm_train_epochs(params, mu, nu, 4, h0.double(), eps, s1, **kw)
+
+
+def test_em_cdiffe_kernel_matches_plain(cuda):
+    """B4 (bf16) vs its plain version on a joint 27 -> 96 -> 80 -> 64 -> 26
+    net (widths not multiples of 32), 1000 rows (a ragged last block): the
+    same x0 and (steps, N, 26) noise, and the noise-off trajectory.  Mean abs
+    error 2e-3 and 99.9th percentile 5e-2, B1's tolerances (the same bf16
+    rounding rule).  f32 weights and bad shapes raise."""
+    tp = mlp_init(27, 26, (96, 80, 64), generator=torch.Generator().manual_seed(5), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x0 = torch.randn(1000, 3, generator=gen, device=cuda)
+    y = 0.3 * torch.randn(23, generator=gen, device=cuda)
+    noise = torch.randn(50, 1000, 26, generator=gen, device=cuda)
+    before = fused_em_sampler_cdiffe.launches
+    for kw in (dict(noise=noise), dict(noise_scale=0.0)):
+        out = fused_em_sampler_cdiffe(tp, x0, y, 50, **kw)
+        ref = em_cdiffe_reference(tp, x0, y, 50, **kw)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().amax(dim=1)
+        assert float(err.mean()) < 2e-3 and float(torch.quantile(err, 0.999)) < 5e-2
+    assert fused_em_sampler_cdiffe.launches == before + 2
+    with pytest.raises(NotImplementedError):
+        fused_em_sampler_cdiffe(tp, x0, y, 5, compute_dtype=torch.float32)
+    with pytest.raises(ValueError):
+        fused_em_sampler_cdiffe(tp, x0, y, 5, noise=noise[:5, :, :3].contiguous())
+    with pytest.raises(ValueError):
+        wide = mlp_init(40, 39, (64,), generator=torch.Generator().manual_seed(1), device=cuda)
+        fused_em_sampler_cdiffe(wide, x0, torch.zeros(36, device=cuda), 5)
+
+
+@pytest.mark.parametrize("guidance,clip", [("dps", 10.0), ("dps", None), ("pgdm", 100.0)])
+def test_guided_kernel_matches_plain(cuda, guidance, clip):
+    """B5 (f32) vs its plain version: a random 4 -> 96 -> 80 -> 3 prior
+    (padded to 128 wide) and the scatterometry surrogate, 2000 rows (ragged),
+    the last 20 steps of a 200-step grid (T = 0.1), same x0 and noise.  The
+    versions differ in f32 sum order, and where a ReLU pre-activation sits at
+    0 one may flip its mask: at most 0.5% of rows further apart than 1e-3,
+    the median row within 1e-5.  Bad nets and shapes raise."""
+    prior = mlp_init(4, 3, (96, 80), generator=torch.Generator().manual_seed(2), device=cuda)
+    weights = scat.load_surrogate_weights(device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    y = scat.noisy_forward(lambda x: scat.surrogate_apply(weights, x), torch.tensor([[0.3, -0.5, 0.1]], device=cuda),
+                           0.2, 0.01, gen)[0]
+    x0 = torch.rand(2000, 3, generator=gen, device=cuda) * 2 - 1
+    noise = torch.randn(20, 2000, 3, generator=gen, device=cuda)
+    kw = dict(a=0.2, b=0.01, guidance_clip=clip, num_steps=20, T=0.1, noise=noise, guidance=guidance)
+    before = fused_guided_em_sampler.launches
+    out = fused_guided_em_sampler(prior, weights, x0, y, **kw)
+    ref = guided_em_reference(prior, weights, x0, y, **kw)
+    torch.cuda.synchronize()
+    assert fused_guided_em_sampler.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    err = (out - ref).abs().amax(dim=1)
+    assert float(err.median()) < 1e-5 and float((err > 1e-3).float().mean()) <= 5e-3
+    with pytest.raises(ValueError):
+        fused_guided_em_sampler(prior, weights, x0, y, a=0.2, b=0.01, noise=noise, guidance=guidance)
+    with pytest.raises(ValueError):
+        wide = mlp_init(4, 3, (600,), generator=torch.Generator().manual_seed(3), device=cuda)
+        fused_guided_em_sampler(wide, weights, x0, y, a=0.2, b=0.01, num_steps=2, guidance=guidance)

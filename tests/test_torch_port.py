@@ -106,12 +106,43 @@ def test_drivers_end_to_end_on_cpu(tmp_path):
     assert rows[0] == ",KL2,NLL_true,NLL_diffusion,MSE,W2" and len(rows) == 4
 
 
+@pytest.mark.parametrize("config,checkpoint,out_suffix", [
+    ("config_scatterometry_cdiffe.yml", "cdiffe_scat", ""),
+    ("config_scatterometry_dps.yml", "dps_prior", "_analytic"),
+])
+def test_eval_driver_serves_cdiffe_and_analytic_dps_on_cpu(tmp_path, config, checkpoint, out_suffix):
+    """The CDiffE checkpoint (CDiffE.sample) and the DPS prior under the
+    config's analytic guidance (AnalyticGuidanceDPS, clip 100, results in
+    out_dir + '_analytic') through the eval driver's main() on the CPU, at a
+    tiny size, against GT made for the same conditions (all three
+    scatterometry configs have RANDOM_STATE 13)."""
+    cfg = yaml.safe_load(open(os.path.join(REPO, "configs", config)))
+    cfg.update(n_samples_x=200, n_repeats=2, METR_STEPS=20, eval_num_steps=8)
+    path = tmp_path / "cfg.yml"
+    path.write_text(yaml.safe_dump(cfg))
+    gt.main(["--config", str(path), "--gt_dir", str(tmp_path / "gt"), "--n_samples_y", "2", "--device", "cpu"])
+    eval_diffusion.main(["--problem", "scatterometry", "--config", str(path),
+                         "--checkpoint", os.path.join(REPO, "benchmarks/checkpoints", checkpoint),
+                         "--gt_dir", str(tmp_path / "gt"), "--n_samples_y", "2", "--device", "cpu",
+                         "--out_dir", str(tmp_path / "out")])
+    rows = (tmp_path / f"out{out_suffix}" / "results.csv").read_text().splitlines()
+    assert rows[0] == ",KL2,KL_reverse,NLL_mcmc,NLL_diffusion,MSE,W2" and len(rows) == 3
+    assert all(np.isfinite(float(v)) for r in rows[1:] for v in r.split(",")[1:])
+
+
 def test_eval_driver_rejects_a_mismatched_checkpoint():
     cfg = yaml.safe_load(open(os.path.join(REPO, "configs/config_linear.yml")))
     cfg.update(hidden_layers=[256, 256])
     with pytest.raises(ValueError, match="does not match"):
         eval_diffusion.run("linear", os.path.join(REPO, "benchmarks/checkpoints/linear_refined_winner"),
                            cfg, device="cpu")
+    dps_cfg = yaml.safe_load(open(os.path.join(REPO, "configs/config_scatterometry_dps.yml")))
+    with pytest.raises(ValueError, match="prior net"):
+        eval_diffusion._load_net(dict(dps_cfg, hidden_layers=[512, 512]), {"xdim": 3, "ydim": 23},
+                                 os.path.join(REPO, "benchmarks/checkpoints/dps_prior"), "cpu")
+    with pytest.raises(ValueError, match="likelihood"):
+        eval_diffusion._load_net(dps_cfg, {"xdim": 3, "ydim": 23},
+                                 os.path.join(REPO, "benchmarks/checkpoints/cdiffe_scat"), "cpu")
 
 
 TINY_TRAIN = dict(dataset_size=600, n_epochs=3, epochs_per_call=2, batch_size=50, hidden_layers=[32, 32],
@@ -123,6 +154,7 @@ TINY_TRAIN = dict(dataset_size=600, n_epochs=3, epochs_per_call=2, batch_size=50
     ("linear", {}),  # the shipped PINNLoss, autograd engine
     ("scatterometry", {"loss_fn": "DSM", "train_backend": "fused_pallas"}),
     ("scatterometry", {"loss_fn": "DSM", "lr_schedule": "cosine", "grad_clip": 1.0}),
+    ("scatterometry", {"model": "CDiffE", "loss_fn": "DSM", "train_backend": "fused_pallas"}),
 ])
 def test_training_drivers_end_to_end_on_cpu(tmp_path, problem, overrides):
     """Train (3 epochs in calls of 2, the last masked), checkpoint and
