@@ -121,16 +121,20 @@ CDIFFE_TRAIN_REPEATS = 2
 B5_W2_ABS = 0.02
 B5_W2_RATIO = 2.5
 B5_MODES = (("dps", 100.0), ("dps", 10.0), ("pgdm", 100.0))
-# B5, same x0 and noise, short horizon: the last 20 steps of the 200-step
-# grid (T = 0.1, 20 steps of 0.005) from x0 uniform on the prior's box.
-# Over the whole grid the guided SDE is stiff near s = T (alpha ~ 0.007,
-# guidance norms of 1e4 capped to 100), so f32 sum-order differences there
-# turn whole trajectories; here the two versions' arithmetic differs only in
-# f32 sum order, except where a ReLU pre-activation sits at 0 and flips its
-# mask in one version only, which moves that row by up to a step.
-B5_SHORT_STEPS, B5_SHORT_T = 20, 0.1
-B5_SHORT_P999_TOL = 1e-5
-B5_SHORT_SHARE = 1e-3          # of rows further apart than 1e-3
+# B5 step by step: every step of the 200-step grid, kernel and plain from
+# the plain trajectory's state with the same noise.  Whole trajectories
+# cannot be held row by row: near s = T (alpha ~ 0.007, guidance norms of
+# 1e4 capped) one step amplifies a difference in x about tenfold, so f32
+# sum-order differences grow to O(1) within ten steps.  One step from the
+# same state differs only in f32 sum order, except where a ReLU
+# pre-activation sits at 0 and flips its mask in one version only.  Each
+# row's error is taken relative to the length of its step.  A probe on an
+# H100 read medians of 5e-7 to 1.5e-6, p999 of 1.3e-4 to 1.2e-3 and at most
+# 1.6e-4 of the pairs above 1e-2 in the four modes; a wrong term in the
+# guidance moves every row by percents.
+B5_STEP_P50_TOL = 1e-4
+B5_STEP_P999_TOL = 5e-3
+B5_STEP_SHARE = 1e-3           # of (step, row) pairs further apart than 1e-2 of the step
 
 
 class CheckFailed(Exception):
@@ -197,15 +201,16 @@ def cdiffe_work(params, xdim: int, n: int, steps: int):
 
 def guided_work(prior, surr, n: int, steps: int, guidance: str):
     """(FLOPs, bytes) of the guided sampler per launch.  Per sample-step:
-    'dps' a prior forward, three prior VJPs, a surrogate forward and three
-    surrogate VJPs; 'pgdm' a prior forward and one VJP, a surrogate forward
+    'dps' a prior forward and one VJP, a surrogate forward and one VJP (the
+    target is linear in its three cotangents, so one backward pass per net
+    computes it); 'pgdm' a prior forward and one VJP, a surrogate forward
     and three Jacobian tangents (the first ReLU layer's tangent is a mask,
     no product).  x0 read and x written once, both nets read once (f32)."""
     xdim = prior[-1][0].shape[1]
     p_macs = xdim * prior[0][0].shape[1] + sum(w.numel() for w, _ in prior[1:])
     s_macs = sum(w.numel() for w, _ in surr)
     if guidance == "dps":
-        macs = 4 * p_macs + 4 * s_macs
+        macs = 2 * p_macs + 2 * s_macs
     else:
         macs = 2 * p_macs + s_macs + 3 * sum(w.numel() for w, _ in surr[1:])
     nbytes = 2 * n * xdim * 4 + 4 * sum(w.numel() + b.numel() for w, b in (*prior, *surr))
@@ -319,28 +324,40 @@ def check_b4(torch, params, y, gen, moments=True):
     return res
 
 
-def check_b5_short(torch, prior, weights, y, gen, kw):
+def check_b5_steps(torch, prior, weights, y, gen, kw):
+    """B5 against its plain version one step at a time over the 200-step
+    grid: from the plain trajectory's state, the same noise.  Returns the
+    per-(step, row) error quantiles, relative to the row's step length."""
     from dmip_tpu_torch.ops.dps_kernel import fused_guided_em_sampler, guided_em_reference
 
-    x0 = torch.rand(N_SAMPLES, 3, generator=gen, device="cuda") * 2 - 1
-    noise = torch.randn(B5_SHORT_STEPS, N_SAMPLES, 3, generator=gen, device="cuda")
-    run = dict(num_steps=B5_SHORT_STEPS, T=B5_SHORT_T, noise=noise, **kw)
-    out_k = fused_guided_em_sampler(prior, weights, x0, y, **run)
-    out_p = guided_em_reference(prior, weights, x0, y, **run)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(out_k).all()), "B5 (short) produced non-finite samples")
-    err = (out_k - out_p).abs().amax(dim=1)
-    res = {"short_max_abs_err": float(err.max()), "short_p999_abs_err": float(torch.quantile(err, 0.999)),
-           "short_share_above_1e-3": float((err > 1e-3).float().mean())}
-    check(res["short_p999_abs_err"] <= B5_SHORT_P999_TOL and res["short_share_above_1e-3"] <= B5_SHORT_SHARE,
-          f"B5 vs plain (short horizon, {kw}) out of tolerance: {res}")
+    x = torch.randn(N_SAMPLES, 3, generator=gen, device="cuda")
+    rel, worst = [], 0.0
+    for i in range(EM_STEPS):
+        run = dict(num_steps=EM_STEPS, start_step=i, stop_step=i + 1,
+                   noise=torch.randn(1, N_SAMPLES, 3, generator=gen, device="cuda"), **kw)
+        xk = fused_guided_em_sampler(prior, weights, x, y, **run)
+        xp = guided_em_reference(prior, weights, x, y, **run)
+        check(bool(torch.isfinite(xk).all()), f"B5 step {i} produced non-finite samples ({kw})")
+        err = (xk - xp).abs().amax(dim=1)
+        worst = max(worst, float(err.max()))
+        rel.append(err / (xp - x).abs().amax(dim=1).clamp(min=1e-6))
+        x = xp
+    rel = torch.cat(rel)
+    q = torch.quantile(rel[torch.randperm(rel.numel(), generator=gen, device="cuda")[:10**6]],
+                       torch.tensor([0.5, 0.999], device="cuda"))
+    res = {"step_rel_p50": float(q[0]), "step_rel_p999": float(q[1]), "step_rel_max": float(rel.max()),
+           "step_share_above_1e-2": float((rel > 1e-2).float().mean()), "step_max_abs_err": worst}
+    check(res["step_rel_p50"] <= B5_STEP_P50_TOL and res["step_rel_p999"] <= B5_STEP_P999_TOL
+          and res["step_share_above_1e-2"] <= B5_STEP_SHARE,
+          f"B5 vs plain (step by step, {kw}) out of tolerance: {res}")
     return res
 
 
 def check_b5(torch, prior, weights, ys, gen):
     """B5 against its plain version at the dps_prior + surrogate shapes, f32,
-    for each guidance mode: the same x0 and noise over a short horizon, and
-    over the full 200 steps the per-condition sliced-W2 criterion."""
+    for each guidance mode: every step of the 200-step grid from the same
+    state and noise, and over the full 200 steps the per-condition
+    sliced-W2 criterion."""
     from dmip_tpu_torch.evaluate import sliced_w2
     from dmip_tpu_torch.ops.dps_kernel import fused_guided_em_sampler, guided_em_reference
 
@@ -349,8 +366,8 @@ def check_b5(torch, prior, weights, ys, gen):
     for guidance, clip in B5_MODES:
         mode = f"{guidance}_clip{clip:g}"
         kw = dict(a=0.2, b=0.01, guidance_clip=clip, guidance=guidance)
-        short = check_b5_short(torch, prior, weights, ys[0], gen, kw)
-        res.update({f"{mode}_{k}": v for k, v in short.items()})
+        steps = check_b5_steps(torch, prior, weights, ys[0], gen, kw)
+        res.update({f"{mode}_{k}": v for k, v in steps.items()})
         w2 = []
         for i in range(SCAT_CONDITIONS):
             x0 = torch.randn(N_SAMPLES, 3, generator=gen, device="cuda")
@@ -364,7 +381,7 @@ def check_b5(torch, prior, weights, ys, gen):
                   f"B5 {mode} condition {i}: sliced W2 kernel-plain {kp} vs plain-plain floor {pp}")
         res[f"{mode}_w2_kernel_plain"] = [a for a, _ in w2]
         res[f"{mode}_w2_plain_plain"] = [b for _, b in w2]
-    res["max_abs_err"] = max(v for k, v in res.items() if k.endswith("short_max_abs_err"))
+    res["max_abs_err"] = max(v for k, v in res.items() if k.endswith("step_max_abs_err"))
     return res
 
 

@@ -6,22 +6,23 @@
 // sample row:
 //   s_p = prior(x, s)          tanh MLP on [x, t]; x0 = (x + std^2 s_p) / alpha
 //   f   = surr(x0)             ReLU MLP, xdim -> ydim
-//   dps:  v_c of the heteroscedastic Gaussian gradient (c = 1, 2, 3), three
-//         surrogate VJPs u_c = J^T v_c and three prior VJPs (ds_p/dx)^T u_c,
-//         combined as losses.likelihood_score_target, / alpha
+//   dps:  the heteroscedastic Gaussian gradient's three cotangents (v1, v2, v3
+//         of losses.likelihood_score_target) folded into one,
+//         v = -a^2 v1 + v2 + a^2 v3, since the target is linear in them;
+//         one surrogate VJP q = J^T v and one prior VJP
 //   pgdm: J by three forward tangents through the ReLU chain, the Woodbury
 //         solve with the 3x3 inner matrix inverted by its adjugate (the TPU
-//         kernel's expressions, term for term), q = J^T u, one prior VJP,
-//         s_lik = (q + std^2 (ds_p/dx)^T q) / alpha
+//         kernel's expressions, term for term), q = J^T u, one prior VJP
+//   both: s_lik = (q + std^2 (ds_p/dx)^T q) / alpha
 //   s_lik *= min(1, clip / (|s_lik| + 1e-12));  x += delta mu + sqrt(delta) sigma xi
 // with xi from an in-kernel Philox4x32-10 keyed by (seed, row, step).
 //
 // What bounds it on an H100: f32 arithmetic.  At the dps_prior shapes
 // (4 -> 512^3 -> 3 prior, 3 -> 256^3 -> 23 surrogate) a sample-step is
-// ~5.3 MFLOP in 'dps' mode (prior forward 1.06, three prior VJPs 3.17,
-// surrogate forward 0.28, three surrogate VJPs 0.83) and ~3.2 MFLOP in
-// 'pgdm' mode: ~0.48 s and ~0.29 s per 30k x 200 launch at the 67 TFLOP/s
-// non-tensor f32 peak.  No TF32 or bf16: the guidance divides by
+// ~2.66 MFLOP in 'dps' mode (prior forward and one VJP 2.12, surrogate
+// forward and one VJP 0.55) and ~3.2 MFLOP in 'pgdm' mode (the three
+// Jacobian tangents): ~0.24 s and ~0.29 s per 30k x 200 launch at the
+// 67 TFLOP/s non-tensor f32 peak.  No TF32 or bf16: the guidance divides by
 // (a f)^2 + b^2 with b = 0.01.
 //
 // Design.  A block owns 64 rows for all steps, 512 threads.  Each product
@@ -32,16 +33,18 @@
 // in registers until every thread has read the layer's input and then
 // written over it, so one 64 x 512 f32 buffer (128 KB) serves every layer.
 // The working set does not fit beside it: the three 512-wide tanh layers
-// alone are 384 KB for 64 rows, and stacking the three cotangents would
-// triple the buffer.  So (a) the cotangents run one after another through
-// the same buffer (three passes over the weights, each reused by 64 rows),
-// (b) the ReLU masks are kept as bits in shared memory (8 rows per byte),
-// and (c) the prior's tanh derivatives 1 - h^2 go to a per-block scratch
-// slab in global memory, written in the forward pass and read back by each
-// VJP pass within the same step (L2-resident for the blocks in flight).
+// alone are 384 KB for 64 rows.  So (a) each step runs one backward pass
+// per net (the dps cotangents are folded, pgdm's tangents run one after
+// another through the same buffer), (b) the ReLU masks are kept as bits in
+// shared memory (8 rows per byte), and (c) the prior's tanh derivatives
+// 1 - h^2 go to a per-block scratch slab in global memory, written in the
+// forward pass and read back once by the VJP in the same step.  With one
+// block per SM the slabs in flight are 132 x 3 x 512 x 64 x 4 B ~ 52 MB,
+// a little above the 50 MB L2, so part of them goes to HBM: at most
+// ~0.8 MB per block-step, ~74 GB per 30k x 200 launch, ~22 ms at 3.35 TB/s.
 // Fewer rows per block would fit the working set in shared memory but
-// stream every weight matrix for fewer rows; recomputing the forward per
-// pass would cost a third more arithmetic.
+// stream every weight matrix for fewer rows; recomputing the forward in
+// the backward pass would cost a third more arithmetic.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,10 +75,10 @@ struct GuidedArgs {
   const float* x0;     // (n, xdim)
   const float* y;      // (ydim,)
   Mlp prior, surr;
-  const float* noise;  // (num_steps, n, xdim) or null
+  const float* noise;  // (stop_step - start_step, n, xdim) or null
   float* out;          // (n, xdim)
   float* scratch;      // per block: (1 + prior.n_mid) x prior.width x 64 floats
-  int n, xdim, ydim, num_steps, pgdm, has_clip;
+  int n, xdim, ydim, num_steps, start_step, stop_step, pgdm, has_clip;  // runs steps [start, stop) of num_steps
   float T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale, a2, b2, clip;
   unsigned long long seed;
 };
@@ -240,9 +243,9 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
   float* sp = xs + G_MAX_XDIM * G_ROWS;           // [xdim][64] prior score
   float* fz = sp + G_MAX_XDIM * G_ROWS;           // [ydim][64] surrogate output
   float* jac = fz + G_MAX_YDIM * G_ROWS;          // [3][ydim][64] pgdm Jacobian
-  float* vj = jac + 3 * G_MAX_YDIM * G_ROWS;      // [3][xdim][64] surrogate VJPs (pgdm: q)
-  float* vh = vj + 3 * G_MAX_XDIM * G_ROWS;       // [3][xdim][64] prior VJPs
-  float* ys = vh + 3 * G_MAX_XDIM * G_ROWS;       // [ydim]
+  float* vj = jac + 3 * G_MAX_YDIM * G_ROWS;      // [xdim][64] q, the surrogate VJP
+  float* vh = vj + G_MAX_XDIM * G_ROWS;           // [xdim][64] the prior VJP of q
+  float* ys = vh + G_MAX_XDIM * G_ROWS;           // [ydim]
   uint8_t* masks = reinterpret_cast<uint8_t*>(ys + G_MAX_YDIM);  // [1 + n_mid][width][8]
   const size_t mask_layer = (size_t)Su.width * (G_ROWS / 8);
   float* slab = p.scratch + (size_t)blockIdx.x * (1 + P.n_mid) * P.width * G_ROWS;
@@ -256,7 +259,7 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
   }
   __syncthreads();
 
-  for (int step = 0; step < p.num_steps; ++step) {
+  for (int step = p.start_step; step < p.stop_step; ++step) {
     const float tt = ((float)step / (float)p.num_steps) * p.T;
     const float s = p.T - tt;
     const float beta = p.beta_min + p.bd * s;
@@ -282,21 +285,17 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
     reduce_small(act, Su.width, Su.wo, ydim, Su.bo, fz);
 
     if (!p.pgdm) {
-      for (int c = 0; c < 3; ++c) {
-        for (int i = tid; i < ydim * G_ROWS; i += G_THREADS) {
-          const float f = fz[i], resid = ys[i / G_ROWS] - f;
-          const float pinv = 1.f / ((p.a2 * f) * f + p.b2);
-          act[i] = c == 0 ? f * pinv : c == 1 ? resid * pinv : ((resid * resid) * f) * (pinv * pinv);
-        }
-        __syncthreads();
-        gemm(Su.tn, act, ydim, Su.woT, EpiMask{masks + Su.n_mid * mask_layer});
-        for (int l = Su.n_mid - 1; l >= 0; --l) gemm(Su.tn, act, Su.width, Su.wT[l], EpiMask{masks + l * mask_layer});
-        float* vjc = vj + c * G_MAX_XDIM * G_ROWS;
-        reduce_small(act, Su.width, Su.w1T, xdim, nullptr, vjc);
-        for (int i = tid; i < xdim * G_ROWS; i += G_THREADS) act[i] = vjc[i];
-        __syncthreads();
-        prior_vjp(p, act, slab, vh + c * G_MAX_XDIM * G_ROWS);
+      for (int i = tid; i < ydim * G_ROWS; i += G_THREADS) {
+        const float f = fz[i], resid = ys[i / G_ROWS] - f;
+        const float pinv = 1.f / ((p.a2 * f) * f + p.b2);
+        act[i] = (-p.a2 * (f * pinv) + resid * pinv) + p.a2 * (((resid * resid) * f) * (pinv * pinv));
       }
+      __syncthreads();
+      gemm(Su.tn, act, ydim, Su.woT, EpiMask{masks + Su.n_mid * mask_layer});
+      for (int l = Su.n_mid - 1; l >= 0; --l) gemm(Su.tn, act, Su.width, Su.wT[l], EpiMask{masks + l * mask_layer});
+      reduce_small(act, Su.width, Su.w1T, xdim, nullptr, vj);
+      for (int i = tid; i < xdim * G_ROWS; i += G_THREADS) act[i] = vj[i];
+      __syncthreads();
     } else {
       // Jacobian rows k: tangent m1 * U1[k] through the ReLU chain
       for (int k = 0; k < 3; ++k) {
@@ -363,24 +362,14 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
         }
       }
       __syncthreads();
-      prior_vjp(p, act, slab, vh);
     }
+    prior_vjp(p, act, slab, vh);
 
     // guidance, its norm cap, and the Euler-Maruyama update: one thread per row
     if (tid < G_ROWS) {
       const int r = tid, row = row0 + r;
       float sl[G_MAX_XDIM];
-      for (int d = 0; d < xdim; ++d) {
-        const int i = d * G_ROWS + r;
-        if (!p.pgdm) {
-          const int c2 = G_MAX_XDIM * G_ROWS;
-          const float target = -p.a2 * (sig2 * vh[i] + vj[i]) + sig2 * vh[c2 + i] + vj[c2 + i] +
-                               p.a2 * (sig2 * vh[2 * c2 + i] + vj[2 * c2 + i]);
-          sl[d] = target / alpha;
-        } else {
-          sl[d] = (vj[i] + sig2 * vh[i]) / alpha;
-        }
-      }
+      for (int d = 0; d < xdim; ++d) sl[d] = (vj[d * G_ROWS + r] + sig2 * vh[d * G_ROWS + r]) / alpha;
       if (p.has_clip) {
         float ss = 0.f;
         for (int d = 0; d < xdim; ++d) ss += sl[d] * sl[d];
@@ -396,7 +385,7 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
         if (p.noise_scale != 0.f) {
           float z = 0.f;
           if (p.noise != nullptr) {
-            if (row < p.n) z = p.noise[((size_t)step * p.n + row) * xdim + d];
+            if (row < p.n) z = p.noise[((size_t)(step - p.start_step) * p.n + row) * xdim + d];
           } else {
             const uint4 b = philox4x32_10(make_uint4((uint32_t)row, (uint32_t)step, (uint32_t)(d >> 1), 0u), key);
             z = (d & 1) ? normal_from_bits(b.z, b.w) : normal_from_bits(b.x, b.y);
@@ -450,18 +439,21 @@ const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)
 int guided_em_launch(const float* x0, const float* y, const unsigned long long* prior_ptrs, int prior_mid,
                      int prior_width, const unsigned long long* surr_ptrs, int surr_mid, int surr_width,
                      const float* noise, float* out, float* scratch, int n, int xdim, int ydim,
-                     int num_steps, int pgdm, int has_clip, float T, float beta_min, float bd,
+                     int num_steps, int start_step, int stop_step, int pgdm, int has_clip, float T,
+                     float beta_min, float bd,
                      float c_drift, float c_sigma, float delta, float sqrt_delta, float noise_scale,
                      float a2, float b2, float clip, unsigned long long seed, void* stream) {
-  if (n < 1 || num_steps < 1 || xdim < 1 || xdim > G_MAX_XDIM || ydim < 1 || ydim > G_MAX_YDIM ||
-      (pgdm && xdim != 3))
+  if (n < 1 || start_step < 0 || stop_step <= start_step || stop_step > num_steps || xdim < 1 ||
+      xdim > G_MAX_XDIM || ydim < 1 || ydim > G_MAX_YDIM || (pgdm && xdim != 3))
     return (int)cudaErrorInvalidValue;
   GuidedArgs p;
   if (!unpack_mlp(p.prior, prior_ptrs, prior_mid, prior_width, true) ||
       !unpack_mlp(p.surr, surr_ptrs, surr_mid, surr_width, false))
     return (int)cudaErrorInvalidValue;
   p.x0 = x0; p.y = y; p.noise = noise; p.out = out; p.scratch = scratch;
-  p.n = n; p.xdim = xdim; p.ydim = ydim; p.num_steps = num_steps; p.pgdm = pgdm; p.has_clip = has_clip;
+  p.n = n; p.xdim = xdim; p.ydim = ydim;
+  p.num_steps = num_steps; p.start_step = start_step; p.stop_step = stop_step;
+  p.pgdm = pgdm; p.has_clip = has_clip;
   p.T = T; p.beta_min = beta_min; p.bd = bd; p.c_drift = c_drift; p.c_sigma = c_sigma;
   p.delta = delta; p.sqrt_delta = sqrt_delta; p.noise_scale = noise_scale;
   p.a2 = a2; p.b2 = b2; p.clip = clip; p.seed = seed;
@@ -469,7 +461,7 @@ int guided_em_launch(const float* x0, const float* y, const unsigned long long* 
                            ? (prior_width > surr_width ? prior_width : surr_width)
                            : G_MAX_YDIM;
   const size_t smem = sizeof(float) * ((size_t)act_rows * G_ROWS + 2 * G_MAX_XDIM * G_ROWS +
-                                       4 * G_MAX_YDIM * G_ROWS + 6 * G_MAX_XDIM * G_ROWS + G_MAX_YDIM) +
+                                       4 * G_MAX_YDIM * G_ROWS + 2 * G_MAX_XDIM * G_ROWS + G_MAX_YDIM) +
                       (size_t)(1 + surr_mid) * surr_width * (G_ROWS / 8);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(guided_em_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

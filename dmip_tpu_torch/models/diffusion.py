@@ -86,6 +86,12 @@ class DiffusionModel:
     def net_out(self) -> int:
         return self.xdim
 
+    @property
+    def conditions_on_y(self) -> bool:
+        """Whether the net takes y beside the diffused state (the CDE), or
+        the diffused state already holds y (the CDiffE)."""
+        return True
+
     def init(self, generator: Optional[torch.Generator] = None, device=None):
         return nets.mlp_init(
             self.net_in, self.net_out, self.hidden_layers, generator=generator, device=device
@@ -133,7 +139,7 @@ class DiffusionModel:
                 eps = torch.randn(z0.shape, generator=generator, device=gen_dev, dtype=z0.dtype).to(z0.device)
             if cfg.name == "DSM":
                 z_t = base.diffuse(t, z0, eps)
-                cond = cond_y if z0.shape[-1] == x.shape[-1] else None
+                cond = cond_y if self.conditions_on_y else None
                 score = self.apply_a(params, z_t, cond, t) / base.g(t)
                 return torch.mean(L.dsm_loss(score, base.std(t), eps)), {}
             if v is None and hutchinson:
@@ -200,6 +206,10 @@ class CDiffE(DiffusionModel):
     @property
     def net_out(self) -> int:
         return self.xdim + self.ydim
+
+    @property
+    def conditions_on_y(self) -> bool:
+        return False
 
     def diffusion_state(self, x: Tensor, y: Tensor):
         return torch.cat([x, y], dim=1), y

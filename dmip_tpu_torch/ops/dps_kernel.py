@@ -5,10 +5,12 @@ reverse-SDE step and sample row, with s = T - i/N T:
 
   * the prior net's score s_p = prior(x, s) and the Tweedie estimate
     x0 = (x + std^2 s_p) / alpha;
-  * ``guidance='dps'``: the surrogate f = surr(x0), three surrogate VJPs of
-    the heteroscedastic Gaussian gradient's cotangents v1, v2, v3 and three
-    prior-net VJPs at x (the chain rule through Tweedie), combined into
-    ``losses.likelihood_score_target`` / alpha;
+  * ``guidance='dps'``: the surrogate f = surr(x0) and
+    ``losses.likelihood_score_target`` / alpha.  That target is linear in
+    the heteroscedastic Gaussian gradient's three cotangents v1, v2, v3, so
+    they are folded into v = -a^2 v1 + v2 + a^2 v3 before the backward
+    passes: one surrogate VJP q = J^T v and one prior-net VJP at x (the
+    chain rule through Tweedie), s_lik = (q + std^2 (ds_p/dx)^T q) / alpha;
   * ``guidance='pgdm'``: f and the Jacobian J = df/dx0 (three forward
     tangents through the ReLU chain), the Woodbury solve
     u = (D + r^2 J J^T)^-1 (y - f) with the 3 x 3 inner matrix inverted by
@@ -21,7 +23,8 @@ Everything is f32: the guidance divides by (a f)^2 + b^2 with b = 0.01, so
 TF32 or bf16 products would be amplified a hundredfold.  The kernel
 (``csrc/dps_kernel.cu``) is f32 SIMT; :func:`guided_em_reference` is its
 plain PyTorch version, the same expressions in the same order as the TPU
-kernel, with TF32 switched off for its products.  :func:`fused_guided_em_sampler`
+kernel (the dps cotangents folded as in the kernel), with TF32 switched
+off for its products.  :func:`fused_guided_em_sampler`
 takes the plain version only for CPU tensors; for a CUDA tensor it launches
 the kernel or raises.
 """
@@ -76,6 +79,13 @@ def _check_nets(prior_params, surrogate_params, xdim: int, guidance: str) -> int
     return surrogate_params[-1][0].shape[1]
 
 
+def _step_range(start_step: int, stop_step: Optional[int], num_steps: int) -> range:
+    stop = num_steps if stop_step is None else int(stop_step)
+    if not 0 <= start_step < stop <= num_steps:
+        raise ValueError(f"need 0 <= start_step < stop_step <= num_steps={num_steps}, got {start_step}, {stop_step}")
+    return range(int(start_step), stop)
+
+
 def guided_em_reference(
     prior_params: Sequence[Tuple[Tensor, Tensor]],
     surrogate_params: Sequence[Tuple[Tensor, Tensor]],
@@ -94,12 +104,17 @@ def guided_em_reference(
     noise: Optional[Tensor] = None,
     generator: Optional[torch.Generator] = None,
     guidance: str = "dps",
+    start_step: int = 0,
+    stop_step: Optional[int] = None,
 ) -> Tensor:
-    """Plain PyTorch version of B5.  x0 (N, xdim), y (ydim,); ``noise``
-    (num_steps, N, xdim) replaces the per-step normals, else they are drawn
-    from ``generator``.  Returns (N, xdim) float32."""
+    """Plain PyTorch version of B5.  x0 (N, xdim), y (ydim,); runs steps
+    [start_step, stop_step) of the num_steps grid (default: all of them)
+    from x0.  ``noise`` (stop_step - start_step, N, xdim) replaces the
+    per-step normals, else they are drawn from ``generator``.  Returns
+    (N, xdim) float32."""
     n, xdim = x0.shape
     _check_nets(prior_params, surrogate_params, xdim, guidance)
+    steps = _step_range(start_step, stop_step, num_steps)
     dev = x0.device
     f32 = lambda t: t.to(device=dev, dtype=torch.float32)
     w1, b1 = prior_params[0]
@@ -119,11 +134,10 @@ def guided_em_reference(
             hs.append(h)
         return h @ pwo + pbo, hs
 
-    def prior_vjp(e, hs, stack):
+    def prior_vjp(e, hs):
         ws = [w for w, _ in pmid] + [pwo]
         for w, h in zip(reversed(ws), reversed(hs)):
-            hrep = h.repeat(stack, 1)
-            e = (e @ w.T) * (1.0 - hrep * hrep)
+            e = (e @ w.T) * (1.0 - h * h)
         return e @ w1x.T
 
     def surr_fwd(x):
@@ -133,21 +147,19 @@ def guided_em_reference(
             gs.append(g)
         return g @ surr[-1][0] + surr[-1][1], gs
 
-    def surr_vjp3(d, gs):
+    def surr_vjp(d, gs):
         for (w, _), g in zip(reversed(surr[1:]), reversed(gs)):
-            d = (d @ w.T) * (g > 0.0).to(torch.float32).repeat(3, 1)
+            d = (d @ w.T) * (g > 0.0).to(torch.float32)
         return d @ surr[0][0].T
 
     def dps_score(x_hat0, hs, sig2, alpha):
         f, gs = surr_fwd(x_hat0)
         pinv = 1.0 / ((a2 * f) * f + b2)
         resid = yv - f
-        v = torch.cat([f * pinv, resid * pinv, (resid * resid) * f * (pinv * pinv)])
-        vjp = surr_vjp3(v, gs)
-        vhp = prior_vjp(vjp, hs, 3)
-        (vjp1, vjp2, vjp3), (vhp1, vhp2, vhp3) = vjp.split(n), vhp.split(n)
-        target = -a2 * (sig2 * vhp1 + vjp1) + sig2 * vhp2 + vjp2 + a2 * (sig2 * vhp3 + vjp3)
-        return target / alpha
+        # the cotangents f pinv, resid pinv, resid^2 f pinv^2, folded
+        v = (-a2 * (f * pinv) + resid * pinv) + a2 * (((resid * resid) * f) * (pinv * pinv))
+        q = surr_vjp(v, gs)
+        return (q + sig2 * prior_vjp(q, hs)) / alpha
 
     def pgdm_score(x_hat0, hs, sig2, alpha):
         r2 = sig2 / (alpha * alpha + sig2)
@@ -179,7 +191,7 @@ def guided_em_reference(
         z2 = (c02 * w[0] + c12 * w[1] + c22 * w[2]) * dinv3
         u = dr - r2 * (dinv * (z0 * j[0] + z1 * j[1] + z2 * j[2]))
         q = torch.cat([torch.sum(j[k] * u, dim=1, keepdim=True) for k in range(3)], dim=1)
-        return (q + sig2 * prior_vjp(q, hs, 1)) / alpha
+        return (q + sig2 * prior_vjp(q, hs)) / alpha
 
     score = dps_score if guidance == "dps" else pgdm_score
     one = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
@@ -187,7 +199,7 @@ def guided_em_reference(
     delta = T / num_steps
     x = x0.to(torch.float32)
     with _full_f32():
-        for i in range(num_steps):
+        for j, i in enumerate(steps):
             s = T_ - (one(i) / num_steps) * T_
             beta = bmin + bd * s
             g_s = torch.sqrt(beta)
@@ -202,7 +214,7 @@ def guided_em_reference(
             mu = (1.0 - 0.5 * lmbd) * g_s * (g_s * (s_prior + s_lik)) + 0.5 * beta * x
             x = x + delta * mu
             if noise_scale != 0.0:
-                z = noise[i].to(dev) if noise is not None else torch.randn(
+                z = noise[j].to(dev) if noise is not None else torch.randn(
                     x.shape, generator=generator, device=gen_dev).to(dev)
                 x = x + delta**0.5 * ((1.0 - lmbd) ** 0.5 * g_s) * (noise_scale * z)
     return x
@@ -263,17 +275,18 @@ _ARGTYPES = (
     + [ctypes.POINTER(ctypes.c_uint64), ctypes.c_int, ctypes.c_int]
     + [ctypes.POINTER(ctypes.c_uint64), ctypes.c_int, ctypes.c_int]
     + [ctypes.c_void_p] * 3
-    + [ctypes.c_int] * 6
+    + [ctypes.c_int] * 8
     + [ctypes.c_float] * 11
     + [ctypes.c_uint64, ctypes.c_void_p]
 )
 
 
 def _launch(prior_params, surrogate_params, x0, y, a, b, guidance_clip, num_steps, T, beta_min,
-            beta_max, lmbd, noise_scale, noise, seed, guidance):
+            beta_max, lmbd, noise_scale, noise, seed, guidance, start_step, stop_step):
     n, xdim = x0.shape
     dev = x0.device
     ydim = _check_nets(prior_params, surrogate_params, xdim, guidance)
+    steps = _step_range(start_step, stop_step, num_steps)
     if not 1 <= xdim <= MAX_XDIM or not 1 <= ydim <= MAX_YDIM:
         raise ValueError(f"the kernel takes xdim <= {MAX_XDIM} and ydim <= {MAX_YDIM}, got {xdim}, {ydim}")
     if len(prior_params) - 2 > MAX_MID or len(surrogate_params) - 2 > MAX_MID:
@@ -286,8 +299,8 @@ def _launch(prior_params, surrogate_params, x0, y, a, b, guidance_clip, num_step
     if y.numel() != ydim:
         raise ValueError(f"y has {y.numel()} entries, the surrogate gives {ydim}")
     if noise is not None:
-        if noise.shape != (num_steps, n, xdim) or noise.dtype != torch.float32:
-            raise ValueError(f"noise must be float32 of shape {(num_steps, n, xdim)}")
+        if noise.shape != (len(steps), n, xdim) or noise.dtype != torch.float32:
+            raise ValueError(f"noise must be float32 of shape {(len(steps), n, xdim)}")
         if noise.device != dev or not noise.is_contiguous():
             raise ValueError("noise must be contiguous on the device of x0")
     prior, surr, H, S = _device_nets(prior_params, surrogate_params, xdim)
@@ -306,7 +319,7 @@ def _launch(prior_params, surrogate_params, x0, y, a, b, guidance_clip, num_step
     err = fn(
         x0.data_ptr(), y_dev.data_ptr(), pp, len(prior_params) - 2, H, sp, len(surrogate_params) - 2, S,
         None if noise is None else noise.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        n, xdim, ydim, num_steps, int(guidance == "pgdm"), int(guidance_clip is not None),
+        n, xdim, ydim, num_steps, steps.start, steps.stop, int(guidance == "pgdm"), int(guidance_clip is not None),
         T, beta_min, beta_max - beta_min, 1.0 - 0.5 * lmbd, (1.0 - lmbd) ** 0.5, delta, delta**0.5,
         noise_scale, a * a, b * b, 0.0 if guidance_clip is None else float(guidance_clip),
         seed & (2**64 - 1), torch.cuda.current_stream(dev).cuda_stream,
@@ -334,27 +347,32 @@ def fused_guided_em_sampler(
     noise_scale: float = 1.0,
     noise: Optional[Tensor] = None,
     guidance: str = "dps",
+    start_step: int = 0,
+    stop_step: Optional[int] = None,
 ) -> Tensor:
     """Run the analytic-guidance sampler from x0 (N, xdim) for the observed
     y (ydim,).  prior_params: the tanh prior net on [x, t]; surrogate_params:
     the ReLU surrogate xdim -> ydim (at least one hidden layer each).
     guidance: 'dps' or 'pgdm' (xdim must be 3); guidance_clip None means no
-    cap.  Returns (N, xdim) float32.
+    cap.  Runs steps [start_step, stop_step) of the num_steps grid (default:
+    all of them) from x0.  Returns (N, xdim) float32.
 
-    On a CUDA tensor this launches B5, with Philox noise keyed by ``seed``,
-    or ``noise`` (num_steps, N, xdim) when given.  On a CPU tensor it runs
+    On a CUDA tensor this launches B5, with Philox noise keyed by ``seed``
+    and the step's index on the grid, or ``noise`` (stop_step - start_step,
+    N, xdim) when given.  On a CPU tensor it runs
     :func:`guided_em_reference`, drawing noise from a generator seeded with
     ``seed``.
     """
     kw = dict(a=a, b=b, guidance_clip=guidance_clip, num_steps=num_steps, T=T, beta_min=beta_min,
-              beta_max=beta_max, lmbd=lmbd, noise_scale=noise_scale, noise=noise, guidance=guidance)
+              beta_max=beta_max, lmbd=lmbd, noise_scale=noise_scale, noise=noise, guidance=guidance,
+              start_step=start_step, stop_step=stop_step)
     if x0.device.type == "cpu":
         gen = torch.Generator().manual_seed(seed) if noise is None else None
         return guided_em_reference(prior_params, surrogate_params, x0, y, generator=gen, **kw)
     if x0.device.type != "cuda":
         raise ValueError(f"no kernel for device {x0.device}")
     return _launch(prior_params, surrogate_params, x0, y, a, b, guidance_clip, num_steps, T, beta_min,
-                   beta_max, lmbd, noise_scale, noise, seed, guidance)
+                   beta_max, lmbd, noise_scale, noise, seed, guidance, start_step, stop_step)
 
 
 fused_guided_em_sampler.launches = 0

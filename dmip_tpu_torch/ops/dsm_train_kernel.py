@@ -299,10 +299,7 @@ def make_fused_dsm_epoch_fn(
         t = sample_t(model.sde, xb.shape[1], u=torch.stack(ts))
         ep = torch.stack(eps)
         z_t = base.diffuse(t, torch.stack(z0s), ep)
-        # the net is conditioned on y only when x alone is diffused (the CDE);
-        # the CDiffE's diffused state already holds y
-        cond = yb.shape[-1] > 0 and ep.shape[-1] == xb.shape[-1]
-        h0 = torch.cat([z_t, yb, t], dim=-1) if cond else torch.cat([z_t, t], dim=-1)
+        h0 = torch.cat([z_t, yb, t] if model.conditions_on_y else [z_t, t], dim=-1)
         s1 = (base.std(t) / base.g(t)).expand(ep.shape)
         return h0, ep, s1
 

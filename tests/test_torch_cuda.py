@@ -188,3 +188,27 @@ def test_guided_kernel_matches_plain(cuda, guidance, clip):
     with pytest.raises(ValueError):
         wide = mlp_init(4, 3, (600,), generator=torch.Generator().manual_seed(3), device=cuda)
         fused_guided_em_sampler(wide, weights, x0, y, a=0.2, b=0.01, num_steps=2, guidance=guidance)
+
+
+def test_guided_kernel_step_window(cuda):
+    """B5 run in windows of the grid: steps [0, 7) then [7, 12) equal [0, 12)
+    bit for bit (Philox keyed by the step's index on the grid), one step at
+    s = T agrees with the plain version, and a bad window raises."""
+    prior = mlp_init(4, 3, (64, 64), generator=torch.Generator().manual_seed(2), device=cuda)
+    weights = scat.load_surrogate_weights(device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x0 = torch.randn(300, 3, generator=gen, device=cuda)
+    y = scat.surrogate_apply(weights, torch.tensor([[0.3, -0.5, 0.1]], device=cuda))[0]
+    kw = dict(a=0.2, b=0.01, guidance_clip=10.0, num_steps=200, seed=9)
+    whole = fused_guided_em_sampler(prior, weights, x0, y, stop_step=12, **kw)
+    part = fused_guided_em_sampler(prior, weights, x0, y, stop_step=7, **kw)
+    part = fused_guided_em_sampler(prior, weights, part, y, start_step=7, stop_step=12, **kw)
+    assert torch.equal(whole, part)
+    noise = torch.randn(1, 300, 3, generator=gen, device=cuda)
+    one = dict(kw, stop_step=1, noise=noise)
+    out = fused_guided_em_sampler(prior, weights, x0, y, **one)
+    ref = guided_em_reference(prior, weights, x0, y, **{k: v for k, v in one.items() if k != "seed"})
+    rel = (out - ref).abs().amax(dim=1) / (ref - x0).abs().amax(dim=1)
+    assert float(rel.median()) < 1e-5
+    with pytest.raises(ValueError, match="start_step"):
+        fused_guided_em_sampler(prior, weights, x0, y, start_step=5, stop_step=5, **kw)

@@ -136,6 +136,65 @@ def test_analytic_guidance_apply_a_matches_jax(guidance, clip):
     assert _rel(got.numpy(), want) < GUIDANCE_REL
 
 
+@pytest.mark.parametrize("guidance,clip", [("dps", 100.0), ("dps", 10.0), ("pgdm", 10.0)])
+def test_plain_sampler_steps_match_jax_full_size(guidance, clip):
+    """B5's plain version at the served shapes (dps_prior's 4 -> 512^3 -> 3
+    prior, the 3 -> 256^3 -> 23 surrogate, b = 0.01), every step of the
+    200-step grid against the JAX package's XLA E-M step through its
+    AnalyticGuidanceDPS.apply_a, from the JAX trajectory's state, noise off.
+    Whole trajectories are not comparable row by row: near s = T one step
+    amplifies a difference in x about tenfold.  One step differs in f32
+    rounding, amplified by 1/alpha and the 1/b^2 precisions, so each row's
+    error is held relative to its step length: a bulk bound, and a few
+    outliers where a ReLU unit or the capped direction turns."""
+    prior, jprior, fwd, jfwd, fp, _, y, _ = _real_inputs()
+    jmodel, _ = jtrain.get_model_from_args({"model": "Posterior"}, fp)
+    jag = JAnalytic(jmodel, jfwd, fp, guidance_clip=clip, guidance=guidance)
+    n, steps = B, 200
+    x0 = np.random.default_rng(3).normal(size=(n, 3)).astype(np.float32)
+    cond = jnp.broadcast_to(jnp.asarray(y[0]), (n, y.shape[1]))
+
+    @jax.jit
+    def trajectory(x):  # the step of dmip_tpu.samplers.euler_maruyama, noise off
+        def step(x, t_i):
+            mu = jag.sde.mu(lambda xx, cc, ss: jag.apply_a({"prior": jprior}, xx, cc, ss),
+                            jnp.full((n, 1), t_i, jnp.float32), x, cond, 0.0)
+            x_next = x + (jag.sde.T / steps) * mu
+            return x_next, (x, x_next)
+        return jax.lax.scan(step, x, (jnp.arange(steps, dtype=jnp.float32) / steps) * jag.sde.T)[1]
+
+    xs, xns = (np.asarray(v) for v in trajectory(jnp.asarray(x0)))
+    rel = []
+    for i in range(steps):
+        got = guided_em_reference(prior, fwd.weights, torch.from_numpy(xs[i]), torch.from_numpy(y[0]), a=fp["a"],
+                                  b=fp["b"], guidance_clip=clip, num_steps=steps, noise_scale=0.0,
+                                  guidance=guidance, start_step=i, stop_step=i + 1).numpy()
+        move = np.abs(xns[i] - xs[i]).max(1)
+        rel.append(np.abs(got - xns[i]).max(1) / np.maximum(move, 1e-6))
+    rel = np.concatenate(rel)
+    assert np.isfinite(rel).all()
+    assert np.median(rel) < 1e-4 and np.quantile(rel, 0.99) < 2e-3 and (rel > 1e-2).mean() < 5e-3
+
+
+def test_plain_sampler_step_window():
+    """Steps [0, 3) then [3, 8) of the grid, with the noise split to match,
+    give [0, 8) exactly; a bad window raises."""
+    prior, _, fwd, _, fp, _, y, _ = _real_inputs()
+    gen = torch.Generator().manual_seed(5)
+    x0, noise = torch.randn(32, 3, generator=gen), torch.randn(8, 32, 3, generator=gen)
+    y0 = torch.from_numpy(y[0])
+    kw = dict(a=fp["a"], b=fp["b"], guidance_clip=10.0, num_steps=200)
+    for guidance in ("dps", "pgdm"):
+        whole = guided_em_reference(prior, fwd.weights, x0, y0, stop_step=8, noise=noise, guidance=guidance, **kw)
+        part = guided_em_reference(prior, fwd.weights, x0, y0, stop_step=3, noise=noise[:3], guidance=guidance, **kw)
+        part = guided_em_reference(prior, fwd.weights, part, y0, start_step=3, stop_step=8, noise=noise[3:],
+                                   guidance=guidance, **kw)
+        torch.testing.assert_close(part, whole, rtol=0, atol=0)
+    for start, stop in ((4, 4), (-1, 3), (0, 201)):
+        with pytest.raises(ValueError, match="start_step"):
+            guided_em_reference(prior, fwd.weights, x0, y0, start_step=start, stop_step=stop, **kw)
+
+
 def test_dps_prior_checkpoint_leaf_order():
     """JAX flattens the {likelihood, prior} dict in sorted-key order: leaves
     0..7 are the likelihood net (27 -> 512^3 -> 3), 8..15 the prior (4 ->
