@@ -711,6 +711,32 @@ def b3_work(in_dim, out_dim, hidden, batch: int, n_steps: int):
     return flops, 2 * 3 * 4 * n_par + 4 * n_steps * batch * (in_dim + 2 * out_dim)
 
 
+def b3_phase_split(torch, gen) -> dict:
+    """B3's time per step split over its phases, at each problem's launch
+    shape: one warm-up launch, then one launch whose block 0 reads the
+    card's clock at every grid sync.  Mean microseconds per step and phase
+    (steps after the first), and the mean step."""
+    from dmip_tpu_torch.ops.dsm_train_kernel import fused_dsm_train_epochs, phase_names
+
+    out = {}
+    for name, (in_dim, out_dim, nb, epochs) in (("linear", B3_LIN), ("scat", B3_SCAT)):
+        params, mu, nu, h0, eps, s1 = b3_inputs(torch, in_dim, out_dim, nb, epochs, gen)
+        names = phase_names(len(params))
+        steps = epochs * nb
+        stamps = torch.zeros(1 + steps * len(names), dtype=torch.int64, device="cuda")
+        bkw = dict(n_epochs=epochs, n_batches=nb, batch_real=B3_BATCH, lr=B3_LR, n_active=epochs)
+        fused_dsm_train_epochs(params, mu, nu, 7, h0, eps, s1, **bkw)
+        fused_dsm_train_epochs(params, mu, nu, 7, h0, eps, s1, stamps=stamps, **bkw)
+        torch.cuda.synchronize()
+        ends = stamps[1:].reshape(steps, len(names)).double()
+        starts = torch.cat([stamps[:1].double(), ends[:-1, -1]])
+        dt = torch.diff(torch.cat([starts[:, None], ends], 1), dim=1)[1:] / 1e3
+        out[name] = {"step_us": float(dt.sum(1).mean()),
+                     **{n: float(v) for n, v in zip(names, dt.mean(0))}}
+        del params, mu, nu, h0, eps, s1
+    return out
+
+
 def run() -> list:
     import torch
 
@@ -822,6 +848,7 @@ def run() -> list:
     b3_plain_ms = sum(b3_launches[k] * b3_t[k][1] for k in b3_t) / n_b3
     b3_bound, b3_by = bound_ms(b3_flops, b3_bytes, H100_BF16_FLOPS)
     b3_bound /= n_b3
+    b3_split = b3_phase_split(torch, gen)
     # B4 at the serving shape (cdiffe_scat, the only shape the main path
     # launches); B5 in both guidance modes at the dps_prior shapes
     cd_params = cdiffe_nets["cdiffe_scat"][0]
@@ -845,6 +872,7 @@ def run() -> list:
           mh_chains=MH_CHAINS, mh_ms=mh_ms, mh_plain_ms=mh_plain_ms,
           b3_ms_by_net={k: v[0] for k, v in b3_t.items()}, b3_plain_ms_by_net={k: v[1] for k, v in b3_t.items()},
           b3_launches_by_net=b3_launches, b3_launches_cdiffe_train=cdiffe_train["dsm_train"],
+          b3_phase_us_by_net=b3_split,
           b4_ms=b4_ms, b4_plain_ms=b4_plain_ms, b4_bound_ms=b4_bound,
           b5_ms_by_guidance={k: v[0] for k, v in b5_t.items()},
           b5_plain_ms_by_guidance={k: v[1] for k, v in b5_t.items()},

@@ -75,6 +75,7 @@ struct DsmArgs {
   const int* count0; // Adam count on entry
   float* count_out;  // Adam count on exit
   float* losses;     // (n_epochs,): mean batch loss per epoch
+  long long* stamps; // null, or 1 + steps * (2L + 1) %globaltimer reads
   int B, n_epochs, n_batches, n_active, guard;  // guard: 0 off, 1 grads, 2 loss
   int hmax;
   float inv_b, lr, b1, omb1, b2, omb2, log_b1, log_b2, adam_eps;
@@ -250,6 +251,14 @@ __device__ float block_sum(Smem& sm, float x) {
   return out;
 }
 
+__device__ __forceinline__ void stamp(long long* stamps, long long i) {
+  if (stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    stamps[i] = t;
+  }
+}
+
 __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 template <bool BF16>
@@ -264,6 +273,8 @@ __global__ void __launch_bounds__(DT_THREADS, 2) dsm_train_kernel(const DsmArgs 
   const int tiles_out = cdiv(B, DT_TM) * cdiv(out_dim, DT_TN);
   float cnt = (float)a.count0[0];
   float epoch_acc = 0.f;  // block 0, thread 0: running sum of the epoch's batch losses
+  long long n_stamp = 0;
+  stamp(a.stamps, n_stamp++);
 
   for (int s = 0; s < n_steps; ++s) {
     const int e = s / a.n_batches, i_batch = s % a.n_batches;
@@ -306,6 +317,7 @@ __global__ void __launch_bounds__(DT_THREADS, 2) dsm_train_kernel(const DsmArgs 
         __syncthreads();
       }
       grid.sync();
+      stamp(a.stamps, n_stamp++);
     }
 
     // ---- backward, one phase per layer: dW_k and db_k beside da_{k-1} ----
@@ -358,6 +370,7 @@ __global__ void __launch_bounds__(DT_THREADS, 2) dsm_train_kernel(const DsmArgs 
         __syncthreads();
       }
       grid.sync();
+      stamp(a.stamps, n_stamp++);
       float* tmp = dzc;
       dzc = dzn;
       dzn = tmp;
@@ -401,6 +414,7 @@ __global__ void __launch_bounds__(DT_THREADS, 2) dsm_train_kernel(const DsmArgs 
       cnt = cnt_new;
     }
     grid.sync();
+    stamp(a.stamps, n_stamp++);
   }
   if (blockIdx.x == 0 && tid == 0) a.count_out[0] = cnt;
 }
@@ -417,7 +431,7 @@ int dsm_train_launch(float* p, float* m, float* v, float* g, const long long* w_
                      float* dz1, float* loss_part, int* bad, const int* count0, float* count_out,
                      float* losses, int B, int n_epochs, int n_batches, int n_active, int guard,
                      int bf16, float inv_b, float lr, float b1, float omb1, float b2, float omb2,
-                     float log_b1, float log_b2, float adam_eps, void* stream) {
+                     float log_b1, float log_b2, float adam_eps, long long* stamps, void* stream) {
   if (n_layers < 1 || n_layers > DT_MAX_LAYERS || B < 1 || n_epochs < 1 || n_batches < 1 ||
       guard < 0 || guard > 2)
     return (int)cudaErrorInvalidValue;
@@ -436,7 +450,7 @@ int dsm_train_launch(float* p, float* m, float* v, float* g, const long long* w_
   a.n_layers = n_layers; a.n_flat = n_flat;
   a.h0 = h0; a.eps = eps; a.s1 = s1; a.acts = acts; a.dz0 = dz0; a.dz1 = dz1;
   a.loss_part = loss_part; a.bad = bad; a.count0 = count0; a.count_out = count_out;
-  a.losses = losses;
+  a.losses = losses; a.stamps = stamps;
   a.B = B; a.n_epochs = n_epochs; a.n_batches = n_batches; a.n_active = n_active;
   a.guard = guard; a.hmax = hmax;
   a.inv_b = inv_b; a.lr = lr; a.b1 = b1; a.omb1 = omb1; a.b2 = b2; a.omb2 = omb2;

@@ -35,6 +35,12 @@ TILE = 64
 GUARDS = {False: 0, True: 1, "loss": 2}
 
 
+def phase_names(n_layers: int):
+    """Names of the phases that end in a grid sync, in the order of one step."""
+    return ([f"forward_{k}" for k in range(n_layers)] + [f"backward_{k}" for k in range(n_layers - 1, -1, -1)]
+            + ["adam"])
+
+
 def _check_args(params, mu, nu, h0, eps, s1, n_epochs, n_batches, batch_real, compute_dtype, skip_nonfinite):
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
@@ -149,7 +155,7 @@ _ARGTYPES = (
     + [ctypes.c_void_p] * 3                     # count0, count_out, losses
     + [ctypes.c_int] * 6                        # B, n_epochs, n_batches, n_active, guard, bf16
     + [ctypes.c_float] * 9                      # inv_b, lr, b1, 1-b1, b2, 1-b2, log b1, log b2, eps
-    + [ctypes.c_void_p]                         # stream
+    + [ctypes.c_void_p] * 2                     # stamps (or null), stream
 )
 
 
@@ -158,7 +164,7 @@ def _flat(tree: Pairs) -> Tensor:
 
 
 def _launch(params, mu, nu, count, h0, eps, s1, n_epochs, n_batches, batch_real, lr, n_active,
-            b1, b2, adam_eps, compute_dtype, skip_nonfinite):
+            b1, b2, adam_eps, compute_dtype, skip_nonfinite, stamps=None):
     dev = h0.device
     L = len(params)
     if L > MAX_LAYERS:
@@ -207,7 +213,7 @@ def _launch(params, mu, nu, count, h0, eps, s1, n_epochs, n_batches, batch_real,
         loss_part.data_ptr(), bad.data_ptr(), count0.data_ptr(), count_out.data_ptr(), losses.data_ptr(),
         bp, n_epochs, n_batches, int(n_active), GUARDS[skip_nonfinite], int(compute_dtype == torch.bfloat16),
         1.0 / batch_real, lr, b1, 1.0 - b1, b2, 1.0 - b2, math.log(b1), math.log(b2), adam_eps,
-        torch.cuda.current_stream(dev).cuda_stream,
+        None if stamps is None else stamps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, "dsm_train_launch")
     fused_dsm_train_epochs.launches += 1
@@ -237,9 +243,14 @@ def fused_dsm_train_epochs(
     adam_eps: float = 1e-8,
     compute_dtype=torch.bfloat16,
     skip_nonfinite=True,
+    stamps: Tensor | None = None,
 ):
     """Run n_epochs x n_batches fused DSM optimizer steps; same arguments
     and results as :func:`dsm_train_epochs_reference`.
+
+    stamps: None, or an int64 CUDA tensor of 1 + n_epochs x n_batches x
+    len(phase_names(L)) entries, into which the kernel writes the card's
+    nanosecond clock at its start and at the end of every phase.
 
     skip_nonfinite: True (a step with any non-finite gradient is skipped),
     'loss' (a step with a non-finite batch loss is skipped) or False.  On a
@@ -250,10 +261,16 @@ def fused_dsm_train_epochs(
     args = (params, mu, nu, count, h0, eps, s1, n_epochs, n_batches, batch_real, lr, n_active,
             b1, b2, adam_eps, compute_dtype, skip_nonfinite)
     if h0.device.type == "cpu":
+        if stamps is not None:
+            raise ValueError("stamps are taken only by the CUDA kernel")
         return dsm_train_epochs_reference(*args)
     if h0.device.type != "cuda":
         raise ValueError(f"no kernel for device {h0.device}")
-    return _launch(*args)
+    if stamps is not None:
+        need = 1 + n_epochs * n_batches * len(phase_names(len(params)))
+        if stamps.dtype != torch.int64 or stamps.device != h0.device or stamps.numel() < need:
+            raise ValueError(f"stamps must be an int64 tensor of >= {need} entries on {h0.device}")
+    return _launch(*args, stamps=stamps)
 
 
 fused_dsm_train_epochs.launches = 0
