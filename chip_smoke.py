@@ -25,12 +25,14 @@ width:
 
 The E-M kernel is held against its plain version at both nets' shapes, the
 MH kernel at the 300k chains the ground-truth driver gives it, the training
-kernel at both nets' shapes (f32 and bf16, a masked epoch, a poisoned batch
-under both guards) and at the CDiffE's, the CDiffE kernel at
-``cdiffe_scat``'s and a linear CDiffE's shapes, and the guided kernel at the
-``dps_prior`` + surrogate shapes in both guidance modes.  Each kernel's
-``ms``, ``plain_ms`` and ``bound_ms`` are per launch, averaged over the main
-path's launches of each shape.
+kernel at the linear net's and the CDiffE's shapes (f32 and bf16, a masked
+epoch, two launches of one epoch against one of two, bit for bit, a poisoned
+batch under both guards) and at the scatterometry net's (f32), the CDiffE
+kernel at ``cdiffe_scat``'s and a linear CDiffE's shapes, and the guided
+kernel at the ``dps_prior`` + surrogate shapes in both guidance modes.  Each
+kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are per launch, averaged over
+the main path's launches of each shape; the timing phase also splits the
+training kernel's step over its phases (``b3_phase_us_by_net``).
 
 Launch counts are zeroed just before each path and read just after; the
 plain serving path then reruns the same conditions for comparison.  Prints one
@@ -39,6 +41,10 @@ line per phase with its seconds, the card's name and power limit, a
 Any failed check exits non-zero.  Run from the repository root:
 
     python3 chip_smoke.py
+
+``python3 chip_smoke.py --b3-variants`` instead only times the training
+kernel's build variants (wgmma or mma.sync products, 1 or 2 batch slices for
+the weight gradients) at its launch shapes and prints them as one JSON line.
 """
 
 from __future__ import annotations
@@ -416,7 +422,8 @@ def _rel_err(a, b):
 def check_b3(torch, in_dim, out_dim, n_batches, gen, full=True):
     """B3 against its plain version at one net's shapes, from the same
     params, moments and count on the same batches: f32 for 10 steps, and
-    with ``full`` bf16 for 2 epochs, the masked epoch and a poisoned batch
+    with ``full`` bf16 for 2 epochs, the masked epoch, one launch of 2
+    epochs against two launches of 1 (bit for bit) and a poisoned batch
     under both guards."""
     from dmip_tpu_torch.ops.dsm_train_kernel import dsm_train_epochs_reference, fused_dsm_train_epochs
 
@@ -459,6 +466,14 @@ def check_b3(torch, in_dim, out_dim, n_batches, gen, full=True):
     res["masked_vs_one_epoch"] = max(_max_err(masked[j], first[j]) for j in range(3))
     check(res["masked_vs_one_epoch"] == 0.0 and int(masked[3]) == int(first[3]) == 7 + n_batches,
           f"B3 masked epoch moved the state: {res}")
+    # the second epoch from the first one's state: the same bits as one launch of both
+    second = fused_dsm_train_epochs(*first[:4], h0[rows:], eps[rows:], s1[rows:], n_epochs=1, n_batches=n_batches,
+                                    n_active=1, **kw)
+    flat = lambda r: [t for tree in r[:3] for pair in tree for t in pair]
+    res["two_launches_equal_one"] = (all(torch.equal(x, y) for x, y in zip(flat(k), flat(second)))
+                                     and int(k[3]) == int(second[3])
+                                     and torch.equal(k[4], torch.cat([first[4], second[4]])))
+    check(res["two_launches_equal_one"], "B3: two launches of 1 epoch differ from one launch of 2")
     # a NaN in batch 1 of 3: under both guards the step leaves everything as
     # it was, so the result equals the run on batches 0 and 2 alone
     b = B3_BATCH
@@ -592,15 +607,15 @@ def serve_cdiffe_dps(torch, gt_dir) -> dict:
 
 
 def train_cdiffe(torch, gt_dir, gen) -> dict:
-    """B3 against its plain version at the CDiffE's 27 -> 26 shapes (f32, 8
-    steps), then CDiffE DSM training through the driver on the fused engine
-    (2 launches), evaluated through B4."""
+    """B3 against its plain version at the CDiffE's 27 -> 26 shapes (all of
+    check_b3's cases), then CDiffE DSM training through the driver on the
+    fused engine (2 launches), evaluated through B4."""
     from dmip_tpu_torch.mains import main_diffusion_scatterometry as mscat
     from dmip_tpu_torch.ops import fused_dsm_train_epochs, fused_em_sampler_cdiffe
     from dmip_tpu_torch.utils import load_config
 
     t0 = time.time()
-    b3 = check_b3(torch, B3_CDIFFE[0], B3_CDIFFE[1], B3_CDIFFE[2], gen, full=False)
+    b3 = check_b3(torch, B3_CDIFFE[0], B3_CDIFFE[1], B3_CDIFFE[2], gen)
     cfg = dict(load_config(os.path.join(REPO, "configs/config_scatterometry_cdiffe.yml")), **CDIFFE_TRAIN,
                train_backend="fused_pallas", n_samples_y=SCAT_CONDITIONS, n_samples_x=N_SAMPLES,
                n_repeats=CDIFFE_TRAIN_REPEATS, train_dir=os.path.join(gt_dir, "train_cdiffe"),
@@ -714,26 +729,55 @@ def b3_work(in_dim, out_dim, hidden, batch: int, n_steps: int):
 def b3_phase_split(torch, gen) -> dict:
     """B3's time per step split over its phases, at each problem's launch
     shape: one warm-up launch, then one launch whose block 0 reads the
-    card's clock at every grid sync.  Mean microseconds per step and phase
-    (steps after the first), and the mean step."""
+    card's clock at the end of its own work in every phase and when the
+    phase's grid sync returns.  Mean microseconds per step and phase (steps
+    after the first): the phase (``us``) and block 0's share of it before
+    the sync (``busy_us``); and the mean step."""
     from dmip_tpu_torch.ops.dsm_train_kernel import fused_dsm_train_epochs, phase_names
 
     out = {}
     for name, (in_dim, out_dim, nb, epochs) in (("linear", B3_LIN), ("scat", B3_SCAT)):
         params, mu, nu, h0, eps, s1 = b3_inputs(torch, in_dim, out_dim, nb, epochs, gen)
-        names = phase_names(len(params))
+        names = phase_names(len(params), out_dim)
         steps = epochs * nb
-        stamps = torch.zeros(1 + steps * len(names), dtype=torch.int64, device="cuda")
+        stamps = torch.zeros(1 + 2 * steps * len(names), dtype=torch.int64, device="cuda")
         bkw = dict(n_epochs=epochs, n_batches=nb, batch_real=B3_BATCH, lr=B3_LR, n_active=epochs)
         fused_dsm_train_epochs(params, mu, nu, 7, h0, eps, s1, **bkw)
         fused_dsm_train_epochs(params, mu, nu, 7, h0, eps, s1, stamps=stamps, **bkw)
         torch.cuda.synchronize()
-        ends = stamps[1:].reshape(steps, len(names)).double()
-        starts = torch.cat([stamps[:1].double(), ends[:-1, -1]])
-        dt = torch.diff(torch.cat([starts[:, None], ends], 1), dim=1)[1:] / 1e3
-        out[name] = {"step_us": float(dt.sum(1).mean()),
-                     **{n: float(v) for n, v in zip(names, dt.mean(0))}}
+        st = stamps[1:].reshape(steps, len(names), 2).double()
+        ends = st[:, :, 1]
+        starts = torch.cat([torch.cat([stamps[:1].double(), ends[:-1, -1]])[:, None], ends[:, :-1]], 1)
+        us, busy = ((ends - starts) / 1e3)[1:], ((st[:, :, 0] - starts) / 1e3)[1:]
+        out[name] = {"step_us": float(us.sum(1).mean()),
+                     **{n: {"us": float(u), "busy_us": float(b)} for n, u, b in zip(names, us.mean(0), busy.mean(0))}}
         del params, mu, nu, h0, eps, s1
+    return out
+
+
+def b3_variants(torch) -> dict:
+    """B3 per launch (ms, mean of 3 after a warm-up) and per phase at both
+    training launch shapes for each variant of the kernel: the bf16 products
+    on wgmma (the default) or on mma.sync (built with DT_MMA_SYNC), and the
+    weight gradients' batch in 1 (the default) or 2 slices."""
+    from dmip_tpu_torch.ops import build
+    from dmip_tpu_torch.ops import dsm_train_kernel as d
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    defaults, out = (d.DEFINES, d.SPLIT_K), {}
+    for label, defines, split in (("wgmma_split1", (), 1), ("wgmma_split2", (), 2),
+                                  ("mma_sync_split1", ("DT_MMA_SYNC",), 1)):
+        d.DEFINES, d.SPLIT_K = defines, split
+        report = build.build_all(["dsm_train_kernel"], defines)["dsm_train_kernel"].splitlines()
+        res = {"ptxas_kernels": [ln.strip() for i, ln in enumerate(report) if "Function properties for _Z16" in ln
+                                 for ln in report[i + 1:i + 3]]}
+        for name, (in_dim, out_dim, nb, epochs) in (("linear", B3_LIN), ("scat", B3_SCAT)):
+            params, mu, nu, h0, eps, s1 = b3_inputs(torch, in_dim, out_dim, nb, epochs, gen)
+            bkw = dict(n_epochs=epochs, n_batches=nb, batch_real=B3_BATCH, lr=B3_LR, n_active=epochs)
+            res[f"{name}_ms"] = cuda_ms(lambda: d.fused_dsm_train_epochs(params, mu, nu, 7, h0, eps, s1, **bkw), 3)
+        res["phase_us"] = b3_phase_split(torch, gen)
+        out[label] = res
+    d.DEFINES, d.SPLIT_K = defaults
     return out
 
 
@@ -903,7 +947,11 @@ def run() -> list:
 
 
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--b3-variants", action="store_true",
+                        help="only time the fused DSM training kernel's variants (wgmma or mma.sync, 1 or 2 "
+                             "batch slices) and print them as one JSON line")
+    args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -915,6 +963,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     card = card_line()
     print(f"card: {card}", flush=True)
+    if args.b3_variants:
+        print(json.dumps({"b3_variants": b3_variants(torch), "card": card}), flush=True)
+        return 0
     try:
         kernels = run()
     except CheckFailed as e:

@@ -15,6 +15,12 @@ step by step in torch, rounding every product's operands to
 takes it only for CPU tensors; for a CUDA tensor it launches the kernel or
 raises.  :func:`make_fused_dsm_epoch_fn` is the drop-in epoch engine behind
 ``train_backend: fused_pallas``.
+
+The wrapper hands the kernel its state zero-padded to whole 64-wide tiles
+(:func:`padded_widths`, :func:`pad_tree`) and cuts the result back
+(:func:`unpad_tree`).  This is exact: a padded unit has zero weights in and
+out, so its activation, gradient and Adam update are all 0, and a padded
+output column has s1 = eps = 0.
 """
 
 from __future__ import annotations
@@ -33,12 +39,6 @@ Pairs = Sequence[Tuple[Tensor, Tensor]]
 MAX_LAYERS = 10
 TILE = 64
 GUARDS = {False: 0, True: 1, "loss": 2}
-
-
-def phase_names(n_layers: int):
-    """Names of the phases that end in a grid sync, in the order of one step."""
-    return ([f"forward_{k}" for k in range(n_layers)] + [f"backward_{k}" for k in range(n_layers - 1, -1, -1)]
-            + ["adam"])
 
 
 def _check_args(params, mu, nu, h0, eps, s1, n_epochs, n_batches, batch_real, compute_dtype, skip_nonfinite):
@@ -144,23 +144,56 @@ def dsm_train_epochs_reference(
     return pairs(p), pairs(m), pairs(v), cnt.to(torch.int32), torch.stack(losses)
 
 
-_ARGTYPES = (
-    [ctypes.c_void_p] * 4                       # p, m, v, g (flat, updated in place)
-    + [ctypes.POINTER(ctypes.c_int64)] * 2      # w_off, b_off
-    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]  # dims, n_layers
-    + [ctypes.c_int64]                          # n_flat
-    + [ctypes.c_void_p] * 3                     # h0, eps, s1
-    + [ctypes.c_void_p] * 3                     # acts, dz0, dz1
-    + [ctypes.c_void_p] * 2                     # loss_part, bad
-    + [ctypes.c_void_p] * 3                     # count0, count_out, losses
-    + [ctypes.c_int] * 6                        # B, n_epochs, n_batches, n_active, guard, bf16
-    + [ctypes.c_float] * 9                      # inv_b, lr, b1, 1-b1, b2, 1-b2, log b1, log b2, eps
-    + [ctypes.c_void_p] * 2                     # stamps (or null), stream
-)
+_ARGTYPES = [ctypes.c_void_p] * 6  # ptrs, offs, dims, iargs, fargs (host arrays), stream
+SPLIT_K = 1  # slices of the batch in a weight gradient's product (see csrc/dsm_train_kernel.cu)
+# preprocessor definitions of the kernel's build: ("DT_MMA_SYNC",) runs the
+# bf16 products on mma.sync in place of wgmma (for comparison)
+DEFINES: Tuple[str, ...] = ()
 
 
 def _flat(tree: Pairs) -> Tensor:
     return torch.cat([t.reshape(-1).to(torch.float32) for pair in tree for t in pair]).contiguous()
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def padded_widths(dims: Sequence[int]):
+    """The kernel's widths: the input as it is, every fan-out rounded up to
+    a multiple of TILE."""
+    return [dims[0]] + [_cdiv(d, TILE) * TILE for d in dims[1:]]
+
+
+def pad_tree(tree: Pairs, widths: Sequence[int]):
+    """(W, b) pairs zero-padded to ``widths`` (fan-in of layer k is
+    widths[k], fan-out widths[k + 1])."""
+    pad = torch.nn.functional.pad
+    return tuple((pad(w, (0, widths[k + 1] - w.shape[1], 0, widths[k] - w.shape[0])),
+                  pad(b, (0, widths[k + 1] - b.shape[0]))) for k, (w, b) in enumerate(tree))
+
+
+def unpad_tree(tree: Pairs, dims: Sequence[int]):
+    """The inverse of :func:`pad_tree` for the real widths ``dims``."""
+    return tuple((w[:dims[k], :dims[k + 1]].contiguous(), b[:dims[k + 1]].contiguous())
+                 for k, (w, b) in enumerate(tree))
+
+
+def _fuses_output(n_layers: int, out_dim: int) -> bool:
+    """Whether the output layer's phase also runs backward layer L-1's da
+    tiles: with two layers or more and an output of at most TILE features."""
+    return n_layers >= 2 and out_dim <= TILE
+
+
+def phase_names(n_layers: int, out_dim: int):
+    """Names of the kernel's phases that end in a grid sync, in the order
+    of one step."""
+    L, fused = n_layers, _fuses_output(n_layers, out_dim)
+    names = [f"forward_{k}" for k in range(L - 1)] + [f"forward_{L - 1}" + ("+da" if fused else "")]
+    top, end = (L - 2, 0 if L == 2 else 1) if fused else (L - 1, 1)
+    for k in range(top, end - 1, -1):
+        names.append(f"backward_{k}" + (f"+dw_{L - 1}" if fused and k == L - 2 else "") + ("+dw_0" if k == 1 else ""))
+    return names + ["adam"]
 
 
 def _launch(params, mu, nu, count, h0, eps, s1, n_epochs, n_batches, batch_real, lr, n_active,
@@ -183,46 +216,68 @@ def _launch(params, mu, nu, count, h0, eps, s1, n_epochs, n_batches, batch_real,
     for t, name in ((h0, "h0"), (eps, "eps"), (s1, "s1")):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor")
-    count0 = torch.as_tensor(count, device=dev).to(torch.int32).reshape(1).contiguous()
-    p, m, v = _flat(params), _flat(mu), _flat(nu)
-    g = torch.empty_like(p)
-    offs, o = [], 0
-    for w, b in params:
-        offs.append((o, o + w.numel()))
-        o += w.numel() + b.numel()
+    f32, ct = torch.float32, compute_dtype
+    wd = padded_widths(dims)
+    in_pad = _cdiv(dims[0], TILE) * TILE
+    b_pad = _cdiv(bp, TILE) * TILE
+    n_mt = b_pad // TILE
     n_steps = n_epochs * n_batches
-    hmax = max(dims[1:-1], default=1)
-    acts = torch.empty((L - 1) * bp * hmax + 1, device=dev)
-    dz0 = torch.empty(bp * max(dims[1:]), device=dev)
-    dz1 = torch.empty_like(dz0)
-    tiles_out = -(-bp // TILE) * -(-dims[-1] // TILE)
-    loss_part = torch.empty(n_steps * tiles_out, device=dev)
-    bad = torch.zeros(n_steps, dtype=torch.int32, device=dev)
-    count_out = torch.empty(1, device=dev)
-    losses = torch.empty(n_epochs, device=dev)
-    w_off = (ctypes.c_int64 * L)(*[a for a, _ in offs])
-    b_off = (ctypes.c_int64 * L)(*[b for _, b in offs])
-    c_dims = (ctypes.c_int * (L + 1))(*dims)
-    lib = build.load("dsm_train_kernel")
+    # the flat padded state and the offsets of its tensors, operand copies and gradient partials
+    offs, o, wt, wr, pw, pb = [], 0, 0, 0, 0, 0
+    for k in range(L):
+        offs.append((o, o + wd[k] * wd[k + 1], wt, wr, pw, pb))
+        o += (wd[k] + 1) * wd[k + 1]
+        wt += wd[k + 1] * (in_pad if k == 0 else wd[k])
+        wr += 0 if k == 0 else wd[k] * wd[k + 1]
+        pw += (n_mt if k == 0 else SPLIT_K) * wd[k] * wd[k + 1]
+        pb += n_mt * wd[k + 1]
+    hmax, dmax = max(wd[1:-1], default=0), max(wd[1:])
+    state = [torch.empty(2, o, device=dev) for _ in range(3)]
+    for half, tree in zip(state, (params, mu, nu)):
+        half[0] = _flat(pad_tree(tree, wd))
+    count0 = torch.as_tensor(count, device=dev).to(torch.int32).reshape(1).contiguous()
+    bufs = [
+        *state,
+        torch.zeros(2, wt, dtype=ct, device=dev),             # W^T copies (W_0^T's pad columns stay 0)
+        torch.empty(2, max(wr, 1), dtype=ct, device=dev),     # W copies, k >= 1
+        torch.empty(max((L - 1) * b_pad * hmax, 1), device=dev),
+        torch.empty(max((L - 1) * b_pad * hmax, 1), dtype=ct, device=dev),
+        torch.empty(max((L - 1) * b_pad * hmax, 1), dtype=ct, device=dev),
+        torch.empty(3 * b_pad * dmax, dtype=ct, device=dev),
+        torch.empty(3 * b_pad * dmax, dtype=ct, device=dev),
+        torch.empty(pw, device=dev),
+        torch.empty(pb, device=dev),
+        h0, eps, s1,
+        torch.empty(n_steps * n_mt * (wd[-1] // TILE), device=dev),
+        torch.zeros(n_steps, dtype=torch.int32, device=dev),
+        count0,
+        torch.empty(1, device=dev),
+        torch.empty(1, dtype=torch.int64, device=dev),
+        torch.empty(n_epochs, device=dev),
+    ]
+    count_out, cur, losses = bufs[-3:]
+    ptrs = (ctypes.c_void_p * 22)(*[t.data_ptr() for t in bufs], None if stamps is None else stamps.data_ptr())
+    flat_offs = [o, wt, wr, b_pad * hmax, b_pad * dmax] + [x for row in offs for x in row]
+    iargs = [L, bp, b_pad, n_epochs, n_batches, int(n_active), GUARDS[skip_nonfinite], int(ct == torch.bfloat16),
+             SPLIT_K, dims[-1], in_pad, int(_fuses_output(L, dims[-1]))]
+    fargs = [1.0 / batch_real, lr, b1, 1.0 - b1, b2, 1.0 - b2, math.log(b1), math.log(b2), adam_eps]
+    lib = build.load("dsm_train_kernel", DEFINES)
     fn = lib.dsm_train_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    err = fn(
-        p.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(), w_off, b_off, c_dims, L, p.numel(),
-        h0.data_ptr(), eps.data_ptr(), s1.data_ptr(), acts.data_ptr(), dz0.data_ptr(), dz1.data_ptr(),
-        loss_part.data_ptr(), bad.data_ptr(), count0.data_ptr(), count_out.data_ptr(), losses.data_ptr(),
-        bp, n_epochs, n_batches, int(n_active), GUARDS[skip_nonfinite], int(compute_dtype == torch.bfloat16),
-        1.0 / batch_real, lr, b1, 1.0 - b1, b2, 1.0 - b2, math.log(b1), math.log(b2), adam_eps,
-        None if stamps is None else stamps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    err = fn(ptrs, (ctypes.c_int64 * len(flat_offs))(*flat_offs), (ctypes.c_int * (L + 1))(*wd),
+             (ctypes.c_int * len(iargs))(*iargs), (ctypes.c_float * len(fargs))(*fargs),
+             torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "dsm_train_launch")
     fused_dsm_train_epochs.launches += 1
 
-    def unflat(flat):
-        return tuple((flat[a:b].view(params[k][0].shape), flat[b:b + params[k][1].numel()])
-                     for k, (a, b) in enumerate(offs))
+    def unflat(half):
+        flat = half.index_select(0, cur)[0]
+        tree = tuple((flat[a:b].view(wd[k], wd[k + 1]), flat[b:b + wd[k + 1]])
+                     for k, (a, b, *_) in enumerate(offs))
+        return unpad_tree(tree, dims)
 
-    return unflat(p), unflat(m), unflat(v), count_out.to(torch.int32).reshape(()), losses
+    return (*(unflat(h) for h in state), count_out.to(torch.int32).reshape(()), losses)
 
 
 def fused_dsm_train_epochs(
@@ -248,9 +303,10 @@ def fused_dsm_train_epochs(
     """Run n_epochs x n_batches fused DSM optimizer steps; same arguments
     and results as :func:`dsm_train_epochs_reference`.
 
-    stamps: None, or an int64 CUDA tensor of 1 + n_epochs x n_batches x
-    len(phase_names(L)) entries, into which the kernel writes the card's
-    nanosecond clock at its start and at the end of every phase.
+    stamps: None, or an int64 CUDA tensor of 1 + 2 x n_epochs x n_batches
+    x len(phase_names(L, out)) entries, into which block 0 of the kernel
+    writes the card's nanosecond clock when the steps start, and for every
+    phase when its own work is done and when the phase's grid sync returns.
 
     skip_nonfinite: True (a step with any non-finite gradient is skipped),
     'loss' (a step with a non-finite batch loss is skipped) or False.  On a
@@ -267,7 +323,7 @@ def fused_dsm_train_epochs(
     if h0.device.type != "cuda":
         raise ValueError(f"no kernel for device {h0.device}")
     if stamps is not None:
-        need = 1 + n_epochs * n_batches * len(phase_names(len(params)))
+        need = 1 + 2 * n_epochs * n_batches * len(phase_names(len(params), eps.shape[1]))
         if stamps.dtype != torch.int64 or stamps.device != h0.device or stamps.numel() < need:
             raise ValueError(f"stamps must be an int64 tensor of >= {need} entries on {h0.device}")
     return _launch(*args, stamps=stamps)

@@ -92,6 +92,31 @@ def test_mh_kernel_matches_plain(cuda):
     assert np.isfinite(out.cpu().numpy()).all()
 
 
+# B3's nets: (in, hidden, out, batch): the linear and the CDiffE nets at
+# full width, and a narrow odd net whose widths and batch are not multiples
+# of the kernel's 64-wide tiles
+B3_NETS = {
+    "linear": (5, (512, 512, 512), 2, 1000),
+    "cdiffe": (27, (512, 512, 512), 26, 1000),
+    "narrow": (7, (40, 72), 3, 100),
+}
+
+
+def _b3_inputs(cuda, net, rows_per_batch=None, n_steps=6, seed=0):
+    in_dim, hidden, out, batch = B3_NETS[net]
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    params = mlp_init(in_dim, out, hidden, generator=torch.Generator().manual_seed(3), device=cuda)
+    mu = tuple((1e-3 * torch.randn(w.shape, generator=gen, device=cuda),
+                1e-3 * torch.randn(b.shape, generator=gen, device=cuda)) for w, b in params)
+    nu = tuple((m ** 2, n ** 2) for m, n in mu)
+    rows = n_steps * batch
+    h0 = torch.randn(rows, in_dim, generator=gen, device=cuda)
+    eps = torch.randn(rows, out, generator=gen, device=cuda)
+    s1 = torch.rand(rows, out, generator=gen, device=cuda)
+    return params, mu, nu, h0, eps, s1, batch
+
+
+@pytest.mark.parametrize("guard", [True, "loss", False])
 @pytest.mark.parametrize("dtype,param_tol,moment_rel,loss_rel", [
     # f32: the same arithmetic in another f32 sum order
     (torch.float32, 1e-5, 1e-4, 1e-5),
@@ -100,35 +125,57 @@ def test_mh_kernel_matches_plain(cuda):
     # lr-sized step
     (torch.bfloat16, 2e-3, 1e-2, 1e-3),
 ])
-def test_dsm_train_kernel_matches_plain(cuda, dtype, param_tol, moment_rel, loss_rel):
-    """2 epochs x 3 batches of 200 rows (not a multiple of the 64-row tile)
-    on a 7 -> 96 -> 80 -> 3 net, the second epoch masked; params, moments,
-    count and the active epoch's loss against the plain version."""
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    params = mlp_init(7, 3, (96, 80), generator=torch.Generator().manual_seed(3), device=cuda)
-    mu = tuple((1e-3 * torch.randn(w.shape, generator=gen, device=cuda),
-                1e-3 * torch.randn(b.shape, generator=gen, device=cuda)) for w, b in params)
-    nu = tuple((m ** 2, n ** 2) for m, n in mu)
-    rows = 2 * 3 * 200
-    h0 = torch.randn(rows, 7, generator=gen, device=cuda)
-    eps = torch.randn(rows, 3, generator=gen, device=cuda)
-    s1 = torch.rand(rows, 3, generator=gen, device=cuda)
-    kw = dict(n_epochs=2, n_batches=3, batch_real=200, lr=1e-3, n_active=1, compute_dtype=dtype)
+@pytest.mark.parametrize("net", list(B3_NETS))
+def test_dsm_train_kernel_matches_plain(cuda, net, dtype, param_tol, moment_rel, loss_rel, guard):
+    """2 epochs x 3 batches, the second epoch masked; under both guards a NaN
+    in one row of batch 1 (the step is skipped); params, moments, count and
+    the active epoch's loss against the plain version."""
+    params, mu, nu, h0, eps, s1, batch = _b3_inputs(cuda, net)
+    if guard:
+        h0[batch + 17, 0] = float("nan")
+    kw = dict(n_epochs=2, n_batches=3, batch_real=batch, lr=1e-3, n_active=1, compute_dtype=dtype,
+              skip_nonfinite=guard)
     before = fused_dsm_train_epochs.launches
     out = fused_dsm_train_epochs(params, mu, nu, 4, h0, eps, s1, **kw)
     ref = dsm_train_epochs_reference(params, mu, nu, 4, h0, eps, s1, **kw)
     torch.cuda.synchronize()
     assert fused_dsm_train_epochs.launches == before + 1
-    assert int(out[3]) == int(ref[3]) == 7
+    assert int(out[3]) == int(ref[3]) == (6 if guard else 7)
     pairs = lambda j: [(x, y) for a, b in zip(out[j], ref[j]) for x, y in zip(a, b)]
+    assert all(x.shape == y.shape for x, y in pairs(0))
     assert max(float((x - y).abs().max()) for x, y in pairs(0)) <= param_tol
     for j in (1, 2):
         assert max(float((x - y).abs().max() / y.abs().max()) for x, y in pairs(j)) <= moment_rel
-    assert float((out[4][0] - ref[4][0]).abs() / ref[4][0].abs()) <= loss_rel
+    if guard:
+        assert bool(torch.isnan(out[4][0])) and bool(torch.isnan(ref[4][0]))
+    else:
+        assert float((out[4][0] - ref[4][0]).abs() / ref[4][0].abs()) <= loss_rel
     with pytest.raises(ValueError):
         fused_dsm_train_epochs(params, mu, nu, 4, h0[:-1], eps, s1, **kw)
     with pytest.raises(ValueError):
         fused_dsm_train_epochs(params, mu, nu, 4, h0.double(), eps, s1, **kw)
+
+
+@pytest.mark.parametrize("net", ["linear", "narrow"])
+def test_dsm_train_kernel_is_deterministic_and_chunks_exactly(cuda, net):
+    """bf16: two launches on the same input give identical bits, and one
+    launch of 4 epochs equals two launches of 2 epochs bit for bit (params,
+    moments, count, losses)."""
+    params, mu, nu, h0, eps, s1, batch = _b3_inputs(cuda, net, n_steps=8)
+    kw = dict(n_batches=2, batch_real=batch, lr=1e-3)
+    one = fused_dsm_train_epochs(params, mu, nu, 4, h0, eps, s1, n_epochs=4, n_active=4, **kw)
+    again = fused_dsm_train_epochs(params, mu, nu, 4, h0, eps, s1, n_epochs=4, n_active=4, **kw)
+    half = 4 * batch
+    first = fused_dsm_train_epochs(params, mu, nu, 4, h0[:half], eps[:half], s1[:half], n_epochs=2,
+                                   n_active=2, **kw)
+    second = fused_dsm_train_epochs(*first[:4], h0[half:], eps[half:], s1[half:], n_epochs=2, n_active=2, **kw)
+    flat = lambda r: [t for tree in r[:3] for pair in tree for t in pair] + [r[3], r[4]]
+    for x, y in zip(flat(one), flat(again)):
+        assert torch.equal(x, y)
+    chunked = flat(second)[:-1] + [torch.cat([first[4], second[4]])]
+    for x, y in zip(flat(one), chunked):
+        assert torch.equal(x, y)
+    assert int(one[3]) == 12
 
 
 def test_em_cdiffe_kernel_matches_plain(cuda):

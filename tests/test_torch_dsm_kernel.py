@@ -18,6 +18,9 @@ from dmip_tpu_torch.ops.dsm_train_kernel import (
     dsm_train_epochs_reference,
     fused_dsm_train_epochs,
     make_fused_dsm_epoch_fn,
+    pad_tree,
+    padded_widths,
+    unpad_tree,
 )
 from dmip_tpu_torch.problems import LinearForwardProblem
 
@@ -99,6 +102,65 @@ def test_plain_matches_pallas_kernel_interpret(dtype, guard, n_active, b_real, t
         torch.testing.assert_close(direct[4], out[4], rtol=1e-6, atol=0, equal_nan=True)
 
 
+PAD_DIMS = [7, 40, 72, 3]  # widths that are not multiples of the kernel's 64-wide tiles
+
+
+def _torch_state(dims, seed):
+    g = torch.Generator().manual_seed(seed)
+    p = tuple((0.3 * torch.randn(a, b, generator=g), 0.1 * torch.randn(b, generator=g))
+              for a, b in zip(dims[:-1], dims[1:]))
+    mu = tuple((1e-3 * torch.randn(w.shape, generator=g), 1e-3 * torch.randn(b.shape, generator=g)) for w, b in p)
+    nu = tuple((m * m, n * n) for m, n in mu)
+    return p, mu, nu
+
+
+def test_padded_widths_and_round_trip():
+    assert padded_widths(PAD_DIMS) == [7, 64, 128, 64]
+    assert padded_widths([27, 512, 512, 512, 26]) == [27, 512, 512, 512, 64]
+    p, _, _ = _torch_state(PAD_DIMS, 0)
+    padded = pad_tree(p, padded_widths(PAD_DIMS))
+    assert [tuple(w.shape) for w, _ in padded] == [(7, 64), (64, 128), (128, 64)]
+    for (w, b), (wp, bp) in zip(p, unpad_tree(padded, PAD_DIMS)):
+        assert torch.equal(w, wp) and torch.equal(b, bp)
+
+
+@pytest.mark.parametrize("dtype,guard,n_active,nan_row", [
+    (torch.float32, True, 2, False),
+    (torch.float32, "loss", 2, True),
+    (torch.float32, False, 1, False),
+    (torch.bfloat16, True, 2, True),
+])
+def test_zero_padded_widths_give_the_unpadded_result(dtype, guard, n_active, nan_row):
+    """The premise of the kernel's padding: the plain version on state
+    zero-padded to whole 64-wide tiles (eps and s1 with zero columns) gives
+    the unpadded result to 1e-6, and every padded entry of params and
+    moments is still exactly 0 after 6 steps (under both guards the NaN
+    step is skipped)."""
+    p, mu, nu = _torch_state(PAD_DIMS, 1)
+    wd = padded_widths(PAD_DIMS)
+    g = torch.Generator().manual_seed(2)
+    rows, out = 2 * 3 * 13, PAD_DIMS[-1]
+    h0 = torch.randn(rows, PAD_DIMS[0], generator=g)
+    if nan_row:
+        h0[13 + 5, 2] = float("nan")  # epoch 0, batch 1
+    eps = torch.randn(rows, out, generator=g)
+    s1 = torch.rand(rows, out, generator=g)
+    kw = dict(n_epochs=2, n_batches=3, batch_real=13, lr=1e-3, n_active=n_active, compute_dtype=dtype,
+              skip_nonfinite=guard)
+    ref = dsm_train_epochs_reference(p, mu, nu, 3, h0, eps, s1, **kw)
+    zpad = lambda t: torch.nn.functional.pad(t, (0, wd[-1] - out))
+    padded = dsm_train_epochs_reference(pad_tree(p, wd), pad_tree(mu, wd), pad_tree(nu, wd), 3, h0, zpad(eps),
+                                        zpad(s1), **kw)
+    assert int(padded[3]) == int(ref[3]) == 3 + 3 * n_active - nan_row
+    for j in range(3):
+        for (w, b), (wp, bp) in zip(ref[j], unpad_tree(padded[j], PAD_DIMS)):
+            torch.testing.assert_close(wp, w, rtol=0, atol=1e-6)
+            torch.testing.assert_close(bp, b, rtol=0, atol=1e-6)
+        for full, zeroed in zip(padded[j], pad_tree(unpad_tree(padded[j], PAD_DIMS), wd)):
+            assert torch.equal(full[0], zeroed[0]) and torch.equal(full[1], zeroed[1])
+    torch.testing.assert_close(padded[4], ref[4], rtol=1e-6, atol=0, equal_nan=True)
+
+
 def test_cpu_wrapper_runs_plain_version_and_checks_arguments():
     rng, p, mu, nu = _state(1)
     arrays = [torch.from_numpy(a) for a in _batches(rng, 16, 16, False)]
@@ -117,6 +179,8 @@ def test_cpu_wrapper_runs_plain_version_and_checks_arguments():
         fused_dsm_train_epochs(*args, *arrays, compute_dtype=torch.float16, **kw)
     with pytest.raises(ValueError, match="skip_nonfinite"):
         fused_dsm_train_epochs(*args, *arrays, skip_nonfinite="grads", **kw)
+    with pytest.raises(ValueError, match="stamps"):
+        fused_dsm_train_epochs(*args, *arrays, stamps=torch.zeros(100, dtype=torch.int64), **kw)
 
 
 def test_fused_engine_matches_autograd_engine_f32():
