@@ -41,10 +41,6 @@ line per phase with its seconds, the card's name and power limit, a
 Any failed check exits non-zero.  Run from the repository root:
 
     python3 chip_smoke.py
-
-``python3 chip_smoke.py --b3-variants`` instead only times the training
-kernel's build variants (wgmma or mma.sync products, 1 or 2 batch slices for
-the weight gradients) at its launch shapes and prints them as one JSON line.
 """
 
 from __future__ import annotations
@@ -755,32 +751,6 @@ def b3_phase_split(torch, gen) -> dict:
     return out
 
 
-def b3_variants(torch) -> dict:
-    """B3 per launch (ms, mean of 3 after a warm-up) and per phase at both
-    training launch shapes for each variant of the kernel: the bf16 products
-    on wgmma (the default) or on mma.sync (built with DT_MMA_SYNC), and the
-    weight gradients' batch in 1 (the default) or 2 slices."""
-    from dmip_tpu_torch.ops import build
-    from dmip_tpu_torch.ops import dsm_train_kernel as d
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    defaults, out = (d.DEFINES, d.SPLIT_K), {}
-    for label, defines, split in (("wgmma_split1", (), 1), ("wgmma_split2", (), 2),
-                                  ("mma_sync_split1", ("DT_MMA_SYNC",), 1)):
-        d.DEFINES, d.SPLIT_K = defines, split
-        report = build.build_all(["dsm_train_kernel"], defines)["dsm_train_kernel"].splitlines()
-        res = {"ptxas_kernels": [ln.strip() for i, ln in enumerate(report) if "Function properties for _Z16" in ln
-                                 for ln in report[i + 1:i + 3]]}
-        for name, (in_dim, out_dim, nb, epochs) in (("linear", B3_LIN), ("scat", B3_SCAT)):
-            params, mu, nu, h0, eps, s1 = b3_inputs(torch, in_dim, out_dim, nb, epochs, gen)
-            bkw = dict(n_epochs=epochs, n_batches=nb, batch_real=B3_BATCH, lr=B3_LR, n_active=epochs)
-            res[f"{name}_ms"] = cuda_ms(lambda: d.fused_dsm_train_epochs(params, mu, nu, 7, h0, eps, s1, **bkw), 3)
-        res["phase_us"] = b3_phase_split(torch, gen)
-        out[label] = res
-    d.DEFINES, d.SPLIT_K = defaults
-    return out
-
-
 def run() -> list:
     import torch
 
@@ -947,11 +917,7 @@ def run() -> list:
 
 
 def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--b3-variants", action="store_true",
-                        help="only time the fused DSM training kernel's variants (wgmma or mma.sync, 1 or 2 "
-                             "batch slices) and print them as one JSON line")
-    args = parser.parse_args(argv)
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -963,9 +929,6 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     card = card_line()
     print(f"card: {card}", flush=True)
-    if args.b3_variants:
-        print(json.dumps({"b3_variants": b3_variants(torch), "card": card}), flush=True)
-        return 0
     try:
         kernels = run()
     except CheckFailed as e:

@@ -50,10 +50,9 @@
 // L = 1 there are 2).  After the adam sync every block reads the step's
 // flag (a non-finite gradient, the loss, the epoch mask) and flips to the
 // candidate half only if the step is taken: the guard stays exact without a
-// sync between the reduction and the update.  A weight gradient's product
-// over the batch can be cut into split_k slices stored apart (split-K); at
-// batch 1000 one slice is the fastest, since a phase already waits for its
-// da tiles and more slices only add tiles and partials to sum.
+// sync between the reduction and the update.  A weight gradient's tile
+// contracts over the whole batch: cut into slices (split-K) it was slower at
+// batch 1000, since a backward phase already waits for its da tiles.
 //
 // Operands.  Every product reads K-major copies in the compute type, written
 // once where their values are made: Adam writes W_k and W_k^T, the forward
@@ -62,17 +61,17 @@
 // streams 64-deep K chunks of both operands through a 5-stage ring in dynamic
 // shared memory, filled by 16-byte cp.async.cg copies (L1 bypassed, so no
 // block reads a stale line after a grid sync) with the 128-byte swizzle, and
-// each of the block's two warpgroups multiplies them with
-// wgmma.m64n32k16 bf16 -> f32 (mma.sync.m16n8k16 when built with
-// DT_MMA_SYNC); f32 compute runs FMA from the same ring.  The next step's
-// rows are prefetched into L2 during Adam.
+// each of the block's two warpgroups multiplies them with wgmma.m64n32k16
+// bf16 -> f32 (faster here than mma.sync.m16n8k16); f32 compute runs FMA
+// from the same ring.  The next step's rows are prefetched into L2 during
+// Adam.
 //
 // Code.  A step runs once through most of the kernel's code, so instruction
 // fetch, not arithmetic, sets much of a phase's time: every sizeable device
 // function stays out of line (one copy), loops stay rolled but for the few
 // loads a thread issues together, and the arguments live in shared memory.
-// Every sum whose order matters (the loss, db, dW_0, the split-K partials)
-// runs in a fixed order and there are no float atomics, so a launch is
+// Every sum whose order matters (the loss, db, dW_0's partials) runs in a
+// fixed order and there are no float atomics, so a launch is
 // deterministic.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -100,7 +99,7 @@ struct DsmArgs {
   long long wt_off[DT_MAX_LAYERS], wr_off[DT_MAX_LAYERS];
   long long pw_off[DT_MAX_LAYERS], pb_off[DT_MAX_LAYERS];
   int dims[DT_MAX_LAYERS + 1];  // dims[0] = in, dims[k + 1] = padded fan_out of layer k
-  int L, in_pad, out_real, B, B_pad, n_mt, split_k, fused_out;
+  int L, in_pad, out_real, B, B_pad, n_mt, fused_out;
   long long act_stride;    // elements per layer of the activation buffers
   long long dz_stride;     // elements per slot of the dz buffers
   float* act_f;            // (L - 1) x [B_pad][D]: f32 tanh outputs
@@ -108,7 +107,7 @@ struct DsmArgs {
   void* act_t;             // (L - 1) x [D][B_pad]: compute type, transposed
   void* dz_r;              // [3][B_pad][D]: slots 0 and 1 in turn, 2 for dz_{L-1} when fused_out
   void* dz_t;              // [3][D][B_pad]
-  float* part_w;           // split-K (k >= 1) or per-tile (k = 0) partials of dW_k
+  float* part_w;           // dW_k (k >= 1), or per-tile partials of dW_0
   float* part_b;           // per-tile partials of db_k
   const float* h0;         // (steps * B, in)
   const float* eps;        // (steps * B, out)
@@ -133,8 +132,8 @@ template <> struct Ty<float> {
 };
 
 // A slot holds 64 rows x 64 K elements; row r's 16-byte piece pc sits at
-// piece pc ^ (r % 8): for bf16 the 128-byte swizzle wgmma reads, and the
-// rows of one ldmatrix or one f32 read fall in distinct banks.
+// piece pc ^ (r % 8): for bf16 the 128-byte swizzle wgmma reads, and for
+// f32 the rows of one read fall in distinct banks.
 template <typename T> struct Slot {
   static constexpr int RB = DT_T * (int)sizeof(T);  // bytes a row
   static constexpr int PR = RB / 16;                // pieces a row
@@ -209,20 +208,8 @@ __device__ __noinline__ void load_h0(uint8_t* slot, int in, int B, const float* 
   }
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t* d, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The accumulator layout of both compute types, that of mma.m16n8: warp w
+// The accumulator layout of both compute types, that of wgmma m64n32 in
+// each warpgroup (and of mma.m16n8): warp w
 // holds rows 16 (w % 4) + g and + 8 (g = lane / 4) and columns
 // 32 (w / 4) + 8 j + 2 t and + 1 (t = lane % 4) for j < 4:
 // acc[j] = {(g, c), (g, c + 1), (g + 8, c), (g + 8, c + 1)}.
@@ -245,7 +232,6 @@ __device__ __forceinline__ void zero_acc(Acc& acc) {
 template <typename T>
 __device__ __forceinline__ void mma_slots(Acc& acc, const uint8_t* sa, const uint8_t* sb, int nk);
 
-#ifndef DT_MMA_SYNC
 // wgmma: warpgroup g multiplies the 64 A rows into B rows 32 g .. 32 g + 31.
 // Both slots are K-major with the 128-byte swizzle (8-row groups 1024 bytes
 // apart), which is the slot layout; a 16-deep step moves 32 bytes along K.
@@ -274,32 +260,6 @@ __device__ __forceinline__ void mma_slots<__nv_bfloat16>(Acc& acc, const uint8_t
 // Shared-memory writes of the generic proxy (st.shared, cp.async) made
 // visible to wgmma, which reads through the async proxy.
 __device__ __forceinline__ void fence_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-#else
-// The build option DT_MMA_SYNC: mma.sync.m16n8k16 from ldmatrix fragments,
-// kept to compare with wgmma.
-__device__ __forceinline__ void fence_async() {}
-
-template <>
-__device__ __forceinline__ void mma_slots<__nv_bfloat16>(Acc& acc, const uint8_t* sa, const uint8_t* sb, int nk) {
-  const int lane = threadIdx.x & 31, wm = (threadIdx.x >> 5) & 3, wn = threadIdx.x >> 7, mi = lane >> 3;
-  const uint32_t a_base = smem_u32(sa), b_base = smem_u32(sb);
-#pragma unroll 4
-  for (int ks = 0; ks < nk; ks += 16) {
-    uint32_t af[4], bf[2 * DT_NJ];
-    {
-      const int r = 16 * wm + (lane & 15), k = ks + (lane >> 4) * 8;
-      ldsm_x4(af, a_base + swz(r, k >> 3, 128));
-    }
-#pragma unroll
-    for (int jj = 0; jj < DT_NJ / 2; ++jj) {
-      const int n = 32 * wn + 8 * (2 * jj + (mi >> 1)) + (lane & 7), k = ks + (mi & 1) * 8;
-      ldsm_x4(&bf[4 * jj], b_base + swz(n, k >> 3, 128));
-    }
-#pragma unroll
-    for (int j = 0; j < DT_NJ; ++j) mma_bf16(acc[j], af, bf[2 * j], bf[2 * j + 1]);
-  }
-}
-#endif
 
 template <>
 __device__ __forceinline__ void mma_slots<float>(Acc& acc, const uint8_t* sa, const uint8_t* sb, int nk) {
@@ -614,8 +574,9 @@ __device__ __noinline__ void tile_out_da(const DsmArgs& a, int s, const T* wt, c
 
 // Adam's units of work, for layer k (K x N padded): tiles of DT_UR rows x 64
 // columns of W_k, then runs of DT_UB entries of b_k; a thread takes DT_UE
-// entries of a unit.  A W_k entry's gradient has split_k partials (n_mt for
-// W_0, one per 64 rows of the batch), a b_k entry's n_mt.
+// entries of a unit.  The gradients of W_0 and of every b_k come in n_mt
+// per-tile partials (one per 64 rows of the batch), those of W_k (k >= 1)
+// whole.
 #define DT_UE 4
 #define DT_UR (DT_UE * DT_THREADS / DT_T)
 #define DT_UB (DT_UE * DT_THREADS)
@@ -654,7 +615,7 @@ __device__ __noinline__ bool adam_unit(const DsmArgs& a, int u, int src, bool up
   }
   const int K = a.dims[k], N = a.dims[k + 1];
   const int dst = update ? src ^ 1 : src;
-  const int cnt = (!w || k == 0) ? a.n_mt : a.split_k;
+  const int cnt = (!w || k == 0) ? a.n_mt : 1;
   const long long stride = w ? (long long)K * N : N;
   const float* part = w ? a.part_w + a.pw_off[k] : a.part_b + a.pb_off[k];
   const long long base = (w ? a.w_off[k] : a.b_off[k]) + (long long)src * a.n_flat;
@@ -781,9 +742,8 @@ __device__ __noinline__ void forward_phase(const DsmArgs& a, int s, int cur, int
 }
 
 // Backward layer k of step s on state half `cur`, dz_k in slot `half`:
-// dz_{k-1} tiles (k >= 1), then split-K dW_k tiles (k >= 1), then with
-// fused_out in the first backward phase the split-K tiles of dW_{L-1}
-// (dz_{L-1} in slot 2).
+// dz_{k-1} tiles (k >= 1), then dW_k tiles (k >= 1), then with fused_out in
+// the first backward phase the tiles of dW_{L-1} (dz_{L-1} in slot 2).
 template <typename T>
 __device__ __noinline__ void backward_phase(const DsmArgs& a, int s, int cur, int k, int half) {
   const int L = a.L, K = a.dims[k], N = a.dims[k + 1];
@@ -791,8 +751,8 @@ __device__ __noinline__ void backward_phase(const DsmArgs& a, int s, int cur, in
   const T* wr = reinterpret_cast<const T*>(a.wr) + cur * a.wr_total;
   const T* dzr = reinterpret_cast<const T*>(a.dz_r) + half * a.dz_stride;
   const int tk = K / DT_T, tn = N / DT_T;
-  const int tiles_da = k >= 1 ? a.n_mt * tk : 0, tiles_dw = k >= 1 ? tk * tn * a.split_k : 0;
-  const int kt = a.dims[L - 1] / DT_T, tiles_top = a.fused_out && k == L - 2 ? kt * a.split_k : 0;
+  const int tiles_da = k >= 1 ? a.n_mt * tk : 0, tiles_dw = k >= 1 ? tk * tn : 0;
+  const int tiles_top = a.fused_out && k == L - 2 ? a.dims[L - 1] / DT_T * (a.dims[L] / DT_T) : 0;
   for (int t = blockIdx.x; t < tiles_da + tiles_dw + tiles_top; t += gridDim.x) {
     if (t < tiles_da) {
       // da (B, K) = dz (B x N) . W_k^T
@@ -800,15 +760,13 @@ __device__ __noinline__ void backward_phase(const DsmArgs& a, int s, int cur, in
       tile<T>(a, dzr, N, mt * DT_T, h0, wr + a.wr_off[k], N, n0, 0, N / DT_T, mt + t % tk, nullptr, 0);
       epilogue_da<T>(a, k, half ^ 1, h0, mt, n0);
     } else {
-      // slice j of dW_l (K_l, N_l) = a_{l-1}^T . dz_l over the batch, l = k or L-1
+      // dW_l (K_l, N_l) = a_{l-1}^T . dz_l over the batch, l = k or L-1
       const bool top = t >= tiles_da + tiles_dw;
-      const int l = top ? L - 1 : k, tt = top ? t - tiles_da - tiles_dw : t - tiles_da;
-      const int Kl = a.dims[l], Nl = a.dims[l + 1], tkl = Kl / DT_T, tnl = Nl / DT_T;
-      const int j = tt / (tkl * tnl), w = tt % (tkl * tnl), kc = a.B_pad / DT_T;
+      const int l = top ? L - 1 : k, w = top ? t - tiles_da - tiles_dw : t - tiles_da;
+      const int Nl = a.dims[l + 1], tnl = Nl / DT_T;
       tile<T>(a, reinterpret_cast<const T*>(a.act_t) + (l - 1) * a.act_stride, a.B_pad, (w / tnl) * DT_T, nullptr,
-              reinterpret_cast<const T*>(a.dz_t) + (top ? 2 : half) * a.dz_stride, a.B_pad, (w % tnl) * DT_T,
-              j * kc / a.split_k, (j + 1) * kc / a.split_k, w / tnl + w % tnl,
-              a.part_w + a.pw_off[l] + (long long)j * Kl * Nl, Nl);
+              reinterpret_cast<const T*>(a.dz_t) + (top ? 2 : half) * a.dz_stride, a.B_pad, (w % tnl) * DT_T, 0,
+              a.B_pad / DT_T, w / tnl + w % tnl, a.part_w + a.pw_off[l], Nl);
     }
   }
 }
@@ -925,9 +883,9 @@ int dsm_train_launch(void* const* ptrs, const long long* offs, const int* dims, 
   a.B = iargs[1]; a.B_pad = iargs[2]; a.n_mt = a.B_pad / DT_T;
   a.n_epochs = iargs[3]; a.n_batches = iargs[4]; a.n_active = iargs[5]; a.guard = iargs[6];
   const int bf16 = iargs[7];
-  a.split_k = iargs[8]; a.out_real = iargs[9]; a.in_pad = iargs[10]; a.fused_out = iargs[11];
+  a.out_real = iargs[8]; a.in_pad = iargs[9]; a.fused_out = iargs[10];
   if (a.B < 1 || a.B > a.B_pad || a.B_pad % DT_T || a.n_epochs < 1 || a.n_batches < 1 || a.guard < 0 ||
-      a.guard > 2 || a.split_k < 1 || a.in_pad % DT_T || (a.fused_out && (L < 2 || dims[L] != DT_T)))
+      a.guard > 2 || a.in_pad % DT_T || (a.fused_out && (L < 2 || dims[L] != DT_T)))
     return (int)cudaErrorInvalidValue;
   for (int k = 0; k <= L; ++k) {
     if (dims[k] < 1 || (k > 0 && dims[k] % DT_T)) return (int)cudaErrorInvalidValue;

@@ -14,7 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
-_loaded: Dict[Tuple[str, ...], ctypes.CDLL] = {}
+_loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -35,10 +35,9 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str, defines: Tuple[str, ...] = ()) -> str:
-    """Library path keyed by the source, every shared header and the
-    preprocessor definitions."""
-    h = hashlib.sha256(" ".join(defines).encode())
+def _lib_path(name: str) -> str:
+    """Library path keyed by the source and every shared header."""
+    h = hashlib.sha256()
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for fname in [f"{name}.cu", *headers]:
         with open(os.path.join(CSRC, fname), "rb") as f:
@@ -46,25 +45,24 @@ def _lib_path(name: str, defines: Tuple[str, ...] = ()) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
-def _start(name: str, defines: Tuple[str, ...] = ()):
+def _start(name: str):
     """Start nvcc for one source; returns (Popen, tmp path, final path), or
     None when the library is already built."""
-    out = _lib_path(name, defines)
+    out = _lib_path(name)
     if os.path.exists(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def build_all(names: Iterable[str] = KERNELS, defines: Tuple[str, ...] = ()) -> Dict[str, str]:
-    """Compile every named kernel in parallel, with the preprocessor
-    definitions ``defines``; returns nvcc's report (its ``-Xptxas -v``
-    register/shared-memory lines) per kernel.  Raises with the compiler's
-    output if any build fails."""
-    jobs = {n: _start(n, defines) for n in names}
+def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile every named kernel in parallel; returns nvcc's report (its
+    ``-Xptxas -v`` register/shared-memory lines) per kernel.  Raises with
+    the compiler's output if any build fails."""
+    jobs = {n: _start(n) for n in names}
     reports = {}
     failed = []
     for name, job in jobs.items():
@@ -83,14 +81,12 @@ def build_all(names: Iterable[str] = KERNELS, defines: Tuple[str, ...] = ()) -> 
     return reports
 
 
-def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu`` built with ``defines``,
-    building it if needed."""
-    key = (name, *defines)
-    if key not in _loaded:
-        build_all([name], defines)
-        _loaded[key] = ctypes.CDLL(_lib_path(name, defines))
-    return _loaded[key]
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    if name not in _loaded:
+        build_all([name])
+        _loaded[name] = ctypes.CDLL(_lib_path(name))
+    return _loaded[name]
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -145,10 +145,6 @@ def dsm_train_epochs_reference(
 
 
 _ARGTYPES = [ctypes.c_void_p] * 6  # ptrs, offs, dims, iargs, fargs (host arrays), stream
-SPLIT_K = 1  # slices of the batch in a weight gradient's product (see csrc/dsm_train_kernel.cu)
-# preprocessor definitions of the kernel's build: ("DT_MMA_SYNC",) runs the
-# bf16 products on mma.sync in place of wgmma (for comparison)
-DEFINES: Tuple[str, ...] = ()
 
 
 def _flat(tree: Pairs) -> Tensor:
@@ -216,7 +212,7 @@ def _launch(params, mu, nu, count, h0, eps, s1, n_epochs, n_batches, batch_real,
     for t, name in ((h0, "h0"), (eps, "eps"), (s1, "s1")):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor")
-    f32, ct = torch.float32, compute_dtype
+    ct = compute_dtype
     wd = padded_widths(dims)
     in_pad = _cdiv(dims[0], TILE) * TILE
     b_pad = _cdiv(bp, TILE) * TILE
@@ -229,13 +225,14 @@ def _launch(params, mu, nu, count, h0, eps, s1, n_epochs, n_batches, batch_real,
         o += (wd[k] + 1) * wd[k + 1]
         wt += wd[k + 1] * (in_pad if k == 0 else wd[k])
         wr += 0 if k == 0 else wd[k] * wd[k + 1]
-        pw += (n_mt if k == 0 else SPLIT_K) * wd[k] * wd[k + 1]
+        pw += (n_mt if k == 0 else 1) * wd[k] * wd[k + 1]
         pb += n_mt * wd[k + 1]
     hmax, dmax = max(wd[1:-1], default=0), max(wd[1:])
     state = [torch.empty(2, o, device=dev) for _ in range(3)]
     for half, tree in zip(state, (params, mu, nu)):
         half[0] = _flat(pad_tree(tree, wd))
     count0 = torch.as_tensor(count, device=dev).to(torch.int32).reshape(1).contiguous()
+    # in the order dsm_train_launch reads ptrs (csrc/dsm_train_kernel.cu)
     bufs = [
         *state,
         torch.zeros(2, wt, dtype=ct, device=dev),             # W^T copies (W_0^T's pad columns stay 0)
@@ -259,9 +256,9 @@ def _launch(params, mu, nu, count, h0, eps, s1, n_epochs, n_batches, batch_real,
     ptrs = (ctypes.c_void_p * 22)(*[t.data_ptr() for t in bufs], None if stamps is None else stamps.data_ptr())
     flat_offs = [o, wt, wr, b_pad * hmax, b_pad * dmax] + [x for row in offs for x in row]
     iargs = [L, bp, b_pad, n_epochs, n_batches, int(n_active), GUARDS[skip_nonfinite], int(ct == torch.bfloat16),
-             SPLIT_K, dims[-1], in_pad, int(_fuses_output(L, dims[-1]))]
+             dims[-1], in_pad, int(_fuses_output(L, dims[-1]))]
     fargs = [1.0 / batch_real, lr, b1, 1.0 - b1, b2, 1.0 - b2, math.log(b1), math.log(b2), adam_eps]
-    lib = build.load("dsm_train_kernel", DEFINES)
+    lib = build.load("dsm_train_kernel")
     fn = lib.dsm_train_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
