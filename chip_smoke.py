@@ -152,6 +152,18 @@ def phase(name: str, t0: float, **fields) -> None:
     print(json.dumps({"phase": name, "seconds": round(time.time() - t0, 3), **fields}), flush=True)
 
 
+def ptxas_lines(report: str) -> list:
+    """nvcc's ``-Xptxas -v`` report cut to its register and spill lines,
+    each spill line named by the (mangled) function it describes."""
+    out, fn = [], None
+    for ln in report.splitlines():
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for", 1)[1].strip()
+        elif "spill" in ln or "registers" in ln:
+            out.append(f"{fn}: {ln.strip()}" if "spill" in ln and fn else ln.strip())
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -772,9 +784,7 @@ def run() -> list:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.time()
     reports = build.build_all()
-    ptxas = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
-             for k, v in reports.items()}
-    phase("build", t0, ptxas=ptxas)
+    phase("build", t0, ptxas={k: ptxas_lines(v) for k, v in reports.items()})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     scat_cfg = load_config(os.path.join(REPO, "configs/config_scatterometry.yml"))

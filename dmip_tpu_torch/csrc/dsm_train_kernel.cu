@@ -147,7 +147,6 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
 }
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int N> __device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
-__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
 __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // The block's dynamic shared memory: the ring of DT_STAGES {A, B} slot
@@ -209,9 +208,8 @@ __device__ __noinline__ void load_h0(uint8_t* slot, int in, int B, const float* 
 }
 
 // The accumulator layout of both compute types, that of wgmma m64n32 in
-// each warpgroup (and of mma.m16n8): warp w
-// holds rows 16 (w % 4) + g and + 8 (g = lane / 4) and columns
-// 32 (w / 4) + 8 j + 2 t and + 1 (t = lane % 4) for j < 4:
+// each warpgroup: warp w holds rows 16 (w % 4) + g and + 8 (g = lane / 4)
+// and columns 32 (w / 4) + 8 j + 2 t and + 1 (t = lane % 4) for j < 4:
 // acc[j] = {(g, c), (g, c + 1), (g + 8, c), (g + 8, c + 1)}.
 typedef float Acc[DT_NJ][4];
 __device__ __forceinline__ int acc_row(int e) {
@@ -435,7 +433,7 @@ __device__ __noinline__ void epilogue_hidden(const DsmArgs& a, int k, const floa
   T* at = reinterpret_cast<T*>(a.act_t) + k * a.act_stride;
   // thread tid holds column tid % 64 of rows tid / 64 + DT_RS j
   const int c = threadIdx.x & 63, gc = n0 + c;
-  const float bv = ldcg(bias + gc);
+  const float bv = __ldcg(bias + gc);
 #pragma unroll 2
   for (int j = 0; j < DT_NE; ++j) {
     const int r = (threadIdx.x >> 6) + DT_RS * j, gr = m0 + r;
@@ -486,7 +484,7 @@ __device__ __noinline__ void epilogue_out(const DsmArgs& a, int s, int t, const 
   const float inv_b = a.inv_b;
   // thread tid holds column tid % 64 of rows tid / 64 + DT_RS j
   const int c = threadIdx.x & 63, gc = n0 + c;
-  const float bv = ldcg(bias + gc);
+  const float bv = __ldcg(bias + gc);
   float part = 0.f;
 #pragma unroll 1
   for (int j0 = 0; j0 < DT_NE; j0 += DT_LB) {
@@ -533,7 +531,7 @@ __device__ __noinline__ void epilogue_da(const DsmArgs& a, int k, int half, cons
 #pragma unroll
     for (int j = 0; j < DT_LB; ++j) {
       const int gr = m0 + (threadIdx.x >> 6) + DT_RS * (j0 + j);
-      ap[j] = gr < B ? ldcg(af + (long long)gr * N + n0 + c) : 0.f;
+      ap[j] = gr < B ? __ldcg(af + (long long)gr * N + n0 + c) : 0.f;
     }
 #pragma unroll
     for (int j = 0; j < DT_LB; ++j) {
@@ -633,9 +631,9 @@ __device__ __noinline__ bool adam_unit(const DsmArgs& a, int u, int src, bool up
     const int q = threadIdx.x + e * DT_THREADS;
     ok[e] = w ? i0 + (q >> 6) < K : n0 + q < N;
     loc[e] = w ? (long long)(i0 + (q >> 6)) * N + n0 + (q & 63) : n0 + q;
-    pv[e] = ok[e] ? ldcg(p + base + loc[e]) : 0.f;
-    mv[e] = update && ok[e] ? ldcg(m + base + loc[e]) : 0.f;
-    vv[e] = update && ok[e] ? ldcg(v + base + loc[e]) : 0.f;
+    pv[e] = ok[e] ? __ldcg(p + base + loc[e]) : 0.f;
+    mv[e] = update && ok[e] ? __ldcg(m + base + loc[e]) : 0.f;
+    vv[e] = update && ok[e] ? __ldcg(v + base + loc[e]) : 0.f;
     g[e] = 0.f;
   }
   bool bad = false;
@@ -644,7 +642,7 @@ __device__ __noinline__ bool adam_unit(const DsmArgs& a, int u, int src, bool up
     for (int j = 0; j < cnt; ++j)
 #pragma unroll
       for (int e = 0; e < DT_UE; ++e)
-        if (ok[e]) g[e] += ldcg(part + j * stride + loc[e]);
+        if (ok[e]) g[e] += __ldcg(part + j * stride + loc[e]);
 #pragma unroll
     for (int e = 0; e < DT_UE; ++e) {
       if (!ok[e]) continue;
@@ -794,7 +792,7 @@ __device__ __noinline__ bool step_taken(const DsmArgs& a, int s, float& epoch_ac
     // unrolled so that the loads go out together; the sum keeps its order
     float part_sum = 0.f;
 #pragma unroll 16
-    for (int t = 0; t < tiles_out; ++t) part_sum += ldcg(a.loss_part + (size_t)s * tiles_out + t);
+    for (int t = 0; t < tiles_out; ++t) part_sum += __ldcg(a.loss_part + (size_t)s * tiles_out + t);
     const float batch_loss = 0.5f * part_sum * a.inv_b;
     bool ok = e < a.n_active;
     if (a.guard == 2) ok = ok && isfinite(batch_loss);

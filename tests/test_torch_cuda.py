@@ -93,12 +93,17 @@ def test_mh_kernel_matches_plain(cuda):
 
 
 # B3's nets: (in, hidden, out, batch): the linear and the CDiffE nets at
-# full width, and a narrow odd net whose widths and batch are not multiples
-# of the kernel's 64-wide tiles
+# full width, a narrow odd net whose widths and batch are not multiples of
+# the kernel's 64-wide tiles, two layers (whose output phase also forms
+# dW_0), and the two shapes whose output layer takes a phase of its own: an
+# output wider than one tile, and a single layer
 B3_NETS = {
     "linear": (5, (512, 512, 512), 2, 1000),
     "cdiffe": (27, (512, 512, 512), 26, 1000),
     "narrow": (7, (40, 72), 3, 100),
+    "two_layer": (7, (40,), 3, 100),
+    "wide_out": (7, (40,), 80, 100),
+    "one_layer": (7, (), 3, 100),
 }
 
 
