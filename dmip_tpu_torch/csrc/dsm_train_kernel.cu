@@ -44,17 +44,15 @@
 //                  k = 1, dW_0's per-tile partials from h0
 //   adam           sums every gradient's partials in a fixed order, checks
 //                  them, and writes the candidate state (p, m, v and the
-//                  operand copies) into the other half of a double buffer;
-//                  the last block also sums the step's loss and checks it
+//                  operand copies) into the other half of a double buffer
 // That is 2L - 1 grid syncs a step: 7 for L = 4 (with out > 64 the output
 // layer's phase keeps no da tiles, and a backward phase L-1 runs: 2L; with
-// L = 1 there are 2).  After the adam sync every thread reads the step's
-// flag word (a non-finite gradient, a non-finite loss), takes the bit its
-// guard asks for and the epoch mask, and flips to the candidate half only
-// if the step is taken: the guard stays exact without a sync between the
-// reduction and the update.  A weight gradient's tile contracts over the
-// whole batch: cut into slices (split-K) it was slower at batch 1000, since
-// a backward phase already waits for its da tiles.
+// L = 1 there are 2).  After the adam sync every block reads the step's
+// flag (a non-finite gradient, the loss, the epoch mask) and flips to the
+// candidate half only if the step is taken: the guard stays exact without a
+// sync between the reduction and the update.  A weight gradient's tile
+// contracts over the whole batch: cut into slices (split-K) it was slower at
+// batch 1000, since a backward phase already waits for its da tiles.
 //
 // Operands.  Every product reads K-major copies in the compute type, written
 // once where their values are made: Adam writes W_k and W_k^T, the forward
@@ -70,9 +68,8 @@
 //
 // Code.  A step runs once through most of the kernel's code, so instruction
 // fetch, not arithmetic, sets much of a phase's time: every sizeable device
-// function stays out of line (one copy), loops stay rolled but for the loads
-// a thread issues together (all of an epilogue's at once: each round of
-// loads costs an L2 round trip), and the arguments live in shared memory.
+// function stays out of line (one copy), loops stay rolled but for the few
+// loads a thread issues together, and the arguments live in shared memory.
 // Every sum whose order matters (the loss, db, dW_0's partials) runs in a
 // fixed order and there are no float atomics, so a launch is
 // deterministic.
@@ -89,7 +86,7 @@ namespace cg = cooperative_groups;
 #define DT_T 64                    // tile rows, tile columns and K chunk depth
 #define DT_RS (DT_THREADS / DT_T)  // row stride when each thread walks one column
 #define DT_NE (DT_T * DT_T / DT_THREADS)  // entries of a 64x64 tile per thread
-#define DT_LB 16                   // loads a thread issues together in an epilogue
+#define DT_LB 4                    // loads a thread issues together in an epilogue
 #define DT_STAGES 5                // ring depth
 #define DT_CP 65                   // row pitch (floats) of the f32 staging tiles
 
@@ -116,7 +113,7 @@ struct DsmArgs {
   const float* eps;        // (steps * B, out)
   const float* s1;         // (steps * B, out)
   float* loss_part;        // (steps, tiles_out): per-tile sums of r^2
-  int* bad;                // (steps,): bit 0 a non-finite gradient, bit 1 a non-finite loss
+  int* bad;                // (steps,): a non-finite gradient was seen
   const int* count0;       // Adam count on entry
   float* count_out;        // Adam count on exit
   long long* cur_out;      // the half that holds the final state
@@ -154,9 +151,9 @@ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // The block's dynamic shared memory: the ring of DT_STAGES {A, B} slot
 // pairs, two more slots h and x (the operands of the output phase's da
-// product and of dW_0's partial), and DT_THREADS floats for reductions.
-// The f32 staging tiles c and c2 ([64][DT_CP] each) alias the ring, which
-// is idle whenever they are used.
+// product and of dW_0's partial), and DT_THREADS + 4 floats for reductions
+// and a broadcast word.  The f32 staging tiles c and c2 ([64][DT_CP] each)
+// alias the ring, which is idle whenever they are used.
 extern __shared__ uint8_t dsmem[];
 template <typename T> struct Smem {
   uint8_t *ring, *h, *x;
@@ -773,26 +770,9 @@ __device__ __noinline__ void backward_phase(const DsmArgs& a, int s, int cur, in
 }
 
 // Adam of step s from half `cur` (count cnt) into the other half, and the
-// next step's rows into L2.  The step's flag word gets bit 0 on a
-// non-finite gradient, and bit 1 on a non-finite batch loss, which the last
-// block (it has the fewest units) sums here and keeps in the epoch's mean.
+// next step's rows into L2; raises the step's flag on a non-finite gradient.
 template <typename T>
-__device__ __noinline__ void adam_phase(const DsmArgs& a, int s, int cur, float cnt, int n_units,
-                                        float& epoch_acc) {
-  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) {
-    const int tiles_out = a.n_mt * (a.dims[a.L] / DT_T);
-    // unrolled so that the loads go out together; the sum keeps its order
-    float part_sum = 0.f;
-#pragma unroll 16
-    for (int t = 0; t < tiles_out; ++t) part_sum += __ldcg(a.loss_part + (size_t)s * tiles_out + t);
-    const float batch_loss = 0.5f * part_sum * a.inv_b;
-    if (!isfinite(batch_loss)) atomicOr(a.bad + s, 2);
-    epoch_acc += batch_loss;
-    if (s % a.n_batches == a.n_batches - 1) {
-      a.losses[s / a.n_batches] = epoch_acc / (float)a.n_batches;
-      epoch_acc = 0.f;
-    }
-  }
+__device__ __noinline__ void adam_phase(const DsmArgs& a, int s, int cur, float cnt, int n_units) {
   const float cnt_new = cnt + 1.f;
   const float bc1 = 1.f - expf(cnt_new * a.log_b1);
   const float bc2 = 1.f - expf(cnt_new * a.log_b2);
@@ -802,10 +782,34 @@ __device__ __noinline__ void adam_phase(const DsmArgs& a, int s, int cur, float 
   if (__syncthreads_or(bad) && threadIdx.x == 0) atomicOr(a.bad + s, 1);
 }
 
-// Whether step s is taken, after the adam sync: the same answer in every
-// thread.  The guard's value (1 grads, 2 loss) is the flag bit it reads.
-__device__ __forceinline__ bool step_taken(const DsmArgs& a, int s) {
-  return s / a.n_batches < a.n_active && (__ldcg(a.bad + s) & a.guard) == 0;
+// Whether step s is taken (the same answer in every block), and block 0's
+// bookkeeping of the epoch's mean loss.
+template <typename T>
+__device__ __noinline__ bool step_taken(const DsmArgs& a, int s, float& epoch_acc) {
+  const Smem<T> sm;
+  if (threadIdx.x == 0) {
+    const int e = s / a.n_batches, tiles_out = a.n_mt * (a.dims[a.L] / DT_T);
+    // unrolled so that the loads go out together; the sum keeps its order
+    float part_sum = 0.f;
+#pragma unroll 16
+    for (int t = 0; t < tiles_out; ++t) part_sum += __ldcg(a.loss_part + (size_t)s * tiles_out + t);
+    const float batch_loss = 0.5f * part_sum * a.inv_b;
+    bool ok = e < a.n_active;
+    if (a.guard == 2) ok = ok && isfinite(batch_loss);
+    if (a.guard == 1) ok = ok && __ldcg(a.bad + s) == 0;
+    sm.red[DT_THREADS] = ok ? 1.f : 0.f;
+    if (blockIdx.x == 0) {
+      epoch_acc += batch_loss;
+      if (s % a.n_batches == a.n_batches - 1) {
+        a.losses[e] = epoch_acc / (float)a.n_batches;
+        epoch_acc = 0.f;
+      }
+    }
+  }
+  __syncthreads();
+  const bool ok = sm.red[DT_THREADS] != 0.f;
+  __syncthreads();
+  return ok;
 }
 
 template <typename T>
@@ -823,7 +827,7 @@ __global__ void __launch_bounds__(DT_THREADS, 2) dsm_train_kernel(const __grid_c
   int n_units = 0;
   for (int k = 0; k < L; ++k) n_units += w_units(a.dims[k], a.dims[k + 1]) + b_units(a.dims[k + 1]);
   float cnt = (float)a.count0[0];
-  float epoch_acc = 0.f;  // the last block's thread 0: running sum of the epoch's batch losses
+  float epoch_acc = 0.f;  // block 0, thread 0: running sum of the epoch's batch losses
   int cur = 0;
   long long n_stamp = 0;
 
@@ -844,9 +848,9 @@ __global__ void __launch_bounds__(DT_THREADS, 2) dsm_train_kernel(const __grid_c
       backward_phase<T>(a, s, cur, k, half);
       end_phase(grid, a.stamps, n_stamp);
     }
-    adam_phase<T>(a, s, cur, cnt, n_units, epoch_acc);
+    adam_phase<T>(a, s, cur, cnt, n_units);
     end_phase(grid, a.stamps, n_stamp);
-    if (step_taken(a, s)) {
+    if (step_taken<T>(a, s, epoch_acc)) {
       cur ^= 1;
       cnt += 1.f;
     }
@@ -859,7 +863,7 @@ __global__ void __launch_bounds__(DT_THREADS, 2) dsm_train_kernel(const __grid_c
 
 template <typename T>
 static size_t smem_bytes() {
-  return 2048 + (DT_STAGES * 2 + 2) * Slot<T>::BYTES + DT_THREADS * sizeof(float);
+  return 2048 + (DT_STAGES * 2 + 2) * Slot<T>::BYTES + (DT_THREADS + 4) * sizeof(float);
 }
 
 extern "C" {
