@@ -763,6 +763,79 @@ def b3_phase_split(torch, gen) -> dict:
     return out
 
 
+def b5_phase_split(torch, prior, weights, y, x0, fparams) -> dict:
+    """B5's time per step split over its phases, in both guidance modes at
+    the main path's shape: one launch whose block 0 reads the card's clock
+    at the end of each phase, after one without, which it must match bit
+    for bit.  Mean microseconds per step and phase over the 200 steps, and
+    the mean step."""
+    from dmip_tpu_torch.ops.dps_kernel import PHASES, fused_guided_em_sampler
+
+    out = {}
+    for guidance in ("dps", "pgdm"):
+        gkw = dict(a=fparams["a"], b=fparams["b"], guidance_clip=100.0, num_steps=EM_STEPS, guidance=guidance, seed=7)
+        stamps = torch.zeros(1 + len(PHASES) * EM_STEPS, dtype=torch.int64, device="cuda")
+        plain = fused_guided_em_sampler(prior, weights, x0, y, **gkw)
+        stamped = fused_guided_em_sampler(prior, weights, x0, y, stamps=stamps, **gkw)
+        torch.cuda.synchronize()
+        check(torch.equal(plain, stamped), f"B5 ({guidance}) with stamps differs from the run without")
+        st = stamps.double()
+        ends = st[1:].reshape(EM_STEPS, len(PHASES))
+        bounds = torch.cat([torch.cat([st[:1], ends[:-1, -1]])[:, None], ends], 1)
+        us = (bounds[:, 1:] - bounds[:, :-1]) / 1e3
+        out[guidance] = {"step_us": float(us.sum(1).mean()), **{n: float(u) for n, u in zip(PHASES, us.mean(0))}}
+    return out
+
+
+def b5_inputs(torch):
+    """(prior, surrogate weights, fparams, scatterometry test conditions) of
+    the analytic-DPS serving path."""
+    from dmip_tpu_torch.checkpoints import load_archived_params
+    from dmip_tpu_torch.mains import generate_scatterometry_ground_truth as gt
+    from dmip_tpu_torch.problems import scatterometry as scat
+    from dmip_tpu_torch.utils import load_config
+
+    scat_cfg = load_config(os.path.join(REPO, "configs/config_scatterometry.yml"))
+    forward_model, fparams = scat.load_forward_model(device="cuda")
+    ys = gt.test_conditions(scat_cfg, forward_model, fparams, "cuda")[:SCAT_CONDITIONS]
+    prior = load_archived_params(os.path.join(REPO, "benchmarks/checkpoints/dps_prior"), device="cuda")["prior"]
+    return prior, forward_model.weights, fparams, ys
+
+
+def run_b5(package: str, reps: int) -> dict:
+    """B5 alone, from the ``dmip_tpu_torch`` package under ``package`` (this
+    checkout's, or another's to compare with in the same call): its build,
+    with this checkout's package the step-by-step and sliced-W2 checks
+    against the plain version, then its ms per launch in both guidance
+    modes at the main path's shape, and the phase split where the kernel
+    takes stamps."""
+    import torch
+
+    from dmip_tpu_torch.ops import build, fused_guided_em_sampler
+    from dmip_tpu_torch.ops import dps_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.time()
+    reports = build.build_all(["dps_kernel"])
+    phase("build", t0, package=package, ptxas={k: ptxas_lines(v) for k, v in reports.items()})
+    prior, weights, fparams, ys = b5_inputs(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = {}
+    if os.path.samefile(package, REPO):
+        t0 = time.time()
+        res["check"] = check_b5(torch, prior, weights, ys, gen)
+        phase("b5_vs_plain", t0, samples=N_SAMPLES, **res["check"])
+    t0 = time.time()
+    x0 = torch.randn(N_SAMPLES, 3, generator=gen, device="cuda")
+    ms = {}
+    for guidance in ("dps", "pgdm"):
+        gkw = dict(a=fparams["a"], b=fparams["b"], guidance_clip=100.0, num_steps=EM_STEPS, guidance=guidance)
+        ms[guidance] = cuda_ms(lambda: fused_guided_em_sampler(prior, weights, x0, ys[0], seed=7, **gkw), reps)
+    split = b5_phase_split(torch, prior, weights, ys[0], x0, fparams) if hasattr(dps_kernel, "PHASES") else None
+    phase("b5_timing", t0, package=package, b5_ms_by_guidance=ms, b5_phase_us_by_guidance=split)
+    return ms
+
+
 def run() -> list:
     import torch
 
@@ -888,6 +961,7 @@ def run() -> list:
             cuda_ms(lambda: guided_em_reference(prior, weights, x0, y0, generator=gen, **gkw), 1),
             *bound_ms(*guided_work(prior, weights, N_SAMPLES, EM_STEPS, guidance), H100_F32_FLOPS),
         )
+    b5_split = b5_phase_split(torch, prior, weights, y0, x0, fparams)
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -900,7 +974,8 @@ def run() -> list:
           b4_ms=b4_ms, b4_plain_ms=b4_plain_ms, b4_bound_ms=b4_bound,
           b5_ms_by_guidance={k: v[0] for k, v in b5_t.items()},
           b5_plain_ms_by_guidance={k: v[1] for k, v in b5_t.items()},
-          b5_bound_ms_by_guidance={k: v[2] for k, v in b5_t.items()}, sm_clock_power_temp=clocks)
+          b5_bound_ms_by_guidance={k: v[2] for k, v in b5_t.items()}, b5_phase_us_by_guidance=b5_split,
+          sm_clock_power_temp=clocks)
 
     return [
         {"name": "fused_em_sampler", "route": "cuda", "source": "dmip_tpu_torch/csrc/em_kernel.cu",
@@ -927,7 +1002,13 @@ def run() -> list:
 
 
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--b5-only", action="store_true",
+                    help="build, check and time the guided sampler (B5) alone, and split its step into phases")
+    ap.add_argument("--package", default=REPO,
+                    help="with --b5-only: the checkout whose dmip_tpu_torch is timed (checked only if it is this one)")
+    ap.add_argument("--reps", type=int, default=3, help="with --b5-only: timed launches per guidance mode")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -936,9 +1017,18 @@ def main(argv=None) -> int:
     if not os.path.isdir(os.path.join(REPO, "dmip_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
     card = card_line()
     print(f"card: {card}", flush=True)
+    if args.b5_only:
+        sys.path.insert(0, os.path.abspath(args.package))
+        try:
+            run_b5(os.path.abspath(args.package), args.reps)
+        except CheckFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(card, flush=True)
+        return 0
+    sys.path.insert(0, REPO)
     try:
         kernels = run()
     except CheckFailed as e:

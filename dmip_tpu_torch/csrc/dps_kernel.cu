@@ -55,6 +55,7 @@
 #define G_MAX_MID 4
 #define G_MAX_XDIM 4
 #define G_MAX_YDIM 32
+#define G_PHASES 7   // prior forward, prior output, surrogate forward, guidance, surrogate VJP, prior VJP, update
 
 struct Mlp {
   // first layer (xdim -> W), its bias, and (for the prior) the time column
@@ -78,6 +79,7 @@ struct GuidedArgs {
   const float* noise;  // (stop_step - start_step, n, xdim) or null
   float* out;          // (n, xdim)
   float* scratch;      // per block: (1 + prior.n_mid) x prior.width x 64 floats
+  long long* stamps;   // null, or 1 + G_PHASES x (stop_step - start_step) %globaltimer reads
   int n, xdim, ydim, num_steps, start_step, stop_step, pgdm, has_clip;  // runs steps [start, stop) of num_steps
   float T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale, a2, b2, clip;
   unsigned long long seed;
@@ -221,6 +223,15 @@ struct EpiDfac {  // tanh backward: acc * (1 - h^2)
   }
 };
 
+// With stamps, block 0 reads the card's clock (ns) when a phase ends.
+__device__ __forceinline__ void stamp(long long* stamps, long long i) {
+  if (stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    stamps[i] = t;
+  }
+}
+
 // u (xdim rows of act) -> out[d][r] = ((ds_p/dx)^T u)[d], the prior net's VJP.
 __device__ __forceinline__ void prior_vjp(const GuidedArgs& p, float* act, const float* slab, float* out) {
   const Mlp& m = p.prior;
@@ -258,8 +269,10 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
     xs[i] = row < p.n ? p.x0[(size_t)row * xdim + d] : 0.f;
   }
   __syncthreads();
+  stamp(p.stamps, 0);
 
   for (int step = p.start_step; step < p.stop_step; ++step) {
+    const long long st = 1 + (long long)(step - p.start_step) * G_PHASES;
     const float tt = ((float)step / (float)p.num_steps) * p.T;
     const float s = p.T - tt;
     const float beta = p.beta_min + p.bd * s;
@@ -274,7 +287,9 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
     gemm(P.tn, act, xdim, P.w1, EpiTanh{P.w1t, P.b1, s, slab});
     for (int l = 0; l < P.n_mid; ++l)
       gemm(P.tn, act, P.width, P.w[l], EpiTanh{nullptr, P.b[l], 0.f, slab + (l + 1) * slab_layer});
+    stamp(p.stamps, st);
     reduce_small(act, P.width, P.wo, xdim, P.bo, sp);
+    stamp(p.stamps, st + 1);
 
     // Tweedie estimate, then the surrogate forward with its ReLU masks
     for (int i = tid; i < xdim * G_ROWS; i += G_THREADS) act[i] = (xs[i] + sig2 * sp[i]) / alpha;
@@ -283,6 +298,7 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
     for (int l = 0; l < Su.n_mid; ++l)
       gemm(Su.tn, act, Su.width, Su.w[l], EpiRelu{Su.b[l], masks + (l + 1) * mask_layer});
     reduce_small(act, Su.width, Su.wo, ydim, Su.bo, fz);
+    stamp(p.stamps, st + 2);
 
     if (!p.pgdm) {
       for (int i = tid; i < ydim * G_ROWS; i += G_THREADS) {
@@ -291,11 +307,13 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
         act[i] = (-p.a2 * (f * pinv) + resid * pinv) + p.a2 * (((resid * resid) * f) * (pinv * pinv));
       }
       __syncthreads();
+      stamp(p.stamps, st + 3);
       gemm(Su.tn, act, ydim, Su.woT, EpiMask{masks + Su.n_mid * mask_layer});
       for (int l = Su.n_mid - 1; l >= 0; --l) gemm(Su.tn, act, Su.width, Su.wT[l], EpiMask{masks + l * mask_layer});
       reduce_small(act, Su.width, Su.w1T, xdim, nullptr, vj);
       for (int i = tid; i < xdim * G_ROWS; i += G_THREADS) act[i] = vj[i];
       __syncthreads();
+      stamp(p.stamps, st + 4);
     } else {
       // Jacobian rows k: tangent m1 * U1[k] through the ReLU chain
       for (int k = 0; k < 3; ++k) {
@@ -362,8 +380,11 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
         }
       }
       __syncthreads();
+      stamp(p.stamps, st + 3);  // pgdm forms q = J^T u in the solve: no surrogate VJP phase
+      stamp(p.stamps, st + 4);
     }
     prior_vjp(p, act, slab, vh);
+    stamp(p.stamps, st + 5);
 
     // guidance, its norm cap, and the Euler-Maruyama update: one thread per row
     if (tid < G_ROWS) {
@@ -396,6 +417,7 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
       }
     }
     __syncthreads();
+    stamp(p.stamps, st + 6);
   }
 
   for (int i = tid; i < xdim * G_ROWS; i += G_THREADS) {
@@ -438,7 +460,7 @@ const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)
 // ceil(n / 64) x (1 + prior_mid) x prior_width x 64 floats.
 int guided_em_launch(const float* x0, const float* y, const unsigned long long* prior_ptrs, int prior_mid,
                      int prior_width, const unsigned long long* surr_ptrs, int surr_mid, int surr_width,
-                     const float* noise, float* out, float* scratch, int n, int xdim, int ydim,
+                     const float* noise, float* out, float* scratch, long long* stamps, int n, int xdim, int ydim,
                      int num_steps, int start_step, int stop_step, int pgdm, int has_clip, float T,
                      float beta_min, float bd,
                      float c_drift, float c_sigma, float delta, float sqrt_delta, float noise_scale,
@@ -450,7 +472,7 @@ int guided_em_launch(const float* x0, const float* y, const unsigned long long* 
   if (!unpack_mlp(p.prior, prior_ptrs, prior_mid, prior_width, true) ||
       !unpack_mlp(p.surr, surr_ptrs, surr_mid, surr_width, false))
     return (int)cudaErrorInvalidValue;
-  p.x0 = x0; p.y = y; p.noise = noise; p.out = out; p.scratch = scratch;
+  p.x0 = x0; p.y = y; p.noise = noise; p.out = out; p.scratch = scratch; p.stamps = stamps;
   p.n = n; p.xdim = xdim; p.ydim = ydim;
   p.num_steps = num_steps; p.start_step = start_step; p.stop_step = stop_step;
   p.pgdm = pgdm; p.has_clip = has_clip;

@@ -46,6 +46,9 @@ MAX_MID = 4          # hidden-to-hidden layers per net
 MAX_XDIM = 4
 MAX_YDIM = 32
 WIDTHS = (64, 128, 256, 512)  # hidden widths are zero-padded up to one of these
+# the step's phases, in the order the kernel's clock stamps end them ('pgdm'
+# forms q = J^T u inside its solve, so its surr_vjp phase is empty)
+PHASES = ("prior_fwd", "prior_out", "surr_fwd", "guidance", "surr_vjp", "prior_vjp", "update")
 
 
 @contextlib.contextmanager
@@ -274,7 +277,7 @@ _ARGTYPES = (
     [ctypes.c_void_p] * 2
     + [ctypes.POINTER(ctypes.c_uint64), ctypes.c_int, ctypes.c_int]
     + [ctypes.POINTER(ctypes.c_uint64), ctypes.c_int, ctypes.c_int]
-    + [ctypes.c_void_p] * 3
+    + [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 8
     + [ctypes.c_float] * 11
     + [ctypes.c_uint64, ctypes.c_void_p]
@@ -282,7 +285,7 @@ _ARGTYPES = (
 
 
 def _launch(prior_params, surrogate_params, x0, y, a, b, guidance_clip, num_steps, T, beta_min,
-            beta_max, lmbd, noise_scale, noise, seed, guidance, start_step, stop_step):
+            beta_max, lmbd, noise_scale, noise, seed, guidance, start_step, stop_step, stamps):
     n, xdim = x0.shape
     dev = x0.device
     ydim = _check_nets(prior_params, surrogate_params, xdim, guidance)
@@ -303,6 +306,10 @@ def _launch(prior_params, surrogate_params, x0, y, a, b, guidance_clip, num_step
             raise ValueError(f"noise must be float32 of shape {(len(steps), n, xdim)}")
         if noise.device != dev or not noise.is_contiguous():
             raise ValueError("noise must be contiguous on the device of x0")
+    if stamps is not None:
+        need = 1 + len(PHASES) * len(steps)
+        if stamps.dtype != torch.int64 or stamps.device != dev or stamps.numel() < need:
+            raise ValueError(f"stamps must be an int64 tensor of >= {need} entries on {dev}")
     prior, surr, H, S = _device_nets(prior_params, surrogate_params, xdim)
     y_dev = y.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
     blocks = -(-n // ROWS)
@@ -319,6 +326,7 @@ def _launch(prior_params, surrogate_params, x0, y, a, b, guidance_clip, num_step
     err = fn(
         x0.data_ptr(), y_dev.data_ptr(), pp, len(prior_params) - 2, H, sp, len(surrogate_params) - 2, S,
         None if noise is None else noise.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        None if stamps is None else stamps.data_ptr(),
         n, xdim, ydim, num_steps, steps.start, steps.stop, int(guidance == "pgdm"), int(guidance_clip is not None),
         T, beta_min, beta_max - beta_min, 1.0 - 0.5 * lmbd, (1.0 - lmbd) ** 0.5, delta, delta**0.5,
         noise_scale, a * a, b * b, 0.0 if guidance_clip is None else float(guidance_clip),
@@ -349,6 +357,7 @@ def fused_guided_em_sampler(
     guidance: str = "dps",
     start_step: int = 0,
     stop_step: Optional[int] = None,
+    stamps: Optional[Tensor] = None,
 ) -> Tensor:
     """Run the analytic-guidance sampler from x0 (N, xdim) for the observed
     y (ydim,).  prior_params: the tanh prior net on [x, t]; surrogate_params:
@@ -362,17 +371,24 @@ def fused_guided_em_sampler(
     N, xdim) when given.  On a CPU tensor it runs
     :func:`guided_em_reference`, drawing noise from a generator seeded with
     ``seed``.
+
+    stamps: None, or an int64 CUDA tensor of >= 1 + 7 x (stop_step -
+    start_step) entries: block 0 writes the card's clock (ns) at the start
+    and at the end of each of a step's :data:`PHASES`.  The samples do not
+    change.
     """
     kw = dict(a=a, b=b, guidance_clip=guidance_clip, num_steps=num_steps, T=T, beta_min=beta_min,
               beta_max=beta_max, lmbd=lmbd, noise_scale=noise_scale, noise=noise, guidance=guidance,
               start_step=start_step, stop_step=stop_step)
     if x0.device.type == "cpu":
+        if stamps is not None:
+            raise ValueError("stamps are taken only by the CUDA kernel")
         gen = torch.Generator().manual_seed(seed) if noise is None else None
         return guided_em_reference(prior_params, surrogate_params, x0, y, generator=gen, **kw)
     if x0.device.type != "cuda":
         raise ValueError(f"no kernel for device {x0.device}")
     return _launch(prior_params, surrogate_params, x0, y, a, b, guidance_clip, num_steps, T, beta_min,
-                   beta_max, lmbd, noise_scale, noise, seed, guidance, start_step, stop_step)
+                   beta_max, lmbd, noise_scale, noise, seed, guidance, start_step, stop_step, stamps)
 
 
 fused_guided_em_sampler.launches = 0
