@@ -767,23 +767,25 @@ def b5_phase_split(torch, prior, weights, y, x0, fparams) -> dict:
     """B5's time per step split over its phases, in both guidance modes at
     the main path's shape: one launch whose block 0 reads the card's clock
     at the end of each phase, after one without, which it must match bit
-    for bit.  Mean microseconds per step and phase over the 200 steps, and
-    the mean step."""
+    for bit.  Mean microseconds per step and phase over the 200 steps, the
+    mean step, and block 0's SM clock over the launch (its cycle count over
+    the card's clock)."""
     from dmip_tpu_torch.ops.dps_kernel import PHASES, fused_guided_em_sampler
 
     out = {}
     for guidance in ("dps", "pgdm"):
         gkw = dict(a=fparams["a"], b=fparams["b"], guidance_clip=100.0, num_steps=EM_STEPS, guidance=guidance, seed=7)
-        stamps = torch.zeros(1 + len(PHASES) * EM_STEPS, dtype=torch.int64, device="cuda")
+        stamps = torch.zeros(2 * (1 + len(PHASES) * EM_STEPS), dtype=torch.int64, device="cuda")
         plain = fused_guided_em_sampler(prior, weights, x0, y, **gkw)
         stamped = fused_guided_em_sampler(prior, weights, x0, y, stamps=stamps, **gkw)
         torch.cuda.synchronize()
         check(torch.equal(plain, stamped), f"B5 ({guidance}) with stamps differs from the run without")
-        st = stamps.double()
+        st, cyc = stamps[0::2].double(), stamps[1::2].double()
         ends = st[1:].reshape(EM_STEPS, len(PHASES))
         bounds = torch.cat([torch.cat([st[:1], ends[:-1, -1]])[:, None], ends], 1)
         us = (bounds[:, 1:] - bounds[:, :-1]) / 1e3
-        out[guidance] = {"step_us": float(us.sum(1).mean()), **{n: float(u) for n, u in zip(PHASES, us.mean(0))}}
+        out[guidance] = {"step_us": float(us.sum(1).mean()), **{n: float(u) for n, u in zip(PHASES, us.mean(0))},
+                         "sm_mhz": float((cyc[-1] - cyc[0]) / (st[-1] - st[0]) * 1e3)}
     return out
 
 
@@ -833,6 +835,24 @@ def run_b5(package: str, reps: int) -> dict:
         ms[guidance] = cuda_ms(lambda: fused_guided_em_sampler(prior, weights, x0, ys[0], seed=7, **gkw), reps)
     split = b5_phase_split(torch, prior, weights, ys[0], x0, fparams) if hasattr(dps_kernel, "PHASES") else None
     phase("b5_timing", t0, package=package, b5_ms_by_guidance=ms, b5_phase_us_by_guidance=split)
+    if "-DG_PROBE" in build.EXTRA_FLAGS.get("dps_kernel", ()):
+        import ctypes
+
+        lib = build.load("dps_kernel")
+        for guidance in ("dps",):
+            gkw = dict(a=fparams["a"], b=fparams["b"], guidance_clip=100.0, num_steps=EM_STEPS, guidance=guidance)
+            lib.probe_reset()
+            fused_guided_em_sampler(prior, weights, x0, ys[0], seed=7, **gkw)
+            torch.cuda.synchronize()
+            buf = (ctypes.c_ulonglong * 45)()
+            lib.probe_read(buf)
+            rows = {w: list(buf[5 * i:5 * i + 5]) for i, w in enumerate((64, 128, 256, 512))}
+            other = {w: list(buf[5 * i:5 * i + 2]) for i, w in
+                     enumerate(("tanh_pass", "dfac_pass", "dfac0_pass", "narrow4", "narrow32"), 4)}
+            phase("b5_probe", 0, guidance=guidance, cycles_per_call={
+                w: {"calls": r[0], **{k: r[j + 1] / max(r[0], 1) for j, k in enumerate(("prologue", "wait", "fma", "epilogue"))}}
+                for w, r in rows.items() if r[0]}, other_cycles_per_call={
+                w: {"calls": r[0], "cycles": r[1] / max(r[0], 1)} for w, r in other.items() if r[0]})
     return ms
 
 
@@ -1008,6 +1028,8 @@ def main(argv=None) -> int:
     ap.add_argument("--package", default=REPO,
                     help="with --b5-only: the checkout whose dmip_tpu_torch is timed (checked only if it is this one)")
     ap.add_argument("--reps", type=int, default=3, help="with --b5-only: timed launches per guidance mode")
+    ap.add_argument("--nvcc-define", action="append", default=[],
+                    help="with --b5-only: a -D definition for the guided sampler's build (a build probe)")
     args = ap.parse_args(argv)
     import torch
 
@@ -1021,6 +1043,9 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
     if args.b5_only:
         sys.path.insert(0, os.path.abspath(args.package))
+        from dmip_tpu_torch.ops import build
+
+        build.EXTRA_FLAGS["dps_kernel"] = tuple(f"-D{d}" for d in args.nvcc_define)
         try:
             run_b5(os.path.abspath(args.package), args.reps)
         except CheckFailed as e:

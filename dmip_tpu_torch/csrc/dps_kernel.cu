@@ -25,36 +25,49 @@
 // 67 TFLOP/s non-tensor f32 peak.  No TF32 or bf16: the guidance divides by
 // (a f)^2 + b^2 with b = 0.01.
 //
-// Design.  A block owns 64 rows for all steps, 512 threads.  Each product
-// is a register-tiled SIMT GEMM in the style of the MH kernel: activations
-// K-major in shared memory ([unit][row]), each thread 8 rows x (N/64)
-// units, weight rows read as coalesced float4s from L2 (the ~2.6 MB of f32
-// weights and their transposes do not fit in shared memory), results held
-// in registers until every thread has read the layer's input and then
-// written over it, so one 64 x 512 f32 buffer (128 KB) serves every layer.
-// The working set does not fit beside it: the three 512-wide tanh layers
-// alone are 384 KB for 64 rows.  So (a) each step runs one backward pass
-// per net (the dps cotangents are folded, pgdm's tangents run one after
+// Design.  A block owns 64 rows for all steps, 512 threads (16 warps), one
+// block per SM.  The activations live K-major in one 64 x 512 f32 shared
+// buffer ([unit][row], 128 KB) that every layer reads and then overwrites:
+// each product keeps its results in registers until all threads have read
+// the layer's input.  The products are register-tiled SIMT GEMMs: a thread
+// holds RM rows x 8 columns (RM = N / 64), a warp 4 RM rows x 64 columns, so
+// per k a thread reads RM activations (shared by 8 lanes) and two float4s of
+// the weight row (128 contiguous bytes a warp) for 8 RM FMAs.  The weights
+// (~2.6 MB of f32 with their transposes) do not fit in shared memory, so
+// every product streams its weight rows through a ring of 16 KB stages in
+// shared memory (3 stages where they fit, else 2), filled by 16-byte
+// cp.async copies that all threads issue two stages ahead of the FMAs, one
+// barrier a stage: each weight byte is read from L2 once per block and
+// product, and no global load latency sits in the FMA loop.
+//
+// The working set does not fit beside the activations: a 512-wide tanh
+// layer alone is 128 KB for 64 rows.  So (a) each step runs one backward
+// pass per net (the dps cotangents are folded, pgdm's tangents run one after
 // another through the same buffer), (b) the ReLU masks are kept as bits in
-// shared memory (8 rows per byte), and (c) the prior's tanh derivatives
-// 1 - h^2 go to a per-block scratch slab in global memory, written in the
-// forward pass and read back once by the VJP in the same step.  With one
-// block per SM the slabs in flight are 132 x 3 x 512 x 64 x 4 B ~ 52 MB,
-// a little above the 50 MB L2, so part of them goes to HBM: at most
-// ~0.8 MB per block-step, ~74 GB per 30k x 200 launch, ~22 ms at 3.35 TB/s.
-// Fewer rows per block would fit the working set in shared memory but
-// stream every weight matrix for fewer rows; recomputing the forward in
-// the backward pass would cost a third more arithmetic.
+// shared memory, and (c) the prior's tanh derivatives 1 - h^2 of the
+// hidden-to-hidden layers go to a per-block scratch slab in global memory,
+// written in the forward pass and read back once by the VJP in the same step
+// (2 layers: 132 x 2 x 512 x 64 x 4 B ~ 35 MB in flight, inside the 50 MB
+// L2).  The first layer's derivative is recomputed by the VJP from the
+// state: its pre-activation is a K = xdim product, rounded step by step as
+// in the forward pass, so it is the value the slab would have held.  The
+// narrow products (an output of xdim or ydim units) split K over 8 slices of
+// two warps, each lane a row, and add the partial sums in slice order.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "philox.cuh"
 
 #define G_ROWS 64
-#define G_THREADS 512
+#ifndef G_THREADS
+#define G_THREADS 256
+#endif
+#define G_WARPS (G_THREADS / 32)
 #define G_MAX_MID 4
 #define G_MAX_XDIM 4
 #define G_MAX_YDIM 32
+#define G_STAGE 4096  // floats in one ring stage (16 KB): BK = G_STAGE / N weight rows of a product
+#define G_SMEM_MAX 232448
 #define G_PHASES 7   // prior forward, prior output, surrogate forward, guidance, surrogate VJP, prior VJP, update
 
 struct Mlp {
@@ -62,14 +75,14 @@ struct Mlp {
   const float* w1;    // (xdim, W)
   const float* w1t;   // prior: (W,) time row; surrogate: null
   const float* b1;    // (W,)
-  const float* w1T;   // (W, xdim)
+  const float* w1T;   // (W, 4): the transpose, rows zero-padded to 4
   const float* w[G_MAX_MID];   // (W, W)
   const float* b[G_MAX_MID];   // (W,)
   const float* wT[G_MAX_MID];  // (W, W) transposed
-  const float* wo;    // (W, out)
+  const float* wo;    // (W, ldo): rows zero-padded to ldo = out rounded up to a multiple of 4
   const float* bo;    // (out,)
   const float* woT;   // (out, W)
-  int n_mid, width, tn;  // tn = width / 64
+  int n_mid, width, ldo;
 };
 
 struct GuidedArgs {
@@ -78,167 +91,414 @@ struct GuidedArgs {
   Mlp prior, surr;
   const float* noise;  // (stop_step - start_step, n, xdim) or null
   float* out;          // (n, xdim)
-  float* scratch;      // per block: (1 + prior.n_mid) x prior.width x 64 floats
-  long long* stamps;   // null, or 1 + G_PHASES x (stop_step - start_step) %globaltimer reads
+  float* scratch;      // per block: prior.n_mid x prior.width x 64 floats
+  long long* stamps;   // null, or 1 + G_PHASES x (stop_step - start_step) (%globaltimer, clock64) pairs
   int n, xdim, ydim, num_steps, start_step, stop_step, pgdm, has_clip;  // runs steps [start, stop) of num_steps
+  int stages;          // ring stages, 2 or 3
+  int ks_x, ks_y;      // K slices of the narrow products with xdim and ydim outputs
   float T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale, a2, b2, clip;
   unsigned long long seed;
 };
 
-// Column j of the TN columns thread tx owns (64 threads across N = 64 TN):
-// groups of 4 adjacent columns for TN >= 4, so a warp's weight reads are
-// contiguous float4s.
-template <int TN>
-__device__ __forceinline__ int own_col(int tx, int j) {
-  if (TN == 8) return (j < 4) ? tx * 4 + j : 256 + tx * 4 + (j - 4);
-  return tx * TN + j;
+// ---- copies and row access ------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N> __device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// Weight rows [k0, k1) of a row-major (K, N) matrix into one ring stage.
+__device__ __forceinline__ void load_stage(float* stage, const float* __restrict__ W, int N, int k0, int k1) {
+  const int n4 = (k1 - k0) * N / 4;
+  const float* src = W + (size_t)k0 * N;
+  for (int i = threadIdx.x; i < n4; i += G_THREADS) cp_async16(stage + 4 * i, src + 4 * i);
 }
 
-template <int TN>
-__device__ __forceinline__ void load_wrow(const float* __restrict__ wrow, int tx, float (&w)[TN]) {
-  if constexpr (TN == 8) {
-    const float4 c0 = __ldg(reinterpret_cast<const float4*>(wrow + tx * 4));
-    const float4 c1 = __ldg(reinterpret_cast<const float4*>(wrow + 256 + tx * 4));
-    w[0] = c0.x; w[1] = c0.y; w[2] = c0.z; w[3] = c0.w;
-    w[4] = c1.x; w[5] = c1.y; w[6] = c1.z; w[7] = c1.w;
-  } else if constexpr (TN == 4) {
-    const float4 c0 = __ldg(reinterpret_cast<const float4*>(wrow + tx * 4));
-    w[0] = c0.x; w[1] = c0.y; w[2] = c0.z; w[3] = c0.w;
-  } else if constexpr (TN == 2) {
-    const float2 c0 = __ldg(reinterpret_cast<const float2*>(wrow + tx * 2));
-    w[0] = c0.x; w[1] = c0.y;
+// RM consecutive floats (RM rows of one unit), aligned to 4 RM bytes.
+template <int RM>
+__device__ __forceinline__ void load_rows(const float* p, float (&v)[RM]) {
+  if constexpr (RM >= 4) {
+#pragma unroll
+    for (int i = 0; i < RM; i += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + i);
+      v[i] = q.x; v[i + 1] = q.y; v[i + 2] = q.z; v[i + 3] = q.w;
+    }
+  } else if constexpr (RM == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x; v[1] = q.y;
   } else {
-    w[0] = __ldg(wrow + tx);
+    v[0] = *p;
   }
 }
 
-// act[k][r] (k < K) -> act[n][r] (n < 64 TN) = epi(sum_k act[k][r] W[k][n]),
-// in place.  epi(c, r0, v) rewrites the 8 values v of column c, rows r0..r0+7.
-template <int TN, class Epi>
-__device__ __forceinline__ void gemm_km(float* act, int K, const float* __restrict__ W, Epi epi) {
-  constexpr int N = 64 * TN;
-  const int tx = threadIdx.x & 63, ty = threadIdx.x >> 6;
-  float acc[8][TN];
+template <int RM>
+__device__ __forceinline__ void store_rows(float* p, const float (&v)[RM]) {
+  if constexpr (RM >= 4) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  const float* arow = act + ty * 8;
-#pragma unroll 8  // more weight loads in flight: faster than 4 on an H100 despite the spills
-  for (int k = 0; k < K; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(arow + k * G_ROWS);
-    const float4 a1 = *reinterpret_cast<const float4*>(arow + k * G_ROWS + 4);
-    float w[TN];
-    load_wrow<TN>(W + (size_t)k * N, tx, w);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], w[j], acc[i][j]);
+    for (int i = 0; i < RM; i += 4)
+      *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else if constexpr (RM == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
   }
-  __syncthreads();  // every thread has read the input
+}
+
+// ---- the products -----------------------------------------------------------
+
+#ifdef G_PROBE
+// per product width (64, 128, 256, 512): calls, and thread 0 of block 0's
+// cycles in the prologue, the stage waits, the FMA loops and the epilogue;
+// then calls and cycles of the tanh, dfac and dfac0 passes and the narrow
+// products with 4 and 32 outputs
+__device__ unsigned long long g_probe[9][5];
+#define PROBE_BEGIN const long long t_probe = clock64();
+#define PROBE_END(row) \
+  if (blockIdx.x == 0 && threadIdx.x == 0) { g_probe[row][0] += 1; g_probe[row][1] += clock64() - t_probe; }
+#else
+#define PROBE_BEGIN
+#define PROBE_END(row)
+#endif
+
+// A thread's share of a product with N output columns: RT = 64 N / (8
+// G_THREADS) rows in Q groups of RG <= 4 consecutive rows, 4 RG rows apart
+// (so the 4 row groups of a warp's lanes read 16 RG contiguous bytes), x 8
+// columns.
+template <int N>
+struct Tile {
+  static constexpr int WC = N / 64;                      // warps across the columns
+  static constexpr int RT = 64 * N / (8 * G_THREADS);    // rows per thread
+  static constexpr int RG = RT < 4 ? RT : 4, Q = RT / RG;
+  static_assert(RT >= 1 && (G_WARPS / WC) * 4 * RT == G_ROWS, "tile does not cover 64 rows");
+};
+
+// acc[i][j] += a[i] w[j] for one k: the thread's RT activations and the 8
+// weights of its columns (two float4s 32 columns apart).
+template <int N>
+__device__ __forceinline__ void fma_k(float (&acc)[Tile<N>::RT][8], const float* a, const float* w) {
+  using T = Tile<N>;
+  float av[T::RT];
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int c = own_col<TN>(tx, j);
-    float v[8];
+  for (int q = 0; q < T::Q; ++q) {
+    float g[T::RG];
+    load_rows<T::RG>(a + q * 4 * T::RG, g);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = acc[i][j];
-    epi(c, ty * 8, v);
-    *reinterpret_cast<float4*>(act + c * G_ROWS + ty * 8) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(act + c * G_ROWS + ty * 8 + 4) = make_float4(v[4], v[5], v[6], v[7]);
+    for (int i = 0; i < T::RG; ++i) av[q * T::RG + i] = g[i];
+  }
+  const float4 w0 = *reinterpret_cast<const float4*>(w);
+  const float4 w1 = *reinterpret_cast<const float4*>(w + 32);
+  const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+  for (int i = 0; i < T::RT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+}
+
+// act[k][r] (k < K) -> act[n][r] (n < N) = epi(sum_k act[k][r] W[k][n]), in
+// place, with W (K, N) row-major in global memory streamed through the
+// ring.  Each sum is one fmaf chain over k = 0, 1, ... from 0.  epi(c, r, v)
+// rewrites the RG values v of column c, rows r..r+RG-1.
+template <int N, class Epi>
+__device__ __noinline__ void gemm_km(float* act, int K, const float* __restrict__ W, float* ring, int stages, Epi epi) {
+  using T = Tile<N>;
+  constexpr int BK = G_STAGE / N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = (warp / T::WC) * 4 * T::RT + (lane >> 3) * T::RG;
+  const int c0 = (warp % T::WC) * 64 + (lane & 7) * 4;
+  float acc[T::RT][8];
+#pragma unroll
+  for (int i = 0; i < T::RT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int tiles = (K + BK - 1) / BK;
+#ifdef G_PROBE
+  const long long t_in = clock64();
+  long long t_pro = 0, t_wait = 0, t_fma = 0, t_a = 0;
+#endif
+  for (int t = 0; t < stages - 1; ++t) {
+    if (t < tiles) load_stage(ring + t * G_STAGE, W, N, t * BK, min(K, (t + 1) * BK));
+    cp_commit();
+  }
+  for (int t = 0; t < tiles; ++t) {
+#ifdef G_PROBE
+    t_a = clock64();
+#endif
+    if (stages == 3) cp_wait<1>(); else cp_wait<0>();
+    __syncthreads();  // stage t has landed for every thread, and stage t - 1 is read
+#ifdef G_PROBE
+    const long long t_b = clock64();
+    if (t == 0) t_pro = t_b - t_in; else t_wait += t_b - t_a;
+#endif
+    const int tn = t + stages - 1;
+    if (tn < tiles) load_stage(ring + (tn % stages) * G_STAGE, W, N, tn * BK, min(K, (tn + 1) * BK));
+    cp_commit();
+    const float* ws = ring + (t % stages) * G_STAGE + c0;
+    const float* as = act + (size_t)t * BK * G_ROWS + r0;
+    const int kn = min(BK, K - t * BK);
+    if (kn == BK) {
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) fma_k<N>(acc, as + kk * G_ROWS, ws + kk * N);
+    } else {
+      for (int kk = 0; kk < kn; ++kk) fma_k<N>(acc, as + kk * G_ROWS, ws + kk * N);
+    }
+#ifdef G_PROBE
+    t_fma += clock64() - t_b;
+#endif
+  }
+#ifdef G_PROBE
+  const long long t_epi = clock64();
+#endif
+  __syncthreads();  // every thread has read the input and the ring
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = c0 + (j < 4 ? j : 28 + j);
+#pragma unroll
+    for (int q = 0; q < T::Q; ++q) {
+      float v[T::RG];
+#pragma unroll
+      for (int i = 0; i < T::RG; ++i) v[i] = acc[q * T::RG + i][j];
+      const int r = r0 + q * 4 * T::RG;
+      epi(c, r, v);
+      store_rows<T::RG>(act + c * G_ROWS + r, v);
+    }
   }
   __syncthreads();
+#ifdef G_PROBE
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long* g = g_probe[N == 512 ? 3 : N == 256 ? 2 : N == 128 ? 1 : 0];
+    g[0] += 1; g[1] += t_pro; g[2] += t_wait; g[3] += t_fma; g[4] += clock64() - t_epi;
+  }
+#endif
 }
 
 template <class Epi>
-__device__ __forceinline__ void gemm(int tn, float* act, int K, const float* W, Epi epi) {
-  switch (tn) {
-    case 8: gemm_km<8>(act, K, W, epi); break;
-    case 4: gemm_km<4>(act, K, W, epi); break;
-    case 2: gemm_km<2>(act, K, W, epi); break;
-    default: gemm_km<1>(act, K, W, epi); break;
+__device__ __forceinline__ void gemm(int width, float* act, int K, const float* W, float* ring, int stages, Epi epi) {
+  switch (width) {
+    case 512: gemm_km<512>(act, K, W, ring, stages, epi); break;
+    case 256: gemm_km<256>(act, K, W, ring, stages, epi); break;
+    case 128: gemm_km<128>(act, K, W, ring, stages, epi); break;
+    default: gemm_km<64>(act, K, W, ring, stages, epi); break;
   }
 }
 
-// out[o][r] = sum_k act[k][r] W[k][o] (+ bias[o]) for a narrow output.
-__device__ __forceinline__ void reduce_small(const float* act, int K, const float* __restrict__ W,
-                                             int n_out, const float* __restrict__ bias, float* out) {
-  for (int i = threadIdx.x; i < n_out * G_ROWS; i += G_THREADS) {
-    const int o = i / G_ROWS, r = i - o * G_ROWS;
-    float acc = 0.f;
-    for (int k = 0; k < K; ++k) acc = fmaf(act[k * G_ROWS + r], __ldg(W + k * n_out + o), acc);
-    out[i] = bias != nullptr ? acc + __ldg(bias + o) : acc;
+// out[o][r] = sum_k act[k][r] W[k][o] (+ bias[o]) for a narrow output
+// (n_out <= NO), W (K, ldw) row-major with rows zero-padded to ldw, a
+// multiple of 4.  K is split over ks slices, one warp each, a thread the
+// rows lane and lane + 32; once every thread has read act, the partial sums
+// go to `part` (ks x n_out x 64 floats, over act and the ring) and are added
+// in slice order.
+template <int NO>
+__device__ __noinline__ void narrow(const float* act, int K, const float* __restrict__ W, int ldw, int n_out,
+                                    const float* __restrict__ bias, float* out, float* part, int ks, float* ring,
+                                    int stages) {
+  PROBE_BEGIN
+  const int slice = threadIdx.x >> 5, r = threadIdx.x & 31;
+  const bool on = slice < ks;
+  // W into the ring when it fits (a shared-memory broadcast in the loop), else read where it is
+  const bool staged = K * ldw <= stages * G_STAGE;
+  if (staged) {
+    for (int i = threadIdx.x; i < K * ldw / 4; i += G_THREADS) cp_async16(ring + 4 * i, W + 4 * i);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+  }
+  const float* ws = staged ? ring : W;
+  float acc[2][NO];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int o = 0; o < NO; ++o) acc[h][o] = 0.f;
+  if (on) {
+    const int kl = K / ks, k0 = slice * kl;
+#pragma unroll 4
+    for (int k = k0; k < k0 + kl; ++k) {
+      const float a0 = act[k * G_ROWS + r], a1 = act[k * G_ROWS + r + 32];
+      const float4* wr = reinterpret_cast<const float4*>(ws + (size_t)k * ldw);
+#pragma unroll
+      for (int q = 0; q < NO / 4; ++q) {
+        if (4 * q < n_out) {
+          const float4 w = wr[q];
+          const float wq[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[0][4 * q + e] = fmaf(a0, wq[e], acc[0][4 * q + e]);
+            acc[1][4 * q + e] = fmaf(a1, wq[e], acc[1][4 * q + e]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // part overlaps act
+  if (on) {
+#pragma unroll
+    for (int o = 0; o < NO; ++o)
+      if (o < n_out) {
+        part[(slice * n_out + o) * G_ROWS + r] = acc[0][o];
+        part[(slice * n_out + o) * G_ROWS + r + 32] = acc[1][o];
+      }
   }
   __syncthreads();
+  for (int i = threadIdx.x; i < n_out * G_ROWS; i += G_THREADS) {
+    float s = part[i];
+    for (int j = 1; j < ks; ++j) s += part[j * n_out * G_ROWS + i];
+    out[i] = bias != nullptr ? s + __ldg(bias + i / G_ROWS) : s;
+  }
+  __syncthreads();
+  PROBE_END(NO == 4 ? 7 : 8)
 }
 
-// Epilogues.  dfac / mask are this layer's slices of the scratch slab and
-// of the shared mask bytes ([unit][row / 8], bit = row % 8).
-struct EpiTanh {  // prior forward: h = tanh((acc + s w1t) + b) or tanh(acc + b); keep 1 - h^2
-  const float* wt; const float* b; float s; float* dfac;
-  __device__ void operator()(int c, int r0, float (&v)[8]) const {
-    const float bc = __ldg(b + c), tc = wt != nullptr ? s * __ldg(wt + c) : 0.f;
-    float d[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float h = tanhf(wt != nullptr ? (v[i] + tc) + bc : v[i] + bc);
-      v[i] = h;
-      d[i] = 1.f - h * h;
-    }
-    *reinterpret_cast<float4*>(dfac + c * G_ROWS + r0) = make_float4(d[0], d[1], d[2], d[3]);
-    *reinterpret_cast<float4*>(dfac + c * G_ROWS + r0 + 4) = make_float4(d[4], d[5], d[6], d[7]);
-  }
+// K slices of a narrow product (a power of 2 dividing every width), so that
+// its partial sums fit in `room` floats (act and the ring: the weights are
+// read from the ring before the partial sums go there).
+__host__ __device__ __forceinline__ int narrow_slices(int n_out, int room) {
+  int ks = G_WARPS;
+  while (ks > 1 && ks * n_out * G_ROWS > room) ks >>= 1;
+  return ks;
+}
+
+// ---- epilogues ------------------------------------------------------------
+
+// tanh's pre-activation and derivative, rounded step by step (no FMA
+// contraction), so the VJP's recomputation of layer 0 matches the forward.
+__device__ __forceinline__ float tanh_pre(float acc, float tc, float bc) { return __fadd_rn(__fadd_rn(acc, tc), bc); }
+__device__ __forceinline__ float dtanh(float h) { return __fsub_rn(1.f, __fmul_rn(h, h)); }
+
+struct EpiNone {  // the raw sums; an elementwise pass follows
+  template <int RM>
+  __device__ void operator()(int, int, float (&)[RM]) const {}
 };
 
-struct EpiRelu {  // surrogate forward: g = max(acc + b, 0); keep g > 0 as bits
-  const float* b; uint8_t* mask;
-  __device__ void operator()(int c, int r0, float (&v)[8]) const {
+// ReLU masks: 64 bits a unit, two 32-bit words [unit][row / 32], zeroed
+// before the surrogate forward.
+struct EpiRelu {  // surrogate forward: g = max(acc + b, 0); OR the bits g > 0 into the mask
+  const float* b; uint32_t* mask;
+  template <int RM>
+  __device__ void operator()(int c, int r0, float (&v)[RM]) const {
     const float bc = __ldg(b + c);
     uint32_t bits = 0;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < RM; ++i) {
       v[i] = fmaxf(v[i] + bc, 0.f);
       bits |= (v[i] > 0.f ? 1u : 0u) << i;
     }
-    mask[c * (G_ROWS / 8) + r0 / 8] = (uint8_t)bits;
+    if (bits != 0u) atomicOr(mask + c * 2 + (r0 >> 5), bits << (r0 & 31));
   }
 };
 
 struct EpiMask {  // ReLU backward / tangent: acc where the unit was active, else 0
-  const uint8_t* mask;
-  __device__ void operator()(int c, int r0, float (&v)[8]) const {
-    const uint32_t bits = mask[c * (G_ROWS / 8) + r0 / 8];
+  const uint32_t* mask;
+  template <int RM>
+  __device__ void operator()(int c, int r0, float (&v)[RM]) const {
+    const uint32_t bits = mask[c * 2 + (r0 >> 5)] >> (r0 & 31);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = ((bits >> i) & 1u) ? v[i] : 0.f;
+    for (int i = 0; i < RM; ++i) v[i] = ((bits >> i) & 1u) ? v[i] : 0.f;
   }
 };
 
-struct EpiDfac {  // tanh backward: acc * (1 - h^2)
-  const float* dfac;
-  __device__ void operator()(int c, int r0, float (&v)[8]) const {
-    const float4 d0 = *reinterpret_cast<const float4*>(dfac + c * G_ROWS + r0);
-    const float4 d1 = *reinterpret_cast<const float4*>(dfac + c * G_ROWS + r0 + 4);
-    v[0] *= d0.x; v[1] *= d0.y; v[2] *= d0.z; v[3] *= d0.w;
-    v[4] *= d1.x; v[5] *= d1.y; v[6] *= d1.z; v[7] *= d1.w;
-  }
-};
+// ---- elementwise passes over a prior product's output -------------------
+// act[c][r] (c < N), four rows a float4, consecutive threads on consecutive
+// float4s: coalesced, conflict-free, and with the accumulators gone, free
+// to keep several global loads in flight.
 
-// With stamps, block 0 reads the card's clock (ns) when a phase ends.
+// forward: h = tanh((acc + s w1t) + b) (wt null: no time column); 1 - h^2
+// to dfac unless it is null
+__device__ __noinline__ void tanh_pass(float* act, int N, const float* __restrict__ b, const float* __restrict__ wt,
+                                       float s, float* __restrict__ dfac) {
+  PROBE_BEGIN
+  float4* a4 = reinterpret_cast<float4*>(act);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < N * (G_ROWS / 4); i += G_THREADS) {
+    const int c = i / (G_ROWS / 4);
+    const float bc = __ldg(b + c), tc = wt != nullptr ? __fmul_rn(s, __ldg(wt + c)) : 0.f;
+    float4 v = a4[i];
+    v.x = tanhf(tanh_pre(v.x, tc, bc));
+    v.y = tanhf(tanh_pre(v.y, tc, bc));
+    v.z = tanhf(tanh_pre(v.z, tc, bc));
+    v.w = tanhf(tanh_pre(v.w, tc, bc));
+    a4[i] = v;
+    if (dfac != nullptr)
+      reinterpret_cast<float4*>(dfac)[i] = make_float4(dtanh(v.x), dtanh(v.y), dtanh(v.z), dtanh(v.w));
+  }
+  __syncthreads();
+  PROBE_END(4)
+}
+
+// backward through a hidden-to-hidden layer: acc * (1 - h^2) from the slab
+__device__ __noinline__ void dfac_pass(float* act, int N, const float* __restrict__ dfac) {
+  PROBE_BEGIN
+  float4* a4 = reinterpret_cast<float4*>(act);
+  const float4* d4 = reinterpret_cast<const float4*>(dfac);
+#pragma unroll 8
+  for (int i = threadIdx.x; i < N * (G_ROWS / 4); i += G_THREADS) {
+    const float4 d = __ldcg(d4 + i);
+    float4 v = a4[i];
+    v.x *= d.x; v.y *= d.y; v.z *= d.z; v.w *= d.w;
+    a4[i] = v;
+  }
+  __syncthreads();
+  PROBE_END(5)
+}
+
+// backward through the first layer: 1 - h^2 recomputed from the state xs,
+// its pre-activation a K = xdim fmaf chain from 0 as in the forward product
+__device__ __noinline__ void dfac0_pass(float* act, int N, const float* __restrict__ w1, const float* __restrict__ wt,
+                                        const float* __restrict__ b, const float* xs, float s, int xdim) {
+  PROBE_BEGIN
+  float4* a4 = reinterpret_cast<float4*>(act);
+  const float4* x4 = reinterpret_cast<const float4*>(xs);
+#pragma unroll 2
+  for (int i = threadIdx.x; i < N * (G_ROWS / 4); i += G_THREADS) {
+    const int c = i / (G_ROWS / 4), rq = i - c * (G_ROWS / 4);
+    const float bc = __ldg(b + c), tc = __fmul_rn(s, __ldg(wt + c));
+    float z[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < G_MAX_XDIM; ++k)
+      if (k < xdim) {
+        const float w = __ldg(w1 + k * N + c);
+        const float4 x = x4[k * (G_ROWS / 4) + rq];
+        z[0] = fmaf(x.x, w, z[0]); z[1] = fmaf(x.y, w, z[1]); z[2] = fmaf(x.z, w, z[2]); z[3] = fmaf(x.w, w, z[3]);
+      }
+    float4 v = a4[i];
+    v.x *= dtanh(tanhf(tanh_pre(z[0], tc, bc)));
+    v.y *= dtanh(tanhf(tanh_pre(z[1], tc, bc)));
+    v.z *= dtanh(tanhf(tanh_pre(z[2], tc, bc)));
+    v.w *= dtanh(tanhf(tanh_pre(z[3], tc, bc)));
+    a4[i] = v;
+  }
+  __syncthreads();
+  PROBE_END(6)
+}
+
+// With stamps, block 0 reads the card's clock (ns) and its SM's cycle
+// count when a phase ends.
 __device__ __forceinline__ void stamp(long long* stamps, long long i) {
   if (stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
     long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    stamps[i] = t;
+    stamps[2 * i] = t;
+    stamps[2 * i + 1] = clock64();
   }
 }
 
-// u (xdim rows of act) -> out[d][r] = ((ds_p/dx)^T u)[d], the prior net's VJP.
-__device__ __forceinline__ void prior_vjp(const GuidedArgs& p, float* act, const float* slab, float* out) {
+// u (xdim rows of act) -> out[d][r] = ((ds_p/dx)^T u)[d], the prior net's VJP
+// at the state xs and time s.
+__device__ __forceinline__ void prior_vjp(const GuidedArgs& p, float* act, const float* slab, const float* xs,
+                                          float s, float* ring, float* out) {
   const Mlp& m = p.prior;
   const size_t layer = (size_t)m.width * G_ROWS;
-  gemm(m.tn, act, p.xdim, m.woT, EpiDfac{slab + m.n_mid * layer});
-  for (int l = m.n_mid - 1; l >= 0; --l) gemm(m.tn, act, m.width, m.wT[l], EpiDfac{slab + l * layer});
-  reduce_small(act, m.width, m.w1T, p.xdim, nullptr, out);
+  gemm(m.width, act, p.xdim, m.woT, ring, p.stages, EpiNone{});
+  for (int l = m.n_mid - 1; l >= 0; --l) {
+    dfac_pass(act, m.width, slab + l * layer);
+    gemm(m.width, act, m.width, m.wT[l], ring, p.stages, EpiNone{});
+  }
+#ifdef G_SLAB0
+  dfac_pass(act, m.width, slab + m.n_mid * layer);
+#else
+  dfac0_pass(act, m.width, m.w1, m.w1t, m.b1, xs, s, p.xdim);
+#endif
+  narrow<G_MAX_XDIM>(act, m.width, m.w1T, 4, p.xdim, nullptr, out, act, p.ks_x, ring, p.stages);
 }
 
 __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArgs p) {
@@ -248,19 +508,25 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
   const int xdim = p.xdim, ydim = p.ydim;
   const Mlp& P = p.prior;
   const Mlp& Su = p.surr;
-  const int act_rows = max(max(P.width, Su.width), G_MAX_YDIM);
+  const int act_rows = max(P.width, Su.width);
   float* act = reinterpret_cast<float*>(smem);   // [act_rows][64]
-  float* xs = act + act_rows * G_ROWS;            // [xdim][64] the state
+  float* ring = act + act_rows * G_ROWS;          // [stages][G_STAGE] weight stages, or narrow partial sums
+  float* xs = ring + p.stages * G_STAGE;          // [xdim][64] the state
   float* sp = xs + G_MAX_XDIM * G_ROWS;           // [xdim][64] prior score
-  float* fz = sp + G_MAX_XDIM * G_ROWS;           // [ydim][64] surrogate output
-  float* jac = fz + G_MAX_YDIM * G_ROWS;          // [3][ydim][64] pgdm Jacobian
-  float* vj = jac + 3 * G_MAX_YDIM * G_ROWS;      // [xdim][64] q, the surrogate VJP
+  float* vj = sp + G_MAX_XDIM * G_ROWS;           // [xdim][64] q, the surrogate VJP
   float* vh = vj + G_MAX_XDIM * G_ROWS;           // [xdim][64] the prior VJP of q
-  float* ys = vh + G_MAX_XDIM * G_ROWS;           // [ydim]
-  uint8_t* masks = reinterpret_cast<uint8_t*>(ys + G_MAX_YDIM);  // [1 + n_mid][width][8]
-  const size_t mask_layer = (size_t)Su.width * (G_ROWS / 8);
-  float* slab = p.scratch + (size_t)blockIdx.x * (1 + P.n_mid) * P.width * G_ROWS;
+  float* fz = vh + G_MAX_XDIM * G_ROWS;           // [ydim][64] surrogate output
+  float* jac = fz + G_MAX_YDIM * G_ROWS;          // [3][ydim][64] pgdm Jacobian
+  float* ys = jac + 3 * G_MAX_YDIM * G_ROWS;      // [ydim]
+  uint32_t* masks = reinterpret_cast<uint32_t*>(ys + G_MAX_YDIM);  // [1 + n_mid][width][2]
+  const int mask_layer = Su.width * 2;
+  const int mask_words = (1 + Su.n_mid) * mask_layer;
   const size_t slab_layer = (size_t)P.width * G_ROWS;
+#ifdef G_SLAB0
+  float* slab = p.scratch + (size_t)blockIdx.x * (P.n_mid + 1) * slab_layer;
+#else
+  float* slab = p.scratch + (size_t)blockIdx.x * P.n_mid * slab_layer;
+#endif
   const uint2 key = make_uint2((uint32_t)p.seed, (uint32_t)(p.seed >> 32));
 
   if (tid < ydim) ys[tid] = p.y[tid];
@@ -281,23 +547,31 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
     const float alpha = expf(-0.5f * int_beta);
     const float sig2 = 1.f - expf(-int_beta);
 
-    // prior forward, keeping 1 - h^2 of each hidden layer in the slab
+    // prior forward, keeping 1 - h^2 of the hidden-to-hidden layers in the slab
     for (int i = tid; i < xdim * G_ROWS; i += G_THREADS) act[i] = xs[i];
     __syncthreads();
-    gemm(P.tn, act, xdim, P.w1, EpiTanh{P.w1t, P.b1, s, slab});
-    for (int l = 0; l < P.n_mid; ++l)
-      gemm(P.tn, act, P.width, P.w[l], EpiTanh{nullptr, P.b[l], 0.f, slab + (l + 1) * slab_layer});
+    gemm(P.width, act, xdim, P.w1, ring, p.stages, EpiNone{});
+#ifdef G_SLAB0
+    tanh_pass(act, P.width, P.b1, P.w1t, s, slab + P.n_mid * slab_layer);
+#else
+    tanh_pass(act, P.width, P.b1, P.w1t, s, nullptr);
+#endif
+    for (int l = 0; l < P.n_mid; ++l) {
+      gemm(P.width, act, P.width, P.w[l], ring, p.stages, EpiNone{});
+      tanh_pass(act, P.width, P.b[l], nullptr, 0.f, slab + l * slab_layer);
+    }
     stamp(p.stamps, st);
-    reduce_small(act, P.width, P.wo, xdim, P.bo, sp);
+    narrow<G_MAX_XDIM>(act, P.width, P.wo, P.ldo, xdim, P.bo, sp, act, p.ks_x, ring, p.stages);
     stamp(p.stamps, st + 1);
 
     // Tweedie estimate, then the surrogate forward with its ReLU masks
     for (int i = tid; i < xdim * G_ROWS; i += G_THREADS) act[i] = (xs[i] + sig2 * sp[i]) / alpha;
+    for (int i = tid; i < mask_words; i += G_THREADS) masks[i] = 0u;
     __syncthreads();
-    gemm(Su.tn, act, xdim, Su.w1, EpiRelu{Su.b1, masks});
+    gemm(Su.width, act, xdim, Su.w1, ring, p.stages, EpiRelu{Su.b1, masks});
     for (int l = 0; l < Su.n_mid; ++l)
-      gemm(Su.tn, act, Su.width, Su.w[l], EpiRelu{Su.b[l], masks + (l + 1) * mask_layer});
-    reduce_small(act, Su.width, Su.wo, ydim, Su.bo, fz);
+      gemm(Su.width, act, Su.width, Su.w[l], ring, p.stages, EpiRelu{Su.b[l], masks + (l + 1) * mask_layer});
+    narrow<G_MAX_YDIM>(act, Su.width, Su.wo, Su.ldo, ydim, Su.bo, fz, act, p.ks_y, ring, p.stages);
     stamp(p.stamps, st + 2);
 
     if (!p.pgdm) {
@@ -308,9 +582,10 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
       }
       __syncthreads();
       stamp(p.stamps, st + 3);
-      gemm(Su.tn, act, ydim, Su.woT, EpiMask{masks + Su.n_mid * mask_layer});
-      for (int l = Su.n_mid - 1; l >= 0; --l) gemm(Su.tn, act, Su.width, Su.wT[l], EpiMask{masks + l * mask_layer});
-      reduce_small(act, Su.width, Su.w1T, xdim, nullptr, vj);
+      gemm(Su.width, act, ydim, Su.woT, ring, p.stages, EpiMask{masks + Su.n_mid * mask_layer});
+      for (int l = Su.n_mid - 1; l >= 0; --l)
+        gemm(Su.width, act, Su.width, Su.wT[l], ring, p.stages, EpiMask{masks + l * mask_layer});
+      narrow<G_MAX_XDIM>(act, Su.width, Su.w1T, 4, xdim, nullptr, vj, act, p.ks_x, ring, p.stages);
       for (int i = tid; i < xdim * G_ROWS; i += G_THREADS) act[i] = vj[i];
       __syncthreads();
       stamp(p.stamps, st + 4);
@@ -319,12 +594,13 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
       for (int k = 0; k < 3; ++k) {
         for (int i = tid; i < Su.width * G_ROWS; i += G_THREADS) {
           const int c = i / G_ROWS, r = i - c * G_ROWS;
-          act[i] = ((masks[c * (G_ROWS / 8) + r / 8] >> (r % 8)) & 1u) ? __ldg(Su.w1 + k * Su.width + c) : 0.f;
+          act[i] = ((masks[c * 2 + (r >> 5)] >> (r & 31)) & 1u) ? __ldg(Su.w1 + k * Su.width + c) : 0.f;
         }
         __syncthreads();
         for (int l = 0; l < Su.n_mid; ++l)
-          gemm(Su.tn, act, Su.width, Su.w[l], EpiMask{masks + (l + 1) * mask_layer});
-        reduce_small(act, Su.width, Su.wo, ydim, nullptr, jac + k * G_MAX_YDIM * G_ROWS);
+          gemm(Su.width, act, Su.width, Su.w[l], ring, p.stages, EpiMask{masks + (l + 1) * mask_layer});
+        narrow<G_MAX_YDIM>(act, Su.width, Su.wo, Su.ldo, ydim, nullptr, jac + k * G_MAX_YDIM * G_ROWS, act,
+                           p.ks_y, ring, p.stages);
       }
       if (tid < G_ROWS) {
         const int r = tid;
@@ -383,7 +659,7 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
       stamp(p.stamps, st + 3);  // pgdm forms q = J^T u in the solve: no surrogate VJP phase
       stamp(p.stamps, st + 4);
     }
-    prior_vjp(p, act, slab, vh);
+    prior_vjp(p, act, slab, xs, s, ring, vh);
     stamp(p.stamps, st + 5);
 
     // guidance, its norm cap, and the Euler-Maruyama update: one thread per row
@@ -429,7 +705,7 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
 // Host side: unpack the pointer list of one net (see ops/dps_kernel.py ::
 // _device_nets): first layer [w1, (w1t,) b1, w1T], then (w, b, wT) per
 // hidden-to-hidden layer, then [wo, bo, woT].
-static bool unpack_mlp(Mlp& m, const unsigned long long* ptrs, int n_mid, int width, bool has_time) {
+static bool unpack_mlp(Mlp& m, const unsigned long long* ptrs, int n_mid, int width, int n_out, bool has_time) {
   if (n_mid < 0 || n_mid > G_MAX_MID || (width != 64 && width != 128 && width != 256 && width != 512))
     return false;
   int i = 0;
@@ -448,16 +724,31 @@ static bool unpack_mlp(Mlp& m, const unsigned long long* ptrs, int n_mid, int wi
   m.woT = f();
   m.n_mid = n_mid;
   m.width = width;
-  m.tn = width / 64;
+  m.ldo = (n_out + 3) / 4 * 4;
   return true;
+}
+
+// Dynamic shared memory with `stages` ring stages.
+static size_t smem_bytes(int act_rows, int stages, int surr_mid, int surr_width) {
+  return sizeof(float) * ((size_t)act_rows * G_ROWS + (size_t)stages * G_STAGE + 4 * G_MAX_XDIM * G_ROWS +
+                          4 * G_MAX_YDIM * G_ROWS + G_MAX_YDIM) +
+         sizeof(uint32_t) * (size_t)(1 + surr_mid) * surr_width * 2;
 }
 
 extern "C" {
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+#ifdef G_PROBE
+int probe_read(unsigned long long* out) { return (int)cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe)); }
+int probe_reset() {
+  static const unsigned long long zero[9][5] = {};
+  return (int)cudaMemcpyToSymbol(g_probe, zero, sizeof(g_probe));
+}
+#endif
+
 // Launch on `stream`; returns a cudaError_t.  scratch holds
-// ceil(n / 64) x (1 + prior_mid) x prior_width x 64 floats.
+// ceil(n / 64) x prior_mid x prior_width x 64 floats.
 int guided_em_launch(const float* x0, const float* y, const unsigned long long* prior_ptrs, int prior_mid,
                      int prior_width, const unsigned long long* surr_ptrs, int surr_mid, int surr_width,
                      const float* noise, float* out, float* scratch, long long* stamps, int n, int xdim, int ydim,
@@ -469,8 +760,8 @@ int guided_em_launch(const float* x0, const float* y, const unsigned long long* 
       xdim > G_MAX_XDIM || ydim < 1 || ydim > G_MAX_YDIM || (pgdm && xdim != 3))
     return (int)cudaErrorInvalidValue;
   GuidedArgs p;
-  if (!unpack_mlp(p.prior, prior_ptrs, prior_mid, prior_width, true) ||
-      !unpack_mlp(p.surr, surr_ptrs, surr_mid, surr_width, false))
+  if (!unpack_mlp(p.prior, prior_ptrs, prior_mid, prior_width, xdim, true) ||
+      !unpack_mlp(p.surr, surr_ptrs, surr_mid, surr_width, ydim, false))
     return (int)cudaErrorInvalidValue;
   p.x0 = x0; p.y = y; p.noise = noise; p.out = out; p.scratch = scratch; p.stamps = stamps;
   p.n = n; p.xdim = xdim; p.ydim = ydim;
@@ -479,13 +770,13 @@ int guided_em_launch(const float* x0, const float* y, const unsigned long long* 
   p.T = T; p.beta_min = beta_min; p.bd = bd; p.c_drift = c_drift; p.c_sigma = c_sigma;
   p.delta = delta; p.sqrt_delta = sqrt_delta; p.noise_scale = noise_scale;
   p.a2 = a2; p.b2 = b2; p.clip = clip; p.seed = seed;
-  const int act_rows = (prior_width > surr_width ? prior_width : surr_width) > G_MAX_YDIM
-                           ? (prior_width > surr_width ? prior_width : surr_width)
-                           : G_MAX_YDIM;
-  const size_t smem = sizeof(float) * ((size_t)act_rows * G_ROWS + 2 * G_MAX_XDIM * G_ROWS +
-                                       4 * G_MAX_YDIM * G_ROWS + 2 * G_MAX_XDIM * G_ROWS + G_MAX_YDIM) +
-                      (size_t)(1 + surr_mid) * surr_width * (G_ROWS / 8);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const int act_rows = prior_width > surr_width ? prior_width : surr_width;
+  p.stages = smem_bytes(act_rows, 3, surr_mid, surr_width) <= G_SMEM_MAX ? 3 : 2;
+  const size_t smem = smem_bytes(act_rows, p.stages, surr_mid, surr_width);
+  const int room = act_rows * G_ROWS + p.stages * G_STAGE;  // act and the ring are adjacent
+  p.ks_x = narrow_slices(xdim, room);
+  p.ks_y = narrow_slices(ydim, room);
+  if (smem > G_SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(guided_em_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   guided_em_kernel<<<(n + G_ROWS - 1) / G_ROWS, G_THREADS, smem, (cudaStream_t)stream>>>(p);

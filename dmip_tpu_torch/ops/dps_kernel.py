@@ -245,12 +245,15 @@ def _pad1(v: Tensor, n: int) -> Tensor:
 def _device_nets(prior_params, surrogate_params, xdim: int):
     """The kernel's layout: f32, hidden widths zero-padded to one width per
     net (H for the prior, S for the surrogate), and every matrix the
-    backward passes read beside its transpose, row-major, so each GEMM reads
-    weight rows as coalesced float4s.  Returns (prior pointer tensors,
-    surrogate pointer tensors, H, S)."""
+    backward passes read beside its transpose, row-major, so each product
+    streams weight rows as 16-byte copies.  The narrow matrices (the first
+    layer's transpose, the output layer) have their rows zero-padded to a
+    multiple of 4 columns, so a row is a run of float4s.  Returns (prior
+    pointer tensors, surrogate pointer tensors, H, S)."""
     f32 = lambda t: t.to(torch.float32).contiguous()
     H = _pad_to(max(w.shape[1] for w, _ in prior_params[:-1]))
     S = _pad_to(max(w.shape[1] for w, _ in surrogate_params[:-1]))
+    cols4 = lambda n: -(-n // 4) * 4
 
     def mlp(params, width, first):
         (w1, b1) = params[0]
@@ -259,16 +262,16 @@ def _device_nets(prior_params, surrogate_params, xdim: int):
             wp = f32(_pad2(w, width, width))
             parts += [wp, f32(_pad1(bb, width)), f32(wp.t())]
         wo, bo = params[-1]
-        wop = f32(_pad2(wo, width, wo.shape[1]))
-        return parts + [wop, f32(bo), f32(wop.t())]
+        wop = _pad2(wo, width, wo.shape[1])
+        return parts + [f32(_pad2(wop, width, cols4(wo.shape[1]))), f32(bo), f32(wop.t())]
 
     def prior_first(w1, b1, width):
-        w1x = f32(_pad2(w1[:xdim], xdim, width))
-        return [w1x, f32(_pad1(w1[xdim], width)), f32(_pad1(b1, width)), f32(w1x.t())]
+        w1x = _pad2(w1[:xdim], xdim, width)
+        return [f32(w1x), f32(_pad1(w1[xdim], width)), f32(_pad1(b1, width)), f32(_pad2(w1x.t(), width, 4))]
 
     def surr_first(u1, c1, width):
-        u1p = f32(_pad2(u1, xdim, width))
-        return [u1p, f32(_pad1(c1, width)), f32(u1p.t())]
+        u1p = _pad2(u1, xdim, width)
+        return [f32(u1p), f32(_pad1(c1, width)), f32(_pad2(u1p.t(), width, 4))]
 
     return mlp(prior_params, H, prior_first), mlp(surrogate_params, S, surr_first), H, S
 
@@ -307,13 +310,13 @@ def _launch(prior_params, surrogate_params, x0, y, a, b, guidance_clip, num_step
         if noise.device != dev or not noise.is_contiguous():
             raise ValueError("noise must be contiguous on the device of x0")
     if stamps is not None:
-        need = 1 + len(PHASES) * len(steps)
+        need = 2 * (1 + len(PHASES) * len(steps))
         if stamps.dtype != torch.int64 or stamps.device != dev or stamps.numel() < need:
             raise ValueError(f"stamps must be an int64 tensor of >= {need} entries on {dev}")
     prior, surr, H, S = _device_nets(prior_params, surrogate_params, xdim)
     y_dev = y.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
     blocks = -(-n // ROWS)
-    # per block, the tanh-derivative factors 1 - h^2 of every prior hidden layer
+    # per block, the tanh-derivative factors 1 - h^2 of the prior's hidden-to-hidden layers
     scratch = torch.empty(blocks * (len(prior_params) - 1) * H * ROWS, dtype=torch.float32, device=dev)
     out = torch.empty_like(x0)
     pp = (ctypes.c_uint64 * len(prior))(*[t.data_ptr() for t in prior])
@@ -372,10 +375,10 @@ def fused_guided_em_sampler(
     :func:`guided_em_reference`, drawing noise from a generator seeded with
     ``seed``.
 
-    stamps: None, or an int64 CUDA tensor of >= 1 + 7 x (stop_step -
-    start_step) entries: block 0 writes the card's clock (ns) at the start
-    and at the end of each of a step's :data:`PHASES`.  The samples do not
-    change.
+    stamps: None, or an int64 CUDA tensor of >= 2 x (1 + 7 x (stop_step -
+    start_step)) entries: block 0 writes the card's clock (ns) and its SM's
+    cycle count, a pair, at the start and at the end of each of a step's
+    :data:`PHASES`.  The samples do not change.
     """
     kw = dict(a=a, b=b, guidance_clip=guidance_clip, num_steps=num_steps, T=T, beta_min=beta_min,
               beta_max=beta_max, lmbd=lmbd, noise_scale=noise_scale, noise=noise, guidance=guidance,
