@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import csv
 import os
+import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -162,18 +163,24 @@ def evaluate_scatterometry(
     xlim: Tuple[float, float] = (-1.2, 1.2),
     verbose: bool = True,
     method: str = "auto",
+    progress_every: int = 0,
 ) -> Tuple[float, float, float]:
     """Scatterometry evaluation against MCMC ground truth; ``gt_loader(i, j)``
     gives condition i's repeat j.  Returns (mean KL, mean NLPD, mean
     score-MSE).  Runs on ys's device.  results.csv columns: KL2,
-    KL_reverse, NLL_mcmc, NLL_diffusion, MSE, W2."""
+    KL_reverse, NLL_mcmc, NLL_diffusion, MSE, W2.
+
+    ``progress_every=N`` prints a flushed heartbeat with the running rate
+    each time the count of finished conditions crosses a multiple of N, and
+    after the last one (``dmip_tpu/evaluate.py:635-650``'s rule)."""
     from .problems.scatterometry import get_log_posterior
 
     lo, hi = xlim
     dev = ys.device
     a, b, lambd_bd = fparams["a"], fparams["b"], fparams["lambd_bd"]
     cols = {"KL2": [], "KL_reverse": [], "NLL_mcmc": [], "NLL_diffusion": [], "MSE": [], "W2": []}
-    for i in range(ys.shape[0]):
+    n_y, t_start = ys.shape[0], time.time()
+    for i in range(n_y):
         y = ys[i]
 
         def energy(x):
@@ -197,6 +204,9 @@ def evaluate_scatterometry(
         nll_t, nll_p, mse, w2 = torch.stack(stats).mean(0).tolist()
         for k, v in zip(cols, (float(kl), float(kl_rev), nll_t, nll_p, mse, w2)):
             cols[k].append(v)
+        if progress_every and ((i + 1) // progress_every > i // progress_every or i + 1 == n_y):
+            rate = (i + 1) / max(time.time() - t_start, 1e-9)
+            print(f"[eval-scat] {i + 1}/{n_y} conditions ({rate:.2f} cond/s, {n_repeats} repeats)", flush=True)
     kl_arr = np.asarray(cols["KL2"])
     nlpd = np.abs(np.asarray(cols["NLL_diffusion"]) - np.asarray(cols["NLL_mcmc"]))
     if out_dir is not None:

@@ -13,14 +13,16 @@ config with ``eval_analytic_guidance: True`` (scatterometry) evaluates the
 prior net under analytic DPS guidance through the surrogate, with the
 config's ``guidance_clip`` (kernel B5), and writes to ``out_dir +
 "_analytic"``; without it the learned likelihood net is sampled by the
-plain scan.
+plain scan.  A config with ``refine`` (the energy-refined rows) raises:
+refinement is not ported (ROADMAP §A2).  ``--progress_every N`` prints a
+heartbeat every N scatterometry conditions.
 
 Usage: python -m dmip_tpu_torch.mains.eval_diffusion --problem linear \
           --checkpoint benchmarks/checkpoints/linear_refined_winner \
           [--config configs/config_linear.yml] [--n_samples_y N] [--device cuda|cpu]
        python -m dmip_tpu_torch.mains.eval_diffusion --problem scatterometry \
           --checkpoint benchmarks/checkpoints/cde_500k --gt_dir data/gt... \
-          [--config configs/config_scatterometry.yml] [--n_samples_y N]
+          [--config configs/config_scatterometry.yml] [--n_samples_y N] [--progress_every N]
        (--checkpoint benchmarks/checkpoints/cdiffe_scat --config configs/config_scatterometry_cdiffe.yml,
         --checkpoint benchmarks/checkpoints/dps_prior --config configs/config_scatterometry_dps.yml)
 """
@@ -97,10 +99,16 @@ def run(
     out_dir: Optional[str] = None,
     method: Optional[str] = None,
     seed: int = 0,
+    progress_every: int = 0,
 ) -> Tuple[float, float, float]:
     """Returns (mean KL, mean NLPD, mean score-MSE) over the conditions.
     ``method`` overrides the config's ``eval_method`` ('auto', 'kernel' or
-    'plain'); ``seed`` seeds the sampling generator."""
+    'plain'); ``seed`` seeds the sampling generator; ``progress_every``
+    (scatterometry) prints a heartbeat every that many conditions.  A
+    config with ``refine`` raises: the energy-refined models are not
+    ported."""
+    if config.get("refine"):
+        raise NotImplementedError("refine is not ported yet; see ROADMAP.md §A2")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_x = int(config["n_samples_x"])
@@ -135,7 +143,7 @@ def run(
         return evaluate.evaluate_scatterometry(
             model, params, forward_model, fparams, score_post, y_test,
             data.gt_loader(gt_dir), gen, out_dir=out_dir, n_samples_x=n_x,
-            n_repeats=n_repeats, num_steps=num_steps, method=method,
+            n_repeats=n_repeats, num_steps=num_steps, method=method, progress_every=progress_every,
         )
     raise ValueError(f"unknown problem {problem!r}")
 
@@ -149,12 +157,14 @@ def main(argv=None) -> None:
     p.add_argument("--n_samples_y", type=int, default=None)
     p.add_argument("--out_dir", default=None)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--progress_every", type=int, default=0,
+                   help="scatterometry: print a heartbeat every N conditions (0: none)")
     args = p.parse_args(argv)
     config = load_config(args.config or DEFAULT_CONFIGS[args.problem])
     if args.n_samples_y is not None:
         config["n_samples_y"] = args.n_samples_y
     kl, nlpd, mse = run(args.problem, args.checkpoint, config, args.gt_dir,
-                        device=args.device, out_dir=args.out_dir)
+                        device=args.device, out_dir=args.out_dir, progress_every=args.progress_every)
     print(f"final: KL={kl:.4f} NLPD={nlpd:.4f} score-MSE={mse:.4f}")
 
 

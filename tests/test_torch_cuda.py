@@ -264,3 +264,71 @@ def test_guided_kernel_step_window(cuda):
     assert float(rel.median()) < 1e-5
     with pytest.raises(ValueError, match="start_step"):
         fused_guided_em_sampler(prior, weights, x0, y, start_step=5, stop_step=5, **kw)
+
+
+def _guided_case(cuda, prior_width, surr_width, surr_depth, ydim, n, seed):
+    """A random prior (4 -> prior_width^2 -> 3) and a random ReLU surrogate
+    (3 -> surr_width^surr_depth -> ydim), y the surrogate's output at a
+    point plus noise, and x0 ~ N(0, 1) of n rows."""
+    prior = mlp_init(4, 3, (prior_width,) * 2, generator=torch.Generator().manual_seed(seed), device=cuda)
+    surr = mlp_init(3, ydim, (surr_width,) * surr_depth, generator=torch.Generator().manual_seed(seed + 1),
+                    device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 2)
+    y = scat.surrogate_apply(surr, torch.tensor([[0.3, -0.5, 0.1]], device=cuda))[0]
+    y = y + 0.01 * torch.randn(ydim, generator=gen, device=cuda)
+    return prior, surr, y, torch.randn(n, 3, generator=gen, device=cuda), gen
+
+
+@pytest.mark.parametrize("prior_width,surr_width,surr_depth,ydim,n,guidance,clip", [
+    (64, 64, 2, 23, 37, "dps", 10.0),        # fewer rows than one tile
+    (128, 128, 3, 32, 1000, "pgdm", None),   # a ragged last tile, ydim = 32
+    (256, 512, 4, 32, 130, "dps", None),     # the widest surrogate: a two-stage weight ring
+    (512, 256, 3, 23, 2000, "pgdm", 100.0),  # the served widths
+    (512, 128, 2, 32, 64, "dps", 100.0),     # exactly one tile
+    (64, 512, 2, 23, 300, "pgdm", 10.0),
+    (256, 64, 3, 32, 513, "dps", 1.0),
+])
+def test_guided_kernel_widths_and_shapes(cuda, prior_width, surr_width, surr_depth, ydim, n, guidance, clip):
+    """B5 against its plain version on random nets of every supported width
+    (64/128/256/512, both nets), ydim up to 32, row counts below, at and
+    above one 64-row tile, both guidance modes with and without the clip:
+    two steps of the 200-step grid from the same state and noise.  As
+    chip_smoke.py's step-by-step check: each row's error relative to the
+    length of its move, median <= 1e-4, and at most max(0.1%, one row) of
+    the rows above 1e-2 (a ReLU pre-activation at 0 can flip its mask in one
+    version only)."""
+    prior, surr, y, x0, gen = _guided_case(cuda, prior_width, surr_width, surr_depth, ydim, n, 3)
+    noise = torch.randn(2, n, 3, generator=gen, device=cuda)
+    kw = dict(a=0.2, b=0.01, guidance_clip=clip, num_steps=200, start_step=150, stop_step=152, noise=noise,
+              guidance=guidance)
+    before = fused_guided_em_sampler.launches
+    out = fused_guided_em_sampler(prior, surr, x0, y, **kw)
+    ref = guided_em_reference(prior, surr, x0, y, **kw)
+    torch.cuda.synchronize()
+    assert fused_guided_em_sampler.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    rel = (out - ref).abs().amax(dim=1) / (ref - x0).abs().amax(dim=1).clamp(min=1e-6)
+    assert float(rel.median()) <= 1e-4
+    assert int((rel > 1e-2).sum()) <= max(1, int(1e-3 * n))
+
+
+@pytest.mark.parametrize("guidance", ["dps", "pgdm"])
+def test_guided_kernel_stamps(cuda, guidance):
+    """With stamps, block 0's clock readings rise monotonically through the
+    launch (every phase of every step, the card's clock and the SM's cycle
+    count alike), and the samples are bit for bit those of the run without
+    stamps.  A stamps tensor too short raises."""
+    prior, surr, y, x0, _ = _guided_case(cuda, 512, 256, 3, 23, 700, 5)
+    kw = dict(a=0.2, b=0.01, guidance_clip=100.0, num_steps=200, start_step=40, stop_step=52, seed=11,
+              guidance=guidance)
+    stamps = torch.zeros(2 * (1 + 7 * 12), dtype=torch.int64, device=cuda)
+    plain = fused_guided_em_sampler(prior, surr, x0, y, **kw)
+    stamped = fused_guided_em_sampler(prior, surr, x0, y, stamps=stamps, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, stamped)
+    for clock in (stamps[0::2], stamps[1::2]):
+        assert bool((clock > 0).all()) and bool((clock[1:] >= clock[:-1]).all())
+        steps = clock[1:].reshape(12, 7)
+        assert bool((steps[:, -1] > torch.cat([clock[:1], steps[:-1, -1]])).all())
+    with pytest.raises(ValueError, match="stamps"):
+        fused_guided_em_sampler(prior, surr, x0, y, stamps=stamps[:-1], **kw)

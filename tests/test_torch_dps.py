@@ -257,3 +257,12 @@ def test_cpu_wrapper_runs_plain_version_seeded():
         ref = guided_em_reference(prior, fwd.weights, x0, y0, a=0.2, b=0.01, num_steps=5, guidance=guidance,
                                   generator=torch.Generator().manual_seed(4))
         torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+def test_cpu_wrapper_rejects_stamps():
+    """Clock stamps are the CUDA kernel's; the plain version on the CPU takes none."""
+    prior, _, fwd, _, _, _, y, _ = _real_inputs()
+    x0 = torch.randn(8, 3, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="stamps"):
+        fused_guided_em_sampler(prior, fwd.weights, x0, torch.from_numpy(y[0]), a=0.2, b=0.01, num_steps=2,
+                                stamps=torch.zeros(30, dtype=torch.int64))

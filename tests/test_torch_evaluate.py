@@ -135,3 +135,41 @@ def test_evaluate_linear_slice_matches_jax(tmp_path):
     np.testing.assert_allclose(vt[:, 1:3], vj[:, 1:3], atol=0.05)
     np.testing.assert_allclose(vt[:, 3], vj[:, 3], rtol=0.5, atol=2e-4)
     np.testing.assert_allclose(vt[:, 4], vj[:, 4], atol=0.02)
+
+
+def test_progress_heartbeat_matches_jax(tmp_path, capsys):
+    """evaluate_scatterometry(progress_every=2) on 5 conditions prints the
+    JAX package's heartbeat lines (done 2, 4 and the last, 5; the running
+    rate aside) on a tiny run of the same net and GT, and none without it."""
+    jfwd, fp = jscat.load_forward_model()
+    tfwd, _ = scat.load_forward_model()
+    rng = np.random.default_rng(1)
+    x_cond = rng.uniform(-0.8, 0.8, size=(5, 3)).astype(np.float32)
+    ys = np.array(jscat.noisy_forward(jax.random.PRNGKey(6), jfwd, jnp.asarray(x_cond), 0.2, 0.01))
+    gt = {i: x_cond[i] + 0.05 * rng.normal(size=(100, 3)).astype(np.float32) for i in range(5)}
+    gt_loader = lambda i, j: gt[i]
+    cfg = {"model": "CDE", "loss_fn": "PINNLoss", "hidden_layers": [512, 512, 512]}
+    jm, _ = jtrain.get_model_from_args(cfg, fp)
+    jp = load_pytree(os.path.join(CKPT, "cde_500k"), mlp_init(jax.random.PRNGKey(0), 27, 3), "params")
+    tm, _ = train.get_model_from_args(cfg, fp)
+    tp = load_archived_params(os.path.join(CKPT, "cde_500k"))
+    prot = dict(n_samples_x=100, n_repeats=1, num_steps=4, verbose=False)
+
+    def beats(out):
+        return [ln.split(" (")[0] + " " + ln.rsplit(", ", 1)[1] for ln in out.splitlines()
+                if ln.startswith("[eval-scat]")]
+
+    capsys.readouterr()
+    jeval.evaluate_scatterometry(jm, jp, jfwd, fp, jscat.score_posterior(jfwd, 0.2, 0.01, 1000.0),
+                                 jnp.asarray(ys), gt_loader, jax.random.PRNGKey(0), mesh=None,
+                                 progress_every=2, **prot)
+    want = beats(capsys.readouterr().out)
+    args = (tm, tp, tfwd, fp, scat.score_posterior(tfwd, 0.2, 0.01, 1000.0), torch.from_numpy(ys), gt_loader,
+            torch.Generator().manual_seed(0))
+    evaluate.evaluate_scatterometry(*args, progress_every=2, **prot)
+    got = beats(capsys.readouterr().out)
+    assert want == ["[eval-scat] 2/5 conditions 1 repeats)", "[eval-scat] 4/5 conditions 1 repeats)",
+                    "[eval-scat] 5/5 conditions 1 repeats)"]
+    assert got == want
+    evaluate.evaluate_scatterometry(*args, **prot)
+    assert beats(capsys.readouterr().out) == []

@@ -130,6 +130,21 @@ def test_eval_driver_serves_cdiffe_and_analytic_dps_on_cpu(tmp_path, config, che
     assert all(np.isfinite(float(v)) for r in rows[1:] for v in r.split(",")[1:])
 
 
+@pytest.mark.parametrize("config,problem", [
+    ("config_linear_refined.yml", "linear"),
+    ("config_linear_pinn2.yml", "linear"),
+    ("config_scatterometry_refined.yml", "scatterometry"),
+    ("config_scatterometry_refined_20k.yml", "scatterometry"),
+])
+def test_eval_driver_raises_for_a_refined_config(config, problem):
+    """A config with ``refine`` is not served as its plain row: the driver
+    raises before it loads anything, naming the ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="§A2"):
+        eval_diffusion.main(["--problem", problem, "--config", os.path.join(REPO, "configs", config),
+                             "--checkpoint", os.path.join(REPO, "benchmarks/checkpoints/linear_refined_winner"),
+                             "--gt_dir", "unused", "--device", "cpu"])
+
+
 def test_eval_driver_rejects_a_mismatched_checkpoint():
     cfg = yaml.safe_load(open(os.path.join(REPO, "configs/config_linear.yml")))
     cfg.update(hidden_layers=[256, 256])
