@@ -32,7 +32,8 @@ kernel at ``cdiffe_scat``'s and a linear CDiffE's shapes, and the guided
 kernel at the ``dps_prior`` + surrogate shapes in both guidance modes.  Each
 kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are per launch, averaged over
 the main path's launches of each shape; the timing phase also splits the
-training kernel's step over its phases (``b3_phase_us_by_net``).
+training kernel's step over its phases (``b3_phase_us_by_net``) and the
+guided kernel's, in both guidance modes (``b5_phase_us_by_guidance``).
 
 Launch counts are zeroed just before each path and read just after; the
 plain serving path then reruns the same conditions for comparison.  Prints one
@@ -41,6 +42,11 @@ line per phase with its seconds, the card's name and power limit, a
 Any failed check exits non-zero.  Run from the repository root:
 
     python3 chip_smoke.py
+
+``--b5-only`` builds, checks and times the guided kernel alone and splits
+its step; with ``--package DIR`` it times the ``dmip_tpu_torch`` of another
+checkout instead (for example the parent commit's, unpacked with ``git
+archive``), so that two versions compare within one call on one card.
 """
 
 from __future__ import annotations
@@ -804,7 +810,7 @@ def b5_inputs(torch):
     return prior, forward_model.weights, fparams, ys
 
 
-def run_b5(package: str, reps: int) -> dict:
+def run_b5(package: str) -> dict:
     """B5 alone, from the ``dmip_tpu_torch`` package under ``package`` (this
     checkout's, or another's to compare with in the same call): its build,
     with this checkout's package the step-by-step and sliced-W2 checks
@@ -832,27 +838,9 @@ def run_b5(package: str, reps: int) -> dict:
     ms = {}
     for guidance in ("dps", "pgdm"):
         gkw = dict(a=fparams["a"], b=fparams["b"], guidance_clip=100.0, num_steps=EM_STEPS, guidance=guidance)
-        ms[guidance] = cuda_ms(lambda: fused_guided_em_sampler(prior, weights, x0, ys[0], seed=7, **gkw), reps)
+        ms[guidance] = cuda_ms(lambda: fused_guided_em_sampler(prior, weights, x0, ys[0], seed=7, **gkw), 3)
     split = b5_phase_split(torch, prior, weights, ys[0], x0, fparams) if hasattr(dps_kernel, "PHASES") else None
     phase("b5_timing", t0, package=package, b5_ms_by_guidance=ms, b5_phase_us_by_guidance=split)
-    if "-DG_PROBE" in build.EXTRA_FLAGS.get("dps_kernel", ()):
-        import ctypes
-
-        lib = build.load("dps_kernel")
-        for guidance in ("dps",):
-            gkw = dict(a=fparams["a"], b=fparams["b"], guidance_clip=100.0, num_steps=EM_STEPS, guidance=guidance)
-            lib.probe_reset()
-            fused_guided_em_sampler(prior, weights, x0, ys[0], seed=7, **gkw)
-            torch.cuda.synchronize()
-            buf = (ctypes.c_ulonglong * 45)()
-            lib.probe_read(buf)
-            rows = {w: list(buf[5 * i:5 * i + 5]) for i, w in enumerate((64, 128, 256, 512))}
-            other = {w: list(buf[5 * i:5 * i + 2]) for i, w in
-                     enumerate(("tanh_pass", "dfac_pass", "dfac0_pass", "narrow4", "narrow32"), 4)}
-            phase("b5_probe", 0, guidance=guidance, cycles_per_call={
-                w: {"calls": r[0], **{k: r[j + 1] / max(r[0], 1) for j, k in enumerate(("prologue", "wait", "fma", "epilogue"))}}
-                for w, r in rows.items() if r[0]}, other_cycles_per_call={
-                w: {"calls": r[0], "cycles": r[1] / max(r[0], 1)} for w, r in other.items() if r[0]})
     return ms
 
 
@@ -1027,9 +1015,6 @@ def main(argv=None) -> int:
                     help="build, check and time the guided sampler (B5) alone, and split its step into phases")
     ap.add_argument("--package", default=REPO,
                     help="with --b5-only: the checkout whose dmip_tpu_torch is timed (checked only if it is this one)")
-    ap.add_argument("--reps", type=int, default=3, help="with --b5-only: timed launches per guidance mode")
-    ap.add_argument("--nvcc-define", action="append", default=[],
-                    help="with --b5-only: a -D definition for the guided sampler's build (a build probe)")
     args = ap.parse_args(argv)
     import torch
 
@@ -1043,11 +1028,8 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
     if args.b5_only:
         sys.path.insert(0, os.path.abspath(args.package))
-        from dmip_tpu_torch.ops import build
-
-        build.EXTRA_FLAGS["dps_kernel"] = tuple(f"-D{d}" for d in args.nvcc_define)
         try:
-            run_b5(os.path.abspath(args.package), args.reps)
+            run_b5(os.path.abspath(args.package))
         except CheckFailed as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1

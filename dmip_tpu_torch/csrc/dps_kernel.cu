@@ -25,14 +25,17 @@
 // 67 TFLOP/s non-tensor f32 peak.  No TF32 or bf16: the guidance divides by
 // (a f)^2 + b^2 with b = 0.01.
 //
-// Design.  A block owns 64 rows for all steps, 512 threads (16 warps), one
+// Design.  A block owns 64 rows for all steps, 256 threads (8 warps), one
 // block per SM.  The activations live K-major in one 64 x 512 f32 shared
 // buffer ([unit][row], 128 KB) that every layer reads and then overwrites:
 // each product keeps its results in registers until all threads have read
 // the layer's input.  The products are register-tiled SIMT GEMMs: a thread
-// holds RM rows x 8 columns (RM = N / 64), a warp 4 RM rows x 64 columns, so
-// per k a thread reads RM activations (shared by 8 lanes) and two float4s of
-// the weight row (128 contiguous bytes a warp) for 8 RM FMAs.  The weights
+// holds RT = N / 32 rows x 8 columns (16 x 8 at N = 512), a warp 4 RT rows x
+// 64 columns, so per k a thread reads RT activations (each float4 shared by
+// 8 lanes) and two float4s of the weight row (128 contiguous bytes a warp):
+// 96 bytes of shared memory for 128 FMAs at N = 512.  (At 8 x 8 a thread,
+// 512 threads, the H100's 128 bytes a clock of shared memory per SM are as
+// busy as its 128 FMA lanes, and the block was 6% slower.)  The weights
 // (~2.6 MB of f32 with their transposes) do not fit in shared memory, so
 // every product streams its weight rows through a ring of 16 KB stages in
 // shared memory (3 stages where they fit, else 2), filled by 16-byte
@@ -44,24 +47,24 @@
 // layer alone is 128 KB for 64 rows.  So (a) each step runs one backward
 // pass per net (the dps cotangents are folded, pgdm's tangents run one after
 // another through the same buffer), (b) the ReLU masks are kept as bits in
-// shared memory, and (c) the prior's tanh derivatives 1 - h^2 of the
-// hidden-to-hidden layers go to a per-block scratch slab in global memory,
-// written in the forward pass and read back once by the VJP in the same step
-// (2 layers: 132 x 2 x 512 x 64 x 4 B ~ 35 MB in flight, inside the 50 MB
-// L2).  The first layer's derivative is recomputed by the VJP from the
-// state: its pre-activation is a K = xdim product, rounded step by step as
-// in the forward pass, so it is the value the slab would have held.  The
-// narrow products (an output of xdim or ydim units) split K over 8 slices of
-// two warps, each lane a row, and add the partial sums in slice order.
+// shared memory, and (c) the prior's tanh derivatives 1 - h^2 go to a
+// per-block scratch slab in global memory (132 x 3 x 512 x 64 x 4 B ~ 52 MB
+// in flight), written in the forward pass and read back once by the VJP in
+// the same step.  Recomputing layer 0's derivative from the state instead
+// (a 2-layer slab, ~35 MB) was measured no faster.  The prior's tanh and
+// derivative factors are applied by elementwise passes over the buffer, not
+// in the products' epilogues: with the accumulators gone a pass keeps many
+// slab loads in flight, where an epilogue issued them one at a time.  The
+// narrow products (an output of xdim or ydim units) stage their weights in
+// the ring, split K over the warps (a thread two rows), and add the partial
+// sums in slice order.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "philox.cuh"
 
 #define G_ROWS 64
-#ifndef G_THREADS
 #define G_THREADS 256
-#endif
 #define G_WARPS (G_THREADS / 32)
 #define G_MAX_MID 4
 #define G_MAX_XDIM 4
@@ -91,7 +94,7 @@ struct GuidedArgs {
   Mlp prior, surr;
   const float* noise;  // (stop_step - start_step, n, xdim) or null
   float* out;          // (n, xdim)
-  float* scratch;      // per block: prior.n_mid x prior.width x 64 floats
+  float* scratch;      // per block: (1 + prior.n_mid) x prior.width x 64 floats
   long long* stamps;   // null, or 1 + G_PHASES x (stop_step - start_step) (%globaltimer, clock64) pairs
   int n, xdim, ydim, num_steps, start_step, stop_step, pgdm, has_clip;  // runs steps [start, stop) of num_steps
   int stages;          // ring stages, 2 or 3
@@ -116,16 +119,13 @@ __device__ __forceinline__ void load_stage(float* stage, const float* __restrict
   for (int i = threadIdx.x; i < n4; i += G_THREADS) cp_async16(stage + 4 * i, src + 4 * i);
 }
 
-// RM consecutive floats (RM rows of one unit), aligned to 4 RM bytes.
-template <int RM>
-__device__ __forceinline__ void load_rows(const float* p, float (&v)[RM]) {
-  if constexpr (RM >= 4) {
-#pragma unroll
-    for (int i = 0; i < RM; i += 4) {
-      const float4 q = *reinterpret_cast<const float4*>(p + i);
-      v[i] = q.x; v[i + 1] = q.y; v[i + 2] = q.z; v[i + 3] = q.w;
-    }
-  } else if constexpr (RM == 2) {
+// RG <= 4 consecutive floats (RG rows of one unit), aligned to 4 RG bytes.
+template <int RG>
+__device__ __forceinline__ void load_rows(const float* p, float (&v)[RG]) {
+  if constexpr (RG == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else if constexpr (RG == 2) {
     const float2 q = *reinterpret_cast<const float2*>(p);
     v[0] = q.x; v[1] = q.y;
   } else {
@@ -133,13 +133,11 @@ __device__ __forceinline__ void load_rows(const float* p, float (&v)[RM]) {
   }
 }
 
-template <int RM>
-__device__ __forceinline__ void store_rows(float* p, const float (&v)[RM]) {
-  if constexpr (RM >= 4) {
-#pragma unroll
-    for (int i = 0; i < RM; i += 4)
-      *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
-  } else if constexpr (RM == 2) {
+template <int RG>
+__device__ __forceinline__ void store_rows(float* p, const float (&v)[RG]) {
+  if constexpr (RG == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (RG == 2) {
     *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
   } else {
     *p = v[0];
@@ -148,19 +146,6 @@ __device__ __forceinline__ void store_rows(float* p, const float (&v)[RM]) {
 
 // ---- the products -----------------------------------------------------------
 
-#ifdef G_PROBE
-// per product width (64, 128, 256, 512): calls, and thread 0 of block 0's
-// cycles in the prologue, the stage waits, the FMA loops and the epilogue;
-// then calls and cycles of the tanh, dfac and dfac0 passes and the narrow
-// products with 4 and 32 outputs
-__device__ unsigned long long g_probe[9][5];
-#define PROBE_BEGIN const long long t_probe = clock64();
-#define PROBE_END(row) \
-  if (blockIdx.x == 0 && threadIdx.x == 0) { g_probe[row][0] += 1; g_probe[row][1] += clock64() - t_probe; }
-#else
-#define PROBE_BEGIN
-#define PROBE_END(row)
-#endif
 
 // A thread's share of a product with N output columns: RT = 64 N / (8
 // G_THREADS) rows in Q groups of RG <= 4 consecutive rows, 4 RG rows apart
@@ -213,24 +198,13 @@ __device__ __noinline__ void gemm_km(float* act, int K, const float* __restrict_
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   const int tiles = (K + BK - 1) / BK;
-#ifdef G_PROBE
-  const long long t_in = clock64();
-  long long t_pro = 0, t_wait = 0, t_fma = 0, t_a = 0;
-#endif
   for (int t = 0; t < stages - 1; ++t) {
     if (t < tiles) load_stage(ring + t * G_STAGE, W, N, t * BK, min(K, (t + 1) * BK));
     cp_commit();
   }
   for (int t = 0; t < tiles; ++t) {
-#ifdef G_PROBE
-    t_a = clock64();
-#endif
     if (stages == 3) cp_wait<1>(); else cp_wait<0>();
     __syncthreads();  // stage t has landed for every thread, and stage t - 1 is read
-#ifdef G_PROBE
-    const long long t_b = clock64();
-    if (t == 0) t_pro = t_b - t_in; else t_wait += t_b - t_a;
-#endif
     const int tn = t + stages - 1;
     if (tn < tiles) load_stage(ring + (tn % stages) * G_STAGE, W, N, tn * BK, min(K, (tn + 1) * BK));
     cp_commit();
@@ -243,13 +217,7 @@ __device__ __noinline__ void gemm_km(float* act, int K, const float* __restrict_
     } else {
       for (int kk = 0; kk < kn; ++kk) fma_k<N>(acc, as + kk * G_ROWS, ws + kk * N);
     }
-#ifdef G_PROBE
-    t_fma += clock64() - t_b;
-#endif
   }
-#ifdef G_PROBE
-  const long long t_epi = clock64();
-#endif
   __syncthreads();  // every thread has read the input and the ring
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -265,12 +233,6 @@ __device__ __noinline__ void gemm_km(float* act, int K, const float* __restrict_
     }
   }
   __syncthreads();
-#ifdef G_PROBE
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    unsigned long long* g = g_probe[N == 512 ? 3 : N == 256 ? 2 : N == 128 ? 1 : 0];
-    g[0] += 1; g[1] += t_pro; g[2] += t_wait; g[3] += t_fma; g[4] += clock64() - t_epi;
-  }
-#endif
 }
 
 template <class Epi>
@@ -293,7 +255,6 @@ template <int NO>
 __device__ __noinline__ void narrow(const float* act, int K, const float* __restrict__ W, int ldw, int n_out,
                                     const float* __restrict__ bias, float* out, float* part, int ks, float* ring,
                                     int stages) {
-  PROBE_BEGIN
   const int slice = threadIdx.x >> 5, r = threadIdx.x & 31;
   const bool on = slice < ks;
   // W into the ring when it fits (a shared-memory broadcast in the loop), else read where it is
@@ -346,7 +307,6 @@ __device__ __noinline__ void narrow(const float* act, int K, const float* __rest
     out[i] = bias != nullptr ? s + __ldg(bias + i / G_ROWS) : s;
   }
   __syncthreads();
-  PROBE_END(NO == 4 ? 7 : 8)
 }
 
 // K slices of a narrow product (a power of 2 dividing every width), so that
@@ -361,25 +321,25 @@ __host__ __device__ __forceinline__ int narrow_slices(int n_out, int room) {
 // ---- epilogues ------------------------------------------------------------
 
 // tanh's pre-activation and derivative, rounded step by step (no FMA
-// contraction), so the VJP's recomputation of layer 0 matches the forward.
+// contraction), as the plain version's separate operations are.
 __device__ __forceinline__ float tanh_pre(float acc, float tc, float bc) { return __fadd_rn(__fadd_rn(acc, tc), bc); }
 __device__ __forceinline__ float dtanh(float h) { return __fsub_rn(1.f, __fmul_rn(h, h)); }
 
 struct EpiNone {  // the raw sums; an elementwise pass follows
-  template <int RM>
-  __device__ void operator()(int, int, float (&)[RM]) const {}
+  template <int RG>
+  __device__ void operator()(int, int, float (&)[RG]) const {}
 };
 
 // ReLU masks: 64 bits a unit, two 32-bit words [unit][row / 32], zeroed
 // before the surrogate forward.
 struct EpiRelu {  // surrogate forward: g = max(acc + b, 0); OR the bits g > 0 into the mask
   const float* b; uint32_t* mask;
-  template <int RM>
-  __device__ void operator()(int c, int r0, float (&v)[RM]) const {
+  template <int RG>
+  __device__ void operator()(int c, int r0, float (&v)[RG]) const {
     const float bc = __ldg(b + c);
     uint32_t bits = 0;
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
+    for (int i = 0; i < RG; ++i) {
       v[i] = fmaxf(v[i] + bc, 0.f);
       bits |= (v[i] > 0.f ? 1u : 0u) << i;
     }
@@ -389,11 +349,11 @@ struct EpiRelu {  // surrogate forward: g = max(acc + b, 0); OR the bits g > 0 i
 
 struct EpiMask {  // ReLU backward / tangent: acc where the unit was active, else 0
   const uint32_t* mask;
-  template <int RM>
-  __device__ void operator()(int c, int r0, float (&v)[RM]) const {
+  template <int RG>
+  __device__ void operator()(int c, int r0, float (&v)[RG]) const {
     const uint32_t bits = mask[c * 2 + (r0 >> 5)] >> (r0 & 31);
 #pragma unroll
-    for (int i = 0; i < RM; ++i) v[i] = ((bits >> i) & 1u) ? v[i] : 0.f;
+    for (int i = 0; i < RG; ++i) v[i] = ((bits >> i) & 1u) ? v[i] : 0.f;
   }
 };
 
@@ -406,7 +366,6 @@ struct EpiMask {  // ReLU backward / tangent: acc where the unit was active, els
 // to dfac unless it is null
 __device__ __noinline__ void tanh_pass(float* act, int N, const float* __restrict__ b, const float* __restrict__ wt,
                                        float s, float* __restrict__ dfac) {
-  PROBE_BEGIN
   float4* a4 = reinterpret_cast<float4*>(act);
 #pragma unroll 4
   for (int i = threadIdx.x; i < N * (G_ROWS / 4); i += G_THREADS) {
@@ -422,12 +381,10 @@ __device__ __noinline__ void tanh_pass(float* act, int N, const float* __restric
       reinterpret_cast<float4*>(dfac)[i] = make_float4(dtanh(v.x), dtanh(v.y), dtanh(v.z), dtanh(v.w));
   }
   __syncthreads();
-  PROBE_END(4)
 }
 
 // backward through a hidden-to-hidden layer: acc * (1 - h^2) from the slab
 __device__ __noinline__ void dfac_pass(float* act, int N, const float* __restrict__ dfac) {
-  PROBE_BEGIN
   float4* a4 = reinterpret_cast<float4*>(act);
   const float4* d4 = reinterpret_cast<const float4*>(dfac);
 #pragma unroll 8
@@ -438,37 +395,6 @@ __device__ __noinline__ void dfac_pass(float* act, int N, const float* __restric
     a4[i] = v;
   }
   __syncthreads();
-  PROBE_END(5)
-}
-
-// backward through the first layer: 1 - h^2 recomputed from the state xs,
-// its pre-activation a K = xdim fmaf chain from 0 as in the forward product
-__device__ __noinline__ void dfac0_pass(float* act, int N, const float* __restrict__ w1, const float* __restrict__ wt,
-                                        const float* __restrict__ b, const float* xs, float s, int xdim) {
-  PROBE_BEGIN
-  float4* a4 = reinterpret_cast<float4*>(act);
-  const float4* x4 = reinterpret_cast<const float4*>(xs);
-#pragma unroll 2
-  for (int i = threadIdx.x; i < N * (G_ROWS / 4); i += G_THREADS) {
-    const int c = i / (G_ROWS / 4), rq = i - c * (G_ROWS / 4);
-    const float bc = __ldg(b + c), tc = __fmul_rn(s, __ldg(wt + c));
-    float z[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int k = 0; k < G_MAX_XDIM; ++k)
-      if (k < xdim) {
-        const float w = __ldg(w1 + k * N + c);
-        const float4 x = x4[k * (G_ROWS / 4) + rq];
-        z[0] = fmaf(x.x, w, z[0]); z[1] = fmaf(x.y, w, z[1]); z[2] = fmaf(x.z, w, z[2]); z[3] = fmaf(x.w, w, z[3]);
-      }
-    float4 v = a4[i];
-    v.x *= dtanh(tanhf(tanh_pre(z[0], tc, bc)));
-    v.y *= dtanh(tanhf(tanh_pre(z[1], tc, bc)));
-    v.z *= dtanh(tanhf(tanh_pre(z[2], tc, bc)));
-    v.w *= dtanh(tanhf(tanh_pre(z[3], tc, bc)));
-    a4[i] = v;
-  }
-  __syncthreads();
-  PROBE_END(6)
 }
 
 // With stamps, block 0 reads the card's clock (ns) and its SM's cycle
@@ -482,22 +408,17 @@ __device__ __forceinline__ void stamp(long long* stamps, long long i) {
   }
 }
 
-// u (xdim rows of act) -> out[d][r] = ((ds_p/dx)^T u)[d], the prior net's VJP
-// at the state xs and time s.
-__device__ __forceinline__ void prior_vjp(const GuidedArgs& p, float* act, const float* slab, const float* xs,
-                                          float s, float* ring, float* out) {
+// u (xdim rows of act) -> out[d][r] = ((ds_p/dx)^T u)[d], the prior net's VJP.
+__device__ __forceinline__ void prior_vjp(const GuidedArgs& p, float* act, const float* slab, float* ring,
+                                          float* out) {
   const Mlp& m = p.prior;
   const size_t layer = (size_t)m.width * G_ROWS;
   gemm(m.width, act, p.xdim, m.woT, ring, p.stages, EpiNone{});
   for (int l = m.n_mid - 1; l >= 0; --l) {
-    dfac_pass(act, m.width, slab + l * layer);
+    dfac_pass(act, m.width, slab + (l + 1) * layer);
     gemm(m.width, act, m.width, m.wT[l], ring, p.stages, EpiNone{});
   }
-#ifdef G_SLAB0
-  dfac_pass(act, m.width, slab + m.n_mid * layer);
-#else
-  dfac0_pass(act, m.width, m.w1, m.w1t, m.b1, xs, s, p.xdim);
-#endif
+  dfac_pass(act, m.width, slab);
   narrow<G_MAX_XDIM>(act, m.width, m.w1T, 4, p.xdim, nullptr, out, act, p.ks_x, ring, p.stages);
 }
 
@@ -522,11 +443,7 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
   const int mask_layer = Su.width * 2;
   const int mask_words = (1 + Su.n_mid) * mask_layer;
   const size_t slab_layer = (size_t)P.width * G_ROWS;
-#ifdef G_SLAB0
   float* slab = p.scratch + (size_t)blockIdx.x * (P.n_mid + 1) * slab_layer;
-#else
-  float* slab = p.scratch + (size_t)blockIdx.x * P.n_mid * slab_layer;
-#endif
   const uint2 key = make_uint2((uint32_t)p.seed, (uint32_t)(p.seed >> 32));
 
   if (tid < ydim) ys[tid] = p.y[tid];
@@ -551,14 +468,10 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
     for (int i = tid; i < xdim * G_ROWS; i += G_THREADS) act[i] = xs[i];
     __syncthreads();
     gemm(P.width, act, xdim, P.w1, ring, p.stages, EpiNone{});
-#ifdef G_SLAB0
-    tanh_pass(act, P.width, P.b1, P.w1t, s, slab + P.n_mid * slab_layer);
-#else
-    tanh_pass(act, P.width, P.b1, P.w1t, s, nullptr);
-#endif
+    tanh_pass(act, P.width, P.b1, P.w1t, s, slab);
     for (int l = 0; l < P.n_mid; ++l) {
       gemm(P.width, act, P.width, P.w[l], ring, p.stages, EpiNone{});
-      tanh_pass(act, P.width, P.b[l], nullptr, 0.f, slab + l * slab_layer);
+      tanh_pass(act, P.width, P.b[l], nullptr, 0.f, slab + (l + 1) * slab_layer);
     }
     stamp(p.stamps, st);
     narrow<G_MAX_XDIM>(act, P.width, P.wo, P.ldo, xdim, P.bo, sp, act, p.ks_x, ring, p.stages);
@@ -659,7 +572,7 @@ __global__ void __launch_bounds__(G_THREADS, 1) guided_em_kernel(const GuidedArg
       stamp(p.stamps, st + 3);  // pgdm forms q = J^T u in the solve: no surrogate VJP phase
       stamp(p.stamps, st + 4);
     }
-    prior_vjp(p, act, slab, xs, s, ring, vh);
+    prior_vjp(p, act, slab, ring, vh);
     stamp(p.stamps, st + 5);
 
     // guidance, its norm cap, and the Euler-Maruyama update: one thread per row
@@ -739,16 +652,9 @@ extern "C" {
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-#ifdef G_PROBE
-int probe_read(unsigned long long* out) { return (int)cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe)); }
-int probe_reset() {
-  static const unsigned long long zero[9][5] = {};
-  return (int)cudaMemcpyToSymbol(g_probe, zero, sizeof(g_probe));
-}
-#endif
 
 // Launch on `stream`; returns a cudaError_t.  scratch holds
-// ceil(n / 64) x prior_mid x prior_width x 64 floats.
+// ceil(n / 64) x (1 + prior_mid) x prior_width x 64 floats.
 int guided_em_launch(const float* x0, const float* y, const unsigned long long* prior_ptrs, int prior_mid,
                      int prior_width, const unsigned long long* surr_ptrs, int surr_mid, int surr_width,
                      const float* noise, float* out, float* scratch, long long* stamps, int n, int xdim, int ydim,

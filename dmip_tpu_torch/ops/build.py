@@ -26,8 +26,6 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-# extra nvcc flags per kernel, for a build probe that sets them before the first load
-EXTRA_FLAGS: Dict[str, tuple] = {}
 
 
 def _nvcc() -> str:
@@ -44,7 +42,6 @@ def _lib_path(name: str) -> str:
     for fname in [f"{name}.cu", *headers]:
         with open(os.path.join(CSRC, fname), "rb") as f:
             h.update(f.read())
-    h.update(repr(EXTRA_FLAGS.get(name, ())).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
@@ -56,7 +53,7 @@ def _start(name: str):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
