@@ -315,9 +315,9 @@ def _launch(prior_params, surrogate_params, x0, y, a, b, guidance_clip, num_step
             raise ValueError(f"stamps must be an int64 tensor of >= {need} entries on {dev}")
     prior, surr, H, S = _device_nets(prior_params, surrogate_params, xdim)
     y_dev = y.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
-    blocks = -(-n // ROWS)
-    # per block, the tanh-derivative factors 1 - h^2 of every prior hidden layer
-    scratch = torch.empty(blocks * (len(prior_params) - 1) * H * ROWS, dtype=torch.float32, device=dev)
+    # per row (and up to a block of rows past the last), the tanh-derivative
+    # factors 1 - h^2 of every prior hidden layer
+    scratch = torch.empty((n + ROWS) * (len(prior_params) - 1) * H, dtype=torch.float32, device=dev)
     out = torch.empty_like(x0)
     pp = (ctypes.c_uint64 * len(prior))(*[t.data_ptr() for t in prior])
     sp = (ctypes.c_uint64 * len(surr))(*[t.data_ptr() for t in surr])

@@ -280,18 +280,21 @@ def _guided_case(cuda, prior_width, surr_width, surr_depth, ydim, n, seed):
 
 
 @pytest.mark.parametrize("prior_width,surr_width,surr_depth,ydim,n,guidance,clip", [
-    (64, 64, 2, 23, 37, "dps", 10.0),        # fewer rows than one tile
-    (128, 128, 3, 32, 1000, "pgdm", None),   # a ragged last tile, ydim = 32
-    (256, 512, 4, 32, 130, "dps", None),     # the widest surrogate: a two-stage weight ring
-    (512, 256, 3, 23, 2000, "pgdm", 100.0),  # the served widths
-    (512, 128, 2, 32, 64, "dps", 100.0),     # exactly one tile
+    (64, 64, 2, 23, 37, "dps", 10.0),          # fewer rows than one 64-row block (a 64-wide net: no 48-row blocks)
+    (128, 128, 3, 32, 1000, "pgdm", None),     # 48-row blocks, the last ragged; ydim = 32
+    (256, 512, 4, 32, 130, "dps", None),       # the widest surrogate: a two-stage weight ring
+    (512, 256, 3, 23, 2000, "pgdm", 100.0),    # the served widths
+    (512, 128, 2, 32, 64, "dps", 100.0),       # 64 rows as 48 + 16
     (64, 512, 2, 23, 300, "pgdm", 10.0),
     (256, 64, 3, 32, 513, "dps", 1.0),
+    (512, 256, 3, 23, 8448, "dps", 100.0),     # 132 whole 64-row blocks on an H100
+    (512, 256, 3, 23, 9000, "pgdm", None),     # 132 blocks of 64 rows, then 12 of 48
 ])
 def test_guided_kernel_widths_and_shapes(cuda, prior_width, surr_width, surr_depth, ydim, n, guidance, clip):
     """B5 against its plain version on random nets of every supported width
-    (64/128/256/512, both nets), ydim up to 32, row counts below, at and
-    above one 64-row tile, both guidance modes with and without the clip:
+    (64/128/256/512, both nets), ydim up to 32, row counts that give 64-row
+    blocks, 48-row blocks and both, ragged or not, both guidance modes with
+    and without the clip:
     two steps of the 200-step grid from the same state and noise.  As
     chip_smoke.py's step-by-step check: each row's error relative to the
     length of its move, median <= 1e-4, and at most max(0.1%, one row) of
