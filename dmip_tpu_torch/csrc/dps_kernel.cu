@@ -38,8 +38,8 @@
 // activations (each float4 shared by 8 lanes) and two float4s of the weight
 // row (128 contiguous bytes a warp): 96 bytes of shared memory for 128 FMAs
 // at N = 512.  (With 8 x 8 a thread and 512 threads, shared memory's 128
-// bytes a clock per SM are as busy as the 128 FMA lanes, and the block was
-// 6% slower.)  The weights (~2.6 MB of f32 with their transposes) do not
+// bytes a clock per SM are as busy as the 128 FMA lanes; that block was
+// slower.)  The weights (~2.6 MB of f32 with their transposes) do not
 // fit in shared memory, so every product streams its weight rows through a
 // ring of 16 KB stages in shared memory (3 stages where they fit, else 2),
 // filled by 16-byte cp.async copies that all threads issue two stages ahead
