@@ -810,7 +810,7 @@ def b5_inputs(torch):
     return prior, forward_model.weights, fparams, ys
 
 
-def run_b5(package: str) -> dict:
+def run_b5(package: str) -> None:
     """B5 alone, from the ``dmip_tpu_torch`` package under ``package`` (this
     checkout's, or another's to compare with in the same call): its build,
     with this checkout's package the step-by-step and sliced-W2 checks
@@ -828,11 +828,9 @@ def run_b5(package: str) -> dict:
     phase("build", t0, package=package, ptxas={k: ptxas_lines(v) for k, v in reports.items()})
     prior, weights, fparams, ys = b5_inputs(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    res = {}
     if os.path.samefile(package, REPO):
         t0 = time.time()
-        res["check"] = check_b5(torch, prior, weights, ys, gen)
-        phase("b5_vs_plain", t0, samples=N_SAMPLES, **res["check"])
+        phase("b5_vs_plain", t0, samples=N_SAMPLES, **check_b5(torch, prior, weights, ys, gen))
     t0 = time.time()
     x0 = torch.randn(N_SAMPLES, 3, generator=gen, device="cuda")
     ms = {}
@@ -841,7 +839,6 @@ def run_b5(package: str) -> dict:
         ms[guidance] = cuda_ms(lambda: fused_guided_em_sampler(prior, weights, x0, ys[0], seed=7, **gkw), 3)
     split = b5_phase_split(torch, prior, weights, ys[0], x0, fparams) if hasattr(dps_kernel, "PHASES") else None
     phase("b5_timing", t0, package=package, b5_ms_by_guidance=ms, b5_phase_us_by_guidance=split)
-    return ms
 
 
 def run() -> list:
