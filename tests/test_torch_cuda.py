@@ -294,12 +294,11 @@ def test_guided_kernel_widths_and_shapes(cuda, prior_width, surr_width, surr_dep
     """B5 against its plain version on random nets of every supported width
     (64/128/256/512, both nets), ydim up to 32, row counts that give 64-row
     blocks, 48-row blocks and both, ragged or not, both guidance modes with
-    and without the clip:
-    two steps of the 200-step grid from the same state and noise.  As
-    chip_smoke.py's step-by-step check: each row's error relative to the
-    length of its move, median <= 1e-4, and at most max(0.1%, one row) of
-    the rows above 1e-2 (a ReLU pre-activation at 0 can flip its mask in one
-    version only)."""
+    and without the clip: two steps of the 200-step grid from the same state
+    and noise.  As chip_smoke.py's step-by-step check: each row's error
+    relative to the length of its move, median <= 1e-4, and at most
+    max(0.1%, one row) of the rows above 1e-2 (a ReLU pre-activation at 0
+    can flip its mask in one version only)."""
     prior, surr, y, x0, gen = _guided_case(cuda, prior_width, surr_width, surr_depth, ydim, n, 3)
     noise = torch.randn(2, n, 3, generator=gen, device=cuda)
     kw = dict(a=0.2, b=0.01, guidance_clip=clip, num_steps=200, start_step=150, stop_step=152, noise=noise,
