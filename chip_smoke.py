@@ -42,11 +42,6 @@ line per phase with its seconds, the card's name and power limit, a
 Any failed check exits non-zero.  Run from the repository root:
 
     python3 chip_smoke.py
-
-``--b5-only`` builds, checks and times the guided kernel alone and splits
-its step; with ``--package DIR`` it times the ``dmip_tpu_torch`` of another
-checkout instead (for example the parent commit's, unpacked with ``git
-archive``), so that two versions compare within one call on one card.
 """
 
 from __future__ import annotations
@@ -143,6 +138,11 @@ B5_MODES = (("dps", 100.0), ("dps", 10.0), ("pgdm", 100.0))
 B5_STEP_P50_TOL = 1e-4
 B5_STEP_P999_TOL = 5e-3
 B5_STEP_SHARE = 1e-3           # of (step, row) pairs further apart than 1e-2 of the step
+# B5 step by step against the plain version run in float64 from the same
+# state and noise: f32 rounding leaves the kernel's p999 error of the size
+# of the f32 plain version's (a probe on an H100 read 0.3-0.6x); a wrong
+# term or a lost partial sum would put it far above
+B5_F64_RATIO = 2.0
 
 
 class CheckFailed(Exception):
@@ -347,29 +347,43 @@ def check_b4(torch, params, y, gen, moments=True):
 def check_b5_steps(torch, prior, weights, y, gen, kw):
     """B5 against its plain version one step at a time over the 200-step
     grid: from the plain trajectory's state, the same noise.  Returns the
-    per-(step, row) error quantiles, relative to the row's step length."""
+    per-(step, row) error quantiles, relative to the row's step length.
+    Each step also runs the plain version in float64 from the same state
+    and noise, and the kernel's and the plain version's errors against it
+    are returned on the same scale (``f64_kernel_*``, ``f64_plain_*``): f32
+    rounding in another sum order leaves the two alike, a wrong term in the
+    kernel makes its own far larger."""
     from dmip_tpu_torch.ops.dps_kernel import fused_guided_em_sampler, guided_em_reference
 
     x = torch.randn(N_SAMPLES, 3, generator=gen, device="cuda")
-    rel, worst = [], 0.0
+    rel, vs_f64k, vs_f64p, worst = [], [], [], 0.0
     for i in range(EM_STEPS):
         run = dict(num_steps=EM_STEPS, start_step=i, stop_step=i + 1,
                    noise=torch.randn(1, N_SAMPLES, 3, generator=gen, device="cuda"), **kw)
         xk = fused_guided_em_sampler(prior, weights, x, y, **run)
         xp = guided_em_reference(prior, weights, x, y, **run)
+        xd = guided_em_reference(prior, weights, x, y, dtype=torch.float64, **run)
         check(bool(torch.isfinite(xk).all()), f"B5 step {i} produced non-finite samples ({kw})")
         err = (xk - xp).abs().amax(dim=1)
         worst = max(worst, float(err.max()))
         rel.append(err / (xp - x).abs().amax(dim=1).clamp(min=1e-6))
+        step64 = (xd - x).abs().amax(dim=1).clamp(min=1e-6)
+        vs_f64k.append(((xk - xd).abs().amax(dim=1) / step64).float())
+        vs_f64p.append(((xp - xd).abs().amax(dim=1) / step64).float())
         x = xp
-    rel = torch.cat(rel)
-    q = torch.quantile(rel[torch.randperm(rel.numel(), generator=gen, device="cuda")[:10**6]],
-                       torch.tensor([0.5, 0.999], device="cuda"))
-    res = {"step_rel_p50": float(q[0]), "step_rel_p999": float(q[1]), "step_rel_max": float(rel.max()),
-           "step_share_above_1e-2": float((rel > 1e-2).float().mean()), "step_max_abs_err": worst}
+    pick = torch.randperm(N_SAMPLES * EM_STEPS, generator=gen, device="cuda")[:10**6]
+    res = {"step_max_abs_err": worst}
+    for name, r in (("step_rel", rel), ("f64_kernel", vs_f64k), ("f64_plain", vs_f64p)):
+        r = torch.cat(r)
+        q = torch.quantile(r[pick], torch.tensor([0.5, 0.999], device="cuda"))
+        res.update({f"{name}_p50": float(q[0]), f"{name}_p999": float(q[1]), f"{name}_max": float(r.max()),
+                    f"{name}_share_above_1e-2": float((r > 1e-2).float().mean())})
+    res["step_share_above_1e-2"] = res.pop("step_rel_share_above_1e-2")
     check(res["step_rel_p50"] <= B5_STEP_P50_TOL and res["step_rel_p999"] <= B5_STEP_P999_TOL
           and res["step_share_above_1e-2"] <= B5_STEP_SHARE,
           f"B5 vs plain (step by step, {kw}) out of tolerance: {res}")
+    check(res["f64_kernel_p999"] <= B5_F64_RATIO * res["f64_plain_p999"],
+          f"B5 (step by step, {kw}) further from float64 than the f32 plain version: {res}")
     return res
 
 
@@ -795,52 +809,6 @@ def b5_phase_split(torch, prior, weights, y, x0, fparams) -> dict:
     return out
 
 
-def b5_inputs(torch):
-    """(prior, surrogate weights, fparams, scatterometry test conditions) of
-    the analytic-DPS serving path."""
-    from dmip_tpu_torch.checkpoints import load_archived_params
-    from dmip_tpu_torch.mains import generate_scatterometry_ground_truth as gt
-    from dmip_tpu_torch.problems import scatterometry as scat
-    from dmip_tpu_torch.utils import load_config
-
-    scat_cfg = load_config(os.path.join(REPO, "configs/config_scatterometry.yml"))
-    forward_model, fparams = scat.load_forward_model(device="cuda")
-    ys = gt.test_conditions(scat_cfg, forward_model, fparams, "cuda")[:SCAT_CONDITIONS]
-    prior = load_archived_params(os.path.join(REPO, "benchmarks/checkpoints/dps_prior"), device="cuda")["prior"]
-    return prior, forward_model.weights, fparams, ys
-
-
-def run_b5(package: str) -> None:
-    """B5 alone, from the ``dmip_tpu_torch`` package under ``package`` (this
-    checkout's, or another's to compare with in the same call): its build,
-    with this checkout's package the step-by-step and sliced-W2 checks
-    against the plain version, then its ms per launch in both guidance
-    modes at the main path's shape, and the phase split where the kernel
-    takes stamps."""
-    import torch
-
-    from dmip_tpu_torch.ops import build, fused_guided_em_sampler
-    from dmip_tpu_torch.ops import dps_kernel
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    t0 = time.time()
-    reports = build.build_all(["dps_kernel"])
-    phase("build", t0, package=package, ptxas={k: ptxas_lines(v) for k, v in reports.items()})
-    prior, weights, fparams, ys = b5_inputs(torch)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    if os.path.samefile(package, REPO):
-        t0 = time.time()
-        phase("b5_vs_plain", t0, samples=N_SAMPLES, **check_b5(torch, prior, weights, ys, gen))
-    t0 = time.time()
-    x0 = torch.randn(N_SAMPLES, 3, generator=gen, device="cuda")
-    ms = {}
-    for guidance in ("dps", "pgdm"):
-        gkw = dict(a=fparams["a"], b=fparams["b"], guidance_clip=100.0, num_steps=EM_STEPS, guidance=guidance)
-        ms[guidance] = cuda_ms(lambda: fused_guided_em_sampler(prior, weights, x0, ys[0], seed=7, **gkw), 3)
-    split = b5_phase_split(torch, prior, weights, ys[0], x0, fparams) if hasattr(dps_kernel, "PHASES") else None
-    phase("b5_timing", t0, package=package, b5_ms_by_guidance=ms, b5_phase_us_by_guidance=split)
-
-
 def run() -> list:
     import torch
 
@@ -1007,12 +975,7 @@ def run() -> list:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--b5-only", action="store_true",
-                    help="build, check and time the guided sampler (B5) alone, and split its step into phases")
-    ap.add_argument("--package", default=REPO,
-                    help="with --b5-only: the checkout whose dmip_tpu_torch is timed (checked only if it is this one)")
-    args = ap.parse_args(argv)
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1021,18 +984,9 @@ def main(argv=None) -> int:
     if not os.path.isdir(os.path.join(REPO, "dmip_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
+    sys.path.insert(0, REPO)
     card = card_line()
     print(f"card: {card}", flush=True)
-    if args.b5_only:
-        sys.path.insert(0, os.path.abspath(args.package))
-        try:
-            run_b5(os.path.abspath(args.package))
-        except CheckFailed as e:
-            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
-            return 1
-        print(card, flush=True)
-        return 0
-    sys.path.insert(0, REPO)
     try:
         kernels = run()
     except CheckFailed as e:

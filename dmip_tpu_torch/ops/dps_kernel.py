@@ -109,23 +109,25 @@ def guided_em_reference(
     guidance: str = "dps",
     start_step: int = 0,
     stop_step: Optional[int] = None,
+    dtype: torch.dtype = torch.float32,
 ) -> Tensor:
     """Plain PyTorch version of B5.  x0 (N, xdim), y (ydim,); runs steps
     [start_step, stop_step) of the num_steps grid (default: all of them)
     from x0.  ``noise`` (stop_step - start_step, N, xdim) replaces the
-    per-step normals, else they are drawn from ``generator``.  Returns
-    (N, xdim) float32."""
+    per-step normals, else they are drawn from ``generator``.  Computes and
+    returns (N, xdim) in ``dtype``: float32, as the kernel does, or float64
+    to measure the f32 versions' rounding against."""
     n, xdim = x0.shape
     _check_nets(prior_params, surrogate_params, xdim, guidance)
     steps = _step_range(start_step, stop_step, num_steps)
     dev = x0.device
-    f32 = lambda t: t.to(device=dev, dtype=torch.float32)
+    cast = lambda t: t.to(device=dev, dtype=dtype)
     w1, b1 = prior_params[0]
-    w1x, w1t, b1 = f32(w1[:xdim]), f32(w1[xdim]), f32(b1)
-    pmid = [(f32(w), f32(bb)) for w, bb in prior_params[1:-1]]
-    pwo, pbo = (f32(t) for t in prior_params[-1])
-    surr = [(f32(w), f32(bb)) for w, bb in surrogate_params]
-    yv = f32(y).reshape(1, -1)
+    w1x, w1t, b1 = cast(w1[:xdim]), cast(w1[xdim]), cast(b1)
+    pmid = [(cast(w), cast(bb)) for w, bb in prior_params[1:-1]]
+    pwo, pbo = (cast(t) for t in prior_params[-1])
+    surr = [(cast(w), cast(bb)) for w, bb in surrogate_params]
+    yv = cast(y).reshape(1, -1)
     a2, b2 = a * a, b * b
     gen_dev = generator.device if generator is not None else "cpu"
 
@@ -152,7 +154,7 @@ def guided_em_reference(
 
     def surr_vjp(d, gs):
         for (w, _), g in zip(reversed(surr[1:]), reversed(gs)):
-            d = (d @ w.T) * (g > 0.0).to(torch.float32)
+            d = (d @ w.T) * (g > 0.0).to(dtype)
         return d @ surr[0][0].T
 
     def dps_score(x_hat0, hs, sig2, alpha):
@@ -168,11 +170,11 @@ def guided_em_reference(
         r2 = sig2 / (alpha * alpha + sig2)
         (u1, c1), mids, (uo, co) = surr[0], surr[1:-1], surr[-1]
         g = torch.relu(x_hat0 @ u1 + c1)
-        m = (g > 0.0).to(torch.float32)
+        m = (g > 0.0).to(dtype)
         tang = torch.cat([m * u1[k : k + 1] for k in range(xdim)])
         for w, bb in mids:
             g = torch.relu(g @ w + bb)
-            tang = (tang @ w) * (g > 0.0).to(torch.float32).repeat(xdim, 1)
+            tang = (tang @ w) * (g > 0.0).to(dtype).repeat(xdim, 1)
         f = g @ uo + co
         j = (tang @ uo).split(n)  # xdim blocks of (N, ydim)
         dinv = 1.0 / ((a2 * f) * f + b2)
@@ -197,10 +199,10 @@ def guided_em_reference(
         return (q + sig2 * prior_vjp(q, hs)) / alpha
 
     score = dps_score if guidance == "dps" else pgdm_score
-    one = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    one = lambda v: torch.tensor(v, dtype=dtype, device=dev)
     T_, bmin, bd = one(T), one(beta_min), one(beta_max - beta_min)
     delta = T / num_steps
-    x = x0.to(torch.float32)
+    x = x0.to(dtype)
     with _full_f32():
         for j, i in enumerate(steps):
             s = T_ - (one(i) / num_steps) * T_
@@ -217,8 +219,8 @@ def guided_em_reference(
             mu = (1.0 - 0.5 * lmbd) * g_s * (g_s * (s_prior + s_lik)) + 0.5 * beta * x
             x = x + delta * mu
             if noise_scale != 0.0:
-                z = noise[j].to(dev) if noise is not None else torch.randn(
-                    x.shape, generator=generator, device=gen_dev).to(dev)
+                z = noise[j].to(device=dev, dtype=dtype) if noise is not None else torch.randn(
+                    x.shape, generator=generator, device=gen_dev).to(device=dev, dtype=dtype)
                 x = x + delta**0.5 * ((1.0 - lmbd) ** 0.5 * g_s) * (noise_scale * z)
     return x
 
@@ -377,8 +379,8 @@ def fused_guided_em_sampler(
 
     stamps: None, or an int64 CUDA tensor of >= 2 x (1 + 7 x (stop_step -
     start_step)) entries: block 0 writes the card's clock (ns) and its SM's
-    cycle count, a pair, at the start and at the end of each of a step's
-    :data:`PHASES`.  The samples do not change.
+    cycle count, a pair, once before the first step and then at the end of
+    each of a step's :data:`PHASES`.  The samples do not change.
     """
     kw = dict(a=a, b=b, guidance_clip=guidance_clip, num_steps=num_steps, T=T, beta_min=beta_min,
               beta_max=beta_max, lmbd=lmbd, noise_scale=noise_scale, noise=noise, guidance=guidance,

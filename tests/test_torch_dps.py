@@ -195,6 +195,26 @@ def test_plain_sampler_step_window():
             guided_em_reference(prior, fwd.weights, x0, y0, start_step=start, stop_step=stop, **kw)
 
 
+@pytest.mark.parametrize("guidance", ["dps", "pgdm"])
+def test_plain_sampler_float64_agrees_with_float32(guidance):
+    """dtype=float64 runs the same steps in double precision (the card's
+    witness for f32 rounding): one step from the same f32 state and noise
+    at the start, the middle and the end of the grid stays within f32
+    rounding of the float32 run, relative to each row's step."""
+    prior, _, fwd, _, fp, _, y, _ = _real_inputs()
+    gen = torch.Generator().manual_seed(6)
+    x0, noise = torch.randn(256, 3, generator=gen), torch.randn(1, 256, 3, generator=gen)
+    y0 = torch.from_numpy(y[0])
+    kw = dict(a=fp["a"], b=fp["b"], guidance_clip=10.0, num_steps=200, noise=noise, guidance=guidance)
+    for i in (0, 100, 199):
+        x32 = guided_em_reference(prior, fwd.weights, x0, y0, start_step=i, stop_step=i + 1, **kw)
+        x64 = guided_em_reference(prior, fwd.weights, x0, y0, start_step=i, stop_step=i + 1,
+                                  dtype=torch.float64, **kw)
+        assert x32.dtype == torch.float32 and x64.dtype == torch.float64
+        rel = ((x32.double() - x64).abs().amax(1) / (x64 - x0.double()).abs().amax(1).clamp(min=1e-6)).numpy()
+        assert np.median(rel) < 1e-4 and np.quantile(rel, 0.99) < 2e-3
+
+
 def test_dps_prior_checkpoint_leaf_order():
     """JAX flattens the {likelihood, prior} dict in sorted-key order: leaves
     0..7 are the likelihood net (27 -> 512^3 -> 3), 8..15 the prior (4 ->
