@@ -81,6 +81,12 @@ B2_STEP_TOL = 1e-5
 # can flip an accept that sits on its threshold, after which a chain
 # follows another path.
 B2_MISMATCH_SHARE = 0.02
+# B2's carried energies after one step against the plain energy in float64
+# on the same states: f32 rounding in another sum order leaves the kernel's
+# p999 relative error of the size of the f32 plain version's; a wrong term
+# or a lost partial sum, or a split product that drops precision, puts it
+# far above.  Relative to max(|e|, 1): energies near 0 are held absolutely.
+B2_F64_RATIO = 2.0
 LIN_KL_BOUND = 0.03          # near the ~0.01 finite-sample floor of this net
 # kernel vs plain path, same conditions: the KL's spread over repeats is
 # ~1e-7 and the bf16 kernel sat 1.6e-4 above the f32 plain path.
@@ -272,23 +278,42 @@ def check_b1(torch, params, y, gen):
 
 
 def check_b2(torch, weights, y, gen, fparams):
-    from dmip_tpu_torch.ops.mh_kernel import fused_mh_scatterometry, mh_chains_reference
-    from dmip_tpu_torch.problems.scatterometry import get_log_posterior, surrogate_apply
+    """B2 against its plain version at the ground-truth driver's 300k
+    chains: one step with the same randomness (uniforms kept >= 1e-3 from
+    the accept threshold), then the energies the kernel carries after it
+    against the plain energy in float64 on the same states (the float64
+    witness), then 1000 steps with the same randomness, then the Philox
+    stream's moments against torch's."""
+    from dmip_tpu_torch.ops.mh_kernel import fused_mh_scatterometry, mh_chains_reference, mh_energy
 
     kw = dict(noise_std=0.5, a=fparams["a"], b=fparams["b"], lambd_bd=fparams["lambd_bd"])
+    ekw = dict(a=kw["a"], b=kw["b"], lambd_bd=kw["lambd_bd"])
     x0 = torch.rand(MH_CHAINS, 3, generator=gen, device="cuda") * 2 - 1
     # one step, uniforms moved >= 1e-3 away from the plain accept threshold
     z1 = torch.randn(1, MH_CHAINS, 3, generator=gen, device="cuda")
     u1 = torch.rand(1, MH_CHAINS, generator=gen, device="cuda")
-    energy = lambda x: get_log_posterior(x, lambda v: surrogate_apply(weights, v), kw["a"], kw["b"],
-                                         y.reshape(1, -1), kw["lambd_bd"])
+    energy = mh_energy(weights, y, **ekw)
     thr = torch.exp(energy(x0) - energy(x0 + 0.5 * z1[0])).clamp(max=2.0)
     near = (u1[0] - thr).abs() < 1e-3
     u1[0] = torch.where(near, torch.where(thr > 2e-3, thr - 2e-3, thr + 2e-3), u1[0])
-    s_k = fused_mh_scatterometry(weights, x0, y, 1, noise=z1, uniforms=u1, **kw)
+    e_k = torch.empty(MH_CHAINS, device="cuda")
+    s_k = fused_mh_scatterometry(weights, x0, y, 1, noise=z1, uniforms=u1, energy_out=e_k, **kw)
     s_p = mh_chains_reference(weights, x0, y, 1, noise=z1, uniforms=u1, **kw)
     step_err = float((s_k - s_p).abs().max())
     check(step_err <= B2_STEP_TOL, f"B2 one-step vs plain: max abs err {step_err}")
+    # the carried energies against float64 on the kernel's states, beside
+    # the f32 plain energy and the split-TF32 model's (3 terms)
+    e64 = mh_energy([(w.double(), b.double()) for w, b in weights], y, **ekw)(s_k.double())
+    scale = e64.abs().clamp(min=1.0)
+    res = {"max_abs_err": step_err}
+    q = torch.tensor([0.5, 0.999], device="cuda", dtype=torch.float64)
+    for name, e in (("kernel", e_k), ("plain", energy(s_k)), ("split3", mh_energy(weights, y, terms=3, **ekw)(s_k))):
+        rel = (e.double() - e64).abs() / scale
+        p50, p999 = torch.quantile(rel, q).tolist()
+        res.update({f"f64_{name}_p50": p50, f"f64_{name}_p999": p999, f"f64_{name}_max": float(rel.max())})
+    check(bool(torch.isfinite(e_k).all()), "B2 carried a non-finite energy")
+    check(res["f64_kernel_p999"] <= B2_F64_RATIO * res["f64_plain_p999"],
+          f"B2 energies further from float64 than the f32 plain version's: {res}")
     # full run, same randomness
     z = torch.randn(MH_STEPS, MH_CHAINS, 3, generator=gen, device="cuda")
     u = torch.rand(MH_STEPS, MH_CHAINS, generator=gen, device="cuda")
@@ -303,8 +328,7 @@ def check_b2(torch, weights, y, gen, fparams):
     g_p = mh_chains_reference(weights, x0, y, MH_STEPS, generator=gen, **kw)
     dm = float((g_k.mean(0) - g_p.mean(0)).abs().max())
     ds = float((g_k.std(0) - g_p.std(0)).abs().max())
-    res = {"max_abs_err": step_err, "mismatch_share_1000_steps": share,
-           "philox_mean_diff": dm, "philox_std_diff": ds}
+    res.update({"mismatch_share_1000_steps": share, "philox_mean_diff": dm, "philox_std_diff": ds})
     check(dm <= MOMENT_TOL and ds <= MOMENT_TOL, f"B2 Philox moments off: {res}")
     return res
 
@@ -783,6 +807,33 @@ def b3_phase_split(torch, gen) -> dict:
     return out
 
 
+def stamp_split(torch, stamps, steps: int, names) -> dict:
+    """Mean microseconds per step and phase from a kernel's (ns, cycles)
+    stamp pairs (one before the first step, then one at the end of each
+    phase), the mean step, and block 0's SM clock over the launch."""
+    st, cyc = stamps[0::2].double(), stamps[1::2].double()
+    ends = st[1:1 + steps * len(names)].reshape(steps, len(names))
+    bounds = torch.cat([torch.cat([st[:1], ends[:-1, -1]])[:, None], ends], 1)
+    us = (bounds[:, 1:] - bounds[:, :-1]) / 1e3
+    last = steps * len(names)
+    return {"step_us": float(us.sum(1).mean()), **{n: float(u) for n, u in zip(names, us.mean(0))},
+            "sm_mhz": float((cyc[last] - cyc[0]) / (st[last] - st[0]) * 1e3)}
+
+
+def b2_phase_split(torch, weights, y, x0, kw) -> dict:
+    """B2's time per step split over its phases at the main path's shape:
+    one launch whose block 0 reads the card's clock at the end of each
+    phase, after one without, which it must match bit for bit."""
+    from dmip_tpu_torch.ops.mh_kernel import PHASES, fused_mh_scatterometry
+
+    stamps = torch.zeros(2 * (1 + len(PHASES) * MH_STEPS), dtype=torch.int64, device="cuda")
+    plain = fused_mh_scatterometry(weights, x0, y, MH_STEPS, seed=7, **kw)
+    stamped = fused_mh_scatterometry(weights, x0, y, MH_STEPS, seed=7, stamps=stamps, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(plain, stamped), "B2 with stamps differs from the run without")
+    return stamp_split(torch, stamps, MH_STEPS, PHASES)
+
+
 def b5_phase_split(torch, prior, weights, y, x0, fparams) -> dict:
     """B5's time per step split over its phases, in both guidance modes at
     the main path's shape: one launch whose block 0 reads the card's clock
@@ -800,12 +851,7 @@ def b5_phase_split(torch, prior, weights, y, x0, fparams) -> dict:
         stamped = fused_guided_em_sampler(prior, weights, x0, y, stamps=stamps, **gkw)
         torch.cuda.synchronize()
         check(torch.equal(plain, stamped), f"B5 ({guidance}) with stamps differs from the run without")
-        st, cyc = stamps[0::2].double(), stamps[1::2].double()
-        ends = st[1:].reshape(EM_STEPS, len(PHASES))
-        bounds = torch.cat([torch.cat([st[:1], ends[:-1, -1]])[:, None], ends], 1)
-        us = (bounds[:, 1:] - bounds[:, :-1]) / 1e3
-        out[guidance] = {"step_us": float(us.sum(1).mean()), **{n: float(u) for n, u in zip(PHASES, us.mean(0))},
-                         "sm_mhz": float((cyc[-1] - cyc[0]) / (st[-1] - st[0]) * 1e3)}
+        out[guidance] = stamp_split(torch, stamps, EM_STEPS, PHASES)
     return out
 
 
@@ -902,6 +948,7 @@ def run() -> list:
     mh_ms = cuda_ms(lambda: fused_mh_scatterometry(weights, c0, y0, MH_STEPS, seed=7, **kw), 3)
     mh_plain_ms = cuda_ms(lambda: mh_chains_reference(weights, c0, y0, MH_STEPS, generator=gen, **kw), 1)
     mh_bound, mh_by = bound_ms(*mh_work(weights, MH_CHAINS, MH_STEPS), H100_F32_FLOPS)
+    b2_split = b2_phase_split(torch, weights, y0, c0, kw)
     # B3 per launch at each problem's launch shape, weighted by its launches
     b3_t, b3_flops, b3_bytes = {}, 0.0, 0.0
     for name, (in_dim, out_dim, nb, epochs) in (("linear", B3_LIN), ("scat", B3_SCAT)):
@@ -940,7 +987,7 @@ def run() -> list:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     phase("timing", t0, em_ms_by_net={k: v[0] for k, v in em_t.items()},
           em_plain_ms_by_net={k: v[1] for k, v in em_t.items()}, em_launches_by_net=em_n,
-          mh_chains=MH_CHAINS, mh_ms=mh_ms, mh_plain_ms=mh_plain_ms,
+          mh_chains=MH_CHAINS, mh_ms=mh_ms, mh_plain_ms=mh_plain_ms, b2_phase_us=b2_split,
           b3_ms_by_net={k: v[0] for k, v in b3_t.items()}, b3_plain_ms_by_net={k: v[1] for k, v in b3_t.items()},
           b3_launches_by_net=b3_launches, b3_launches_cdiffe_train=cdiffe_train["dsm_train"],
           b3_phase_us_by_net=b3_split,

@@ -36,6 +36,7 @@
 #define MH_XD 3
 #define MH_XDP 4
 #define MH_YD_MAX 32
+#define MH_PHASES 7  // proposal, layer 0, hidden 1, hidden 2, output layer, energy, accept
 
 struct MhArgs {
   const float* x0;        // (n, 3)
@@ -51,6 +52,8 @@ struct MhArgs {
   const float* noise;     // (num_steps, n, 3) or null: caller-given normals
   const float* uniforms;  // (num_steps, n) or null: caller-given uniforms
   float* out;             // (n, 3)
+  float* energy_out;      // (n,) or null: each chain's carried energy at the end
+  long long* stamps;      // null, or 1 + MH_PHASES x num_steps (%globaltimer, clock64) pairs
   int n, ydim, num_steps;
   float noise_std, a, bb, lambd_bd;
   unsigned long long seed;
@@ -65,6 +68,17 @@ struct MhShared {
   float w0[MH_XD * MH_H], b0[MH_H], b1[MH_H], b2[MH_H];
   float y[MH_YD_MAX], b3[MH_YD_MAX];
 };
+
+// With stamps, block 0 reads the card's clock (ns) and its SM's cycle
+// count when a phase ends.
+__device__ __forceinline__ void stamp(long long* stamps, long long i) {
+  if (stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    stamps[2 * i] = t;
+    stamps[2 * i + 1] = clock64();
+  }
+}
 
 // act <- relu(act . W + b) for a 256x256 W, in place (see the note above).
 __device__ __forceinline__ void hidden_layer(float* act, const float* __restrict__ w,
@@ -104,8 +118,10 @@ __device__ __forceinline__ void hidden_layer(float* act, const float* __restrict
   __syncthreads();
 }
 
-// Energies of the 64 states xsrc ([chain][4]) into eout.
-__device__ void energy(const MhArgs& p, MhShared& s, const float* xsrc, float* eout) {
+// Energies of the 64 states xsrc ([chain][4]) into eout.  With st >= 0
+// (and stamps), the ends of its five phases are stamped at st .. st + 4.
+__device__ void energy(const MhArgs& p, MhShared& s, const float* xsrc, float* eout, long long st) {
+  long long* stamps = st >= 0 ? p.stamps : nullptr;
   const int tid = threadIdx.x;
   for (int i = tid; i < MH_H * MH_ROWS; i += MH_THREADS) {
     const int c = i / MH_ROWS, r = i - c * MH_ROWS;
@@ -116,8 +132,11 @@ __device__ void energy(const MhArgs& p, MhShared& s, const float* xsrc, float* e
     s.act[i] = fmaxf(acc + s.b0[c], 0.f);
   }
   __syncthreads();
+  stamp(stamps, st);
   hidden_layer(s.act, p.w1, s.b1);
+  stamp(stamps, st + 1);
   hidden_layer(s.act, p.w2, s.b2);
+  stamp(stamps, st + 2);
   for (int i = tid; i < p.ydim * MH_ROWS; i += MH_THREADS) {
     const int o = i / MH_ROWS, r = i - o * MH_ROWS;
     float acc = 0.f;
@@ -126,6 +145,7 @@ __device__ void energy(const MhArgs& p, MhShared& s, const float* xsrc, float* e
     s.f[i] = acc + s.b3[o];
   }
   __syncthreads();
+  stamp(stamps, st + 3);
   if (tid < MH_ROWS) {
     const int r = tid;
     float s1 = 0.f, s2 = 0.f;
@@ -145,6 +165,7 @@ __device__ void energy(const MhArgs& p, MhShared& s, const float* xsrc, float* e
     eout[r] = 0.5f * s1 + 0.5f * s2 + p.lambd_bd * s3;
   }
   __syncthreads();
+  stamp(stamps, st + 4);
 }
 
 __global__ void __launch_bounds__(MH_THREADS, 2) mh_kernel(const MhArgs p) {
@@ -171,9 +192,11 @@ __global__ void __launch_bounds__(MH_THREADS, 2) mh_kernel(const MhArgs p) {
     s.xp[tid * MH_XDP + MH_XD] = 0.f;
   }
   __syncthreads();
-  energy(p, s, s.x, s.e);
+  energy(p, s, s.x, s.e, -1);
+  stamp(p.stamps, 0);
 
   for (int step = 0; step < p.num_steps; ++step) {
+    const long long st = 1 + (long long)step * MH_PHASES;
     if (tid < MH_ROWS) {
       const int row = row0 + tid;
       float z[MH_XD], u = 1.f;
@@ -192,7 +215,8 @@ __global__ void __launch_bounds__(MH_THREADS, 2) mh_kernel(const MhArgs p) {
       s.u[tid] = u;
     }
     __syncthreads();
-    energy(p, s, s.xp, s.ep);
+    stamp(p.stamps, st);
+    energy(p, s, s.xp, s.ep, st + 1);
     if (tid < MH_ROWS) {
       const bool acc = s.u[tid] < expf(s.e[tid] - s.ep[tid]);
       if (acc) {
@@ -201,10 +225,12 @@ __global__ void __launch_bounds__(MH_THREADS, 2) mh_kernel(const MhArgs p) {
       }
     }
     __syncthreads();
+    stamp(p.stamps, st + 6);
   }
 
   if (tid < MH_ROWS && row0 + tid < p.n) {
     for (int d = 0; d < MH_XD; ++d) p.out[(size_t)(row0 + tid) * MH_XD + d] = s.x[tid * MH_XDP + d];
+    if (p.energy_out != nullptr) p.energy_out[row0 + tid] = s.e[tid];
   }
 }
 
@@ -216,13 +242,14 @@ const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)
 int mh_chains_launch(const float* x0, const float* y, const float* w0, const float* b0,
                      const float* w1, const float* b1, const float* w2, const float* b2,
                      const float* w3, const float* b3, const float* noise, const float* uniforms,
-                     float* out, int n, int ydim, int num_steps, float noise_std, float a, float bb,
+                     float* out, float* energy_out, long long* stamps, int n, int ydim, int num_steps, float noise_std, float a, float bb,
                      float lambd_bd, unsigned long long seed, void* stream) {
   if (n < 1 || num_steps < 0 || ydim < 1 || ydim > MH_YD_MAX || ((noise == nullptr) != (uniforms == nullptr)))
     return (int)cudaErrorInvalidValue;
   MhArgs p;
   p.x0 = x0; p.y = y; p.w0 = w0; p.b0 = b0; p.w1 = w1; p.b1 = b1; p.w2 = w2; p.b2 = b2;
   p.w3 = w3; p.b3 = b3; p.noise = noise; p.uniforms = uniforms; p.out = out;
+  p.energy_out = energy_out; p.stamps = stamps;
   p.n = n; p.ydim = ydim; p.num_steps = num_steps;
   p.noise_std = noise_std; p.a = a; p.bb = bb; p.lambd_bd = lambd_bd; p.seed = seed;
   const size_t smem = sizeof(MhShared);

@@ -14,7 +14,8 @@ from dmip_tpu_torch.ops.dsm_train_kernel import dsm_train_epochs_reference, fuse
 from dmip_tpu_torch.ops.dps_kernel import fused_guided_em_sampler, guided_em_reference
 from dmip_tpu_torch.ops.em_kernel import (em_cdiffe_reference, em_sampler_reference, fused_em_sampler,
                                           fused_em_sampler_cdiffe)
-from dmip_tpu_torch.ops.mh_kernel import fused_mh_scatterometry, mh_chains_reference
+from dmip_tpu_torch.ops.mh_kernel import PHASES as MH_PHASES
+from dmip_tpu_torch.ops.mh_kernel import fused_mh_scatterometry, mh_chains_reference, mh_energy
 from dmip_tpu_torch.problems import scatterometry as scat
 
 pytestmark = pytest.mark.cuda
@@ -90,6 +91,84 @@ def test_mh_kernel_matches_plain(cuda):
     with pytest.raises(ValueError):
         fused_mh_scatterometry(weights, x0, y, 5, noise=z[:5], **KW)
     assert np.isfinite(out.cpu().numpy()).all()
+
+
+def _mh_case(cuda, n, ydim, steps, seed=0):
+    """The committed surrogate (its output layer redrawn when ydim is not
+    23), an observation, uniform starts and the randomness of ``steps``
+    steps; step 0's uniforms kept >= 1e-3 from the plain accept threshold,
+    so an f32 sum-order difference cannot flip its decisions."""
+    weights = scat.load_surrogate_weights(device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    if ydim != 23:
+        w3 = torch.randn(256, ydim, generator=gen, device=cuda) / 16
+        weights = [*weights[:3], (w3, 0.1 * torch.randn(ydim, generator=gen, device=cuda))]
+    fwd = lambda x: scat.surrogate_apply(weights, x)
+    y = scat.noisy_forward(fwd, torch.tensor([[0.3, -0.5, 0.1]], device=cuda), 0.2, 0.01, gen)[0]
+    x0 = torch.rand(n, 3, generator=gen, device=cuda) * 2 - 1
+    z = torch.randn(steps, n, 3, generator=gen, device=cuda)
+    u = torch.rand(steps, n, generator=gen, device=cuda)
+    if steps:
+        energy = mh_energy(weights, y, KW["a"], KW["b"], KW["lambd_bd"])
+        thr = torch.exp(energy(x0) - energy(x0 + KW["noise_std"] * z[0])).clamp(max=2.0)
+        near = (u[0] - thr).abs() < 1e-3
+        u[0] = torch.where(near, torch.where(thr > 2e-3, thr - 2e-3, thr + 2e-3), u[0])
+    return weights, y, x0, z, u
+
+
+@pytest.mark.parametrize("n,ydim,steps", [
+    (37, 23, 12),      # fewer chains than one block
+    (1000, 23, 12),    # a ragged last block
+    (4096, 23, 1),
+    (700, 1, 12),
+    (700, 32, 12),
+    (300, 23, 0),
+])
+def test_mh_kernel_shapes_and_energies(cuda, n, ydim, steps):
+    """B2 against its plain version with the same randomness: one step
+    agrees to 1e-5 on every chain; over 12 steps at most 1% of chains (or
+    one) end elsewhere, as an accept on its threshold can flip.  The
+    carried energies (``energy_out``) agree with the plain energy of the
+    returned states to 1e-4 of max(|e|, 1); with no steps the states are
+    x0 exactly."""
+    weights, y, x0, z, u = _mh_case(cuda, n, ydim, steps)
+    e_k = torch.empty(n, device=cuda)
+    out = fused_mh_scatterometry(weights, x0, y, steps, noise=z, uniforms=u, energy_out=e_k, **KW)
+    ref = mh_chains_reference(weights, x0, y, steps, noise=z, uniforms=u, **KW)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(e_k).all())
+    if steps == 0:
+        assert torch.equal(out, x0)
+    if steps >= 1:
+        one = fused_mh_scatterometry(weights, x0, y, 1, noise=z[:1], uniforms=u[:1], **KW)
+        one_ref = mh_chains_reference(weights, x0, y, 1, noise=z[:1], uniforms=u[:1], **KW)
+        assert float((one - one_ref).abs().max()) <= 1e-5
+    assert int(((out - ref).abs().amax(1) > 1e-4).sum()) <= max(1, n // 100)
+    e_p = mh_energy(weights, y, KW["a"], KW["b"], KW["lambd_bd"])(out)
+    assert float(((e_k - e_p).abs() / e_p.abs().clamp(min=1.0)).max()) <= 1e-4
+
+
+def test_mh_kernel_stamps_and_energy_out_leave_states_alone(cuda):
+    """With ``stamps`` and ``energy_out`` the states are bit for bit those
+    of the run without; block 0's clock readings never fall and rise from
+    step to step (the card's clock and the SM's cycle count alike).  Too
+    short a stamps tensor, or a wrong energy_out, raises."""
+    weights, y, x0, _, _ = _mh_case(cuda, 777, 23, 0)
+    steps = 9
+    stamps = torch.zeros(2 * (1 + len(MH_PHASES) * steps), dtype=torch.int64, device=cuda)
+    e_k = torch.empty(777, device=cuda)
+    plain = fused_mh_scatterometry(weights, x0, y, steps, seed=5, **KW)
+    stamped = fused_mh_scatterometry(weights, x0, y, steps, seed=5, stamps=stamps, energy_out=e_k, **KW)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, stamped)
+    for clock in (stamps[0::2], stamps[1::2]):
+        assert bool((clock > 0).all()) and bool((clock[1:] >= clock[:-1]).all())
+        ends = clock[1:].reshape(steps, len(MH_PHASES))[:, -1]
+        assert bool((ends > torch.cat([clock[:1], ends[:-1]])).all())
+    with pytest.raises(ValueError, match="stamps"):
+        fused_mh_scatterometry(weights, x0, y, steps, stamps=stamps[:-1], **KW)
+    with pytest.raises(ValueError, match="energy_out"):
+        fused_mh_scatterometry(weights, x0, y, steps, energy_out=e_k[:-1], **KW)
 
 
 # B3's nets: (in, hidden, out, batch): the linear and the CDiffE nets at
