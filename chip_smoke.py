@@ -32,8 +32,10 @@ kernel at ``cdiffe_scat``'s and a linear CDiffE's shapes, and the guided
 kernel at the ``dps_prior`` + surrogate shapes in both guidance modes.  Each
 kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are per launch, averaged over
 the main path's launches of each shape; the timing phase also splits the
-training kernel's step over its phases (``b3_phase_us_by_net``) and the
-guided kernel's, in both guidance modes (``b5_phase_us_by_guidance``).
+MH kernel's step over its phases (``b2_phase_us``), the training kernel's
+(``b3_phase_us_by_net``) and the guided kernel's, in both guidance modes
+(``b5_phase_us_by_guidance``).  The MH kernel's one-step check also holds
+the energies it carries against the plain energy in float64.
 
 Launch counts are zeroed just before each path and read just after; the
 plain serving path then reruns the same conditions for comparison.  Prints one
@@ -57,6 +59,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # non-tensor f32 peak
+H100_TF32_FLOPS = 495e12     # dense TF32 tensor-core peak
 H100_BYTES_PER_S = 3.35e12   # HBM3
 N_SAMPLES = 30000
 EM_STEPS = 200
@@ -948,6 +951,8 @@ def run() -> list:
     mh_ms = cuda_ms(lambda: fused_mh_scatterometry(weights, c0, y0, MH_STEPS, seed=7, **kw), 3)
     mh_plain_ms = cuda_ms(lambda: mh_chains_reference(weights, c0, y0, MH_STEPS, generator=gen, **kw), 1)
     mh_bound, mh_by = bound_ms(*mh_work(weights, MH_CHAINS, MH_STEPS), H100_F32_FLOPS)
+    # beside the f32 bound: B2's split-TF32 form, 3 TF32 products of every MAC
+    mh_tf32_bound, _ = bound_ms(*mh_work(weights, MH_CHAINS, MH_STEPS), H100_TF32_FLOPS / 3)
     b2_split = b2_phase_split(torch, weights, y0, c0, kw)
     # B3 per launch at each problem's launch shape, weighted by its launches
     b3_t, b3_flops, b3_bytes = {}, 0.0, 0.0
@@ -987,7 +992,8 @@ def run() -> list:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     phase("timing", t0, em_ms_by_net={k: v[0] for k, v in em_t.items()},
           em_plain_ms_by_net={k: v[1] for k, v in em_t.items()}, em_launches_by_net=em_n,
-          mh_chains=MH_CHAINS, mh_ms=mh_ms, mh_plain_ms=mh_plain_ms, b2_phase_us=b2_split,
+          mh_chains=MH_CHAINS, mh_ms=mh_ms, mh_plain_ms=mh_plain_ms, mh_bound_ms=mh_bound,
+          mh_split_tf32_bound_ms=mh_tf32_bound, b2_phase_us=b2_split,
           b3_ms_by_net={k: v[0] for k, v in b3_t.items()}, b3_plain_ms_by_net={k: v[1] for k, v in b3_t.items()},
           b3_launches_by_net=b3_launches, b3_launches_cdiffe_train=cdiffe_train["dsm_train"],
           b3_phase_us_by_net=b3_split,

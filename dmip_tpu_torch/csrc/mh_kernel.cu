@@ -11,20 +11,33 @@
 // kernel.  xi and u come from an in-kernel Philox4x32-10 keyed by
 // (seed, chain, step).
 //
-// What bounds it on an H100: the two 256x256 products, ~275 kFLOP per
-// chain-step in f32 (8.3 TFLOP per 30k x 1000 run, ~123 ms at the
-// 67 TFLOP/s non-tensor f32 peak).  Everything stays f32 FMA, not TF32:
-// the 1/((a f)^2 + b^2) term with b = 0.01 amplifies product error.
+// What bounds it on an H100: the two 256x256 hidden products, 131 of the
+// 137.5 kMAC of a chain-step (95%).  In f32 FMA a 300k x 1000 launch is
+// 82.7 TFLOP, 1234.6 ms at the 67 TFLOP/s non-tensor f32 peak.  Plain TF32
+// (10 mantissa bits) is not accurate enough: the 1/((a f)^2 + b^2) term
+// with b = 0.01 amplifies product error.  Split TF32 is: each operand is
+// split into hi = tf32(x) and lo = tf32(x - hi), and a_lo w_hi + a_hi w_lo
+// + a_hi w_hi (MH_TERMS 3; 4 adds a_lo w_lo) keeps the energies as close to
+// float64 as f32 FMA does (PERF.md, the CPU study of split_tf32_study.py).
+// Three TF32 products of 82.7 TFLOP each bound the launch at ~500 ms at the
+// 495 TFLOP/s dense TF32 peak; mma.sync reaches part of that.
 //
 // Design.  A block owns 64 chains and keeps their state and activations in
 // shared memory for all steps.  Activations are stored K-major
-// ([unit][chain]), so the 8 chains of a thread's register tile are two
-// broadcast float4 reads.  Each hidden product is a register-tiled SIMT
-// GEMM: 256 threads, each 8 chains x 8 units, weights read as coalesced
-// float4 rows through the read-only cache from L2 (the 0.55 MB surrogate
-// does not fit in shared memory; it stays hot in L2).  Results wait in
-// registers until every thread has read the layer's input, then overwrite
-// it, so one activation buffer suffices and two blocks fit on an SM.
+// ([unit][chain], a row of 72 floats: 64 chains and 8 of padding, so the
+// mma A-fragment loads of a warp hit 32 distinct banks).  Each hidden
+// product runs on the tensor cores, mma.sync m16n8k8 TF32 with f32
+// accumulators: each of 8 warps owns 32 output units for all 64 chains
+// (4 x 4 tiles, 64 accumulators a thread) and walks K in 8-deep steps.
+// The weights do not fit in shared memory (2 x 256 KB); the wrapper lays
+// them out once in B-fragment order, so a warp reads a k-step's fragments
+// for two n-tiles as one coalesced 16-byte load a lane from L2, one k-step
+// ahead, and splits them in registers: one f32 copy crosses L2, not a hi
+// and a lo copy.  The activations are split when the A fragments load.
+// Results wait in registers until every warp has read the layer's input,
+// then bias and ReLU write them over it, so one activation buffer suffices
+// and two blocks fit on an SM.  The first layer (K = 3), the output layer
+// (23 wide), the energy and the accept step are f32 SIMT.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,6 +48,10 @@
 #define MH_H 256
 #define MH_XD 3
 #define MH_XDP 4
+#define MH_AS 72      // activation row stride: 64 chains + 8 floats of padding
+#ifndef MH_CHUNK
+#define MH_CHUNK 1
+#endif
 #define MH_YD_MAX 32
 #define MH_PHASES 7  // proposal, layer 0, hidden 1, hidden 2, output layer, energy, accept
 
@@ -43,11 +60,11 @@ struct MhArgs {
   const float* y;         // (ydim,)
   const float* w0;        // (3, 256)
   const float* b0;        // (256,)
-  const float* w1;        // (256, 256)
+  const float4* w1;       // (256, 256) in B-fragment order (ops/mh_kernel.py pack_tf32_b)
   const float* b1;
-  const float* w2;        // (256, 256)
+  const float4* w2;       // (256, 256), the same
   const float* b2;
-  const float* w3;        // (256, ydim)
+  const float* w3;        // (4, 256, G): ops/mh_kernel.py pack_output, zero-padded
   const float* b3;        // (ydim,)
   const float* noise;     // (num_steps, n, 3) or null: caller-given normals
   const float* uniforms;  // (num_steps, n) or null: caller-given uniforms
@@ -60,14 +77,16 @@ struct MhArgs {
 };
 
 struct MhShared {
-  float act[MH_H * MH_ROWS];      // [unit][chain]
-  float f[MH_YD_MAX * MH_ROWS];   // [output][chain]
+  float act[MH_H * MH_AS];        // [unit][chain], rows padded to MH_AS
+  float2 part[4][MH_ROWS];        // the energy's partial sums (log, residual) per output group
   float x[MH_ROWS * MH_XDP];      // current states
   float xp[MH_ROWS * MH_XDP];     // proposals
   float e[MH_ROWS], ep[MH_ROWS], u[MH_ROWS];
   float w0[MH_XD * MH_H], b0[MH_H], b1[MH_H], b2[MH_H];
   float y[MH_YD_MAX], b3[MH_YD_MAX];
 };
+
+static_assert(sizeof(MhShared) % 16 == 0, "w3s follows MhShared and is filled with float4 stores");
 
 // With stamps, block 0 reads the card's clock (ns) and its SM's cycle
 // count when a phase ends.
@@ -80,56 +99,133 @@ __device__ __forceinline__ void stamp(long long* stamps, long long i) {
   }
 }
 
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero, on the bits: the same rule as cvt.rna.tf32.f32 and as the plain
+// model ops/mh_kernel.py tf32_rna (which also passes inf and NaN through;
+// here a NaN may come out as inf, and a NaN follows it in the lo part).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // act <- relu(act . W + b) for a 256x256 W, in place (see the note above).
-__device__ __forceinline__ void hidden_layer(float* act, const float* __restrict__ w,
-                                             const float* bias) {
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  float acc[8][8];
+// wp is W in B-fragment order: [n-tile pair][k-step][lane] float4 =
+// (W[8 ks + t][16 np + g], W[8 ks + t + 4][16 np + g], the same at column
+// 16 np + 8 + g), lane = 4 g + t.  Warp w owns n-tile pairs 2w and 2w + 1.
+__device__ __forceinline__ void hidden_layer(float* act, const float4* __restrict__ wp, const float* bias) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[4][4][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int m = 0; m < 4; ++m)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < MH_H; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(act + k * MH_ROWS + ty * 8);
-    const float4 a1 = *reinterpret_cast<const float4*>(act + k * MH_ROWS + ty * 8 + 4);
-    const float4 c0 = __ldg(reinterpret_cast<const float4*>(w + k * MH_H + tx * 4));
-    const float4 c1 = __ldg(reinterpret_cast<const float4*>(w + k * MH_H + 128 + tx * 4));
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+    for (int q = 0; q < 4; ++q)
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+      for (int e = 0; e < 4; ++e) acc[m][q][e] = 0.f;
+  const float4* wq = wp + (size_t)(2 * warp) * (32 * 32) + lane;
+  float4 c0 = __ldg(wq), c1 = __ldg(wq + 32 * 32);
+  const float* arow = act + t * MH_AS + g;
+#pragma unroll 1
+  for (int ks = 0; ks < 32; ++ks) {
+    const int kn = (ks + 1) & 31;  // the next k-step (the last one reloads step 0, unused)
+    const float4 n0 = __ldg(wq + kn * 32), n1 = __ldg(wq + 32 * 32 + kn * 32);
+    uint32_t bh[4][2], bl[4][2];
+    split_tf32(c0.x, bh[0][0], bl[0][0]);
+    split_tf32(c0.y, bh[0][1], bl[0][1]);
+    split_tf32(c0.z, bh[1][0], bl[1][0]);
+    split_tf32(c0.w, bh[1][1], bl[1][1]);
+    split_tf32(c1.x, bh[2][0], bl[2][0]);
+    split_tf32(c1.y, bh[2][1], bl[2][1]);
+    split_tf32(c1.z, bh[3][0], bl[3][0]);
+    split_tf32(c1.w, bh[3][1], bl[3][1]);
+    const float* ak = arow + ks * 8 * MH_AS;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], cv[j], acc[i][j]);
+    for (int m = 0; m < 4; ++m) {
+      uint32_t ah[4], al[4];
+      split_tf32(ak[16 * m], ah[0], al[0]);
+      split_tf32(ak[16 * m + 8], ah[1], al[1]);
+      split_tf32(ak[4 * MH_AS + 16 * m], ah[2], al[2]);
+      split_tf32(ak[4 * MH_AS + 16 * m + 8], ah[3], al[3]);
+#if MH_CHUNK
+      // a k-step's three products into a fresh tile, the small terms
+      // first, then one f32 add into the accumulators: the tensor core
+      // truncates as it accumulates, so the long sum stays in FADDs
+      float tile[4][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tile[q][e] = 0.f;
+        mma_tf32(tile[q], al, bh[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) mma_tf32(tile[q], ah, bl[q]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) mma_tf32(tile[q], ah, bh[q]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][q][e] += tile[q][e];
+#else
+#pragma unroll
+      for (int q = 0; q < 4; ++q) mma_tf32(acc[m][q], al, bh[q]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) mma_tf32(acc[m][q], ah, bl[q]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) mma_tf32(acc[m][q], ah, bh[q]);
+#endif
+    }
+    c0 = n0;
+    c1 = n1;
   }
-  __syncthreads();  // every thread has read the input
+  __syncthreads();  // every warp has read the input
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = (j < 4) ? tx * 4 + j : 128 + tx * 4 + (j - 4);
-    const float bc = bias[c];
-    float4 lo, hi;
-    lo.x = fmaxf(acc[0][j] + bc, 0.f); lo.y = fmaxf(acc[1][j] + bc, 0.f);
-    lo.z = fmaxf(acc[2][j] + bc, 0.f); lo.w = fmaxf(acc[3][j] + bc, 0.f);
-    hi.x = fmaxf(acc[4][j] + bc, 0.f); hi.y = fmaxf(acc[5][j] + bc, 0.f);
-    hi.z = fmaxf(acc[6][j] + bc, 0.f); hi.w = fmaxf(acc[7][j] + bc, 0.f);
-    *reinterpret_cast<float4*>(act + c * MH_ROWS + ty * 8) = lo;
-    *reinterpret_cast<float4*>(act + c * MH_ROWS + ty * 8 + 4) = hi;
+  for (int q = 0; q < 4; ++q) {
+    const int col = warp * 32 + q * 8 + 2 * t;
+    const float b0 = bias[col], b1 = bias[col + 1];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int row = 16 * m + g;
+      act[col * MH_AS + row] = fmaxf(acc[m][q][0] + b0, 0.f);
+      act[(col + 1) * MH_AS + row] = fmaxf(acc[m][q][1] + b1, 0.f);
+      act[col * MH_AS + row + 8] = fmaxf(acc[m][q][2] + b0, 0.f);
+      act[(col + 1) * MH_AS + row + 8] = fmaxf(acc[m][q][3] + b1, 0.f);
+    }
   }
   __syncthreads();
 }
 
 // Energies of the 64 states xsrc ([chain][4]) into eout.  With st >= 0
 // (and stamps), the ends of its five phases are stamped at st .. st + 4.
-__device__ void energy(const MhArgs& p, MhShared& s, const float* xsrc, float* eout, long long st) {
+// Thread tid works on chain r = tid % 64 in the first layer and in the
+// output layer, where it forms the G outputs of group og = tid / 64 from
+// w3s ([og][k][G] in shared memory, read as warp-wide broadcasts) and
+// their log and residual terms; a chain's 4 partial sums meet in part.
+template <int G>
+__device__ void energy(const MhArgs& p, MhShared& s, const float* w3s, const float* xsrc, float* eout,
+                       long long st) {
   long long* stamps = st >= 0 ? p.stamps : nullptr;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < MH_H * MH_ROWS; i += MH_THREADS) {
-    const int c = i / MH_ROWS, r = i - c * MH_ROWS;
+  const int tid = threadIdx.x, r = tid & (MH_ROWS - 1), og = tid >> 6;
+  {
     const float* xr = xsrc + r * MH_XDP;
-    float acc = xr[0] * s.w0[c];
-    acc = fmaf(xr[1], s.w0[MH_H + c], acc);
-    acc = fmaf(xr[2], s.w0[2 * MH_H + c], acc);
-    s.act[i] = fmaxf(acc + s.b0[c], 0.f);
+    const float x0 = xr[0], x1 = xr[1], x2 = xr[2];
+#pragma unroll 4
+    for (int c = og; c < MH_H; c += MH_THREADS / MH_ROWS) {
+      float acc = x0 * s.w0[c];
+      acc = fmaf(x1, s.w0[MH_H + c], acc);
+      acc = fmaf(x2, s.w0[2 * MH_H + c], acc);
+      s.act[c * MH_AS + r] = fmaxf(acc + s.b0[c], 0.f);
+    }
   }
   __syncthreads();
   stamp(stamps, st);
@@ -137,45 +233,64 @@ __device__ void energy(const MhArgs& p, MhShared& s, const float* xsrc, float* e
   stamp(stamps, st + 1);
   hidden_layer(s.act, p.w2, s.b2);
   stamp(stamps, st + 2);
-  for (int i = tid; i < p.ydim * MH_ROWS; i += MH_THREADS) {
-    const int o = i / MH_ROWS, r = i - o * MH_ROWS;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < MH_H; ++k) acc = fmaf(s.act[k * MH_ROWS + r], __ldg(p.w3 + k * p.ydim + o), acc);
-    s.f[i] = acc + s.b3[o];
+  float f[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j) f[j] = 0.f;
+  const float* wg = w3s + og * MH_H * G;
+#pragma unroll 4
+  for (int k = 0; k < MH_H; ++k) {
+    const float a = s.act[k * MH_AS + r];
+#pragma unroll
+    for (int j = 0; j < G; ++j) f[j] = fmaf(a, wg[k * G + j], f[j]);
   }
   __syncthreads();
   stamp(stamps, st + 3);
-  if (tid < MH_ROWS) {
-    const int r = tid;
-    float s1 = 0.f, s2 = 0.f;
-    for (int o = 0; o < p.ydim; ++o) {
-      const float f = s.f[o * MH_ROWS + r];
-      const float af = p.a * f;
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const int o = og * G + j;
+    if (o < p.ydim) {
+      const float fo = f[j] + s.b3[o];
+      const float af = p.a * fo;
       const float pref = af * af + p.bb;
-      const float res = s.y[o] - f;
+      const float res = s.y[o] - fo;
       s1 += logf(pref);
       s2 += res * res / pref;
+    }
+  }
+  s.part[og][r] = make_float2(s1, s2);
+  __syncthreads();
+  if (tid < MH_ROWS) {
+    float t1 = s.part[0][r].x, t2 = s.part[0][r].y;
+#pragma unroll
+    for (int q = 1; q < MH_THREADS / MH_ROWS; ++q) {
+      t1 += s.part[q][r].x;
+      t2 += s.part[q][r].y;
     }
     float s3 = 0.f;
     for (int d = 0; d < MH_XD; ++d) {
       const float v = xsrc[r * MH_XDP + d];
       s3 += fmaxf(v - 1.f, 0.f) + fmaxf(-1.f - v, 0.f);
     }
-    eout[r] = 0.5f * s1 + 0.5f * s2 + p.lambd_bd * s3;
+    eout[r] = 0.5f * t1 + 0.5f * t2 + p.lambd_bd * s3;
   }
   __syncthreads();
   stamp(stamps, st + 4);
 }
 
+// G outputs per thread in the output layer: 4 G >= ydim.
+template <int G>
 __global__ void __launch_bounds__(MH_THREADS, 2) mh_kernel(const MhArgs p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   MhShared& s = *reinterpret_cast<MhShared*>(smem_raw);
+  float* w3s = reinterpret_cast<float*>(smem_raw + sizeof(MhShared));  // [4][256][G]
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * MH_ROWS;
   const uint2 key = make_uint2((uint32_t)p.seed, (uint32_t)(p.seed >> 32));
 
   for (int i = tid; i < MH_XD * MH_H; i += MH_THREADS) s.w0[i] = p.w0[i];
+  for (int i = tid; i < MH_H * G; i += MH_THREADS)
+    reinterpret_cast<float4*>(w3s)[i] = __ldg(reinterpret_cast<const float4*>(p.w3) + i);
   for (int i = tid; i < MH_H; i += MH_THREADS) {
     s.b0[i] = p.b0[i];
     s.b1[i] = p.b1[i];
@@ -192,7 +307,7 @@ __global__ void __launch_bounds__(MH_THREADS, 2) mh_kernel(const MhArgs p) {
     s.xp[tid * MH_XDP + MH_XD] = 0.f;
   }
   __syncthreads();
-  energy(p, s, s.x, s.e, -1);
+  energy<G>(p, s, w3s, s.x, s.e, -1);
   stamp(p.stamps, 0);
 
   for (int step = 0; step < p.num_steps; ++step) {
@@ -216,7 +331,7 @@ __global__ void __launch_bounds__(MH_THREADS, 2) mh_kernel(const MhArgs p) {
     }
     __syncthreads();
     stamp(p.stamps, st);
-    energy(p, s, s.xp, s.ep, st + 1);
+    energy<G>(p, s, w3s, s.xp, s.ep, st + 1);
     if (tid < MH_ROWS) {
       const bool acc = s.u[tid] < expf(s.e[tid] - s.ep[tid]);
       if (acc) {
@@ -240,7 +355,7 @@ const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)
 
 // Launch on `stream`; returns a cudaError_t.
 int mh_chains_launch(const float* x0, const float* y, const float* w0, const float* b0,
-                     const float* w1, const float* b1, const float* w2, const float* b2,
+                     const float4* w1, const float* b1, const float4* w2, const float* b2,
                      const float* w3, const float* b3, const float* noise, const float* uniforms,
                      float* out, float* energy_out, long long* stamps, int n, int ydim, int num_steps, float noise_std, float a, float bb,
                      float lambd_bd, unsigned long long seed, void* stream) {
@@ -252,10 +367,13 @@ int mh_chains_launch(const float* x0, const float* y, const float* w0, const flo
   p.energy_out = energy_out; p.stamps = stamps;
   p.n = n; p.ydim = ydim; p.num_steps = num_steps;
   p.noise_std = noise_std; p.a = a; p.bb = bb; p.lambd_bd = lambd_bd; p.seed = seed;
-  const size_t smem = sizeof(MhShared);
-  cudaError_t err = cudaFuncSetAttribute(mh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // 4 G outputs in the output layer (ops/mh_kernel.py output_group)
+  const int G = ydim <= 24 ? 6 : 8;
+  const size_t smem = sizeof(MhShared) + sizeof(float) * 4 * MH_H * G;
+  void (*kernel)(const MhArgs) = G == 6 ? mh_kernel<6> : mh_kernel<8>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  mh_kernel<<<(n + MH_ROWS - 1) / MH_ROWS, MH_THREADS, smem, (cudaStream_t)stream>>>(p);
+  kernel<<<(n + MH_ROWS - 1) / MH_ROWS, MH_THREADS, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

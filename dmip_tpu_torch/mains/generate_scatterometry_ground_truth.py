@@ -6,9 +6,13 @@ Port of ``mains/generate_scatterometry_ground_truth.py``: for each of the
 and save each repeat as ``<gt_dir>/<i>/<j>.npy``.  All of a condition's
 chains (every repeat) go through one launch of the fused MH kernel.
 
+``--mcmc_seed`` draws fresh chains for the same conditions: held-out
+ground truth, to check that a knob chosen against the default set is not
+fit to its noise.
+
 Usage: python -m dmip_tpu_torch.mains.generate_scatterometry_ground_truth \
           [--config configs/config_scatterometry.yml] [--gt_dir data/gt...] \
-          [--n_samples_y N] [--device cuda|cpu]
+          [--n_samples_y N] [--mcmc_seed S] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -37,12 +41,16 @@ def test_conditions(config: dict, forward_model, fparams, device) -> torch.Tenso
     return y_test
 
 
-def run(config: dict, gt_dir: str, device=None) -> None:
+def run(config: dict, gt_dir: str, device=None, mcmc_seed=None) -> None:
+    """Writes the ground truth of every test condition.  The chains draw
+    from a generator seeded with ``RANDOM_STATE + 1``, or with
+    ``mcmc_seed`` when given; the conditions do not change with it."""
     dev = resolve_device(device)
     forward_model, fparams = scat.load_forward_model(device=dev)
     y_test = test_conditions(config, forward_model, fparams, dev)
     # chains draw from their own stream, apart from the conditions'
-    gen = torch.Generator().manual_seed(int(config.get("RANDOM_STATE", 13)) + 1)
+    chain_seed = int(config.get("RANDOM_STATE", 13)) + 1 if mcmc_seed is None else int(mcmc_seed)
+    gen = torch.Generator().manual_seed(chain_seed)
     n_repeats = int(config.get("n_repeats", 10))
     n_x = int(config["n_samples_x"])
     for i in range(y_test.shape[0]):
@@ -67,12 +75,14 @@ def main(argv=None) -> None:
     p.add_argument("--gt_dir", default="data/gt_samples_scatterometry")
     p.add_argument("--n_samples_y", type=int, default=None,
                    help="generate only the first N conditions")
+    p.add_argument("--mcmc_seed", type=int, default=None,
+                   help="fresh-seed GT: same conditions, independent chains")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
     config = load_config(args.config)
     if args.n_samples_y is not None:
         config["n_samples_y"] = args.n_samples_y
-    run(config, args.gt_dir, device=args.device)
+    run(config, args.gt_dir, device=args.device, mcmc_seed=args.mcmc_seed)
 
 
 if __name__ == "__main__":

@@ -128,6 +128,40 @@ def mh_chains_reference(
     return x.float()
 
 
+def pack_tf32_b(w: Tensor) -> Tensor:
+    """(256, 256) hidden weight -> float32 in mma.sync m16n8k8 TF32
+    B-fragment order, as ``csrc/mh_kernel.cu``'s hidden products read it.
+
+    Output shape (16, 32, 32, 2, 2): n-tile pair, 8-deep k-step, lane,
+    n-tile within the pair, fragment register.  Element [np, ks, lane, nh,
+    kh] is W[8 ks + 4 kh + lane % 4, 16 np + 8 nh + lane // 4], so a lane
+    reads both n-tiles' fragments for one k-step as one 16-byte load.
+    """
+    if tuple(w.shape) != (HIDDEN, HIDDEN):
+        raise ValueError(f"pack_tf32_b takes a ({HIDDEN}, {HIDDEN}) weight, got {tuple(w.shape)}")
+    # W[k, n] with k = 8 ks + 4 kh + t and n = 16 np + 8 nh + g, lane = 4 g + t
+    wr = w.reshape(HIDDEN // 8, 2, 4, HIDDEN // 16, 2, 8)   # ks, kh, t, np, nh, g
+    return wr.permute(3, 0, 5, 2, 4, 1).reshape(HIDDEN // 16, HIDDEN // 8, 32, 2, 2).contiguous()
+
+
+def output_group(ydim: int) -> int:
+    """Outputs per thread in the kernel's output layer: 4 groups of G cover
+    ydim (G = 6 up to 24 outputs, else 8; the kernel picks the same)."""
+    return 6 if ydim <= 24 else 8
+
+
+def pack_output(w: Tensor) -> Tensor:
+    """(256, ydim) output weight -> (4, 256, G) float32, zero-padded:
+    element [og, k, j] is W[k, G og + j], the layout the kernel stages in
+    shared memory so a thread of output group og reads its G weights of
+    row k together."""
+    ydim = w.shape[1]
+    g = output_group(ydim)
+    padded = torch.zeros(HIDDEN, 4 * g, dtype=w.dtype, device=w.device)
+    padded[:, :ydim] = w
+    return padded.reshape(HIDDEN, 4, g).permute(1, 0, 2).contiguous()
+
+
 _ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4 + [
     ctypes.c_uint64, ctypes.c_void_p]
 
@@ -153,7 +187,7 @@ def _launch(weights, x0, y, num_steps, noise_std, a, b, lambd_bd, seed, noise, u
     for i, ((w, bias), shape) in enumerate(zip(weights, dims)):
         _check_tensor(w, f"W{i}", shape, dev)
         _check_tensor(bias, f"b{i}", shape[1:], dev)
-        flat += [w, bias]
+        flat += [pack_tf32_b(w) if i in (1, 2) else pack_output(w) if i == 3 else w, bias]
     y = y.reshape(-1)
     _check_tensor(y, "y", (ydim,), dev)
     if (noise is None) != (uniforms is None):

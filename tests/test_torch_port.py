@@ -106,6 +106,37 @@ def test_drivers_end_to_end_on_cpu(tmp_path):
     assert rows[0] == ",KL2,NLL_true,NLL_diffusion,MSE,W2" and len(rows) == 4
 
 
+def test_gt_driver_mcmc_seed_keeps_conditions_and_changes_chains(tmp_path, monkeypatch):
+    """``--mcmc_seed`` at 2 conditions: the chains see the same conditions
+    and start elsewhere, so every file changes; ``--mcmc_seed`` equal to
+    the default chain seed (RANDOM_STATE + 1) writes the files of a run
+    without the flag, bit for bit."""
+    cfg = yaml.safe_load(open(os.path.join(REPO, "configs/config_scatterometry.yml")))
+    cfg.update(n_samples_x=200, n_repeats=2, METR_STEPS=10)
+    path = tmp_path / "scat.yml"
+    path.write_text(yaml.safe_dump(cfg))
+    seen, run = {}, [None]
+    chains = gt.fused_mh_scatterometry
+
+    def spy(weights, x0, y, *args, **kwargs):
+        seen.setdefault(run[0], []).append(y.clone())
+        return chains(weights, x0, y, *args, **kwargs)
+
+    monkeypatch.setattr(gt, "fused_mh_scatterometry", spy)
+    runs = {"default": [], "same": ["--mcmc_seed", str(int(cfg["RANDOM_STATE"]) + 1)], "fresh": ["--mcmc_seed", "99"]}
+    for name, extra in runs.items():
+        run[0] = name
+        gt.main(["--config", str(path), "--gt_dir", str(tmp_path / name), "--n_samples_y", "2", "--device", "cpu",
+                 *extra])
+    files = {name: [np.load(tmp_path / name / str(i) / f"{j}.npy") for i in range(2) for j in range(2)]
+             for name in runs}
+    assert all(np.array_equal(a, b) for a, b in zip(files["default"], files["same"]))
+    assert not any(np.array_equal(a, b) for a, b in zip(files["default"], files["fresh"]))
+    assert all(len(seen[name]) == 2 for name in runs)
+    for name in ("same", "fresh"):
+        assert all(torch.equal(a, b) for a, b in zip(seen["default"], seen[name]))
+
+
 @pytest.mark.parametrize("config,checkpoint,out_suffix", [
     ("config_scatterometry_cdiffe.yml", "cdiffe_scat", ""),
     ("config_scatterometry_dps.yml", "dps_prior", "_analytic"),
