@@ -16,11 +16,15 @@
 // 82.7 TFLOP, 1234.6 ms at the 67 TFLOP/s non-tensor f32 peak.  Plain TF32
 // (10 mantissa bits) is not accurate enough: the 1/((a f)^2 + b^2) term
 // with b = 0.01 amplifies product error.  Split TF32 is: each operand is
-// split into hi = tf32(x) and lo = tf32(x - hi), and a_lo w_hi + a_hi w_lo
-// + a_hi w_hi (MH_TERMS 3; 4 adds a_lo w_lo) keeps the energies as close to
-// float64 as f32 FMA does (PERF.md, the CPU study of split_tf32_study.py).
+// split into hi = tf32(x) and lo = x - hi, and a_lo w_hi + a_hi w_lo +
+// a_hi w_hi keeps the energies as close to float64 as f32 FMA does
+// (PERF.md, the CPU study of ops/split_tf32_study.py), provided the long
+// sum over K is not left to the tensor core, which truncates as it
+// accumulates (a k-step's products go to a fresh tile, then one FADD).
 // Three TF32 products of 82.7 TFLOP each bound the launch at ~500 ms at the
-// 495 TFLOP/s dense TF32 peak; mma.sync reaches part of that.
+// 495 TFLOP/s dense TF32 peak; mma.sync issued from registers, with the
+// splits and the FADDs beside it, takes ~7.5 cycles an mma per scheduler,
+// and the hidden products hold ~80% of the step (PERF.md, PR 7).
 //
 // Design.  A block owns 64 chains and keeps their state and activations in
 // shared memory for all steps.  Activations are stored K-major
@@ -37,7 +41,12 @@
 // Results wait in registers until every warp has read the layer's input,
 // then bias and ReLU write them over it, so one activation buffer suffices
 // and two blocks fit on an SM.  The first layer (K = 3), the output layer
-// (23 wide), the energy and the accept step are f32 SIMT.
+// (23 wide), the energy and the accept step are f32 SIMT.  The output
+// layer's weights live in shared memory: read through L1 they were
+// evicted every step by the hidden weights streaming past, and each read
+// went to L2.  Each thread forms G = 6 outputs of one chain (8 past 24; 4
+// groups cover ydim), with their log and residual terms, so the energy's
+// 23 logs and divisions a chain are spread over 256 threads.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,9 +58,6 @@
 #define MH_XD 3
 #define MH_XDP 4
 #define MH_AS 72      // activation row stride: 64 chains + 8 floats of padding
-#ifndef MH_CHUNK
-#define MH_CHUNK 1
-#endif
 #define MH_YD_MAX 32
 #define MH_PHASES 7  // proposal, layer 0, hidden 1, hidden 2, output layer, energy, accept
 
@@ -64,7 +70,7 @@ struct MhArgs {
   const float* b1;
   const float4* w2;       // (256, 256), the same
   const float* b2;
-  const float* w3;        // (4, 256, G): ops/mh_kernel.py pack_output, zero-padded
+  const float* w3;        // (256, ydim)
   const float* b3;        // (ydim,)
   const float* noise;     // (num_steps, n, 3) or null: caller-given normals
   const float* uniforms;  // (num_steps, n) or null: caller-given uniforms
@@ -82,11 +88,12 @@ struct MhShared {
   float x[MH_ROWS * MH_XDP];      // current states
   float xp[MH_ROWS * MH_XDP];     // proposals
   float e[MH_ROWS], ep[MH_ROWS], u[MH_ROWS];
-  float w0[MH_XD * MH_H], b0[MH_H], b1[MH_H], b2[MH_H];
+  float4 l0[MH_H];                // layer 0 per unit: (W0[0][c], W0[1][c], W0[2][c], b0[c])
+  float b1[MH_H], b2[MH_H];
   float y[MH_YD_MAX], b3[MH_YD_MAX];
 };
 
-static_assert(sizeof(MhShared) % 16 == 0, "w3s follows MhShared and is filled with float4 stores");
+static_assert(sizeof(MhShared) % 16 == 0, "w3s follows MhShared and is read in aligned vectors");
 
 // With stamps, block 0 reads the card's clock (ns) and its SM's cycle
 // count when a phase ends.
@@ -107,9 +114,12 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
+// hi = tf32_rna(x) and lo = x - hi, exact in f32; the tensor core reads
+// lo's top 19 bits (ops/mh_kernel.py split_tf32, tf32_trunc), which keeps
+// as much as rounding lo would (PERF.md, PR 7) in 3 operations, not 5.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
@@ -157,33 +167,19 @@ __device__ __forceinline__ void hidden_layer(float* act, const float4* __restric
       split_tf32(ak[16 * m + 8], ah[1], al[1]);
       split_tf32(ak[4 * MH_AS + 16 * m], ah[2], al[2]);
       split_tf32(ak[4 * MH_AS + 16 * m + 8], ah[3], al[3]);
-#if MH_CHUNK
       // a k-step's three products into a fresh tile, the small terms
       // first, then one f32 add into the accumulators: the tensor core
-      // truncates as it accumulates, so the long sum stays in FADDs
-      float tile[4][4];
+      // truncates as it accumulates, so the long sum stays in FADDs (one
+      // tile at a time keeps the products free of spills)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
+        float tile[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(tile, al, bh[q]);
+        mma_tf32(tile, ah, bl[q]);
+        mma_tf32(tile, ah, bh[q]);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) tile[q][e] = 0.f;
-        mma_tf32(tile[q], al, bh[q]);
+        for (int e = 0; e < 4; ++e) acc[m][q][e] += tile[e];
       }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) mma_tf32(tile[q], ah, bl[q]);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) mma_tf32(tile[q], ah, bh[q]);
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[m][q][e] += tile[q][e];
-#else
-#pragma unroll
-      for (int q = 0; q < 4; ++q) mma_tf32(acc[m][q], al, bh[q]);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) mma_tf32(acc[m][q], ah, bl[q]);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) mma_tf32(acc[m][q], ah, bh[q]);
-#endif
     }
     c0 = n0;
     c1 = n1;
@@ -221,10 +217,11 @@ __device__ void energy(const MhArgs& p, MhShared& s, const float* w3s, const flo
     const float x0 = xr[0], x1 = xr[1], x2 = xr[2];
 #pragma unroll 4
     for (int c = og; c < MH_H; c += MH_THREADS / MH_ROWS) {
-      float acc = x0 * s.w0[c];
-      acc = fmaf(x1, s.w0[MH_H + c], acc);
-      acc = fmaf(x2, s.w0[2 * MH_H + c], acc);
-      s.act[c * MH_AS + r] = fmaxf(acc + s.b0[c], 0.f);
+      const float4 l = s.l0[c];
+      float acc = x0 * l.x;
+      acc = fmaf(x1, l.y, acc);
+      acc = fmaf(x2, l.z, acc);
+      s.act[c * MH_AS + r] = fmaxf(acc + l.w, 0.f);
     }
   }
   __syncthreads();
@@ -268,6 +265,7 @@ __device__ void energy(const MhArgs& p, MhShared& s, const float* w3s, const flo
       t2 += s.part[q][r].y;
     }
     float s3 = 0.f;
+#pragma unroll
     for (int d = 0; d < MH_XD; ++d) {
       const float v = xsrc[r * MH_XDP + d];
       s3 += fmaxf(v - 1.f, 0.f) + fmaxf(-1.f - v, 0.f);
@@ -288,11 +286,12 @@ __global__ void __launch_bounds__(MH_THREADS, 2) mh_kernel(const MhArgs p) {
   const int row0 = blockIdx.x * MH_ROWS;
   const uint2 key = make_uint2((uint32_t)p.seed, (uint32_t)(p.seed >> 32));
 
-  for (int i = tid; i < MH_XD * MH_H; i += MH_THREADS) s.w0[i] = p.w0[i];
-  for (int i = tid; i < MH_H * G; i += MH_THREADS)
-    reinterpret_cast<float4*>(w3s)[i] = __ldg(reinterpret_cast<const float4*>(p.w3) + i);
+  for (int i = tid; i < 4 * MH_H * G; i += MH_THREADS) {
+    const int j = i % G, k = (i / G) % MH_H, o = (i / (G * MH_H)) * G + j;
+    w3s[i] = o < p.ydim ? p.w3[k * p.ydim + o] : 0.f;
+  }
   for (int i = tid; i < MH_H; i += MH_THREADS) {
-    s.b0[i] = p.b0[i];
+    s.l0[i] = make_float4(p.w0[i], p.w0[MH_H + i], p.w0[2 * MH_H + i], p.b0[i]);
     s.b1[i] = p.b1[i];
     s.b2[i] = p.b2[i];
   }
@@ -302,6 +301,7 @@ __global__ void __launch_bounds__(MH_THREADS, 2) mh_kernel(const MhArgs p) {
   }
   if (tid < MH_ROWS) {
     const int row = row0 + tid;
+#pragma unroll
     for (int d = 0; d < MH_XD; ++d) s.x[tid * MH_XDP + d] = row < p.n ? p.x0[(size_t)row * MH_XD + d] : 0.f;
     s.x[tid * MH_XDP + MH_XD] = 0.f;
     s.xp[tid * MH_XDP + MH_XD] = 0.f;
@@ -316,6 +316,7 @@ __global__ void __launch_bounds__(MH_THREADS, 2) mh_kernel(const MhArgs p) {
       const int row = row0 + tid;
       float z[MH_XD], u = 1.f;
       if (p.noise != nullptr) {
+#pragma unroll
         for (int d = 0; d < MH_XD; ++d) z[d] = row < p.n ? p.noise[((size_t)step * p.n + row) * MH_XD + d] : 0.f;
         if (row < p.n) u = p.uniforms[(size_t)step * p.n + row];
       } else {
@@ -326,6 +327,7 @@ __global__ void __launch_bounds__(MH_THREADS, 2) mh_kernel(const MhArgs p) {
         z[2] = normal_from_bits(w1.x, w1.y);
         u = uniform_from_bits(w1.z);
       }
+#pragma unroll
       for (int d = 0; d < MH_XD; ++d) s.xp[tid * MH_XDP + d] = s.x[tid * MH_XDP + d] + p.noise_std * z[d];
       s.u[tid] = u;
     }
@@ -335,6 +337,7 @@ __global__ void __launch_bounds__(MH_THREADS, 2) mh_kernel(const MhArgs p) {
     if (tid < MH_ROWS) {
       const bool acc = s.u[tid] < expf(s.e[tid] - s.ep[tid]);
       if (acc) {
+#pragma unroll
         for (int d = 0; d < MH_XD; ++d) s.x[tid * MH_XDP + d] = s.xp[tid * MH_XDP + d];
         s.e[tid] = s.ep[tid];
       }
@@ -344,6 +347,7 @@ __global__ void __launch_bounds__(MH_THREADS, 2) mh_kernel(const MhArgs p) {
   }
 
   if (tid < MH_ROWS && row0 + tid < p.n) {
+#pragma unroll
     for (int d = 0; d < MH_XD; ++d) p.out[(size_t)(row0 + tid) * MH_XD + d] = s.x[tid * MH_XDP + d];
     if (p.energy_out != nullptr) p.energy_out[row0 + tid] = s.e[tid];
   }
@@ -367,7 +371,7 @@ int mh_chains_launch(const float* x0, const float* y, const float* w0, const flo
   p.energy_out = energy_out; p.stamps = stamps;
   p.n = n; p.ydim = ydim; p.num_steps = num_steps;
   p.noise_std = noise_std; p.a = a; p.bb = bb; p.lambd_bd = lambd_bd; p.seed = seed;
-  // 4 G outputs in the output layer (ops/mh_kernel.py output_group)
+  // the output layer covers 4 G >= ydim outputs
   const int G = ydim <= 24 ? 6 : 8;
   const size_t smem = sizeof(MhShared) + sizeof(float) * 4 * MH_H * G;
   void (*kernel)(const MhArgs) = G == 6 ? mh_kernel<6> : mh_kernel<8>;

@@ -8,9 +8,11 @@ launch; :func:`mh_chains_reference` is its plain PyTorch version,
 :func:`dmip_tpu_torch.problems.scatterometry.get_log_posterior`.
 
 :func:`split_tf32_matmul` is the plain model of the kernel's hidden-layer
-product: each f32 operand split into two TF32 parts, three (or four)
-TF32 products summed in f32.  :func:`mh_chains_reference` runs it with
-``terms=`` for the tests and ``chip_smoke.py``; the main path never does.
+product: each f32 operand split into a TF32 part and its remainder, three
+(or four) TF32 products summed in f32.  :func:`mh_chains_reference` runs
+it with ``terms=`` for the tests, the numerics study
+(:mod:`dmip_tpu_torch.ops.split_tf32_study`) and ``chip_smoke.py``; the
+main path never does.
 
 :func:`fused_mh_scatterometry` takes the plain version only for CPU
 tensors; for a CUDA tensor it launches the kernel or raises.
@@ -47,22 +49,32 @@ def tf32_rna(x: Tensor) -> Tensor:
     return torch.where(special, bits, rounded).view(torch.float32)
 
 
+def tf32_trunc(x: Tensor) -> Tensor:
+    """The TF32 value a tensor core reads from a float32 register: the low
+    13 mantissa bits dropped (rounding toward zero)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
 def split_tf32(x: Tensor) -> Tuple[Tensor, Tensor]:
-    """(hi, lo): hi = tf32_rna(x), lo = tf32_rna(x - hi); hi + lo keeps
+    """(hi, lo): hi = tf32_rna(x) and lo = x - hi, exact in float32.  A
+    tensor core reads lo through :func:`tf32_trunc`, so hi + that keeps
     about 21 of float32's 24 significand bits."""
     hi = tf32_rna(x)
-    return hi, tf32_rna(x - hi)
+    return hi, x - hi
 
 
 def split_tf32_matmul(a: Tensor, w: Tensor, terms: int = 3) -> Tensor:
     """a @ w (float32) from TF32 parts, summed in float32 as the kernel's
     tensor-core products are: a_lo w_hi + a_hi w_lo + a_hi w_hi, and with
-    ``terms=4`` a_lo w_lo first.  Each product of two TF32 values is exact
-    in float32; what is lost is the split's remainder and f32 summation."""
+    ``terms=4`` a_lo w_lo first.  Each lo part enters as the tensor core
+    reads it (:func:`tf32_trunc`).  Each product of two TF32 values is
+    exact in float32; what is lost is the split's remainder and f32
+    summation."""
     if terms not in (3, 4):
         raise ValueError(f"terms must be 3 or 4, got {terms}")
     a_hi, a_lo = split_tf32(a)
     w_hi, w_lo = split_tf32(w)
+    a_lo, w_lo = tf32_trunc(a_lo), tf32_trunc(w_lo)
     out = a_lo @ w_hi + a_hi @ w_lo
     if terms == 4:
         out = a_lo @ w_lo + out
@@ -144,24 +156,6 @@ def pack_tf32_b(w: Tensor) -> Tensor:
     return wr.permute(3, 0, 5, 2, 4, 1).reshape(HIDDEN // 16, HIDDEN // 8, 32, 2, 2).contiguous()
 
 
-def output_group(ydim: int) -> int:
-    """Outputs per thread in the kernel's output layer: 4 groups of G cover
-    ydim (G = 6 up to 24 outputs, else 8; the kernel picks the same)."""
-    return 6 if ydim <= 24 else 8
-
-
-def pack_output(w: Tensor) -> Tensor:
-    """(256, ydim) output weight -> (4, 256, G) float32, zero-padded:
-    element [og, k, j] is W[k, G og + j], the layout the kernel stages in
-    shared memory so a thread of output group og reads its G weights of
-    row k together."""
-    ydim = w.shape[1]
-    g = output_group(ydim)
-    padded = torch.zeros(HIDDEN, 4 * g, dtype=w.dtype, device=w.device)
-    padded[:, :ydim] = w
-    return padded.reshape(HIDDEN, 4, g).permute(1, 0, 2).contiguous()
-
-
 _ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4 + [
     ctypes.c_uint64, ctypes.c_void_p]
 
@@ -187,7 +181,7 @@ def _launch(weights, x0, y, num_steps, noise_std, a, b, lambd_bd, seed, noise, u
     for i, ((w, bias), shape) in enumerate(zip(weights, dims)):
         _check_tensor(w, f"W{i}", shape, dev)
         _check_tensor(bias, f"b{i}", shape[1:], dev)
-        flat += [pack_tf32_b(w) if i in (1, 2) else pack_output(w) if i == 3 else w, bias]
+        flat += [pack_tf32_b(w) if i in (1, 2) else w, bias]
     y = y.reshape(-1)
     _check_tensor(y, "y", (ydim,), dev)
     if (noise is None) != (uniforms is None):

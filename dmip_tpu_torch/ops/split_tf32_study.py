@@ -5,7 +5,8 @@ Follows ``chip_smoke.py``'s ``check_b2`` recipe on the committed surrogate:
 uniform starts, one step with the same randomness, then many steps with
 the same randomness.  Each form of the chains' energy, the f32 plain one
 and the split-TF32 model with 3 and 4 terms (:func:`split_tf32_matmul`),
-is held against the same chains run in float64:
+is held against the same chains run in float64 (the split model's lo
+parts enter as a tensor core reads them, truncated to TF32):
 
 * the energies of the starts and the first proposals, relative to
   max(|e|, 1): p50, p999 and max;
