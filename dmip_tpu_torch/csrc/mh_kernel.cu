@@ -24,7 +24,7 @@
 // Three TF32 products of 82.7 TFLOP each bound the launch at ~500 ms at the
 // 495 TFLOP/s dense TF32 peak; mma.sync issued from registers, with the
 // splits and the FADDs beside it, takes ~7.5 cycles an mma per scheduler,
-// and the hidden products hold ~80% of the step (PERF.md, PR 7).
+// and the hidden products hold ~80% of the step (PERF.md).
 //
 // Design.  A block owns 64 chains and keeps their state and activations in
 // shared memory for all steps.  Activations are stored K-major
@@ -116,7 +116,7 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
 
 // hi = tf32_rna(x) and lo = x - hi, exact in f32; the tensor core reads
 // lo's top 19 bits (ops/mh_kernel.py split_tf32, tf32_trunc), which keeps
-// as much as rounding lo would (PERF.md, PR 7) in 3 operations, not 5.
+// as much as rounding lo would (PERF.md) in 3 operations, not 5.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32_rna(x);
   lo = __float_as_uint(x - __uint_as_float(hi));
