@@ -32,9 +32,10 @@ kernel at ``cdiffe_scat``'s and a linear CDiffE's shapes, and the guided
 kernel at the ``dps_prior`` + surrogate shapes in both guidance modes.  Each
 kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are per launch, averaged over
 the main path's launches of each shape; the timing phase also splits the
-MH kernel's step over its phases (``b2_phase_us``), the training kernel's
-(``b3_phase_us_by_net``) and the guided kernel's, in both guidance modes
-(``b5_phase_us_by_guidance``).  The MH kernel's one-step check also holds
+E-M kernel's step over its phases at both nets (``b1_phase_us_by_net``),
+the MH kernel's (``b2_phase_us``), the training kernel's
+(``b3_phase_us_by_net``), the CDiffE kernel's (``b4_phase_us``) and the
+guided kernel's, in both guidance modes (``b5_phase_us_by_guidance``).  The MH kernel's one-step check also holds
 the energies it carries against the plain energy in float64.
 
 Launch counts are zeroed just before each path and read just after; the
@@ -837,6 +838,18 @@ def b2_phase_split(torch, weights, y, x0, kw) -> dict:
     return stamp_split(torch, stamps, MH_STEPS, PHASES)
 
 
+def em_phase_split(torch, fn, names, params, y, x0, label: str) -> dict:
+    """An E-M sampler's time per step split over its phases at the main
+    path's shape: one launch whose block 0 reads the card's clock at the
+    end of each phase, after one without, which it must match bit for bit."""
+    stamps = torch.zeros(2 * (1 + len(names) * EM_STEPS), dtype=torch.int64, device="cuda")
+    plain = fn(params, x0, y, EM_STEPS, seed=7)
+    stamped = fn(params, x0, y, EM_STEPS, seed=7, stamps=stamps)
+    torch.cuda.synchronize()
+    check(torch.equal(plain, stamped), f"{label} with stamps differs from the run without")
+    return stamp_split(torch, stamps, EM_STEPS, names)
+
+
 def b5_phase_split(torch, prior, weights, y, x0, fparams) -> dict:
     """B5's time per step split over its phases, in both guidance modes at
     the main path's shape: one launch whose block 0 reads the card's clock
@@ -870,6 +883,7 @@ def run() -> list:
     from dmip_tpu_torch.ops.dps_kernel import guided_em_reference
     from dmip_tpu_torch.ops.dsm_train_kernel import dsm_train_epochs_reference
     from dmip_tpu_torch.ops.em_kernel import em_cdiffe_reference, em_sampler_reference
+    from dmip_tpu_torch.ops.em_kernel import phase_names as em_phase_names
     from dmip_tpu_torch.ops.mh_kernel import mh_chains_reference
     from dmip_tpu_torch.problems import LinearForwardProblem
     from dmip_tpu_torch.problems import scatterometry as scat
@@ -947,6 +961,11 @@ def run() -> list:
     em_plain_ms = sum(em_n[k] * em_t[k][1] for k in nets) / launches["em"]
     em_bound, em_by = bound_ms(em_flops, em_bytes, H100_BF16_FLOPS)
     em_bound /= launches["em"]
+    b1_split = {}
+    for name, (params, y) in nets.items():
+        x0 = torch.randn(N_SAMPLES, params[-1][0].shape[1], generator=gen, device="cuda")
+        b1_split[name] = em_phase_split(torch, fused_em_sampler, em_phase_names(len(params) - 2),
+                                        params, y, x0, f"B1 ({name})")
     c0 = torch.rand(MH_CHAINS, 3, generator=gen, device="cuda") * 2 - 1
     mh_ms = cuda_ms(lambda: fused_mh_scatterometry(weights, c0, y0, MH_STEPS, seed=7, **kw), 3)
     mh_plain_ms = cuda_ms(lambda: mh_chains_reference(weights, c0, y0, MH_STEPS, generator=gen, **kw), 1)
@@ -978,6 +997,8 @@ def run() -> list:
     b4_ms = cuda_ms(lambda: fused_em_sampler_cdiffe(cd_params, x0, y0, EM_STEPS, seed=7), 5)
     b4_plain_ms = cuda_ms(lambda: em_cdiffe_reference(cd_params, x0, y0, EM_STEPS, generator=gen), 1)
     b4_bound, b4_by = bound_ms(*cdiffe_work(cd_params, 3, N_SAMPLES, EM_STEPS), H100_BF16_FLOPS)
+    b4_split = em_phase_split(torch, fused_em_sampler_cdiffe, em_phase_names(len(cd_params) - 2, cdiffe=True),
+                              cd_params, y0, x0, "B4")
     b5_t = {}
     for guidance in ("dps", "pgdm"):
         gkw = dict(a=fparams["a"], b=fparams["b"], guidance_clip=100.0, num_steps=EM_STEPS, guidance=guidance)
@@ -992,12 +1013,13 @@ def run() -> list:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     phase("timing", t0, em_ms_by_net={k: v[0] for k, v in em_t.items()},
           em_plain_ms_by_net={k: v[1] for k, v in em_t.items()}, em_launches_by_net=em_n,
+          b1_phase_us_by_net=b1_split,
           mh_chains=MH_CHAINS, mh_ms=mh_ms, mh_plain_ms=mh_plain_ms, mh_bound_ms=mh_bound,
           mh_split_tf32_bound_ms=mh_tf32_bound, b2_phase_us=b2_split,
           b3_ms_by_net={k: v[0] for k, v in b3_t.items()}, b3_plain_ms_by_net={k: v[1] for k, v in b3_t.items()},
           b3_launches_by_net=b3_launches, b3_launches_cdiffe_train=cdiffe_train["dsm_train"],
           b3_phase_us_by_net=b3_split,
-          b4_ms=b4_ms, b4_plain_ms=b4_plain_ms, b4_bound_ms=b4_bound,
+          b4_ms=b4_ms, b4_plain_ms=b4_plain_ms, b4_bound_ms=b4_bound, b4_phase_us=b4_split,
           b5_ms_by_guidance={k: v[0] for k, v in b5_t.items()},
           b5_plain_ms_by_guidance={k: v[1] for k, v in b5_t.items()},
           b5_bound_ms_by_guidance={k: v[2] for k, v in b5_t.items()}, b5_phase_us_by_guidance=b5_split,

@@ -54,10 +54,22 @@ struct EmArgs {
   const float* bout;   // (xdim,)
   const float* noise;  // (num_steps, n, xdim) or null: caller-given normals
   float* out;          // (n, xdim)
+  long long* stamps;   // null, or 1 + (n_hidden + 3) x num_steps (%globaltimer, clock64) pairs
   int n, xdim, ydim, num_steps, stride;
   float T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale;
   unsigned long long seed;
 };
+
+// With stamps, block 0 reads the card's clock (ns) and its SM's cycle
+// count when a phase ends.
+__device__ __forceinline__ void stamp(long long* stamps, long long i) {
+  if (stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    stamps[2 * i] = t;
+    stamps[2 * i + 1] = clock64();
+  }
+}
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -170,8 +182,11 @@ __global__ void __launch_bounds__(EM_THREADS, 1) em_kernel(const EmArgs p) {
     xs[r * EM_MAX_XDIM + d] = row < p.n ? p.x0[(size_t)row * xdim + d] : 0.f;
   }
   __syncthreads();
+  stamp(p.stamps, 0);
 
+  const int n_phases = p.n_hidden + 3;
   for (int step = 0; step < p.num_steps; ++step) {
+    const long long st = 1 + (long long)step * n_phases;
     const float tt = ((float)step / (float)p.num_steps) * p.T;
     const float s = p.T - tt;
     const float beta = p.beta_min + p.bd * s;
@@ -192,11 +207,13 @@ __global__ void __launch_bounds__(EM_THREADS, 1) em_kernel(const EmArgs p) {
       }
     }
     __syncthreads();
+    stamp(p.stamps, st);
 
     int cur = 0;
     for (int l = 0; l < p.n_hidden; ++l) {
       hidden_layer(act[cur], stride, act[cur ^ 1], stride, p.wh[l], p.bh[l], p.width[l], p.width[l + 1]);
       __syncthreads();
+      stamp(p.stamps, st + 1 + l);
       cur ^= 1;
     }
 
@@ -220,6 +237,7 @@ __global__ void __launch_bounds__(EM_THREADS, 1) em_kernel(const EmArgs p) {
       }
     }
     __syncthreads();
+    stamp(p.stamps, st + 1 + p.n_hidden);
 
     // integrator update, one thread per (row, coordinate)
     if (tid < EM_ROWS * xdim) {
@@ -241,6 +259,7 @@ __global__ void __launch_bounds__(EM_THREADS, 1) em_kernel(const EmArgs p) {
       xs[r * EM_MAX_XDIM + d] = xn;
     }
     __syncthreads();
+    stamp(p.stamps, st + 2 + p.n_hidden);
   }
 
   for (int i = tid; i < EM_ROWS * xdim; i += EM_THREADS) {
@@ -293,6 +312,7 @@ struct EmCdiffeArgs {
   const float* bout;   // (xdim,)
   const float* noise;  // (num_steps, n, xdim + ydim) or null
   float* out;          // (n, xdim)
+  long long* stamps;   // null, or 1 + (n_hidden + 4) x num_steps pairs
   int n, xdim, ydim, num_steps, stride;
   float T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale;
   unsigned long long seed;
@@ -333,7 +353,10 @@ __global__ void __launch_bounds__(EM_THREADS, 1) em_cdiffe_kernel(const EmCdiffe
 
   const uint2 key = make_uint2((uint32_t)p.seed, (uint32_t)(p.seed >> 32));
   const int pairs = (D + 1) >> 1;
+  stamp(p.stamps, 0);
+  const int n_phases = p.n_hidden + 4;
   for (int step = 0; step < p.num_steps; ++step) {
+    const long long st = 1 + (long long)step * n_phases;
     const float tt = ((float)step / (float)p.num_steps) * p.T;
     const float s = p.T - tt;
     const float beta = p.beta_min + p.bd * s;
@@ -374,13 +397,16 @@ __global__ void __launch_bounds__(EM_THREADS, 1) em_cdiffe_kernel(const EmCdiffe
     }
     for (int j = tid; j < h1; j += EM_THREADS) bias1[j] = s * w1t[j] + b1[j];
     __syncthreads();
+    stamp(p.stamps, st);
 
     hidden_layer(zt, CD_ZSTRIDE, act[0], stride, p.w1, bias1, CD_K1, h1);
     __syncthreads();
+    stamp(p.stamps, st + 1);
     int cur = 0;
     for (int l = 0; l < p.n_hidden; ++l) {
       hidden_layer(act[cur], stride, act[cur ^ 1], stride, p.wh[l], p.bh[l], p.width[l], p.width[l + 1]);
       __syncthreads();
+      stamp(p.stamps, st + 2 + l);
       cur ^= 1;
     }
 
@@ -403,6 +429,7 @@ __global__ void __launch_bounds__(EM_THREADS, 1) em_cdiffe_kernel(const EmCdiffe
       }
     }
     __syncthreads();
+    stamp(p.stamps, st + 2 + p.n_hidden);
 
     if (tid < EM_ROWS * xdim) {
       const int r = tid / xdim, d = tid - r * xdim;
@@ -413,6 +440,7 @@ __global__ void __launch_bounds__(EM_THREADS, 1) em_cdiffe_kernel(const EmCdiffe
       xs[r * EM_MAX_XDIM + d] = xn;
     }
     __syncthreads();
+    stamp(p.stamps, st + 3 + p.n_hidden);
   }
 
   for (int i = tid; i < EM_ROWS * xdim; i += EM_THREADS) {
@@ -441,8 +469,9 @@ extern "C" {
 int em_sampler_launch(const float* x0, const float* y, const float* w1x, const float* w1y,
                       const float* w1t, const float* b1, const unsigned long long* wh_ptrs,
                       const unsigned long long* bh_ptrs, const int* widths, int n_hidden,
-                      const float* wout, const float* bout, const float* noise, float* out, int n,
-                      int xdim, int ydim, int num_steps, float T, float beta_min, float bd,
+                      const float* wout, const float* bout, const float* noise, float* out,
+                      long long* stamps, int n, int xdim, int ydim, int num_steps, float T,
+                      float beta_min, float bd,
                       float c_drift, float c_sigma, float delta, float sqrt_delta,
                       float noise_scale, unsigned long long seed, void* stream) {
   if (n_hidden < 0 || n_hidden > EM_MAX_HIDDEN || xdim < 1 || xdim > EM_MAX_XDIM || n < 1 ||
@@ -461,7 +490,7 @@ int em_sampler_launch(const float* x0, const float* y, const float* w1x, const f
     p.bh[l] = reinterpret_cast<const float*>(bh_ptrs[l]);
   }
   p.n_hidden = n_hidden;
-  p.wout = wout; p.bout = bout; p.noise = noise; p.out = out;
+  p.wout = wout; p.bout = bout; p.noise = noise; p.out = out; p.stamps = stamps;
   p.n = n; p.xdim = xdim; p.ydim = ydim; p.num_steps = num_steps;
   p.stride = ((hmax + 63) / 64) * 64 + 8;
   p.T = T; p.beta_min = beta_min; p.bd = bd; p.c_drift = c_drift; p.c_sigma = c_sigma;
@@ -494,8 +523,9 @@ extern "C" {
 int em_cdiffe_launch(const float* x0, const float* y, const void* w1, const float* w1t,
                      const float* b1, const unsigned long long* wh_ptrs,
                      const unsigned long long* bh_ptrs, const int* widths, int n_hidden,
-                     const float* wout, const float* bout, const float* noise, float* out, int n,
-                     int xdim, int ydim, int num_steps, float T, float beta_min, float bd,
+                     const float* wout, const float* bout, const float* noise, float* out,
+                     long long* stamps, int n, int xdim, int ydim, int num_steps, float T,
+                     float beta_min, float bd,
                      float c_drift, float c_sigma, float delta, float sqrt_delta,
                      float noise_scale, unsigned long long seed, void* stream) {
   if (n_hidden < 0 || n_hidden > EM_MAX_HIDDEN || xdim < 1 || xdim > EM_MAX_XDIM || ydim < 1 ||
@@ -514,7 +544,7 @@ int em_cdiffe_launch(const float* x0, const float* y, const void* w1, const floa
     p.bh[l] = reinterpret_cast<const float*>(bh_ptrs[l]);
   }
   p.n_hidden = n_hidden;
-  p.wout = wout; p.bout = bout; p.noise = noise; p.out = out;
+  p.wout = wout; p.bout = bout; p.noise = noise; p.out = out; p.stamps = stamps;
   p.n = n; p.xdim = xdim; p.ydim = ydim; p.num_steps = num_steps;
   p.stride = ((hmax + 63) / 64) * 64 + 8;
   p.T = T; p.beta_min = beta_min; p.bd = bd; p.c_drift = c_drift; p.c_sigma = c_sigma;

@@ -32,6 +32,17 @@ Tensor = torch.Tensor
 MAX_HIDDEN = 8
 MAX_XDIM = 4
 CDIFFE_MAX_WIDTH = 32  # xdim + ydim: B4's first layer is one 32-deep mma slice
+# The phases a step's stamps end, for the served nets' two hidden products;
+# :func:`phase_names` gives them for any depth.
+PHASES = ("layer0", "hidden1", "hidden2", "output", "update")
+CDIFFE_PHASES = ("noise", "layer0", "hidden1", "hidden2", "output", "update")
+
+
+def phase_names(n_hidden: int, cdiffe: bool = False) -> Tuple[str, ...]:
+    """The phases of one step of B1 (or B4, with ``cdiffe``) on a net with
+    ``n_hidden`` hidden products, in the order the stamps end them."""
+    names = ("layer0", *[f"hidden{i + 1}" for i in range(n_hidden)], "output", "update")
+    return ("noise", *names) if cdiffe else names
 
 
 def _ceil32(v: int) -> int:
@@ -206,17 +217,24 @@ def _hidden_args(net: dict):
 _ARGTYPES = (
     [ctypes.c_void_p] * 6
     + [ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-    + [ctypes.c_void_p] * 4
+    + [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 4
     + [ctypes.c_float] * 8
     + [ctypes.c_uint64, ctypes.c_void_p]
 )
 
 
-def _launch(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed):
+def _check_stamps(stamps: Optional[Tensor], n_phases: int, num_steps: int, dev) -> None:
+    need = 2 * (1 + n_phases * num_steps)
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != dev or stamps.numel() < need):
+        raise ValueError(f"stamps must be an int64 tensor of >= {need} entries on {dev}")
+
+
+def _launch(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps):
     n, xdim = x0.shape
     dev = x0.device
     _check_launch(params, x0, noise, num_steps, xdim)
+    _check_stamps(stamps, len(phase_names(len(params) - 2)), num_steps, dev)
     net = _device_net(params, xdim)
     _check_y(y, net["ydim"])
     y_dev = (torch.zeros(1, device=dev) if net["ydim"] == 0
@@ -233,7 +251,7 @@ def _launch(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, 
         net["w1t"].data_ptr(), net["b1"].data_ptr(), wh, bh, widths, n_hidden,
         net["wout"].data_ptr(), net["bout"].data_ptr(),
         None if noise is None else noise.data_ptr(), out.data_ptr(),
-        n, xdim, net["ydim"], num_steps,
+        None if stamps is None else stamps.data_ptr(), n, xdim, net["ydim"], num_steps,
         T, beta_min, beta_max - beta_min, 1.0 - 0.5 * lmbd, (1.0 - lmbd) ** 0.5,
         delta, delta**0.5, noise_scale, seed & (2**64 - 1),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -256,6 +274,7 @@ def fused_em_sampler(
     compute_dtype=torch.bfloat16,
     noise_scale: float = 1.0,
     noise: Optional[Tensor] = None,
+    stamps: Optional[Tensor] = None,
 ) -> Tensor:
     """Run the fused E-M sampler from x0 (N, xdim) for the single condition
     y (ydim,) or None.  Returns (N, xdim) float32.
@@ -264,8 +283,16 @@ def fused_em_sampler(
     Philox noise keyed by ``seed``, or ``noise`` (num_steps, N, xdim) when
     given.  On a CPU tensor it runs :func:`em_sampler_reference`, drawing
     noise from a generator seeded with ``seed``.
+
+    ``stamps``, taken only by the kernel, is an int64 tensor of >= 2 x (1 +
+    P x num_steps) entries, P = len(phase_names(n_hidden)): it receives
+    block 0's clock (ns) and its SM's cycle count, a pair, once before the
+    first step and then at the end of each phase of each step.  The samples
+    do not change.
     """
     if x0.device.type == "cpu":
+        if stamps is not None:
+            raise ValueError("stamps are taken only by the CUDA kernel")
         gen = torch.Generator().manual_seed(seed) if noise is None else None
         return em_sampler_reference(
             params, x0, y, num_steps, T, beta_min, beta_max, lmbd,
@@ -278,7 +305,7 @@ def fused_em_sampler(
             "the CUDA E-M kernel computes with bf16 weights; other compute "
             "dtypes are queued in ROADMAP.md"
         )
-    return _launch(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed)
+    return _launch(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps)
 
 
 fused_em_sampler.launches = 0
@@ -330,7 +357,7 @@ def em_cdiffe_reference(
 _CDIFFE_ARGTYPES = (
     [ctypes.c_void_p] * 5
     + [ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-    + [ctypes.c_void_p] * 4
+    + [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 4
     + [ctypes.c_float] * 8
     + [ctypes.c_uint64, ctypes.c_void_p]
@@ -353,7 +380,7 @@ def _cdiffe_device_net(params, xdim: int):
     return _add_hidden_and_out(net, params, h1, xdim)
 
 
-def _launch_cdiffe(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed):
+def _launch_cdiffe(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps):
     n, xdim = x0.shape
     dev = x0.device
     width = params[0][0].shape[0] - 1
@@ -363,6 +390,7 @@ def _launch_cdiffe(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_
     if params[-1][0].shape[1] != width:
         raise ValueError(f"a CDiffE net ends in xdim + ydim = {width} outputs, not {params[-1][0].shape[1]}")
     _check_launch(params, x0, noise, num_steps, width)
+    _check_stamps(stamps, len(phase_names(len(params) - 2, cdiffe=True)), num_steps, dev)
     _check_y(y, ydim)
     net = _cdiffe_device_net(params, xdim)
     y_dev = y.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
@@ -377,7 +405,7 @@ def _launch_cdiffe(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_
         x0.data_ptr(), y_dev.data_ptr(), net["w1"].data_ptr(), net["w1t"].data_ptr(), net["b1"].data_ptr(),
         wh, bh, widths, n_hidden, net["wout"].data_ptr(), net["bout"].data_ptr(),
         None if noise is None else noise.data_ptr(), out.data_ptr(),
-        n, xdim, ydim, num_steps,
+        None if stamps is None else stamps.data_ptr(), n, xdim, ydim, num_steps,
         T, beta_min, beta_max - beta_min, 1.0 - 0.5 * lmbd, (1.0 - lmbd) ** 0.5,
         delta, delta**0.5, noise_scale, seed & (2**64 - 1),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -400,6 +428,7 @@ def fused_em_sampler_cdiffe(
     compute_dtype=torch.bfloat16,
     noise_scale: float = 1.0,
     noise: Optional[Tensor] = None,
+    stamps: Optional[Tensor] = None,
 ) -> Tensor:
     """Run the CDiffE sampler from x0 (N, xdim) for the observed y (ydim,)
     on the joint net ([x, y, t] -> xdim + ydim).  Returns (N, xdim) float32.
@@ -407,9 +436,12 @@ def fused_em_sampler_cdiffe(
     On a CUDA tensor this launches B4 (bf16 weights only), with Philox
     noise keyed by ``seed``, or ``noise`` (num_steps, N, xdim + ydim) when
     given.  On a CPU tensor it runs :func:`em_cdiffe_reference`, drawing
-    noise from a generator seeded with ``seed``.
+    noise from a generator seeded with ``seed``.  ``stamps`` as
+    :func:`fused_em_sampler`, over ``phase_names(n_hidden, cdiffe=True)``.
     """
     if x0.device.type == "cpu":
+        if stamps is not None:
+            raise ValueError("stamps are taken only by the CUDA kernel")
         gen = torch.Generator().manual_seed(seed) if noise is None else None
         return em_cdiffe_reference(
             params, x0, y, num_steps, T, beta_min, beta_max, lmbd,
@@ -422,7 +454,7 @@ def fused_em_sampler_cdiffe(
             "the CUDA CDiffE kernel computes with bf16 weights; other compute "
             "dtypes are queued in ROADMAP.md"
         )
-    return _launch_cdiffe(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed)
+    return _launch_cdiffe(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps)
 
 
 fused_em_sampler_cdiffe.launches = 0

@@ -13,7 +13,7 @@ from dmip_tpu_torch.nets import mlp_init
 from dmip_tpu_torch.ops.dsm_train_kernel import dsm_train_epochs_reference, fused_dsm_train_epochs
 from dmip_tpu_torch.ops.dps_kernel import fused_guided_em_sampler, guided_em_reference
 from dmip_tpu_torch.ops.em_kernel import (em_cdiffe_reference, em_sampler_reference, fused_em_sampler,
-                                          fused_em_sampler_cdiffe)
+                                          fused_em_sampler_cdiffe, phase_names)
 from dmip_tpu_torch.ops.mh_kernel import PHASES as MH_PHASES
 from dmip_tpu_torch.ops.mh_kernel import fused_mh_scatterometry, mh_chains_reference, mh_energy
 from dmip_tpu_torch.problems import scatterometry as scat
@@ -65,6 +65,31 @@ def test_em_kernel_deterministic_and_rejects_what_it_does_not_take(cuda):
         fused_em_sampler(tp, x0, y, 5, noise=torch.zeros(4, 300, 2, device=cuda))
     with pytest.raises(ValueError):
         fused_em_sampler(tp, x0, None, 5)
+
+
+@pytest.mark.parametrize("cdiffe", [False, True])
+def test_em_kernel_stamps(cuda, cdiffe):
+    """B1 and B4 with stamps: block 0's clock readings rise through the
+    launch, every phase of every step, and the samples are bit for bit
+    those of the run without stamps.  A stamps tensor too short raises."""
+    fn = fused_em_sampler_cdiffe if cdiffe else fused_em_sampler
+    tp = mlp_init(27, 26 if cdiffe else 3, (512, 512, 512), generator=torch.Generator().manual_seed(3),
+                  device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x0 = torch.randn(700, 3, generator=gen, device=cuda)
+    y = 0.3 * torch.randn(23, generator=gen, device=cuda)
+    steps, names = 12, phase_names(2, cdiffe=cdiffe)
+    stamps = torch.zeros(2 * (1 + len(names) * steps), dtype=torch.int64, device=cuda)
+    plain = fn(tp, x0, y, steps, seed=11)
+    stamped = fn(tp, x0, y, steps, seed=11, stamps=stamps)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, stamped)
+    for clock in (stamps[0::2], stamps[1::2]):
+        assert bool((clock > 0).all()) and bool((clock[1:] >= clock[:-1]).all())
+        ends = clock[1:].reshape(steps, len(names))[:, -1]
+        assert bool((ends > torch.cat([clock[:1], ends[:-1]])).all())
+    with pytest.raises(ValueError, match="stamps"):
+        fn(tp, x0, y, steps, seed=11, stamps=stamps[:-1])
 
 
 def test_mh_kernel_matches_plain(cuda):
