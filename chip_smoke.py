@@ -120,6 +120,11 @@ TRAIN_LIN_KL_BOUND = 0.03
 # tolerances; the linear CDiffE net has random weights
 B4_MEAN_ABS_TOL = 2e-3
 B4_P999_TOL = 5e-2
+# B1 and B4 against their plain versions run unrounded in float64 on the same
+# x0 and noise: the kernel and the bf16 plain version both round every
+# activation to bf16, so their distances to float64 are alike; a wrong term
+# or a lost partial sum would put the kernel's far above
+EM_F64_RATIO = 2.0
 B4_LIN_NET = (5, 4)           # linear CDiffE: [x, y, t] = 5 -> 512^3 -> xdim + ydim = 4
 # CDiffE serving, kernel (bf16) vs plain (f32) KL on the same GT: at least
 # SCAT_KL_AGREE, widened to 3x the plain path's own spread between two seeds
@@ -252,6 +257,18 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def f64_witness(torch, out_k, out_p, out_d) -> dict:
+    """The kernel's and the plain version's samples against the float64
+    run on the same inputs: p50, p999 and max of each row's largest error."""
+    res = {}
+    q = torch.tensor([0.5, 0.999], device=out_d.device, dtype=torch.float64)
+    for name, o in (("kernel", out_k), ("plain", out_p)):
+        e = (o.double() - out_d).abs().amax(dim=1)
+        p50, p999 = torch.quantile(e, q).tolist()
+        res.update({f"f64_{name}_p50": p50, f"f64_{name}_p999": p999, f"f64_{name}_max": float(e.max())})
+    return res
+
+
 def check_b1(torch, params, y, gen):
     """B1 against its plain version on the net ``params`` and condition y,
     at the serving path's 30k samples x 200 steps."""
@@ -262,6 +279,8 @@ def check_b1(torch, params, y, gen):
     noise = torch.randn(EM_STEPS, N_SAMPLES, xdim, generator=gen, device="cuda")
     out_k = fused_em_sampler(params, x0, y, EM_STEPS, noise=noise)
     out_p = em_sampler_reference(params, x0, y, EM_STEPS, noise=noise)
+    out_d = em_sampler_reference(params, x0, y, EM_STEPS, noise=noise, compute_dtype=torch.float64,
+                                 dtype=torch.float64)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out_k).all()), "B1 produced non-finite samples")
     err = (out_k - out_p).abs().amax(dim=1)
@@ -269,9 +288,12 @@ def check_b1(torch, params, y, gen):
         "max_abs_err": float(err.max()),
         "mean_abs_err": float(err.mean()),
         "p999_abs_err": float(torch.quantile(err, 0.999)),
+        **f64_witness(torch, out_k, out_p, out_d),
     }
     check(res["mean_abs_err"] <= B1_MEAN_ABS_TOL and res["p999_abs_err"] <= B1_P999_TOL,
           f"B1 vs plain (same noise) out of tolerance: {res}")
+    check(res["f64_kernel_p999"] <= EM_F64_RATIO * res["f64_plain_p999"],
+          f"B1 further from float64 than the bf16 plain version: {res}")
     xk = fused_em_sampler(params, x0, y, EM_STEPS, seed=1234)
     xp = em_sampler_reference(params, x0, y, EM_STEPS, generator=gen)
     dm = float((xk.mean(0) - xp.mean(0)).abs().max())
@@ -341,7 +363,9 @@ def check_b4(torch, params, y, gen, moments=True):
     """B4 against its plain version on the joint net ``params`` and
     condition y at the serving path's 30k samples x 200 steps: the same x0
     and (steps, N, xdim + ydim) noise, and the noise-off trajectory; with
-    ``moments``, the Philox stream's moments against torch's."""
+    the same noise also both against the plain version run unrounded in
+    float64 (the float64 witness); with ``moments``, the Philox stream's
+    moments against torch's."""
     from dmip_tpu_torch.ops.em_kernel import em_cdiffe_reference, fused_em_sampler_cdiffe
 
     width = params[0][0].shape[0] - 1
@@ -360,6 +384,12 @@ def check_b4(torch, params, y, gen, moments=True):
         res.update({f"{label}_{k}": v for k, v in r.items()})
         check(r["mean_abs_err"] <= B4_MEAN_ABS_TOL and r["p999_abs_err"] <= B4_P999_TOL,
               f"B4 vs plain ({label}) out of tolerance: {r}")
+        if label == "same_noise":
+            out_d = em_cdiffe_reference(params, x0, y, EM_STEPS, compute_dtype=torch.float64, dtype=torch.float64,
+                                        **kw)
+            res.update(f64_witness(torch, out_k, out_p, out_d))
+            check(res["f64_kernel_p999"] <= EM_F64_RATIO * res["f64_plain_p999"],
+                  f"B4 further from float64 than the bf16 plain version: {res}")
     del noise
     res["max_abs_err"] = max(res["same_noise_max_abs_err"], res["noise_off_max_abs_err"])
     if moments:

@@ -78,6 +78,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace cg = cooperative_groups;
 
 #define DT_MAX_LAYERS 10
@@ -140,8 +142,6 @@ template <typename T> struct Slot {
   static constexpr int BYTES = DT_T * RB;
 };
 
-__device__ __forceinline__ int swz(int r, int pc, int rb) { return r * rb + ((pc ^ (r & 7)) << 4); }
-__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
 }
@@ -232,10 +232,8 @@ __device__ __forceinline__ void mma_slots(Acc& acc, const uint8_t* sa, const uin
 
 // wgmma: warpgroup g multiplies the 64 A rows into B rows 32 g .. 32 g + 31.
 // Both slots are K-major with the 128-byte swizzle (8-row groups 1024 bytes
-// apart), which is the slot layout; a 16-deep step moves 32 bytes along K.
-__device__ __forceinline__ uint64_t wg_desc(const uint8_t* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
+// apart), which is the slot layout (wg_desc); a 16-deep step moves 32 bytes
+// along K.
 
 template <>
 __device__ __forceinline__ void mma_slots<__nv_bfloat16>(Acc& acc, const uint8_t* sa, const uint8_t* sb, int nk) {
@@ -254,10 +252,6 @@ __device__ __forceinline__ void mma_slots<__nv_bfloat16>(Acc& acc, const uint8_t
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
-
-// Shared-memory writes of the generic proxy (st.shared, cp.async) made
-// visible to wgmma, which reads through the async proxy.
-__device__ __forceinline__ void fence_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 template <>
 __device__ __forceinline__ void mma_slots<float>(Acc& acc, const uint8_t* sa, const uint8_t* sb, int nk) {

@@ -1,5 +1,7 @@
-// Fused reverse-SDE Euler-Maruyama samplers for a tanh MLP: the CDE (B1,
-// em_kernel) and the CDiffE (B4, em_cdiffe_kernel, described at the end).
+// Fused reverse-SDE Euler-Maruyama samplers for a tanh MLP: the CDE (B1)
+// and the CDiffE (B4).  One kernel template serves both; they differ only
+// in what feeds the first layer and in B4's per-step noise and re-diffusion
+// of y.
 //
 // B1 replaces the Pallas TPU kernel dmip_tpu/ops/em_kernel.py ::
 // fused_em_sampler (_em_kernel, pallas_call at :421): the whole N-step E-M
@@ -11,51 +13,89 @@
 // with s = T - i/N T, every tanh output rounded to bf16 before the next
 // product, and xi from an in-kernel Philox4x32-10 keyed by (seed, row, step).
 //
-// What bounds it on an H100: the hidden 512x512 products, ~1.05 MFLOP per
-// sample-step in bf16 (6.3 TFLOP per 30k x 200 posterior, ~6.4 ms at the
-// 989 TFLOP/s dense bf16 peak).  Bytes are negligible: x0 in, x out, ~1 MB
-// of weights.
+// B4 replaces dmip_tpu/ops/em_kernel.py :: fused_em_sampler_cdiffe
+// (_em_cdiffe_kernel, pallas_call at :319).  The net is the joint one,
+// [x, y, t] -> (xdim + ydim), with its output layer sliced to the x block
+// on the host.  Per step s = T - i/N T, for each sample row:
+//   eps = noise_scale * (D = xdim + ydim normals)   (one block per step)
+//   y_t = alpha(s) y0 + std(s) eps[xdim:]            (re-diffuse the condition)
+//   h1  = tanh(bf16([x, y_t]) . W1 + (s w1t + b1))
+//   h   = tanh(h . W + b) per hidden layer, a = h . Wout_x + bout_x
+//   x  += delta ((1 - lmbd/2) g(s) a + beta(s)/2 x) + sqrt(delta) sigma eps[:xdim]
+// With noise_scale = 0 no normals are drawn: y_t = alpha(s) y0 and the
+// update has no noise term, as in the TPU kernel.  The D normals of a row
+// come from ceil(D/2) Philox4x32-10 draws keyed by (seed, row, step, pair).
 //
-// Design.  A block owns 64 rows and carries them through all steps; rows
-// never leave shared memory between steps.  Activations ping-pong between
-// two 64 x H bf16 buffers in shared memory (rows padded by 8 elements so
-// the mma fragment loads hit 32 distinct banks).  The weights do not fit
-// (the two 512x512 bf16 matrices alone are 1 MB against 227 KB), so each
-// step streams them from L2, where the ~1.1 MB net stays hot; they are
-// re-laid out once on the host into mma.sync fragment order, so a warp
-// fetches each 32-deep K slice of its 4 n-tiles as one coalesced 16-byte
-// load per lane, prefetched one slice ahead.  Products use
-// mma.sync.m16n8k16 bf16 -> f32 (wgmma/TMA is later work).  The ragged
-// last block is masked: its missing rows run on zeros and are not stored.
+// What bounds them on an H100: the hidden 512x512 products, ~1.05 (B1) and
+// ~1.08 (B4) MFLOP per sample-step in bf16, ~6.4 / 6.5 ms per 30k x 200
+// posterior at the 989 TFLOP/s dense bf16 peak; ~9 us a step for a block of
+// 64 rows on one SM.  Device-memory bytes are negligible (x0 in, x out, ~1 MB
+// of weights), but the weights do not fit in shared memory, so each block
+// reads all ~1 MB of hidden weights from L2 every step.
+//
+// Design.  A block owns 64 rows for all steps: 2 consumer warpgroups and a
+// producer warpgroup, of which one thread works.  The activations live in
+// shared memory as K-major 64 x 64 bf16 slots with the 128-byte swizzle, the
+// operand layout wgmma reads.  The wrapper packs every weight the steps read
+// into the exact shared-memory image of its ring tiles, in the order the
+// consumers take them: per step the first layer's 32 x h1 mma.sync
+// fragments (a half for each warpgroup), then each hidden layer's 64-deep K
+// slices of N/2 columns (K-major, swizzled).  The producer moves one tile at
+// a time with one 1-D bulk copy into a ring of four 32 KB stages, completing
+// on the stage's mbarrier, and so runs ahead across layers and steps while
+// the consumers compute.  Warpgroup h computes columns [h N/2, (h + 1) N/2)
+// of every layer:
+//   layer 0    the bf16 [x] (B1) or [x, y_t] (B4) tile, 64 x 32, times its
+//              half of W1 by mma.sync (K = 32), + (s w1t + cy) or (s w1t + b1);
+//   hidden     wgmma m64n{N/2}k16 over the ring's slices, bf16 -> f32
+//              accumulators in registers, one slice in flight behind the
+//              one being issued; once both warpgroups are done reading the
+//              layer's input, each writes its output over it in place;
+//   output     wgmma m64n8k16 over half of K each, against the output
+//              weights' x block (xdim <= 4 columns, padded to 8), resident
+//              in shared memory; the two halves meet in the update.
+// Every epilogue adds the bias, applies tanh.approx.f32 (one SFU op; its
+// ~2^-11 relative error sits under the bf16 rounding that follows, and
+// chip_smoke.py holds the samples against a float64 run of the plain
+// version), rounds to bf16 and stores.  Widths are zero-padded to multiples
+// of 128 by the wrapper (exact) and are at most 512.  The ragged last block
+// runs its missing rows on zeros and does not store them.  PERF.md has the
+// phase times.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "philox.cuh"
 
 #define EM_ROWS 64
-#define EM_THREADS 256
-#define EM_WARPS (EM_THREADS / 32)
+#define EM_CONSUMERS 256                 // two warpgroups
+#define EM_THREADS (EM_CONSUMERS + 128)  // and the producer's warpgroup, of which one thread works
 #define EM_MAX_HIDDEN 8
 #define EM_MAX_XDIM 4
+#define EM_MAX_WIDTH 512
+#define EM_STAGES 4
+#define EM_TILE_BYTES 32768              // a ring stage: up to 256 weight columns x 64 K
+#define EM_SLOT_BYTES (EM_ROWS * 128)    // 64 activation rows x 64 K
+#define EM_K1 32                         // the first layer's K: [x] or [x, y], zero-padded
+#define EM_ZSTRIDE (EM_K1 + 8)
 
 struct EmArgs {
   const float* x0;     // (n, xdim)
   const float* y;      // (ydim,)
-  const float* w1x;    // (xdim, h1), bf16-rounded values
-  const float* w1y;    // (ydim, h1), f32
-  const float* w1t;    // (h1,), f32
-  const float* b1;     // (h1,)
-  const uint4* wh[EM_MAX_HIDDEN];  // hidden products, packed bf16 fragments
-  const float* bh[EM_MAX_HIDDEN];  // their biases
-  int width[EM_MAX_HIDDEN + 1];    // width[0] = h1; width[l + 1] = out of hidden l
+  const float* c1;     // (h1,): B1 cy = y . W1y + b1, B4 b1
+  const float* w1t;    // (h1,)
+  const uint8_t* w1;   // first layer over [x] or [x, y]: (32, h1) as mma.sync fragments, two ring tiles
+  const uint8_t* wh[EM_MAX_HIDDEN];  // hidden weights, as their ring tiles' images
+  const float* bh[EM_MAX_HIDDEN];    // their biases
+  int width[EM_MAX_HIDDEN + 1];      // width[0] = h1; width[l + 1] = out of hidden l
   int n_hidden;
-  const float* wout;   // (xdim, hl): output weights transposed, bf16-rounded
+  const uint8_t* wout; // output weights' x block: (hl, 8) as one K-major swizzled wgmma operand
   const float* bout;   // (xdim,)
-  const float* noise;  // (num_steps, n, xdim) or null: caller-given normals
+  const float* noise;  // B1 (num_steps, n, xdim), B4 (num_steps, n, xdim + ydim), or null
   float* out;          // (n, xdim)
-  long long* stamps;   // null, or 1 + (n_hidden + 3) x num_steps (%globaltimer, clock64) pairs
-  int n, xdim, ydim, num_steps, stride;
+  long long* stamps;   // null, or 1 + (n_hidden + 3 (B1) or 4 (B4)) x num_steps (%globaltimer, clock64) pairs
+  int n, xdim, ydim, num_steps, hmax;
   float T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale;
   unsigned long long seed;
 };
@@ -71,12 +111,14 @@ __device__ __forceinline__ void stamp(long long* stamps, long long i) {
   }
 }
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
@@ -84,368 +126,371 @@ __device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uin
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// out[64, N] = bf16(tanh(in[64, K] . W + b)).  Each warp computes 64 x 32
-// column chunks: 4 m-tiles x 4 n-tiles of m16n8k16.  wp is packed as
-// [N/8][K/32][lane] uint4 = (k-tile 2kp: b0, b1; k-tile 2kp+1: b0, b1).
-// bias may lie in global or shared memory.
-__device__ __forceinline__ void hidden_layer(const __nv_bfloat16* in, int in_stride,
-                                             __nv_bfloat16* out, int stride,
-                                             const uint4* __restrict__ wp, const float* bias,
-                                             int K, int N) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int KP = K >> 5;
-  for (int n0 = warp * 32; n0 < N; n0 += EM_WARPS * 32) {
-    float acc[4][4][4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[m][q][e] = 0.f;
+// Byte offsets in the block's shared memory (from a 1024-byte boundary).
+struct EmLayout {
+  int ring, act, wout, zt, f32, bars, bytes;
+};
 
-    const uint4* base = wp + (size_t)(n0 >> 3) * KP * 32 + lane;
-    uint4 bcur[4], bnext[4];
+__host__ __device__ inline EmLayout em_layout(int h1, int hl, int hmax) {
+  EmLayout L;
+  L.ring = 0;
+  L.act = L.ring + EM_STAGES * EM_TILE_BYTES;
+  L.wout = L.act + (hmax / 64) * EM_SLOT_BYTES;
+  L.zt = L.wout + (hl / 64) * 1024;
+  L.f32 = L.zt + EM_ROWS * EM_ZSTRIDE * 2;
+  // w1t, c1, bias1 [h1]; xs, xi [EM_ROWS][EM_MAX_XDIM]; opart [2][EM_ROWS][EM_MAX_XDIM]; y0 [EM_K1]
+  const int nf = 3 * h1 + 4 * EM_ROWS * EM_MAX_XDIM + EM_K1;
+  L.bars = (L.f32 + 4 * nf + 7) & ~7;
+  L.bytes = L.bars + 2 * EM_STAGES * 8 + 1024;  // + slack to align the base
+  return L;
+}
+
+// A consumer thread's place in the accumulator layout: warpgroup h, warp w
+// (within it), lane = 4 g + t: rows 16 w + g and + 8, columns h NW + 8 j +
+// 2 t and + 1.
+struct Lane {
+  int h, r0, t;
+  __device__ __forceinline__ Lane() {
+    const int lane = threadIdx.x & 31;
+    h = threadIdx.x >> 7;
+    r0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+    t = lane & 3;
+  }
+};
+
+// act element (r, c) as a byte offset: slot c / 64, its 16-byte piece
+// (c % 64) / 8 swizzled within row r.
+__device__ __forceinline__ int act_off(int r, int c) {
+  return (c >> 6) * EM_SLOT_BYTES + swz(r, (c & 63) >> 3, 128) + ((c & 7) << 1);
+}
+
+// A layer's epilogue over this thread's columns, column block by column
+// block: pre(j, v) gives the four pre-activations of block j (the
+// accumulator layout's v[0..3]); + bias, tanh, bf16, stored over the
+// layer's input in act.
+template <int NW, typename Pre>
+__device__ __forceinline__ void epilogue(Pre pre, const float* bias, uint8_t* act) {
+  const Lane ln;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) bcur[q] = __ldg(base + (size_t)q * KP * 32);
-    for (int kp = 0; kp < KP; ++kp) {
-      if (kp + 1 < KP) {
+  for (int j = 0; j < NW / 8; ++j) {
+    const int c = ln.h * NW + 8 * j + 2 * ln.t;
+    const float2 b = *reinterpret_cast<const float2*>(bias + c);
+    float v[4];
+    pre(j, v);
+    *reinterpret_cast<__nv_bfloat162*>(act + act_off(ln.r0, c)) =
+        __floats2bfloat162_rn(tanh_approx(v[0] + b.x), tanh_approx(v[1] + b.y));
+    *reinterpret_cast<__nv_bfloat162*>(act + act_off(ln.r0 + 8, c)) =
+        __floats2bfloat162_rn(tanh_approx(v[2] + b.x), tanh_approx(v[3] + b.y));
+  }
+}
+
+// The consumers' view of the ring: warpgroup h takes ring tiles 2 j + h,
+// j = 0, 1, ..., which the producer fills in that order.
+struct Ring {
+  uint8_t* base;
+  uint64_t *full, *empty;
+  uint32_t j;
+  __device__ __forceinline__ uint32_t g(uint32_t jj) const { return 2 * jj + (threadIdx.x >> 7); }
+  // Wait for this warpgroup's tile jj; returns its stage.
+  __device__ __forceinline__ uint8_t* take(uint32_t jj) {
+    const uint32_t gg = g(jj);
+    mbar_wait(&full[gg % EM_STAGES], (gg / EM_STAGES) & 1);
+    return base + (gg % EM_STAGES) * EM_TILE_BYTES;
+  }
+  // Give tile jj's stage back to the producer (one thread a warpgroup).
+  __device__ __forceinline__ void give(uint32_t jj) {
+    if ((threadIdx.x & 127) == 0) mbar_arrive(&empty[g(jj) % EM_STAGES]);
+  }
+};
+
+// Keeps the compiler from moving other definitions of the accumulators
+// into a wgmma pipeline stage (which would serialize the products).
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&acc)[R]) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) bnext[q] = __ldg(base + ((size_t)q * KP + kp + 1) * 32);
-      }
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+// Layer 0 of this warpgroup: the bf16 tile zt (64 x 32) times its ring
+// tile of W1 fragments, two mma.sync k-steps per 8 columns, then the
+// epilogue with bias1 = s w1t + c1.
+template <int NW>
+__device__ __forceinline__ void layer0(Ring& ring, const __nv_bfloat16* zt, const float* bias1, uint8_t* act) {
+  const Lane ln;
+  uint32_t a[2][4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = kp * 32 + j * 16 + 2 * t;
+  for (int kt = 0; kt < 2; ++kt) {
+    const __nv_bfloat16* q0 = zt + ln.r0 * EM_ZSTRIDE + kt * 16 + 2 * ln.t;
+    const __nv_bfloat16* q8 = q0 + 8 * EM_ZSTRIDE;
+    a[kt][0] = *reinterpret_cast<const uint32_t*>(q0);
+    a[kt][1] = *reinterpret_cast<const uint32_t*>(q8);
+    a[kt][2] = *reinterpret_cast<const uint32_t*>(q0 + 8);
+    a[kt][3] = *reinterpret_cast<const uint32_t*>(q8 + 8);
+  }
+  const uint4* w1 = reinterpret_cast<const uint4*>(ring.take(ring.j)) + (threadIdx.x & 31);
+  epilogue<NW>(
+      [&](int j, float (&v)[4]) {
+        const uint4 b = w1[j * 32];
 #pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const __nv_bfloat16* r0 = in + (m * 16 + g) * in_stride + col;
-          const __nv_bfloat16* r8 = r0 + 8 * in_stride;
-          const uint32_t a0 = *reinterpret_cast<const uint32_t*>(r0);
-          const uint32_t a1 = *reinterpret_cast<const uint32_t*>(r8);
-          const uint32_t a2 = *reinterpret_cast<const uint32_t*>(r0 + 8);
-          const uint32_t a3 = *reinterpret_cast<const uint32_t*>(r8 + 8);
+        for (int e = 0; e < 4; ++e) v[e] = 0.f;
+        mma_bf16(v, a[0][0], a[0][1], a[0][2], a[0][3], b.x, b.y);
+        mma_bf16(v, a[1][0], a[1][1], a[1][2], a[1][3], b.z, b.w);
+      },
+      bias1, act);
+}
+
+// One hidden layer (K = kc_n x 64 -> N = 2 NW) of this warpgroup: the
+// products over the ring's tiles into registers, one slice in flight behind
+// the one being issued, then, once both warpgroups are done reading act,
+// the epilogue in place.
+template <int NW>
+__device__ __forceinline__ void hidden_layer(Ring& ring, uint8_t* act, int kc_n, const float* bias) {
+  float acc[NW / 2];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const uint32_t b0 = j ? bcur[q].z : bcur[q].x;
-            const uint32_t b1 = j ? bcur[q].w : bcur[q].y;
-            mma_bf16(acc[m][q], a0, a1, a2, a3, b0, b1);
-          }
-        }
-      }
+  for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+  fence_acc(acc);
+  for (int kc = 0; kc < kc_n; ++kc) {
+    const uint64_t da = wg_desc(act + kc * EM_SLOT_BYTES), db = wg_desc(ring.take(ring.j + kc));
+    wgmma_fence();
 #pragma unroll
-      for (int q = 0; q < 4; ++q) bcur[q] = bnext[q];
+    for (int ks = 0; ks < 4; ++ks) Wgmma<NW>::mma(acc, da + 2 * ks, db + 2 * ks, 1);
+    wgmma_commit();
+    fence_acc(acc);
+    if (kc > 0) {
+      wgmma_wait<1>();  // the slice before this one is done: its stage goes back to the producer
+      fence_acc(acc);
+      ring.give(ring.j + kc - 1);
     }
-    // epilogue: bias, tanh, round to bf16, store pairs
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  ring.give(ring.j + kc_n - 1);
+  ring.j += kc_n;
+  named_sync(1, EM_CONSUMERS);  // both warpgroups have read act
+  epilogue<NW>(
+      [&](int j, float (&v)[4]) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int col = n0 + q * 8 + 2 * t;
-      const float bb0 = bias[col], bb1 = bias[col + 1];
+        for (int e = 0; e < 4; ++e) v[e] = acc[4 * j + e];
+      },
+      bias, act);
+}
+
+// The output layer's x block, this warpgroup's half of K (kc_n slices):
+// its partial sums of rows 16 w + g and + 8, columns 2 t and + 1, into
+// opart[h][row][d] for d < xdim.
+__device__ __forceinline__ void output_layer(const uint8_t* act, const uint8_t* wout, int kc_n, int xdim,
+                                             float* opart) {
+  const Lane ln;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  fence_acc(acc);
+  act += ln.h * kc_n * EM_SLOT_BYTES;
+  wout += ln.h * kc_n * 1024;
+  wgmma_fence();
+  for (int kc = 0; kc < kc_n; ++kc) {
+    const uint64_t da = wg_desc(act + kc * EM_SLOT_BYTES), db = wg_desc(wout + kc * 1024);
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int row = m * 16 + g;
-        *reinterpret_cast<__nv_bfloat162*>(out + row * stride + col) =
-            __floats2bfloat162_rn(tanhf(acc[m][q][0] + bb0), tanhf(acc[m][q][1] + bb1));
-        *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * stride + col) =
-            __floats2bfloat162_rn(tanhf(acc[m][q][2] + bb0), tanhf(acc[m][q][3] + bb1));
-      }
+    for (int ks = 0; ks < 4; ++ks) Wgmma<8>::mma(acc, da + 2 * ks, db + 2 * ks, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+  float* o = opart + (ln.h * EM_ROWS + ln.r0) * EM_MAX_XDIM;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int d = 2 * ln.t + (e & 1);
+    if (d < xdim) o[(e >> 1) * 8 * EM_MAX_XDIM + d] = acc[e];
+  }
+}
+
+#define EM_DISPATCH(nw, CALL)                          \
+  switch (nw) {                                        \
+    case 64: { constexpr int NW = 64; CALL; } break;   \
+    case 128: { constexpr int NW = 128; CALL; } break; \
+    case 192: { constexpr int NW = 192; CALL; } break; \
+    default: { constexpr int NW = 256; CALL; } break;  \
+  }
+
+// The producer: every ring tile of every step, in the consumers' order,
+// each as one bulk copy once its stage is free.
+__device__ __forceinline__ void produce(const EmArgs& p, uint8_t* ring, uint64_t* full, uint64_t* empty) {
+  uint32_t g = 0;
+  auto put = [&](const uint8_t* src, uint32_t bytes) {
+    const uint32_t st = g % EM_STAGES;
+    mbar_wait(&empty[st], ((g / EM_STAGES) & 1) ^ 1);
+    mbar_expect_tx(&full[st], bytes);
+    bulk_copy(ring + st * EM_TILE_BYTES, src, bytes, &full[st]);
+    ++g;
+  };
+  const uint32_t w1_bytes = (uint32_t)p.width[0] * 32;  // half of (32, h1) bf16
+  for (int step = 0; step < p.num_steps; ++step) {
+    put(p.w1, w1_bytes);
+    put(p.w1 + w1_bytes, w1_bytes);
+    for (int l = 0; l < p.n_hidden; ++l) {
+      const uint32_t bytes = (uint32_t)p.width[l + 1] * 64;  // N/2 columns x 128 bytes
+      const int tiles = 2 * (p.width[l] >> 6);
+      for (int i = 0; i < tiles; ++i) put(p.wh[l] + (size_t)i * bytes, bytes);
     }
   }
 }
 
-__global__ void __launch_bounds__(EM_THREADS, 1) em_kernel(const EmArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int h1 = p.width[0], hl = p.width[p.n_hidden], xdim = p.xdim, stride = p.stride;
+template <bool CD>
+__global__ void __launch_bounds__(EM_THREADS, 1) em_sampler_kernel(const EmArgs p) {
+  extern __shared__ uint8_t em_smem[];
+  uint8_t* sm = em_smem + ((1024 - (smem_u32(em_smem) & 1023)) & 1023);
+  const int tid = threadIdx.x;
+  const int h1 = p.width[0], hl = p.width[p.n_hidden], xdim = p.xdim;
   const int row0 = blockIdx.x * EM_ROWS;
+  const EmLayout L = em_layout(h1, hl, p.hmax);
 
-  __nv_bfloat16* act[2];
-  act[0] = reinterpret_cast<__nv_bfloat16*>(smem);
-  act[1] = act[0] + EM_ROWS * stride;
-  float* cy = reinterpret_cast<float*>(act[1] + EM_ROWS * stride);
-  float* w1t = cy + h1;
-  float* w1x = w1t + h1;            // [xdim][h1]
-  float* wout = w1x + xdim * h1;    // [xdim][hl]
-  float* xs = wout + xdim * hl;     // [EM_ROWS][EM_MAX_XDIM]
-  float* as = xs + EM_ROWS * EM_MAX_XDIM;
+  uint8_t* act = sm + L.act;
+  uint8_t* wout = sm + L.wout;
+  __nv_bfloat16* zt = reinterpret_cast<__nv_bfloat16*>(sm + L.zt);
+  float* w1t = reinterpret_cast<float*>(sm + L.f32);
+  float* c1 = w1t + h1;
+  float* bias1 = c1 + h1;
+  float* xs = bias1 + h1;                          // [EM_ROWS][EM_MAX_XDIM]
+  float* xi = xs + EM_ROWS * EM_MAX_XDIM;
+  float* opart = xi + EM_ROWS * EM_MAX_XDIM;       // [2][EM_ROWS][EM_MAX_XDIM]
+  float* y0 = opart + 2 * EM_ROWS * EM_MAX_XDIM;   // [EM_K1]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bars);
+  uint64_t* empty = full + EM_STAGES;
 
-  // condition term, constant over rows and steps: cy = y . W1y + b1 in f32
   for (int j = tid; j < h1; j += EM_THREADS) {
-    float acc = 0.f;
-    for (int k = 0; k < p.ydim; ++k) acc += p.y[k] * p.w1y[k * h1 + j];
-    cy[j] = acc + p.b1[j];
     w1t[j] = p.w1t[j];
-    for (int d = 0; d < xdim; ++d) w1x[d * h1 + j] = p.w1x[d * h1 + j];
+    c1[j] = p.c1[j];
   }
-  for (int i = tid; i < xdim * hl; i += EM_THREADS) wout[i] = p.wout[i];
+  for (int i = tid; i < hl; i += EM_THREADS)  // (hl, 8) bf16: hl 16-byte pieces
+    reinterpret_cast<uint4*>(wout)[i] = reinterpret_cast<const uint4*>(p.wout)[i];
+  for (int i = tid; i < EM_ROWS * EM_ZSTRIDE; i += EM_THREADS) zt[i] = __float2bfloat16_rn(0.f);
+  if (CD && tid < p.ydim) y0[tid] = p.y[tid];
   for (int i = tid; i < EM_ROWS * xdim; i += EM_THREADS) {
     const int r = i / xdim, d = i - r * xdim, row = row0 + r;
     xs[r * EM_MAX_XDIM + d] = row < p.n ? p.x0[(size_t)row * xdim + d] : 0.f;
   }
+  if (tid == 0) {
+    for (int s = 0; s < EM_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_init_fence();
+  }
+  fence_async();  // wout, written above, is read by wgmma
   __syncthreads();
-  stamp(p.stamps, 0);
 
-  const int n_phases = p.n_hidden + 3;
+  // the producer's warpgroup gives its registers to the consumers: 2 x 128
+  // x 232 + 128 x 40 of the SM's 65536
+  if (tid >= EM_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == EM_CONSUMERS) produce(p, sm + L.ring, full, empty);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  Ring ring{sm + L.ring, full, empty, 0u};
+  const int n_phases = p.n_hidden + (CD ? 4 : 3);
+  stamp(p.stamps, 0);
   for (int step = 0; step < p.num_steps; ++step) {
-    const long long st = 1 + (long long)step * n_phases;
+    long long ph = 1 + (long long)step * n_phases;
     const float tt = ((float)step / (float)p.num_steps) * p.T;
     const float s = p.T - tt;
     const float beta = p.beta_min + p.bd * s;
     const float gs = sqrtf(beta);
 
-    // layer 1: K = xdim (+ the f32 time and condition terms)
-    for (int r = 0; r < EM_ROWS; ++r) {
-      float xb[EM_MAX_XDIM];
+    // the bf16 tile the first layer takes, and its bias s w1t + c1
+    const uint2 key = make_uint2((uint32_t)p.seed, (uint32_t)(p.seed >> 32));
+    if (CD) {
+      // this step's normals, and [x, y_t]
+      const int D = p.xdim + p.ydim, pairs = (D + 1) >> 1;
+      const float int_beta = 0.5f * p.bd * (s * s) + p.beta_min * s;
+      const float alpha = expf(-0.5f * int_beta);
+      const float std_s = sqrtf(1.f - expf(-int_beta));
+      // at most EM_ROWS x 16 pairs: 4 a thread, unrolled so that their
+      // Philox rounds and Box-Muller maps interleave
 #pragma unroll
-      for (int d = 0; d < EM_MAX_XDIM; ++d)
-        xb[d] = d < xdim ? bf16_round(xs[r * EM_MAX_XDIM + d]) : 0.f;
-      for (int j = tid; j < h1; j += EM_THREADS) {
-        float acc = 0.f;
-#pragma unroll
-        for (int d = 0; d < EM_MAX_XDIM; ++d)
-          if (d < xdim) acc += xb[d] * w1x[d * h1 + j];
-        act[0][r * stride + j] = __float2bfloat16_rn(tanhf(acc + s * w1t[j] + cy[j]));
+      for (int k = 0; k < EM_ROWS * (EM_K1 / 2) / EM_CONSUMERS; ++k) {
+        const int i = tid + k * EM_CONSUMERS;
+        if (i >= EM_ROWS * pairs) break;
+        const int rr = i / pairs, pp = i - rr * pairs, row = row0 + rr;
+        float e[2] = {0.f, 0.f};
+        if (p.noise_scale != 0.f) {
+          if (p.noise != nullptr) {
+            for (int k = 0; k < 2; ++k) {
+              const int dd = 2 * pp + k;
+              if (row < p.n && dd < D) e[k] = p.noise[((size_t)step * p.n + row) * D + dd];
+            }
+          } else {
+            const uint4 w = philox4x32_10(make_uint4((uint32_t)row, (uint32_t)step, (uint32_t)pp, 0u), key);
+            e[0] = normal_from_bits(w.x, w.y);
+            e[1] = normal_from_bits(w.z, w.w);
+          }
+        }
+        for (int k = 0; k < 2; ++k) {
+          const int dd = 2 * pp + k;
+          if (dd >= D) break;
+          const float ek = p.noise_scale * e[k];
+          float v;
+          if (dd < xdim) {
+            xi[rr * EM_MAX_XDIM + dd] = ek;
+            v = xs[rr * EM_MAX_XDIM + dd];
+          } else {
+            v = p.noise_scale != 0.f ? alpha * y0[dd - xdim] + std_s * ek : alpha * y0[dd - xdim];
+          }
+          zt[rr * EM_ZSTRIDE + dd] = __float2bfloat16_rn(v);
+        }
       }
+    } else if (tid < EM_ROWS * xdim) {
+      const int r = tid / xdim, d = tid - r * xdim;
+      zt[r * EM_ZSTRIDE + d] = __float2bfloat16_rn(xs[r * EM_MAX_XDIM + d]);
     }
-    __syncthreads();
-    stamp(p.stamps, st);
+    for (int j = tid; j < h1; j += EM_CONSUMERS) bias1[j] = s * w1t[j] + c1[j];
+    named_sync(1, EM_CONSUMERS);
+    if (CD) stamp(p.stamps, ph++);
 
-    int cur = 0;
+    EM_DISPATCH(h1 / 2, layer0<NW>(ring, zt, bias1, act));
+    fence_async();
+    named_sync(1, EM_CONSUMERS);  // also: both warpgroups are done with their W1 tiles
+    ring.give(ring.j++);
+    stamp(p.stamps, ph++);
+
     for (int l = 0; l < p.n_hidden; ++l) {
-      hidden_layer(act[cur], stride, act[cur ^ 1], stride, p.wh[l], p.bh[l], p.width[l], p.width[l + 1]);
-      __syncthreads();
-      stamp(p.stamps, st + 1 + l);
-      cur ^= 1;
+      EM_DISPATCH(p.width[l + 1] / 2, hidden_layer<NW>(ring, act, p.width[l] >> 6, p.bh[l]));
+      fence_async();
+      named_sync(1, EM_CONSUMERS);
+      stamp(p.stamps, ph++);
     }
 
-    // output layer: warp w reduces rows 8w .. 8w+7 over hl
-    for (int rr = 0; rr < EM_ROWS / EM_WARPS; ++rr) {
-      const int r = warp * (EM_ROWS / EM_WARPS) + rr;
-      float part[EM_MAX_XDIM] = {0.f, 0.f, 0.f, 0.f};
-      for (int j = lane; j < hl; j += 32) {
-        const float h = __bfloat162float(act[cur][r * stride + j]);
-#pragma unroll
-        for (int d = 0; d < EM_MAX_XDIM; ++d)
-          if (d < xdim) part[d] += h * wout[d * hl + j];
-      }
-#pragma unroll
-      for (int d = 0; d < EM_MAX_XDIM; ++d) {
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) part[d] += __shfl_xor_sync(0xffffffffu, part[d], o);
-      }
-      if (lane == 0) {
-        for (int d = 0; d < xdim; ++d) as[r * EM_MAX_XDIM + d] = part[d] + p.bout[d];
-      }
-    }
-    __syncthreads();
-    stamp(p.stamps, st + 1 + p.n_hidden);
+    output_layer(act, wout, hl >> 7, xdim, opart);
+    named_sync(1, EM_CONSUMERS);
+    stamp(p.stamps, ph++);
 
     // integrator update, one thread per (row, coordinate)
     if (tid < EM_ROWS * xdim) {
       const int r = tid / xdim, d = tid - r * xdim, row = row0 + r;
+      const float a = opart[r * EM_MAX_XDIM + d] + opart[(EM_ROWS + r) * EM_MAX_XDIM + d] + p.bout[d];
       const float x = xs[r * EM_MAX_XDIM + d];
-      const float mu = (p.c_drift * gs) * as[r * EM_MAX_XDIM + d] + (0.5f * beta) * x;
+      const float mu = (p.c_drift * gs) * a + (0.5f * beta) * x;
       float xn = x + p.delta * mu;
       if (p.noise_scale != 0.f) {
-        float z = 0.f;
-        if (p.noise != nullptr) {
-          if (row < p.n) z = p.noise[((size_t)step * p.n + row) * xdim + d];
+        float z;
+        if (CD) {
+          z = xi[r * EM_MAX_XDIM + d];
+        } else if (p.noise != nullptr) {
+          z = row < p.n ? p.noise_scale * p.noise[((size_t)step * p.n + row) * xdim + d] : 0.f;
         } else {
-          const uint4 w = philox4x32_10(make_uint4((uint32_t)row, (uint32_t)step, (uint32_t)(d >> 1), 0u),
-                                        make_uint2((uint32_t)p.seed, (uint32_t)(p.seed >> 32)));
-          z = (d & 1) ? normal_from_bits(w.z, w.w) : normal_from_bits(w.x, w.y);
+          const uint4 w = philox4x32_10(make_uint4((uint32_t)row, (uint32_t)step, (uint32_t)(d >> 1), 0u), key);
+          z = p.noise_scale * ((d & 1) ? normal_from_bits(w.z, w.w) : normal_from_bits(w.x, w.y));
         }
-        xn = xn + (p.sqrt_delta * (p.c_sigma * gs)) * (p.noise_scale * z);
+        xn = xn + (p.sqrt_delta * (p.c_sigma * gs)) * z;
       }
       xs[r * EM_MAX_XDIM + d] = xn;
     }
-    __syncthreads();
-    stamp(p.stamps, st + 2 + p.n_hidden);
+    named_sync(1, EM_CONSUMERS);
+    stamp(p.stamps, ph++);
   }
 
-  for (int i = tid; i < EM_ROWS * xdim; i += EM_THREADS) {
-    const int r = i / xdim, d = i - r * xdim, row = row0 + r;
-    if (row < p.n) p.out[(size_t)row * xdim + d] = xs[r * EM_MAX_XDIM + d];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B4: the CDiffE sampler.
-//
-// Replaces dmip_tpu/ops/em_kernel.py :: fused_em_sampler_cdiffe
-// (_em_cdiffe_kernel, pallas_call at :319).  The net is the joint one,
-// [x, y, t] -> (xdim + ydim), with its output layer sliced to the x block
-// on the host.  Per step s = T - i/N T, for each sample row:
-//   eps = noise_scale * (D = xdim + ydim normals)   (one block per step)
-//   y_t = alpha(s) y0 + std(s) eps[xdim:]            (re-diffuse the condition)
-//   h1  = tanh(bf16([x, y_t]) . W1 + (s w1t + b1))   (one K = 32 mma slice)
-//   h   = tanh(h . W + b) per hidden layer, a = h . Wout_x + bout_x
-//   x  += delta ((1 - lmbd/2) g(s) a + beta(s)/2 x) + sqrt(delta) sigma eps[:xdim]
-// With noise_scale = 0 no normals are drawn: y_t = alpha(s) y0 and the
-// update has no noise term, as in the TPU kernel.
-//
-// What bounds it on an H100: as B1, the hidden 512x512 bf16 products;
-// ~1.08 MFLOP per sample-step (26x512 + 2x512^2 + 512x3 multiply-adds),
-// ~6.5 ms per 30k x 200 posterior at the dense bf16 peak.
-//
-// Design: B1's, with the first layer moved onto the tensor cores.  The
-// condition is re-drawn every step, so there is no constant cy: [x, y_t] is
-// rounded to bf16 into a 64 x 32 tile (columns D..31 stay zero) and goes
-// through the same mma.sync layer routine as the hidden products, with the
-// per-step f32 vector s w1t + b1 as its bias.  The D normals of a row come
-// from ceil(D/2) Philox4x32-10 draws keyed by (seed, row, step, pair), two
-// Box-Muller normals each: columns [:xdim] drive the integrator, [xdim:]
-// re-diffuse y (the TPU kernel's one-block-per-step layout).
-#define CD_K1 32
-#define CD_ZSTRIDE (CD_K1 + 8)
-
-struct EmCdiffeArgs {
-  const float* x0;     // (n, xdim)
-  const float* y;      // (ydim,)
-  const uint4* w1;     // first layer over [x, y]: (32, h1) as packed bf16 fragments
-  const float* w1t;    // (h1,)
-  const float* b1;     // (h1,)
-  const uint4* wh[EM_MAX_HIDDEN];
-  const float* bh[EM_MAX_HIDDEN];
-  int width[EM_MAX_HIDDEN + 1];
-  int n_hidden;
-  const float* wout;   // (xdim, hl): x block of the output weights, transposed, bf16-rounded
-  const float* bout;   // (xdim,)
-  const float* noise;  // (num_steps, n, xdim + ydim) or null
-  float* out;          // (n, xdim)
-  long long* stamps;   // null, or 1 + (n_hidden + 4) x num_steps pairs
-  int n, xdim, ydim, num_steps, stride;
-  float T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale;
-  unsigned long long seed;
-};
-
-__global__ void __launch_bounds__(EM_THREADS, 1) em_cdiffe_kernel(const EmCdiffeArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int h1 = p.width[0], hl = p.width[p.n_hidden], xdim = p.xdim, stride = p.stride;
-  const int D = p.xdim + p.ydim;
-  const int row0 = blockIdx.x * EM_ROWS;
-
-  __nv_bfloat16* act[2];
-  act[0] = reinterpret_cast<__nv_bfloat16*>(smem);
-  act[1] = act[0] + EM_ROWS * stride;
-  __nv_bfloat16* zt = act[1] + EM_ROWS * stride;  // [EM_ROWS][CD_ZSTRIDE]
-  float* bias1 = reinterpret_cast<float*>(zt + EM_ROWS * CD_ZSTRIDE);
-  float* w1t = bias1 + h1;
-  float* b1 = w1t + h1;
-  float* wout = b1 + h1;            // [xdim][hl]
-  float* xs = wout + xdim * hl;     // [EM_ROWS][EM_MAX_XDIM]
-  float* as = xs + EM_ROWS * EM_MAX_XDIM;
-  float* xi = as + EM_ROWS * EM_MAX_XDIM;
-  float* y0 = xi + EM_ROWS * EM_MAX_XDIM;  // [CD_K1]
-
-  for (int j = tid; j < h1; j += EM_THREADS) {
-    w1t[j] = p.w1t[j];
-    b1[j] = p.b1[j];
-  }
-  for (int i = tid; i < xdim * hl; i += EM_THREADS) wout[i] = p.wout[i];
-  for (int i = tid; i < EM_ROWS * CD_ZSTRIDE; i += EM_THREADS) zt[i] = __float2bfloat16_rn(0.f);
-  if (tid < p.ydim) y0[tid] = p.y[tid];
-  for (int i = tid; i < EM_ROWS * xdim; i += EM_THREADS) {
-    const int r = i / xdim, d = i - r * xdim, row = row0 + r;
-    xs[r * EM_MAX_XDIM + d] = row < p.n ? p.x0[(size_t)row * xdim + d] : 0.f;
-  }
-  __syncthreads();
-
-  const uint2 key = make_uint2((uint32_t)p.seed, (uint32_t)(p.seed >> 32));
-  const int pairs = (D + 1) >> 1;
-  stamp(p.stamps, 0);
-  const int n_phases = p.n_hidden + 4;
-  for (int step = 0; step < p.num_steps; ++step) {
-    const long long st = 1 + (long long)step * n_phases;
-    const float tt = ((float)step / (float)p.num_steps) * p.T;
-    const float s = p.T - tt;
-    const float beta = p.beta_min + p.bd * s;
-    const float gs = sqrtf(beta);
-    const float int_beta = 0.5f * p.bd * (s * s) + p.beta_min * s;
-    const float alpha = expf(-0.5f * int_beta);
-    const float std_s = sqrtf(1.f - expf(-int_beta));
-
-    // this step's normals, the bf16 [x, y_t] tile and the first layer's bias
-    for (int i = tid; i < EM_ROWS * pairs; i += EM_THREADS) {
-      const int r = i / pairs, pp = i - r * pairs, row = row0 + r;
-      float e[2] = {0.f, 0.f};
-      if (p.noise_scale != 0.f) {
-        if (p.noise != nullptr) {
-          for (int k = 0; k < 2; ++k) {
-            const int d = 2 * pp + k;
-            if (row < p.n && d < D) e[k] = p.noise[((size_t)step * p.n + row) * D + d];
-          }
-        } else {
-          const uint4 w = philox4x32_10(make_uint4((uint32_t)row, (uint32_t)step, (uint32_t)pp, 0u), key);
-          e[0] = normal_from_bits(w.x, w.y);
-          e[1] = normal_from_bits(w.z, w.w);
-        }
-      }
-      for (int k = 0; k < 2; ++k) {
-        const int d = 2 * pp + k;
-        if (d >= D) break;
-        const float ek = p.noise_scale * e[k];
-        float v;
-        if (d < xdim) {
-          xi[r * EM_MAX_XDIM + d] = ek;
-          v = xs[r * EM_MAX_XDIM + d];
-        } else {
-          v = p.noise_scale != 0.f ? alpha * y0[d - xdim] + std_s * ek : alpha * y0[d - xdim];
-        }
-        zt[r * CD_ZSTRIDE + d] = __float2bfloat16_rn(v);
-      }
-    }
-    for (int j = tid; j < h1; j += EM_THREADS) bias1[j] = s * w1t[j] + b1[j];
-    __syncthreads();
-    stamp(p.stamps, st);
-
-    hidden_layer(zt, CD_ZSTRIDE, act[0], stride, p.w1, bias1, CD_K1, h1);
-    __syncthreads();
-    stamp(p.stamps, st + 1);
-    int cur = 0;
-    for (int l = 0; l < p.n_hidden; ++l) {
-      hidden_layer(act[cur], stride, act[cur ^ 1], stride, p.wh[l], p.bh[l], p.width[l], p.width[l + 1]);
-      __syncthreads();
-      stamp(p.stamps, st + 2 + l);
-      cur ^= 1;
-    }
-
-    for (int rr = 0; rr < EM_ROWS / EM_WARPS; ++rr) {
-      const int r = warp * (EM_ROWS / EM_WARPS) + rr;
-      float part[EM_MAX_XDIM] = {0.f, 0.f, 0.f, 0.f};
-      for (int j = lane; j < hl; j += 32) {
-        const float h = __bfloat162float(act[cur][r * stride + j]);
-#pragma unroll
-        for (int d = 0; d < EM_MAX_XDIM; ++d)
-          if (d < xdim) part[d] += h * wout[d * hl + j];
-      }
-#pragma unroll
-      for (int d = 0; d < EM_MAX_XDIM; ++d) {
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) part[d] += __shfl_xor_sync(0xffffffffu, part[d], o);
-      }
-      if (lane == 0) {
-        for (int d = 0; d < xdim; ++d) as[r * EM_MAX_XDIM + d] = part[d] + p.bout[d];
-      }
-    }
-    __syncthreads();
-    stamp(p.stamps, st + 2 + p.n_hidden);
-
-    if (tid < EM_ROWS * xdim) {
-      const int r = tid / xdim, d = tid - r * xdim;
-      const float x = xs[r * EM_MAX_XDIM + d];
-      const float mu = (p.c_drift * gs) * as[r * EM_MAX_XDIM + d] + (0.5f * beta) * x;
-      float xn = x + p.delta * mu;
-      if (p.noise_scale != 0.f) xn = xn + (p.sqrt_delta * (p.c_sigma * gs)) * xi[r * EM_MAX_XDIM + d];
-      xs[r * EM_MAX_XDIM + d] = xn;
-    }
-    __syncthreads();
-    stamp(p.stamps, st + 3 + p.n_hidden);
-  }
-
-  for (int i = tid; i < EM_ROWS * xdim; i += EM_THREADS) {
-    const int r = i / xdim, d = i - r * xdim, row = row0 + r;
-    if (row < p.n) p.out[(size_t)row * xdim + d] = xs[r * EM_MAX_XDIM + d];
+  for (int i = tid; i < EM_ROWS * xdim; i += EM_CONSUMERS) {
+    const int rr = i / xdim, dd = i - rr * xdim, row = row0 + rr;
+    if (row < p.n) p.out[(size_t)row * xdim + dd] = xs[rr * EM_MAX_XDIM + dd];
   }
 }
 
@@ -453,108 +498,46 @@ extern "C" {
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-}  // extern "C"
-
-// Shared memory the kernel needs for these widths (bytes).
-static size_t em_sampler_smem_bytes(int h1, int hl, int hmax, int xdim) {
-  const int stride = ((hmax + 63) / 64) * 64 + 8;
-  return (size_t)2 * EM_ROWS * stride * sizeof(__nv_bfloat16) +
-         sizeof(float) * ((size_t)2 * h1 + (size_t)xdim * (h1 + hl) + 2 * EM_ROWS * EM_MAX_XDIM);
-}
-
-extern "C" {
-
-// Launch on `stream`.  wh_ptrs / bh_ptrs / widths are host arrays of
-// n_hidden, n_hidden and n_hidden + 1 entries.  Returns a cudaError_t.
-int em_sampler_launch(const float* x0, const float* y, const float* w1x, const float* w1y,
-                      const float* w1t, const float* b1, const unsigned long long* wh_ptrs,
-                      const unsigned long long* bh_ptrs, const int* widths, int n_hidden,
-                      const float* wout, const float* bout, const float* noise, float* out,
-                      long long* stamps, int n, int xdim, int ydim, int num_steps, float T,
-                      float beta_min, float bd,
-                      float c_drift, float c_sigma, float delta, float sqrt_delta,
-                      float noise_scale, unsigned long long seed, void* stream) {
-  if (n_hidden < 0 || n_hidden > EM_MAX_HIDDEN || xdim < 1 || xdim > EM_MAX_XDIM || n < 1 ||
-      num_steps < 1)
+// Launch B1 (cdiffe = 0) or B4 (cdiffe = 1) on `stream`.  wh_ptrs /
+// bh_ptrs / widths are host arrays of n_hidden, n_hidden and n_hidden + 1
+// entries; every width a multiple of 128, at most 512; xdim + ydim <= 32
+// for B4.  Returns a cudaError_t.
+int em_launch(int cdiffe, const float* x0, const float* y, const float* c1, const float* w1t, const void* w1,
+              const unsigned long long* wh_ptrs, const unsigned long long* bh_ptrs, const int* widths, int n_hidden,
+              const void* wout, const float* bout, const float* noise, float* out, long long* stamps, int n,
+              int xdim, int ydim, int num_steps, float T, float beta_min, float bd, float c_drift, float c_sigma,
+              float delta, float sqrt_delta, float noise_scale, unsigned long long seed, void* stream) {
+  if (n_hidden < 0 || n_hidden > EM_MAX_HIDDEN || xdim < 1 || xdim > EM_MAX_XDIM || n < 1 || num_steps < 1 ||
+      ydim < 0 || (cdiffe && (ydim < 1 || xdim + ydim > EM_K1)))
     return (int)cudaErrorInvalidValue;
   EmArgs p;
-  p.x0 = x0; p.y = y; p.w1x = w1x; p.w1y = w1y; p.w1t = w1t; p.b1 = b1;
+  p.x0 = x0; p.y = y; p.c1 = c1; p.w1t = w1t; p.w1 = reinterpret_cast<const uint8_t*>(w1);
   int hmax = 0;
   for (int l = 0; l <= n_hidden; ++l) {
-    if (widths[l] <= 0 || widths[l] % 32) return (int)cudaErrorInvalidValue;
+    if (widths[l] <= 0 || widths[l] % 128 || widths[l] > EM_MAX_WIDTH) return (int)cudaErrorInvalidValue;
     p.width[l] = widths[l];
     hmax = widths[l] > hmax ? widths[l] : hmax;
   }
   for (int l = 0; l < n_hidden; ++l) {
-    p.wh[l] = reinterpret_cast<const uint4*>(wh_ptrs[l]);
+    p.wh[l] = reinterpret_cast<const uint8_t*>(wh_ptrs[l]);
     p.bh[l] = reinterpret_cast<const float*>(bh_ptrs[l]);
   }
   p.n_hidden = n_hidden;
-  p.wout = wout; p.bout = bout; p.noise = noise; p.out = out; p.stamps = stamps;
-  p.n = n; p.xdim = xdim; p.ydim = ydim; p.num_steps = num_steps;
-  p.stride = ((hmax + 63) / 64) * 64 + 8;
+  p.wout = reinterpret_cast<const uint8_t*>(wout); p.bout = bout; p.noise = noise; p.out = out;
+  p.stamps = stamps;
+  p.n = n; p.xdim = xdim; p.ydim = ydim; p.num_steps = num_steps; p.hmax = hmax;
   p.T = T; p.beta_min = beta_min; p.bd = bd; p.c_drift = c_drift; p.c_sigma = c_sigma;
   p.delta = delta; p.sqrt_delta = sqrt_delta; p.noise_scale = noise_scale; p.seed = seed;
 
-  // wider nets than a block's 227 KB of shared memory holds are refused
-  const size_t smem = em_sampler_smem_bytes(widths[0], widths[n_hidden], hmax, xdim);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(em_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  const EmLayout L = em_layout(widths[0], widths[n_hidden], hmax);
+  const void* fn = cdiffe ? (const void*)em_sampler_kernel<true> : (const void*)em_sampler_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n + EM_ROWS - 1) / EM_ROWS;
-  em_kernel<<<blocks, EM_THREADS, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-}  // extern "C"
-
-static size_t em_cdiffe_smem_bytes(int h1, int hl, int hmax, int xdim) {
-  const int stride = ((hmax + 63) / 64) * 64 + 8;
-  return (size_t)2 * EM_ROWS * stride * sizeof(__nv_bfloat16) +
-         (size_t)EM_ROWS * CD_ZSTRIDE * sizeof(__nv_bfloat16) +
-         sizeof(float) * ((size_t)3 * h1 + (size_t)xdim * hl + 3 * EM_ROWS * EM_MAX_XDIM + CD_K1);
-}
-
-extern "C" {
-
-// Launch B4 on `stream`.  wh_ptrs / bh_ptrs / widths as em_sampler_launch;
-// widths[0] = h1, the first layer's width.  Returns a cudaError_t.
-int em_cdiffe_launch(const float* x0, const float* y, const void* w1, const float* w1t,
-                     const float* b1, const unsigned long long* wh_ptrs,
-                     const unsigned long long* bh_ptrs, const int* widths, int n_hidden,
-                     const float* wout, const float* bout, const float* noise, float* out,
-                     long long* stamps, int n, int xdim, int ydim, int num_steps, float T,
-                     float beta_min, float bd,
-                     float c_drift, float c_sigma, float delta, float sqrt_delta,
-                     float noise_scale, unsigned long long seed, void* stream) {
-  if (n_hidden < 0 || n_hidden > EM_MAX_HIDDEN || xdim < 1 || xdim > EM_MAX_XDIM || ydim < 1 ||
-      xdim + ydim > CD_K1 || n < 1 || num_steps < 1)
-    return (int)cudaErrorInvalidValue;
-  EmCdiffeArgs p;
-  p.x0 = x0; p.y = y; p.w1 = reinterpret_cast<const uint4*>(w1); p.w1t = w1t; p.b1 = b1;
-  int hmax = 0;
-  for (int l = 0; l <= n_hidden; ++l) {
-    if (widths[l] <= 0 || widths[l] % 32) return (int)cudaErrorInvalidValue;
-    p.width[l] = widths[l];
-    hmax = widths[l] > hmax ? widths[l] : hmax;
-  }
-  for (int l = 0; l < n_hidden; ++l) {
-    p.wh[l] = reinterpret_cast<const uint4*>(wh_ptrs[l]);
-    p.bh[l] = reinterpret_cast<const float*>(bh_ptrs[l]);
-  }
-  p.n_hidden = n_hidden;
-  p.wout = wout; p.bout = bout; p.noise = noise; p.out = out; p.stamps = stamps;
-  p.n = n; p.xdim = xdim; p.ydim = ydim; p.num_steps = num_steps;
-  p.stride = ((hmax + 63) / 64) * 64 + 8;
-  p.T = T; p.beta_min = beta_min; p.bd = bd; p.c_drift = c_drift; p.c_sigma = c_sigma;
-  p.delta = delta; p.sqrt_delta = sqrt_delta; p.noise_scale = noise_scale; p.seed = seed;
-  const size_t smem = em_cdiffe_smem_bytes(widths[0], widths[n_hidden], hmax, xdim);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(em_cdiffe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  em_cdiffe_kernel<<<(n + EM_ROWS - 1) / EM_ROWS, EM_THREADS, smem, (cudaStream_t)stream>>>(p);
+  if (cdiffe)
+    em_sampler_kernel<true><<<blocks, EM_THREADS, L.bytes, (cudaStream_t)stream>>>(p);
+  else
+    em_sampler_kernel<false><<<blocks, EM_THREADS, L.bytes, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -31,6 +31,7 @@ Tensor = torch.Tensor
 
 MAX_HIDDEN = 8
 MAX_XDIM = 4
+MAX_WIDTH = 512  # every width, after padding to a multiple of 128
 CDIFFE_MAX_WIDTH = 32  # xdim + ydim: B4's first layer is one 32-deep mma slice
 # The phases a step's stamps end, for the served nets' two hidden products;
 # :func:`phase_names` gives them for any depth.
@@ -45,8 +46,8 @@ def phase_names(n_hidden: int, cdiffe: bool = False) -> Tuple[str, ...]:
     return ("noise", *names) if cdiffe else names
 
 
-def _ceil32(v: int) -> int:
-    return -(-v // 32) * 32
+def _ceil128(v: int) -> int:
+    return -(-v // 128) * 128
 
 
 def _pad2(w: Tensor, rows: int, cols: int) -> Tensor:
@@ -59,10 +60,6 @@ def _pad1(b: Tensor, n: int) -> Tensor:
     out = b.new_zeros(n)
     out[: b.shape[0]] = b
     return out
-
-
-def _bf16_values(w: Tensor) -> Tensor:
-    return w.to(torch.bfloat16).to(torch.float32)
 
 
 def pack_mma_b(w: Tensor) -> Tensor:
@@ -90,6 +87,31 @@ def pack_mma_b(w: Tensor) -> Tensor:
     return w.to(torch.bfloat16)[k_idx, n_idx].contiguous()
 
 
+def pack_wgmma_tiles(w: Tensor, parts: int = 2) -> Tensor:
+    """(K, N) weight -> bf16 images of the kernels' wgmma B operands, in the
+    order the products take them.
+
+    Output shape (K/64, parts, N/parts, 64): 64-deep k slice, column part,
+    column within the part, k within the slice.  Each [kc, h] is one tile
+    as it lies in shared memory: N/parts rows of 128 bytes (column n's 64 k
+    values, K-major), whose 16-byte pieces are swizzled, piece q of row r at
+    q ^ (r % 8).  So element [kc, h, r, 8 q + e] is
+    W[64 kc + 8 (q ^ (r % 8)) + e, h N/parts + r].  K must be a multiple of
+    64 and N of 8 parts.  The hidden layers are cut in two parts, one per
+    warpgroup; the output layer is one part of 8 columns.
+    """
+    K, N = w.shape
+    if K % 64 or N % (8 * parts):
+        raise ValueError(f"pack_wgmma_tiles needs K % 64 == 0 and N % {8 * parts} == 0, got {tuple(w.shape)}")
+    cols = N // parts
+    t = w.to(torch.bfloat16).reshape(K // 64, 8, 8, parts, cols)   # kc, piece, e, h, r
+    t = t.permute(0, 3, 4, 1, 2)                                    # kc, h, r, piece, e
+    r = torch.arange(cols, device=w.device).view(cols, 1)
+    q = torch.arange(8, device=w.device).view(1, 8)
+    src = (q ^ (r % 8)).view(1, 1, cols, 8, 1).expand(K // 64, parts, cols, 8, 8)
+    return torch.gather(t, 3, src).reshape(K // 64, parts, cols, 64).contiguous()
+
+
 def _split_first_layer(params, xdim: int):
     w1, b1 = params[0]
     ydim = w1.shape[0] - xdim - 1
@@ -105,10 +127,11 @@ def _check_y(y: Optional[Tensor], ydim: int) -> None:
         raise ValueError(f"y has {y.numel()} entries, the net's condition block {ydim}")
 
 
-def _rounder(compute_dtype):
-    if compute_dtype == torch.float32:
-        return lambda t: t
-    return lambda t: t.to(compute_dtype).to(torch.float32)
+def _rounder(compute_dtype, dtype=torch.float32):
+    """Round to ``compute_dtype``, then compute in ``dtype``."""
+    if compute_dtype == dtype:
+        return lambda t: t.to(dtype)
+    return lambda t: t.to(compute_dtype).to(dtype)
 
 
 def em_sampler_reference(
@@ -124,16 +147,20 @@ def em_sampler_reference(
     noise_scale: float = 1.0,
     noise: Optional[Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    dtype: torch.dtype = torch.float32,
 ) -> Tensor:
     """Plain PyTorch version of the kernel: E-M through the first layer split
     as x . W1x + s w1t + cy, inputs of every product rounded to
-    ``compute_dtype``, f32 sums, f32 state.  Noise is ``noise`` when given,
-    else drawn from ``generator``."""
+    ``compute_dtype``, sums and state in ``dtype``.  Noise is ``noise`` when
+    given, else drawn from ``generator``.  ``dtype=torch.float64`` with
+    ``compute_dtype=torch.float64`` runs the sampler unrounded in float64,
+    the witness both f32 versions are held against."""
     xdim = x0.shape[-1]
+    params = [(w.to(dtype), b.to(dtype)) for w, b in params]
     w1x, w1y, w1t, b1, ydim = _split_first_layer(params, xdim)
     _check_y(y, ydim)
-    rnd = _rounder(compute_dtype)
-    cy = b1 if ydim == 0 else y.reshape(1, ydim).to(torch.float32) @ w1y + b1
+    rnd = _rounder(compute_dtype, dtype)
+    cy = b1 if ydim == 0 else y.reshape(1, ydim).to(dtype) @ w1y + b1
     w1x_c = rnd(w1x)
     hidden = [(rnd(w), b) for w, b in params[1:-1]]
     w_out, b_out = rnd(params[-1][0]), params[-1][1]
@@ -147,22 +174,25 @@ def em_sampler_reference(
     sde = ReverseSDE(base=VPSDE(beta_min=beta_min, beta_max=beta_max, T=T), T=T)
     return euler_maruyama(
         sde, drift, None, x0.shape[0], xdim, num_steps, lmbd=lmbd,
-        noise_scale=noise_scale, generator=generator, x0=x0, noise=noise,
+        noise_scale=noise_scale, generator=generator, x0=x0, noise=noise, dtype=dtype,
     )
 
 
-def _device_net(params, xdim: int):
-    """Kernel layout of the net: padded to multiples of 32, hidden weights
-    packed for mma.sync, output weights transposed; bf16-rounded where the
-    kernel computes in bf16, f32 for W1y, w1t and the biases."""
+def _device_net(params, xdim: int, y: Optional[Tensor]):
+    """B1's layout of the net for the condition y: widths zero-padded to
+    multiples of 128 (exact: a padded unit has zero weights in and out),
+    W1x's rows padded to 32 and packed for mma.sync, the condition folded
+    into c1 = cy = y . W1y + b1 (f32, as the plain version computes it), the
+    layers after as :func:`_add_hidden_and_out`."""
     w1x, w1y, w1t, b1, ydim = _split_first_layer(params, xdim)
-    h1 = _ceil32(w1x.shape[1])
+    _check_y(y, ydim)
     f32 = lambda t: t.to(torch.float32)
+    cy = f32(b1) if ydim == 0 else y.reshape(1, ydim).to(device=b1.device, dtype=torch.float32) @ f32(w1y) + f32(b1)
+    h1 = _ceil128(w1x.shape[1])
     net = {
-        "w1x": _bf16_values(_pad2(f32(w1x), xdim, h1)),
-        "w1y": _pad2(f32(w1y), max(ydim, 1), h1),
+        "w1": pack_mma_b(_pad2(f32(w1x), CDIFFE_MAX_WIDTH, h1)),
         "w1t": _pad1(f32(w1t), h1),
-        "b1": _pad1(f32(b1), h1),
+        "c1": _pad1(cy.reshape(-1), h1),
         "ydim": ydim,
     }
     return _add_hidden_and_out(net, params, h1, xdim)
@@ -170,17 +200,18 @@ def _device_net(params, xdim: int):
 
 def _add_hidden_and_out(net: dict, params, h1: int, xdim: int) -> dict:
     """The layout B1 and B4 share after the first layer: hidden weights
-    padded to multiples of 32 and packed for mma.sync, f32 biases, and the
-    output layer's first xdim columns bf16-rounded and transposed."""
+    padded to multiples of 128 and packed as ring tiles, f32 biases, and the
+    output layer's first xdim columns padded to 8 and packed as one wgmma
+    operand."""
     f32 = lambda t: t.to(torch.float32)
     net.update(wh=[], bh=[], widths=[h1])
     for w, b in params[1:-1]:
-        k, n = _ceil32(w.shape[0]), _ceil32(w.shape[1])
-        net["wh"].append(pack_mma_b(_pad2(f32(w), k, n)))
+        k, n = _ceil128(w.shape[0]), _ceil128(w.shape[1])
+        net["wh"].append(pack_wgmma_tiles(_pad2(f32(w), k, n)))
         net["bh"].append(_pad1(f32(b), n))
         net["widths"].append(n)
     w_out, b_out = params[-1]
-    net["wout"] = _bf16_values(_pad2(f32(w_out[:, :xdim]), net["widths"][-1], xdim)).t().contiguous()
+    net["wout"] = pack_wgmma_tiles(_pad2(f32(w_out[:, :xdim]), net["widths"][-1], 8), parts=1)
     net["bout"] = f32(b_out[:xdim]).contiguous()
     return net
 
@@ -193,6 +224,9 @@ def _check_launch(params, x0: Tensor, noise: Optional[Tensor], num_steps: int, n
         raise ValueError(f"the kernel takes 1..{MAX_XDIM} state dims, got {xdim}")
     if len(params) < 2 or len(params) - 2 > MAX_HIDDEN:
         raise ValueError(f"the kernel takes 2..{MAX_HIDDEN + 2} layers, got {len(params)}")
+    widths = [w.shape[1] for w, _ in params[:-1]]
+    if max(_ceil128(v) for v in widths) > MAX_WIDTH:
+        raise ValueError(f"the kernel takes widths up to {MAX_WIDTH}, got {widths}")
     for w, b in params:
         if w.device != dev or b.device != dev:
             raise ValueError("params must lie on the device of x0")
@@ -215,13 +249,41 @@ def _hidden_args(net: dict):
 
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 6
+    [ctypes.c_int]
+    + [ctypes.c_void_p] * 5
     + [ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int), ctypes.c_int]
     + [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 4
     + [ctypes.c_float] * 8
     + [ctypes.c_uint64, ctypes.c_void_p]
 )
+
+
+def _em_launch(net: dict, cdiffe: bool, x0, y_dev, noise, stamps, ydim, num_steps, T, beta_min, beta_max, lmbd,
+               noise_scale, seed) -> Tensor:
+    """Launch B1 or B4 on the device net ``net`` (B4 with its observation
+    ``y_dev``); returns the samples."""
+    n, xdim = x0.shape
+    dev = x0.device
+    out = torch.empty_like(x0)
+    wh, bh, widths, n_hidden = _hidden_args(net)
+    delta = T / num_steps
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = build.load("em_kernel")
+    fn = lib.em_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(
+        int(cdiffe), x0.data_ptr(), ptr(y_dev), net["c1"].data_ptr(), net["w1t"].data_ptr(),
+        net["w1"].data_ptr(), wh, bh, widths, n_hidden,
+        net["wout"].data_ptr(), net["bout"].data_ptr(), ptr(noise), out.data_ptr(), ptr(stamps),
+        n, xdim, ydim, num_steps,
+        T, beta_min, beta_max - beta_min, 1.0 - 0.5 * lmbd, (1.0 - lmbd) ** 0.5,
+        delta, delta**0.5, noise_scale, seed & (2**64 - 1),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, err, "em_launch")
+    return out
 
 
 def _check_stamps(stamps: Optional[Tensor], n_phases: int, num_steps: int, dev) -> None:
@@ -235,28 +297,9 @@ def _launch(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, 
     dev = x0.device
     _check_launch(params, x0, noise, num_steps, xdim)
     _check_stamps(stamps, len(phase_names(len(params) - 2)), num_steps, dev)
-    net = _device_net(params, xdim)
-    _check_y(y, net["ydim"])
-    y_dev = (torch.zeros(1, device=dev) if net["ydim"] == 0
-             else y.to(device=dev, dtype=torch.float32).reshape(-1).contiguous())
-    out = torch.empty_like(x0)
-    wh, bh, widths, n_hidden = _hidden_args(net)
-    delta = T / num_steps
-    lib = build.load("em_kernel")
-    fn = lib.em_sampler_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(
-        x0.data_ptr(), y_dev.data_ptr(), net["w1x"].data_ptr(), net["w1y"].data_ptr(),
-        net["w1t"].data_ptr(), net["b1"].data_ptr(), wh, bh, widths, n_hidden,
-        net["wout"].data_ptr(), net["bout"].data_ptr(),
-        None if noise is None else noise.data_ptr(), out.data_ptr(),
-        None if stamps is None else stamps.data_ptr(), n, xdim, net["ydim"], num_steps,
-        T, beta_min, beta_max - beta_min, 1.0 - 0.5 * lmbd, (1.0 - lmbd) ** 0.5,
-        delta, delta**0.5, noise_scale, seed & (2**64 - 1),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    build.check(lib, err, "em_sampler_launch")
+    net = _device_net(params, xdim, y)
+    out = _em_launch(net, False, x0, None, noise, stamps, net["ydim"], num_steps, T, beta_min, beta_max,
+                     lmbd, noise_scale, seed)
     fused_em_sampler.launches += 1
     return out
 
@@ -324,19 +367,22 @@ def em_cdiffe_reference(
     noise_scale: float = 1.0,
     noise: Optional[Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    dtype: torch.dtype = torch.float32,
 ) -> Tensor:
     """Plain PyTorch version of B4: the CDiffE sampler on the joint net
     (layer 0 takes [x, y, t]), the output sliced to the x block, inputs of
-    every product rounded to ``compute_dtype`` ([x, y_t] included), f32
-    sums, f32 state, the first layer's bias taken as s w1t + b1.  ``noise``
-    (num_steps, N, xdim + ydim) is the kernel's one block per step: columns
-    [:xdim] for the integrator, [xdim:] for y; else drawn from
-    ``generator``, y's draw first in each step."""
+    every product rounded to ``compute_dtype`` ([x, y_t] included), sums
+    and state in ``dtype``, the first layer's bias taken as s w1t + b1.
+    ``noise`` (num_steps, N, xdim + ydim) is the kernel's one block per
+    step: columns [:xdim] for the integrator, [xdim:] for y; else drawn from
+    ``generator``, y's draw first in each step.  ``dtype`` and the float64
+    witness as :func:`em_sampler_reference`."""
     xdim = x0.shape[-1]
+    params = [(w.to(dtype), b.to(dtype)) for w, b in params]
     w1, b1 = params[0]
     width = w1.shape[0] - 1
     _check_y(y, width - xdim)
-    rnd = _rounder(compute_dtype)
+    rnd = _rounder(compute_dtype, dtype)
     w1z, w1t = rnd(w1[:width]), w1[width]
     hidden = [(rnd(w), b) for w, b in params[1:-1]]
     w_out, b_out = rnd(params[-1][0][:, :xdim]), params[-1][1][:xdim]
@@ -350,18 +396,8 @@ def em_cdiffe_reference(
     sde = ReverseSDE(base=VPSDE(beta_min=beta_min, beta_max=beta_max, T=T), T=T)
     return euler_maruyama_cdiffe(
         sde, drift, y.reshape(-1), x0.shape[0], xdim, num_steps, lmbd=lmbd,
-        noise_scale=noise_scale, generator=generator, x0=x0, noise=noise, y_eps=noise,
+        noise_scale=noise_scale, generator=generator, x0=x0, noise=noise, y_eps=noise, dtype=dtype,
     )
-
-
-_CDIFFE_ARGTYPES = (
-    [ctypes.c_void_p] * 5
-    + [ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-    + [ctypes.c_void_p] * 5
-    + [ctypes.c_int] * 4
-    + [ctypes.c_float] * 8
-    + [ctypes.c_uint64, ctypes.c_void_p]
-)
 
 
 def _cdiffe_device_net(params, xdim: int):
@@ -371,11 +407,11 @@ def _cdiffe_device_net(params, xdim: int):
     w1, b1 = params[0]
     width = w1.shape[0] - 1
     f32 = lambda t: t.to(torch.float32)
-    h1 = _ceil32(w1.shape[1])
+    h1 = _ceil128(w1.shape[1])
     net = {
         "w1": pack_mma_b(_pad2(f32(w1[:width]), CDIFFE_MAX_WIDTH, h1)),
         "w1t": _pad1(f32(w1[width]), h1),
-        "b1": _pad1(f32(b1), h1),
+        "c1": _pad1(f32(b1), h1),
     }
     return _add_hidden_and_out(net, params, h1, xdim)
 
@@ -394,23 +430,8 @@ def _launch_cdiffe(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_
     _check_y(y, ydim)
     net = _cdiffe_device_net(params, xdim)
     y_dev = y.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
-    out = torch.empty_like(x0)
-    wh, bh, widths, n_hidden = _hidden_args(net)
-    delta = T / num_steps
-    lib = build.load("em_kernel")
-    fn = lib.em_cdiffe_launch
-    fn.argtypes = _CDIFFE_ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(
-        x0.data_ptr(), y_dev.data_ptr(), net["w1"].data_ptr(), net["w1t"].data_ptr(), net["b1"].data_ptr(),
-        wh, bh, widths, n_hidden, net["wout"].data_ptr(), net["bout"].data_ptr(),
-        None if noise is None else noise.data_ptr(), out.data_ptr(),
-        None if stamps is None else stamps.data_ptr(), n, xdim, ydim, num_steps,
-        T, beta_min, beta_max - beta_min, 1.0 - 0.5 * lmbd, (1.0 - lmbd) ** 0.5,
-        delta, delta**0.5, noise_scale, seed & (2**64 - 1),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    build.check(lib, err, "em_cdiffe_launch")
+    out = _em_launch(net, True, x0, y_dev, noise, stamps, ydim, num_steps, T, beta_min, beta_max, lmbd,
+                     noise_scale, seed)
     fused_em_sampler_cdiffe.launches += 1
     return out
 

@@ -36,6 +36,7 @@ def euler_maruyama(
     device=None,
     x0: Optional[Tensor] = None,
     noise: Optional[Tensor] = None,
+    dtype: torch.dtype = torch.float32,
 ) -> Tensor:
     """Integrate the plug-in reverse SDE from x0 ~ N(mean, std^2).
 
@@ -43,13 +44,14 @@ def euler_maruyama(
     (num_steps, num_samples, xdim) the per-step normal draws, so two
     implementations can be fed the same random numbers.  ``noise_scale=0``
     makes the integrator deterministic.  ``y`` (ydim,) is tiled over the
-    batch, or None for an unconditional net.
+    batch, or None for an unconditional net.  The state is kept in
+    ``dtype`` (float32; float64 for a reference of the f32 versions).
     """
     gen_dev = generator.device if generator is not None else "cpu"
     if x0 is None:
         x0 = torch.randn(num_samples, xdim, generator=generator, device=gen_dev)
         x0 = (x0 * std + mean).to(device)
-    x = x0.to(torch.float32)
+    x = x0.to(dtype)
     dev = x.device
     cond = None
     if y is not None:
@@ -85,6 +87,7 @@ def euler_maruyama_cdiffe(
     x0: Optional[Tensor] = None,
     noise: Optional[Tensor] = None,
     y_eps: Optional[Tensor] = None,
+    dtype: torch.dtype = torch.float32,
 ) -> Tensor:
     """CDiffE sampler: each step re-diffuses the observed y (ydim,) to
     s = T - t_i, y_t = alpha(s) y + std(s) eps_y, takes the unconditional
@@ -101,7 +104,8 @@ def euler_maruyama_cdiffe(
     ``noise`` (num_steps, num_samples, D) the integrator draws and ``y_eps``
     the y draws: (num_steps, num_samples, D) for 'fresh', (num_samples, D)
     for 'shared'.  Passing the same tensor as ``noise`` and ``y_eps`` gives
-    the fused CDiffE kernel's layout, one D-wide block per step.
+    the fused CDiffE kernel's layout, one D-wide block per step.  The
+    state is kept in ``dtype``, as in :func:`euler_maruyama`.
     """
     if y_noise not in ("fresh", "shared", "mean"):
         raise ValueError(f"y_noise must be fresh|shared|mean, got {y_noise!r}")
@@ -109,7 +113,7 @@ def euler_maruyama_cdiffe(
     draw = lambda *shape: torch.randn(shape, generator=generator, device=gen_dev)
     if x0 is None:
         x0 = (draw(num_samples, xdim) * std + mean).to(device)
-    x = x0.to(torch.float32)
+    x = x0.to(dtype)
     dev = x.device
     ydim = y.shape[-1]
     width = xdim + ydim
@@ -122,7 +126,7 @@ def euler_maruyama_cdiffe(
         t_col = ts[i].expand(num_samples, 1)
         s = sde.T - t_col
         if y_noise == "mean":
-            eps_y = torch.zeros(num_samples, ydim, device=dev)
+            eps_y = torch.zeros(num_samples, ydim, device=dev, dtype=dtype)
         elif y_noise == "shared":
             eps_y = noise_scale * y_eps.to(dev)[:, xdim:]
         else:

@@ -79,6 +79,28 @@ def test_plain_with_injected_noise_matches_euler_maruyama_cdiffe():
     assert fused_em_sampler_cdiffe.launches == before
 
 
+@pytest.mark.parametrize("noise_scale", [0.0, 1.0])
+def test_float64_witness_agrees_with_f32_plain_version(noise_scale):
+    """B4's plain version run unrounded in float64 (the witness chip_smoke.py
+    holds B4 against) agrees with the unrounded f32 run to rel 1e-4 (f32
+    rounding over 25 steps), with the bf16 run to rel 5e-2, and the default
+    is still the f32 sampler with bf16 rounding."""
+    _, tp = _net(xdim=3, ydim=4, seed=2)
+    rng = np.random.default_rng(2)
+    x0 = torch.from_numpy(rng.normal(size=(128, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=4).astype(np.float32))
+    noise = torch.from_numpy(rng.normal(size=(25, 128, 7)).astype(np.float32))
+    kw = dict(noise_scale=noise_scale, noise=noise)
+    f64 = em_cdiffe_reference(tp, x0, y, 25, compute_dtype=torch.float64, dtype=torch.float64, **kw)
+    f32 = em_cdiffe_reference(tp, x0, y, 25, compute_dtype=torch.float32, **kw)
+    bf16 = em_cdiffe_reference(tp, x0, y, 25, **kw)
+    assert f64.dtype == torch.float64 and f32.dtype == bf16.dtype == torch.float32
+    assert _rel(f32.double().numpy(), f64.numpy()) < 1e-4
+    assert _rel(bf16.double().numpy(), f64.numpy()) < 5e-2
+    explicit = em_cdiffe_reference(tp, x0, y, 25, compute_dtype=torch.bfloat16, dtype=torch.float32, **kw)
+    torch.testing.assert_close(bf16, explicit, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("y_noise,noise_scale", [("fresh", 0.0), ("fresh", 1.0), ("shared", 1.0), ("mean", 1.0)])
 def test_euler_maruyama_cdiffe_matches_jax(y_noise, noise_scale):
     """The JAX sampler's x0, y draws and integrator draws, rebuilt from its

@@ -67,6 +67,56 @@ def test_em_kernel_deterministic_and_rejects_what_it_does_not_take(cuda):
         fused_em_sampler(tp, x0, None, 5)
 
 
+# (hidden widths, xdim, ydim, rows): every wgmma width the layout has (a
+# warpgroup's 64, 128, 192 and 256 columns), widths padded from 96 and 80,
+# one hidden layer (no hidden product), xdim 1 and 4, B1 with ydim 0, B4 at
+# its widest [x, y] (32), fewer rows than a block and a ragged last block
+EM_SHAPES = {
+    "padded_1x_ydim0_small": ((96, 80, 64), 1, 0, 40),
+    "one_layer_4x_ragged": ((96,), 4, 5, 777),
+    "all_widths_3x": ((128, 256, 384, 512), 3, 23, 1000),
+    "served_512_2x": ((512, 512, 512), 2, 2, 300),
+}
+
+
+@pytest.mark.parametrize("cdiffe", [False, True])
+@pytest.mark.parametrize("shape", list(EM_SHAPES))
+def test_em_kernels_widths_and_shapes(cuda, cdiffe, shape):
+    """B1 and B4 against their plain versions, same x0 and noise, 30 steps,
+    over the layout's shapes; each row's error relative to 1 + its largest
+    coordinate (random nets move the state further than trained ones), held
+    at B1's bulk tolerances (mean 2e-3, 99.9th percentile 5e-2).  The same
+    seed gives the same samples."""
+    hidden, xdim, ydim, n = EM_SHAPES[shape]
+    if cdiffe and ydim == 0:
+        ydim = 2  # B4 needs a condition
+    if cdiffe and xdim + ydim > 32:
+        ydim = 32 - xdim
+    fn, ref_fn = (fused_em_sampler_cdiffe, em_cdiffe_reference) if cdiffe else (fused_em_sampler,
+                                                                                  em_sampler_reference)
+    out_dim = xdim + ydim if cdiffe else xdim
+    tp = mlp_init(xdim + ydim + 1, out_dim, hidden, generator=torch.Generator().manual_seed(7), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x0 = torch.randn(n, xdim, generator=gen, device=cuda)
+    y = 0.3 * torch.randn(ydim, generator=gen, device=cuda) if ydim else None
+    noise = torch.randn(30, n, out_dim if cdiffe else xdim, generator=gen, device=cuda)
+    out = fn(tp, x0, y, 30, noise=noise)
+    ref = ref_fn(tp, x0, y, 30, noise=noise)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    err = (out - ref).abs().amax(dim=1) / (1 + ref.abs().amax(dim=1))
+    assert float(err.mean()) < 2e-3 and float(torch.quantile(err, 0.999)) < 5e-2
+    torch.testing.assert_close(fn(tp, x0, y, 30, seed=9), fn(tp, x0, y, 30, seed=9), rtol=0, atol=0)
+
+
+def test_em_kernels_refuse_widths_past_512(cuda):
+    """Widths past 512 (after padding to 128) do not fit the layout: raise."""
+    tp = mlp_init(5, 2, (640, 512), generator=torch.Generator().manual_seed(1), device=cuda)
+    x0 = torch.zeros(10, 2, device=cuda)
+    with pytest.raises(ValueError, match="512"):
+        fused_em_sampler(tp, x0, torch.zeros(2, device=cuda), 5)
+
+
 @pytest.mark.parametrize("cdiffe", [False, True])
 def test_em_kernel_stamps(cuda, cdiffe):
     """B1 and B4 with stamps: block 0's clock readings rise through the

@@ -84,6 +84,30 @@ def test_cpu_wrapper_runs_plain_version_seeded():
     ref = em_sampler_reference(tp, x0, y, 10, generator=torch.Generator().manual_seed(5))
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     assert fused_em_sampler.launches == before
+    with pytest.raises(ValueError, match="stamps"):
+        fused_em_sampler(tp, x0, y, 10, stamps=torch.zeros(2 * (1 + 4 * 10), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("noise_scale", [0.0, 1.0])
+def test_float64_witness_agrees_with_f32_plain_version(noise_scale):
+    """The plain version run unrounded in float64 (the witness chip_smoke.py
+    holds B1 against) agrees with the unrounded f32 run to rel 1e-4 (f32
+    rounding over 40 steps, as the f32 tests above), lies within the bf16
+    run's reach (rel 5e-2), and the default is still the f32 sampler with
+    bf16 rounding."""
+    _, tp = _net(hidden=(64, 64), xdim=2, ydim=2, seed=6)
+    y = torch.tensor([0.4, -0.2])
+    x0 = torch.randn(256, 2, generator=torch.Generator().manual_seed(1))
+    noise = torch.randn(40, 256, 2, generator=torch.Generator().manual_seed(2))
+    kw = dict(noise_scale=noise_scale, noise=noise)
+    f64 = em_sampler_reference(tp, x0, y, 40, compute_dtype=torch.float64, dtype=torch.float64, **kw)
+    f32 = em_sampler_reference(tp, x0, y, 40, compute_dtype=torch.float32, **kw)
+    bf16 = em_sampler_reference(tp, x0, y, 40, **kw)
+    assert f64.dtype == torch.float64 and f32.dtype == bf16.dtype == torch.float32
+    assert _rel(f32.double().numpy(), f64.numpy()) < 1e-4
+    assert _rel(bf16.double().numpy(), f64.numpy()) < 5e-2
+    explicit = em_sampler_reference(tp, x0, y, 40, compute_dtype=torch.bfloat16, dtype=torch.float32, **kw)
+    torch.testing.assert_close(bf16, explicit, rtol=0, atol=0)
 
 
 def test_pack_mma_b_fragment_order():
@@ -98,25 +122,61 @@ def test_pack_mma_b_fragment_order():
     assert sorted(p.flatten().tolist()) == sorted(w.flatten().tolist())
 
 
+def _unpack_wgmma_tiles(p):
+    """The inverse of pack_wgmma_tiles, from its documented element map."""
+    kcs, parts, cols, _ = p.shape
+    w = torch.zeros(64 * kcs, parts * cols)
+    kc, h, r, k = torch.meshgrid(*[torch.arange(s) for s in p.shape], indexing="ij")
+    w[64 * kc + 8 * ((k // 8) ^ (r % 8)) + k % 8, h * cols + r] = p.float()
+    return w
+
+
+def test_pack_wgmma_tiles_layout():
+    """Element [kc, h, r, 8q + e] is W[64kc + 8(q ^ (r%8)) + e, h N/2 + r]:
+    each [kc, h] is one ring tile's shared-memory image, N/2 K-major rows
+    of 128 bytes with the 128-byte swizzle.  Bad shapes raise."""
+    w = torch.randn(128, 256).to(torch.bfloat16).float()
+    p = em_kernel.pack_wgmma_tiles(w)
+    assert p.shape == (2, 2, 128, 64) and p.dtype == torch.bfloat16
+    for kc, h, r, q, e in [(0, 0, 0, 0, 0), (1, 1, 127, 7, 7), (0, 1, 13, 2, 5), (1, 0, 70, 6, 1)]:
+        assert p[kc, h, r, 8 * q + e] == w[64 * kc + 8 * (q ^ (r % 8)) + e, 128 * h + r]
+    torch.testing.assert_close(_unpack_wgmma_tiles(p), w, rtol=0, atol=0)
+    one = em_kernel.pack_wgmma_tiles(w[:, :8], parts=1)
+    assert one.shape == (2, 1, 8, 64)
+    torch.testing.assert_close(_unpack_wgmma_tiles(one), w[:, :8], rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        em_kernel.pack_wgmma_tiles(torch.zeros(96, 128))
+    with pytest.raises(ValueError):
+        em_kernel.pack_wgmma_tiles(torch.zeros(64, 120))
+
+
+def _unpack_mma_b(p):
+    """The inverse of pack_mma_b, from its documented element map."""
+    w = torch.zeros(32 * p.shape[1], 8 * p.shape[0])
+    nt, kp, lane, j, r, e = torch.meshgrid(*[torch.arange(s) for s in p.shape], indexing="ij")
+    w[(2 * kp + j) * 16 + 2 * (lane % 4) + 8 * r + e, 8 * nt + lane // 4] = p.float()
+    return w
+
+
 def test_device_net_layout_computes_the_same_sampler():
-    """Unpacking the kernel's padded net (widths 40 -> 64) and running the
-    plain version on it gives the original net's trajectory exactly."""
+    """Unpacking the kernel's padded net (widths 40 -> 128; W1x's 3 rows
+    padded to 32, the condition folded into c1) and running the plain
+    version on it gives the original net's trajectory exactly."""
     _, tp = _net(hidden=(40, 40), xdim=3, ydim=5, seed=4)
-    dn = em_kernel._device_net(tp, 3)
-    assert dn["widths"] == [64, 64] and dn["ydim"] == 5
-
-    def unpack(p, k, n):
-        w = torch.zeros(k, n)
-        nt, kp, lane, j, r, e = torch.meshgrid(*[torch.arange(s) for s in p.shape], indexing="ij")
-        w[(2 * kp + j) * 16 + 2 * (lane % 4) + 8 * r + e, 8 * nt + lane // 4] = p.float()
-        return w
-
-    w1 = torch.cat([dn["w1x"], dn["w1y"], dn["w1t"][None]], 0)
-    padded = ((w1, dn["b1"]), (unpack(dn["wh"][0], 64, 64), dn["bh"][0]), (dn["wout"].t(), dn["bout"]))
-    x0 = torch.randn(64, 3, generator=torch.Generator().manual_seed(1))
     y = torch.randn(5, generator=torch.Generator().manual_seed(2))
+    dn = em_kernel._device_net(tp, 3, y)
+    assert dn["widths"] == [128, 128] and dn["ydim"] == 5
+    assert dn["w1"].shape == (16, 1, 32, 2, 2, 2) and dn["wout"].shape == (2, 1, 8, 64)
+
+    w1x = _unpack_mma_b(dn["w1"])
+    assert not w1x[3:].any()
+    w1 = torch.cat([w1x[:3], dn["w1t"][None]], 0)
+    wout = _unpack_wgmma_tiles(dn["wout"])
+    assert not wout[:, 3:].any()
+    padded = ((w1, dn["c1"]), (_unpack_wgmma_tiles(dn["wh"][0]), dn["bh"][0]), (wout[:, :3], dn["bout"]))
+    x0 = torch.randn(64, 3, generator=torch.Generator().manual_seed(1))
     a = em_sampler_reference(tp, x0, y, 8, noise_scale=0.0)
-    b = em_sampler_reference(padded, x0, y, 8, noise_scale=0.0)
+    b = em_sampler_reference(padded, x0, None, 8, noise_scale=0.0)
     torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
