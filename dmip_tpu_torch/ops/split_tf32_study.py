@@ -20,7 +20,7 @@ parts enter as a tensor core reads them, truncated to TF32):
 
 Usage: python -m dmip_tpu_torch.ops.split_tf32_study [--chains 4096]
           [--steps 1000] [--seed 0] [--device cpu]
-Prints one JSON object.
+Runs on the card unless ``--device cpu`` is given.  Prints one JSON object.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import json
 
 import torch
 
+from .. import resolve_device
 from ..problems import scatterometry as scat
 from .mh_kernel import mh_chains_reference, mh_energy
 
@@ -42,7 +43,10 @@ def _quantiles(rel: torch.Tensor) -> dict:
     return {"p50": float(q[0]), "p999": float(q[1]), "max": float(rel.max())}
 
 
-def study(chains: int = 4096, steps: int = 1000, seed: int = 0, device="cpu") -> dict:
+def study(chains: int = 4096, steps: int = 1000, seed: int = 0, device=None) -> dict:
+    """The study's numbers (above) on ``device``: the card unless the caller
+    passes ``device="cpu"``; raises without a card."""
+    device = resolve_device(device)
     weights = scat.load_surrogate_weights(device=device)
     w64 = [(w.double(), b.double()) for w, b in weights]
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -86,7 +90,7 @@ def main(argv=None) -> None:
     p.add_argument("--chains", type=int, default=4096)
     p.add_argument("--steps", type=int, default=1000)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default="cpu")
+    p.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = p.parse_args(argv)
     print(json.dumps(study(args.chains, args.steps, args.seed, args.device)))
 

@@ -244,7 +244,7 @@ def test_split_tf32_study_runs_small():
     """The numerics study behind the kernel's 3 terms, at a tiny size: every
     form reports its energy error against float64, and the split forms
     their agreement with the f32 chains."""
-    out = split_tf32_study.study(chains=256, steps=4, seed=1)
+    out = split_tf32_study.study(chains=256, steps=4, seed=1, device="cpu")
     for form in ("f32", "split3", "split4"):
         assert 0.0 <= out[form]["energy_rel_p50"] <= out[form]["energy_rel_max"] < 1e-3
     for form in ("split3", "split4"):
