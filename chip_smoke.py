@@ -29,7 +29,10 @@ kernel at the linear net's and the CDiffE's shapes (f32 and bf16, a masked
 epoch, two launches of one epoch against one of two, bit for bit, a poisoned
 batch under both guards) and at the scatterometry net's (f32), the CDiffE
 kernel at ``cdiffe_scat``'s and a linear CDiffE's shapes, and the guided
-kernel at the ``dps_prior`` + surrogate shapes in both guidance modes.  Each
+kernel at the ``dps_prior`` + surrogate shapes in both guidance modes.  The
+E-M and CDiffE kernels' same-noise samples are also held against their
+plain version run unrounded in float64 (a float64 witness, as the MH and
+guided kernels have).  Each
 kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are per launch, averaged over
 the main path's launches of each shape; the timing phase also splits the
 E-M kernel's step over its phases at both nets (``b1_phase_us_by_net``),

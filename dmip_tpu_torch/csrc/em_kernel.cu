@@ -404,12 +404,7 @@ __global__ void __launch_bounds__(EM_THREADS, 1) em_sampler_kernel(const EmArgs 
       const float int_beta = 0.5f * p.bd * (s * s) + p.beta_min * s;
       const float alpha = expf(-0.5f * int_beta);
       const float std_s = sqrtf(1.f - expf(-int_beta));
-      // at most EM_ROWS x 16 pairs: 4 a thread, unrolled so that their
-      // Philox rounds and Box-Muller maps interleave
-#pragma unroll
-      for (int k = 0; k < EM_ROWS * (EM_K1 / 2) / EM_CONSUMERS; ++k) {
-        const int i = tid + k * EM_CONSUMERS;
-        if (i >= EM_ROWS * pairs) break;
+      for (int i = tid; i < EM_ROWS * pairs; i += EM_CONSUMERS) {
         const int rr = i / pairs, pp = i - rr * pairs, row = row0 + rr;
         float e[2] = {0.f, 0.f};
         if (p.noise_scale != 0.f) {
