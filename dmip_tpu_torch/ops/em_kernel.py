@@ -11,9 +11,11 @@ Port of ``dmip_tpu/ops/em_kernel.py``:
     :func:`em_cdiffe_reference` through
     :func:`dmip_tpu_torch.samplers.euler_maruyama_cdiffe`.
 
-Both kernels live in ``csrc/em_kernel.cu``.  A wrapper takes the plain
-version only for CPU tensors; for a CUDA tensor it launches the kernel or
-raises.
+Both kernels live in ``csrc/em_kernel.cu``, one template for both, which
+takes every weight as the image of its tiles in shared memory
+(:func:`pack_mma_b` for the first layer, :func:`pack_wgmma_tiles` for the
+rest).  A wrapper takes the plain version only for CPU tensors; for a CUDA
+tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -32,11 +34,7 @@ Tensor = torch.Tensor
 MAX_HIDDEN = 8
 MAX_XDIM = 4
 MAX_WIDTH = 512  # every width, after padding to a multiple of 128
-CDIFFE_MAX_WIDTH = 32  # xdim + ydim: B4's first layer is one 32-deep mma slice
-# The phases a step's stamps end, for the served nets' two hidden products;
-# :func:`phase_names` gives them for any depth.
-PHASES = ("layer0", "hidden1", "hidden2", "output", "update")
-CDIFFE_PHASES = ("noise", "layer0", "hidden1", "hidden2", "output", "update")
+K1 = 32  # the first layer's [x] (B1) or [x, y] (B4) rows, zero-padded: one 32-deep mma.sync slice
 
 
 def phase_names(n_hidden: int, cdiffe: bool = False) -> Tuple[str, ...]:
@@ -44,6 +42,11 @@ def phase_names(n_hidden: int, cdiffe: bool = False) -> Tuple[str, ...]:
     ``n_hidden`` hidden products, in the order the stamps end them."""
     names = ("layer0", *[f"hidden{i + 1}" for i in range(n_hidden)], "output", "update")
     return ("noise", *names) if cdiffe else names
+
+
+# the phases of the served nets, which have two hidden products
+PHASES = phase_names(2)
+CDIFFE_PHASES = phase_names(2, cdiffe=True)
 
 
 def _ceil128(v: int) -> int:
@@ -190,7 +193,7 @@ def _device_net(params, xdim: int, y: Optional[Tensor]):
     cy = f32(b1) if ydim == 0 else y.reshape(1, ydim).to(device=b1.device, dtype=torch.float32) @ f32(w1y) + f32(b1)
     h1 = _ceil128(w1x.shape[1])
     net = {
-        "w1": pack_mma_b(_pad2(f32(w1x), CDIFFE_MAX_WIDTH, h1)),
+        "w1": pack_mma_b(_pad2(f32(w1x), K1, h1)),
         "w1t": _pad1(f32(w1t), h1),
         "c1": _pad1(cy.reshape(-1), h1),
         "ydim": ydim,
@@ -409,7 +412,7 @@ def _cdiffe_device_net(params, xdim: int):
     f32 = lambda t: t.to(torch.float32)
     h1 = _ceil128(w1.shape[1])
     net = {
-        "w1": pack_mma_b(_pad2(f32(w1[:width]), CDIFFE_MAX_WIDTH, h1)),
+        "w1": pack_mma_b(_pad2(f32(w1[:width]), K1, h1)),
         "w1t": _pad1(f32(w1[width]), h1),
         "c1": _pad1(f32(b1), h1),
     }
@@ -421,8 +424,8 @@ def _launch_cdiffe(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_
     dev = x0.device
     width = params[0][0].shape[0] - 1
     ydim = width - xdim
-    if ydim < 1 or width > CDIFFE_MAX_WIDTH:
-        raise ValueError(f"the kernel takes 1 <= ydim and xdim + ydim <= {CDIFFE_MAX_WIDTH}, got {xdim} + {ydim}")
+    if ydim < 1 or width > K1:
+        raise ValueError(f"the kernel takes 1 <= ydim and xdim + ydim <= {K1}, got {xdim} + {ydim}")
     if params[-1][0].shape[1] != width:
         raise ValueError(f"a CDiffE net ends in xdim + ydim = {width} outputs, not {params[-1][0].shape[1]}")
     _check_launch(params, x0, noise, num_steps, width)

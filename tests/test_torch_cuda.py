@@ -13,7 +13,9 @@ from dmip_tpu_torch.nets import mlp_init
 from dmip_tpu_torch.ops.dsm_train_kernel import dsm_train_epochs_reference, fused_dsm_train_epochs
 from dmip_tpu_torch.ops.dps_kernel import fused_guided_em_sampler, guided_em_reference
 from dmip_tpu_torch.ops.em_kernel import (em_cdiffe_reference, em_sampler_reference, fused_em_sampler,
-                                          fused_em_sampler_cdiffe, phase_names)
+                                          fused_em_sampler_cdiffe)
+from dmip_tpu_torch.ops.em_kernel import CDIFFE_PHASES as EM_CDIFFE_PHASES
+from dmip_tpu_torch.ops.em_kernel import PHASES as EM_PHASES
 from dmip_tpu_torch.ops.mh_kernel import PHASES as MH_PHASES
 from dmip_tpu_torch.ops.mh_kernel import fused_mh_scatterometry, mh_chains_reference, mh_energy
 from dmip_tpu_torch.problems import scatterometry as scat
@@ -128,7 +130,7 @@ def test_em_kernel_stamps(cuda, cdiffe):
     gen = torch.Generator(device=cuda).manual_seed(1)
     x0 = torch.randn(700, 3, generator=gen, device=cuda)
     y = 0.3 * torch.randn(23, generator=gen, device=cuda)
-    steps, names = 12, phase_names(2, cdiffe=cdiffe)
+    steps, names = 12, EM_CDIFFE_PHASES if cdiffe else EM_PHASES
     stamps = torch.zeros(2 * (1 + len(names) * steps), dtype=torch.int64, device=cuda)
     plain = fn(tp, x0, y, steps, seed=11)
     stamped = fn(tp, x0, y, steps, seed=11, stamps=stamps)
