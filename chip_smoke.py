@@ -32,13 +32,13 @@ kernel at ``cdiffe_scat``'s and a linear CDiffE's shapes, and the guided
 kernel at the ``dps_prior`` + surrogate shapes in both guidance modes.  The
 E-M and CDiffE kernels' same-noise samples are also held against their
 plain version run unrounded in float64 (a float64 witness, as the MH and
-guided kernels have).  Each
-kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are per launch, averaged over
-the main path's launches of each shape; the timing phase also splits the
-E-M kernel's step over its phases at both nets (``b1_phase_us_by_net``),
-the MH kernel's (``b2_phase_us``), the training kernel's
-(``b3_phase_us_by_net``), the CDiffE kernel's (``b4_phase_us``) and the
-guided kernel's, in both guidance modes (``b5_phase_us_by_guidance``).  The MH kernel's one-step check also holds
+guided kernels have).  Each kernel's ``ms``, ``plain_ms`` and ``bound_ms``
+are per launch, averaged over the main path's launches of each shape; the
+timing phase also splits the E-M kernel's step over its phases at both nets
+(``b1_phase_us_by_net``), the MH kernel's (``b2_phase_us``), the training
+kernel's (``b3_phase_us_by_net``), the CDiffE kernel's (``b4_phase_us``)
+and the guided kernel's, in both guidance modes
+(``b5_phase_us_by_guidance``).  The MH kernel's one-step check also holds
 the energies it carries against the plain energy in float64.
 
 Launch counts are zeroed just before each path and read just after; the
