@@ -13,13 +13,21 @@ config with ``eval_analytic_guidance: True`` (scatterometry) evaluates the
 prior net under analytic DPS guidance through the surrogate, with the
 config's ``guidance_clip`` (kernel B5), and writes to ``out_dir +
 "_analytic"``; without it the learned likelihood net is sampled by the
-plain scan.  A config with ``refine`` (the energy-refined rows) raises:
-refinement is not ported (ROADMAP §A2).  ``--progress_every N`` prints a
-heartbeat every N scatterometry conditions.
+plain scan.  A config with ``refine`` (a grammar string such as
+``'mh,20,0.2'`` or the dict form) is served as its energy-refined row: the
+net proposes, an exact-energy MCMC chain on the problem's negative log
+posterior refines (``models/refined.py``), and the results go to
+``out_dir + "_refined_<tag>"`` (linear) or ``out_dir + "_refined"``
+(scatterometry), as the JAX training drivers name them; ``--refine``
+overrides the config's.  ``--eval_method`` ('auto', 'kernel', 'plain',
+'heun', 'expint[:ode|:sde][:1|:2]') and ``--eval_num_steps`` override the
+config's ``eval_method`` and ``eval_num_steps``.  ``--progress_every N``
+prints a heartbeat every N scatterometry conditions.
 
 Usage: python -m dmip_tpu_torch.mains.eval_diffusion --problem linear \
           --checkpoint benchmarks/checkpoints/linear_refined_winner \
-          [--config configs/config_linear.yml] [--n_samples_y N] [--device cuda|cpu]
+          [--config configs/config_linear.yml] [--n_samples_y N] [--device cuda|cpu] \
+          [--refine mh,20,0.2] [--eval_method expint:sde:1 --eval_num_steps 32]
        python -m dmip_tpu_torch.mains.eval_diffusion --problem scatterometry \
           --checkpoint benchmarks/checkpoints/cde_500k --gt_dir data/gt... \
           [--config configs/config_scatterometry.yml] [--n_samples_y N] [--progress_every N]
@@ -37,6 +45,7 @@ import torch
 from .. import data, evaluate, resolve_device, train
 from ..checkpoints import load_archived_params
 from ..models import AnalyticGuidanceDPS, PosteriorDiffusionEstimator
+from ..models.refined import from_spec
 from ..problems import LinearForwardProblem
 from ..problems import scatterometry as scat
 from ..utils import load_config
@@ -102,13 +111,11 @@ def run(
     progress_every: int = 0,
 ) -> Tuple[float, float, float]:
     """Returns (mean KL, mean NLPD, mean score-MSE) over the conditions.
-    ``method`` overrides the config's ``eval_method`` ('auto', 'kernel' or
-    'plain'); ``seed`` seeds the sampling generator; ``progress_every``
-    (scatterometry) prints a heartbeat every that many conditions.  A
-    config with ``refine`` raises: the energy-refined models are not
-    ported."""
-    if config.get("refine"):
-        raise NotImplementedError("refine is not ported yet; see ROADMAP.md §A2")
+    ``method`` overrides the config's ``eval_method``; ``seed`` seeds the
+    sampling generator; ``progress_every`` (scatterometry) prints a
+    heartbeat every that many conditions.  A config with ``refine`` is
+    scored as its refined row."""
+    refine = config.get("refine")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_x = int(config["n_samples_x"])
@@ -120,6 +127,9 @@ def run(
         prob = LinearForwardProblem()
         y_test = linear_test_conditions(config, prob, dev)
         model, params = _load_net(config, {"xdim": prob.xdim, "ydim": prob.ydim}, checkpoint, dev)
+        if refine:
+            model, tag = from_spec(model, lambda x, ys: prob.log_posterior(x, ys)[:, 0], refine)
+            out_dir = None if out_dir is None else f"{out_dir}_refined_{tag}"
         return evaluate.evaluate_linear(
             model, params, prob, y_test[: int(config["n_samples_y"])], gen,
             out_dir=out_dir, n_samples_x=n_x, n_repeats=n_repeats,
@@ -137,6 +147,11 @@ def run(
                 surrogate_weights=forward_model.weights,
             )
             out_dir = None if out_dir is None else out_dir + "_analytic"
+        if refine:
+            a, b, lambd_bd = fparams["a"], fparams["b"], fparams["lambd_bd"]
+            model, _ = from_spec(
+                model, lambda x, ys: scat.get_log_posterior(x, forward_model, a, b, ys, lambd_bd), refine)
+            out_dir = None if out_dir is None else out_dir + "_refined"
         score_post = scat.score_posterior(
             forward_model, fparams["a"], fparams["b"], fparams["lambd_bd"]
         )
@@ -159,10 +174,15 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("--progress_every", type=int, default=0,
                    help="scatterometry: print a heartbeat every N conditions (0: none)")
+    p.add_argument("--refine", default=None,
+                   help="serve the refined row of this spec (models/refined grammar, e.g. mala,60,0.05)")
+    p.add_argument("--eval_method", default=None, help="sampler: auto|kernel|plain|heun|expint[:ode|:sde][:1|:2]")
+    p.add_argument("--eval_num_steps", type=int, default=None)
     args = p.parse_args(argv)
     config = load_config(args.config or DEFAULT_CONFIGS[args.problem])
-    if args.n_samples_y is not None:
-        config["n_samples_y"] = args.n_samples_y
+    for key in ("n_samples_y", "refine", "eval_method", "eval_num_steps"):
+        if getattr(args, key) is not None:
+            config[key] = getattr(args, key)
     kl, nlpd, mse = run(args.problem, args.checkpoint, config, args.gt_dir,
                         device=args.device, out_dir=args.out_dir, progress_every=args.progress_every)
     print(f"final: KL={kl:.4f} NLPD={nlpd:.4f} score-MSE={mse:.4f}")

@@ -5,11 +5,15 @@ dataset, build the (model, loss) pair from the config keys, train with the
 epoch engine of ``train_backend`` (``xla``: autograd; ``fused_pallas``: the
 fused DSM training kernel), save the full training state, and evaluate
 against the analytic posterior (KL / NLPD / score-MSE into results.csv)
-through the model's fused E-M sampler (B1 for the CDE, B4 for the CDiffE).
-``model: Posterior`` raises: its PosteriorLoss training is not ported.
+through the model's sampler: ``eval_method`` ('auto': the fused E-M
+kernel, B1 for the CDE, B4 for the CDiffE; or 'heun', 'expint...') for
+``eval_num_steps`` steps.  A config with ``refine`` (or ``--refine``) also
+scores the energy-refined row, refined on the analytic posterior's energy,
+into ``out_dir + "_refined_<tag>"``.  ``model: Posterior`` raises: its
+PosteriorLoss training is not ported.
 
 Usage: python -m dmip_tpu_torch.mains.main_diffusion_linear \
-          [--config configs/config_linear.yml] [--device cuda|cpu]
+          [--config configs/config_linear.yml] [--refine mh,20,0.2] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import os
 import torch
 
 from .. import checkpoints, data, evaluate, resolve_device, train
+from ..models.refined import from_spec
 from ..problems import LinearForwardProblem
 from ..utils import MetricsWriter, load_config, set_directories
 from .eval_diffusion import linear_split
@@ -27,8 +32,6 @@ from .eval_diffusion import linear_split
 
 def run(config: dict, device=None) -> tuple:
     """Train and evaluate; returns (params, (KL, NLPD, score-MSE))."""
-    if config.get("refine"):
-        raise NotImplementedError("refine is not ported yet; see ROADMAP.md §A item 8")
     dev = resolve_device(device)
     prob = LinearForwardProblem()
     seed = int(config.get("random_state", 7))
@@ -65,21 +68,33 @@ def run(config: dict, device=None) -> tuple:
         )
     checkpoints.save_checkpoint(ckpt_dir, params, opt_state=opt_state, step=n_epochs, seed=train_seed)
 
-    metrics = evaluate.evaluate_linear(
-        model, params, prob, y_test[: int(config["n_samples_y"])],
-        torch.Generator(device=dev).manual_seed(seed + 3), out_dir=config["out_dir"],
-        n_samples_x=int(config["n_samples_x"]), n_repeats=int(config.get("n_repeats", 10)),
-        num_steps=int(config.get("eval_num_steps", 200)), method=str(config.get("eval_method", "auto")),
-    )
+    def score(m, out_dir):
+        return evaluate.evaluate_linear(
+            m, params, prob, y_test[: int(config["n_samples_y"])],
+            torch.Generator(device=dev).manual_seed(seed + 3), out_dir=out_dir,
+            n_samples_x=int(config["n_samples_x"]), n_repeats=int(config.get("n_repeats", 10)),
+            num_steps=int(config.get("eval_num_steps", 200)), method=str(config.get("eval_method", "auto")),
+        )
+
+    metrics = score(model, config["out_dir"])
+    if config.get("refine"):
+        refined, tag = from_spec(model, lambda x, ys: prob.log_posterior(x, ys)[:, 0], config["refine"])
+        kl, nlpd, mse = score(refined, config["out_dir"] + f"_refined_{tag}")
+        print(f"refined[{tag}]: KL={kl:.4f} NLPD={nlpd:.4f} score-MSE={mse:.4f}", flush=True)
     return params, metrics
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", default="configs/config_linear.yml")
+    p.add_argument("--refine", default=None,
+                   help="override the config's refine spec (models/refined grammar, e.g. mala,60,0.05)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    _, (kl, nlpd, mse) = run(load_config(args.config), device=args.device)
+    config = load_config(args.config)
+    if args.refine is not None:
+        config["refine"] = args.refine
+    _, (kl, nlpd, mse) = run(config, device=args.device)
     print(f"final: KL={kl:.4f} NLPD={nlpd:.4f} score-MSE={mse:.4f}")
 
 

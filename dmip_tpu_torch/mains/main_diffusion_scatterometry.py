@@ -4,7 +4,11 @@ Port of ``mains/main_diffusion_scatterometry.py``: every epoch draws a fresh
 prior sample and simulates it through the surrogate (8 batches), the lr
 optionally follows a cosine schedule over n_epochs x 8 steps, and the
 trained net is evaluated against the MCMC ground truth written by
-``generate_scatterometry_ground_truth`` for the same config.
+``generate_scatterometry_ground_truth`` for the same config, through the
+config's ``eval_method`` for ``eval_num_steps`` steps.  A config with
+``refine`` (the grammar string or the dict form) also scores the
+energy-refined row, refined on the surrogate posterior's energy, into
+``out_dir + "_refined"``.
 
 Usage: python -m dmip_tpu_torch.mains.main_diffusion_scatterometry \
           [--config configs/config_scatterometry.yml] [--gt_dir data/gt...] [--device cuda|cpu]
@@ -18,6 +22,7 @@ import os
 import torch
 
 from .. import checkpoints, data, evaluate, resolve_device, train
+from ..models.refined import from_spec
 from ..problems import scatterometry as scat
 from ..utils import MetricsWriter, load_config, set_directories
 from .generate_scatterometry_ground_truth import test_conditions
@@ -25,8 +30,6 @@ from .generate_scatterometry_ground_truth import test_conditions
 
 def run(config: dict, gt_dir: str, device=None) -> tuple:
     """Train and evaluate; returns (params, (KL, NLPD, score-MSE))."""
-    if config.get("refine"):
-        raise NotImplementedError("refine is not ported yet; see ROADMAP.md §A item 8")
     if config.get("model") == "Posterior":
         raise NotImplementedError(
             "training the Posterior model (PosteriorLoss) is not ported yet: the optimizer and the "
@@ -76,12 +79,21 @@ def run(config: dict, gt_dir: str, device=None) -> tuple:
         )
     checkpoints.save_checkpoint(ckpt_dir, params, opt_state=opt_state, step=n_epochs, seed=train_seed)
 
-    metrics = evaluate.evaluate_scatterometry(
-        model, params, forward_model, fparams, score_post, y_test, data.gt_loader(gt_dir),
-        torch.Generator(device=dev).manual_seed(seed + 4), out_dir=config["out_dir"],
-        n_samples_x=int(config["n_samples_x"]), n_repeats=int(config.get("n_repeats", 10)),
-        num_steps=int(config.get("eval_num_steps", 200)), method=str(config.get("eval_method", "auto")),
-    )
+    def score(m, out_dir):
+        return evaluate.evaluate_scatterometry(
+            m, params, forward_model, fparams, score_post, y_test, data.gt_loader(gt_dir),
+            torch.Generator(device=dev).manual_seed(seed + 4), out_dir=out_dir,
+            n_samples_x=int(config["n_samples_x"]), n_repeats=int(config.get("n_repeats", 10)),
+            num_steps=int(config.get("eval_num_steps", 200)), method=str(config.get("eval_method", "auto")),
+        )
+
+    metrics = score(model, config["out_dir"])
+    if config.get("refine"):
+        a, b, lambd_bd = fparams["a"], fparams["b"], fparams["lambd_bd"]
+        refined, tag = from_spec(
+            model, lambda x, ys: scat.get_log_posterior(x, forward_model, a, b, ys, lambd_bd), config["refine"])
+        kl, nlpd, mse = score(refined, config["out_dir"] + "_refined")
+        print(f"energy-refined ({tag}): KL={kl:.4f} NLPD={nlpd:.4f} score-MSE={mse:.4f}", flush=True)
     return params, metrics
 
 

@@ -11,7 +11,9 @@ a tuple of (W, b) tensors, or for the posterior models a dict of them.
 
 ``sample(method="auto")`` launches the model's fused kernel for a CUDA
 device (B1 for the CDE, B4 for the CDiffE, B5 for analytic guidance with
-surrogate weights) and runs the plain Euler-Maruyama scan for the CPU.
+surrogate weights) and runs the plain Euler-Maruyama scan for the CPU.  The
+CDE and the Posterior model also sample by ``heun`` and
+``expint[:ode|:sde][:1|:2]``, plain PyTorch on either device.
 """
 
 from __future__ import annotations
@@ -27,9 +29,6 @@ from ..sde import ReverseSDE, sample_t
 
 Tensor = torch.Tensor
 
-_LATER = "is not ported yet; see ROADMAP.md §A"
-
-
 def _device_of(params, y: Optional[Tensor], device) -> torch.device:
     if device is not None:
         return torch.device(device)
@@ -40,13 +39,29 @@ def _device_of(params, y: Optional[Tensor], device) -> torch.device:
 
 
 def _resolve_method(method: str, dev: torch.device, kernel_ok: bool = True) -> str:
-    if method == "heun" or method.startswith("expint"):
-        raise NotImplementedError(f"sampler {method!r} {_LATER}")
+    """'kernel' or 'plain' for 'auto' (the kernel on a CUDA device), else
+    the method itself: 'kernel', 'plain', 'heun' or 'expint...'."""
+    if method == "heun" or method == "expint" or method.startswith("expint:"):
+        return method
     if method == "auto":
         return "kernel" if dev.type == "cuda" and kernel_ok else "plain"
     if method not in ("kernel", "plain"):
         raise ValueError(f"unknown sampler method {method!r}")
     return method
+
+
+def _expint_options(method: str) -> Tuple[bool, int]:
+    """(ode, order) of 'expint[:ode|:sde][:1|:2]'; the default is the SDE
+    form of order 1."""
+    ode, order = False, 1
+    for part in method.split(":")[1:]:
+        if part in ("ode", "sde"):
+            ode = part == "ode"
+        elif part in ("1", "2"):
+            order = int(part)
+        else:
+            raise ValueError(f"bad expint option {part!r} in method {method!r}; grammar is expint[:ode|:sde][:1|:2]")
+    return ode, order
 
 
 def _kernel_draws(generator, num_samples: int, xdim: int, mean: float, std: float, dev):
@@ -167,18 +182,26 @@ class DiffusionModel:
         """Posterior samples (num_samples, xdim) for the condition y (ydim,).
 
         method: 'auto' (the fused E-M kernel on a CUDA device, the plain
-        Euler-Maruyama scan on the CPU), 'kernel' or 'plain'.  The device
-        is ``device``, else y's.  compute_dtype ('auto' = bf16) is the
-        kernel's weight/activation dtype; its sums and state stay f32.  The
-        plain scan computes in f32.
+        Euler-Maruyama scan on the CPU), 'kernel', 'plain', 'heun' (the
+        probability-flow ODE, ``samplers.heun_ode``) or
+        'expint[:ode|:sde][:1|:2]' (``samplers.exponential_integrator``,
+        SDE form of order 1 by default; num_steps + 1 net evaluations).
+        The device is ``device``, else y's.  compute_dtype ('auto' = bf16)
+        is the kernel's weight/activation dtype; its sums and state stay
+        f32.  The other samplers compute in f32.
         """
         dev = _device_of(params, y, device)
-        if _resolve_method(method, dev) == "plain":
-            return samplers.euler_maruyama(
-                self.sde, lambda z, c, s: self.apply_a(params, z, c, s), y,
-                num_samples, self.xdim, num_steps, mean=mean, std=std,
-                generator=generator, device=dev,
-            )
+        method = _resolve_method(method, dev)
+        drift = lambda z, c, s: self.apply_a(params, z, c, s)
+        common = dict(mean=mean, std=std, generator=generator, device=dev)
+        if method == "heun":
+            return samplers.heun_ode(self.sde, drift, y, num_samples, self.xdim, num_steps, **common)
+        if method.startswith("expint"):
+            ode, order = _expint_options(method)
+            return samplers.exponential_integrator(self.sde, drift, y, num_samples, self.xdim, num_steps,
+                                                   ode=ode, order=order, **common)
+        if method == "plain":
+            return samplers.euler_maruyama(self.sde, drift, y, num_samples, self.xdim, num_steps, **common)
         from ..ops.em_kernel import fused_em_sampler
 
         x0, seed = _kernel_draws(generator, num_samples, self.xdim, mean, std, dev)
@@ -257,8 +280,9 @@ class CDiffE(DiffusionModel):
 class PosteriorDiffusionEstimator(DiffusionModel):
     """DPS model: prior net (x, t) + likelihood net (x, y, t), the scores
     summed and times g(t).  Params are {'prior': mlp, 'likelihood': mlp}.
-    Sampling is the plain Euler-Maruyama scan (the JAX package has no kernel
-    for it either); training with the PosteriorLoss is not ported yet."""
+    Sampling is the plain Euler-Maruyama scan, Heun or expint (the JAX
+    package has no kernel for it either); training with the PosteriorLoss
+    is not ported yet."""
 
     def init(self, generator: Optional[torch.Generator] = None, device=None):
         prior = nets.mlp_init(self.xdim + 1, self.xdim, self.hidden_layers, generator=generator, device=device)
@@ -277,9 +301,10 @@ class PosteriorDiffusionEstimator(DiffusionModel):
     def sample(self, params, y: Optional[Tensor], num_samples: int = 2000, num_steps: int = 200,
                mean: float = 0.0, std: float = 1.0, generator: Optional[torch.Generator] = None,
                device=None, method: str = "auto", compute_dtype="auto") -> Tensor:
-        if _resolve_method(method, _device_of(params, y, device), kernel_ok=False) == "kernel":
+        method = _resolve_method(method, _device_of(params, y, device), kernel_ok=False)
+        if method == "kernel":
             raise ValueError("the Posterior model has no sampling kernel; use method 'plain'")
-        return super().sample(params, y, num_samples, num_steps, mean, std, generator, device, "plain")
+        return super().sample(params, y, num_samples, num_steps, mean, std, generator, device, method)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -354,6 +379,8 @@ class AnalyticGuidanceDPS:
         surrogate weights are given, else the plain scan), 'kernel' or
         'plain'.  No Heun variant: the clipped guidance is not a smooth ODE
         field."""
+        if method not in ("auto", "kernel", "plain"):
+            raise ValueError(f"AnalyticGuidanceDPS supports method 'auto', 'kernel' or 'plain', got {method!r}")
         kernel_ok = self.guidance in ("dps", "pgdm") and self.surrogate_weights is not None
         dev = _device_of(params, y, device)
         method = _resolve_method(method, dev, kernel_ok)

@@ -1,7 +1,7 @@
 """Linear-Gaussian toy inverse problem with an analytic posterior.
 
 Port of ``dmip_tpu/problems/linear.py:29-176`` (forward model, posterior
-moments, sampling, log density and score).  f(x) = A x + b with
+moments, sampling, log density, the quadratic energy and the score).  f(x) = A x + b with
 A = [[1, .5], [0, 1]], b = (0.3, 0.5), noise covariance Sigma = 0.3 I and a
 standard-normal prior.  Constants are built on the device the caller's
 tensors live on.
@@ -47,7 +47,8 @@ class LinearForwardProblem:
     def Sigma_y_inv(self, like: Tensor) -> Tensor:
         A = self.A(like)
         eye = torch.eye(self.ydim, dtype=like.dtype, device=like.device)
-        return torch.linalg.inv(self.Sigma(like) + A @ A.T + self.epsilon * eye)
+        # inv_ex: no check of the result's info, so no wait for the device
+        return torch.linalg.inv_ex(self.Sigma(like) + A @ A.T + self.epsilon * eye)[0]
 
     # -- forward model -------------------------------------------------------
     def __call__(self, x: Tensor) -> Tensor:
@@ -75,6 +76,18 @@ class LinearForwardProblem:
     def posterior_log_prob(self, x: Tensor, y: Tensor) -> Tensor:
         mean, cov = self.posterior_moments(y)
         return torch.distributions.MultivariateNormal(mean, covariance_matrix=cov).log_prob(x)
+
+    def log_posterior(self, xs: Tensor, ys: Tensor, epsilon: float = 1e-6) -> Tensor:
+        """Unnormalized NEGATIVE log posterior 1/2 (x - m)^T C^-1 (x - m),
+        shape (batch, 1), with m = A^T Sigma_y^-1 (y - b) and C = I - A^T
+        Sigma_y^-1 A (the analytic posterior's moments), C regularised by
+        ``epsilon`` I.  The energy of the refinement chains."""
+        A, Sy = self.A(xs), self.Sigma_y_inv(xs)
+        eye = torch.eye(self.xdim, dtype=xs.dtype, device=xs.device)
+        mean = (ys - self.b(xs)) @ (Sy @ A)
+        cov_inv = torch.linalg.inv_ex(eye - A.T @ Sy @ A + epsilon * eye)[0]
+        x_res = xs - mean
+        return 0.5 * torch.einsum("bi,ij,bj->b", x_res, cov_inv, x_res)[:, None]
 
     def score_posterior(self, x: Tensor, y: Tensor) -> Tensor:
         """grad_x log p(x|y) = -x + A^T Sigma^-1 (y - A x - b)."""

@@ -2,12 +2,11 @@
 
 Port of ``dmip_tpu/sde.py``: ``VPSDE`` (:30-127) with ``marginal_sample``,
 ``diffuse`` and the debiased t sampler, ``ReverseSDE`` (:131-165) and
-``sample_t`` (:254-270).  Every draw takes an explicit ``torch.Generator``
-and happens on the generator's device; the t samplers also take the
-uniforms ``u`` themselves, so two implementations can be fed the same
-numbers.  The ELBO helpers (``log_normal``, ``sample_v``,
-``reverse_sde_dsm``, ``elbo_random_t_slice``) are not ported yet (ROADMAP.md
-§A item 8).
+``sample_t`` (:254-270), and the ELBO tools ``log_normal``, ``sample_v``,
+``reverse_sde_dsm`` and ``elbo_random_t_slice`` (:167-251).  Every draw
+takes an explicit ``torch.Generator`` and happens on the generator's device;
+the t samplers also take the uniforms ``u`` themselves, and the ELBO tools
+their t and noise, so two implementations can be fed the same numbers.
 """
 
 from __future__ import annotations
@@ -110,6 +109,96 @@ class ReverseSDE:
 
     def sigma(self, t: Tensor, lmbd: float = 0.0) -> Tensor:
         return math.sqrt(1.0 - lmbd) * self.base.g(self.T - t)
+
+
+def _normal_like(x: Tensor, generator: Optional[torch.Generator]) -> Tensor:
+    gen_dev = generator.device if generator is not None else x.device
+    return torch.randn(x.shape, generator=generator, device=gen_dev, dtype=x.dtype).to(x.device)
+
+
+def log_normal(x: Tensor, mean: Tensor, log_var: Tensor) -> Tensor:
+    """Elementwise Gaussian log density."""
+    return -0.5 * (math.log(2.0 * math.pi) + log_var + (x - mean) ** 2 / torch.exp(log_var))
+
+
+def sample_v(shape, vtype: str = "rademacher", generator: Optional[torch.Generator] = None, device=None) -> Tensor:
+    """Hutchinson probe vectors: Rademacher (+-1) or standard normal."""
+    dev = generator.device if generator is not None else (device or "cpu")
+    if vtype == "rademacher":
+        return (2.0 * torch.randint(0, 2, shape, generator=generator, device=dev) - 1.0).to(device)
+    if vtype in ("normal", "gaussian"):
+        return torch.randn(shape, generator=generator, device=dev).to(device)
+    raise ValueError(f"unknown vtype {vtype!r}")
+
+
+def reverse_sde_dsm(
+    sde: ReverseSDE,
+    apply_a: Callable[..., Tensor],
+    params,
+    x: Tensor,
+    cond: Optional[Tensor],
+    generator: Optional[torch.Generator] = None,
+    t: Optional[Tensor] = None,
+    eps: Optional[Tensor] = None,
+) -> Tensor:
+    """Per-sample DSM loss of the plug-in reverse SDE,
+    1/2 |a(y_t, cond, t) std / g + eps|^2, with t from the debiased sampler
+    (or uniform on [0, T]) and y_t diffused from x.  ``t`` (batch, 1) and
+    ``eps`` replace the draws (t first, then eps)."""
+    batch = x.shape[0]
+    if t is None:
+        if sde.debias:
+            t = sde.base.sample_debiasing_t((batch, 1), generator)
+        else:
+            gen_dev = generator.device if generator is not None else "cpu"
+            t = torch.rand((batch, 1), generator=generator, device=gen_dev) * sde.T
+    t = t.to(x.device)
+    eps = _normal_like(x, generator) if eps is None else eps.to(x.device)
+    y_t = sde.base.diffuse(t, x, eps)
+    a = apply_a(params, y_t, cond, t)
+    return 0.5 * torch.sum((a * sde.base.std(t) / sde.base.g(t) + eps) ** 2, dim=1)
+
+
+def elbo_random_t_slice(
+    sde: ReverseSDE,
+    apply_a: Callable[..., Tensor],
+    params,
+    x: Tensor,
+    cond: Optional[Tensor] = None,
+    vtype: str = "rademacher",
+    generator: Optional[torch.Generator] = None,
+    t: Optional[Tensor] = None,
+    eps: Optional[Tensor] = None,
+    v: Optional[Tensor] = None,
+    eps_T: Optional[Tensor] = None,
+) -> Tensor:
+    """Single-t-slice ELBO estimate of the plug-in reverse SDE: t ~ U(0, T),
+    y_t from the marginal, div(mu) by one Hutchinson vector-Jacobian probe
+    (``torch.func.vjp``, so also under ``torch.no_grad``), and the prior
+    term log N(y_T; 0, I).  ``t`` (batch, 1), ``eps``, ``v`` and ``eps_T``
+    replace the draws, made in that order."""
+    batch = x.shape[0]
+    if t is None:
+        gen_dev = generator.device if generator is not None else "cpu"
+        t = torch.rand((batch, 1), generator=generator, device=gen_dev) * sde.T
+    t = t.to(x.device)
+    qt = 1.0 / sde.T
+    eps = _normal_like(x, generator) if eps is None else eps.to(x.device)
+    y = sde.base.diffuse(t, x, eps)
+    v = sample_v(x.shape, vtype, generator, device=x.device) if v is None else v.to(x.device)
+
+    def mu_fn(y_in):
+        return sde.base.g(t) * apply_a(params, y_in, cond, t) - sde.base.f(t, y_in)
+
+    a_val = apply_a(params, y, cond, t)
+    _, vjp = torch.func.vjp(mu_fn, y)
+    mu_div_probe = torch.sum(vjp(v)[0] * v, dim=1)
+    Mu = -mu_div_probe / qt
+    Nu = -0.5 * torch.sum(a_val**2, dim=1) / qt
+    eps_T = _normal_like(x, generator) if eps_T is None else eps_T.to(x.device)
+    y_T = sde.base.diffuse(torch.full((batch, 1), sde.base.T, dtype=x.dtype, device=x.device), x, eps_T)
+    lp = torch.sum(log_normal(y_T, torch.zeros_like(y_T), torch.zeros_like(y_T)), dim=1)
+    return lp + Mu + Nu
 
 
 def sample_t(

@@ -5,11 +5,17 @@ PyTorch: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 On a host without a card every test skips (the kernels have no CPU mode).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from dmip_tpu_torch.nets import mlp_init
+from dmip_tpu_torch import mcmc, samplers
+from dmip_tpu_torch.checkpoints import load_archived_params
+from dmip_tpu_torch.models import CDE
+from dmip_tpu_torch.models.refined import from_config
+from dmip_tpu_torch.nets import mlp_init, score_mlp_apply
 from dmip_tpu_torch.ops.dsm_train_kernel import dsm_train_epochs_reference, fused_dsm_train_epochs
 from dmip_tpu_torch.ops.dps_kernel import fused_guided_em_sampler, guided_em_reference
 from dmip_tpu_torch.ops.em_kernel import (em_cdiffe_reference, em_sampler_reference, fused_em_sampler,
@@ -18,9 +24,13 @@ from dmip_tpu_torch.ops.em_kernel import CDIFFE_PHASES as EM_CDIFFE_PHASES
 from dmip_tpu_torch.ops.em_kernel import PHASES as EM_PHASES
 from dmip_tpu_torch.ops.mh_kernel import PHASES as MH_PHASES
 from dmip_tpu_torch.ops.mh_kernel import fused_mh_scatterometry, mh_chains_reference, mh_energy
+from dmip_tpu_torch.problems import LinearForwardProblem
 from dmip_tpu_torch.problems import scatterometry as scat
+from dmip_tpu_torch.sde import ReverseSDE
+from dmip_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 KW = dict(noise_std=0.5, a=0.2, b=0.01, lambd_bd=1000.0)
 
@@ -490,3 +500,94 @@ def test_guided_kernel_stamps(cuda, guidance):
         assert bool((steps[:, -1] > torch.cat([clock[:1], steps[:-1, -1]])).all())
     with pytest.raises(ValueError, match="stamps"):
         fused_guided_em_sampler(prior, surr, x0, y, stamps=stamps[:-1], **kw)
+
+
+def test_refinement_chain_on_the_card_matches_the_cpu(cuda):
+    """The annealed MH chain (lambda 0.5 -> 1) on the scatterometry energy,
+    2000 chains x 20 steps, on the card and on the CPU with the same
+    injected draws: the energies differ in f32 sum order only, so at most
+    1% of the chains take another accept decision and the others end
+    within 1e-4."""
+    fwd_h, fp = scat.load_forward_model()
+    fwd_c, _ = scat.load_forward_model(device=cuda)
+    gen = torch.Generator().manual_seed(0)
+    n, steps = 2000, 20
+    y = scat.noisy_forward(fwd_h, torch.tensor([[0.3, -0.5, 0.1]]), fp["a"], fp["b"], gen)[0]
+    x0 = torch.tensor([0.3, -0.5, 0.1]) + 0.1 * torch.randn(n, 3, generator=gen)
+    noise, unif = torch.randn(steps, n, 3, generator=gen), torch.rand(steps, n, generator=gen)
+
+    def energy(f, dev):
+        ys = y.to(dev).expand(n, -1)
+        return lambda x: scat.get_log_posterior(x, f, fp["a"], fp["b"], ys, fp["lambd_bd"])
+
+    kw = dict(noise_std=0.2, lambda0=0.5)
+    xc, ic = mcmc.annealed_mh(x0.to(cuda), energy(fwd_c, cuda), steps, noise=noise.to(cuda),
+                              uniforms=unif.to(cuda), **kw)
+    xh, ih = mcmc.annealed_mh(x0, energy(fwd_h, "cpu"), steps, noise=noise, uniforms=unif, **kw)
+    assert xc.device.type == "cuda" and ic["acc_rate"].device.type == "cuda"
+    err = (xc.cpu() - xh).abs().amax(dim=1)
+    assert float((err > 1e-4).float().mean()) <= 0.01
+    assert float((ic["acc_rate"].cpu() - ih["acc_rate"]).abs().max()) <= 0.01
+
+
+@pytest.mark.parametrize("ode", [False, True])
+def test_expint_on_the_card_matches_the_cpu(cuda, ode):
+    """The exponential integrator (order 2, 32 steps) of the committed
+    linear net on the card and on the CPU from the same x0 and noise: f32
+    products in another sum order, within 1e-4 on unit-scale samples."""
+    path = os.path.join(REPO, "benchmarks/checkpoints/linear_refined_winner")
+    gen = torch.Generator().manual_seed(1)
+    x0, noise = torch.randn(4000, 2, generator=gen), torch.randn(33, 4000, 2, generator=gen)
+    y = torch.tensor([0.4, -0.7])
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        tp = load_archived_params(path, device=dev)
+        out[dev.type] = samplers.exponential_integrator(
+            ReverseSDE(), lambda z, c, s: score_mlp_apply(tp, z, c, s), y.to(dev), 4000, 2, 32, ode=ode,
+            order=2, x0=x0.to(dev), noise=noise.to(dev))
+    assert out["cuda"].device.type == "cuda"
+    torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("spec", ["mh,5,0.2,anneal=0.5,acc=0.4", "mala,3,0.01", "ula,2,0.01,0.5,0.01"])
+def test_refined_sample_stays_on_the_card(cuda, spec):
+    """A refined sample through B1: the proposal is one launch, every energy
+    call sees card tensors, the draws come from the card's generator (the
+    host's RNG state does not move) and the samples are on the card."""
+    prob = LinearForwardProblem()
+    model = CDE(xdim=2, ydim=2, hidden_layers=(128, 128))
+    params = model.init(torch.Generator().manual_seed(0), device=cuda)
+    seen = []
+
+    def energy(x, ys):
+        seen.append((x.device.type, ys.device.type))
+        return prob.log_posterior(x, ys)[:, 0]
+
+    refined, _ = from_config(model, energy, spec)
+    host_rng = torch.get_rng_state()
+    before = fused_em_sampler.launches
+    x = refined.sample(params, torch.tensor([0.4, -0.7], device=cuda), 1000, 20,
+                       generator=torch.Generator(device=cuda).manual_seed(2))
+    torch.cuda.synchronize()
+    assert x.device.type == "cuda" and x.shape == (1000, 2) and bool(torch.isfinite(x).all())
+    assert fused_em_sampler.launches == before + 1
+    assert seen and set(seen) == {("cuda", "cuda")}
+    assert torch.equal(torch.get_rng_state(), host_rng)
+
+
+def test_profiler_sees_the_card(cuda, tmp_path):
+    """torch.profiler on the card: a traced B1 launch shows device time, a
+    busy share in (0, 1] and the top operations by device time."""
+    tp = mlp_init(27, 3, (512, 512, 512), generator=torch.Generator().manual_seed(5), device=cuda)
+    x0 = torch.randn(30000, 3, device=cuda)
+    y = torch.randn(23, device=cuda)
+    fused_em_sampler(tp, x0, y, 20, seed=1)
+    with profiling.trace(str(tmp_path)) as prof:
+        fused_em_sampler(tp, x0, y, 20, seed=1)
+    share = profiling.busy_share(prof)
+    assert 0.0 < share["share"] <= 1.0 and share["kernels"] >= 1
+    top = profiling.top_ops(prof, "device")
+    assert top and top[0]["ms"] > 0.0
+    assert (tmp_path / "trace.json").exists()
+    sec, out = profiling.timeit(fused_em_sampler, tp, x0, y, 20, seed=1)
+    assert sec > 0.0 and out.shape == (30000, 3)

@@ -188,5 +188,7 @@ def test_model_sample_on_cpu_takes_plain_sampler():
     b = samplers.euler_maruyama(model.sde, lambda z, c, s: model.apply_a(params, z, c, s), y, 64, 2, 5,
                                 generator=torch.Generator().manual_seed(1))
     torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.sample(params, y, 64, 5, method="heun")
+    h = model.sample(params, y, 64, 5, method="heun", generator=torch.Generator().manual_seed(1))
+    hp = samplers.heun_ode(model.sde, lambda z, c, s: model.apply_a(params, z, c, s), y, 64, 2, 5,
+                           generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(h, hp, rtol=0, atol=0)

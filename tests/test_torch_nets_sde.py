@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from dmip_tpu import nets as jnets
 from dmip_tpu import sde as jsde
@@ -111,11 +112,11 @@ def test_get_model_from_args_matches_jax(config):
 
 
 @pytest.mark.parametrize("name", ["CDiffE", "Posterior"])
-def test_get_model_from_args_unported_models_raise(name):
-    """Both models are built now, as in dmip_tpu; what of them is not
-    ported yet raises NotImplementedError naming ROADMAP.md: the
-    Posterior's PosteriorLoss training, and the training drivers'
-    refinement branch, which a CDiffE config reaches as a CDE config does."""
+def test_get_model_from_args_unported_models_raise(name, tmp_path):
+    """Both models are built now, as in dmip_tpu.  The Posterior's
+    PosteriorLoss training is not ported yet and raises NotImplementedError
+    naming ROADMAP.md; a CDiffE config reaches the training driver's
+    refinement branch as a CDE config does, and it runs (tiny size, CPU)."""
     from dmip_tpu_torch.mains import main_diffusion_linear
 
     dims = {"xdim": 2, "ydim": 2}
@@ -127,5 +128,10 @@ def test_get_model_from_args_unported_models_raise(name):
     else:
         model, cfg = train.get_model_from_args({"model": name, "loss_fn": "DSM"}, dims)
         assert (model.net_in, model.net_out, cfg.name) == (5, 4, "DSM")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main_diffusion_linear.run({"model": name, "loss_fn": "DSM", "refine": "mh5"}, device="cpu")
+        cfg = yaml.safe_load(open(os.path.join(REPO, "configs/config_linear_cdiffe.yml")))
+        cfg.update(dataset_size=600, n_epochs=1, epochs_per_call=1, batch_size=50, hidden_layers=[16],
+                   n_samples_y=1, n_samples_x=100, n_repeats=1, eval_num_steps=5, refine="mh,5,0.2",
+                   train_dir=str(tmp_path / "train"), out_dir=str(tmp_path / "out"))
+        main_diffusion_linear.run(cfg, device="cpu")
+        rows = (tmp_path / "out_refined_mh5_0.2" / "results.csv").read_text().splitlines()
+        assert len(rows) == 2 and all(np.isfinite(float(v)) for v in rows[1].split(",")[1:])
