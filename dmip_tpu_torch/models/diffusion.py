@@ -29,6 +29,7 @@ from ..sde import ReverseSDE, sample_t
 
 Tensor = torch.Tensor
 
+
 def _device_of(params, y: Optional[Tensor], device) -> torch.device:
     if device is not None:
         return torch.device(device)

@@ -176,19 +176,18 @@ def heun_ode(
     dev = x.device
     cond = None if y is None else y.to(device=dev, dtype=x.dtype).expand(num_samples, y.shape[-1])
     delta = sde.T / num_steps
-    ts = ((torch.arange(num_steps, dtype=torch.float32) / num_steps) * sde.T).tolist()
-    t_corr_max = sde.T - sde.base.t_epsilon
+    # the step and corrector times in f32, as the JAX sampler forms them
+    ts = (torch.arange(num_steps, dtype=torch.float32) / num_steps) * sde.T
+    t_corr = torch.clamp(ts + delta, max=sde.T - sde.base.t_epsilon)
 
     def mu(t: float, z: Tensor) -> Tensor:
         t_col = torch.full((num_samples, 1), t, dtype=x.dtype, device=dev)
         return sde.mu(drift_a, t_col, z, cond, lmbd=1.0)
 
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
-    for t_i in ts:
+    for t_i, t_c in zip(ts.tolist(), t_corr.tolist()):
         d1 = mu(t_i, x)
         x_euler = x + delta * d1
-        # t_i + delta in f32, as the JAX sampler forms it
-        d2 = mu(float(torch.minimum(f32(t_i) + f32(delta), f32(t_corr_max))), x_euler)
+        d2 = mu(t_c, x_euler)
         x = x + 0.5 * delta * (d1 + d2)
     return x
 
