@@ -16,12 +16,23 @@ width:
     ``benchmarks/checkpoints/dps_prior`` under analytic DPS guidance
     (``configs/config_scatterometry_dps.yml``: clip 100, 'dps') through the
     guided kernel, against the same ground truth;
+  * energy-refined serving through the eval driver, on the same conditions
+    and ground truth: ``cde_500k`` under ``config_scatterometry_refined.yml``'s
+    own chain (annealed MH, 20 steps), ``linear_refined_winner`` under
+    ``config_linear_refined.yml``'s (MH, 20 steps) and ``linear_pinn2``
+    under MALA (60 steps), each proposal through the E-M kernel; then the
+    exponential integrator (32 steps) and Heun (100 steps), plain PyTorch,
+    against the E-M rows, with the time per 30k-sample posterior of each
+    sampler beside the E-M kernel's; then a ``torch.profiler`` trace of one
+    linear serving condition (the card's busy share, the top operations);
   * DSM training of the 512x3 CDE through the fused training kernel
     (``train_backend: fused_pallas``): the linear config's full 1500 epochs,
     scatterometry cut to 2000 epochs, each followed by evaluation through
     the E-M kernel; then the autograd engine (``train_backend: xla``) for a
     few epochs, on DSM and on the unchanged linear config (PINNLoss); then
-    the CDiffE (27 -> 26) for 2 launches of the fused training kernel.
+    the CDiffE (27 -> 26) for 2 launches of the fused training kernel.  The
+    autograd engine also trains ``config_linear_refined.yml`` for 2 epochs,
+    whose driver then scores the refined row.
 
 The E-M kernel is held against its plain version at both nets' shapes, the
 MH kernel at the 300k chains the ground-truth driver gives it, the training
@@ -133,6 +144,14 @@ B4_LIN_NET = (5, 4)           # linear CDiffE: [x, y, t] = 5 -> 512^3 -> xdim + 
 # SCAT_KL_AGREE, widened to 3x the plain path's own spread between two seeds
 SCAT_CDIFFE_SPREAD_FACTOR = 3.0
 DPS_REPEATS = 2               # analytic-DPS serving: n_repeats cut from 10
+# refinement and the other samplers: the chain the linear MALA row runs on
+# linear_pinn2 (the JAX package's rescue row), the exponential integrator's
+# and Heun's steps, and the expint forms served on the linear problem
+REFINE_PINN2 = "mala,60,0.05"
+EXPINT_STEPS = 32
+HEUN_STEPS = 100
+EXPINT_LIN_METHODS = ("expint:sde:1", "expint:ode:2")
+SAMPLER_TIMING_REPS = 3
 CDIFFE_TRAIN = dict(n_epochs=200, epochs_per_call=100)  # 2 B3 launches of 100 epochs x 8 steps
 CDIFFE_TRAIN_REPEATS = 2
 # B5 over 200 steps, per condition, as tools/fused_dps_sanity.py judges the
@@ -582,7 +601,8 @@ def check_b3(torch, in_dim, out_dim, n_batches, gen, full=True):
 def serve(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
     """The serving path through its entry points, kernel launches counted
     from zero; then the plain path on the same conditions.  Leaves the
-    scatterometry GT in ``gt_dir``.  Returns the launch counts."""
+    scatterometry GT in ``gt_dir``.  Returns the launch counts and the
+    kernel path's (KL, NLPD, score-MSE) for each problem."""
     from dmip_tpu_torch.mains import eval_diffusion
     from dmip_tpu_torch.mains import generate_scatterometry_ground_truth as gt
     from dmip_tpu_torch.ops import fused_em_sampler, fused_mh_scatterometry
@@ -632,7 +652,7 @@ def serve(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
     check(finite, f"non-finite scatterometry metrics {scat_k}")
     check(abs(scat_k[0] - scat_p[0]) <= SCAT_KL_AGREE,
           f"scatterometry KL kernel {scat_k[0]} vs plain {scat_p[0]}")
-    return launches
+    return launches, {"linear": lin_k, "scat": scat_k}
 
 
 def _results(path):
@@ -695,6 +715,212 @@ def serve_cdiffe_dps(torch, gt_dir) -> dict:
     return {"em_cdiffe": n_b4, "guided": n_b5}
 
 
+def _column(path, name):
+    """One column of a results.csv, per condition."""
+    with open(path) as f:
+        rows = [ln.strip().split(",") for ln in f]
+    j = rows[0].index(name)
+    return [float(r[j]) for r in rows[1:]]
+
+
+def serve_refined(torch, unrefined, gt_dir) -> dict:
+    """The energy-refined rows through the eval driver, on serve()'s
+    conditions and GT, B1 launches counted from zero around each:
+    ``cde_500k`` under ``config_scatterometry_refined.yml``'s own refine
+    dict (annealed MH), held condition by condition against the unrefined
+    row of ``serve_scat_eval``, with every step's acceptance rate read from
+    the chains; ``linear_refined_winner`` under ``config_linear_refined.yml``
+    (MH) against ``serve_linear``; ``linear_pinn2`` raw and under MALA.
+    Returns the B1 launches by net shape."""
+    from dmip_tpu_torch import mcmc
+    from dmip_tpu_torch.mains import eval_diffusion
+    from dmip_tpu_torch.ops import fused_em_sampler
+    from dmip_tpu_torch.utils import load_config
+
+    ckpt = lambda name: os.path.join(REPO, "benchmarks/checkpoints", name)
+
+    def cfg(name, **kw):
+        return dict(load_config(os.path.join(REPO, "configs", name)), n_samples_x=N_SAMPLES, n_repeats=REPEATS, **kw)
+
+    sc = cfg("config_scatterometry_refined.yml", n_samples_y=SCAT_CONDITIONS)
+    infos, chain = [], mcmc.annealed_mh
+
+    def chain_with_info(*args, **kwargs):
+        x, info = chain(*args, **kwargs)
+        infos.append(info)
+        return x, info
+
+    fused_em_sampler.launches = 0
+    mcmc.annealed_mh = chain_with_info
+    t0 = time.time()
+    try:
+        r = eval_diffusion.run("scatterometry", ckpt("cde_500k"), sc, gt_dir=gt_dir, device="cuda",
+                               out_dir=os.path.join(gt_dir, "scat"))
+        torch.cuda.synchronize()
+    finally:
+        mcmc.annealed_mh = chain
+    n_scat = fused_em_sampler.launches
+    kl_ref = _column(os.path.join(gt_dir, "scat_refined", "results.csv"), "KL2")
+    kl_raw = _column(os.path.join(gt_dir, "scat", "results.csv"), "KL2")
+    acc = torch.stack([i["acc_rate"] for i in infos])
+    phase("serve_refined_scat", t0, conditions=SCAT_CONDITIONS, repeats=REPEATS, refine=sc["refine"], KL=r[0],
+          NLPD=r[1], score_MSE=r[2], KL_by_condition=kl_ref, unrefined_KL_by_condition=kl_raw,
+          unrefined_NLPD=unrefined["scat"][1], acc_rate_by_step=acc.mean(0).tolist(),
+          acc_rate_min_max=[float(acc.min()), float(acc.max())], chains=len(infos), launches=n_scat)
+    check(n_scat == REPEATS * SCAT_CONDITIONS and len(infos) == n_scat,
+          f"serve_refined_scat: {n_scat} B1 launches, {len(infos)} chains")
+    check(all(a < b for a, b in zip(kl_ref, kl_raw)), f"refined KL {kl_ref} not below the unrefined {kl_raw}")
+    check(r[1] < unrefined["scat"][1], f"refined NLPD {r[1]} not below the unrefined {unrefined['scat'][1]}")
+
+    runs = (("winner_mh", "linear_refined_winner", cfg("config_linear_refined.yml", n_samples_y=LIN_CONDITIONS)),
+            ("pinn2_raw", "linear_pinn2", cfg("config_linear_pinn2.yml", n_samples_y=LIN_CONDITIONS, refine=None)),
+            ("pinn2_mala", "linear_pinn2", cfg("config_linear_pinn2.yml", n_samples_y=LIN_CONDITIONS,
+                                               refine=REFINE_PINN2)))
+    lin, n_lin = {}, 0
+    t0 = time.time()
+    for name, net, c in runs:
+        fused_em_sampler.launches = 0
+        m = eval_diffusion.run("linear", ckpt(net), c, device="cuda", out_dir=os.path.join(gt_dir, name))
+        torch.cuda.synchronize()
+        n = fused_em_sampler.launches
+        lin[name] = {"refine": c["refine"], "KL": m[0], "NLPD": m[1], "score_MSE": m[2], "launches": n}
+        n_lin += n
+        check(n == REPEATS * LIN_CONDITIONS, f"{name}: {n} B1 launches")
+    phase("serve_refined_linear", t0, conditions=LIN_CONDITIONS, unrefined_NLPD=unrefined["linear"][1], **lin)
+    check(lin["winner_mh"]["KL"] <= LIN_KL_BOUND, f"refined linear KL {lin['winner_mh']['KL']} above {LIN_KL_BOUND}")
+    check(lin["winner_mh"]["NLPD"] < unrefined["linear"][1],
+          f"refined linear NLPD {lin['winner_mh']['NLPD']} not below the unrefined {unrefined['linear'][1]}")
+    check(lin["pinn2_mala"]["KL"] <= LIN_KL_BOUND,
+          f"MALA-refined linear_pinn2 KL {lin['pinn2_mala']['KL']} above {LIN_KL_BOUND}")
+    return {"cde_500k": n_scat, "linear": n_lin}
+
+
+def serve_samplers(torch, lin_cfg, scat_cfg, unrefined, gt_dir) -> dict:
+    """The exponential integrator and Heun through the eval driver on
+    serve()'s conditions and GT (plain PyTorch: no kernel launch), held
+    against the E-M rows; then the time per 30k-sample posterior of every
+    sampler the serving phases ran, beside B1's, by CUDA events, in one
+    call.  Returns the times."""
+    from dmip_tpu_torch.checkpoints import load_archived_params
+    from dmip_tpu_torch.mains import eval_diffusion
+    from dmip_tpu_torch.mains import generate_scatterometry_ground_truth as gt
+    from dmip_tpu_torch.models import CDE
+    from dmip_tpu_torch.models.refined import from_spec
+    from dmip_tpu_torch.ops import fused_em_sampler
+    from dmip_tpu_torch.problems import LinearForwardProblem
+    from dmip_tpu_torch.problems import scatterometry as scat
+    from dmip_tpu_torch.utils import load_config, profiling
+
+    ckpt = lambda name: os.path.join(REPO, "benchmarks/checkpoints", name)
+    sized = dict(n_samples_x=N_SAMPLES, n_repeats=REPEATS, eval_num_steps=EXPINT_STEPS)
+    fused_em_sampler.launches = 0
+    t0 = time.time()
+    rows = {}
+    m = eval_diffusion.run("scatterometry", ckpt("cde_500k"), dict(scat_cfg, n_samples_y=SCAT_CONDITIONS, **sized),
+                           gt_dir=gt_dir, device="cuda", method="expint:sde:1",
+                           out_dir=os.path.join(gt_dir, "scat_expint"))
+    rows["scat_expint:sde:1"] = {"KL": m[0], "NLPD": m[1], "score_MSE": m[2], "em_KL": unrefined["scat"][0]}
+    for method in EXPINT_LIN_METHODS:
+        m = eval_diffusion.run("linear", ckpt("linear_refined_winner"),
+                               dict(lin_cfg, n_samples_y=LIN_CONDITIONS, **sized), device="cuda", method=method,
+                               out_dir=os.path.join(gt_dir, "lin_" + method))
+        rows[f"linear_{method}"] = {"KL": m[0], "NLPD": m[1], "score_MSE": m[2]}
+    m = eval_diffusion.run("linear", ckpt("linear_refined_winner"),
+                           dict(lin_cfg, n_samples_y=1, n_samples_x=N_SAMPLES, n_repeats=REPEATS,
+                                eval_num_steps=HEUN_STEPS),
+                           device="cuda", method="heun", out_dir=os.path.join(gt_dir, "lin_heun"))
+    rows["linear_heun"] = {"KL": m[0], "NLPD": m[1], "score_MSE": m[2]}
+    torch.cuda.synchronize()
+    phase("serve_expint", t0, steps=EXPINT_STEPS, heun_steps=HEUN_STEPS, launches=fused_em_sampler.launches, **rows)
+    check(fused_em_sampler.launches == 0, "the exponential integrator or Heun launched B1")
+    check(abs(rows["scat_expint:sde:1"]["KL"] - unrefined["scat"][0]) <= SCAT_KL_AGREE,
+          f"scatterometry expint KL {rows['scat_expint:sde:1']['KL']} vs E-M {unrefined['scat'][0]}")
+    check(all(rows[f"linear_{m}"]["KL"] <= LIN_KL_BOUND for m in EXPINT_LIN_METHODS), f"linear expint KL {rows}")
+    check(_finite(rows["linear_heun"].values()), f"non-finite Heun metrics {rows['linear_heun']}")
+
+    # ms per 30k-sample posterior: every sampler of the serving phases, on the
+    # first condition of each problem, in one call
+    t0 = time.time()
+    forward_model, fp = scat.load_forward_model(device="cuda")
+    y_scat = gt.test_conditions(scat_cfg, forward_model, fp, "cuda")[0]
+    prob = LinearForwardProblem()
+    y_lin = eval_diffusion.linear_test_conditions(lin_cfg, prob, "cuda")[0]
+    scat_model, lin_model = CDE(xdim=3, ydim=23), CDE(xdim=2, ydim=2)
+    scat_energy = lambda x, yt: scat.get_log_posterior(x, forward_model, fp["a"], fp["b"], yt, fp["lambd_bd"])
+    lin_energy = lambda x, yt: prob.log_posterior(x, yt)[:, 0]
+    refine_scat = load_config(os.path.join(REPO, "configs/config_scatterometry_refined.yml"))["refine"]
+    refine_lin = load_config(os.path.join(REPO, "configs/config_linear_refined.yml"))["refine"]
+    p_scat = load_archived_params(ckpt("cde_500k"), device="cuda")
+    p_lin = load_archived_params(ckpt("linear_refined_winner"), device="cuda")
+    scat_refined, scat_tag = from_spec(scat_model, scat_energy, refine_scat)
+    lin_refined, lin_tag = from_spec(lin_model, lin_energy, refine_lin)
+    cases = {
+        "scat_b1_em200": (scat_model, p_scat, y_scat, EM_STEPS, "kernel"),
+        f"scat_refined_{scat_tag}": (scat_refined, p_scat, y_scat, EM_STEPS, "kernel"),
+        f"scat_expint:sde:1_{EXPINT_STEPS}": (scat_model, p_scat, y_scat, EXPINT_STEPS, "expint:sde:1"),
+        "linear_b1_em200": (lin_model, p_lin, y_lin, EM_STEPS, "kernel"),
+        f"linear_refined_{lin_tag}": (lin_refined, p_lin, y_lin, EM_STEPS, "kernel"),
+        "linear_refined_{}".format(from_spec(None, None, REFINE_PINN2)[1]): (
+            from_spec(lin_model, lin_energy, REFINE_PINN2)[0], p_lin, y_lin, EM_STEPS, "kernel"),
+        **{f"linear_{m}_{EXPINT_STEPS}": (lin_model, p_lin, y_lin, EXPINT_STEPS, m) for m in EXPINT_LIN_METHODS},
+        f"linear_heun_{HEUN_STEPS}": (lin_model, p_lin, y_lin, HEUN_STEPS, "heun"),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ms = {}
+    with torch.no_grad():
+        for name, (model, params, y, steps, method) in cases.items():
+            sec, out = profiling.timeit(lambda: model.sample(params, y, N_SAMPLES, steps, generator=gen,
+                                                             device="cuda", method=method), reps=SAMPLER_TIMING_REPS)
+            check(out.shape == (N_SAMPLES, model.xdim) and bool(torch.isfinite(out).all()), f"{name}: bad samples")
+            ms[name] = 1e3 * sec
+    phase("sampler_ms", t0, samples=N_SAMPLES, reps=SAMPLER_TIMING_REPS, ms_per_posterior=ms,
+          expint_over_b1={"scat": ms[f"scat_expint:sde:1_{EXPINT_STEPS}"] / ms["scat_b1_em200"],
+                          "linear": ms[f"linear_expint:sde:1_{EXPINT_STEPS}"] / ms["linear_b1_em200"]})
+    return ms
+
+
+def profile_serve(torch, lin_cfg, gt_dir) -> dict:
+    """Under ``torch.profiler``: one linear serving condition (10 repeats of
+    30k samples through B1, and their scoring), then one refined linear
+    posterior (``config_linear_refined.yml``'s chain after B1's proposal).
+    For each, the share of the traced window in which the card ran a kernel
+    and the top five operations by device and by host time.  Fails if the
+    profiler sees no device activity."""
+    from dmip_tpu_torch.checkpoints import load_archived_params
+    from dmip_tpu_torch.mains import eval_diffusion
+    from dmip_tpu_torch.models import CDE
+    from dmip_tpu_torch.models.refined import from_spec
+    from dmip_tpu_torch.problems import LinearForwardProblem
+    from dmip_tpu_torch.utils import load_config, profiling
+
+    cfg = dict(lin_cfg, n_samples_y=1, n_samples_x=N_SAMPLES, n_repeats=REPEATS)
+    ckpt = os.path.join(REPO, "benchmarks/checkpoints/linear_refined_winner")
+    prob = LinearForwardProblem()
+    refined, _ = from_spec(CDE(xdim=2, ydim=2), lambda x, yt: prob.log_posterior(x, yt)[:, 0],
+                           load_config(os.path.join(REPO, "configs/config_linear_refined.yml"))["refine"])
+    params = load_archived_params(ckpt, device="cuda")
+    y = eval_diffusion.linear_test_conditions(lin_cfg, prob, "cuda")[0]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    t0 = time.time()
+    res = {}
+    with profiling.trace() as prof:
+        m = eval_diffusion.run("linear", ckpt, cfg, device="cuda", out_dir=os.path.join(gt_dir, "lin_profiled"))
+    traces = {"linear_condition": prof}
+    with torch.no_grad(), profiling.trace() as prof:
+        refined.sample(params, y, N_SAMPLES, EM_STEPS, generator=gen, device="cuda")
+    traces["refined_linear_posterior"] = prof
+    for name, prof in traces.items():
+        try:
+            busy = profiling.busy_share(prof)
+        except RuntimeError as e:
+            raise CheckFailed(f"profile_serve ({name}): {e}") from e
+        res[name] = {"busy": busy, "top_device": profiling.top_ops(prof, "device"),
+                     "top_cpu": profiling.top_ops(prof, "cpu")}
+        check(0.0 < busy["share"] <= 1.0 and res[name]["top_device"][0]["ms"] > 0.0, f"profile_serve: {res}")
+    phase("profile_serve", t0, KL=m[0], **res)
+    return res
+
+
 def train_cdiffe(torch, gt_dir, gen) -> dict:
     """B3 against its plain version at the CDiffE's 27 -> 26 shapes (all of
     check_b3's cases), then CDiffE DSM training through the driver on the
@@ -742,11 +968,16 @@ def epochs_per_s(cfg) -> float:
 def train(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
     """The training path through the drivers: DSM on the fused kernel for
     both problems (launches counted from zero around each), then the
-    autograd engine on the same overrides and on the unchanged linear config.
-    Returns the launch counts."""
+    autograd engine on the same overrides and on the unchanged linear
+    configs, plain and refined (whose refined row must be finite).  Returns
+    the launch counts."""
     from dmip_tpu_torch.mains import main_diffusion_linear as mlin
     from dmip_tpu_torch.mains import main_diffusion_scatterometry as mscat
+    from dmip_tpu_torch.models.refined import from_spec
     from dmip_tpu_torch.ops import fused_dsm_train_epochs, fused_em_sampler
+    from dmip_tpu_torch.utils import load_config
+
+    lin_refined_cfg = load_config(os.path.join(REPO, "configs/config_linear_refined.yml"))
 
     def dirs(name):
         return dict(train_dir=os.path.join(gt_dir, "train_" + name), out_dir=os.path.join(gt_dir, "out_" + name))
@@ -788,6 +1019,7 @@ def train(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
         "linear_dsm": (mlin.run, dict(lin_cfg, loss_fn="DSM", n_epochs=2)),
         "scat_dsm": (lambda c, device: mscat.run(c, gt_dir, device=device), dict(scat_cfg, loss_fn="DSM", n_epochs=2)),
         "linear_config": (mlin.run, dict(lin_cfg, n_epochs=3)),
+        "linear_refined_config": (mlin.run, dict(lin_refined_cfg, n_epochs=2)),
     }
     t0 = time.time()
     plain = {}
@@ -800,6 +1032,10 @@ def train(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
         check(fused_dsm_train_epochs.launches == 0, f"{name}: the autograd engine launched B3")
         check(all(v == v and abs(v) != float("inf") for v in losses) and losses[-1] < losses[0],
               f"{name}: losses not finite and falling: {losses}")
+        if cfg.get("refine"):
+            tag = from_spec(None, None, cfg["refine"])[1]
+            plain[name]["refined"] = {tag: _results(os.path.join(cfg["out_dir"] + f"_refined_{tag}", "results.csv"))}
+            check(_finite(plain[name]["refined"][tag].values()), f"{name}: refined row {plain[name]['refined']}")
     phase("train_plain", t0, loss_fn_linear_config=lin_cfg["loss_fn"], **plain)
     return {"linear": n_lin["dsm_train"], "scat": n_scat["dsm_train"]}
 
@@ -974,7 +1210,10 @@ def run() -> list:
     phase("b5_vs_plain", t0, samples=N_SAMPLES, **b5)
 
     with tempfile.TemporaryDirectory(prefix="dmip_gt_", dir=REPO) as work:
-        launches = serve(torch, lin_cfg, scat_cfg, work)
+        launches, served = serve(torch, lin_cfg, scat_cfg, work)
+        refined_launches = serve_refined(torch, served, work)
+        serve_samplers(torch, lin_cfg, scat_cfg, served, work)
+        profile_serve(torch, lin_cfg, work)
         launches.update(serve_cdiffe_dps(torch, work))
         b3_launches = train(torch, lin_cfg, scat_cfg, work)
         cdiffe_train = train_cdiffe(torch, work, gen)
@@ -982,7 +1221,10 @@ def run() -> list:
     # timings at the main path's shapes, after the counts were read; B1's
     # numbers are per launch, weighted by the launches of each net
     t0 = time.time()
-    em_n = {"linear_refined_winner": launches["em_linear"], "cde_500k": launches["em"] - launches["em_linear"]}
+    # the refined rows' proposals too (linear_pinn2 has the linear net's shape)
+    em_n = {"linear_refined_winner": launches["em_linear"] + refined_launches["linear"],
+            "cde_500k": launches["em"] - launches["em_linear"] + refined_launches["cde_500k"]}
+    launches["em"] += sum(refined_launches.values())
     em_t, em_flops, em_bytes = {}, 0.0, 0.0
     for name, (params, y) in nets.items():
         x0 = torch.randn(N_SAMPLES, params[-1][0].shape[1], generator=gen, device="cuda")
