@@ -120,8 +120,11 @@ def test_anneal_to_energy_targets_standard_normal():
     np.testing.assert_allclose(x.mean(0).numpy(), 0.0, atol=0.03)
     np.testing.assert_allclose(torch.cov(x.T).numpy(), np.eye(2), atol=0.05)
     assert de.shape == (20_000,)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mcmc.anneal_to_energy(x0, lambda v: v.sum(1), 1, langevin_prop=True)
+    # Langevin (MALA) proposals reach the same target
+    x, _ = mcmc.anneal_to_energy(x0, lambda v: 0.5 * torch.sum(v**2, dim=1), 300, generator=gen,
+                                 langevin_prop=True, lang_steps=1, stepsize=0.2)
+    np.testing.assert_allclose(x.mean(0).numpy(), 0.0, atol=0.03)
+    np.testing.assert_allclose(torch.cov(x.T).numpy(), np.eye(2), atol=0.05)
 
 
 def _bits(v):
