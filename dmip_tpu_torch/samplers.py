@@ -238,11 +238,9 @@ def exponential_integrator(
     num_steps: int = 40,
     mean: float = 0.0,
     std: float = 1.0,
-    noise_scale: float = 1.0,
     ode: bool = False,
     order: int = 1,
     grid: str = "lambda",
-    s_min: Optional[float] = None,
     final_denoise: bool = True,
     generator: Optional[torch.Generator] = None,
     device=None,
@@ -258,23 +256,21 @@ def exponential_integrator(
 
     ``order=2`` extrapolates eps_hat to the step's midpoint in lambda from
     the previous step's (DPM-Solver++(2M)); the first step and the final
-    denoise stay first order.  ``final_denoise`` appends x <- (x - sigma
-    eps_hat) / alpha at ``s_min`` (default the net's t_epsilon): num_steps
-    + 1 net evaluations.  ``x0`` replaces the initial draw and ``noise``
-    (num_steps + final_denoise, num_samples, xdim) the per-step normals
-    (the ODE form and the denoise draw none).
+    denoise stay first order.  The last node is the net's training floor
+    t_epsilon; ``final_denoise`` appends x <- (x - sigma eps_hat) / alpha
+    there: num_steps + 1 net evaluations.  ``x0`` replaces the initial
+    draw and ``noise`` (num_steps + final_denoise, num_samples, xdim) the
+    per-step normals (the ODE form and the denoise draw none).
     """
     if order not in (1, 2):
         raise ValueError(f"order must be 1 or 2, got {order!r}")
     base = sde.base
-    if s_min is None:
-        s_min = base.t_epsilon
     x = _initial_state(num_samples, xdim, mean, std, generator, device, x0)
     dev = x.device
     gen_dev = generator.device if generator is not None else dev
     cond = None if y is None else y.to(device=dev, dtype=x.dtype).expand(num_samples, y.shape[-1])
 
-    s_nodes, alphas, sigmas = _exp_nodes(base, num_steps, s_min, grid)
+    s_nodes, alphas, sigmas = _exp_nodes(base, num_steps, base.t_epsilon, grid)
     lam = torch.log(alphas) - torch.log(sigmas)
     h = lam[1:] - lam[:-1]
     phi = alphas[1:] / alphas[:-1]
@@ -291,7 +287,6 @@ def exponential_integrator(
         c_eps = torch.cat([c_eps, (-phi_f * sigmas[-1])[None]])
         c_n = torch.cat([c_n, torch.zeros(1)])
         h = torch.cat([h, h[-1:]])
-    n_total = phi.shape[0]
     h_prev = torch.cat([torch.ones(1), h[:-1]])
     c2 = h / (2.0 * h_prev)
     c2[0] = 0.0
@@ -309,6 +304,6 @@ def exponential_integrator(
         if cn_i != 0.0:
             z = noise[i].to(dev) if noise is not None else torch.randn(x.shape, generator=generator,
                                                                         device=gen_dev).to(dev)
-            x = x + cn_i * (noise_scale * z)
+            x = x + cn_i * z
         eps_prev = eps_hat
     return x

@@ -61,15 +61,6 @@ def timeit(fn: Callable, *args, reps: int = 3, warmup: int = 1, device=None, **k
     return start.elapsed_time(end) / 1e3 / reps, out
 
 
-def _device_time(evt) -> float:
-    """An event's own device time in microseconds, under either name
-    ``torch.profiler`` has used for it."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
-
-
 def busy_share(prof) -> dict:
     """The traced window (first to last event, host or device) and the
     union of the intervals in which the card ran a kernel or a copy:
@@ -96,7 +87,6 @@ def busy_share(prof) -> dict:
 def top_ops(prof, by: str = "device", n: int = 5) -> List[dict]:
     """The ``n`` operations with the most own time on the card (``by=
     'device'``) or on the host (``by='cpu'``): name, calls, milliseconds."""
-    rows = prof.key_averages()
-    key = _device_time if by == "device" else (lambda e: float(e.self_cpu_time_total))
-    rows = sorted(rows, key=key, reverse=True)[:n]
-    return [{"name": e.key, "calls": e.count, "ms": key(e) / 1e3} for e in rows]
+    attr = "self_device_time_total" if by == "device" else "self_cpu_time_total"
+    rows = sorted(prof.key_averages(), key=lambda e: getattr(e, attr), reverse=True)[:n]
+    return [{"name": e.key, "calls": e.count, "ms": getattr(e, attr) / 1e3} for e in rows]
