@@ -805,7 +805,7 @@ def serve_samplers(torch, lin_cfg, scat_cfg, unrefined, gt_dir) -> dict:
     from dmip_tpu_torch.mains import eval_diffusion
     from dmip_tpu_torch.mains import generate_scatterometry_ground_truth as gt
     from dmip_tpu_torch.models import CDE
-    from dmip_tpu_torch.models.refined import from_spec
+    from dmip_tpu_torch.models.refined import for_problem
     from dmip_tpu_torch.ops import fused_em_sampler
     from dmip_tpu_torch.problems import LinearForwardProblem
     from dmip_tpu_torch.problems import scatterometry as scat
@@ -843,25 +843,22 @@ def serve_samplers(torch, lin_cfg, scat_cfg, unrefined, gt_dir) -> dict:
     t0 = time.time()
     forward_model, fp = scat.load_forward_model(device="cuda")
     y_scat = gt.test_conditions(scat_cfg, forward_model, fp, "cuda")[0]
-    prob = LinearForwardProblem()
-    y_lin = eval_diffusion.linear_test_conditions(lin_cfg, prob, "cuda")[0]
+    y_lin = eval_diffusion.linear_test_conditions(lin_cfg, LinearForwardProblem(), "cuda")[0]
     scat_model, lin_model = CDE(xdim=3, ydim=23), CDE(xdim=2, ydim=2)
-    scat_energy = lambda x, yt: scat.get_log_posterior(x, forward_model, fp["a"], fp["b"], yt, fp["lambd_bd"])
-    lin_energy = lambda x, yt: prob.log_posterior(x, yt)[:, 0]
     refine_scat = load_config(os.path.join(REPO, "configs/config_scatterometry_refined.yml"))["refine"]
     refine_lin = load_config(os.path.join(REPO, "configs/config_linear_refined.yml"))["refine"]
     p_scat = load_archived_params(ckpt("cde_500k"), device="cuda")
     p_lin = load_archived_params(ckpt("linear_refined_winner"), device="cuda")
-    scat_refined, scat_tag = from_spec(scat_model, scat_energy, refine_scat)
-    lin_refined, lin_tag = from_spec(lin_model, lin_energy, refine_lin)
+    scat_refined, scat_tag, _ = for_problem("scatterometry", scat_model, refine_scat, forward_model, fp)
+    lin_refined, lin_tag, _ = for_problem("linear", lin_model, refine_lin)
+    pinn2_refined, pinn2_tag, _ = for_problem("linear", lin_model, REFINE_PINN2)
     cases = {
         "scat_b1_em200": (scat_model, p_scat, y_scat, EM_STEPS, "kernel"),
         f"scat_refined_{scat_tag}": (scat_refined, p_scat, y_scat, EM_STEPS, "kernel"),
         f"scat_expint:sde:1_{EXPINT_STEPS}": (scat_model, p_scat, y_scat, EXPINT_STEPS, "expint:sde:1"),
         "linear_b1_em200": (lin_model, p_lin, y_lin, EM_STEPS, "kernel"),
         f"linear_refined_{lin_tag}": (lin_refined, p_lin, y_lin, EM_STEPS, "kernel"),
-        "linear_refined_{}".format(from_spec(None, None, REFINE_PINN2)[1]): (
-            from_spec(lin_model, lin_energy, REFINE_PINN2)[0], p_lin, y_lin, EM_STEPS, "kernel"),
+        f"linear_refined_{pinn2_tag}": (pinn2_refined, p_lin, y_lin, EM_STEPS, "kernel"),
         **{f"linear_{m}_{EXPINT_STEPS}": (lin_model, p_lin, y_lin, EXPINT_STEPS, m) for m in EXPINT_LIN_METHODS},
         f"linear_heun_{HEUN_STEPS}": (lin_model, p_lin, y_lin, HEUN_STEPS, "heun"),
     }
@@ -889,17 +886,16 @@ def profile_serve(torch, lin_cfg, gt_dir) -> dict:
     from dmip_tpu_torch.checkpoints import load_archived_params
     from dmip_tpu_torch.mains import eval_diffusion
     from dmip_tpu_torch.models import CDE
-    from dmip_tpu_torch.models.refined import from_spec
+    from dmip_tpu_torch.models.refined import for_problem
     from dmip_tpu_torch.problems import LinearForwardProblem
     from dmip_tpu_torch.utils import load_config, profiling
 
     cfg = dict(lin_cfg, n_samples_y=1, n_samples_x=N_SAMPLES, n_repeats=REPEATS)
     ckpt = os.path.join(REPO, "benchmarks/checkpoints/linear_refined_winner")
-    prob = LinearForwardProblem()
-    refined, _ = from_spec(CDE(xdim=2, ydim=2), lambda x, yt: prob.log_posterior(x, yt)[:, 0],
-                           load_config(os.path.join(REPO, "configs/config_linear_refined.yml"))["refine"])
+    refined, _, _ = for_problem("linear", CDE(xdim=2, ydim=2),
+                                load_config(os.path.join(REPO, "configs/config_linear_refined.yml"))["refine"])
     params = load_archived_params(ckpt, device="cuda")
-    y = eval_diffusion.linear_test_conditions(lin_cfg, prob, "cuda")[0]
+    y = eval_diffusion.linear_test_conditions(lin_cfg, LinearForwardProblem(), "cuda")[0]
     gen = torch.Generator(device="cuda").manual_seed(9)
     t0 = time.time()
     res = {}
@@ -973,7 +969,7 @@ def train(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
     the launch counts."""
     from dmip_tpu_torch.mains import main_diffusion_linear as mlin
     from dmip_tpu_torch.mains import main_diffusion_scatterometry as mscat
-    from dmip_tpu_torch.models.refined import from_spec
+    from dmip_tpu_torch.models.refined import for_problem
     from dmip_tpu_torch.ops import fused_dsm_train_epochs, fused_em_sampler
     from dmip_tpu_torch.utils import load_config
 
@@ -1033,8 +1029,8 @@ def train(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
         check(all(v == v and abs(v) != float("inf") for v in losses) and losses[-1] < losses[0],
               f"{name}: losses not finite and falling: {losses}")
         if cfg.get("refine"):
-            tag = from_spec(None, None, cfg["refine"])[1]
-            plain[name]["refined"] = {tag: _results(os.path.join(cfg["out_dir"] + f"_refined_{tag}", "results.csv"))}
+            _, tag, suffix = for_problem("linear", None, cfg["refine"])
+            plain[name]["refined"] = {tag: _results(os.path.join(cfg["out_dir"] + suffix, "results.csv"))}
             check(_finite(plain[name]["refined"][tag].values()), f"{name}: refined row {plain[name]['refined']}")
     phase("train_plain", t0, loss_fn_linear_config=lin_cfg["loss_fn"], **plain)
     return {"linear": n_lin["dsm_train"], "scat": n_scat["dsm_train"]}

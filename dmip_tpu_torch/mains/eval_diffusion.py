@@ -45,7 +45,7 @@ import torch
 from .. import data, evaluate, resolve_device, train
 from ..checkpoints import load_archived_params
 from ..models import AnalyticGuidanceDPS, PosteriorDiffusionEstimator
-from ..models.refined import from_spec
+from ..models.refined import for_problem
 from ..problems import LinearForwardProblem
 from ..problems import scatterometry as scat
 from ..utils import load_config
@@ -128,8 +128,8 @@ def run(
         y_test = linear_test_conditions(config, prob, dev)
         model, params = _load_net(config, {"xdim": prob.xdim, "ydim": prob.ydim}, checkpoint, dev)
         if refine:
-            model, tag = from_spec(model, lambda x, ys: prob.log_posterior(x, ys)[:, 0], refine)
-            out_dir = None if out_dir is None else f"{out_dir}_refined_{tag}"
+            model, _, suffix = for_problem("linear", model, refine)
+            out_dir = None if out_dir is None else out_dir + suffix
         return evaluate.evaluate_linear(
             model, params, prob, y_test[: int(config["n_samples_y"])], gen,
             out_dir=out_dir, n_samples_x=n_x, n_repeats=n_repeats,
@@ -148,10 +148,8 @@ def run(
             )
             out_dir = None if out_dir is None else out_dir + "_analytic"
         if refine:
-            a, b, lambd_bd = fparams["a"], fparams["b"], fparams["lambd_bd"]
-            model, _ = from_spec(
-                model, lambda x, ys: scat.get_log_posterior(x, forward_model, a, b, ys, lambd_bd), refine)
-            out_dir = None if out_dir is None else out_dir + "_refined"
+            model, _, suffix = for_problem("scatterometry", model, refine, forward_model, fparams)
+            out_dir = None if out_dir is None else out_dir + suffix
         score_post = scat.score_posterior(
             forward_model, fparams["a"], fparams["b"], fparams["lambd_bd"]
         )

@@ -24,7 +24,7 @@ import os
 import torch
 
 from .. import checkpoints, data, evaluate, resolve_device, train
-from ..models.refined import from_spec
+from ..models.refined import for_problem
 from ..problems import LinearForwardProblem
 from ..utils import MetricsWriter, load_config, set_directories
 from .eval_diffusion import linear_split
@@ -78,8 +78,8 @@ def run(config: dict, device=None) -> tuple:
 
     metrics = score(model, config["out_dir"])
     if config.get("refine"):
-        refined, tag = from_spec(model, lambda x, ys: prob.log_posterior(x, ys)[:, 0], config["refine"])
-        kl, nlpd, mse = score(refined, config["out_dir"] + f"_refined_{tag}")
+        refined, tag, suffix = for_problem("linear", model, config["refine"])
+        kl, nlpd, mse = score(refined, config["out_dir"] + suffix)
         print(f"refined[{tag}]: KL={kl:.4f} NLPD={nlpd:.4f} score-MSE={mse:.4f}", flush=True)
     return params, metrics
 

@@ -22,7 +22,7 @@ import os
 import torch
 
 from .. import checkpoints, data, evaluate, resolve_device, train
-from ..models.refined import from_spec
+from ..models.refined import for_problem
 from ..problems import scatterometry as scat
 from ..utils import MetricsWriter, load_config, set_directories
 from .generate_scatterometry_ground_truth import test_conditions
@@ -89,10 +89,8 @@ def run(config: dict, gt_dir: str, device=None) -> tuple:
 
     metrics = score(model, config["out_dir"])
     if config.get("refine"):
-        a, b, lambd_bd = fparams["a"], fparams["b"], fparams["lambd_bd"]
-        refined, tag = from_spec(
-            model, lambda x, ys: scat.get_log_posterior(x, forward_model, a, b, ys, lambd_bd), config["refine"])
-        kl, nlpd, mse = score(refined, config["out_dir"] + "_refined")
+        refined, tag, suffix = for_problem("scatterometry", model, config["refine"], forward_model, fparams)
+        kl, nlpd, mse = score(refined, config["out_dir"] + suffix)
         print(f"energy-refined ({tag}): KL={kl:.4f} NLPD={nlpd:.4f} score-MSE={mse:.4f}", flush=True)
     return params, metrics
 

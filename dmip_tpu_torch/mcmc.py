@@ -162,7 +162,7 @@ def annealed_mh(
     x = x_curr
     e_post = energy(x)
     e_prior = 0.5 * torch.sum(x**2, dim=1)
-    log_std = torch.log(torch.tensor(noise_std, dtype=x.dtype, device=x.device))
+    log_std = torch.log(torch.full((), noise_std, dtype=x.dtype, device=x.device))  # a fill, not a copy
     acc_rates = []
     for t, lam in enumerate(lambdas):
         xi = _draw(torch.randn, x.shape, generator, x, None if noise is None else noise[t])

@@ -4,7 +4,8 @@ an exact-energy MCMC chain refines.
 Port of ``dmip_tpu/models/refined.py``: :class:`EnergyRefinedModel` (:42)
 and :func:`from_config` (:215), and :func:`from_spec`, which also takes the
 scatterometry driver's dict form of a ``refine:`` key
-(``mains/main_diffusion_scatterometry.py:131-141``).  The base model's
+(``mains/main_diffusion_scatterometry.py:131-141``).  :func:`for_problem`
+is the drivers' one way to refine on a problem's energy.  The base model's
 sampler proposes (on a CUDA device its fused kernel, B1 for the CDE, B4 for
 the CDiffE); then ``refine_steps`` Metropolis-Hastings steps (random walk,
 annealed, MALA) or unadjusted Langevin steps on the problem's exact
@@ -20,6 +21,8 @@ from typing import Any, Callable, Optional
 import torch
 
 from .. import mcmc
+from ..problems import LinearForwardProblem
+from ..problems.scatterometry import get_log_posterior
 
 Tensor = torch.Tensor
 
@@ -214,3 +217,21 @@ def from_spec(model, energy, spec):
         anneal_to=float(spec.get("anneal_to", 1.0)),
     )
     return refined, f"{refined.kernel}{refined.refine_steps}"
+
+
+def for_problem(problem: str, model, spec, forward_model=None, fparams=None):
+    """A config's ``refine:`` value on a problem's exact energy -> (model,
+    tag, out-dir suffix), as the JAX drivers build it: 'linear' refines on
+    :meth:`LinearForwardProblem.log_posterior` into ``_refined_<tag>``;
+    'scatterometry' on the surrogate posterior's energy
+    (``forward_model``, ``fparams``' a, b and lambd_bd) into ``_refined``."""
+    if problem == "linear":
+        prob = LinearForwardProblem()
+        refined, tag = from_spec(model, lambda x, ys: prob.log_posterior(x, ys)[:, 0], spec)
+        return refined, tag, f"_refined_{tag}"
+    if problem == "scatterometry":
+        a, b, lambd_bd = fparams["a"], fparams["b"], fparams["lambd_bd"]
+        refined, tag = from_spec(
+            model, lambda x, ys: get_log_posterior(x, forward_model, a, b, ys, lambd_bd), spec)
+        return refined, tag, "_refined"
+    raise ValueError(f"unknown problem {problem!r}")

@@ -10,6 +10,7 @@ tensors live on.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -81,12 +82,11 @@ class LinearForwardProblem:
         """Unnormalized NEGATIVE log posterior 1/2 (x - m)^T C^-1 (x - m),
         shape (batch, 1), with m = A^T Sigma_y^-1 (y - b) and C = I - A^T
         Sigma_y^-1 A (the analytic posterior's moments), C regularised by
-        ``epsilon`` I.  The energy of the refinement chains."""
-        A, Sy = self.A(xs), self.Sigma_y_inv(xs)
-        eye = torch.eye(self.xdim, dtype=xs.dtype, device=xs.device)
-        mean = (ys - self.b(xs)) @ (Sy @ A)
-        cov_inv = torch.linalg.inv_ex(eye - A.T @ Sy @ A + epsilon * eye)[0]
-        x_res = xs - mean
+        ``epsilon`` I.  The energy of the refinement chains: its constants
+        are built once per device, so a call in a chain's step only queues
+        work on the device and never waits for it."""
+        SyA, b, cov_inv = _energy_constants(self, epsilon, xs.device, xs.dtype)
+        x_res = xs - (ys - b) @ SyA
         return 0.5 * torch.einsum("bi,ij,bj->b", x_res, cov_inv, x_res)[:, None]
 
     def score_posterior(self, x: Tensor, y: Tensor) -> Tensor:
@@ -94,3 +94,14 @@ class LinearForwardProblem:
         A = self.A(x)
         y_res = y - (x @ A.T + self.b(x))
         return -x + (y_res @ self.Sigma_inv(x).T) @ A
+
+
+@functools.lru_cache(maxsize=None)
+def _energy_constants(prob: LinearForwardProblem, epsilon: float, device, dtype) -> Tuple[Tensor, Tensor, Tensor]:
+    """(Sigma_y^-1 A, b, (I - A^T Sigma_y^-1 A + epsilon I)^-1) of
+    :meth:`LinearForwardProblem.log_posterior`, on ``device``."""
+    with torch.inference_mode(False), torch.no_grad():
+        like = torch.empty(0, dtype=dtype, device=device)
+        A, Sy = prob.A(like), prob.Sigma_y_inv(like)
+        eye = torch.eye(prob.xdim, dtype=dtype, device=device)
+        return Sy @ A, prob.b(like), torch.linalg.inv_ex(eye - A.T @ Sy @ A + epsilon * eye)[0]

@@ -192,32 +192,27 @@ def heun_ode(
     return x
 
 
-def _exp_nodes(base, num_steps: int, s_min: float, grid: str):
-    """Time nodes s_0 = T > s_1 > ... > s_num_steps = s_min of the
-    exponential integrators and their (alpha, sigma), float32 CPU tensors.
-
-    grid='uniform' spaces the nodes linearly in s; grid='lambda' uniformly
-    in the half-log-SNR lambda(s) = log(alpha / sigma) (the DPM-Solver
-    schedule), inverted in closed form: B(s) = softplus(-2 lambda), then
-    the quadratic of :meth:`VPSDE.sample_debiasing_t`.
+def _exp_nodes(base, num_steps: int):
+    """Time nodes s_0 = T > s_1 > ... > s_num_steps = t_epsilon (the net's
+    training floor) of the exponential integrators and their (alpha,
+    sigma), float32 CPU tensors: uniform in the half-log-SNR lambda(s) =
+    log(alpha / sigma) (the DPM-Solver schedule; ``dmip_tpu``'s
+    grid='lambda'), inverted in closed form: B(s) = softplus(-2 lambda),
+    then the quadratic of :meth:`VPSDE.sample_debiasing_t`.
     """
-    f32 = torch.float32
-    if grid == "uniform":
-        s = _linspace(base.T, s_min, num_steps + 1)
-    elif grid == "lambda":
-        def lam(s_):
-            a = base.mean_weight(torch.tensor(s_, dtype=f32))
-            return torch.log(a) - torch.log(torch.sqrt(1.0 - a**2))
+    s_min = base.t_epsilon
 
-        lams = _linspace(lam(base.T), lam(s_min), num_steps + 1)
-        # jax.nn.softplus: max(v, 0) + log1p(exp(-|v|)) (torch's switches to v above 20)
-        v = -2.0 * lams
-        b = torch.clamp(v, min=0.0) + torch.log1p(torch.exp(-v.abs()))
-        bd = base.beta_max - base.beta_min
-        s = (-base.beta_min + torch.sqrt(base.beta_min**2 + 2.0 * bd * b)) / bd
-        s[0], s[-1] = base.T, s_min
-    else:
-        raise ValueError(f"grid must be 'uniform' or 'lambda', got {grid!r}")
+    def lam(s_):
+        a = base.mean_weight(torch.tensor(s_, dtype=torch.float32))
+        return torch.log(a) - torch.log(torch.sqrt(1.0 - a**2))
+
+    lams = _linspace(lam(base.T), lam(s_min), num_steps + 1)
+    # jax.nn.softplus: max(v, 0) + log1p(exp(-|v|)) (torch's switches to v above 20)
+    v = -2.0 * lams
+    b = torch.clamp(v, min=0.0) + torch.log1p(torch.exp(-v.abs()))
+    bd = base.beta_max - base.beta_min
+    s = (-base.beta_min + torch.sqrt(base.beta_min**2 + 2.0 * bd * b)) / bd
+    s[0], s[-1] = base.T, s_min
     return s, base.mean_weight(s), base.std(s)
 
 
@@ -240,8 +235,6 @@ def exponential_integrator(
     std: float = 1.0,
     ode: bool = False,
     order: int = 1,
-    grid: str = "lambda",
-    final_denoise: bool = True,
     generator: Optional[torch.Generator] = None,
     device=None,
     x0: Optional[Tensor] = None,
@@ -256,10 +249,11 @@ def exponential_integrator(
 
     ``order=2`` extrapolates eps_hat to the step's midpoint in lambda from
     the previous step's (DPM-Solver++(2M)); the first step and the final
-    denoise stay first order.  The last node is the net's training floor
-    t_epsilon; ``final_denoise`` appends x <- (x - sigma eps_hat) / alpha
-    there: num_steps + 1 net evaluations.  ``x0`` replaces the initial
-    draw and ``noise`` (num_steps + final_denoise, num_samples, xdim) the
+    denoise stay first order.  The nodes are uniform in lambda down to the
+    net's training floor t_epsilon, where a final denoise x <- (x - sigma
+    eps_hat) / alpha follows (``dmip_tpu``'s grid='lambda',
+    final_denoise=True): num_steps + 1 net evaluations.  ``x0`` replaces
+    the initial draw and ``noise`` (num_steps + 1, num_samples, xdim) the
     per-step normals (the ODE form and the denoise draw none).
     """
     if order not in (1, 2):
@@ -270,23 +264,20 @@ def exponential_integrator(
     gen_dev = generator.device if generator is not None else dev
     cond = None if y is None else y.to(device=dev, dtype=x.dtype).expand(num_samples, y.shape[-1])
 
-    s_nodes, alphas, sigmas = _exp_nodes(base, num_steps, base.t_epsilon, grid)
+    s_nodes, alphas, sigmas = _exp_nodes(base, num_steps)
     lam = torch.log(alphas) - torch.log(sigmas)
     h = lam[1:] - lam[:-1]
     phi = alphas[1:] / alphas[:-1]
     c_ode = sigmas[1:] - phi * sigmas[:-1]
     c_eps = c_ode if ode else 2.0 * c_ode
     c_n = torch.zeros_like(phi) if ode else torch.sqrt(torch.clamp(phi**2 - 1.0, min=0.0))
-    s_eval, sig_eval, g_eval = s_nodes[:-1], sigmas[:-1], base.g(s_nodes[:-1])
-    if final_denoise:
-        phi_f = 1.0 / alphas[-1]
-        s_eval = torch.cat([s_eval, s_nodes[-1:]])
-        sig_eval = torch.cat([sig_eval, sigmas[-1:]])
-        g_eval = torch.cat([g_eval, base.g(s_nodes[-1:])])
-        phi = torch.cat([phi, phi_f[None]])
-        c_eps = torch.cat([c_eps, (-phi_f * sigmas[-1])[None]])
-        c_n = torch.cat([c_n, torch.zeros(1)])
-        h = torch.cat([h, h[-1:]])
+    # the last node's net evaluation is the final denoise
+    phi_f = 1.0 / alphas[-1]
+    s_eval, sig_eval, g_eval = s_nodes, sigmas, base.g(s_nodes)
+    phi = torch.cat([phi, phi_f[None]])
+    c_eps = torch.cat([c_eps, (-phi_f * sigmas[-1])[None]])
+    c_n = torch.cat([c_n, torch.zeros(1)])
+    h = torch.cat([h, h[-1:]])
     h_prev = torch.cat([torch.ones(1), h[:-1]])
     c2 = h / (2.0 * h_prev)
     c2[0] = 0.0

@@ -111,9 +111,11 @@ class ReverseSDE:
         return math.sqrt(1.0 - lmbd) * self.base.g(self.T - t)
 
 
-def _normal_like(x: Tensor, generator: Optional[torch.Generator]) -> Tensor:
-    gen_dev = generator.device if generator is not None else x.device
-    return torch.randn(x.shape, generator=generator, device=gen_dev, dtype=x.dtype).to(x.device)
+def _draw(sample, shape, generator: Optional[torch.Generator], like: Tensor) -> Tensor:
+    """A draw of ``sample`` (torch.randn or torch.rand) from ``generator``
+    on its device, or on like's without one, moved to like's device."""
+    dev = generator.device if generator is not None else like.device
+    return sample(shape, generator=generator, device=dev, dtype=like.dtype).to(like.device)
 
 
 def log_normal(x: Tensor, mean: Tensor, log_var: Tensor) -> Tensor:
@@ -122,8 +124,9 @@ def log_normal(x: Tensor, mean: Tensor, log_var: Tensor) -> Tensor:
 
 
 def sample_v(shape, vtype: str = "rademacher", generator: Optional[torch.Generator] = None, device=None) -> Tensor:
-    """Hutchinson probe vectors: Rademacher (+-1) or standard normal."""
-    dev = generator.device if generator is not None else (device or "cpu")
+    """Hutchinson probe vectors: Rademacher (+-1) or standard normal, drawn
+    on the generator's device, else on ``device``, and moved to ``device``."""
+    dev = generator.device if generator is not None else device
     if vtype == "rademacher":
         return (2.0 * torch.randint(0, 2, shape, generator=generator, device=dev) - 1.0).to(device)
     if vtype in ("normal", "gaussian"):
@@ -147,13 +150,10 @@ def reverse_sde_dsm(
     ``eps`` replace the draws (t first, then eps)."""
     batch = x.shape[0]
     if t is None:
-        if sde.debias:
-            t = sde.base.sample_debiasing_t((batch, 1), generator)
-        else:
-            gen_dev = generator.device if generator is not None else "cpu"
-            t = torch.rand((batch, 1), generator=generator, device=gen_dev) * sde.T
+        u = _draw(torch.rand, (batch, 1), generator, x)
+        t = sde.base.sample_debiasing_t(u.shape, u=u) if sde.debias else u * sde.T
     t = t.to(x.device)
-    eps = _normal_like(x, generator) if eps is None else eps.to(x.device)
+    eps = _draw(torch.randn, x.shape, generator, x) if eps is None else eps.to(x.device)
     y_t = sde.base.diffuse(t, x, eps)
     a = apply_a(params, y_t, cond, t)
     return 0.5 * torch.sum((a * sde.base.std(t) / sde.base.g(t) + eps) ** 2, dim=1)
@@ -179,11 +179,10 @@ def elbo_random_t_slice(
     replace the draws, made in that order."""
     batch = x.shape[0]
     if t is None:
-        gen_dev = generator.device if generator is not None else "cpu"
-        t = torch.rand((batch, 1), generator=generator, device=gen_dev) * sde.T
+        t = _draw(torch.rand, (batch, 1), generator, x) * sde.T
     t = t.to(x.device)
     qt = 1.0 / sde.T
-    eps = _normal_like(x, generator) if eps is None else eps.to(x.device)
+    eps = _draw(torch.randn, x.shape, generator, x) if eps is None else eps.to(x.device)
     y = sde.base.diffuse(t, x, eps)
     v = sample_v(x.shape, vtype, generator, device=x.device) if v is None else v.to(x.device)
 
@@ -195,7 +194,7 @@ def elbo_random_t_slice(
     mu_div_probe = torch.sum(vjp(v)[0] * v, dim=1)
     Mu = -mu_div_probe / qt
     Nu = -0.5 * torch.sum(a_val**2, dim=1) / qt
-    eps_T = _normal_like(x, generator) if eps_T is None else eps_T.to(x.device)
+    eps_T = _draw(torch.randn, x.shape, generator, x) if eps_T is None else eps_T.to(x.device)
     y_T = sde.base.diffuse(torch.full((batch, 1), sde.base.T, dtype=x.dtype, device=x.device), x, eps_T)
     lp = torch.sum(log_normal(y_T, torch.zeros_like(y_T), torch.zeros_like(y_T)), dim=1)
     return lp + Mu + Nu

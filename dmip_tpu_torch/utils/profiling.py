@@ -37,12 +37,13 @@ def trace(log_dir: Optional[str] = None, device=None):
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def timeit(fn: Callable, *args, reps: int = 3, warmup: int = 1, device=None, **kwargs):
+def timeit(fn: Callable, *args, reps: int = 3, warmup: int = 1, clock_device=None, **kwargs):
     """Time ``fn(*args, **kwargs)``: seconds per call over ``reps`` calls
-    after ``warmup``, by CUDA events on the current stream of a CUDA device
-    (the default), by the host clock for ``device='cpu'``.  Returns
-    (seconds_per_call, last_output)."""
-    dev = resolve_device(device)
+    after ``warmup``, by CUDA events on the current stream of a CUDA
+    ``clock_device`` (the default), by the host clock for
+    ``clock_device='cpu'``.  Every other keyword, ``device`` included, goes
+    to ``fn``.  Returns (seconds_per_call, last_output)."""
+    dev = resolve_device(clock_device)
     out = None
     for _ in range(warmup):
         out = fn(*args, **kwargs)

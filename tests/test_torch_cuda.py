@@ -575,6 +575,22 @@ def test_refined_sample_stays_on_the_card(cuda, spec):
     assert torch.equal(torch.get_rng_state(), host_rng)
 
 
+def test_elbo_tools_draw_on_the_card_without_a_generator(cuda):
+    """With no generator, the ELBO tools' times, normals and probes are
+    drawn on x's device: the host's RNG state does not move."""
+    from dmip_tpu_torch import sde
+
+    tp = mlp_init(5, 2, (16, 16), generator=torch.Generator().manual_seed(0), device=cuda)
+    x, cond = torch.randn(32, 2, device=cuda), torch.randn(32, 2, device=cuda)
+    host_rng = torch.get_rng_state()
+    outs = [sde.reverse_sde_dsm(ReverseSDE(debias=False), score_mlp_apply, tp, x, cond),
+            sde.reverse_sde_dsm(ReverseSDE(), score_mlp_apply, tp, x, cond),
+            sde.elbo_random_t_slice(ReverseSDE(), score_mlp_apply, tp, x, cond),
+            sde.sample_v((32, 2), "gaussian", device=cuda)]
+    assert torch.equal(torch.get_rng_state(), host_rng)
+    assert all(o.device.type == "cuda" and bool(torch.isfinite(o).all()) for o in outs)
+
+
 def test_profiler_sees_the_card(cuda, tmp_path):
     """torch.profiler on the card: a traced B1 launch shows device time, a
     busy share in (0, 1] and the top operations by device time."""

@@ -22,8 +22,20 @@ def test_trace_and_top_ops_on_the_cpu(tmp_path):
 
 
 def test_timeit_on_the_cpu_and_the_card_by_default():
-    sec, out = profiling.timeit(torch.add, torch.ones(3), 1.0, reps=2, device="cpu")
+    sec, out = profiling.timeit(torch.add, torch.ones(3), 1.0, reps=2, clock_device="cpu")
     assert sec > 0.0 and torch.equal(out, torch.full((3,), 2.0))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             profiling.timeit(torch.add, torch.ones(3), 1.0)
+
+
+def test_timeit_passes_device_to_the_timed_function():
+    """``device`` is the timed function's keyword, not the timer's."""
+    seen = []
+
+    def fn(n, device=None):
+        seen.append(device)
+        return torch.zeros(n, device=device)
+
+    sec, out = profiling.timeit(fn, 4, reps=2, warmup=1, clock_device="cpu", device="cpu")
+    assert sec > 0.0 and out.shape == (4,) and seen == ["cpu"] * 3

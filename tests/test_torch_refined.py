@@ -273,6 +273,23 @@ def test_from_spec_takes_the_dict_form():
     assert refined.from_spec("base", None, "mh,20,0.2")[1] == "mh20_0.2"
 
 
+@pytest.mark.parametrize("problem,spec,tag,suffix", [
+    ("linear", "mh,20,0.2", "mh20_0.2", "_refined_mh20_0.2"),
+    ("scatterometry", {"kernel": "mh", "steps": 20, "noise_std": 0.2, "anneal_from": 0.5}, "mh20", "_refined"),
+])
+def test_for_problem_refines_on_the_jax_drivers_energy(problem, spec, tag, suffix):
+    """The drivers' refined row: the JAX drivers' tag and out-dir suffix, and
+    an energy equal to the JAX package's on the same states (1e-5 rel)."""
+    je, _, x0, y, _, _ = _problem(problem)
+    fwd, fp = scat.load_forward_model() if problem == "scatterometry" else (None, None)
+    r, got_tag, got_suffix = refined.for_problem(problem, "base", spec, fwd, fp)
+    assert (r.base_model, got_tag, got_suffix) == ("base", tag, suffix)
+    ys = torch.as_tensor(np.broadcast_to(y, (N, y.shape[0])).copy())
+    _close_e(r.energy_fn(_t(x0), ys), je(jnp.asarray(x0)))
+    with pytest.raises(ValueError, match="unknown problem"):
+        refined.for_problem("heat", "base", spec)
+
+
 # ELBO tools, on the inputs of tests/test_sde_extras.py
 def _elbo_inputs():
     key = jax.random.PRNGKey(0)

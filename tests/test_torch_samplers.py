@@ -51,15 +51,14 @@ def _x0(key, mean=0.0, std=1.0):
     return np.array(jax.random.normal(k0, (N, 2)) * std + mean), kscan
 
 
-@pytest.mark.parametrize("grid", ["lambda", "uniform"])
-def test_exp_nodes_match_jax(grid):
+@pytest.mark.parametrize("num_steps", [12, 32])
+def test_exp_nodes_match_jax(num_steps):
+    """The served grid: uniform in lambda down to t_epsilon."""
     base_j, base_t = jsde.VPSDE(), sde.VPSDE()
-    want = jsamplers._exp_nodes(base_j, 12, base_j.t_epsilon, grid, jnp.float32)
-    got = samplers._exp_nodes(base_t, 12, base_t.t_epsilon, grid)
+    want = jsamplers._exp_nodes(base_j, num_steps, base_j.t_epsilon, "lambda", jnp.float32)
+    got = samplers._exp_nodes(base_t, num_steps)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-6, atol=0)
-    with pytest.raises(ValueError, match="grid"):
-        samplers._exp_nodes(base_t, 12, base_t.t_epsilon, "log")
 
 
 def test_heun_ode_matches_jax():
@@ -74,23 +73,23 @@ def test_heun_ode_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("ode,order,grid,final_denoise", [
-    (True, 1, "lambda", True), (True, 2, "lambda", True), (False, 1, "lambda", True),
-    (False, 2, "lambda", True), (False, 1, "uniform", False),
+@pytest.mark.parametrize("ode,order,num_steps", [
+    (True, 1, 16), (True, 2, 16), (False, 1, 16), (False, 2, 16), (False, 1, 32),
 ])
-def test_exponential_integrator_matches_jax(ode, order, grid, final_denoise):
+def test_exponential_integrator_matches_jax(ode, order, num_steps):
     """The ODE forms from the same x0 (deterministic); the SDE forms also
-    with JAX's per-step normals re-derived from its key schedule."""
+    with JAX's per-step normals re-derived from its key schedule.  JAX's
+    defaults (grid='lambda', final_denoise=True) are the port's only
+    form; 32 SDE steps of order 1 is the served expint:sde:1 row."""
     jp, tp, y = _net()
     dj, dt = _drifts(jp, tp)
     key = jax.random.PRNGKey(11)
-    kw = dict(ode=ode, order=order, grid=grid, final_denoise=final_denoise)
-    want = jsamplers.exponential_integrator(jsde.ReverseSDE(), dj, key, jnp.asarray(y), N, 2, 16, **kw)
+    want = jsamplers.exponential_integrator(jsde.ReverseSDE(), dj, key, jnp.asarray(y), N, 2, num_steps,
+                                            ode=ode, order=order)
     x0, kscan = _x0(key)
-    n_total = 16 + final_denoise
-    noise = np.stack([np.array(jax.random.normal(k, (N, 2))) for k in jax.random.split(kscan, n_total)])
-    got = samplers.exponential_integrator(sde.ReverseSDE(), dt, torch.as_tensor(y), N, 2, 16,
-                                          x0=torch.as_tensor(x0), noise=torch.as_tensor(noise), **kw)
+    noise = np.stack([np.array(jax.random.normal(k, (N, 2))) for k in jax.random.split(kscan, num_steps + 1)])
+    got = samplers.exponential_integrator(sde.ReverseSDE(), dt, torch.as_tensor(y), N, 2, num_steps, ode=ode,
+                                          order=order, x0=torch.as_tensor(x0), noise=torch.as_tensor(noise))
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
 
