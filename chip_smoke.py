@@ -66,6 +66,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -180,6 +181,32 @@ B5_STEP_SHARE = 1e-3           # of (step, row) pairs further apart than 1e-2 of
 # of the f32 plain version's (a probe on an H100 read 0.3-0.6x); a wrong
 # term or a lost partial sum would put it far above
 B5_F64_RATIO = 2.0
+# the baselines (SNF, DSM CDE, INN) served from the committed
+# baselines_{snf,dsm,inn} archives on serve()'s conditions and GT, n_repeats
+# cut from 10; beside them BENCHMARKS.md's 100-condition rows of the JAX
+# package on the same weights, a reading and not a check (other conditions)
+BASELINE_REPEATS = 2
+BASELINE_JAX_ROWS = {"SNF": {"KL": 0.581, "NLPD": 0.643, "W2": 0.0965},
+                     "diffusion": {"KL": 0.755, "NLPD": 2.18, "W2": 0.0597},
+                     "INN": {"KL": 1.018, "NLPD": 6.81, "W2": 0.0865}}
+# SNF and INN sample on the card against the chip machine's CPU, same z and
+# MH draws: f32 in another sum order, within 1e-4 on unit-scale samples.  An
+# SNF row whose MH accept sits on its threshold can take the other branch
+# on one device and follow another path: at most 1% of the rows, the rule
+# of the refinement chains' card test.  The INN has no such decision.
+BASELINE_DEVICE_ROWS = 2000
+BASELINE_DEVICE_ATOL = 1e-4
+SNF_DEVICE_SPLIT_SHARE = 0.01
+BASELINE_TIMING_REPS = 3
+# both baseline drivers on the card with their shipped configs and widths,
+# epochs cut to two calls of the engine for each model (5 / 25 or 100 / 25
+# epochs a call), evaluation cut to these conditions and 1 repeat
+TRAIN_BASELINES = {
+    "linear": dict(n_epochs_SNF=10, n_epochs_dsm=50, n_epochs_INN=50, n_samples_y=2),
+    "scat": dict(n_epochs_SNF=10, n_epochs_dsm=200, n_epochs_INN=50, n_samples_y=1),
+}
+BASELINE_EPOCHS_PER_CALL = {"linear": (5, 25, 25), "scat": (5, 100, 25)}
+LINEAR_EVAL_TIMING_REPEATS = 3
 
 
 class CheckFailed(Exception):
@@ -953,10 +980,13 @@ def train_log(cfg):
 
 
 def epochs_per_s(cfg) -> float:
+    steps, _, ts = train_log(cfg)
+    return call_rate(steps, ts, int(cfg["epochs_per_call"]))
+
+
+def call_rate(steps, ts, epc: int) -> float:
     """Steady-state rate: epochs between the end of the first call to the
     epoch engine and the end of the last, over the time between them."""
-    steps, _, ts = train_log(cfg)
-    epc = int(cfg["epochs_per_call"])
     ends = [(s, t) for s, t in zip(steps, ts) if s % epc == epc - 1 or s == steps[-1]]
     return (ends[-1][0] - ends[0][0]) / (ends[-1][1] - ends[0][1])
 
@@ -1034,6 +1064,175 @@ def train(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
             check(_finite(plain[name]["refined"][tag].values()), f"{name}: refined row {plain[name]['refined']}")
     phase("train_plain", t0, loss_fn_linear_config=lin_cfg["loss_fn"], **plain)
     return {"linear": n_lin["dsm_train"], "scat": n_scat["dsm_train"]}
+
+
+def stage_baselines(train_dir: str) -> None:
+    """The committed baselines_{snf,dsm,inn} archives under ``train_dir``
+    with the baseline drivers' names."""
+    for name, archive in (("snf", "baselines_snf"), ("diffusion", "baselines_dsm"), ("INN", "baselines_inn")):
+        shutil.copytree(os.path.join(REPO, "benchmarks/checkpoints", archive), os.path.join(train_dir, name))
+
+
+def serve_baselines_scat(torch, gt_dir) -> int:
+    """The committed SNF, DSM CDE and INN served at full width through the
+    scatterometry baselines driver (``--eval_only``) on serve()'s
+    conditions and GT, B1 launches counted from zero around it; then the DSM
+    row again by the plain f32 E-M path, the SNF and INN on the card against
+    the chip machine's CPU on fixed draws, and each model's time per 30k-
+    sample posterior.  Returns the B1 launches."""
+    from dmip_tpu_torch import checkpoints, flows
+    from dmip_tpu_torch.mains import main_baselines_scatterometry as mbs
+    from dmip_tpu_torch.mains.generate_scatterometry_ground_truth import test_conditions
+    from dmip_tpu_torch.mains.main_baselines_linear import build_models
+    from dmip_tpu_torch.ops import fused_em_sampler
+    from dmip_tpu_torch.problems import scatterometry as scat
+    from dmip_tpu_torch.utils import load_config
+
+    cfg = dict(load_config(os.path.join(REPO, "configs/config_baselines_scatterometry.yml")),
+               n_samples_y=SCAT_CONDITIONS, n_samples_x=N_SAMPLES, n_repeats=BASELINE_REPEATS,
+               train_dir=os.path.join(gt_dir, "baselines_train"), out_dir=os.path.join(gt_dir, "baselines"))
+    stage_baselines(cfg["train_dir"])
+    fused_em_sampler.launches = 0
+    t0 = time.time()
+    m = mbs.run(cfg, gt_dir, eval_only=True, device="cuda")
+    torch.cuda.synchronize()
+    n_b1 = fused_em_sampler.launches
+    csv = os.path.join(cfg["out_dir"], "results.csv")
+    nll_mcmc = _column(csv, "NLL_mcmc")
+    rows = {}
+    for model, nll in (("SNF", "NLL_snf"), ("diffusion", "NLL_diffusion"), ("INN", "NLL_inn")):
+        nlpd = sum(abs(a - b) for a, b in zip(_column(csv, nll), nll_mcmc)) / len(nll_mcmc)
+        rows[model] = {"KL": m[f"KL_{model}"], "KL_reverse": m[f"KL_{model}_reverse"], "NLPD": nlpd,
+                       "W2": m[f"W2_{model}"], "jax_100_conditions": BASELINE_JAX_ROWS[model]}
+    t1 = time.time()
+    plain = mbs.run(dict(cfg, eval_method="plain", out_dir=os.path.join(gt_dir, "baselines_plain")), gt_dir,
+                    eval_only=True, device="cuda")
+    torch.cuda.synchronize()
+    plain_s = time.time() - t1
+    check(fused_em_sampler.launches == n_b1, "the plain baselines path launched B1")
+
+    # the flows on the card and on this machine's CPU, same z and MH draws
+    forward_model, fp = scat.load_forward_model(device="cuda")
+    y = test_conditions(cfg, forward_model, fp, "cuda")[0]
+    gen = torch.Generator().manual_seed(11)
+    n = BASELINE_DEVICE_ROWS
+    z = torch.randn(n, 3, generator=gen)
+    steps = int(cfg["metr_steps_per_block"])
+    out, models = {}, {}
+    for dev in ("cuda", "cpu"):
+        f, _ = scat.load_forward_model(device=dev)
+        energy = lambda x, ys, f=f: scat.get_log_posterior(x, f, fp["a"], fp["b"], ys, fp["lambd_bd"])
+        snf, diffusion, inn = build_models(cfg, energy, 3, 23)
+        params = [checkpoints.load_archived_params(os.path.join(cfg["train_dir"], name), device=dev)
+                  for name in ("snf", "diffusion", "INN")]
+        models[dev] = (snf, diffusion[0], inn, params)
+        draws = [None if isinstance(layer, flows.DeterministicLayer) else
+                 {"noise": torch.randn(steps, n, 3, generator=torch.Generator().manual_seed(100 + i)).to(dev),
+                  "uniforms": torch.rand(steps, n, generator=torch.Generator().manual_seed(200 + i)).to(dev)}
+                 for i, layer in enumerate(snf.layers)]
+        with torch.no_grad():
+            out[dev] = (snf.sample(params[0], y.to(dev), n, z=z.to(dev), draws=draws),
+                        inn.sample(params[2], y.to(dev), n, z=z.to(dev)))
+    snf_err = (out["cuda"][0].cpu() - out["cpu"][0]).abs().amax(dim=1)
+    inn_err = (out["cuda"][1].cpu() - out["cpu"][1]).abs().amax(dim=1)
+    split = float((snf_err > BASELINE_DEVICE_ATOL).float().mean())
+    agreeing = torch.where(snf_err <= BASELINE_DEVICE_ATOL, snf_err, torch.zeros_like(snf_err))
+    device_check = {"rows": n, "snf_max_abs_err_agreeing_rows": float(agreeing.max()), "snf_split_share": split,
+                    "inn_max_abs_err": float(inn_err.max())}
+
+    # ms per 30k-sample posterior of each model, one condition, CUDA events
+    snf, diffusion, inn, params = models["cuda"]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    with torch.no_grad():
+        ms = {"SNF": cuda_ms(lambda: snf.sample(params[0], y, N_SAMPLES, gen), BASELINE_TIMING_REPS),
+              "INN": cuda_ms(lambda: inn.sample(params[2], y, N_SAMPLES, gen), BASELINE_TIMING_REPS),
+              "diffusion_b1_em200": cuda_ms(lambda: diffusion.sample(params[1], y, N_SAMPLES, EM_STEPS, generator=gen,
+                                                                     device="cuda"), BASELINE_TIMING_REPS)}
+    phase("serve_baselines_scat", t0, conditions=SCAT_CONDITIONS, repeats=BASELINE_REPEATS, samples=N_SAMPLES,
+          launches=n_b1, **rows, diffusion_plain_KL=plain["KL_diffusion"], plain_seconds=plain_s,
+          device_consistency=device_check, ms_per_posterior=ms)
+    check(_finite([v for r in rows.values() for k, v in r.items() if k != "jax_100_conditions"])
+          and _finite(plain.values()), f"non-finite baseline metrics {rows}")
+    check(n_b1 == BASELINE_REPEATS * SCAT_CONDITIONS, f"serve_baselines_scat: {n_b1} B1 launches")
+    check(abs(rows["diffusion"]["KL"] - plain["KL_diffusion"]) <= SCAT_KL_AGREE,
+          f"baseline DSM KL kernel {rows['diffusion']['KL']} vs plain {plain['KL_diffusion']}")
+    check(split <= SNF_DEVICE_SPLIT_SHARE and device_check["snf_max_abs_err_agreeing_rows"] <= BASELINE_DEVICE_ATOL,
+          f"SNF card vs CPU: {device_check}")
+    check(device_check["inn_max_abs_err"] <= BASELINE_DEVICE_ATOL, f"INN card vs CPU: {device_check}")
+    return n_b1
+
+
+def baseline_rates(cfg, problem: str) -> dict:
+    """Per model (the driver trains SNF, diffusion, INN in turn, each
+    logging epochs from 0): its losses and its steady epochs/s."""
+    steps, losses, ts = train_log(cfg)
+    starts = [i for i, s in enumerate(steps) if s == 0] + [len(steps)]
+    out = {}
+    for j, name in enumerate(("SNF", "diffusion", "INN")):
+        seg = slice(starts[j], starts[j + 1])
+        out[name] = {"losses_first_last": [losses[seg][0], losses[seg][-1]], "all_finite": _finite(losses[seg]),
+                     "epochs": len(steps[seg]),
+                     "epochs_per_s": call_rate(steps[seg], ts[seg], BASELINE_EPOCHS_PER_CALL[problem][j])}
+    return out
+
+
+def train_baselines(torch, gt_dir) -> dict:
+    """Both baseline drivers end to end on the card with their shipped
+    configs (widths kept, epochs and evaluation cut): SNF, DSM CDE and INN
+    through the autograd engine (no B3 launch), the evaluation's DSM rows
+    through B1 (scatterometry on serve()'s GT).  Each model's epochs/s from
+    the log, first call excluded; every loss finite; the checkpoints reload.
+    Then the linear evaluation's ms per repeat.  Returns the B1 launches by
+    problem."""
+    from dmip_tpu_torch import checkpoints
+    from dmip_tpu_torch.mains import main_baselines_linear as mbl
+    from dmip_tpu_torch.mains import main_baselines_scatterometry as mbs
+    from dmip_tpu_torch.mains.eval_diffusion import linear_test_conditions
+    from dmip_tpu_torch.ops import fused_dsm_train_epochs, fused_em_sampler
+    from dmip_tpu_torch.problems import LinearForwardProblem
+    from dmip_tpu_torch.utils import load_config, profiling
+
+    runs = {"linear": ("config_baselines_linear.yml", lambda c: mbl.run(c, device="cuda"), (2, 2)),
+            "scat": ("config_baselines_scatterometry.yml", lambda c: mbs.run(c, gt_dir, device="cuda"), (3, 23))}
+    launches, res = {}, {}
+    for problem, (cfg_name, fn, (xdim, ydim)) in runs.items():
+        cfg = dict(load_config(os.path.join(REPO, "configs", cfg_name)), **TRAIN_BASELINES[problem],
+                   n_samples_x=N_SAMPLES, n_repeats=1, train_dir=os.path.join(gt_dir, "train_baselines_" + problem),
+                   out_dir=os.path.join(gt_dir, "out_baselines_" + problem))
+        fused_em_sampler.launches = fused_dsm_train_epochs.launches = 0
+        t0 = time.time()
+        m = fn(cfg)
+        torch.cuda.synchronize()
+        launches[problem] = fused_em_sampler.launches
+        rates = baseline_rates(cfg, problem)
+        models = mbl.build_models(cfg, None, xdim, ydim)
+        like = mbl.init_params(models, 0, "cuda")
+        reloaded = mbl.load_params(cfg["train_dir"], like, "cuda")
+        reload_ok = all(len(checkpoints._leaves(r)) == len(checkpoints._leaves(p)) and
+                        all(bool(torch.isfinite(t).all()) for t in checkpoints._leaves(r))
+                        for r, p in zip(reloaded, like))
+        res[problem] = {"metrics": m, "models": rates, "launches": launches[problem], "reload_ok": reload_ok,
+                        "seconds": time.time() - t0, "cfg": cfg, "reloaded": reloaded}
+        phase("train_baselines", t0, problem=problem, launches=launches[problem], models=rates, metrics=m)
+        check(fused_dsm_train_epochs.launches == 0, f"train_baselines {problem}: the autograd engine launched B3")
+        check(launches[problem] == cfg["n_samples_y"], f"train_baselines {problem}: {launches[problem]} B1 launches")
+        check(all(r["all_finite"] for r in rates.values()) and _finite(m.values()),
+              f"train_baselines {problem}: losses {rates}, metrics {m}")
+        check(reload_ok, f"train_baselines {problem}: a checkpoint did not reload")
+
+    # the linear baselines evaluation's ms per repeat (one condition), after a warm-up call
+    t0 = time.time()
+    cfg = dict(res["linear"]["cfg"], n_repeats=LINEAR_EVAL_TIMING_REPEATS,
+               out_dir=os.path.join(gt_dir, "out_baselines_linear_timed"))
+    prob = LinearForwardProblem()
+    models = mbl.build_models(cfg, lambda x, ys: prob.log_posterior(x, ys)[:, 0], 2, 2)
+    params = res["linear"]["reloaded"]
+    ys = linear_test_conditions(cfg, prob, "cuda")[:1]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    sec, _ = profiling.timeit(lambda: mbl.evaluate_all(cfg, prob, models, params, ys, gen, cfg["out_dir"]), reps=2)
+    phase("linear_baselines_eval_ms", t0, repeats=LINEAR_EVAL_TIMING_REPEATS,
+          ms_per_repeat=1e3 * sec / LINEAR_EVAL_TIMING_REPEATS)
+    return launches
 
 
 def b3_work(in_dim, out_dim, hidden, batch: int, n_steps: int):
@@ -1211,16 +1410,19 @@ def run() -> list:
         serve_samplers(torch, lin_cfg, scat_cfg, served, work)
         profile_serve(torch, lin_cfg, work)
         launches.update(serve_cdiffe_dps(torch, work))
+        baseline_launches = serve_baselines_scat(torch, work)
         b3_launches = train(torch, lin_cfg, scat_cfg, work)
         cdiffe_train = train_cdiffe(torch, work, gen)
+        train_baselines(torch, work)
 
     # timings at the main path's shapes, after the counts were read; B1's
     # numbers are per launch, weighted by the launches of each net
     t0 = time.time()
-    # the refined rows' proposals too (linear_pinn2 has the linear net's shape)
+    # the refined rows' proposals too (linear_pinn2 has the linear net's
+    # shape), and the served baselines' DSM rows (baselines_dsm has cde_500k's)
     em_n = {"linear_refined_winner": launches["em_linear"] + refined_launches["linear"],
-            "cde_500k": launches["em"] - launches["em_linear"] + refined_launches["cde_500k"]}
-    launches["em"] += sum(refined_launches.values())
+            "cde_500k": launches["em"] - launches["em_linear"] + refined_launches["cde_500k"] + baseline_launches}
+    launches["em"] += sum(refined_launches.values()) + baseline_launches
     em_t, em_flops, em_bytes = {}, 0.0, 0.0
     for name, (params, y) in nets.items():
         x0 = torch.randn(N_SAMPLES, params[-1][0].shape[1], generator=gen, device="cuda")

@@ -2,63 +2,59 @@
 
 The format of ``dmip_tpu/checkpoints.py``: a directory with one
 ``<name>.npz`` per tree (``leaf_0 .. leaf_{n-1}`` in JAX's flatten order)
-beside ``<name>.treedef.json``, and ``manifest.json`` with the step.  The
-port writes params as the (W, b) pairs, W of shape (fan_in, fan_out), and an
-:class:`~dmip_tpu_torch.train.AdamState` in optax's flatten order:
+beside ``<name>.treedef.json``, and ``manifest.json`` with the step.  Any
+tree of :mod:`dmip_tpu_torch.pytree` is written with JAX's leaf order and
+its ``PyTreeDef(...)`` string: an MLP's (W, b) pairs (W of shape (fan_in,
+fan_out)), a dict of MLPs such as a ``PosteriorDiffusionEstimator``'s
+``{'likelihood', 'prior'}``, the flows' lists of ``{'s1', 's2'}``
+couplings with ``()`` for the SNF's stochastic layers.  An
+:class:`~dmip_tpu_torch.train.AdamState` goes in optax's flatten order:
 
-  ``adam``             [count, mu W0, mu b0, ..., nu W0, nu b0, ...]
+  ``adam``             [count, mu leaves..., nu leaves...]
   ``adam`` + cosine    the same, then the schedule's count
   clip + ``adam``      the same as ``adam`` (the clip state has no leaves)
 
 so each package restores the other's checkpoint.  The training seed, an int
 in the port, goes into the manifest as ``seed``; the JAX package's PRNG key
 file is left to the JAX package.
-
-Archived params may also be a dict of MLPs, as the JAX package writes a
-``PosteriorDiffusionEstimator``'s ``{'likelihood', 'prior'}`` tree: JAX
-flattens a dict in sorted-key order, so ``leaf_0 ..`` are the first key's
-(W, b) pairs, then the next key's.  :func:`load_archived_params` reads such
-a tree into a dict of pair tuples; writing one is not ported (ROADMAP.md §A
-item 11).
 """
 
 from __future__ import annotations
 
 import json
 import os
-import re
-from typing import Any, Dict, Iterable, Optional, Tuple, Union
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from .nets import MLPParams
-
-_PAIRS = r"\((?:\(\*, \*\)(?:, )?)+\)"
-_PAIRS_TREEDEF = re.compile(rf"^PyTreeDef\({_PAIRS}\)$")
-_DICT_TREEDEF = re.compile(rf"^PyTreeDef\(\{{((?:'\w+': {_PAIRS}(?:, )?)+)\}}\)$")
-_DICT_ENTRY = re.compile(rf"'(\w+)': ({_PAIRS})")
+from . import pytree
+from .pytree import leaves as _leaves
 
 
-def params_from_numpy(
-    pairs: Union[Iterable[Tuple[np.ndarray, np.ndarray]], Dict[str, Iterable]], device=None,
-    dtype=torch.float32,
-):
-    """JAX (W, b) numpy pairs -> the port's tuple of (W, b) tensors; a dict
-    of such pair lists -> a dict of tuples with the same keys."""
-    if isinstance(pairs, dict):
-        return {k: params_from_numpy(v, device, dtype) for k, v in pairs.items()}
-    return tuple(
-        (
-            torch.as_tensor(np.array(w, order="C"), dtype=dtype, device=device),
-            torch.as_tensor(np.array(b, order="C"), dtype=dtype, device=device),
-        )
-        for w, b in pairs
+def _is_pair_list(seq) -> bool:
+    return all(
+        isinstance(p, (tuple, list)) and len(p) == 2 and all(hasattr(a, "shape") for a in p) for p in seq
     )
 
 
+def params_from_numpy(tree, device=None, dtype=torch.float32):
+    """A JAX params tree as numpy arrays -> the port's tree of tensors.
+
+    A sequence of (W, b) pairs (or an iterator of them) becomes an MLP, a
+    tuple of (W, b) tensor pairs; a dict keeps its keys, a list stays a
+    list and another tuple a tuple (``()`` for an SNF's stochastic layer),
+    each converted inside."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)) and (not tree or not _is_pair_list(tree)):
+        return type(tree)(params_from_numpy(v, device, dtype) for v in tree)
+    as_t = lambda a: torch.as_tensor(np.array(a, order="C"), dtype=dtype, device=device)
+    return tuple((as_t(w), as_t(b)) for w, b in tree)
+
+
 def adam_state_from_numpy(count, mu, nu, schedule_count=None, device=None):
-    """optax Adam state as numpy (count, mu pairs, nu pairs[, schedule
+    """optax Adam state as numpy (count, mu tree, nu tree[, schedule
     count]) -> the port's :class:`~dmip_tpu_torch.train.AdamState`."""
     from .train import AdamState
 
@@ -69,45 +65,43 @@ def adam_state_from_numpy(count, mu, nu, schedule_count=None, device=None):
     )
 
 
+def _is_mlp(node) -> bool:
+    return isinstance(node, tuple) and len(node) > 0 and all(
+        isinstance(p, tuple) and len(p) == 2 and all(a is pytree.LEAF for a in p) for p in node
+    )
+
+
+def _is_mlp_tree(node) -> bool:
+    """An MLP, or a tuple, list or dict whose every entry is one (empty
+    tuples and lists included)."""
+    if _is_mlp(node):
+        return True
+    if isinstance(node, dict):
+        return len(node) > 0 and all(_is_mlp_tree(v) for v in node.values())
+    if isinstance(node, (tuple, list)):
+        return all(_is_mlp_tree(v) for v in node)
+    return False
+
+
 def load_archived_params(ckpt_dir: str, device=None, dtype=torch.float32):
-    """Read ``<ckpt_dir>/params.npz`` written by the JAX package, e.g.
-    ``benchmarks/checkpoints/cde_500k`` (an MLP: a tuple of (W, b) pairs) or
-    ``benchmarks/checkpoints/dps_prior`` (a dict of MLPs, returned as a dict
-    of pair tuples).  Any other tree raises."""
+    """Read ``<ckpt_dir>/params.npz`` written by the JAX package into the
+    tree its ``params.treedef.json`` describes: an MLP as a tuple of (W, b)
+    pairs (``benchmarks/checkpoints/cde_500k``), a dict of MLPs
+    (``dps_prior``), a flow's list of ``{'s1', 's2'}`` couplings
+    (``baselines_inn``) or an SNF's list of such lists and ``()``
+    (``baselines_snf``).  A tree with a leaf outside an MLP's (W, b) pairs
+    raises."""
     with open(os.path.join(ckpt_dir, "params.treedef.json")) as f:
         treedef = json.load(f)
-    if _PAIRS_TREEDEF.match(treedef):
-        counts = {None: treedef.count("(*, *)")}
-    elif _DICT_TREEDEF.match(treedef):
-        counts = {k: v.count("(*, *)") for k, v in _DICT_ENTRY.findall(treedef)}
-        if list(counts) != sorted(counts):
-            raise ValueError(f"{ckpt_dir}: dict keys not in JAX's sorted order: {treedef}")
-    else:
-        raise ValueError(f"{ckpt_dir}: not an MLP (W, b) pair tree or a dict of such trees: {treedef}")
-    leaves = _read_leaves(ckpt_dir, "params")
-    if len(leaves) != 2 * sum(counts.values()):
-        raise ValueError(
-            f"{ckpt_dir}: {len(leaves)} leaves for {sum(counts.values())} (W, b) pairs"
-        )
-    out, i = {}, 0
-    for key, n in counts.items():
-        part = leaves[i : i + 2 * n]
-        out[key] = params_from_numpy(zip(part[0::2], part[1::2]), device=device, dtype=dtype)
-        i += 2 * n
-    return out[None] if None in out else out
-
-
-def _leaves(tree) -> list:
-    """Leaves in JAX's flatten order: a tuple of pairs is walked in order;
-    an AdamState gives count, mu, nu and the schedule count."""
-    from .train import AdamState
-
-    if isinstance(tree, AdamState):
-        sched = [] if tree.schedule_count is None else [tree.schedule_count]
-        return [tree.count, *_leaves(tree.mu), *_leaves(tree.nu), *sched]
-    if isinstance(tree, (tuple, list)):
-        return [leaf for sub in tree for leaf in _leaves(sub)]
-    return [tree]
+    structure = pytree.parse_treedef(treedef)
+    if not _is_mlp_tree(structure):
+        raise ValueError(f"{ckpt_dir}: not an MLP (W, b) pair tree or a tree of such MLPs: {treedef}")
+    flat = _read_leaves(ckpt_dir, "params")
+    want = len(_leaves(structure))
+    if len(flat) != want:
+        raise ValueError(f"{ckpt_dir}: {len(flat)} leaves for a structure of {want}")
+    as_t = lambda a: torch.as_tensor(np.array(a, order="C"), dtype=dtype, device=device)
+    return pytree.unflatten(structure, [as_t(a) for a in flat])
 
 
 def _treedef(tree) -> str:
@@ -115,7 +109,7 @@ def _treedef(tree) -> str:
 
     if isinstance(tree, AdamState):
         return f"AdamState(count, mu, nu{', schedule_count' if tree.schedule_count is not None else ''})"
-    return "PyTreeDef((" + ", ".join("(*, *)" for _ in tree) + "))"
+    return pytree.treedef(tree)
 
 
 def _read_leaves(path: str, name: str) -> list:
@@ -124,32 +118,26 @@ def _read_leaves(path: str, name: str) -> list:
 
 
 def save_pytree(path: str, tree, name: str) -> None:
-    leaves = _leaves(tree)
     np.savez(
         os.path.join(path, f"{name}.npz"),
-        **{f"leaf_{i}": leaf.detach().cpu().numpy() for i, leaf in enumerate(leaves)},
+        **{f"leaf_{i}": leaf.detach().cpu().numpy() for i, leaf in enumerate(_leaves(tree))},
     )
     with open(os.path.join(path, f"{name}.treedef.json"), "w") as f:
         json.dump(_treedef(tree), f)
 
 
 def load_pytree(path: str, like, name: str, device=None):
-    """Restore a tree with the structure of ``like`` (params pairs or an
-    AdamState); tensors go to ``device`` (default: like's)."""
-    from .train import AdamState
-
-    leaves = _read_leaves(path, name)
-    want = len(_leaves(like))
-    if len(leaves) != want:
-        raise ValueError(f"{path}/{name}.npz: {len(leaves)} leaves, the structure takes {want}")
-    dev = device if device is not None else _leaves(like)[0].device
-    if isinstance(like, AdamState):
-        n = len(_leaves(like.mu))
-        pairs = lambda flat: tuple(zip(flat[0::2], flat[1::2]))
-        sched = leaves[2 * n + 1] if like.schedule_count is not None else None
-        return adam_state_from_numpy(leaves[0], pairs(leaves[1:n + 1]), pairs(leaves[n + 1:2 * n + 1]),
-                                     sched, device=dev)
-    return params_from_numpy(zip(leaves[0::2], leaves[1::2]), device=dev)
+    """Restore a tree with the structure of ``like`` (any params tree or an
+    AdamState); each leaf takes the dtype of like's and goes to ``device``
+    (default: like's)."""
+    flat = _read_leaves(path, name)
+    like_leaves = _leaves(like)
+    if len(flat) != len(like_leaves):
+        raise ValueError(f"{path}/{name}.npz: {len(flat)} leaves, the structure takes {len(like_leaves)}")
+    return pytree.unflatten(like, [
+        torch.as_tensor(np.array(a, order="C"), dtype=ref.dtype, device=ref.device if device is None else device)
+        for a, ref in zip(flat, like_leaves)
+    ])
 
 
 def save_checkpoint(

@@ -39,7 +39,18 @@ def _draw(sample, shape, generator, like: Tensor, given: Optional[Tensor]) -> Te
 
 def energy_grad(x: Tensor, energy: EnergyFn) -> Tuple[Tensor, Tensor]:
     """(grad of energy, per-sample energy) at x, by one forward and one
-    backward pass; also under ``torch.no_grad``."""
+    backward pass.
+
+    With grad enabled and an x that requires it (an SNF layer inside a
+    loss), both stay in the graph (``create_graph``), so a loss
+    differentiates through the gradient as ``jax.grad`` does through
+    ``dmip_tpu.mcmc.energy_grad``.  Otherwise (also under
+    ``torch.no_grad``, as the refinement chains run) both come back
+    detached."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        e = energy(x)
+        (grad,) = torch.autograd.grad(e.sum(), x, create_graph=True)
+        return grad, e
     with torch.enable_grad():
         z = x.detach().requires_grad_(True)
         e = energy(z)
@@ -63,7 +74,9 @@ def langevin_step(
     final point); log_det accumulates 0.5 (|eta|^2 - |eta_back|^2), the
     forward/backward noise correction of the MALA acceptance ratio.  ``eta``
     (lang_steps, n, d) replaces the normal draws.  The gradient at a
-    sub-step's end point is the next sub-step's start gradient.
+    sub-step's end point is the next sub-step's start gradient.  Inside a
+    loss (grad enabled, x requiring it) every term stays differentiable
+    (:func:`energy_grad`).
     """
     scale = math.sqrt(2.0 * stepsize / beta)
     grad_x, e_x = energy_grad(x, energy)

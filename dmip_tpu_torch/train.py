@@ -16,8 +16,10 @@ Port of ``dmip_tpu/train.py``:
   * ``fit``              -- the Python-level epoch driver
   * ``get_model_from_args`` -- config keys -> (model, loss config)
 
-Parameters and moments are tuples of (W, b) tensors; every function returns
-new tensors and leaves its arguments as they were.
+Parameters and moments are trees of tensors (:mod:`dmip_tpu_torch.pytree`:
+an MLP's tuple of (W, b) pairs, a flow's list of coupling dicts, a dict of
+MLPs), taken in JAX's leaf order; every function returns new tensors and
+leaves its arguments as they were.
 """
 
 from __future__ import annotations
@@ -29,21 +31,14 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from . import pytree
 from .models.diffusion import CDE, CDiffE, DiffusionModel, LossConfig, PosteriorDiffusionEstimator
 
 Tensor = torch.Tensor
-Pairs = Tuple[Tuple[Tensor, Tensor], ...]
+Tree = Any  # a tree of tensors, see dmip_tpu_torch.pytree
 
 # optax.adam's defaults, the only values the configs use
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-
-
-def _flat(tree: Pairs):
-    return [t for pair in tree for t in pair]
-
-
-def _pairs(flat) -> Pairs:
-    return tuple((flat[i], flat[i + 1]) for i in range(0, len(flat), 2))
 
 
 class AdamState(NamedTuple):
@@ -52,8 +47,8 @@ class AdamState(NamedTuple):
     int32 tensors."""
 
     count: Tensor
-    mu: Pairs
-    nu: Pairs
+    mu: Tree
+    nu: Tree
     schedule_count: Optional[Tensor] = None
 
 
@@ -73,9 +68,9 @@ class Optimizer:
     decay_steps: Optional[int] = None  # cosine decay when set
     lr_min_ratio: float = 0.01
 
-    def init(self, params: Pairs) -> AdamState:
-        zeros = lambda: tuple((torch.zeros_like(w), torch.zeros_like(b)) for w, b in params)
-        count = torch.zeros((), dtype=torch.int32, device=params[0][0].device)
+    def init(self, params: Tree) -> AdamState:
+        zeros = lambda: pytree.map(torch.zeros_like, params)
+        count = torch.zeros((), dtype=torch.int32, device=pytree.leaves(params)[0].device)
         return AdamState(count, zeros(), zeros(), count.clone() if self.decay_steps else None)
 
     def learning_rate(self, count: Tensor) -> Tensor:
@@ -87,14 +82,14 @@ class Optimizer:
         cosine = 0.5 * (1 + torch.cos(math.pi * c / float(self.decay_steps)))
         return self.lr * ((1 - self.lr_min_ratio) * cosine + self.lr_min_ratio)
 
-    def update(self, grads: Pairs, state: AdamState) -> Tuple[Pairs, AdamState]:
-        g = _flat(grads)
+    def update(self, grads: Tree, state: AdamState) -> Tuple[Tree, AdamState]:
+        g = pytree.leaves(grads)
         if self.grad_clip:
             norm = torch.sqrt(sum(torch.sum(x * x) for x in g))
             keep = norm < self.grad_clip
             g = [torch.where(keep, x, (x / norm) * self.grad_clip) for x in g]
-        mu = [(1 - ADAM_B1) * x + ADAM_B1 * m for x, m in zip(g, _flat(state.mu))]
-        nu = [(1 - ADAM_B2) * (x * x) + ADAM_B2 * v for x, v in zip(g, _flat(state.nu))]
+        mu = [(1 - ADAM_B1) * x + ADAM_B1 * m for x, m in zip(g, pytree.leaves(state.mu))]
+        nu = [(1 - ADAM_B2) * (x * x) + ADAM_B2 * v for x, v in zip(g, pytree.leaves(state.nu))]
         count = _safe_increment(state.count)
         cf = count.to(torch.float32)
         bc1 = 1 - torch.pow(torch.tensor(ADAM_B1, device=cf.device), cf)
@@ -102,7 +97,8 @@ class Optimizer:
         step = -self.learning_rate(state.schedule_count if self.decay_steps else count)
         updates = [step * ((m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)) for m, v in zip(mu, nu)]
         sched = _safe_increment(state.schedule_count) if self.decay_steps else None
-        return _pairs(updates), AdamState(count, _pairs(mu), _pairs(nu), sched)
+        tree = lambda flat: pytree.unflatten(grads, flat)
+        return tree(updates), AdamState(count, tree(mu), tree(nu), sched)
 
 
 def _safe_increment(count: Tensor) -> Tensor:
@@ -110,8 +106,8 @@ def _safe_increment(count: Tensor) -> Tensor:
     return torch.where(count < torch.iinfo(torch.int32).max, count + 1, count)
 
 
-def apply_updates(params: Pairs, updates: Pairs) -> Pairs:
-    return tuple((w + uw, b + ub) for (w, b), (uw, ub) in zip(params, updates))
+def apply_updates(params: Tree, updates: Tree) -> Tree:
+    return pytree.map(torch.add, params, updates)
 
 
 def build_optimizer(
@@ -143,25 +139,20 @@ def make_train_step(loss_fn, optimizer: Optimizer, skip_nonfinite: bool = True):
     """
 
     def step(params, opt_state: AdamState, generator, x, y):
-        leaves = [t.detach().requires_grad_(True) for t in _flat(params)]
-        loss, info = loss_fn(_pairs(leaves), generator, x, y)
+        leaves = [t.detach().requires_grad_(True) for t in pytree.leaves(params)]
+        tree = lambda flat: pytree.unflatten(params, flat)
+        loss, info = loss_fn(tree(leaves), generator, x, y)
         grads = torch.autograd.grad(loss, leaves)
-        updates, new_state = optimizer.update(_pairs(list(grads)), opt_state)
-        new_params = apply_updates(_pairs([t.detach() for t in leaves]), updates)
+        updates, new_state = optimizer.update(tree(grads), opt_state)
+        new_params = apply_updates(tree([t.detach() for t in leaves]), updates)
         if skip_nonfinite:
             finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
             keep = lambda new, old: torch.where(finite, new, old)
-            new_params = _pairs([keep(n, o) for n, o in zip(_flat(new_params), _flat(params))])
-            new_state = _keep_state(keep, new_state, opt_state)
+            new_params = pytree.map(keep, new_params, params)
+            new_state = pytree.map(keep, new_state, opt_state)
         return new_params, new_state, loss.detach(), {k: v.detach() for k, v in info.items()}
 
     return step
-
-
-def _keep_state(keep, new: AdamState, old: AdamState) -> AdamState:
-    pick = lambda a, b: _pairs([keep(n, o) for n, o in zip(_flat(a), _flat(b))])
-    sched = None if new.schedule_count is None else keep(new.schedule_count, old.schedule_count)
-    return AdamState(keep(new.count, old.count), pick(new.mu, old.mu), pick(new.nu, old.nu), sched)
 
 
 def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
@@ -204,7 +195,7 @@ def make_epoch_fn(
     train_step = make_train_step(loss_fn, optimizer)
 
     def epochs(params, opt_state: AdamState, seed: int, epoch0: int, n_active: int = epochs_per_call):
-        dev = params[0][0].device
+        dev = pytree.leaves(params)[0].device
         losses = torch.full((epochs_per_call,), float("nan"), device=dev)
         infos: Dict[str, Tensor] = {}
         for j in range(min(n_active, epochs_per_call)):

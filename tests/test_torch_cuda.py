@@ -607,3 +607,80 @@ def test_profiler_sees_the_card(cuda, tmp_path):
     assert (tmp_path / "trace.json").exists()
     sec, out = profiling.timeit(fused_em_sampler, tp, x0, y, 20, seed=1)
     assert sec > 0.0 and out.shape == (30000, 3)
+
+
+def _baseline_energy(dev):
+    f, fp = scat.load_forward_model(device=dev)
+    return lambda x, ys: scat.get_log_posterior(x, f, fp["a"], fp["b"], ys, fp["lambd_bd"])
+
+
+def test_flows_on_the_card_match_the_cpu(cuda):
+    """The committed SNF and INN (``baselines_{snf,inn}``) sample on the card
+    and on the CPU from the same z and MH draws: f32 in another sum order,
+    within 1e-4 (the SNF on all but at most 1% of the rows, whose MH accept
+    sits on its threshold, the refinement chains' rule).  Then a MALA SNF's
+    loss gradient, which runs through the Langevin steps' kept graph, on
+    the card against the CPU's."""
+    from dmip_tpu_torch import flows, pytree
+
+    n, gen = 2000, torch.Generator().manual_seed(3)
+    z = torch.randn(n, 3, generator=gen)
+    noise, unif = torch.randn(10, n, 3, generator=gen), torch.rand(10, n, generator=gen)
+    y = scat.load_forward_model()[0](torch.tensor([[0.2, -0.4, 0.6]]))[0]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        snf = flows.create_snf(4, 64, _baseline_energy(dev), metr_steps_per_block=10, dimension=3,
+                               dimension_condition=23, noise_std=0.4)
+        inn = flows.create_inn(4, 64, 3, 23)
+        sp = load_archived_params(os.path.join(REPO, "benchmarks/checkpoints/baselines_snf"), device=dev)
+        ip = load_archived_params(os.path.join(REPO, "benchmarks/checkpoints/baselines_inn"), device=dev)
+        draws = [None if isinstance(layer, flows.DeterministicLayer) else {"noise": noise.to(dev), "uniforms": unif.to(dev)}
+                 for layer in snf.layers]
+        with torch.no_grad():
+            out[dev.type] = (snf.sample(sp, y.to(dev), n, z=z.to(dev), draws=draws),
+                             inn.sample(ip, y.to(dev), n, z=z.to(dev)))
+    assert out["cuda"][0].device.type == "cuda"
+    snf_err = (out["cuda"][0].cpu() - out["cpu"][0]).abs().amax(dim=1)
+    assert float((snf_err > 1e-4).float().mean()) <= 0.01
+    torch.testing.assert_close(out["cuda"][1].cpu(), out["cpu"][1], rtol=0, atol=1e-4)
+
+    prob = LinearForwardProblem()
+    snf = flows.create_snf(2, 32, lambda x, ys: prob.log_posterior(x, ys)[:, 0], metr_steps_per_block=2,
+                           dimension=2, dimension_condition=2, langevin_prop=True, lang_steps_prop=2)
+    p0 = snf.init(torch.Generator().manual_seed(4))
+    x, ys = 0.5 * torch.randn(500, 2, generator=gen), torch.randn(500, 2, generator=gen)
+    eta, unif = torch.randn(2, 2, 500, 2, generator=gen), torch.rand(2, 500, generator=gen)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.to(dev).requires_grad_(True) for t in pytree.leaves(p0)]
+        draws = [None if isinstance(layer, flows.DeterministicLayer) else {"noise": eta.to(dev), "uniforms": unif.to(dev)}
+                 for layer in snf.layers]
+        loss = flows.snf_ml_loss(snf, pytree.unflatten(p0, leaves), x.to(dev), ys.to(dev), draws=draws)
+        grads[dev.type] = torch.autograd.grad(loss, leaves)
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def test_baselines_dsm_row_reaches_b1(cuda, tmp_path):
+    """The scatterometry baselines driver re-scores the committed archives
+    (``--eval_only``) on the card: the DSM row samples through B1, one
+    launch a repeat, and every metric is finite."""
+    import shutil
+
+    from dmip_tpu_torch.mains import main_baselines_scatterometry as mbs
+    from dmip_tpu_torch.utils import load_config
+
+    gt_dir = tmp_path / "gt" / "0"
+    os.makedirs(gt_dir)
+    rng = np.random.default_rng(0)
+    for j in range(2):
+        np.save(gt_dir / f"{j}.npy", rng.uniform(-1, 1, size=(2000, 3)).astype(np.float32))
+    cfg = dict(load_config(os.path.join(REPO, "configs/config_baselines_scatterometry.yml")), n_samples_y=1,
+               n_samples_x=2000, n_repeats=2, train_dir=str(tmp_path / "train"), out_dir=str(tmp_path / "out"))
+    for name, archive in (("snf", "baselines_snf"), ("diffusion", "baselines_dsm"), ("INN", "baselines_inn")):
+        shutil.copytree(os.path.join(REPO, "benchmarks/checkpoints", archive), os.path.join(cfg["train_dir"], name))
+    before = fused_em_sampler.launches
+    mean = mbs.run(cfg, str(tmp_path / "gt"), eval_only=True, device="cuda")
+    torch.cuda.synchronize()
+    assert fused_em_sampler.launches == before + 2
+    assert all(np.isfinite(v) for v in mean.values()), mean
