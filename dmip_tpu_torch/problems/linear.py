@@ -3,8 +3,10 @@
 Port of ``dmip_tpu/problems/linear.py:29-176`` (forward model, posterior
 moments, sampling, log density, the quadratic energy and the score).  f(x) = A x + b with
 A = [[1, .5], [0, 1]], b = (0.3, 0.5), noise covariance Sigma = 0.3 I and a
-standard-normal prior.  Constants are built on the device the caller's
-tensors live on.
+standard-normal prior.  The constants of the forward model, the score and
+the posterior moments are built once per device and dtype (the caller's
+tensors'), so a call only queues work on the device and never copies from
+the host or waits for it.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -56,27 +58,28 @@ class LinearForwardProblem:
         return self.forward(x)
 
     def forward(self, x: Tensor) -> Tensor:
-        return x @ self.A(x).T + self.b(x)
+        c = _constants(self, x.device, x.dtype)
+        return x @ c.A.T + c.b
 
     # -- analytic posterior --------------------------------------------------
     def posterior_moments(self, y: Tensor) -> Tuple[Tensor, Tensor]:
         """N(mean, cov) of x | y (prior mean 0, prior covariance I)."""
-        A, Sy = self.A(y), self.Sigma_y_inv(y)
-        mean = A.T @ Sy @ (y - self.b(y))
-        cov = torch.eye(self.xdim, dtype=y.dtype, device=y.device) - A.T @ Sy @ A
-        return mean, cov
+        c = _constants(self, y.device, y.dtype)
+        return c.AtSy @ (y - c.b), c.cov
 
     def sample_posterior(
         self, y: Tensor, n: int, generator: Optional[torch.Generator] = None
     ) -> Tensor:
-        mean, cov = self.posterior_moments(y)
+        c = _constants(self, y.device, y.dtype)
+        mean = c.AtSy @ (y - c.b)
         gen_dev = generator.device if generator is not None else y.device
         z = torch.randn(n, self.xdim, generator=generator, device=gen_dev, dtype=y.dtype)
-        return mean + z.to(y.device) @ torch.linalg.cholesky(cov).T
+        return mean + z.to(y.device) @ c.cov_tril.T
 
     def posterior_log_prob(self, x: Tensor, y: Tensor) -> Tensor:
-        mean, cov = self.posterior_moments(y)
-        return torch.distributions.MultivariateNormal(mean, covariance_matrix=cov).log_prob(x)
+        c = _constants(self, y.device, y.dtype)
+        mvn = torch.distributions.MultivariateNormal(c.AtSy @ (y - c.b), scale_tril=c.cov_tril, validate_args=False)
+        return mvn.log_prob(x)
 
     def log_posterior(self, xs: Tensor, ys: Tensor, epsilon: float = 1e-6) -> Tensor:
         """Unnormalized NEGATIVE log posterior 1/2 (x - m)^T C^-1 (x - m),
@@ -91,9 +94,29 @@ class LinearForwardProblem:
 
     def score_posterior(self, x: Tensor, y: Tensor) -> Tensor:
         """grad_x log p(x|y) = -x + A^T Sigma^-1 (y - A x - b)."""
-        A = self.A(x)
-        y_res = y - (x @ A.T + self.b(x))
-        return -x + (y_res @ self.Sigma_inv(x).T) @ A
+        c = _constants(self, x.device, x.dtype)
+        y_res = y - (x @ c.A.T + c.b)
+        return -x + (y_res @ c.Sigma_inv.T) @ c.A
+
+
+class _Constants(NamedTuple):
+    A: Tensor
+    b: Tensor
+    Sigma_inv: Tensor
+    AtSy: Tensor       # A^T Sigma_y^-1
+    cov: Tensor        # I - A^T Sigma_y^-1 A, the posterior covariance
+    cov_tril: Tensor   # its Cholesky factor
+
+
+@functools.lru_cache(maxsize=None)
+def _constants(prob: LinearForwardProblem, device, dtype) -> _Constants:
+    """The forward model's, the score's and the posterior moments'
+    constants on ``device``, computed as the per-call forms computed them."""
+    with torch.inference_mode(False), torch.no_grad():
+        like = torch.empty(0, dtype=dtype, device=device)
+        A, Sy = prob.A(like), prob.Sigma_y_inv(like)
+        cov = torch.eye(prob.xdim, dtype=dtype, device=device) - A.T @ Sy @ A
+        return _Constants(A, prob.b(like), prob.Sigma_inv(like), A.T @ Sy, cov, torch.linalg.cholesky(cov))
 
 
 @functools.lru_cache(maxsize=None)
