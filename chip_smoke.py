@@ -25,6 +25,12 @@ width:
     against the E-M rows, with the time per 30k-sample posterior of each
     sampler beside the E-M kernel's; then a ``torch.profiler`` trace of one
     linear serving condition (the card's busy share, the top operations);
+  * the baselines: the committed ``baselines_{snf,dsm,inn}`` (SNF and INN,
+    4 x 64 couplings; the 27 -> 512^3 -> 3 DSM CDE) served through the
+    scatterometry baselines driver (``--eval_only``) on the same conditions
+    and ground truth, the DSM row through the E-M kernel and again by its
+    plain path, the SNF and INN on the card against the CPU on fixed draws,
+    and each model's time per 30k-sample posterior;
   * DSM training of the 512x3 CDE through the fused training kernel
     (``train_backend: fused_pallas``): the linear config's full 1500 epochs,
     scatterometry cut to 2000 epochs, each followed by evaluation through
@@ -32,7 +38,10 @@ width:
     few epochs, on DSM and on the unchanged linear config (PINNLoss); then
     the CDiffE (27 -> 26) for 2 launches of the fused training kernel.  The
     autograd engine also trains ``config_linear_refined.yml`` for 2 epochs,
-    whose driver then scores the refined row.
+    whose driver then scores the refined row.  Last, both baseline drivers
+    train SNF, DSM CDE and INN end to end (shipped configs, epochs cut to
+    one engine call a model and one epoch) and score them, and the linear
+    baselines evaluation is timed per repeat.
 
 The E-M kernel is held against its plain version at both nets' shapes, the
 MH kernel at the 300k chains the ground-truth driver gives it, the training
@@ -199,11 +208,12 @@ BASELINE_DEVICE_ATOL = 1e-4
 SNF_DEVICE_SPLIT_SHARE = 0.01
 BASELINE_TIMING_REPS = 3
 # both baseline drivers on the card with their shipped configs and widths,
-# epochs cut to two calls of the engine for each model (5 / 25 or 100 / 25
-# epochs a call), evaluation cut to these conditions and 1 repeat
+# epochs cut to one full call of the engine for each model (5 / 25 or 100 /
+# 25 epochs a call) and one epoch more, whose rate excludes the first call;
+# evaluation cut to these conditions and 1 repeat
 TRAIN_BASELINES = {
-    "linear": dict(n_epochs_SNF=10, n_epochs_dsm=50, n_epochs_INN=50, n_samples_y=2),
-    "scat": dict(n_epochs_SNF=10, n_epochs_dsm=200, n_epochs_INN=50, n_samples_y=1),
+    "linear": dict(n_epochs_SNF=6, n_epochs_dsm=26, n_epochs_INN=26, n_samples_y=2),
+    "scat": dict(n_epochs_SNF=6, n_epochs_dsm=101, n_epochs_INN=26, n_samples_y=1),
 }
 BASELINE_EPOCHS_PER_CALL = {"linear": (5, 25, 25), "scat": (5, 100, 25)}
 LINEAR_EVAL_TIMING_REPEATS = 3
@@ -1176,15 +1186,14 @@ def baseline_rates(cfg, problem: str) -> dict:
     return out
 
 
-def train_baselines(torch, gt_dir) -> dict:
+def train_baselines(torch, gt_dir) -> None:
     """Both baseline drivers end to end on the card with their shipped
     configs (widths kept, epochs and evaluation cut): SNF, DSM CDE and INN
     through the autograd engine (no B3 launch), the evaluation's DSM rows
     through B1 (scatterometry on serve()'s GT).  Each model's epochs/s from
     the log, first call excluded; every loss finite; the checkpoints reload.
-    Then the linear evaluation's ms per repeat.  Returns the B1 launches by
-    problem."""
-    from dmip_tpu_torch import checkpoints
+    Then the linear evaluation's ms per repeat."""
+    from dmip_tpu_torch import pytree
     from dmip_tpu_torch.mains import main_baselines_linear as mbl
     from dmip_tpu_torch.mains import main_baselines_scatterometry as mbs
     from dmip_tpu_torch.mains.eval_diffusion import linear_test_conditions
@@ -1207,12 +1216,9 @@ def train_baselines(torch, gt_dir) -> dict:
         rates = baseline_rates(cfg, problem)
         models = mbl.build_models(cfg, None, xdim, ydim)
         like = mbl.init_params(models, 0, "cuda")
-        reloaded = mbl.load_params(cfg["train_dir"], like, "cuda")
-        reload_ok = all(len(checkpoints._leaves(r)) == len(checkpoints._leaves(p)) and
-                        all(bool(torch.isfinite(t).all()) for t in checkpoints._leaves(r))
-                        for r, p in zip(reloaded, like))
-        res[problem] = {"metrics": m, "models": rates, "launches": launches[problem], "reload_ok": reload_ok,
-                        "seconds": time.time() - t0, "cfg": cfg, "reloaded": reloaded}
+        reloaded = mbl.load_params(cfg["train_dir"], like, "cuda")  # raises on another structure
+        reload_ok = all(bool(torch.isfinite(t).all()) for t in pytree.leaves(reloaded))
+        res[problem] = (cfg, reloaded)
         phase("train_baselines", t0, problem=problem, launches=launches[problem], models=rates, metrics=m)
         check(fused_dsm_train_epochs.launches == 0, f"train_baselines {problem}: the autograd engine launched B3")
         check(launches[problem] == cfg["n_samples_y"], f"train_baselines {problem}: {launches[problem]} B1 launches")
@@ -1222,17 +1228,15 @@ def train_baselines(torch, gt_dir) -> dict:
 
     # the linear baselines evaluation's ms per repeat (one condition), after a warm-up call
     t0 = time.time()
-    cfg = dict(res["linear"]["cfg"], n_repeats=LINEAR_EVAL_TIMING_REPEATS,
-               out_dir=os.path.join(gt_dir, "out_baselines_linear_timed"))
+    cfg, params = res["linear"]
+    cfg = dict(cfg, n_repeats=LINEAR_EVAL_TIMING_REPEATS, out_dir=os.path.join(gt_dir, "out_baselines_linear_timed"))
     prob = LinearForwardProblem()
     models = mbl.build_models(cfg, lambda x, ys: prob.log_posterior(x, ys)[:, 0], 2, 2)
-    params = res["linear"]["reloaded"]
     ys = linear_test_conditions(cfg, prob, "cuda")[:1]
     gen = torch.Generator(device="cuda").manual_seed(13)
     sec, _ = profiling.timeit(lambda: mbl.evaluate_all(cfg, prob, models, params, ys, gen, cfg["out_dir"]), reps=2)
     phase("linear_baselines_eval_ms", t0, repeats=LINEAR_EVAL_TIMING_REPEATS,
           ms_per_repeat=1e3 * sec / LINEAR_EVAL_TIMING_REPEATS)
-    return launches
 
 
 def b3_work(in_dim, out_dim, hidden, batch: int, n_steps: int):

@@ -104,6 +104,7 @@ class _Constants(NamedTuple):
     b: Tensor
     Sigma_inv: Tensor
     AtSy: Tensor       # A^T Sigma_y^-1
+    SyA: Tensor        # Sigma_y^-1 A
     cov: Tensor        # I - A^T Sigma_y^-1 A, the posterior covariance
     cov_tril: Tensor   # its Cholesky factor
 
@@ -116,15 +117,14 @@ def _constants(prob: LinearForwardProblem, device, dtype) -> _Constants:
         like = torch.empty(0, dtype=dtype, device=device)
         A, Sy = prob.A(like), prob.Sigma_y_inv(like)
         cov = torch.eye(prob.xdim, dtype=dtype, device=device) - A.T @ Sy @ A
-        return _Constants(A, prob.b(like), prob.Sigma_inv(like), A.T @ Sy, cov, torch.linalg.cholesky(cov))
+        return _Constants(A, prob.b(like), prob.Sigma_inv(like), A.T @ Sy, Sy @ A, cov, torch.linalg.cholesky(cov))
 
 
 @functools.lru_cache(maxsize=None)
 def _energy_constants(prob: LinearForwardProblem, epsilon: float, device, dtype) -> Tuple[Tensor, Tensor, Tensor]:
     """(Sigma_y^-1 A, b, (I - A^T Sigma_y^-1 A + epsilon I)^-1) of
     :meth:`LinearForwardProblem.log_posterior`, on ``device``."""
+    c = _constants(prob, device, dtype)
     with torch.inference_mode(False), torch.no_grad():
-        like = torch.empty(0, dtype=dtype, device=device)
-        A, Sy = prob.A(like), prob.Sigma_y_inv(like)
         eye = torch.eye(prob.xdim, dtype=dtype, device=device)
-        return Sy @ A, prob.b(like), torch.linalg.inv_ex(eye - A.T @ Sy @ A + epsilon * eye)[0]
+        return c.SyA, c.b, torch.linalg.inv_ex(c.cov + epsilon * eye)[0]

@@ -117,7 +117,8 @@ def _snf_draws(jsnf, key, n, d, backward=False):
     for i in (reversed(order) if backward else order):
         key, k = jax.random.split(key)
         if not isinstance(jsnf.layers[i], jflows.DeterministicLayer):
-            draws[i] = {name: torch.as_tensor(np.asarray(v)) for name, v in _layer_draws(jsnf.layers[i], k, n, d).items()}
+            layer_draws = _layer_draws(jsnf.layers[i], k, n, d)
+            draws[i] = {name: torch.as_tensor(np.asarray(v)) for name, v in layer_draws.items()}
     return draws
 
 
