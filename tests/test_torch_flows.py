@@ -232,12 +232,12 @@ def test_snf_ml_loss_gradient_matches_jax(kind):
         _close(a, b, GRAD_TOL)
 
 
-def test_snf_builders_match_jax_layers():
+def test_snf_constructors_match_jax_layers():
     e = lambda x, ys: x.sum(1)
-    for builder in ("create_snf", "create_snf_last_layer"):
+    for create in ("create_snf", "create_snf_last_layer"):
         for kw in SNF_KINDS.values():
-            j = getattr(jflows, builder)(3, 8, e, metr_steps_per_block=2, dimension=2, dimension_condition=2, **kw)
-            t = getattr(flows, builder)(3, 8, e, metr_steps_per_block=2, dimension=2, dimension_condition=2, **kw)
+            j = getattr(jflows, create)(3, 8, e, metr_steps_per_block=2, dimension=2, dimension_condition=2, **kw)
+            t = getattr(flows, create)(3, 8, e, metr_steps_per_block=2, dimension=2, dimension_condition=2, **kw)
             assert [(type(a).__name__, vars(a)) for a in t.layers] == [(type(a).__name__, vars(a)) for a in j.layers]
             tp = t.init(torch.Generator().manual_seed(0))
             assert pytree.treedef(tp) == str(jax.tree_util.tree_structure(j.init(jax.random.PRNGKey(0))))
