@@ -41,7 +41,19 @@ width:
     whose driver then scores the refined row.  Last, both baseline drivers
     train SNF, DSM CDE and INN end to end (shipped configs, epochs cut to
     one engine call a model and one epoch) and score them, and the linear
-    baselines evaluation is timed per repeat.
+    baselines evaluation is timed per repeat;
+  * DPS training: one PosteriorLoss step at full width on the card against
+    the CPU on fixed draws (``dps_step_card_vs_cpu``), then the
+    scatterometry driver on ``config_scatterometry_dps.yml`` (widths, batch,
+    lr, lam and clip as shipped, epochs cut to two engine calls): the
+    {'prior', 'likelihood'} checkpoint, the learned row by the plain scan,
+    the trained prior re-served under analytic guidance through the guided
+    kernel, the learned row's time per posterior, and one more call resumed
+    from the checkpoint (``train_dps``).
+
+Every config handed to a driver has ``plot_ys: []`` (``card_config``): the
+drivers' corner plots need matplotlib, which this script does not require
+of the GPU host.
 
 The E-M kernel is held against its plain version at both nets' shapes, the
 MH kernel at the 300k chains the ground-truth driver gives it, the training
@@ -217,6 +229,31 @@ TRAIN_BASELINES = {
 }
 BASELINE_EPOCHS_PER_CALL = {"linear": (5, 25, 25), "scat": (5, 100, 25)}
 LINEAR_EVAL_TIMING_REPEATS = 3
+# train_dps: config_scatterometry_dps.yml with its widths (prior 4 -> 512^3
+# -> 3, likelihood 27 -> 512^3 -> 3), batch 1000, lr 1e-4, lam 1.0 and
+# guidance clip 100; n_epochs cut from 10000 to two calls of the autograd
+# engine (the rate from the second), the evaluation to serve()'s conditions
+# and GT x DPS_REPEATS; then one more call resumed from the checkpoint,
+# scored on one condition x one repeat
+DPS_TRAIN = dict(n_epochs=20, epochs_per_call=10)
+DPS_RESUME = dict(n_samples_y=1, n_repeats=1)
+DPS_TIMING_REPS = 2
+# dps_step_card_vs_cpu: one PosteriorLoss step of a 1000-row batch on the
+# card and on the host's CPU, same weights, x, y, t and eps, f32 on
+# both (TF32 off): the same arithmetic in another sum order, ~1e-6 relative
+# per product.  The likelihood target amplifies it: v2 = (y - f) / ((a f)^2
+# + b^2) with b^2 = 1e-4 divides the rounding of f by up to 1e4, and a
+# surrogate ReLU whose pre-activation sits at 0 can flip its mask on one
+# device only, changing that row's VJPs.  The rows with the largest targets
+# (1e3-1e4, near the box boundary) dominate the mean squared residual, so
+# the loss and LikelihoodLoss carry such a row's error; a gradient leaf sums
+# all rows and is held to its norm.  A probe on an H100 read at most 2.8e-4
+# on the loss terms and 5.5e-5 on a leaf (one target row off by 6.8%, the
+# p999 of rows 5.9e-4) with the committed weights, 9e-6 and 5.2e-6 from the
+# initial weights.  TF32 products (~5e-4 each) or a wrong term (O(1)) fail.
+DPS_STEP_BATCH = 1000
+DPS_STEP_LOSS_REL_TOL = 5e-3
+DPS_STEP_GRAD_REL_TOL = 5e-4
 
 
 class CheckFailed(Exception):
@@ -242,6 +279,17 @@ def ptxas_lines(report: str) -> list:
         elif "spill" in ln or "registers" in ln:
             out.append(f"{fn}: {ln.strip()}" if "spill" in ln and fn else ln.strip())
     return out
+
+
+def card_config(name: str) -> dict:
+    """A shipped config with ``plot_ys`` set to [] explicitly: a driver
+    draws the corner plots of every condition in ``plot_ys`` (some shipped
+    configs list them) through matplotlib, which this script does not
+    require of the GPU host.  Every config this script hands to a driver
+    comes from here."""
+    from dmip_tpu_torch.utils import load_config
+
+    return dict(load_config(os.path.join(REPO, "configs", name)), plot_ys=[])
 
 
 def card_line() -> str:
@@ -711,10 +759,9 @@ def serve_cdiffe_dps(torch, gt_dir) -> dict:
     seeds) for the KL comparison.  Returns the launch counts."""
     from dmip_tpu_torch.mains import eval_diffusion
     from dmip_tpu_torch.ops import fused_em_sampler_cdiffe, fused_guided_em_sampler
-    from dmip_tpu_torch.utils import load_config
 
     ckpt = lambda name: os.path.join(REPO, "benchmarks/checkpoints", name)
-    cd = dict(load_config(os.path.join(REPO, "configs/config_scatterometry_cdiffe.yml")),
+    cd = dict(card_config("config_scatterometry_cdiffe.yml"),
               n_samples_y=SCAT_CONDITIONS, n_samples_x=N_SAMPLES, n_repeats=REPEATS)
     fused_em_sampler_cdiffe.launches = 0
     t0 = time.time()
@@ -735,7 +782,7 @@ def serve_cdiffe_dps(torch, gt_dir) -> dict:
     check(fused_em_sampler_cdiffe.launches == n_b4, "the plain path launched B4")
     check(abs(k[0] - p[0][0]) <= tol, f"CDiffE KL kernel {k[0]} vs plain {p[0][0]} (tolerance {tol})")
 
-    dps = dict(load_config(os.path.join(REPO, "configs/config_scatterometry_dps.yml")),
+    dps = dict(card_config("config_scatterometry_dps.yml"),
                n_samples_y=SCAT_CONDITIONS, n_samples_x=N_SAMPLES, n_repeats=DPS_REPEATS)
     fused_guided_em_sampler.launches = 0
     t0 = time.time()
@@ -772,12 +819,11 @@ def serve_refined(torch, unrefined, gt_dir) -> dict:
     from dmip_tpu_torch import mcmc
     from dmip_tpu_torch.mains import eval_diffusion
     from dmip_tpu_torch.ops import fused_em_sampler
-    from dmip_tpu_torch.utils import load_config
 
     ckpt = lambda name: os.path.join(REPO, "benchmarks/checkpoints", name)
 
     def cfg(name, **kw):
-        return dict(load_config(os.path.join(REPO, "configs", name)), n_samples_x=N_SAMPLES, n_repeats=REPEATS, **kw)
+        return dict(card_config(name), n_samples_x=N_SAMPLES, n_repeats=REPEATS, **kw)
 
     sc = cfg("config_scatterometry_refined.yml", n_samples_y=SCAT_CONDITIONS)
     infos, chain = [], mcmc.annealed_mh
@@ -846,7 +892,7 @@ def serve_samplers(torch, lin_cfg, scat_cfg, unrefined, gt_dir) -> dict:
     from dmip_tpu_torch.ops import fused_em_sampler
     from dmip_tpu_torch.problems import LinearForwardProblem
     from dmip_tpu_torch.problems import scatterometry as scat
-    from dmip_tpu_torch.utils import load_config, profiling
+    from dmip_tpu_torch.utils import profiling
 
     ckpt = lambda name: os.path.join(REPO, "benchmarks/checkpoints", name)
     sized = dict(n_samples_x=N_SAMPLES, n_repeats=REPEATS, eval_num_steps=EXPINT_STEPS)
@@ -882,8 +928,8 @@ def serve_samplers(torch, lin_cfg, scat_cfg, unrefined, gt_dir) -> dict:
     y_scat = gt.test_conditions(scat_cfg, forward_model, fp, "cuda")[0]
     y_lin = eval_diffusion.linear_test_conditions(lin_cfg, LinearForwardProblem(), "cuda")[0]
     scat_model, lin_model = CDE(xdim=3, ydim=23), CDE(xdim=2, ydim=2)
-    refine_scat = load_config(os.path.join(REPO, "configs/config_scatterometry_refined.yml"))["refine"]
-    refine_lin = load_config(os.path.join(REPO, "configs/config_linear_refined.yml"))["refine"]
+    refine_scat = card_config("config_scatterometry_refined.yml")["refine"]
+    refine_lin = card_config("config_linear_refined.yml")["refine"]
     p_scat = load_archived_params(ckpt("cde_500k"), device="cuda")
     p_lin = load_archived_params(ckpt("linear_refined_winner"), device="cuda")
     scat_refined, scat_tag, _ = for_problem("scatterometry", scat_model, refine_scat, forward_model, fp)
@@ -925,12 +971,12 @@ def profile_serve(torch, lin_cfg, gt_dir) -> dict:
     from dmip_tpu_torch.models import CDE
     from dmip_tpu_torch.models.refined import for_problem
     from dmip_tpu_torch.problems import LinearForwardProblem
-    from dmip_tpu_torch.utils import load_config, profiling
+    from dmip_tpu_torch.utils import profiling
 
     cfg = dict(lin_cfg, n_samples_y=1, n_samples_x=N_SAMPLES, n_repeats=REPEATS)
     ckpt = os.path.join(REPO, "benchmarks/checkpoints/linear_refined_winner")
     refined, _, _ = for_problem("linear", CDE(xdim=2, ydim=2),
-                                load_config(os.path.join(REPO, "configs/config_linear_refined.yml"))["refine"])
+                                card_config("config_linear_refined.yml")["refine"])
     params = load_archived_params(ckpt, device="cuda")
     y = eval_diffusion.linear_test_conditions(lin_cfg, LinearForwardProblem(), "cuda")[0]
     gen = torch.Generator(device="cuda").manual_seed(9)
@@ -960,11 +1006,10 @@ def train_cdiffe(torch, gt_dir, gen) -> dict:
     fused engine (2 launches), evaluated through B4."""
     from dmip_tpu_torch.mains import main_diffusion_scatterometry as mscat
     from dmip_tpu_torch.ops import fused_dsm_train_epochs, fused_em_sampler_cdiffe
-    from dmip_tpu_torch.utils import load_config
 
     t0 = time.time()
     b3 = check_b3(torch, B3_CDIFFE[0], B3_CDIFFE[1], B3_CDIFFE[2], gen)
-    cfg = dict(load_config(os.path.join(REPO, "configs/config_scatterometry_cdiffe.yml")), **CDIFFE_TRAIN,
+    cfg = dict(card_config("config_scatterometry_cdiffe.yml"), **CDIFFE_TRAIN,
                train_backend="fused_pallas", n_samples_y=SCAT_CONDITIONS, n_samples_x=N_SAMPLES,
                n_repeats=CDIFFE_TRAIN_REPEATS, train_dir=os.path.join(gt_dir, "train_cdiffe"),
                out_dir=os.path.join(gt_dir, "out_cdiffe"))
@@ -981,11 +1026,11 @@ def train_cdiffe(torch, gt_dir, gen) -> dict:
     return n
 
 
-def train_log(cfg):
-    """(epochs, losses, seconds) of the run's Train/Loss events, in order."""
+def train_log(cfg, tag: str = "Train/Loss"):
+    """(epochs, values, seconds) of the run's ``tag`` events, in order."""
     with open(os.path.join(cfg["train_dir"], "logs", "events.jsonl")) as f:
         ev = [json.loads(ln) for ln in f]
-    ev = [e for e in ev if e["tag"] == "Train/Loss"]
+    ev = [e for e in ev if e["tag"] == tag]
     return [e["step"] for e in ev], [e["value"] for e in ev], [e["t"] for e in ev]
 
 
@@ -1011,9 +1056,8 @@ def train(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
     from dmip_tpu_torch.mains import main_diffusion_scatterometry as mscat
     from dmip_tpu_torch.models.refined import for_problem
     from dmip_tpu_torch.ops import fused_dsm_train_epochs, fused_em_sampler
-    from dmip_tpu_torch.utils import load_config
 
-    lin_refined_cfg = load_config(os.path.join(REPO, "configs/config_linear_refined.yml"))
+    lin_refined_cfg = card_config("config_linear_refined.yml")
 
     def dirs(name):
         return dict(train_dir=os.path.join(gt_dir, "train_" + name), out_dir=os.path.join(gt_dir, "out_" + name))
@@ -1096,9 +1140,8 @@ def serve_baselines_scat(torch, gt_dir) -> int:
     from dmip_tpu_torch.mains.main_baselines_linear import build_models
     from dmip_tpu_torch.ops import fused_em_sampler
     from dmip_tpu_torch.problems import scatterometry as scat
-    from dmip_tpu_torch.utils import load_config
 
-    cfg = dict(load_config(os.path.join(REPO, "configs/config_baselines_scatterometry.yml")),
+    cfg = dict(card_config("config_baselines_scatterometry.yml"),
                n_samples_y=SCAT_CONDITIONS, n_samples_x=N_SAMPLES, n_repeats=BASELINE_REPEATS,
                train_dir=os.path.join(gt_dir, "baselines_train"), out_dir=os.path.join(gt_dir, "baselines"))
     stage_baselines(cfg["train_dir"])
@@ -1199,13 +1242,13 @@ def train_baselines(torch, gt_dir) -> None:
     from dmip_tpu_torch.mains.eval_diffusion import linear_test_conditions
     from dmip_tpu_torch.ops import fused_dsm_train_epochs, fused_em_sampler
     from dmip_tpu_torch.problems import LinearForwardProblem
-    from dmip_tpu_torch.utils import load_config, profiling
+    from dmip_tpu_torch.utils import profiling
 
     runs = {"linear": ("config_baselines_linear.yml", lambda c: mbl.run(c, device="cuda"), (2, 2)),
             "scat": ("config_baselines_scatterometry.yml", lambda c: mbs.run(c, gt_dir, device="cuda"), (3, 23))}
     launches, res = {}, {}
     for problem, (cfg_name, fn, (xdim, ydim)) in runs.items():
-        cfg = dict(load_config(os.path.join(REPO, "configs", cfg_name)), **TRAIN_BASELINES[problem],
+        cfg = dict(card_config(cfg_name), **TRAIN_BASELINES[problem],
                    n_samples_x=N_SAMPLES, n_repeats=1, train_dir=os.path.join(gt_dir, "train_baselines_" + problem),
                    out_dir=os.path.join(gt_dir, "out_baselines_" + problem))
         fused_em_sampler.launches = fused_dsm_train_epochs.launches = 0
@@ -1237,6 +1280,153 @@ def train_baselines(torch, gt_dir) -> None:
     sec, _ = profiling.timeit(lambda: mbl.evaluate_all(cfg, prob, models, params, ys, gen, cfg["out_dir"]), reps=2)
     phase("linear_baselines_eval_ms", t0, repeats=LINEAR_EVAL_TIMING_REPEATS,
           ms_per_repeat=1e3 * sec / LINEAR_EVAL_TIMING_REPEATS)
+
+
+def dps_step_card_vs_cpu(torch) -> dict:
+    """One PosteriorLoss step at full width (prior 4 -> 512^3 -> 3,
+    likelihood 27 -> 512^3 -> 3, the 3 -> 256^3 -> 23 surrogate) on a batch
+    of DPS_STEP_BATCH scatterometry rows, on the card and on the CPU from
+    the same weights, x, y, t and eps (drawn on the CPU from a seeded
+    generator): the loss, its two info values and every gradient leaf of
+    both nets, each leaf's error against that leaf's norm; the likelihood
+    target itself row by row against the row's norm, as a reading.  Twice:
+    the committed dps_prior weights (trained: the regime of most of a run)
+    and the seeded initial weights a run starts from.  Fails if TF32 is on
+    for f32 products or an error is above its bound (DPS_STEP_*_REL_TOL)."""
+    from dmip_tpu_torch import data, pytree, train
+    from dmip_tpu_torch import losses as L
+    from dmip_tpu_torch import nets as N
+    from dmip_tpu_torch.checkpoints import load_archived_params
+    from dmip_tpu_torch.problems import scatterometry as scat
+    from dmip_tpu_torch.sde import sample_t
+
+    t0 = time.time()
+    tf32 = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    check(not tf32["allow_tf32"] and tf32["float32_matmul_precision"] == "highest", f"TF32 on for f32 products: {tf32}")
+    cfg = card_config("config_scatterometry_dps.yml")
+    gen = torch.Generator().manual_seed(21)
+    cpu_model, fp = scat.load_forward_model(device="cpu")
+    xs, ys = data.generate_dataset_scatterometry(cpu_model, fp["a"], fp["b"], size=DPS_STEP_BATCH, generator=gen)
+    model, loss_cfg = train.get_model_from_args(cfg, fp)
+    t = sample_t(model.sde, DPS_STEP_BATCH, gen)
+    eps = torch.randn(xs.shape, generator=gen)
+    weights = {"dps_prior": load_archived_params(os.path.join(REPO, "benchmarks/checkpoints/dps_prior")),
+               "init": model.init(torch.Generator().manual_seed(int(cfg["RANDOM_STATE"]) + 2))}
+    base = model.sde.base
+    out = {}
+    for name, params in weights.items():
+        res = {}
+        for dev in ("cpu", "cuda"):
+            forward_model, _ = scat.load_forward_model(device=dev)
+            loss = model.make_loss_fn(loss_cfg, forward_model=forward_model, forward_params=fp)
+            leaves = [a.to(dev).requires_grad_(True) for a in pytree.leaves(params)]
+            tree = pytree.unflatten(params, leaves)
+            x, y, tt, e = (a.to(dev) for a in (xs, ys, t, eps))
+            val, info = loss(tree, None, x, y, t=tt, eps=e)
+            grads = torch.autograd.grad(val, leaves)
+            with torch.no_grad():
+                target = L.likelihood_score_target(N.prior_mlp_apply, tree["prior"], base, forward_model,
+                                                   base.diffuse(tt, x, e), y, tt, a=fp["a"], b=fp["b"])
+            res[dev] = ([float(val.detach()), float(info["PriorLoss"].detach()), float(info["LikelihoodLoss"].detach())],
+                        [g.detach().cpu() for g in grads], target.cpu())
+        scalars = [abs(a - b) / abs(b) for a, b in zip(res["cuda"][0], res["cpu"][0])]
+        leaf = [float((g - h).norm() / h.norm()) for g, h in zip(res["cuda"][1], res["cpu"][1])]
+        tc, tr = res["cuda"][2], res["cpu"][2]
+        row = ((tc - tr).norm(dim=1) / tr.norm(dim=1).clamp(min=1e-30)).double()
+        out[name] = {"loss_cpu": res["cpu"][0][0], "info_cpu": res["cpu"][0][1:], "loss_info_rel_err": scalars,
+                     "grad_leaf_rel_err_max": max(leaf), "grad_leaf_rel_err": leaf,
+                     "target_abs_max": float(tr.abs().max()), "target_row_rel_err_max": float(row.max()),
+                     "target_row_rel_err_p999": float(row.quantile(0.999))}
+    phase("dps_step_card_vs_cpu", t0, batch=DPS_STEP_BATCH, tf32=tf32,
+          tolerance={"loss_info": DPS_STEP_LOSS_REL_TOL, "grad_leaf": DPS_STEP_GRAD_REL_TOL}, **out)
+    for name, r in out.items():
+        check(max(r["loss_info_rel_err"]) <= DPS_STEP_LOSS_REL_TOL
+              and r["grad_leaf_rel_err_max"] <= DPS_STEP_GRAD_REL_TOL, f"dps_step_card_vs_cpu ({name}): {r}")
+    return out
+
+
+def train_dps(torch, gt_dir) -> int:
+    """``main_diffusion_scatterometry`` on ``config_scatterometry_dps.yml``
+    (widths, batch, lr, lam and clip as shipped; epochs and evaluation cut,
+    see DPS_TRAIN) against serve()'s GT: PosteriorLoss training on the
+    autograd engine, the {'prior', 'likelihood'} checkpoint, the learned row
+    by the plain scan and the analytic row through B5, launches counted from
+    zero around the run; the learned row's ms per 30k-sample posterior;
+    then one more call resumed from the checkpoint.  Returns B5's launches."""
+    from dmip_tpu_torch import train
+    from dmip_tpu_torch.checkpoints import load_archived_params
+    from dmip_tpu_torch.mains import main_diffusion_scatterometry as mscat
+    from dmip_tpu_torch.mains.generate_scatterometry_ground_truth import test_conditions
+    from dmip_tpu_torch.ops import fused_dsm_train_epochs, fused_em_sampler, fused_guided_em_sampler
+    from dmip_tpu_torch.problems import scatterometry as scat
+
+    cfg = dict(card_config("config_scatterometry_dps.yml"), **DPS_TRAIN, n_samples_y=SCAT_CONDITIONS,
+               n_samples_x=N_SAMPLES, n_repeats=DPS_REPEATS, train_dir=os.path.join(gt_dir, "train_dps"),
+               out_dir=os.path.join(gt_dir, "out_dps"))
+    shipped = {k: cfg[k] for k in ("hidden_layers", "batch_size", "lr", "lam", "guidance_clip", "model")}
+    check(shipped == {"hidden_layers": [512, 512, 512], "batch_size": 1000, "lr": 1e-4, "lam": 1.0,
+                      "guidance_clip": 100.0, "model": "Posterior"}, f"train_dps: the shipped config changed: {shipped}")
+    fused_guided_em_sampler.launches = fused_em_sampler.launches = fused_dsm_train_epochs.launches = 0
+    t0 = time.time()
+    params, learned = mscat.run(cfg, gt_dir, device="cuda")
+    torch.cuda.synchronize()
+    n_b5 = fused_guided_em_sampler.launches
+    other = fused_em_sampler.launches + fused_dsm_train_epochs.launches
+    logs = {k: train_log(cfg, "Train/" + k)[1] for k in ("Loss", "PriorLoss", "LikelihoodLoss")}
+    steps, _, ts = train_log(cfg)
+    rate = call_rate(steps, ts, cfg["epochs_per_call"])
+    ckpt = os.path.join(cfg["train_dir"], "checkpoint")
+    with open(os.path.join(ckpt, "manifest.json")) as f:
+        manifest = json.load(f)
+    with open(os.path.join(ckpt, "params.treedef.json")) as f:
+        treedef = json.load(f)
+    csv = os.path.join(cfg["out_dir"] + "_analytic", "results.csv")
+    nll_mcmc = _column(csv, "NLL_mcmc")
+    cols = _results(csv)
+    analytic = {"KL": cols["KL2"], "KL_reverse": cols["KL_reverse"],
+                "NLPD": sum(abs(a - b) for a, b in zip(_column(csv, "NLL_diffusion"), nll_mcmc)) / len(nll_mcmc),
+                "score_MSE": cols["MSE"], "W2": cols["W2"]}
+
+    # the learned row's time per 30k-sample posterior (plain f32 scan, two nets)
+    model, _ = train.get_model_from_args(cfg, {"xdim": 3, "ydim": 23})
+    forward_model, fp = scat.load_forward_model(device="cuda")
+    y = test_conditions(cfg, forward_model, fp, "cuda")[0]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    with torch.no_grad():
+        learned_ms = cuda_ms(lambda: model.sample(params, y, N_SAMPLES, EM_STEPS, generator=gen, device="cuda"),
+                             DPS_TIMING_REPS)
+    phase("train_dps", t0, epochs=cfg["n_epochs"], epochs_per_call=cfg["epochs_per_call"],
+          first_last={k: [v[0], v[-1]] for k, v in logs.items()}, epochs_per_s=rate,
+          ms_per_step=1e3 / (rate * 8), learned={"KL": learned[0], "NLPD": learned[1], "score_MSE": learned[2]},
+          analytic=analytic, b5_launches=n_b5, other_kernel_launches=other, learned_ms_per_posterior=learned_ms,
+          manifest_step=manifest["step"], treedef=treedef)
+    check(_finite([*learned, *analytic.values(), rate, learned_ms] + [v for vs in logs.values() for v in vs]),
+          f"train_dps: non-finite losses or metrics: {logs}, {learned}, {analytic}")
+    check(logs["PriorLoss"][-1] < logs["PriorLoss"][0], f"train_dps: PriorLoss did not fall: {logs['PriorLoss']}")
+    check(treedef.startswith("PyTreeDef({'likelihood': ((*, *), (*, *), (*, *), (*, *)), 'prior': ((*, *),")
+          and manifest["step"] == cfg["n_epochs"] and manifest.get("has_opt_state"),
+          f"train_dps: checkpoint {manifest}, {treedef}")
+    check(n_b5 == SCAT_CONDITIONS * DPS_REPEATS and other == 0,
+          f"train_dps: {n_b5} B5 launches, {other} launches of the other kernels")
+
+    # the JAX driver's resume_training path: one more call from the checkpoint
+    t0 = time.time()
+    resumed = dict(cfg, **DPS_RESUME, resume_training=True, n_epochs=cfg["n_epochs"] + cfg["epochs_per_call"])
+    fused_guided_em_sampler.launches = 0
+    _, m = mscat.run(resumed, gt_dir, device="cuda")
+    torch.cuda.synchronize()
+    n_resumed = fused_guided_em_sampler.launches
+    with open(os.path.join(ckpt, "manifest.json")) as f:
+        step = json.load(f)["step"]
+    steps, losses, _ = train_log(resumed)
+    back = load_archived_params(ckpt, device="cuda")
+    phase("train_dps_resume", t0, from_epoch=cfg["n_epochs"], to_epoch=step, logged_epochs=[steps[0], steps[-1]],
+          last_losses=losses[-2:], KL=m[0], b5_launches=n_resumed)
+    check(step == resumed["n_epochs"] and steps == list(range(resumed["n_epochs"])) and _finite([*losses, *m])
+          and n_resumed == DPS_RESUME["n_samples_y"] * DPS_RESUME["n_repeats"]
+          and sorted(back) == ["likelihood", "prior"], f"train_dps resume: step {step}, epochs {steps}, {m}")
+    return n_b5 + n_resumed
 
 
 def b3_work(in_dim, out_dim, hidden, batch: int, n_steps: int):
@@ -1355,7 +1545,6 @@ def run() -> list:
     from dmip_tpu_torch.ops.mh_kernel import mh_chains_reference
     from dmip_tpu_torch.problems import LinearForwardProblem
     from dmip_tpu_torch.problems import scatterometry as scat
-    from dmip_tpu_torch.utils import load_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1364,8 +1553,8 @@ def run() -> list:
     phase("build", t0, ptxas={k: ptxas_lines(v) for k, v in reports.items()})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    scat_cfg = load_config(os.path.join(REPO, "configs/config_scatterometry.yml"))
-    lin_cfg = load_config(os.path.join(REPO, "configs/config_linear.yml"))
+    scat_cfg = card_config("config_scatterometry.yml")
+    lin_cfg = card_config("config_linear.yml")
     forward_model, fparams = scat.load_forward_model(device="cuda")
     weights = forward_model.weights
     ys = gt.test_conditions(scat_cfg, forward_model, fparams, "cuda")[:SCAT_CONDITIONS]
@@ -1418,6 +1607,8 @@ def run() -> list:
         b3_launches = train(torch, lin_cfg, scat_cfg, work)
         cdiffe_train = train_cdiffe(torch, work, gen)
         train_baselines(torch, work)
+        dps_step_card_vs_cpu(torch)
+        launches["guided"] += train_dps(torch, work)
 
     # timings at the main path's shapes, after the counts were read; B1's
     # numbers are per launch, weighted by the launches of each net

@@ -7,8 +7,10 @@ For each condition y, ``n_repeats`` x (posterior sampling + reference
 samples), 75^d histograms on a fixed box, the eps-smoothed forward and
 reverse histogram KL, the NLL under the true posterior (linear) or the MCMC
 energy (scatterometry), score-MSE at t = 0 and sliced W2.  Both harnesses
-write ``results.csv`` with the JAX package's columns.  Plotting is not
-ported.
+write ``results.csv`` with the JAX package's columns, and for each condition
+index in ``plot_ys`` the JAX package's corner plots of the last repeat's
+samples (:534-546, :745-752), through :mod:`dmip_tpu_torch.utils.plotting`,
+imported only then.
 """
 
 from __future__ import annotations
@@ -82,6 +84,19 @@ def _score_mse(model: DiffusionModel, params, x_true: Tensor, ys: Tensor, score_
     return torch.mean(torch.sum((score_pred - score_true) ** 2, dim=1))
 
 
+def plot_posteriors(out_dir: str, i: int, samples: Dict[str, Tensor], nbins: int, xlim: Tuple[float, float],
+                    xticks, show_mean: bool = False) -> None:
+    """``posterior-<tag>-<i>.svg`` in ``out_dir`` for each (tag, samples),
+    with the JAX drivers' arguments: ``nbins`` bins on the box ``xlim``,
+    size (12, 12), label size 30."""
+    from .utils.plotting import plot_density
+
+    os.makedirs(out_dir, exist_ok=True)
+    for tag, x in samples.items():
+        plot_density(x.detach().cpu().numpy(), nbins, limits=xlim, xticks=xticks, size=(12, 12), labelsize=30,
+                     show_mean=show_mean, fname=os.path.join(out_dir, f"posterior-{tag}-{i}.svg"))
+
+
 def _write_results_csv(path: str, columns: Dict[str, Sequence[float]]) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     keys = list(columns.keys())
@@ -107,10 +122,13 @@ def evaluate_linear(
     xlim: Tuple[float, float] = (-3.5, 3.5),
     verbose: bool = True,
     method: str = "auto",
+    plot_ys: Sequence[int] = (),
 ) -> Tuple[float, float, float]:
     """Linear evaluation against the analytic posterior; returns (mean KL,
     mean NLPD, mean score-MSE).  Runs on ys's device.  results.csv columns:
-    KL2, NLL_true, NLL_diffusion, MSE, W2."""
+    KL2, NLL_true, NLL_diffusion, MSE, W2.  With ``out_dir``, each condition
+    index in ``plot_ys`` gets ``posterior-{true,diffusion}-<i>.svg`` of the
+    last repeat's samples."""
     lo, hi = xlim
     cols = {"KL2": [], "NLL_true": [], "NLL_diffusion": [], "MSE": [], "W2": []}
     for i in range(ys.shape[0]):
@@ -131,6 +149,9 @@ def evaluate_linear(
             nll_t = -torch.mean(problem.posterior_log_prob(x_true, y))
             nll_p = -torch.mean(problem.posterior_log_prob(x_pred, y))
             stats.append(torch.stack([nll_t, nll_p, mse, w2]))
+        if out_dir is not None and i in plot_ys:
+            plot_posteriors(out_dir, i, {"true": x_true, "diffusion": x_pred}, nbins, xlim, list(xlim),
+                            show_mean=True)
         kl, _ = kl_pair(hist_t, hist_p)
         nll_t, nll_p, mse, w2 = torch.stack(stats).mean(0).tolist()
         for k, v in zip(cols, (float(kl), nll_t, nll_p, mse, w2)):
@@ -164,6 +185,7 @@ def evaluate_scatterometry(
     verbose: bool = True,
     method: str = "auto",
     progress_every: int = 0,
+    plot_ys: Sequence[int] = (),
 ) -> Tuple[float, float, float]:
     """Scatterometry evaluation against MCMC ground truth; ``gt_loader(i, j)``
     gives condition i's repeat j.  Returns (mean KL, mean NLPD, mean
@@ -172,7 +194,9 @@ def evaluate_scatterometry(
 
     ``progress_every=N`` prints a flushed heartbeat with the running rate
     each time the count of finished conditions crosses a multiple of N, and
-    after the last one (``dmip_tpu/evaluate.py:635-650``'s rule)."""
+    after the last one (``dmip_tpu/evaluate.py:635-650``'s rule).  With
+    ``out_dir``, each condition index in ``plot_ys`` gets
+    ``posterior-{mcmc,diffusion}-<i>.svg`` of the last repeat's samples."""
     from .problems.scatterometry import get_log_posterior
 
     lo, hi = xlim
@@ -200,6 +224,8 @@ def evaluate_scatterometry(
             hist_t = hist_t + histogramdd_flat(x_true, nbins, lo, hi)
             hist_p = hist_p + histogramdd_flat(x_pred, nbins, lo, hi)
             stats.append(torch.stack([torch.mean(energy(x_true)), torch.mean(energy(x_pred)), mse, w2]))
+        if out_dir is not None and i in plot_ys:
+            plot_posteriors(out_dir, i, {"mcmc": x_true, "diffusion": x_pred}, nbins, xlim, [-1, 0, 1])
         kl, kl_rev = kl_pair(hist_t, hist_p)
         nll_t, nll_p, mse, w2 = torch.stack(stats).mean(0).tolist()
         for k, v in zip(cols, (float(kl), float(kl_rev), nll_t, nll_p, mse, w2)):

@@ -27,9 +27,9 @@ Every random number (t, eps, the probe v) is an argument; the model's
 The DPS guidance terms (``dmip_tpu/losses.py:556-678``) are here too:
 ``likelihood_score_target`` (the Tweedie point-estimate likelihood
 gradient) and ``pgdm_likelihood_score`` (its variance-corrected form).
-They are the plain drift of ``AnalyticGuidanceDPS``.  ``posterior_loss``,
-which trains a likelihood net on the first, is not ported yet (ROADMAP.md
-§A item 11).
+They are the plain drift of ``AnalyticGuidanceDPS``.  ``posterior_loss``
+(``dmip_tpu/losses.py:681-741``) trains the DPS model's prior net by DSM and
+its likelihood net onto the first, held constant.
 """
 
 from __future__ import annotations
@@ -383,3 +383,45 @@ def pgdm_likelihood_score(
         return grad(ell)(xt_i)
 
     return torch.func.vmap(per_sample)(x_t, y, t.reshape(batch), std, alpha, r2)
+
+
+def posterior_loss(
+    prior_apply: Callable[..., Tensor],
+    likelihood_apply: Callable[..., Tensor],
+    prior_params,
+    likelihood_params,
+    base_sde: VPSDE,
+    forward_fn: Callable[[Tensor], Tensor],
+    x: Tensor,
+    y: Tensor,
+    eps: Tensor,
+    t: Tensor,
+    *,
+    a: float,
+    b: float,
+    lam: float,
+):
+    """Joint prior + likelihood score training; returns (loss, info).
+
+    mean(DSM(prior net) + lam |alpha s_lik - target|^2), the target being
+    :func:`likelihood_score_target` at x_t with the prior net's score.  The
+    target is a constant for the parameter gradient, as ``stop_gradient``
+    makes it in the JAX package: it is computed from ``s_prior.detach()``
+    under ``no_grad`` (the ``torch.func`` VJPs inside still differentiate
+    in x), so no graph of its six net passes is kept for the backward.
+    ``prior_apply(params, x, t)`` and ``likelihood_apply(params, x, y, t)``
+    are the batched nets; ``forward_fn`` the batched frozen surrogate.
+    """
+    x_t = base_sde.diffuse(t, x, eps)
+    std = base_sde.std(t)
+    alpha = base_sde.mean_weight(t)
+    s_prior = prior_apply(prior_params, x_t, t)
+    s_likelihood = likelihood_apply(likelihood_params, x_t, y, t)
+    prior = dsm_loss(s_prior, std, eps)
+    with torch.no_grad():
+        target = likelihood_score_target(
+            prior_apply, prior_params, base_sde, forward_fn, x_t, y, t, a=a, b=b, s_prior=s_prior.detach(),
+        )
+    likelihood = torch.sum((alpha * s_likelihood - target) ** 2, dim=1)
+    info = {"PriorLoss": torch.mean(prior), "LikelihoodLoss": lam * torch.mean(likelihood)}
+    return torch.mean(prior + lam * likelihood), info

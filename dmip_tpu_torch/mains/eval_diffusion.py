@@ -83,6 +83,17 @@ def _load_net(config: dict, dims: dict, checkpoint: str, dev):
     return model, params
 
 
+def analytic_row(model: PosteriorDiffusionEstimator, forward_model, fparams: dict, config: dict):
+    """(model, out-dir suffix) of the analytic-guidance row: the Posterior
+    model's prior net guided by the exact likelihood gradient through the
+    surrogate, capped at the config's ``guidance_clip``; with the
+    surrogate's weights it samples through the fused guided kernel on the
+    card."""
+    guided = AnalyticGuidanceDPS(model, forward_model, fparams, guidance_clip=float(config.get("guidance_clip", 100.0)),
+                                 surrogate_weights=forward_model.weights)
+    return guided, "_analytic"
+
+
 def linear_split(config: dict, prob: LinearForwardProblem, device):
     """(x_train, x_test, y_train, y_test): the linear dataset drawn from a
     CPU generator seeded with ``random_state``, split as the training
@@ -142,11 +153,8 @@ def run(
         y_test = test_conditions(config, forward_model, fparams, dev)
         model, params = _load_net(config, fparams, checkpoint, dev)
         if isinstance(model, PosteriorDiffusionEstimator) and config.get("eval_analytic_guidance"):
-            model = AnalyticGuidanceDPS(
-                model, forward_model, fparams, guidance_clip=float(config.get("guidance_clip", 100.0)),
-                surrogate_weights=forward_model.weights,
-            )
-            out_dir = None if out_dir is None else out_dir + "_analytic"
+            model, suffix = analytic_row(model, forward_model, fparams, config)
+            out_dir = None if out_dir is None else out_dir + suffix
         if refine:
             model, _, suffix = for_problem("scatterometry", model, refine, forward_model, fparams)
             out_dir = None if out_dir is None else out_dir + suffix

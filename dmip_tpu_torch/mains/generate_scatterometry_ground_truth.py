@@ -8,7 +8,10 @@ chains (every repeat) go through one launch of the fused MH kernel.
 
 ``--mcmc_seed`` draws fresh chains for the same conditions: held-out
 ground truth, to check that a knob chosen against the default set is not
-fit to its noise.
+fit to its noise.  With ``plot`` (``run``'s switch, on by default, as in
+the JAX driver) each condition index in the config's ``plot_ys`` (or
+``plot_y``) also gets ``<gt_dir>/<i>/posterior-mcmc-<i>.svg``, the corner
+plot of its last repeat.
 
 Usage: python -m dmip_tpu_torch.mains.generate_scatterometry_ground_truth \
           [--config configs/config_scatterometry.yml] [--gt_dir data/gt...] \
@@ -23,7 +26,7 @@ import os
 import numpy as np
 import torch
 
-from .. import data, resolve_device
+from .. import data, evaluate, resolve_device
 from ..ops.mh_kernel import fused_mh_scatterometry
 from ..problems import scatterometry as scat
 from ..utils import load_config
@@ -41,7 +44,7 @@ def test_conditions(config: dict, forward_model, fparams, device) -> torch.Tenso
     return y_test
 
 
-def run(config: dict, gt_dir: str, device=None, mcmc_seed=None) -> None:
+def run(config: dict, gt_dir: str, device=None, mcmc_seed=None, plot: bool = True) -> None:
     """Writes the ground truth of every test condition.  The chains draw
     from a generator seeded with ``RANDOM_STATE + 1``, or with
     ``mcmc_seed`` when given; the conditions do not change with it."""
@@ -61,11 +64,13 @@ def run(config: dict, gt_dir: str, device=None, mcmc_seed=None) -> None:
             lambd_bd=fparams["lambd_bd"],
             seed=int(torch.randint(0, 2**62, (1,), generator=gen)),
         )
-        x = x.reshape(n_repeats, n_x, 3).cpu().numpy()
+        x = x.reshape(n_repeats, n_x, 3).cpu()
         out_dir = os.path.join(gt_dir, str(i))
         os.makedirs(out_dir, exist_ok=True)
         for j in range(n_repeats):
-            np.save(os.path.join(out_dir, f"{j}.npy"), x[j])
+            np.save(os.path.join(out_dir, f"{j}.npy"), x[j].numpy())
+        if plot and i in config.get("plot_ys", config.get("plot_y", ())):
+            evaluate.plot_posteriors(out_dir, i, {"mcmc": x[-1]}, 75, (-1.2, 1.2), [-1, 0, 1])
         print(f"gt {i + 1}/{y_test.shape[0]} done", flush=True)
 
 

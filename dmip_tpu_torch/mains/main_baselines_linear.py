@@ -8,9 +8,11 @@ and ``INN``, and evaluates them side by side against the analytic
 posterior: per condition, ``n_repeats`` x 30k samples of each, the 75^2
 histogram KL of each model against the true posterior (KL1 SNF, KL2
 diffusion, KL3 INN), each sample set's NLL under the true posterior, and
-the diffusion net's score-MSE at t = 0, into ``out_dir/results.csv``.  The
-diffusion row samples through the config's ``eval_method`` ('auto': the
-fused E-M kernel on the card).
+the diffusion net's score-MSE at t = 0, into ``out_dir/results.csv``, and
+for each condition index in ``plot_ys`` the corner plots
+``posterior-{true,snf,diffusion,inn}-<i>.svg`` of the last repeat's
+samples.  The diffusion row samples through the config's ``eval_method``
+('auto': the fused E-M kernel on the card).
 
 Seeds, from ``random_state``: the data as the training drivers draw it,
 the three models' initial params from one generator seeded ``+ 1``, the
@@ -36,6 +38,7 @@ from ..utils import MetricsWriter, load_config, set_directories
 from .eval_diffusion import linear_split
 
 NAMES = ("snf", "diffusion", "INN")
+PLOT_TAGS = ("true", "snf", "diffusion", "inn")  # the reference samples, then the three models
 SNF_EPOCHS_PER_CALL = 5    # MCMC layers inside the loss
 INN_EPOCHS_PER_CALL = 25
 EVAL_STEPS = 200
@@ -107,11 +110,6 @@ def write_results(out_dir: str, rows: list) -> Dict[str, float]:
     return {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
 
 
-def note_plot_ys(config: dict) -> None:
-    if config.get("plot_ys"):
-        print("plot_ys: plotting is not ported yet (ROADMAP.md A6); no figures written", flush=True)
-
-
 @torch.no_grad()
 def evaluate_all(config: dict, prob: LinearForwardProblem, models, params: tuple, ys: torch.Tensor,
                  generator: Optional[torch.Generator], out_dir: str, nbins: int = 75,
@@ -132,12 +130,14 @@ def evaluate_all(config: dict, prob: LinearForwardProblem, models, params: tuple
             samples = (x_true, x_snf, x_diff, x_inn)
             hists = [h + evaluate.histogramdd_flat(s, nbins, *xlim) for h, s in zip(hists, samples)]
             stats.append(torch.stack([-torch.mean(prob.posterior_log_prob(s, y)) for s in samples] + [mse]))
+        if i in config.get("plot_ys", ()):
+            evaluate.plot_posteriors(out_dir, i, dict(zip(PLOT_TAGS, samples)), nbins, xlim, list(xlim),
+                                     show_mean=True)
         kls = [float(evaluate.kl_pair(hists[0], hists[m])[0]) for m in (1, 2, 3)]
         nlls_mse = torch.stack(stats).mean(0).tolist()
         rows.append(dict(zip(("KL1", "KL2", "KL3", "NLL_true", "NLL_snf", "NLL_diffusion", "NLL_inn", "MSE"),
                              kls + nlls_mse)))
         print(f"y {i + 1}/{ys.shape[0]} KL snf={kls[0]:.3f} diff={kls[1]:.3f} inn={kls[2]:.3f}", flush=True)
-    note_plot_ys(config)
     mean = write_results(out_dir, rows)
     print("means:", mean)
     return mean

@@ -10,8 +10,10 @@ forward and reverse 75^3 histogram KL of each model, each sample set's
 NLL under the posterior energy, the diffusion net's score-MSE at t = 0 and
 the sliced W2 of each model against the ground truth (the same directions
 for the three), into ``out_dir/results.csv`` with the JAX driver's
-columns.  The diffusion row samples through the config's ``eval_method``
-('auto': the fused E-M kernel on the card).
+columns, and for each condition index in ``plot_ys`` the corner plots
+``posterior-{true,snf,diffusion,inn}-<i>.svg`` of the last repeat's samples
+(``true`` is the ground truth).  The diffusion row samples through the
+config's ``eval_method`` ('auto': the fused E-M kernel on the card).
 
 ``--eval_only`` re-scores the checkpoints in ``train_dir`` without
 training; it does not call ``set_directories``, so the training run's logs
@@ -37,7 +39,7 @@ from .. import data, evaluate, resolve_device
 from ..problems import scatterometry as scat
 from ..utils import load_config, set_directories
 from .generate_scatterometry_ground_truth import test_conditions
-from .main_baselines_linear import (build_models, init_params, load_params, note_plot_ys, sample_all, train_all,
+from .main_baselines_linear import (PLOT_TAGS, build_models, init_params, load_params, sample_all, train_all,
                                     write_results)
 
 COLUMNS = ("KL_SNF", "KL_SNF_reverse", "KL_diffusion", "KL_diffusion_reverse", "KL_INN", "KL_INN_reverse",
@@ -73,12 +75,13 @@ def evaluate_all(config: dict, gt_dir: str, forward_model, fparams: dict, ys: to
                                device=generator.device if generator is not None else ys.device).to(ys.device)
             w2s = [evaluate.sliced_w2(s[:n_w2], x_true[:n_w2], dirs=dirs) for s in samples[1:]]
             stats.append(torch.stack(nlls + [mse] + w2s))
+        if i in config.get("plot_ys", ()):
+            evaluate.plot_posteriors(config["out_dir"], i, dict(zip(PLOT_TAGS, samples)), nbins, xlim, [-1, 0, 1])
         kls = [float(v) for m in (1, 2, 3) for v in evaluate.kl_pair(hists[0], hists[m])]
         rows.append(dict(zip(COLUMNS, kls + torch.stack(stats).mean(0).tolist())))
         r = rows[-1]
         print(f"y {i + 1}/{ys.shape[0]} KL_SNF={r['KL_SNF']:.3f} KL_diffusion={r['KL_diffusion']:.3f} "
               f"KL_INN={r['KL_INN']:.3f}", flush=True)
-    note_plot_ys(config)
     mean = write_results(config["out_dir"], rows)
     for k in ("KL_SNF", "KL_diffusion", "KL_INN", "W2_SNF", "W2_diffusion", "W2_INN"):
         print(f"{k}: {mean[k]}")

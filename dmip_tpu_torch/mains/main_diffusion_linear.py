@@ -4,13 +4,15 @@ Port of ``mains/main_diffusion_linear.py``: load the config, draw the
 dataset, build the (model, loss) pair from the config keys, train with the
 epoch engine of ``train_backend`` (``xla``: autograd; ``fused_pallas``: the
 fused DSM training kernel), save the full training state, and evaluate
-against the analytic posterior (KL / NLPD / score-MSE into results.csv)
-through the model's sampler: ``eval_method`` ('auto': the fused E-M
-kernel, B1 for the CDE, B4 for the CDiffE; or 'heun', 'expint...') for
-``eval_num_steps`` steps.  A config with ``refine`` (or ``--refine``) also
-scores the energy-refined row, refined on the analytic posterior's energy,
-into ``out_dir + "_refined_<tag>"``.  ``model: Posterior`` raises: its
-PosteriorLoss training is not ported.
+against the analytic posterior (KL / NLPD / score-MSE into results.csv,
+the corner plots of the conditions in ``plot_ys``) through the model's
+sampler: ``eval_method`` ('auto': the fused E-M kernel, B1 for the CDE, B4
+for the CDiffE; or 'heun', 'expint...') for ``eval_num_steps`` steps.  A
+config with ``refine`` (or ``--refine``) also scores the energy-refined
+row, refined on the analytic posterior's energy, into ``out_dir +
+"_refined_<tag>"``.  ``model: Posterior`` raises, as in the JAX package:
+its PosteriorLoss needs a forward model, which the linear problem does not
+hand it.
 
 Usage: python -m dmip_tpu_torch.mains.main_diffusion_linear \
           [--config configs/config_linear.yml] [--refine mh,20,0.2] [--device cuda|cpu]
@@ -68,15 +70,16 @@ def run(config: dict, device=None) -> tuple:
         )
     checkpoints.save_checkpoint(ckpt_dir, params, opt_state=opt_state, step=n_epochs, seed=train_seed)
 
-    def score(m, out_dir):
+    def score(m, out_dir, plot_ys=()):
         return evaluate.evaluate_linear(
             m, params, prob, y_test[: int(config["n_samples_y"])],
             torch.Generator(device=dev).manual_seed(seed + 3), out_dir=out_dir,
             n_samples_x=int(config["n_samples_x"]), n_repeats=int(config.get("n_repeats", 10)),
             num_steps=int(config.get("eval_num_steps", 200)), method=str(config.get("eval_method", "auto")),
+            plot_ys=plot_ys,
         )
 
-    metrics = score(model, config["out_dir"])
+    metrics = score(model, config["out_dir"], config.get("plot_ys", ()))
     if config.get("refine"):
         refined, tag, suffix = for_problem("linear", model, config["refine"])
         kl, nlpd, mse = score(refined, config["out_dir"] + suffix)

@@ -1,14 +1,21 @@
-"""Scatterometry diffusion experiment: train a CDE or CDiffE, checkpoint, evaluate.
+"""Scatterometry diffusion experiment: train a CDE, CDiffE or DPS model, checkpoint, evaluate.
 
 Port of ``mains/main_diffusion_scatterometry.py``: every epoch draws a fresh
 prior sample and simulates it through the surrogate (8 batches), the lr
 optionally follows a cosine schedule over n_epochs x 8 steps, and the
 trained net is evaluated against the MCMC ground truth written by
 ``generate_scatterometry_ground_truth`` for the same config, through the
-config's ``eval_method`` for ``eval_num_steps`` steps.  A config with
-``refine`` (the grammar string or the dict form) also scores the
-energy-refined row, refined on the surrogate posterior's energy, into
-``out_dir + "_refined"``.
+config's ``eval_method`` for ``eval_num_steps`` steps, with the corner
+plots of the conditions in ``plot_ys``.  A config with ``refine`` (the
+grammar string or the dict form) also scores the energy-refined row,
+refined on the surrogate posterior's energy, into ``out_dir + "_refined"``.
+
+``model: Posterior`` trains the DPS model's {'prior', 'likelihood'} nets
+with the PosteriorLoss through the surrogate (autograd engine), scores the
+learned likelihood row by the plain scan and, with
+``eval_analytic_guidance``, re-serves the trained prior net under analytic
+guidance (``guidance_clip``; the fused guided kernel on the card) into
+``out_dir + "_analytic"``.
 
 Usage: python -m dmip_tpu_torch.mains.main_diffusion_scatterometry \
           [--config configs/config_scatterometry.yml] [--gt_dir data/gt...] [--device cuda|cpu]
@@ -25,18 +32,13 @@ from .. import checkpoints, data, evaluate, resolve_device, train
 from ..models.refined import for_problem
 from ..problems import scatterometry as scat
 from ..utils import MetricsWriter, load_config, set_directories
+from .eval_diffusion import analytic_row
 from .generate_scatterometry_ground_truth import test_conditions
 
 
 def run(config: dict, gt_dir: str, device=None) -> tuple:
-    """Train and evaluate; returns (params, (KL, NLPD, score-MSE))."""
-    if config.get("model") == "Posterior":
-        raise NotImplementedError(
-            "training the Posterior model (PosteriorLoss) is not ported yet: the optimizer and the "
-            "checkpoints take a tuple of (W, b) pairs, not its {'prior', 'likelihood'} dict; see "
-            "ROADMAP.md §A item 11.  A trained checkpoint (e.g. benchmarks/checkpoints/dps_prior) "
-            "is served, with analytic guidance, by dmip_tpu_torch.mains.eval_diffusion"
-        )
+    """Train and evaluate; returns (params, (KL, NLPD, score-MSE)) of the
+    learned row."""
     dev = resolve_device(device)
     forward_model, fparams = scat.load_forward_model(device=dev)
     seed = int(config.get("RANDOM_STATE", 13))
@@ -44,7 +46,8 @@ def run(config: dict, gt_dir: str, device=None) -> tuple:
     score_post = scat.score_posterior(forward_model, fparams["a"], fparams["b"], fparams["lambd_bd"])
 
     model, loss_cfg = train.get_model_from_args(config, fparams)
-    loss_fn = model.make_loss_fn(loss_cfg, initial_condition=score_post)
+    loss_fn = model.make_loss_fn(loss_cfg, initial_condition=score_post, forward_model=forward_model,
+                                 forward_params=fparams)
     params = model.init(torch.Generator().manual_seed(seed + 2), device=dev)
     train_seed = seed + 3
 
@@ -79,19 +82,24 @@ def run(config: dict, gt_dir: str, device=None) -> tuple:
         )
     checkpoints.save_checkpoint(ckpt_dir, params, opt_state=opt_state, step=n_epochs, seed=train_seed)
 
-    def score(m, out_dir):
+    def score(m, out_dir, plot_ys=()):
         return evaluate.evaluate_scatterometry(
             m, params, forward_model, fparams, score_post, y_test, data.gt_loader(gt_dir),
             torch.Generator(device=dev).manual_seed(seed + 4), out_dir=out_dir,
             n_samples_x=int(config["n_samples_x"]), n_repeats=int(config.get("n_repeats", 10)),
             num_steps=int(config.get("eval_num_steps", 200)), method=str(config.get("eval_method", "auto")),
+            plot_ys=plot_ys,
         )
 
-    metrics = score(model, config["out_dir"])
+    metrics = score(model, config["out_dir"], config.get("plot_ys", ()))
     if config.get("refine"):
         refined, tag, suffix = for_problem("scatterometry", model, config["refine"], forward_model, fparams)
         kl, nlpd, mse = score(refined, config["out_dir"] + suffix)
         print(f"energy-refined ({tag}): KL={kl:.4f} NLPD={nlpd:.4f} score-MSE={mse:.4f}", flush=True)
+    if config.get("eval_analytic_guidance") and config.get("model") == "Posterior":
+        guided, suffix = analytic_row(model, forward_model, fparams, config)
+        kl, nlpd, mse = score(guided, config["out_dir"] + suffix)
+        print(f"analytic-guidance DPS: KL={kl:.4f} NLPD={nlpd:.4f} score-MSE={mse:.4f}", flush=True)
     return params, metrics
 
 

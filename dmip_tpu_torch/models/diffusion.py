@@ -4,7 +4,8 @@ Port of ``dmip_tpu/models/diffusion.py``: ``LossConfig``,
 ``DiffusionModel`` and ``CDE`` with ``init``, ``apply_a``,
 ``diffusion_state``, ``make_loss_fn`` (DSM, DSM_PDE, PINNLoss, PINNLoss2)
 and ``sample``; ``CDiffE`` (the joint diffusion of [x, y]);
-``PosteriorDiffusionEstimator`` (prior + likelihood nets, sampling only);
+``PosteriorDiffusionEstimator`` (prior + likelihood nets, trained with the
+PosteriorLoss);
 ``AnalyticGuidanceDPS`` (a prior net guided by the exact likelihood
 gradient through the frozen surrogate).  Parameters live outside the model:
 a tuple of (W, b) tensors, or for the posterior models a dict of them.
@@ -122,10 +123,23 @@ class DiffusionModel:
         CDE diffuses x conditioned on y."""
         return x, y
 
+    def _draw_t_eps(self, generator: Optional[torch.Generator], z0: Tensor, t, eps):
+        """(t, eps) for a loss, each drawn from ``generator`` unless given,
+        t first (one ``torch.rand((batch, 1))`` through ``sample_t``), then
+        eps (normal, the shape of z0); both moved to z0's device."""
+        gen_dev = generator.device if generator is not None else "cpu"
+        if t is None:
+            t = sample_t(self.sde, z0.shape[0], generator).to(z0.device)
+        if eps is None:
+            eps = torch.randn(z0.shape, generator=generator, device=gen_dev, dtype=z0.dtype).to(z0.device)
+        return t, eps
+
     def make_loss_fn(
         self,
         cfg: LossConfig,
         initial_condition: Optional[Callable[[Tensor, Tensor], Tensor]] = None,
+        forward_model: Optional[Callable[[Tensor], Tensor]] = None,
+        forward_params: Optional[Dict[str, float]] = None,
     ):
         """loss(params, generator, x, y, *, t=None, eps=None, v=None) ->
         (scalar, info dict).
@@ -135,6 +149,9 @@ class DiffusionModel:
         the shape of z0), and for a Hutchinson divergence the Rademacher
         probe v.  DSM draws no probe.  Passing t, eps and v (generator None)
         is the injection form the tests feed with another package's draws.
+        ``forward_model`` and ``forward_params`` are taken, as in the JAX
+        package, so that every model is built alike; only the Posterior
+        model's loss uses them.
         """
         if cfg.name not in ("DSM", "DSM_PDE", "PINNLoss", "PINNLoss2"):
             raise ValueError(f"unsupported loss {cfg.name!r} for {type(self).__name__}")
@@ -148,11 +165,7 @@ class DiffusionModel:
         def loss_fn(params, generator: Optional[torch.Generator], x: Tensor, y: Tensor, *,
                     t: Optional[Tensor] = None, eps: Optional[Tensor] = None, v: Optional[Tensor] = None):
             z0, cond_y = self.diffusion_state(x, y)
-            gen_dev = generator.device if generator is not None else "cpu"
-            if t is None:
-                t = sample_t(self.sde, z0.shape[0], generator).to(z0.device)
-            if eps is None:
-                eps = torch.randn(z0.shape, generator=generator, device=gen_dev, dtype=z0.dtype).to(z0.device)
+            t, eps = self._draw_t_eps(generator, z0, t, eps)
             if cfg.name == "DSM":
                 z_t = base.diffuse(t, z0, eps)
                 cond = cond_y if self.conditions_on_y else None
@@ -281,9 +294,9 @@ class CDiffE(DiffusionModel):
 class PosteriorDiffusionEstimator(DiffusionModel):
     """DPS model: prior net (x, t) + likelihood net (x, y, t), the scores
     summed and times g(t).  Params are {'prior': mlp, 'likelihood': mlp}.
-    Sampling is the plain Euler-Maruyama scan, Heun or expint (the JAX
-    package has no kernel for it either); training with the PosteriorLoss
-    is not ported yet."""
+    Trained with the PosteriorLoss (``losses.posterior_loss``) through the
+    frozen forward model.  Sampling is the plain Euler-Maruyama scan, Heun
+    or expint (the JAX package has no kernel for it either)."""
 
     def init(self, generator: Optional[torch.Generator] = None, device=None):
         prior = nets.mlp_init(self.xdim + 1, self.xdim, self.hidden_layers, generator=generator, device=device)
@@ -293,11 +306,28 @@ class PosteriorDiffusionEstimator(DiffusionModel):
     def apply_a(self, params, z: Tensor, cond: Optional[Tensor], t) -> Tensor:
         return nets.posterior_score_apply(params["prior"], params["likelihood"], self.sde.base.g, z, cond, t)
 
-    def make_loss_fn(self, cfg: LossConfig, initial_condition=None):
-        raise NotImplementedError(
-            "training the Posterior model (PosteriorLoss) is not ported yet: it needs the "
-            "optimizer and the checkpoints to handle a dict of parameter trees; see ROADMAP.md §A item 11"
-        )
+    def make_loss_fn(self, cfg: LossConfig, initial_condition=None, forward_model=None, forward_params=None):
+        """loss(params, generator, x, y, *, t=None, eps=None) -> (scalar,
+        {'PriorLoss', 'LikelihoodLoss'}): ``losses.posterior_loss`` through
+        the batched ``forward_model`` with ``forward_params``' a and b.  t
+        and eps are drawn as :meth:`DiffusionModel.make_loss_fn` draws
+        them, or given."""
+        if cfg.name != "PosteriorLoss":
+            raise ValueError(f"PosteriorDiffusionEstimator trains with the PosteriorLoss; got {cfg.name!r}")
+        if forward_model is None or forward_params is None:
+            raise ValueError("PosteriorDiffusionEstimator requires the forward model")
+        base = self.sde.base
+        a, b = forward_params["a"], forward_params["b"]
+
+        def loss_fn(params, generator: Optional[torch.Generator], x: Tensor, y: Tensor, *,
+                    t: Optional[Tensor] = None, eps: Optional[Tensor] = None):
+            t, eps = self._draw_t_eps(generator, x, t, eps)
+            return L.posterior_loss(
+                nets.prior_mlp_apply, nets.score_mlp_apply, params["prior"], params["likelihood"],
+                base, forward_model, x, y, eps, t, a=a, b=b, lam=cfg.lam,
+            )
+
+        return loss_fn
 
     def sample(self, params, y: Optional[Tensor], num_samples: int = 2000, num_steps: int = 200,
                mean: float = 0.0, std: float = 1.0, generator: Optional[torch.Generator] = None,

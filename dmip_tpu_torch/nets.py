@@ -1,9 +1,11 @@
 """Score networks as plain functions on (W, b) tensor pairs.
 
-Port of ``dmip_tpu/nets.py:41-116``.  Parameters are a tuple of (W, b) pairs
+Port of ``dmip_tpu/nets.py:41-154``.  Parameters are a tuple of (W, b) pairs
 with W of shape (fan_in, fan_out), the JAX ``x @ W`` layout, so weights
 carry over from the JAX checkpoints unchanged and the tests compare like
-with like.
+with like.  The Gaussian Fourier time embedding and the TemporalMLP built on
+it are here for the API's sake: no model or driver uses them, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -79,3 +81,33 @@ def posterior_score_apply(
     SDE's diffusion coefficient."""
     s = prior_mlp_apply(prior_params, x, t) + score_mlp_apply(likelihood_params, x, y, t)
     return g_fn(_as_t_column(t, x.shape[0], x)) * s
+
+
+def fourier_init(embed_dim: int, scale: float = 30.0, generator: Optional[torch.Generator] = None,
+                 device=None) -> Tensor:
+    """Fixed (not trained) random frequencies W ~ N(0, scale^2), shape
+    (embed_dim // 2,); drawn on the generator's device, then moved."""
+    gen_dev = generator.device if generator is not None else "cpu"
+    return (torch.randn(embed_dim // 2, generator=generator, device=gen_dev) * scale).to(device)
+
+
+def fourier_apply(w: Tensor, t) -> Tensor:
+    """[sin(2 pi t W), cos(2 pi t W)], shape (batch, 2 len(W)) for t of any
+    shape holding batch values."""
+    t = torch.as_tensor(t, dtype=w.dtype, device=w.device).reshape(-1)
+    proj = t[:, None] * w[None, :] * (2.0 * math.pi)
+    return torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)
+
+
+def temporal_mlp_init(input_dim: int, output_dim: int, embed_dim: int, hidden_layers: Sequence[int],
+                      scale: float = 30.0, generator: Optional[torch.Generator] = None, device=None):
+    """TemporalMLP params (Fourier W, MLP params): the MLP takes [x, y] of
+    ``input_dim`` features and the embedding's ``embed_dim``."""
+    w = fourier_init(embed_dim, scale, generator=generator, device=device)
+    return w, mlp_init(input_dim + embed_dim, output_dim, hidden_layers, generator=generator, device=device)
+
+
+def temporal_mlp_apply(params, x: Tensor, t, y: Tensor, activation=torch.tanh) -> Tensor:
+    """TemporalMLP(x, t, y): the MLP on [x, fourier(t), y]."""
+    w, mlp = params
+    return mlp_apply(mlp, torch.cat([x, fourier_apply(w, t), y], dim=-1), activation)

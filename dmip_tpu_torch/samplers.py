@@ -11,7 +11,8 @@ mirrors the kernels' bf16 casts.
 ``heun_ode`` (:145), ``_exp_nodes`` (:209) and ``exponential_integrator``
 (:242) are plain PyTorch in f32 on the caller's device: the probability-flow
 ODE by Heun's method, and the DPM-Solver family, which integrates the linear
-part of the VP reverse process in closed form.
+part of the VP reverse process in closed form.  ``batched_sampler`` (:376)
+runs a single-condition sampler over a batch of conditions.
 """
 
 from __future__ import annotations
@@ -298,3 +299,23 @@ def exponential_integrator(
             x = x + cn_i * z
         eps_prev = eps_hat
     return x
+
+
+def batched_sampler(sampler_fn: Callable[..., Tensor]) -> Callable[..., Tensor]:
+    """A single-condition sampler over a batch of conditions.
+
+    ``sampler_fn(draws, y) -> (num_samples, xdim)`` takes one condition's
+    source of randomness (a ``torch.Generator``, or the ``x0`` / ``noise``
+    it is given) and y (ydim,); the result ``run(draws, ys)`` takes one
+    such source per condition and ys (n_y, ydim) and returns (n_y,
+    num_samples, xdim).  The JAX package vmaps ``sampler_fn(key, y)`` over
+    keys and ys; here the conditions run one after another, each from its
+    own source, so a condition's samples do not depend on the others.
+    """
+
+    def run(draws, ys: Tensor) -> Tensor:
+        if len(draws) != ys.shape[0]:
+            raise ValueError(f"{len(draws)} sources of randomness for {ys.shape[0]} conditions")
+        return torch.stack([sampler_fn(d, y) for d, y in zip(draws, ys)])
+
+    return run

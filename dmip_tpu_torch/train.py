@@ -189,7 +189,7 @@ def make_epoch_fn(
     """
     if not single_device(mesh):
         raise NotImplementedError(
-            "multi-device training is not ported yet (ROADMAP.md §A item 13); "
+            "multi-device training is not ported yet (ROADMAP.md §A7, multi-GPU); "
             "set mesh: null to train on one device"
         )
     train_step = make_train_step(loss_fn, optimizer)

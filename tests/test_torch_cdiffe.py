@@ -168,8 +168,13 @@ def test_get_model_from_args_builds_cdiffe_and_posterior():
     assert params["prior"][0][0].shape == (4, 512) and params["likelihood"][0][0].shape == (27, 512)
     with pytest.raises(ValueError, match="PosteriorLoss"):
         train.get_model_from_args({"model": "Posterior", "loss_fn": "DSM"}, dims)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="requires the forward model"):
         post.make_loss_fn(cfg)
+    forward = lambda x: torch.cat([x, x[:, :1].expand(-1, 20)], dim=1)  # 3 -> 23, a stand-in
+    loss = post.make_loss_fn(cfg, forward_model=forward, forward_params={"a": 0.2, "b": 0.01})
+    gen = torch.Generator().manual_seed(1)
+    val, info = loss(params, gen, torch.rand(4, 3, generator=gen), torch.rand(4, 23, generator=gen))
+    assert np.isfinite(float(val)) and sorted(info) == ["LikelihoodLoss", "PriorLoss"]
     with pytest.raises(ValueError, match="model"):
         train.get_model_from_args({"model": "CDiffE2", "loss_fn": "DSM"}, dims)
 

@@ -675,8 +675,12 @@ def test_baselines_dsm_row_reaches_b1(cuda, tmp_path):
     rng = np.random.default_rng(0)
     for j in range(2):
         np.save(gt_dir / f"{j}.npy", rng.uniform(-1, 1, size=(2000, 3)).astype(np.float32))
+    # plot_ys: [] -- the config lists condition 0, whose figures need
+    # matplotlib, which a GPU host need not have (tests/test_torch_plotting.py
+    # holds the figures)
     cfg = dict(load_config(os.path.join(REPO, "configs/config_baselines_scatterometry.yml")), n_samples_y=1,
-               n_samples_x=2000, n_repeats=2, train_dir=str(tmp_path / "train"), out_dir=str(tmp_path / "out"))
+               n_samples_x=2000, n_repeats=2, train_dir=str(tmp_path / "train"), out_dir=str(tmp_path / "out"),
+               plot_ys=[])
     for name, archive in (("snf", "baselines_snf"), ("diffusion", "baselines_dsm"), ("INN", "baselines_inn")):
         shutil.copytree(os.path.join(REPO, "benchmarks/checkpoints", archive), os.path.join(cfg["train_dir"], name))
     before = fused_em_sampler.launches

@@ -113,18 +113,26 @@ def test_get_model_from_args_matches_jax(config):
 
 @pytest.mark.parametrize("name", ["CDiffE", "Posterior"])
 def test_get_model_from_args_unported_models_raise(name, tmp_path):
-    """Both models are built now, as in dmip_tpu.  The Posterior's
-    PosteriorLoss training is not ported yet and raises NotImplementedError
-    naming ROADMAP.md; a CDiffE config reaches the training driver's
-    refinement branch as a CDE config does, and it runs (tiny size, CPU)."""
+    """Both models are built and trained now, as in dmip_tpu.  The
+    Posterior's PosteriorLoss raises without a forward model, with the JAX
+    package's message, and with one gives a finite loss and both info
+    terms; a CDiffE config reaches the training driver's refinement branch
+    as a CDE config does, and it runs (tiny size, CPU)."""
     from dmip_tpu_torch.mains import main_diffusion_linear
+    from dmip_tpu_torch.problems import LinearForwardProblem
 
     dims = {"xdim": 2, "ydim": 2}
     if name == "Posterior":
-        model, cfg = train.get_model_from_args({"model": name}, dims)
+        model, cfg = train.get_model_from_args({"model": name, "hidden_layers": [16]}, dims)
         assert cfg.name == "PosteriorLoss"
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="requires the forward model"):
             model.make_loss_fn(cfg)
+        loss = model.make_loss_fn(cfg, forward_model=LinearForwardProblem().forward,
+                                  forward_params={"a": 0.1, "b": 0.05})
+        gen = torch.Generator().manual_seed(0)
+        x, y = torch.randn(8, 2, generator=gen), torch.randn(8, 2, generator=gen)
+        val, info = loss(model.init(gen), gen, x, y)
+        assert np.isfinite(float(val)) and sorted(info) == ["LikelihoodLoss", "PriorLoss"]
     else:
         model, cfg = train.get_model_from_args({"model": name, "loss_fn": "DSM"}, dims)
         assert (model.net_in, model.net_out, cfg.name) == (5, 4, "DSM")
@@ -135,3 +143,27 @@ def test_get_model_from_args_unported_models_raise(name, tmp_path):
         main_diffusion_linear.run(cfg, device="cpu")
         rows = (tmp_path / "out_refined_mh5_0.2" / "results.csv").read_text().splitlines()
         assert len(rows) == 2 and all(np.isfinite(float(v)) for v in rows[1].split(",")[1:])
+
+
+def test_fourier_embedding_and_temporal_mlp_match_jax():
+    """The Gaussian Fourier embedding and the TemporalMLP on weights carried
+    across from dmip_tpu's init: the embedding to rtol 1e-6, the MLP on it
+    also within 1e-7 absolute (its f32 sums run in another order, a few
+    ulps at outputs of ~0.4); the port's init gives the same shapes."""
+    import jax
+
+    rng = np.random.default_rng(0)
+    t = rng.uniform(0, 1, size=(16, 1)).astype(np.float32)
+    w = jnets.fourier_init(jax.random.PRNGKey(0), 8, scale=30.0)
+    got = nets.fourier_apply(torch.from_numpy(np.array(w)), torch.from_numpy(t))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jnets.fourier_apply(w, jnp.asarray(t))), rtol=1e-6)
+
+    jw, jmlp = jnets.temporal_mlp_init(jax.random.PRNGKey(1), 4, 2, embed_dim=8, hidden_layers=(16,))
+    tp = (torch.from_numpy(np.array(jw)), params_from_numpy([(np.asarray(a), np.asarray(b)) for a, b in jmlp]))
+    x, y = (rng.normal(size=(16, 2)).astype(np.float32) for _ in range(2))
+    want = jnets.temporal_mlp_apply((jw, jmlp), jnp.asarray(x), jnp.asarray(t), jnp.asarray(y))
+    got = nets.temporal_mlp_apply(tp, torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(y))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+
+    pw, pmlp = nets.temporal_mlp_init(4, 2, 8, (16,), generator=torch.Generator().manual_seed(0))
+    assert pw.shape == jw.shape and [a.shape for pair in pmlp for a in pair] == [a.shape for pair in jmlp for a in pair]

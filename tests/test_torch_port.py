@@ -210,7 +210,8 @@ def test_eval_driver_rejects_a_mismatched_checkpoint():
 
 
 TINY_TRAIN = dict(dataset_size=600, n_epochs=3, epochs_per_call=2, batch_size=50, hidden_layers=[32, 32],
-                  n_samples_y=2, n_samples_x=300, n_repeats=2, eval_num_steps=10, METR_STEPS=10)
+                  n_samples_y=2, n_samples_x=300, n_repeats=2, eval_num_steps=10, METR_STEPS=10,
+                  plot_ys=[])  # the figures are held in test_torch_plotting.py
 
 
 @pytest.mark.parametrize("problem,overrides", [
@@ -219,12 +220,16 @@ TINY_TRAIN = dict(dataset_size=600, n_epochs=3, epochs_per_call=2, batch_size=50
     ("scatterometry", {"loss_fn": "DSM", "train_backend": "fused_pallas"}),
     ("scatterometry", {"loss_fn": "DSM", "lr_schedule": "cosine", "grad_clip": 1.0}),
     ("scatterometry", {"model": "CDiffE", "loss_fn": "DSM", "train_backend": "fused_pallas"}),
+    ("scatterometry", {"model": "Posterior", "loss_fn": "PosteriorLoss", "lam": 1.0, "eval_analytic_guidance": True,
+                       "guidance_clip": 100.0}),
 ])
 def test_training_drivers_end_to_end_on_cpu(tmp_path, problem, overrides):
     """Train (3 epochs in calls of 2, the last masked), checkpoint and
     evaluate through each training driver's main() on the CPU, at a tiny
     size, from the repository's config with only sizes and paths changed;
-    then resume from the checkpoint."""
+    then resume from the checkpoint.  The Posterior model also logs both
+    loss terms, checkpoints its {'prior', 'likelihood'} tree and writes the
+    analytic-guidance row."""
     cfg = yaml.safe_load(open(os.path.join(REPO, f"configs/config_{problem}.yml")))
     cfg.update(TINY_TRAIN, train_dir=str(tmp_path / "train"), out_dir=str(tmp_path / "out"), **overrides)
     path = tmp_path / "cfg.yml"
@@ -242,6 +247,14 @@ def test_training_drivers_end_to_end_on_cpu(tmp_path, problem, overrides):
     assert len(rows) == 3 and all(np.isfinite(float(v)) for r in rows[1:] for v in r.split(",")[1:])
     manifest = yaml.safe_load((tmp_path / "train" / "checkpoint" / "manifest.json").read_text())
     assert manifest["step"] == 3 and manifest["has_opt_state"]
+    if overrides.get("model") == "Posterior":
+        for name in ("Train_PriorLoss", "Train_LikelihoodLoss"):
+            terms = (tmp_path / "train" / "logs" / f"{name}.csv").read_text().splitlines()
+            assert len(terms) == 4 and all(np.isfinite(float(r.split(",")[1])) for r in terms[1:])
+        treedef = (tmp_path / "train" / "checkpoint" / "params.treedef.json").read_text()
+        assert treedef.startswith("\"PyTreeDef({'likelihood': ((*, *), (*, *), (*, *)), 'prior'")
+        rows = (tmp_path / "out_analytic" / "results.csv").read_text().splitlines()
+        assert len(rows) == 3 and all(np.isfinite(float(v)) for r in rows[1:] for v in r.split(",")[1:])
     cfg.update(resume_training=True, n_epochs=4)
     run = main_diffusion_linear.run if problem == "linear" else (
         lambda c, device: main_diffusion_scatterometry.run(c, str(tmp_path / "gt"), device=device))
@@ -250,13 +263,15 @@ def test_training_drivers_end_to_end_on_cpu(tmp_path, problem, overrides):
 
 
 def test_training_drivers_reject_branches_not_ported():
-    """The Posterior model's training (PosteriorLoss) is not ported, and a
-    malformed refine spec is refused (the refine branch itself is ported)."""
+    """A malformed refine spec is refused (the refine branch itself is
+    ported), and the linear training driver refuses the Posterior model as
+    dmip_tpu's does: its PosteriorLoss needs a forward model, which only the
+    scatterometry driver hands it (trained there in the driver test
+    above)."""
     with pytest.raises(ValueError, match="unknown refinement options"):
         eval_diffusion.main(["--problem", "linear", "--checkpoint",
                              os.path.join(REPO, "benchmarks/checkpoints/linear_refined_winner"),
                              "--refine", "mala,60,0.05,bogus=1", "--device", "cpu"])
-    scat_cfg = yaml.safe_load(open(os.path.join(REPO, "configs/config_scatterometry.yml")))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        main_diffusion_scatterometry.run(dict(scat_cfg, model="Posterior", eval_analytic_guidance=True), "gt",
-                                         device="cpu")
+    lin_cfg = yaml.safe_load(open(os.path.join(REPO, "configs/config_linear.yml")))
+    with pytest.raises(ValueError, match="requires the forward model"):
+        main_diffusion_linear.run(dict(lin_cfg, model="Posterior", loss_fn=None, dataset_size=600), device="cpu")

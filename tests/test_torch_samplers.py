@@ -140,3 +140,32 @@ def test_cdiffe_and_analytic_guidance_reject_heun_and_expint(method):
     ag = AnalyticGuidanceDPS(post, lambda x: x, {"a": 0.2, "b": 0.01})
     with pytest.raises(ValueError, match="supports method"):
         ag.sample(post.init(torch.Generator().manual_seed(0)), torch.zeros(23), 8, 2, method=method, device="cpu")
+
+
+def test_batched_sampler_matches_single_calls_and_jax_vmap():
+    """The port's batched_sampler over three conditions, each with its own
+    injected x0 and noise: bit for bit a loop of single calls, and within
+    f32 rounding JAX's batched_sampler (a vmap over keys) of its
+    Euler-Maruyama, whose draws are re-derived from each key's schedule."""
+    from functools import partial
+
+    jp, tp, _ = _net()
+    dj, dt = _drifts(jp, tp)
+    steps = 12
+    ys = np.random.default_rng(2).normal(size=(3, 2)).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(5), 3)
+    want = jsamplers.batched_sampler(partial(jsamplers.euler_maruyama, jsde.ReverseSDE(), dj, num_samples=N, xdim=2,
+                                             num_steps=steps))(keys, jnp.asarray(ys))
+    draws = []
+    for key in keys:
+        x0, kscan = _x0(key)
+        noise = np.stack([np.array(jax.random.normal(k, (N, 2))) for k in jax.random.split(kscan, steps)])
+        draws.append((torch.as_tensor(x0), torch.as_tensor(noise)))
+    one = lambda d, y: samplers.euler_maruyama(sde.ReverseSDE(), dt, y, N, 2, steps, x0=d[0], noise=d[1])
+    got = samplers.batched_sampler(one)(draws, torch.as_tensor(ys))
+    assert got.shape == (3, N, 2)
+    loop = torch.stack([one(d, y) for d, y in zip(draws, torch.as_tensor(ys))])
+    torch.testing.assert_close(got, loop, rtol=0, atol=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+    with pytest.raises(ValueError, match="conditions"):
+        samplers.batched_sampler(one)(draws[:2], torch.as_tensor(ys))
