@@ -250,7 +250,10 @@ DPS_TIMING_REPS = 2
 # all rows and is held to its norm.  A probe on an H100 read at most 2.8e-4
 # on the loss terms and 5.5e-5 on a leaf (one target row off by 6.8%, the
 # p999 of rows 5.9e-4) with the committed weights, 9e-6 and 5.2e-6 from the
-# initial weights.  TF32 products (~5e-4 each) or a wrong term (O(1)) fail.
+# initial weights.  A wrong term (O(1)) fails these bounds.  TF32 is caught
+# by the check of the flags before the step (allow_tf32 off, precision
+# 'highest'), not by these bounds: no step was read with TF32 on, and its
+# per-leaf errors may average below 5e-4.
 DPS_STEP_BATCH = 1000
 DPS_STEP_LOSS_REL_TOL = 5e-3
 DPS_STEP_GRAD_REL_TOL = 5e-4

@@ -10,12 +10,14 @@ energy (scatterometry), score-MSE at t = 0 and sliced W2.  Both harnesses
 write ``results.csv`` with the JAX package's columns, and for each condition
 index in ``plot_ys`` the JAX package's corner plots of the last repeat's
 samples (:534-546, :745-752), through :mod:`dmip_tpu_torch.utils.plotting`,
-imported only then.
+imported only then; the drivers call ``require_plotting`` before they
+train, so a host without matplotlib fails at once.
 """
 
 from __future__ import annotations
 
 import csv
+import importlib
 import os
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -82,6 +84,19 @@ def _score_mse(model: DiffusionModel, params, x_true: Tensor, ys: Tensor, score_
     g0 = model.sde.base.g(t0)
     score_pred = (model.apply_a(params, x_true, ys, t0) / g0)[:, : x_true.shape[-1]]
     return torch.mean(torch.sum((score_pred - score_true) ** 2, dim=1))
+
+
+def require_plotting(plot_ys: Sequence[int]) -> None:
+    """Raises ImportError at once when ``plot_ys`` asks for figures and the
+    plotting module (matplotlib) cannot be imported, so that a driver stops
+    before it trains rather than at its first figure."""
+    if not plot_ys:
+        return
+    try:
+        importlib.import_module(".utils.plotting", __package__)
+    except ImportError as e:
+        raise ImportError(f"plot_ys {list(plot_ys)} asks for corner plots, which need matplotlib: "
+                          "install it, or set plot_ys: [] in the config") from e
 
 
 def plot_posteriors(out_dir: str, i: int, samples: Dict[str, Tensor], nbins: int, xlim: Tuple[float, float],

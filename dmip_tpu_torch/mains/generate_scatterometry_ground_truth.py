@@ -8,10 +8,9 @@ chains (every repeat) go through one launch of the fused MH kernel.
 
 ``--mcmc_seed`` draws fresh chains for the same conditions: held-out
 ground truth, to check that a knob chosen against the default set is not
-fit to its noise.  With ``plot`` (``run``'s switch, on by default, as in
-the JAX driver) each condition index in the config's ``plot_ys`` (or
+fit to its noise.  Each condition index in the config's ``plot_ys`` (or
 ``plot_y``) also gets ``<gt_dir>/<i>/posterior-mcmc-<i>.svg``, the corner
-plot of its last repeat.
+plot of its last repeat; ``plot_ys: []`` draws none.
 
 Usage: python -m dmip_tpu_torch.mains.generate_scatterometry_ground_truth \
           [--config configs/config_scatterometry.yml] [--gt_dir data/gt...] \
@@ -44,10 +43,12 @@ def test_conditions(config: dict, forward_model, fparams, device) -> torch.Tenso
     return y_test
 
 
-def run(config: dict, gt_dir: str, device=None, mcmc_seed=None, plot: bool = True) -> None:
+def run(config: dict, gt_dir: str, device=None, mcmc_seed=None) -> None:
     """Writes the ground truth of every test condition.  The chains draw
     from a generator seeded with ``RANDOM_STATE + 1``, or with
     ``mcmc_seed`` when given; the conditions do not change with it."""
+    plot_ys = config.get("plot_ys", config.get("plot_y", ()))
+    evaluate.require_plotting(plot_ys)
     dev = resolve_device(device)
     forward_model, fparams = scat.load_forward_model(device=dev)
     y_test = test_conditions(config, forward_model, fparams, dev)
@@ -69,7 +70,7 @@ def run(config: dict, gt_dir: str, device=None, mcmc_seed=None, plot: bool = Tru
         os.makedirs(out_dir, exist_ok=True)
         for j in range(n_repeats):
             np.save(os.path.join(out_dir, f"{j}.npy"), x[j].numpy())
-        if plot and i in config.get("plot_ys", config.get("plot_y", ())):
+        if i in plot_ys:
             evaluate.plot_posteriors(out_dir, i, {"mcmc": x[-1]}, 75, (-1.2, 1.2), [-1, 0, 1])
         print(f"gt {i + 1}/{y_test.shape[0]} done", flush=True)
 

@@ -145,6 +145,7 @@ def evaluate_all(config: dict, prob: LinearForwardProblem, models, params: tuple
 
 def run(config: dict, device=None) -> Dict[str, float]:
     """Train the three models and evaluate them; returns the column means."""
+    evaluate.require_plotting(config.get("plot_ys", ()))
     dev = resolve_device(device)
     prob = LinearForwardProblem()
     seed = int(config.get("random_state", 7))

@@ -91,6 +91,7 @@ def evaluate_all(config: dict, gt_dir: str, forward_model, fparams: dict, ys: to
 def run(config: dict, gt_dir: str, eval_only: bool = False, device=None) -> Dict[str, float]:
     """Train the three models (or, with ``eval_only``, load them from
     ``train_dir``) and evaluate them; returns the column means."""
+    evaluate.require_plotting(config.get("plot_ys", ()))
     dev = resolve_device(device)
     forward_model, fparams = scat.load_forward_model(device=dev)
     a, b, lambd_bd = fparams["a"], fparams["b"], fparams["lambd_bd"]

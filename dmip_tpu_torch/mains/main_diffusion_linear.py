@@ -34,6 +34,7 @@ from .eval_diffusion import linear_split
 
 def run(config: dict, device=None) -> tuple:
     """Train and evaluate; returns (params, (KL, NLPD, score-MSE))."""
+    evaluate.require_plotting(config.get("plot_ys", ()))
     dev = resolve_device(device)
     prob = LinearForwardProblem()
     seed = int(config.get("random_state", 7))

@@ -12,10 +12,11 @@ refined on the surrogate posterior's energy, into ``out_dir + "_refined"``.
 
 ``model: Posterior`` trains the DPS model's {'prior', 'likelihood'} nets
 with the PosteriorLoss through the surrogate (autograd engine), scores the
-learned likelihood row by the plain scan and, with
-``eval_analytic_guidance``, re-serves the trained prior net under analytic
-guidance (``guidance_clip``; the fused guided kernel on the card) into
-``out_dir + "_analytic"``.
+learned likelihood row (the plain scan unless ``eval_method`` names
+another sampler) and, with ``eval_analytic_guidance``, re-serves the
+trained prior net under analytic guidance (``guidance_clip``; the fused
+guided kernel on the card, 200 steps whatever ``eval_method`` says, as in
+the JAX driver) into ``out_dir + "_analytic"``.
 
 Usage: python -m dmip_tpu_torch.mains.main_diffusion_scatterometry \
           [--config configs/config_scatterometry.yml] [--gt_dir data/gt...] [--device cuda|cpu]
@@ -39,6 +40,7 @@ from .generate_scatterometry_ground_truth import test_conditions
 def run(config: dict, gt_dir: str, device=None) -> tuple:
     """Train and evaluate; returns (params, (KL, NLPD, score-MSE)) of the
     learned row."""
+    evaluate.require_plotting(config.get("plot_ys", ()))
     dev = resolve_device(device)
     forward_model, fparams = scat.load_forward_model(device=dev)
     seed = int(config.get("RANDOM_STATE", 13))
@@ -82,13 +84,13 @@ def run(config: dict, gt_dir: str, device=None) -> tuple:
         )
     checkpoints.save_checkpoint(ckpt_dir, params, opt_state=opt_state, step=n_epochs, seed=train_seed)
 
-    def score(m, out_dir, plot_ys=()):
+    def score(m, out_dir, plot_ys=(), method=str(config.get("eval_method", "auto")),
+              num_steps=int(config.get("eval_num_steps", 200))):
         return evaluate.evaluate_scatterometry(
             m, params, forward_model, fparams, score_post, y_test, data.gt_loader(gt_dir),
             torch.Generator(device=dev).manual_seed(seed + 4), out_dir=out_dir,
             n_samples_x=int(config["n_samples_x"]), n_repeats=int(config.get("n_repeats", 10)),
-            num_steps=int(config.get("eval_num_steps", 200)), method=str(config.get("eval_method", "auto")),
-            plot_ys=plot_ys,
+            num_steps=num_steps, method=method, plot_ys=plot_ys,
         )
 
     metrics = score(model, config["out_dir"], config.get("plot_ys", ()))
@@ -97,8 +99,10 @@ def run(config: dict, gt_dir: str, device=None) -> tuple:
         kl, nlpd, mse = score(refined, config["out_dir"] + suffix)
         print(f"energy-refined ({tag}): KL={kl:.4f} NLPD={nlpd:.4f} score-MSE={mse:.4f}", flush=True)
     if config.get("eval_analytic_guidance") and config.get("model") == "Posterior":
+        # sampled at the evaluation's defaults, as the JAX driver does: the
+        # config's eval_method names the learned row's sampler
         guided, suffix = analytic_row(model, forward_model, fparams, config)
-        kl, nlpd, mse = score(guided, config["out_dir"] + suffix)
+        kl, nlpd, mse = score(guided, config["out_dir"] + suffix, method="auto", num_steps=200)
         print(f"analytic-guidance DPS: KL={kl:.4f} NLPD={nlpd:.4f} score-MSE={mse:.4f}", flush=True)
     return params, metrics
 

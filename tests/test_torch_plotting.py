@@ -131,7 +131,7 @@ def test_diffusion_drivers_draw_the_learned_row_only(tmp_path):
     assert os.path.exists(os.path.join(dps["out_dir"] + "_analytic", "results.csv"))
     assert not _svgs(dps["out_dir"] + "_analytic")
 
-    gt.run(dps, str(tmp_path / "gt_unplotted"), device="cpu", plot=False)
+    gt.run(dict(dps, plot_ys=[]), str(tmp_path / "gt_unplotted"), device="cpu")
     assert not _svgs(str(tmp_path / "gt_unplotted" / "1"))
 
 
@@ -154,6 +154,37 @@ def test_baseline_drivers_draw_four_posteriors(tmp_path):
     sc = _config("config_baselines_scatterometry.yml", tmp_path / "scat", **BASELINES)
     main_baselines_scatterometry.run(sc, str(gt_dir), device="cpu")
     assert _svgs(sc["out_dir"]) == BASELINE_FIGURES and _nonempty(sc["out_dir"], BASELINE_FIGURES)
+
+
+# each driver that draws, with a shipped config whose plot_ys is not empty
+DRIVERS_THAT_DRAW = {
+    "ground_truth": ("config_scatterometry.yml", lambda c, d: gt.run(c, d, device="cpu")),
+    "diffusion_linear": ("config_linear.yml", lambda c, d: main_diffusion_linear.run(c, device="cpu")),
+    "diffusion_scatterometry": ("config_scatterometry.yml",
+                                lambda c, d: main_diffusion_scatterometry.run(c, d, device="cpu")),
+    "baselines_linear": ("config_baselines_linear.yml", lambda c, d: main_baselines_linear.run(c, device="cpu")),
+    "baselines_scatterometry": ("config_baselines_scatterometry.yml",
+                                lambda c, d: main_baselines_scatterometry.run(c, d, device="cpu")),
+}
+
+
+@pytest.mark.parametrize("driver", sorted(DRIVERS_THAT_DRAW))
+def test_drivers_with_plot_ys_stop_before_training_without_matplotlib(tmp_path, monkeypatch, driver):
+    """A host without matplotlib: a driver handed a non-empty plot_ys
+    raises ImportError, naming the way out, before it writes or trains
+    anything; an empty plot_ys asks nothing of matplotlib."""
+    name, run = DRIVERS_THAT_DRAW[driver]
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.delitem(sys.modules, "dmip_tpu_torch.utils.plotting")
+    cfg = _config(name, tmp_path)
+    assert cfg["plot_ys"]
+    # toy sizes, so that a driver which failed to stop would fail fast
+    cfg.update(BASELINES, dataset_size=600, n_epochs=1, epochs_per_call=1, batch_size=50, eval_num_steps=5,
+               METR_STEPS=5)
+    with pytest.raises(ImportError, match=r"plot_ys: \[\]"):
+        run(cfg, str(tmp_path / "gt"))
+    assert not os.listdir(tmp_path)
+    evaluate.require_plotting([])
 
 
 _NO_MATPLOTLIB = r"""

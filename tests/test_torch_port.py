@@ -222,6 +222,9 @@ TINY_TRAIN = dict(dataset_size=600, n_epochs=3, epochs_per_call=2, batch_size=50
     ("scatterometry", {"model": "CDiffE", "loss_fn": "DSM", "train_backend": "fused_pallas"}),
     ("scatterometry", {"model": "Posterior", "loss_fn": "PosteriorLoss", "lam": 1.0, "eval_analytic_guidance": True,
                        "guidance_clip": 100.0}),
+    # the learned row through Heun; the analytic row keeps its own sampler
+    ("scatterometry", {"model": "Posterior", "loss_fn": "PosteriorLoss", "lam": 1.0, "eval_analytic_guidance": True,
+                       "guidance_clip": 100.0, "eval_method": "heun"}),
 ])
 def test_training_drivers_end_to_end_on_cpu(tmp_path, problem, overrides):
     """Train (3 epochs in calls of 2, the last masked), checkpoint and
