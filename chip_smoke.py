@@ -49,7 +49,18 @@ width:
     {'prior', 'likelihood'} checkpoint, the learned row by the plain scan,
     the trained prior re-served under analytic guidance through the guided
     kernel, the learned row's time per posterior, and one more call resumed
-    from the checkpoint (``train_dps``).
+    from the checkpoint (``train_dps``);
+  * grid search: the trial-stacked ensemble trainer on the first PINNLoss
+    group of ``config_gridsearch_linear.yml`` (20 (lam, lam2) trials at
+    full width, one epoch), two of its trials against the sequential
+    autograd engine (``grid_ensemble_card``); the linear grid driver on
+    ``config_gridsearch_linear_small.yml`` (12 trials in 6 ensemble
+    groups, each evaluated through the E-M kernel), a rerun that must
+    resume without training or evaluating, and the best-model walker
+    (``grid_linear``); the scatterometry grid driver on
+    ``config_gridsearch_scatterometry_small.yml`` (6 trials) against the
+    serving ground truth, and that ground truth's own floor
+    (``grid_scat``).  Epochs and evaluation are cut, widths kept.
 
 Every config handed to a driver has ``plot_ys: []`` (``card_config``): the
 drivers' corner plots need matplotlib, which this script does not require
@@ -257,6 +268,38 @@ DPS_TIMING_REPS = 2
 DPS_STEP_BATCH = 1000
 DPS_STEP_LOSS_REL_TOL = 5e-3
 DPS_STEP_GRAD_REL_TOL = 5e-4
+# grid_ensemble_card: the first PINNLoss group of config_gridsearch_linear.yml
+# (pde_loss FPE, pde_metric L1, ic_metric L1; all 20 (lam, lam2) trials) at
+# its shipped widths, batch and data (90 steps an epoch), one engine call of
+# GRID_ENSEMBLE_EPOCHS; trials GRID_CHECK_TRIALS held against the sequential
+# autograd engine from the same init and seed, f32 on both (TF32 off).
+GRID_ENSEMBLE_EPOCHS = 1
+GRID_ENSEMBLE_TRIALS = 20
+GRID_CHECK_TRIALS = (0, 19)
+# The first step's per-trial loss: the same f32 arithmetic as the sequential
+# step in another sum order (the stacked products run as one batched
+# product), ~1e-7 relative per product, which the PDE term's third
+# derivatives of the net amplify; the CPU tests hold the same loss across
+# packages to 2e-5 (tests/test_torch_losses.py).  A wrong lam or lam2 moves
+# it by percents.
+GRID_STEP_LOSS_REL_TOL = 1e-4
+# Every parameter leaf after the epoch, against the distance the epoch moved
+# it (||p_ens - p_seq|| / ||p_seq - p_init||).  Adam's update m/sqrt(v) does
+# not depend on the gradient's scale, so gradients agreeing to the first
+# step's relative error (<= GRID_STEP_LOSS_REL_TOL) give updates that agree
+# to about that much; only a weight whose gradient sits at the rounding level
+# can take an lr-sized step of the other sign in one version, a few in a
+# leaf of 2.6e5 weights whose epoch moved it by ~1 in norm.  1e-3 of the
+# update leaves room for those and is far below what another trial's lam
+# gives (the phase prints that contrast and fails unless the tolerance is
+# under a tenth of it).
+GRID_LEAF_REL_TOL = 1e-3
+# grid_linear: config_gridsearch_linear_small.yml at full width (12 trials in
+# 6 ensemble groups of 2); grid_scat: config_gridsearch_scatterometry_small.yml
+# (6 trials in one group of 6) on serve()'s GT and conditions.  The cuts:
+GRID_LINEAR_CUTS = dict(n_epochs=1, epochs_per_call=1, n_samples_y=2, eval_n_repeats=1)
+GRID_SCAT_CUTS = dict(n_epochs=2, epochs_per_call=1, n_samples_y=SCAT_CONDITIONS, eval_n_repeats=2)
+GRID_FLOOR_REPEATS = REPEATS    # gt_floor_scatterometry: 5 GT repeats against the other 5
 
 
 class CheckFailed(Exception):
@@ -1432,6 +1475,215 @@ def train_dps(torch, gt_dir) -> int:
     return n_b5 + n_resumed
 
 
+def _grid_trials(cfg):
+    """The grid's trials after the skip rules, grouped by ensemble
+    signature in grid_search's order: [[(trial_cfg, full_cfg), ...], ...]."""
+    from dmip_tpu_torch import gridsearch
+    from dmip_tpu_torch.utils import product_dict
+
+    visited, groups = [], {}
+    for trial_cfg in product_dict(**cfg["params"]):
+        full = {**cfg, **trial_cfg}
+        if not gridsearch.should_skip(full, visited):
+            groups.setdefault(gridsearch.ensemble_signature(trial_cfg), []).append((trial_cfg, full))
+    return list(groups.values())
+
+
+def grid_ensemble_card(torch) -> dict:
+    """The trial-stacked ensemble engine on the first PINNLoss group of
+    ``config_gridsearch_linear.yml`` (20 trials, shipped widths, batch and
+    data), one engine call of GRID_ENSEMBLE_EPOCHS epochs: ms a step and
+    epochs/s x trials; the first step's per-trial loss and every parameter
+    leaf after the epoch of trials GRID_CHECK_TRIALS against the sequential
+    autograd engine from the same init and seed, whose ms a step is printed
+    beside.  TF32 must be off."""
+    import dataclasses
+
+    from dmip_tpu_torch import data, ensemble, pytree, train
+    from dmip_tpu_torch.mains.eval_diffusion import linear_split
+    from dmip_tpu_torch.problems import LinearForwardProblem
+
+    t0 = time.time()
+    check(not torch.backends.cuda.matmul.allow_tf32 and torch.get_float32_matmul_precision() == "highest",
+          "grid_ensemble_card: TF32 on for f32 products")
+    cfg = card_config("config_gridsearch_linear.yml")
+    group = next(g for g in _grid_trials(cfg) if g[0][0]["loss_fn"] == "PINNLoss")
+    full = group[0][1]
+    shipped = {k: full[k] for k in ("hidden_layers", "batch_size", "dataset_size", "train_size", "lr",
+                                    "pde_loss", "pde_metric", "ic_metric")}
+    check(len(group) == GRID_ENSEMBLE_TRIALS and shipped == {
+        "hidden_layers": [512, 512, 512], "batch_size": 1000, "dataset_size": 100000, "train_size": 0.9,
+        "lr": 1e-4, "pde_loss": "FPE", "pde_metric": "L1", "ic_metric": "L1"},
+        f"grid_ensemble_card: the shipped grid changed: {len(group)} trials, {shipped}")
+    prob = LinearForwardProblem()
+    seed = int(cfg["random_state"])
+    x_train, _, y_train, _ = linear_split(cfg, prob, "cuda")
+
+    def batch_fn(g):
+        return data.linear_epoch_batches(g, x_train, y_train, prob.noise_std, int(cfg["batch_size"]))
+
+    model, loss_cfg = train.get_model_from_args(full, {"xdim": prob.xdim, "ydim": prob.ydim})
+    lams = [float(fc["lam"]) for _, fc in group]
+    lam2s = [float(fc["lam2"]) for _, fc in group]
+    lams_t, lam2s_t = (torch.tensor(v, device="cuda") for v in (lams, lam2s))
+    k = len(lams)
+    opt = train.build_optimizer(float(cfg["lr"]), cfg.get("grad_clip"))
+    kw = {"initial_condition": prob.score_posterior}
+    init = lambda: model.init(torch.Generator().manual_seed(seed + 1), device="cuda")
+    ens0 = ensemble.init_ensemble(model, torch.Generator().manual_seed(seed + 1), k, device="cuda")
+    n_steps = int(cfg["dataset_size"] * cfg["train_size"]) // int(cfg["batch_size"]) * GRID_ENSEMBLE_EPOCHS
+
+    # the first step's per-trial loss, the draws of epoch 0's first batch
+    gen = train.epoch_generator(seed + 2, 0, "cuda")
+    xb, yb = batch_fn(gen)
+    t, eps, v = model.loss_draws(loss_cfg, gen, xb[0], yb[0])
+    step = ensemble.make_ensemble_step(model, loss_cfg, opt, kw)
+    _, _, first, _ = step(ens0, ensemble.init_opt_state(opt, ens0), lams_t, lam2s_t, xb[0], yb[0], t, eps, v)
+    first = first.tolist()
+
+    efn = ensemble.make_ensemble_epoch_fn(model, loss_cfg, opt, batch_fn, GRID_ENSEMBLE_EPOCHS, kw)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    ens, hist = ensemble.ensemble_fit(efn, ens0, opt, seed + 2, GRID_ENSEMBLE_EPOCHS, lams_t, lam2s_t,
+                                      epochs_per_call=GRID_ENSEMBLE_EPOCHS, log_every=0)
+    torch.cuda.synchronize()
+    ens_s = time.time() - t1
+    p0 = init()
+    res, seq_s = {}, 0.0
+    for i in GRID_CHECK_TRIALS:
+        loss_fn = model.make_loss_fn(dataclasses.replace(loss_cfg, lam=lams[i], lam2=lam2s[i]), **kw)
+        seq_first = float(loss_fn(p0, None, xb[0], yb[0], t=t, eps=eps, v=v)[0])
+        fn = train.make_epoch_fn(loss_fn, opt, batch_fn, epochs_per_call=GRID_ENSEMBLE_EPOCHS)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        p_seq, _, _ = train.fit(fn, init(), opt, seed + 2, GRID_ENSEMBLE_EPOCHS,
+                                epochs_per_call=GRID_ENSEMBLE_EPOCHS, log_every=0)
+        torch.cuda.synchronize()
+        seq_s += time.time() - t1
+        p_ens = ensemble.trial_params(ens, i)
+        leaf = [float((a - b).norm() / (b - c).norm())
+                for a, b, c in zip(pytree.leaves(p_ens), pytree.leaves(p_seq), pytree.leaves(p0))]
+        res[i] = {"lam": lams[i], "lam2": lam2s[i], "first_loss": seq_first,
+                  "first_loss_rel_err": abs(first[i] - seq_first) / abs(seq_first),
+                  "leaf_rel_err_max": max(leaf), "leaf_rel_err": leaf, "epoch_loss": float(hist[-1][i]),
+                  "p_seq": p_seq}
+    a, b = GRID_CHECK_TRIALS
+    contrast = min(float((x - y).norm() / (y - c).norm()) for x, y, c in
+                   zip(pytree.leaves(res[a].pop("p_seq")), pytree.leaves(res[b].pop("p_seq")), pytree.leaves(p0)))
+    ens_ms, seq_ms = 1e3 * ens_s / n_steps, 1e3 * seq_s / (n_steps * len(GRID_CHECK_TRIALS))
+    phase("grid_ensemble_card", t0, trials=k, steps=n_steps, loss=loss_cfg.name, pde_loss=loss_cfg.pde_loss,
+          ms_per_step=ens_ms, epochs_per_s=GRID_ENSEMBLE_EPOCHS / ens_s,
+          trial_epochs_per_s=k * GRID_ENSEMBLE_EPOCHS / ens_s, sequential_ms_per_step=seq_ms,
+          step_ratio=ens_ms / seq_ms, per_trial_speedup=k * seq_ms / ens_ms,
+          tolerance={"first_loss": GRID_STEP_LOSS_REL_TOL, "leaf": GRID_LEAF_REL_TOL},
+          other_trial_leaf_contrast_min=contrast, trials_checked=res)
+    check(_finite(hist.ravel().tolist() + first), f"grid_ensemble_card: non-finite losses {hist}")
+    check(GRID_LEAF_REL_TOL < contrast / 10, f"grid_ensemble_card: trials {a} and {b} barely differ ({contrast})")
+    for i, r in res.items():
+        check(r["first_loss_rel_err"] <= GRID_STEP_LOSS_REL_TOL and r["leaf_rel_err_max"] <= GRID_LEAF_REL_TOL,
+              f"grid_ensemble_card: trial {i} against the sequential engine: {r}")
+    return {"ms_per_step": ens_ms, "sequential_ms_per_step": seq_ms}
+
+
+def _tree_stamps(root: str, name: str) -> dict:
+    """{path: (mtime_ns, bytes)} of every file called ``name`` under root."""
+    out = {}
+    for d, _, files in os.walk(root):
+        if name in files:
+            path = os.path.join(d, name)
+            with open(path, "rb") as f:
+                out[path] = (os.stat(path).st_mtime_ns, f.read())
+    return out
+
+
+def grid_linear(torch, work) -> int:
+    """The linear grid driver on ``config_gridsearch_linear_small.yml`` at
+    full width (12 trials, 6 ensemble groups of 2; GRID_LINEAR_CUTS), each
+    trial evaluated through B1; then the driver again with skip_existing,
+    which must train and evaluate nothing and leave every results.csv and
+    checkpoint as it was; then the walker, whose best KL must be the
+    summary's least.  Returns B1's launches."""
+    from dmip_tpu_torch import gridsearch
+    from dmip_tpu_torch.mains import get_best_model, run_grid_search_linear
+    from dmip_tpu_torch.ops import fused_dsm_train_epochs, fused_em_sampler
+
+    cfg = dict(card_config("config_gridsearch_linear_small.yml"), **GRID_LINEAR_CUTS,
+               src_dir=os.path.join(work, "grid_linear"))
+    groups = _grid_trials(cfg)
+    n_trials = sum(len(g) for g in groups)
+    check(n_trials == 12 and sorted(len(g) for g in groups) == [2] * 6 and cfg["hidden_layers"] == [512] * 3
+          and cfg["n_samples_x"] == N_SAMPLES, f"grid_linear: the shipped grid changed: {[len(g) for g in groups]}")
+    fused_em_sampler.launches = fused_dsm_train_epochs.launches = 0
+    t0 = time.time()
+    out = run_grid_search_linear.run(cfg, device="cuda")
+    torch.cuda.synchronize()
+    n_b1 = fused_em_sampler.launches
+    with open(os.path.join(cfg["src_dir"], "grid_summary.csv")) as f:
+        summary = [ln.strip().split(",") for ln in f]
+    kl_col = summary[0].index("kl")
+    kls = [float(r[kl_col]) for r in summary[1:]]
+    results = _tree_stamps(cfg["src_dir"], "results.csv")
+    ckpts = _tree_stamps(cfg["src_dir"], "manifest.json")
+    phase("grid_linear", t0, trials=n_trials, groups=[len(g) for g in groups], b1_launches=n_b1,
+          results=[{k: r[k] for k in ("loss_fn", "pde_loss", "pde_metric", "lam", "kl", "nlpd", "fisher")}
+                   for r in out["results"]], best_kl=out["best_kl"])
+    check(n_b1 == n_trials * cfg["n_samples_y"] * cfg["eval_n_repeats"] and fused_dsm_train_epochs.launches == 0,
+          f"grid_linear: {n_b1} B1 launches, {fused_dsm_train_epochs.launches} B3")
+    check(len(summary) == n_trials + 1 and len(results) == n_trials and len(ckpts) == n_trials,
+          f"grid_linear: {len(summary) - 1} summary rows, {len(results)} results, {len(ckpts)} checkpoints")
+    check(_finite([v for r in out["results"] for v in (r["kl"], r["nlpd"], r["fisher"])]),
+          f"grid_linear: non-finite metrics {out['results']}")
+
+    t0 = time.time()
+    fused_em_sampler.launches = 0
+    again = run_grid_search_linear.run(dict(cfg, skip_existing=True), device="cuda")
+    torch.cuda.synchronize()
+    best = get_best_model.main(["--src_dir", cfg["src_dir"]])
+    best_kl, entry = best["kl"]
+    best_trial = gridsearch._read_results_csv(os.path.join(entry["path"], "results.csv"))["KL2"].mean()
+    phase("grid_linear_resume", t0, b1_launches=fused_em_sampler.launches, best_kl=best_kl,
+          best_trial={k: v for k, v in entry.items() if k != "path"}, summary_min_kl=min(kls))
+    check(fused_em_sampler.launches == 0 and _tree_stamps(cfg["src_dir"], "results.csv") == results
+          and _tree_stamps(cfg["src_dir"], "manifest.json") == ckpts
+          and [r["kl"] for r in again["results"]] == [r["kl"] for r in out["results"]],
+          "grid_linear: the skip_existing rerun trained or evaluated again")
+    check(best_kl == min(kls) == float(best_trial), f"grid_linear: walker's best {best_kl} vs summary {min(kls)}")
+    return n_b1
+
+
+def grid_scat(torch, gt_dir) -> int:
+    """The scatterometry grid driver on
+    ``config_gridsearch_scatterometry_small.yml`` at full width (6 trials in
+    one ensemble group; GRID_SCAT_CUTS) against serve()'s GT and
+    conditions, each trial evaluated through B1; then the GT-against-GT
+    floor of the same GT.  Returns B1's launches."""
+    from dmip_tpu_torch import data, evaluate
+    from dmip_tpu_torch.mains import run_grid_search_scatterometry
+    from dmip_tpu_torch.ops import fused_em_sampler
+
+    cfg = dict(card_config("config_gridsearch_scatterometry_small.yml"), **GRID_SCAT_CUTS,
+               src_dir=os.path.join(gt_dir, "grid_scat"))
+    groups = _grid_trials(cfg)
+    check([len(g) for g in groups] == [6] and cfg["hidden_layers"] == [512] * 3 and cfg["RANDOM_STATE"] == 13
+          and cfg["n_samples_x"] == N_SAMPLES, f"grid_scat: the shipped grid changed: {[len(g) for g in groups]}")
+    fused_em_sampler.launches = 0
+    t0 = time.time()
+    out = run_grid_search_scatterometry.run(cfg, gt_dir, device="cuda")
+    torch.cuda.synchronize()
+    n_b1 = fused_em_sampler.launches
+    t1 = time.time()
+    floor = evaluate.gt_floor_scatterometry(data.cached_gt_loader(gt_dir, device="cuda"), SCAT_CONDITIONS,
+                                            n_repeats=GRID_FLOOR_REPEATS)
+    floor = {k: v.tolist() for k, v in floor.items()}
+    phase("grid_scat", t0, trials=len(groups[0]), b1_launches=n_b1,
+          results=[{k: r[k] for k in ("lam", "lam2", "kl", "nlpd", "fisher")} for r in out["results"]],
+          gt_floor=floor, gt_floor_seconds=time.time() - t1)
+    check(n_b1 == len(groups[0]) * SCAT_CONDITIONS * cfg["eval_n_repeats"], f"grid_scat: {n_b1} B1 launches")
+    check(_finite([v for r in out["results"] for v in (r["kl"], r["nlpd"], r["fisher"])]
+                  + [v for vs in floor.values() for v in vs]), f"grid_scat: non-finite numbers {out}, {floor}")
+    return n_b1
+
+
 def b3_work(in_dim, out_dim, hidden, batch: int, n_steps: int):
     """(FLOPs, bytes) of one B3 launch: per step the forward, dW for every
     layer and da below the top layer; params, m and v read and written
@@ -1612,15 +1864,20 @@ def run() -> list:
         train_baselines(torch, work)
         dps_step_card_vs_cpu(torch)
         launches["guided"] += train_dps(torch, work)
+        grid_ensemble_card(torch)
+        grid_launches = {"linear": grid_linear(torch, work), "cde_500k": grid_scat(torch, work)}
 
     # timings at the main path's shapes, after the counts were read; B1's
     # numbers are per launch, weighted by the launches of each net
     t0 = time.time()
     # the refined rows' proposals too (linear_pinn2 has the linear net's
-    # shape), and the served baselines' DSM rows (baselines_dsm has cde_500k's)
-    em_n = {"linear_refined_winner": launches["em_linear"] + refined_launches["linear"],
-            "cde_500k": launches["em"] - launches["em_linear"] + refined_launches["cde_500k"] + baseline_launches}
-    launches["em"] += sum(refined_launches.values()) + baseline_launches
+    # shape), the served baselines' DSM rows (baselines_dsm has cde_500k's)
+    # and the grid trials' evaluations (the linear grid's nets have the linear
+    # net's shape, the scatterometry grid's cde_500k's)
+    em_n = {"linear_refined_winner": launches["em_linear"] + refined_launches["linear"] + grid_launches["linear"],
+            "cde_500k": launches["em"] - launches["em_linear"] + refined_launches["cde_500k"] + baseline_launches
+            + grid_launches["cde_500k"]}
+    launches["em"] += sum(refined_launches.values()) + baseline_launches + sum(grid_launches.values())
     em_t, em_flops, em_bytes = {}, 0.0, 0.0
     for name, (params, y) in nets.items():
         x0 = torch.randn(N_SAMPLES, params[-1][0].shape[1], generator=gen, device="cuda")

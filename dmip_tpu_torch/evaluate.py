@@ -2,7 +2,8 @@
 
 Port of the single-device paths of ``dmip_tpu/evaluate.py``:
 ``histogramdd_flat`` (:37), ``kl_pair`` (:56), ``sliced_w2`` (:93),
-``evaluate_linear`` (:439-563) and ``evaluate_scatterometry`` (:566-772).
+``evaluate_linear`` (:439-563), ``evaluate_scatterometry`` (:566-772) and
+``gt_floor_scatterometry`` (:357).
 For each condition y, ``n_repeats`` x (posterior sampling + reference
 samples), 75^d histograms on a fixed box, the eps-smoothed forward and
 reverse histogram KL, the NLL under the true posterior (linear) or the MCMC
@@ -12,6 +13,11 @@ index in ``plot_ys`` the JAX package's corner plots of the last repeat's
 samples (:534-546, :745-752), through :mod:`dmip_tpu_torch.utils.plotting`,
 imported only then; the drivers call ``require_plotting`` before they
 train, so a host without matplotlib fails at once.
+
+``chunk=`` walks the conditions in groups of ``chunk`` with the results of
+``chunk=None`` (the same draws in the same order); in the JAX package a
+chunk is one dispatch, and batching a chunk into one pass here is the
+eager evaluation's rework (ROADMAP.md C3).
 """
 
 from __future__ import annotations
@@ -122,6 +128,61 @@ def _write_results_csv(path: str, columns: Dict[str, Sequence[float]]) -> None:
             w.writerow([i] + [columns[k][i] for k in keys])
 
 
+def _chunk_size(chunk: Optional[int]) -> int:
+    """Conditions per chunk: ``chunk``, or 1 for None, 0 or 1 (the configs'
+    ``eval_chunk: 0`` means none).  Anything but None or an int >= 0
+    raises."""
+    if chunk is None:
+        return 1
+    if int(chunk) != chunk or chunk < 0:
+        raise ValueError(f"chunk must be None or a non-negative int, got {chunk!r}")
+    return max(int(chunk), 1)
+
+
+def _condition_order(n_y: int, chunk: Optional[int]):
+    """The conditions 0 .. n_y - 1, walked chunk by chunk."""
+    step = _chunk_size(chunk)
+    for c0 in range(0, n_y, step):
+        yield from range(c0, min(c0 + step, n_y))
+
+
+@torch.no_grad()
+def gt_floor_scatterometry(
+    gt_loader: Callable[[int, int], np.ndarray],
+    n_conditions: int,
+    n_repeats: int = 10,
+    nbins: int = 75,
+    xlim: Tuple[float, float] = (-1.2, 1.2),
+    generator: Optional[torch.Generator] = None,
+    device=None,
+) -> Dict[str, np.ndarray]:
+    """The GT-against-GT floor of the metrics, per condition: each
+    condition's first n_repeats // 2 ground-truth repeats against the next
+    n_repeats // 2, by the evaluation's histogram KL (both directions) and
+    sliced W2 (projections drawn from ``generator``, by default one seeded
+    with 0).  A model's KL near this floor is at the metric's resolution.
+    Arrays go to ``device`` (default: the loader's tensors' own, else the
+    CPU).  Returns {'kl', 'kl_reverse', 'w2'}, each of shape
+    (n_conditions,)."""
+    lo, hi = xlim
+    half = n_repeats // 2
+    if half < 1:
+        raise ValueError("need n_repeats >= 2 to split GT into halves")
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    out = {"kl": [], "kl_reverse": [], "w2": []}
+    for i in range(n_conditions):
+        a = torch.cat([as_t(gt_loader(i, j)) for j in range(half)])
+        b = torch.cat([as_t(gt_loader(i, j)) for j in range(half, 2 * half)])
+        if generator is None:
+            generator = torch.Generator(device=a.device).manual_seed(0)
+        kl, kl_rev = kl_pair(histogramdd_flat(a, nbins, lo, hi), histogramdd_flat(b, nbins, lo, hi))
+        n = min(a.shape[0], b.shape[0])
+        w2 = sliced_w2(a[:n], b[:n], generator=generator)
+        for k, v in zip(out, (kl, kl_rev, w2)):
+            out[k].append(float(v))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 @torch.no_grad()
 def evaluate_linear(
     model: DiffusionModel,
@@ -138,15 +199,16 @@ def evaluate_linear(
     verbose: bool = True,
     method: str = "auto",
     plot_ys: Sequence[int] = (),
+    chunk: Optional[int] = None,
 ) -> Tuple[float, float, float]:
     """Linear evaluation against the analytic posterior; returns (mean KL,
     mean NLPD, mean score-MSE).  Runs on ys's device.  results.csv columns:
     KL2, NLL_true, NLL_diffusion, MSE, W2.  With ``out_dir``, each condition
     index in ``plot_ys`` gets ``posterior-{true,diffusion}-<i>.svg`` of the
-    last repeat's samples."""
+    last repeat's samples.  ``chunk``: see the module docstring."""
     lo, hi = xlim
     cols = {"KL2": [], "NLL_true": [], "NLL_diffusion": [], "MSE": [], "W2": []}
-    for i in range(ys.shape[0]):
+    for i in _condition_order(ys.shape[0], chunk):
         y = ys[i]
         hist_t = hist_p = 0
         stats = []
@@ -201,6 +263,7 @@ def evaluate_scatterometry(
     method: str = "auto",
     progress_every: int = 0,
     plot_ys: Sequence[int] = (),
+    chunk: Optional[int] = None,
 ) -> Tuple[float, float, float]:
     """Scatterometry evaluation against MCMC ground truth; ``gt_loader(i, j)``
     gives condition i's repeat j.  Returns (mean KL, mean NLPD, mean
@@ -209,9 +272,10 @@ def evaluate_scatterometry(
 
     ``progress_every=N`` prints a flushed heartbeat with the running rate
     each time the count of finished conditions crosses a multiple of N, and
-    after the last one (``dmip_tpu/evaluate.py:635-650``'s rule).  With
-    ``out_dir``, each condition index in ``plot_ys`` gets
-    ``posterior-{mcmc,diffusion}-<i>.svg`` of the last repeat's samples."""
+    after the last one (``dmip_tpu/evaluate.py:635-650``'s rule), counted
+    at the end of each chunk.  With ``out_dir``, each condition index in
+    ``plot_ys`` gets ``posterior-{mcmc,diffusion}-<i>.svg`` of the last
+    repeat's samples.  ``chunk``: see the module docstring."""
     from .problems.scatterometry import get_log_posterior
 
     lo, hi = xlim
@@ -219,7 +283,8 @@ def evaluate_scatterometry(
     a, b, lambd_bd = fparams["a"], fparams["b"], fparams["lambd_bd"]
     cols = {"KL2": [], "KL_reverse": [], "NLL_mcmc": [], "NLL_diffusion": [], "MSE": [], "W2": []}
     n_y, t_start = ys.shape[0], time.time()
-    for i in range(n_y):
+    step = _chunk_size(chunk)
+    for i in _condition_order(n_y, chunk):
         y = ys[i]
 
         def energy(x):
@@ -245,9 +310,13 @@ def evaluate_scatterometry(
         nll_t, nll_p, mse, w2 = torch.stack(stats).mean(0).tolist()
         for k, v in zip(cols, (float(kl), float(kl_rev), nll_t, nll_p, mse, w2)):
             cols[k].append(v)
-        if progress_every and ((i + 1) // progress_every > i // progress_every or i + 1 == n_y):
-            rate = (i + 1) / max(time.time() - t_start, 1e-9)
-            print(f"[eval-scat] {i + 1}/{n_y} conditions ({rate:.2f} cond/s, {n_repeats} repeats)", flush=True)
+        done = i + 1
+        if done % step and done != n_y:
+            continue  # inside a chunk
+        prev = done - (done % step or step)
+        if progress_every and (done // progress_every > prev // progress_every or done == n_y):
+            rate = done / max(time.time() - t_start, 1e-9)
+            print(f"[eval-scat] {done}/{n_y} conditions ({rate:.2f} cond/s, {n_repeats} repeats)", flush=True)
     kl_arr = np.asarray(cols["KL2"])
     nlpd = np.abs(np.asarray(cols["NLL_diffusion"]) - np.asarray(cols["NLL_mcmc"]))
     if out_dir is not None:

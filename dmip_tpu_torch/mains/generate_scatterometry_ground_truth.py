@@ -80,7 +80,8 @@ def main(argv=None) -> None:
     p.add_argument("--config", default="configs/config_scatterometry.yml")
     p.add_argument("--gt_dir", default="data/gt_samples_scatterometry")
     p.add_argument("--n_samples_y", type=int, default=None,
-                   help="generate only the first N conditions")
+                   help="draw N conditions instead of the config's n_samples_y (the conditions depend on N, "
+                        "so use the n_samples_y of the config that will be evaluated)")
     p.add_argument("--mcmc_seed", type=int, default=None,
                    help="fresh-seed GT: same conditions, independent chains")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")

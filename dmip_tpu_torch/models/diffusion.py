@@ -75,6 +75,11 @@ def _kernel_draws(generator, num_samples: int, xdim: int, mean: float, std: floa
     return (x0 * std + mean).to(dev), seed
 
 
+def _draws_probe(cfg) -> bool:
+    """Whether a PDE loss of ``cfg`` draws a Hutchinson probe."""
+    return cfg.divergence_method != "exact" and cfg.pde_loss != "cScoreFPE"
+
+
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
     """Training objective selection (mirrors dmip_tpu's LossConfig)."""
@@ -156,7 +161,7 @@ class DiffusionModel:
         if cfg.name not in ("DSM", "DSM_PDE", "PINNLoss", "PINNLoss2"):
             raise ValueError(f"unsupported loss {cfg.name!r} for {type(self).__name__}")
         base = self.sde.base
-        hutchinson = cfg.divergence_method != "exact" and cfg.pde_loss != "cScoreFPE"
+        hutchinson = _draws_probe(cfg)
         pde_kw = dict(pde_loss=cfg.pde_loss, pde_metric=cfg.pde_metric,
                       divergence_method=cfg.divergence_method)
         pinn_kw = dict(initial_condition=initial_condition, lam=cfg.lam, lam2=cfg.lam2,
@@ -179,6 +184,18 @@ class DiffusionModel:
             return fn(self.apply_a, params, base, x, y, z0, eps, t, v=v, **pinn_kw)
 
         return loss_fn
+
+    def loss_draws(self, cfg: LossConfig, generator: Optional[torch.Generator], x: Tensor, y: Tensor):
+        """(t, eps, v): what the loss of :meth:`make_loss_fn` draws from
+        ``generator`` for the batch (x, y), in its order and shapes; v is
+        None unless the loss draws a Hutchinson probe.  Handing them to the
+        loss by its keywords gives the value it computes from the generator."""
+        z0, _ = self.diffusion_state(x, y)
+        t, eps = self._draw_t_eps(generator, z0, None, None)
+        v = None
+        if cfg.name != "DSM" and _draws_probe(cfg):
+            v = L.rademacher_like(z0.shape, generator, device=z0.device, dtype=z0.dtype)
+        return t, eps, v
 
     def sample(
         self,
@@ -328,6 +345,11 @@ class PosteriorDiffusionEstimator(DiffusionModel):
             )
 
         return loss_fn
+
+    def loss_draws(self, cfg: LossConfig, generator: Optional[torch.Generator], x: Tensor, y: Tensor):
+        """(t, eps, None): the PosteriorLoss draws t and eps for x, no probe."""
+        t, eps = self._draw_t_eps(generator, x, None, None)
+        return t, eps, None
 
     def sample(self, params, y: Optional[Tensor], num_samples: int = 2000, num_steps: int = 200,
                mean: float = 0.0, std: float = 1.0, generator: Optional[torch.Generator] = None,

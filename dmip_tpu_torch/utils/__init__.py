@@ -1,4 +1,4 @@
-from .config import load_config, set_directories
+from .config import check_wd, load_config, product_dict, set_directories
 from .metrics import MetricsWriter
 
-__all__ = ["MetricsWriter", "load_config", "set_directories"]
+__all__ = ["MetricsWriter", "check_wd", "load_config", "product_dict", "set_directories"]

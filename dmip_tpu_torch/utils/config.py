@@ -1,11 +1,12 @@
-"""Config loading and experiment-directory management
-(port of ``dmip_tpu/utils/config.py``)."""
+"""Config loading, the grid's Cartesian expansion and experiment-directory
+management (port of ``dmip_tpu/utils/config.py``)."""
 
 from __future__ import annotations
 
+import itertools
 import os
 import shutil
-from typing import Any, Dict
+from typing import Any, Dict, Iterator
 
 import yaml
 
@@ -13,6 +14,13 @@ import yaml
 def load_config(path: str) -> Dict[str, Any]:
     with open(path) as f:
         return yaml.safe_load(f)
+
+
+def product_dict(**kwargs) -> Iterator[Dict[str, Any]]:
+    """Cartesian product of a dict of lists, the last key varying fastest."""
+    keys = kwargs.keys()
+    for instance in itertools.product(*kwargs.values()):
+        yield dict(zip(keys, instance))
 
 
 def set_directories(train_dir: str, out_dir: str, resume_training: bool = False) -> str:
@@ -26,3 +34,14 @@ def set_directories(train_dir: str, out_dir: str, resume_training: bool = False)
         shutil.rmtree(log_dir)
     os.makedirs(log_dir, exist_ok=True)
     return log_dir
+
+
+def check_wd(required_dir_name: str) -> None:
+    """Raises unless the working directory's path ends with
+    ``required_dir_name``."""
+    current_path = os.getcwd()
+    if not current_path.endswith(required_dir_name):
+        raise ValueError(
+            f"The script must be executed from the '{required_dir_name}' directory "
+            f"of the project, current path is '{current_path}'."
+        )

@@ -688,3 +688,74 @@ def test_baselines_dsm_row_reaches_b1(cuda, tmp_path):
     torch.cuda.synchronize()
     assert fused_em_sampler.launches == before + 2
     assert all(np.isfinite(v) for v in mean.values()), mean
+
+
+def test_ensemble_matches_sequential_at_full_width(cuda):
+    """K = 2 trials of the linear PINNLoss (FPE, L1) at 512^3 and batch
+    1000, one epoch of 3 steps, f32 (TF32 off), each against the sequential
+    autograd engine with its lam / lam2 from the same init and seed.  The
+    first step's loss: the same arithmetic in another sum order, within
+    1e-4 (chip_smoke.py's GRID_STEP_LOSS_REL_TOL).  Every leaf against the
+    distance the 3 steps moved it: Adam's update is scale-free, so only a
+    weight whose gradient sits at the rounding level can take an lr step of
+    the other sign, ~2e-3 of a 512 x 512 leaf's 3-step update; 1e-2 leaves
+    room for a few and is far below what the other trial's lam gives."""
+    import dataclasses
+
+    from dmip_tpu_torch import data, ensemble, pytree, train
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        prob = LinearForwardProblem()
+        xs, ys = data.generate_dataset_linear(2, prob.forward, 3000, torch.Generator().manual_seed(0), cuda)
+        batch_fn = lambda g: data.linear_epoch_batches(g, xs, ys, prob.noise_std, 1000)
+        model, cfg = train.get_model_from_args({"model": "CDE", "loss_fn": "PINNLoss", "pde_loss": "FPE",
+                                                "pde_metric": "L1", "ic_metric": "L1"}, {"xdim": 2, "ydim": 2})
+        kw = {"initial_condition": prob.score_posterior}
+        opt = train.build_optimizer(1e-4)
+        lams, lam2s = [1.0, 1e-4], [1.0, 1e-4]
+        ens = ensemble.init_ensemble(model, torch.Generator().manual_seed(8), 2, device=cuda)
+        gen = train.epoch_generator(9, 0, cuda)
+        xb, yb = batch_fn(gen)
+        t, eps, v = model.loss_draws(cfg, gen, xb[0], yb[0])
+        step = ensemble.make_ensemble_step(model, cfg, opt, kw)
+        _, _, first, _ = step(ens, ensemble.init_opt_state(opt, ens), torch.tensor(lams, device=cuda),
+                              torch.tensor(lam2s, device=cuda), xb[0], yb[0], t, eps, v)
+        efn = ensemble.make_ensemble_epoch_fn(model, cfg, opt, batch_fn, 1, kw)
+        ens, hist = ensemble.ensemble_fit(efn, ens, opt, 9, 1, torch.tensor(lams, device=cuda),
+                                          torch.tensor(lam2s, device=cuda), log_every=0)
+        p0 = model.init(torch.Generator().manual_seed(8), device=cuda)
+        seq = []
+        for i in range(2):
+            loss_fn = model.make_loss_fn(dataclasses.replace(cfg, lam=lams[i], lam2=lam2s[i]), **kw)
+            ref = float(loss_fn(p0, None, xb[0], yb[0], t=t, eps=eps, v=v)[0])
+            assert abs(float(first[i]) - ref) <= 1e-4 * abs(ref)
+            fn = train.make_epoch_fn(loss_fn, opt, batch_fn)
+            seq.append(train.fit(fn, p0, opt, 9, 1, log_every=0)[0])
+            for a, b, c in zip(pytree.leaves(ensemble.trial_params(ens, i)), pytree.leaves(seq[i]),
+                               pytree.leaves(p0)):
+                assert float((a - b).norm() / (b - c).norm()) <= 1e-2
+        contrast = min(float((a - b).norm() / (b - c).norm())
+                       for a, b, c in zip(pytree.leaves(seq[0]), pytree.leaves(seq[1]), pytree.leaves(p0)))
+        assert contrast > 0.1 and np.isfinite(hist).all()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_grid_evaluation_reaches_b1(cuda, tmp_path):
+    """The linear grid driver on the card: one ensemble group of 2 trials,
+    each evaluated through B1 (one launch a repeat), finite metrics."""
+    from dmip_tpu_torch.mains import run_grid_search_linear
+    from dmip_tpu_torch.utils import load_config
+
+    cfg = dict(load_config(os.path.join(REPO, "configs/config_gridsearch_linear_small.yml")), hidden_layers=[128, 128],
+               dataset_size=3000, n_epochs=1, epochs_per_call=1, n_samples_y=1, n_samples_x=2000, eval_n_repeats=1,
+               src_dir=str(tmp_path / "grid"))
+    cfg["params"] = dict(cfg["params"], loss_fn=["PINNLoss"], pde_loss=["FPE"], pde_metric=["L1"])
+    before = fused_em_sampler.launches
+    out = run_grid_search_linear.run(cfg, device="cuda")
+    torch.cuda.synchronize()
+    assert fused_em_sampler.launches == before + 2
+    assert len(out["results"]) == 2 and all(np.isfinite([r["kl"], r["nlpd"], r["fisher"]]).all()
+                                            for r in out["results"])
