@@ -281,7 +281,8 @@ def test_linear_grid_driver_end_to_end_on_cpu(tmp_path):
 def test_scatterometry_grid_driver_end_to_end_on_cpu(tmp_path):
     """config_gridsearch_scatterometry_small.yml (6 trials in one group) on
     the GT driver's output for the same conditions, sizes cut, the
-    sequential fallback (no_ensemble) and --n_hosts splitting the trials."""
+    sequential fallback (no_ensemble) and --n_hosts splitting the trials;
+    without a card the driver raises unless given the CPU."""
     base = yaml.safe_load(open(os.path.join(REPO, "configs", "config_scatterometry.yml")))
     cfg = dict(base, **yaml.safe_load(open(os.path.join(REPO, "configs",
                                                         "config_gridsearch_scatterometry_small.yml"))))
@@ -289,6 +290,9 @@ def test_scatterometry_grid_driver_end_to_end_on_cpu(tmp_path):
     gpath = tmp_path / "gt.yml"
     gpath.write_text(yaml.safe_dump(cfg))
     gt.main(["--config", str(gpath), "--gt_dir", str(tmp_path / "gt"), "--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_grid_search_scatterometry.run(cfg, str(tmp_path / "gt"))
     out = run_grid_search_scatterometry.run(cfg, str(tmp_path / "gt"), device="cpu")
     assert len(out["results"]) == 6 and all(np.isfinite(r["kl"]) for r in out["results"])
     assert _summary_min(cfg["src_dir"]) == (min(r["kl"] for r in out["results"]), 6)
