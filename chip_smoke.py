@@ -60,7 +60,19 @@ width:
     (``grid_linear``); the scatterometry grid driver on
     ``config_gridsearch_scatterometry_small.yml`` (6 trials) against the
     serving ground truth, and that ground truth's own floor
-    (``grid_scat``).  Epochs and evaluation are cut, widths kept.
+    (``grid_scat``).  Epochs and evaluation are cut, widths kept;
+  * the multi-GPU layer (``dmip_tpu_torch.parallel``): a world of one NCCL
+    rank in this process (``dist_world1``: ``config_linear.yml``'s PINN
+    net at full width for 10 data-parallel steps, bit for bit against the
+    meshless engine, and the linear evaluation with the mesh through B1),
+    then two spawned ranks sharing the card over gloo (``dist_two_ranks``:
+    the same steps against the world of one, the evaluation's rows against
+    it bit for bit, the GT driver's ``--devices 2`` at 300k chains x 1000
+    steps against a meshless GT in distribution, the small linear grid
+    pinned against each trial's sequential run bit for bit, the small
+    scatterometry grid's group as a sharded vmap ensemble against
+    ``grid_scat``'s, every trial through B1 split over the ranks, and B1's
+    and B2's times with two ranks on the card).
 
 Every config handed to a driver has ``plot_ys: []`` (``card_config``): the
 drivers' corner plots need matplotlib, which this script does not require
@@ -300,6 +312,27 @@ GRID_LEAF_REL_TOL = 1e-3
 GRID_LINEAR_CUTS = dict(n_epochs=1, epochs_per_call=1, n_samples_y=2, eval_n_repeats=1)
 GRID_SCAT_CUTS = dict(n_epochs=2, epochs_per_call=1, n_samples_y=SCAT_CONDITIONS, eval_n_repeats=2)
 GRID_FLOOR_REPEATS = REPEATS    # gt_floor_scatterometry: 5 GT repeats against the other 5
+# The multi-GPU layer (dmip_tpu_torch.parallel).  dist_world1: a world of one
+# NCCL rank in this process; dist_two_ranks: two spawned ranks sharing the
+# card over gloo.  Training: config_linear.yml's PINN net (512^3, batch 1000)
+# for DIST_STEPS steps, the first DIST_STEPS batches of its first epoch.
+DIST_STEPS = 10
+DIST_LIN_CONDITIONS = (3, 4)     # evaluate_linear's conditions: world of one, two ranks
+DIST_REPEATS = 2
+DIST_GT_CONDITIONS = 2           # the GT driver's --devices 2, at MH_CHAINS x MH_STEPS
+# A world of one rank must give the meshless engine's step bit for bit (the
+# mean over one rank is the identity).  Two ranks sum the halves' means in
+# another f32 order: the first step's loss within 1e-6 relative, and every
+# leaf after DIST_STEPS steps within 1e-4 of its own update (as GRID_LEAF_REL_TOL
+# reads it), several times the distance measured between the ensemble and its
+# sequential runs.
+DIST_LOSS_REL_TOL = 1e-6
+DIST_LEAF_REL_TOL = 1e-4
+# Each rank's half of a condition's sharded GT (150k chains) against the
+# meshless GT's first half: histogram KL at most this times the meshless
+# GT's own floor, its first half against its second (the same sizes).
+DIST_GT_KL_FACTOR = 1.5
+DIST_TIMING_REPS = 3
 
 
 class CheckFailed(Exception):
@@ -1684,6 +1717,307 @@ def grid_scat(torch, gt_dir) -> int:
     return n_b1
 
 
+def dist_train(torch, cfg, mesh, steps=DIST_STEPS):
+    """``steps`` steps of ``cfg``'s net through the autograd engine (``mesh``:
+    a Mesh or None), on the first ``steps`` batches of epoch 0 from the
+    driver's seeds.  Returns (the loss of step 1 alone, params after
+    ``steps``, the init, ms a step)."""
+    from dmip_tpu_torch import data, train
+    from dmip_tpu_torch.mains.eval_diffusion import linear_split
+    from dmip_tpu_torch.problems import LinearForwardProblem
+
+    prob = LinearForwardProblem()
+    seed = int(cfg["random_state"])
+    x_train, _, y_train, _ = linear_split(cfg, prob, "cuda")
+    model, loss_cfg = train.get_model_from_args(cfg, {"xdim": prob.xdim, "ydim": prob.ydim})
+    loss_fn = model.make_loss_fn(loss_cfg, initial_condition=prob.score_posterior)
+    opt = train.build_optimizer(float(cfg["lr"]), cfg.get("grad_clip"))
+    init = lambda: model.init(torch.Generator().manual_seed(seed + 1), device="cuda")
+
+    def run(n):
+        def batch_fn(g):
+            xb, yb = data.linear_epoch_batches(g, x_train, y_train, prob.noise_std, int(cfg["batch_size"]))
+            return xb[:n], yb[:n]
+
+        fn = train.make_epoch_fn(loss_fn, opt, batch_fn, mesh=mesh)
+        p = init()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        p, _, losses, _ = fn(p, opt.init(p), seed + 2, 0)
+        torch.cuda.synchronize()
+        return float(losses[0]), p, 1e3 * (time.time() - t0) / n
+
+    first = run(1)[0]
+    _, params, ms = run(steps)
+    return first, params, init(), ms
+
+
+def dist_eval(torch, mesh, n_conditions: int, out_dir: str):
+    """evaluate_linear of ``linear_refined_winner`` on the first
+    ``n_conditions`` linear test conditions, DIST_REPEATS repeats of
+    N_SAMPLES, through B1, over ``mesh``; returns results.csv's rows."""
+    from dmip_tpu_torch import evaluate
+    from dmip_tpu_torch.checkpoints import load_archived_params
+    from dmip_tpu_torch.mains.eval_diffusion import linear_test_conditions
+    from dmip_tpu_torch.models import CDE
+    from dmip_tpu_torch.problems import LinearForwardProblem
+
+    prob = LinearForwardProblem()
+    params = load_archived_params(os.path.join(REPO, "benchmarks/checkpoints/linear_refined_winner"), device="cuda")
+    ys = linear_test_conditions(card_config("config_linear.yml"), prob, "cuda")[:n_conditions]
+    evaluate.evaluate_linear(CDE(2, 2), params, prob, ys, torch.Generator(device="cuda").manual_seed(0),
+                             out_dir=out_dir, n_samples_x=N_SAMPLES, n_repeats=DIST_REPEATS, num_steps=EM_STEPS,
+                             verbose=False, mesh=mesh)
+    with open(os.path.join(out_dir, "results.csv")) as f:
+        return [ln.strip().split(",") for ln in f][1:]
+
+
+def _leaf_rel(p, ref, p0) -> float:
+    """max over leaves of ||p - ref|| / ||ref - p0||."""
+    from dmip_tpu_torch import pytree
+
+    return max(float((a - b).norm() / (b - c).norm())
+               for a, b, c in zip(pytree.leaves(p), pytree.leaves(ref), pytree.leaves(p0)))
+
+
+def dist_world1(torch, work) -> dict:
+    """A world of one rank over NCCL on a free local port, in this process:
+    config_linear.yml's PINN net at full width for DIST_STEPS steps through
+    the data-parallel engine, held bit for bit against the meshless engine;
+    then evaluate_linear with the mesh on DIST_LIN_CONDITIONS[0] conditions
+    x DIST_REPEATS repeats through B1.  Returns what dist_two_ranks holds
+    against: the first step's loss, the params, the init and the rows."""
+    from dmip_tpu_torch import pytree
+    from dmip_tpu_torch.ops import fused_em_sampler
+    from dmip_tpu_torch.parallel import get_mesh, init_multihost, local_address
+
+    t0 = time.time()
+    check(init_multihost(local_address(), 1, 0), "dist_world1: no process group")
+    mesh = get_mesh()
+    check((mesh.size, mesh.backend, str(mesh.device)) == (1, "nccl", "cuda:0"), f"dist_world1: mesh {mesh}")
+    cfg = card_config("config_linear.yml")
+    check(cfg["loss_fn"] == "PINNLoss" and cfg["hidden_layers"] == [512] * 3 and cfg["batch_size"] == 1000,
+          f"dist_world1: config_linear.yml changed: {cfg['loss_fn']} {cfg['hidden_layers']} {cfg['batch_size']}")
+    first, params, p0, ms = dist_train(torch, cfg, mesh)
+    ref_first, ref_params, _, ref_ms = dist_train(torch, cfg, None)
+    same = first == ref_first and all(torch.equal(a, b) for a, b in
+                                      zip(pytree.leaves(params), pytree.leaves(ref_params)))
+    t_train = time.time() - t0
+    t1 = time.time()
+    fused_em_sampler.launches = 0
+    rows = dist_eval(torch, mesh, DIST_LIN_CONDITIONS[0], os.path.join(work, "dist_world1_lin"))
+    torch.cuda.synchronize()
+    n_b1 = fused_em_sampler.launches
+    torch.distributed.destroy_process_group()
+    phase("dist_world1", t0, backend=mesh.backend, steps=DIST_STEPS, first_loss=first, bit_for_bit=same,
+          ms_per_step=ms, meshless_ms_per_step=ref_ms, train_seconds=t_train, eval_seconds=time.time() - t1,
+          b1_launches=n_b1, rows=rows)
+    check(same, "dist_world1: the mesh of one differs from the meshless engine")
+    check(n_b1 == DIST_LIN_CONDITIONS[0] * DIST_REPEATS, f"dist_world1: {n_b1} B1 launches")
+    return {"first": first, "params": params, "p0": p0, "rows": rows, "b1": n_b1}
+
+
+def _two_rank_child(rank: int, address: str, work: str) -> None:
+    """One of dist_two_ranks' two ranks (spawned): every sub-phase on the
+    shared card, its seconds and launch counts saved for the parent."""
+    import torch
+
+    from dmip_tpu_torch import pytree
+    from dmip_tpu_torch.mains import generate_scatterometry_ground_truth as gt
+    from dmip_tpu_torch.mains import run_grid_search_linear, run_grid_search_scatterometry
+    from dmip_tpu_torch.ops import fused_em_sampler, fused_mh_scatterometry
+    from dmip_tpu_torch.ops.mh_kernel import XDIM
+    from dmip_tpu_torch.parallel import get_mesh, init_multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_multihost(address, 2, rank)
+    mesh = get_mesh()
+    out = {"backend": mesh.backend, "device": str(mesh.device), "seconds": {}, "b1": {}, "b2": {}}
+
+    def sub(name, fn):
+        fused_em_sampler.launches = fused_mh_scatterometry.launches = 0
+        mesh.barrier()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        mesh.barrier()
+        out["seconds"][name] = time.time() - t0
+        out["b1"][name], out["b2"][name] = fused_em_sampler.launches, fused_mh_scatterometry.launches
+        return res
+
+    first, params, _, ms = sub("train", lambda: dist_train(torch, card_config("config_linear.yml"), mesh))
+    out["train"] = {"first": first, "params": [t.cpu() for t in pytree.leaves(params)], "ms_per_step": ms}
+    sub("eval", lambda: dist_eval(torch, mesh, DIST_LIN_CONDITIONS[1], os.path.join(work, "dist_two_lin")))
+    gt_cfg = dict(card_config("config_scatterometry.yml"), n_samples_y=DIST_GT_CONDITIONS, n_samples_x=N_SAMPLES,
+                  n_repeats=REPEATS)
+    sub("gt", lambda: gt.run(gt_cfg, os.path.join(work, "dist_two_gt"), device="cuda", devices=2))
+    lin = dict(card_config("config_gridsearch_linear_small.yml"), **GRID_LINEAR_CUTS, ensemble_backend="pinned",
+               src_dir=os.path.join(work, "dist_grid_pinned"))
+    out["grid_pinned"] = sub("grid_pinned", lambda: run_grid_search_linear.run(lin, device="cuda"))["results"]
+    sc = dict(card_config("config_gridsearch_scatterometry_small.yml"), **GRID_SCAT_CUTS, ensemble_backend="vmap",
+              src_dir=os.path.join(work, "dist_grid_vmap"))
+    out["grid_vmap"] = sub("grid_vmap", lambda: run_grid_search_scatterometry.run(sc, work, device="cuda"))["results"]
+
+    # B1 and B2 timed on both ranks at once, each rank's launches on the
+    # shared card: B1 at the linear net's serving shape, B2 at a rank's half
+    # of a GT condition's chains
+    from dmip_tpu_torch.checkpoints import load_archived_params
+    from dmip_tpu_torch.mains.eval_diffusion import linear_test_conditions
+    from dmip_tpu_torch.problems import LinearForwardProblem
+    from dmip_tpu_torch.problems import scatterometry as scat
+
+    gen = torch.Generator(device="cuda").manual_seed(rank)
+    lin_params = load_archived_params(os.path.join(REPO, "benchmarks/checkpoints/linear_refined_winner"),
+                                      device="cuda")
+    y_lin = linear_test_conditions(card_config("config_linear.yml"), LinearForwardProblem(), "cuda")[0]
+    x0 = torch.randn(N_SAMPLES, 2, generator=gen, device="cuda")
+    forward_model, fparams = scat.load_forward_model(device="cuda")
+    y_scat = gt.test_conditions(gt_cfg, forward_model, fparams, "cuda")[0]
+    c0 = torch.rand(MH_CHAINS // 2, XDIM, generator=gen, device="cuda") * 2 - 1
+    kw = dict(noise_std=float(gt_cfg["NOISE_STD_MCMC"]), a=fparams["a"], b=fparams["b"], lambd_bd=fparams["lambd_bd"])
+    mesh.barrier()
+    out["b1_ms"] = cuda_ms(lambda: fused_em_sampler(lin_params, x0, y_lin, EM_STEPS, seed=7), DIST_TIMING_REPS)
+    mesh.barrier()
+    out["b2_ms"] = cuda_ms(lambda: fused_mh_scatterometry(forward_model.weights, c0, y_scat, MH_STEPS, seed=7, **kw), 1)
+    torch.save(out, os.path.join(work, f"dist_two_rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def _sequential_trials(torch, cfg) -> dict:
+    """Every trial of a linear grid config trained one by one as the grid
+    driver's sequential ``train_fn`` trains it: {trial dir: params}."""
+    from dmip_tpu_torch import data, gridsearch, train
+    from dmip_tpu_torch.mains.eval_diffusion import linear_split
+    from dmip_tpu_torch.problems import LinearForwardProblem
+
+    prob = LinearForwardProblem()
+    seed, epc = int(cfg["random_state"]), int(cfg["epochs_per_call"])
+    x_train, _, y_train, _ = linear_split(cfg, prob, "cuda")
+
+    def batch_fn(g):
+        return data.linear_epoch_batches(g, x_train, y_train, prob.noise_std, int(cfg["batch_size"]))
+
+    out = {}
+    for group in _grid_trials(cfg):
+        for _, full in group:
+            model, loss_cfg = train.get_model_from_args(full, {"xdim": prob.xdim, "ydim": prob.ydim})
+            opt = train.build_optimizer(float(cfg["lr"]), cfg.get("grad_clip"))
+            fn = train.make_epoch_fn(model.make_loss_fn(loss_cfg, initial_condition=prob.score_posterior), opt,
+                                     batch_fn, epochs_per_call=epc)
+            p, _, _ = train.fit(fn, model.init(torch.Generator().manual_seed(seed + 1), device="cuda"), opt,
+                                seed + 2, num_epochs=int(cfg["n_epochs"]), epochs_per_call=epc, log_every=0)
+            out[gridsearch.trial_dir(cfg["src_dir"], full, loss_cfg.name)] = (model, p)
+    return out
+
+
+def dist_two_ranks(torch, work, world1) -> dict:
+    """Two spawned ranks sharing the card over gloo (``_two_rank_child``),
+    each sub-phase's launches counted from zero on each rank: (a) the
+    DIST_STEPS data-parallel steps, held against dist_world1 (the first
+    step's loss, every leaf against its update, the ranks bit for bit); (b)
+    evaluate_linear on DIST_LIN_CONDITIONS[1] conditions, whose rows must
+    equal dist_world1's bit for bit; (c) the GT driver with --devices 2 on
+    DIST_GT_CONDITIONS conditions at MH_CHAINS x MH_STEPS, against a
+    meshless GT of the same conditions (run here) in distribution; (d)
+    config_gridsearch_linear_small.yml through the grid driver, pinned, each
+    trial against its sequential run (here) bit for bit, and
+    config_gridsearch_scatterometry_small.yml's group, vmap sharded, each
+    trial against grid_scat's meshless ensemble by DIST_LEAF_REL_TOL.  Every
+    trial is evaluated through B1, split over the ranks.  Returns the B1
+    launches by net shape and B2's, summed over the ranks, and the ranks'
+    B1 and B2 times on the shared card."""
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from dmip_tpu_torch import data, evaluate, gridsearch, pytree, train
+    from dmip_tpu_torch.checkpoints import load_checkpoint
+    from dmip_tpu_torch.mains import generate_scatterometry_ground_truth as gt
+    from dmip_tpu_torch.parallel import local_address
+    from dmip_tpu_torch.problems import scatterometry as scat
+
+    t0 = time.time()
+    mp.spawn(_two_rank_child, args=(local_address(), work), nprocs=2, join=True)
+    spawn_s = time.time() - t0
+    ranks = [torch.load(os.path.join(work, f"dist_two_rank{r}.pt"), weights_only=False) for r in range(2)]
+    t1 = time.time()
+
+    # (a) training against the world of one
+    tr = [r["train"] for r in ranks]
+    loss_rel = abs(tr[0]["first"] - world1["first"]) / abs(world1["first"])
+    cpu = lambda tree: [t.cpu() for t in pytree.leaves(tree)]
+    leaf = _leaf_rel(tr[0]["params"], cpu(world1["params"]), cpu(world1["p0"]))
+    ranks_equal = all(torch.equal(a, b) for a, b in zip(tr[0]["params"], tr[1]["params"]))
+
+    # (b) the rows of the conditions both runs evaluate
+    with open(os.path.join(work, "dist_two_lin", "results.csv")) as f:
+        rows = [ln.strip().split(",") for ln in f][1:]
+    n1 = DIST_LIN_CONDITIONS[0]
+    rows_equal = rows[:n1] == world1["rows"]
+
+    # (c) the sharded GT against a meshless GT of the same conditions
+    gt_cfg = dict(card_config("config_scatterometry.yml"), n_samples_y=DIST_GT_CONDITIONS, n_samples_x=N_SAMPLES,
+                  n_repeats=REPEATS)
+    ref_dir, sh_dir = os.path.join(work, "dist_ref_gt"), os.path.join(work, "dist_two_gt")
+    gt.run(gt_cfg, ref_dir, device="cuda")
+    ref, sh = data.gt_loader(ref_dir), data.gt_loader(sh_dir)
+    half = REPEATS // 2
+    shapes = [sh(i, j).shape for i in range(DIST_GT_CONDITIONS) for j in range(REPEATS)]
+    gt_ok = (set(shapes) == {(N_SAMPLES, 3)} and len(shapes) == DIST_GT_CONDITIONS * REPEATS
+             and all(np.isfinite(sh(i, j)).all() for i in range(DIST_GT_CONDITIONS) for j in range(REPEATS)))
+    # each rank's first chains start where the meshless run's do, on another seed
+    differ = all(not np.array_equal(sh(i, 0), sh(i, half)) and not np.array_equal(sh(i, 0), ref(i, 0))
+                 and not np.array_equal(sh(i, half), ref(i, half)) for i in range(DIST_GT_CONDITIONS))
+    floor = evaluate.gt_floor_scatterometry(ref, DIST_GT_CONDITIONS, REPEATS, device="cuda")["kl"].tolist()
+    gt_kl = [evaluate.gt_floor_scatterometry(lambda i, j, r=r: ref(i, j) if j < half else sh(i, j - half + r * half),
+                                             DIST_GT_CONDITIONS, REPEATS, device="cuda")["kl"].tolist()
+             for r in range(2)]
+
+    # (d) the pinned trials against their sequential runs, the sharded vmap
+    # trials against grid_scat's meshless ensemble
+    lin = dict(card_config("config_gridsearch_linear_small.yml"), **GRID_LINEAR_CUTS,
+               src_dir=os.path.join(work, "dist_grid_pinned"))
+    pinned_equal = []
+    for tdir, (model, p) in _sequential_trials(torch, lin).items():
+        back = load_checkpoint(os.path.join(tdir, "checkpoint"), p, device="cuda")["params"]
+        pinned_equal.append(all(torch.equal(a, b) for a, b in zip(pytree.leaves(back), pytree.leaves(p))))
+    sc = dict(card_config("config_gridsearch_scatterometry_small.yml"), **GRID_SCAT_CUTS,
+              src_dir=os.path.join(work, "dist_grid_vmap"))
+    forward_model, fparams = scat.load_forward_model(device="cuda")
+    vmap_leaf = []
+    for _, full in _grid_trials(sc)[0]:
+        model, loss_cfg = train.get_model_from_args(full, fparams)
+        p0 = model.init(torch.Generator().manual_seed(int(sc["RANDOM_STATE"]) + 2), device="cuda")
+        tdir = gridsearch.trial_dir(sc["src_dir"], full, loss_cfg.name)
+        mine = load_checkpoint(os.path.join(tdir, "checkpoint"), p0, device="cuda")["params"]
+        ref_dir = os.path.join(work, "grid_scat", os.path.relpath(tdir, sc["src_dir"]), "checkpoint")
+        vmap_leaf.append(_leaf_rel(mine, load_checkpoint(ref_dir, p0, device="cuda")["params"], p0))
+
+    per_rank = [{k: r[k] for k in ("backend", "device", "seconds", "b1", "b2", "b1_ms", "b2_ms")} for r in ranks]
+    phase("dist_two_ranks", t0, spawn_and_run_seconds=spawn_s, check_seconds=time.time() - t1, ranks=per_rank,
+          first_loss=tr[0]["first"], first_loss_rel_err=loss_rel, leaf_rel_err_max=leaf, ranks_bit_for_bit=ranks_equal,
+          ms_per_step=[t["ms_per_step"] for t in tr], eval_rows_equal=rows_equal, gt_floor_kl=floor,
+          gt_kl_by_rank=gt_kl, gt_chains_differ=differ, pinned_trials_bit_for_bit=sum(pinned_equal),
+          pinned_trials=len(pinned_equal), vmap_leaf_rel_err=vmap_leaf,
+          tolerance={"first_loss": DIST_LOSS_REL_TOL, "leaf": DIST_LEAF_REL_TOL, "gt_kl_factor": DIST_GT_KL_FACTOR})
+    check(all(r["backend"] == "gloo" and r["device"] == "cuda:0" for r in ranks), f"dist_two_ranks: {per_rank}")
+    check(loss_rel <= DIST_LOSS_REL_TOL and leaf <= DIST_LEAF_REL_TOL and ranks_equal,
+          f"dist_two_ranks: training against the world of one: loss {loss_rel}, leaf {leaf}, ranks {ranks_equal}")
+    check(rows_equal, f"dist_two_ranks: evaluation rows {rows[:n1]} against {world1['rows']}")
+    check(gt_ok and differ, f"dist_two_ranks: sharded GT shapes {set(shapes)}, chains differ {differ}")
+    check(all(k <= DIST_GT_KL_FACTOR * f for kls in gt_kl for k, f in zip(kls, floor)),
+          f"dist_two_ranks: sharded GT KL {gt_kl} against the floor {floor}")
+    check(all(pinned_equal) and len(pinned_equal) == 12, f"dist_two_ranks: pinned trials {pinned_equal}")
+    check(len(vmap_leaf) == 6 and max(vmap_leaf) <= DIST_LEAF_REL_TOL, f"dist_two_ranks: vmap trials {vmap_leaf}")
+    expect = {"eval": [4, 4], "grid_pinned": [12, 12], "grid_vmap": [24, 12]}
+    for name, want in expect.items():
+        check([r["b1"][name] for r in ranks] == want, f"dist_two_ranks: B1 launches in {name} {per_rank}")
+    check([r["b2"]["gt"] for r in ranks] == [DIST_GT_CONDITIONS] * 2, f"dist_two_ranks: B2 launches {per_rank}")
+    return {"linear": sum(r["b1"]["eval"] + r["b1"]["grid_pinned"] for r in ranks),
+            "cde_500k": sum(r["b1"]["grid_vmap"] for r in ranks), "mh": sum(r["b2"]["gt"] for r in ranks),
+            "b1_ms": [r["b1_ms"] for r in ranks], "b2_ms": [r["b2_ms"] for r in ranks]}
+
+
 def b3_work(in_dim, out_dim, hidden, batch: int, n_steps: int):
     """(FLOPs, bytes) of one B3 launch: per step the forward, dW for every
     layer and da below the top layer; params, m and v read and written
@@ -1866,6 +2200,8 @@ def run() -> list:
         launches["guided"] += train_dps(torch, work)
         grid_ensemble_card(torch)
         grid_launches = {"linear": grid_linear(torch, work), "cde_500k": grid_scat(torch, work)}
+        world1 = dist_world1(torch, work)
+        dist = dist_two_ranks(torch, work, world1)
 
     # timings at the main path's shapes, after the counts were read; B1's
     # numbers are per launch, weighted by the launches of each net
@@ -1874,10 +2210,16 @@ def run() -> list:
     # shape), the served baselines' DSM rows (baselines_dsm has cde_500k's)
     # and the grid trials' evaluations (the linear grid's nets have the linear
     # net's shape, the scatterometry grid's cde_500k's)
-    em_n = {"linear_refined_winner": launches["em_linear"] + refined_launches["linear"] + grid_launches["linear"],
+    # and the multi-GPU phases' (the linear evaluations and pinned grid at the
+    # linear net's shape, the sharded scatterometry grid at cde_500k's)
+    dist_linear = world1["b1"] + dist["linear"]
+    em_n = {"linear_refined_winner": launches["em_linear"] + refined_launches["linear"] + grid_launches["linear"]
+            + dist_linear,
             "cde_500k": launches["em"] - launches["em_linear"] + refined_launches["cde_500k"] + baseline_launches
-            + grid_launches["cde_500k"]}
-    launches["em"] += sum(refined_launches.values()) + baseline_launches + sum(grid_launches.values())
+            + grid_launches["cde_500k"] + dist["cde_500k"]}
+    launches["em"] += (sum(refined_launches.values()) + baseline_launches + sum(grid_launches.values())
+                       + dist_linear + dist["cde_500k"])
+    launches["mh"] += dist["mh"]
     em_t, em_flops, em_bytes = {}, 0.0, 0.0
     for name, (params, y) in nets.items():
         x0 = torch.randn(N_SAMPLES, params[-1][0].shape[1], generator=gen, device="cuda")
@@ -1951,6 +2293,7 @@ def run() -> list:
           b5_ms_by_guidance={k: v[0] for k, v in b5_t.items()},
           b5_plain_ms_by_guidance={k: v[1] for k, v in b5_t.items()},
           b5_bound_ms_by_guidance={k: v[2] for k, v in b5_t.items()}, b5_phase_us_by_guidance=b5_split,
+          b1_ms_two_ranks_sharing=dist["b1_ms"], mh_ms_two_ranks_sharing_half_chains=dist["b2_ms"],
           sm_clock_power_temp=clocks)
 
     return [

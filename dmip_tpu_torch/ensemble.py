@@ -16,10 +16,14 @@ which the model's loss draws them (``DiffusionModel.loss_draws``).  Trial k
 is therefore the sequential run with lam = lams[k]: the same init, batches
 and draws (held in ``tests/test_torch_ensemble.py``).
 
-Backends: ``vmap`` (this module) and ``auto`` (``vmap`` on one device, as
-the JAX package picks it there).  The JAX package's ``pinned`` backend runs
-one trial per device; it is multi-device work and raises here, as a
-multi-device mesh does.
+Backends (:func:`resolve_backend`): ``vmap``, which with a mesh of several
+ranks gives each rank its block of the (padded) trial axis, with no
+communication between trials; ``pinned``, one trial a rank in waves of the
+world size, each running the unchanged sequential program
+(:func:`make_pinned_ensemble_epoch_fn`); ``auto``, ``pinned`` on a mesh of
+several ranks and ``vmap`` otherwise, as the JAX package picks them.  Every
+rank ends a call with every trial's state (an all-gather of the trial
+axis), and rank 0 writes the logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -36,16 +40,14 @@ from torch.func import grad_and_value, vmap
 from . import pytree
 from .checkpoints import save_checkpoint
 from .models.diffusion import DiffusionModel, LossConfig
-from .train import AdamState, Optimizer, apply_updates, build_optimizer, epoch_generator, single_device
+from .parallel.mesh import Mesh, barrier, is_root
+from .train import (AdamState, Optimizer, apply_updates, build_optimizer, epoch_generator, make_epoch_fn,
+                    resolve_mesh)
 from .utils.metrics import MetricsWriter
 
 Tensor = torch.Tensor
 
 BACKENDS = ("auto", "vmap", "pinned")
-MULTI_DEVICE = (
-    "multi-device training is not ported yet (ROADMAP.md §A7, multi-GPU); "
-    "the 'pinned' backend runs one trial per device, and a mesh shards the trial axis"
-)
 
 
 def init_ensemble(model: DiffusionModel, generator: torch.Generator, n_trials: int, device=None):
@@ -152,10 +154,12 @@ def make_ensemble_epoch_fn(
     ``lams`` / ``lam2s`` are (K,) tensors, replacing cfg's lam / lam2 per
     trial (:func:`make_ensemble_step`).  Epoch j draws its batches, then
     each batch's draws, from ``epoch_generator(seed, epoch0 + j)`` on the
-    params' device, as :func:`dmip_tpu_torch.train.make_epoch_fn` does.  A
-    multi-device mesh raises (ROADMAP.md §A7)."""
-    if not single_device(mesh):
-        raise NotImplementedError(MULTI_DEVICE + "; set mesh: null to train on one device")
+    params' device, as :func:`dmip_tpu_torch.train.make_epoch_fn` does.
+
+    ``mesh`` (None, 'auto' or a Mesh): each rank trains its block of the K
+    trials (K a multiple of the size: :func:`pad_trials`) on the same
+    batches and draws, and returns every trial's state, gathered."""
+    mesh = resolve_mesh(mesh)
     step = make_ensemble_step(model, cfg, optimizer, loss_kwargs)
 
     def epochs(params, opt_state: AdamState, seed: int, epoch0: int, lams: Tensor, lam2s: Tensor,
@@ -178,7 +182,63 @@ def make_ensemble_epoch_fn(
                     [i[k] for i in step_infos]).mean(0)
         return params, opt_state, losses, infos
 
+    if mesh is None:
+        return epochs
+
+    def sharded(params, opt_state: AdamState, seed: int, epoch0: int, lams: Tensor, lam2s: Tensor,
+                n_active: int = epochs_per_call):
+        if lams.shape[0] % mesh.size:
+            raise ValueError(f"{lams.shape[0]} trials do not split over {mesh.size} ranks; pad with pad_trials()")
+        cut = lambda tree: pytree.map(mesh.local, tree)
+        out = epochs(cut(params), cut(opt_state), seed, epoch0, mesh.local(lams), mesh.local(lam2s), n_active)
+        return _gather_trials(mesh, *out)
+
+    return sharded
+
+
+def make_pinned_ensemble_epoch_fn(
+    model: DiffusionModel,
+    cfg: LossConfig,
+    optimizer: Optimizer,
+    batch_fn: Callable[[torch.Generator], Tuple[Tensor, Tensor]],
+    mesh: Optional[Mesh],
+    epochs_per_call: int = 1,
+    loss_kwargs: Optional[Dict[str, Any]] = None,
+):
+    """The ``pinned`` backend: one trial a rank.  Same signature as
+    :func:`make_ensemble_epoch_fn`'s return, for a wave of K = mesh.size
+    trials (one trial without a mesh): rank r trains trial r as the
+    sequential engine would
+    (:func:`dmip_tpu_torch.train.make_epoch_fn` on the loss at lams[r],
+    lam2s[r], with no trial axis), so the trial equals its sequential run;
+    then every rank gets the wave's state, gathered.  For losses whose one
+    trial already fills the card, where stacking trials into every product
+    would not pay."""
+    kw = dict(loss_kwargs or {})
+
+    def epochs(params, opt_state: AdamState, seed: int, epoch0: int, lams: Tensor, lam2s: Tensor,
+               n_active: int = epochs_per_call):
+        size, r = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+        if lams.shape[0] != size:
+            raise ValueError(f"the pinned ensemble needs n_trials == mesh.size ({lams.shape[0]} != {size}); "
+                             "pad with pad_trials()")
+        trial_cfg = dataclasses.replace(cfg, lam=lams[r].item(), lam2=lam2s[r].item())
+        run = make_epoch_fn(model.make_loss_fn(trial_cfg, **kw), optimizer, batch_fn, epochs_per_call)
+        mine = lambda tree: pytree.map(lambda a: a[r], tree)
+        p, st, losses, infos = run(mine(params), mine(opt_state), seed, epoch0, n_active)
+        one = lambda tree: pytree.map(lambda a: a.unsqueeze(0), tree)
+        out = (one(p), one(st), losses[:, None], {k: v[:, None] for k, v in infos.items()})
+        return out if mesh is None else _gather_trials(mesh, *out)
+
     return epochs
+
+
+def _gather_trials(mesh: Mesh, params, opt_state: AdamState, losses: Tensor, infos: Dict[str, Tensor]):
+    """Every rank's block of the trial axis (axis 0 of the state, axis 1 of
+    the per-epoch losses and info), in rank order, on every rank."""
+    gather = lambda tree: pytree.map(mesh.all_gather, tree)
+    return (gather(params), gather(opt_state), mesh.all_gather(losses, axis=1),
+            {k: mesh.all_gather(v, axis=1) for k, v in infos.items()})
 
 
 def ensemble_fit(
@@ -216,14 +276,17 @@ def ensemble_fit(
 
 
 def resolve_backend(backend: str, mesh) -> str:
-    """'vmap' for 'auto' or 'vmap' on one device; 'pinned' and a
-    multi-device mesh raise (ROADMAP.md §A7); anything else raises with
-    the options."""
+    """The backend that runs: 'pinned' for 'auto' on a mesh of several
+    ranks, else 'vmap'; 'vmap' and 'pinned' as given (pinned on no mesh
+    runs the trials one after another, each as its sequential run).
+    ``mesh``: None, 'auto' or a Mesh.
+    Anything else raises with the options."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown ensemble_backend {backend!r}; options: {', '.join(map(repr, BACKENDS))}")
-    if backend == "pinned" or not single_device(mesh):
-        raise NotImplementedError(MULTI_DEVICE + "; use ensemble_backend: vmap (or auto) on one device")
-    return "vmap"
+    if backend != "auto":
+        return backend
+    mesh = resolve_mesh(mesh)
+    return "pinned" if mesh is not None and mesh.size > 1 else "vmap"
 
 
 def make_train_many(
@@ -248,29 +311,46 @@ def make_train_many(
     (``<train_dir>/checkpoint``, step n_epochs, the train seed and
     ``extra={'lam', 'lam2'}``), and returns the per-trial params.
     ``backend``: see :func:`resolve_backend`; it is checked here, before
-    any grid trains."""
+    any grid trains.  ``mesh`` (None, 'auto' or a Mesh): the trial list is
+    padded to a multiple of the size by repeating the last trial; 'pinned'
+    trains it in waves of the size; every rank returns every trial's params,
+    and rank 0 writes the files."""
+    mesh = resolve_mesh(mesh)
     be = resolve_backend(backend, mesh)
+    n_ranks = 1 if mesh is None else mesh.size
 
     def train_many(model, loss_cfg, full_cfgs, train_dirs, log_dirs) -> List[Any]:
         lams = [float(fc.get("lam", 1.0)) for fc in full_cfgs]
         lam2s = [float(fc.get("lam2", 1.0)) for fc in full_cfgs]
-        lams_t, lam2s_t = (torch.tensor(v, dtype=torch.float32, device=device) for v in (lams, lam2s))
-        ens = init_ensemble(model, torch.Generator().manual_seed(int(init_seed)), len(lams), device=device)
+        lams_t, lam2s_t, n_valid = pad_trials(lams, lam2s, n_ranks, device=device)
+        ens = init_ensemble(model, torch.Generator().manual_seed(int(init_seed)), lams_t.shape[0], device=device)
         optimizer = build_optimizer(lr, grad_clip)
-        epoch_fn = make_ensemble_epoch_fn(model, loss_cfg, optimizer, batch_fn, epochs_per_call, loss_kwargs)
         desc = f"ensemble[{be}]:" + (os.path.basename(train_dirs[0]) if train_dirs else "")
-        ens, hist = ensemble_fit(epoch_fn, ens, optimizer, train_seed, n_epochs, lams_t, lam2s_t,
-                                 epochs_per_call=epochs_per_call, desc=desc)
-        for i, ld in enumerate(log_dirs):
-            with MetricsWriter(ld) as w:
-                for e in range(hist.shape[0]):
-                    w.scalar("Train/Loss", float(hist[e, i]), e)
-        out = [trial_params(ens, i) for i in range(len(lams))]
-        # per-trial checkpoints: finalists can be re-evaluated without
-        # retraining, and a crash after training loses nothing
-        for i, tdir in enumerate(train_dirs):
-            save_checkpoint(os.path.join(tdir, "checkpoint"), out[i], step=n_epochs, seed=int(train_seed),
-                            extra={"lam": lams[i], "lam2": lam2s[i]})
+        fit_kw = dict(epochs_per_call=epochs_per_call, desc=desc)
+        if be == "pinned":
+            epoch_fn = make_pinned_ensemble_epoch_fn(model, loss_cfg, optimizer, batch_fn, mesh, epochs_per_call,
+                                                     loss_kwargs)
+            waves = [ensemble_fit(epoch_fn, pytree.map(lambda a: a[w0:w0 + n_ranks], ens), optimizer, train_seed,
+                                  n_epochs, lams_t[w0:w0 + n_ranks], lam2s_t[w0:w0 + n_ranks], **fit_kw)
+                     for w0 in range(0, lams_t.shape[0], n_ranks)]
+            ens = pytree.map(lambda *parts: torch.cat(parts), *[w[0] for w in waves])
+            hist = np.concatenate([w[1] for w in waves], axis=1)
+        else:
+            epoch_fn = make_ensemble_epoch_fn(model, loss_cfg, optimizer, batch_fn, epochs_per_call, loss_kwargs,
+                                              mesh=mesh)
+            ens, hist = ensemble_fit(epoch_fn, ens, optimizer, train_seed, n_epochs, lams_t, lam2s_t, **fit_kw)
+        out = [trial_params(ens, i) for i in range(n_valid)]
+        if is_root(mesh):
+            for i, ld in enumerate(log_dirs):
+                with MetricsWriter(ld) as w:
+                    for e in range(hist.shape[0]):
+                        w.scalar("Train/Loss", float(hist[e, i]), e)
+            # per-trial checkpoints: finalists can be re-evaluated without
+            # retraining, and a crash after training loses nothing
+            for i, tdir in enumerate(train_dirs):
+                save_checkpoint(os.path.join(tdir, "checkpoint"), out[i], step=n_epochs, seed=int(train_seed),
+                                extra={"lam": lams[i], "lam2": lam2s[i]})
+        barrier(mesh)
         return out
 
     return train_many

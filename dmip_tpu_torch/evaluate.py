@@ -32,6 +32,8 @@ import numpy as np
 import torch
 
 from .models.diffusion import DiffusionModel
+from .parallel.mesh import Mesh, barrier, fold_in, is_root
+from .train import resolve_mesh
 
 Tensor = torch.Tensor
 
@@ -146,6 +148,38 @@ def _condition_order(n_y: int, chunk: Optional[int]):
         yield from range(c0, min(c0 + step, n_y))
 
 
+def _walk(n_y: int, chunk: Optional[int], generator: Optional[torch.Generator], mesh: Optional[Mesh], device):
+    """(the conditions this process evaluates, in order; condition i ->
+    its generator).  Without a mesh: every condition, chunk by chunk, each
+    from the caller's generator.  With one: this rank's block, condition i
+    from a generator seeded by ``fold_in(seed, i)``, the seed drawn once
+    from the caller's generator (rank 0's, broadcast)."""
+    order = list(_condition_order(n_y, chunk))
+    if mesh is None:
+        return order, lambda i: generator
+    gen_dev = generator.device if generator is not None else "cpu"
+    seed = torch.randint(0, 2**62, (1,), generator=generator, device=gen_dev)
+    seed = int(mesh.broadcast(seed.to(mesh.device)))
+    return order[mesh.rows(n_y)], lambda i: torch.Generator(device=device).manual_seed(fold_in(seed, i))
+
+
+def _all_rows(cols: Dict[str, list], mesh: Optional[Mesh]) -> Dict[str, list]:
+    """Every rank's rows (a block of conditions each, in rank order), so in
+    condition order, on every rank."""
+    if mesh is None:
+        return cols
+    parts = mesh.all_gather_objects(cols)
+    return {k: [v for p in parts for v in p[k]] for k in cols}
+
+
+def _write_results(out_dir: Optional[str], cols: Dict[str, Sequence[float]], mesh: Optional[Mesh]) -> None:
+    """results.csv in ``out_dir``, by rank 0; every rank returns once it
+    is written."""
+    if out_dir is not None and is_root(mesh):
+        _write_results_csv(os.path.join(out_dir, "results.csv"), cols)
+    barrier(mesh)
+
+
 @torch.no_grad()
 def gt_floor_scatterometry(
     gt_loader: Callable[[int, int], np.ndarray],
@@ -200,16 +234,21 @@ def evaluate_linear(
     method: str = "auto",
     plot_ys: Sequence[int] = (),
     chunk: Optional[int] = None,
+    mesh="auto",
 ) -> Tuple[float, float, float]:
     """Linear evaluation against the analytic posterior; returns (mean KL,
     mean NLPD, mean score-MSE).  Runs on ys's device.  results.csv columns:
     KL2, NLL_true, NLL_diffusion, MSE, W2.  With ``out_dir``, each condition
     index in ``plot_ys`` gets ``posterior-{true,diffusion}-<i>.svg`` of the
-    last repeat's samples.  ``chunk``: see the module docstring."""
+    last repeat's samples.  ``chunk`` and ``mesh``: see the module
+    docstring."""
     lo, hi = xlim
+    mesh = resolve_mesh(mesh)
     cols = {"KL2": [], "NLL_true": [], "NLL_diffusion": [], "MSE": [], "W2": []}
-    for i in _condition_order(ys.shape[0], chunk):
+    conditions, generator_of = _walk(ys.shape[0], chunk, generator, mesh, ys.device)
+    for i in conditions:
         y = ys[i]
+        generator = generator_of(i)
         hist_t = hist_p = 0
         stats = []
         for _ in range(n_repeats):
@@ -233,10 +272,10 @@ def evaluate_linear(
         nll_t, nll_p, mse, w2 = torch.stack(stats).mean(0).tolist()
         for k, v in zip(cols, (float(kl), nll_t, nll_p, mse, w2)):
             cols[k].append(v)
+    cols = _all_rows(cols, mesh)
     kl_arr = np.asarray(cols["KL2"])
     nlpd = np.abs(np.asarray(cols["NLL_true"]) - np.asarray(cols["NLL_diffusion"]))
-    if out_dir is not None:
-        _write_results_csv(os.path.join(out_dir, "results.csv"), cols)
+    _write_results(out_dir, cols, mesh)
     if verbose:
         var = np.sum((kl_arr - kl_arr.mean()) ** 2) / len(kl_arr)
         print(f"KL2: {kl_arr.mean()} +- {var}")
@@ -264,28 +303,34 @@ def evaluate_scatterometry(
     progress_every: int = 0,
     plot_ys: Sequence[int] = (),
     chunk: Optional[int] = None,
+    mesh="auto",
 ) -> Tuple[float, float, float]:
     """Scatterometry evaluation against MCMC ground truth; ``gt_loader(i, j)``
-    gives condition i's repeat j.  Returns (mean KL, mean NLPD, mean
-    score-MSE).  Runs on ys's device.  results.csv columns: KL2,
-    KL_reverse, NLL_mcmc, NLL_diffusion, MSE, W2.
+    gives condition i's repeat j (each rank loads only its conditions').
+    Returns (mean KL, mean NLPD, mean score-MSE).  Runs on ys's device.
+    results.csv columns: KL2, KL_reverse, NLL_mcmc, NLL_diffusion, MSE, W2.
 
     ``progress_every=N`` prints a flushed heartbeat with the running rate
     each time the count of finished conditions crosses a multiple of N, and
     after the last one (``dmip_tpu/evaluate.py:635-650``'s rule), counted
-    at the end of each chunk.  With ``out_dir``, each condition index in
-    ``plot_ys`` gets ``posterior-{mcmc,diffusion}-<i>.svg`` of the last
-    repeat's samples.  ``chunk``: see the module docstring."""
+    at the end of each chunk; with a mesh each rank counts its own
+    conditions.  With ``out_dir``, each condition index in ``plot_ys`` gets
+    ``posterior-{mcmc,diffusion}-<i>.svg`` of the last repeat's samples.
+    ``chunk`` and ``mesh``: see the module docstring."""
     from .problems.scatterometry import get_log_posterior
 
     lo, hi = xlim
     dev = ys.device
+    mesh = resolve_mesh(mesh)
     a, b, lambd_bd = fparams["a"], fparams["b"], fparams["lambd_bd"]
     cols = {"KL2": [], "KL_reverse": [], "NLL_mcmc": [], "NLL_diffusion": [], "MSE": [], "W2": []}
-    n_y, t_start = ys.shape[0], time.time()
+    t_start = time.time()
     step = _chunk_size(chunk)
-    for i in _condition_order(n_y, chunk):
+    conditions, generator_of = _walk(ys.shape[0], chunk, generator, mesh, dev)
+    n_y = len(conditions)
+    for done, i in enumerate(conditions, 1):
         y = ys[i]
+        generator = generator_of(i)
 
         def energy(x):
             return get_log_posterior(x, forward_model, a, b, y.expand(x.shape[0], -1), lambd_bd)
@@ -310,17 +355,16 @@ def evaluate_scatterometry(
         nll_t, nll_p, mse, w2 = torch.stack(stats).mean(0).tolist()
         for k, v in zip(cols, (float(kl), float(kl_rev), nll_t, nll_p, mse, w2)):
             cols[k].append(v)
-        done = i + 1
         if done % step and done != n_y:
             continue  # inside a chunk
         prev = done - (done % step or step)
         if progress_every and (done // progress_every > prev // progress_every or done == n_y):
             rate = done / max(time.time() - t_start, 1e-9)
             print(f"[eval-scat] {done}/{n_y} conditions ({rate:.2f} cond/s, {n_repeats} repeats)", flush=True)
+    cols = _all_rows(cols, mesh)
     kl_arr = np.asarray(cols["KL2"])
     nlpd = np.abs(np.asarray(cols["NLL_diffusion"]) - np.asarray(cols["NLL_mcmc"]))
-    if out_dir is not None:
-        _write_results_csv(os.path.join(out_dir, "results.csv"), cols)
+    _write_results(out_dir, cols, mesh)
     if verbose:
         var = np.sum((kl_arr - kl_arr.mean()) ** 2) / len(kl_arr)
         print(f"KL2: {kl_arr.mean()} +- {var}  W2: {np.mean(cols['W2']):.4f}")

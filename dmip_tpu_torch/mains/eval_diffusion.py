@@ -22,7 +22,9 @@ posterior refines (``models/refined.py``), and the results go to
 overrides the config's.  ``--eval_method`` ('auto', 'kernel', 'plain',
 'heun', 'expint[:ode|:sde][:1|:2]') and ``--eval_num_steps`` override the
 config's ``eval_method`` and ``eval_num_steps``.  ``--progress_every N``
-prints a heartbeat every N scatterometry conditions.
+prints a heartbeat every N scatterometry conditions.  Under ``torchrun
+--nproc_per_node N`` the config's ``mesh`` (default ``auto``) splits the
+conditions among the N ranks, and rank 0 writes results.csv.
 
 Usage: python -m dmip_tpu_torch.mains.eval_diffusion --problem linear \
           --checkpoint benchmarks/checkpoints/linear_refined_winner \
@@ -46,6 +48,7 @@ from .. import data, evaluate, resolve_device, train
 from ..checkpoints import load_archived_params
 from ..models import AnalyticGuidanceDPS, PosteriorDiffusionEstimator
 from ..models.refined import for_problem
+from ..parallel.mesh import init_multihost
 from ..problems import LinearForwardProblem
 from ..problems import scatterometry as scat
 from ..utils import load_config
@@ -127,6 +130,8 @@ def run(
     heartbeat every that many conditions.  A config with ``refine`` is
     scored as its refined row."""
     refine = config.get("refine")
+    init_multihost(device=device)
+    mesh = config.get("mesh", "auto")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_x = int(config["n_samples_x"])
@@ -144,7 +149,7 @@ def run(
         return evaluate.evaluate_linear(
             model, params, prob, y_test[: int(config["n_samples_y"])], gen,
             out_dir=out_dir, n_samples_x=n_x, n_repeats=n_repeats,
-            num_steps=num_steps, method=method,
+            num_steps=num_steps, method=method, mesh=mesh,
         )
     if problem == "scatterometry":
         if gt_dir is None:
@@ -164,7 +169,7 @@ def run(
         return evaluate.evaluate_scatterometry(
             model, params, forward_model, fparams, score_post, y_test,
             data.gt_loader(gt_dir), gen, out_dir=out_dir, n_samples_x=n_x,
-            n_repeats=n_repeats, num_steps=num_steps, method=method, progress_every=progress_every,
+            n_repeats=n_repeats, num_steps=num_steps, method=method, progress_every=progress_every, mesh=mesh,
         )
     raise ValueError(f"unknown problem {problem!r}")
 

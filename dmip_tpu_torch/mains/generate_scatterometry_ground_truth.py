@@ -12,9 +12,16 @@ fit to its noise.  Each condition index in the config's ``plot_ys`` (or
 ``plot_y``) also gets ``<gt_dir>/<i>/posterior-mcmc-<i>.svg``, the corner
 plot of its last repeat; ``plot_ys: []`` draws none.
 
+``--devices N`` shards every condition's chains over a world of N ranks
+(``torchrun --nproc_per_node N``; 0 or -1: the whole world): every rank
+draws the condition's starting points and kernel seed as one process does,
+runs its block of the chains with the seed folded with its rank (as the
+JAX driver folds the axis index), and rank 0 gathers the chains in rank
+order and writes them.
+
 Usage: python -m dmip_tpu_torch.mains.generate_scatterometry_ground_truth \
           [--config configs/config_scatterometry.yml] [--gt_dir data/gt...] \
-          [--n_samples_y N] [--mcmc_seed S] [--device cuda|cpu]
+          [--n_samples_y N] [--mcmc_seed S] [--devices N] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -25,8 +32,11 @@ import os
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from .. import data, evaluate, resolve_device
 from ..ops.mh_kernel import fused_mh_scatterometry
+from ..parallel.mesh import barrier, fold_in, get_mesh, init_multihost, is_root, pad_to_multiple
 from ..problems import scatterometry as scat
 from ..utils import load_config
 
@@ -43,12 +53,27 @@ def test_conditions(config: dict, forward_model, fparams, device) -> torch.Tenso
     return y_test
 
 
-def run(config: dict, gt_dir: str, device=None, mcmc_seed=None) -> None:
+def gt_mesh(devices: int):
+    """The mesh of ``--devices``: None for 1 in a world of one; a world of
+    N ranks for N (0 and -1: the world's size); any other world raises."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = world if devices in (0, -1) else int(devices)
+    if n != world:
+        raise ValueError(f"--devices {devices} needs a world of {n} ranks (torchrun --nproc_per_node {n}); "
+                         f"this one has {world}")
+    return get_mesh() if world > 1 else None
+
+
+def run(config: dict, gt_dir: str, device=None, mcmc_seed=None, devices: int = 1) -> None:
     """Writes the ground truth of every test condition.  The chains draw
     from a generator seeded with ``RANDOM_STATE + 1``, or with
-    ``mcmc_seed`` when given; the conditions do not change with it."""
+    ``mcmc_seed`` when given; the conditions do not change with it.
+    ``devices``: the ranks to shard the chains over (see the module
+    docstring)."""
     plot_ys = config.get("plot_ys", config.get("plot_y", ()))
     evaluate.require_plotting(plot_ys)
+    init_multihost(device=device)
+    mesh = gt_mesh(devices)
     dev = resolve_device(device)
     forward_model, fparams = scat.load_forward_model(device=dev)
     y_test = test_conditions(config, forward_model, fparams, dev)
@@ -58,21 +83,29 @@ def run(config: dict, gt_dir: str, device=None, mcmc_seed=None) -> None:
     n_repeats = int(config.get("n_repeats", 10))
     n_x = int(config["n_samples_x"])
     for i in range(y_test.shape[0]):
-        x0 = (torch.rand(n_repeats * n_x, 3, generator=gen) * 2.0 - 1.0).to(dev)
+        x0 = torch.rand(n_repeats * n_x, 3, generator=gen) * 2.0 - 1.0
+        seed = int(torch.randint(0, 2**62, (1,), generator=gen))
+        if mesh is not None:
+            # padding chains start at 0 and are dropped after the gather
+            x0 = mesh.local(pad_to_multiple(x0, mesh.size)[0])
+            seed = fold_in(seed, mesh.rank)
         x = fused_mh_scatterometry(
-            forward_model.weights, x0, y_test[i], int(config["METR_STEPS"]),
+            forward_model.weights, x0.to(dev), y_test[i], int(config["METR_STEPS"]),
             noise_std=float(config["NOISE_STD_MCMC"]), a=fparams["a"], b=fparams["b"],
-            lambd_bd=fparams["lambd_bd"],
-            seed=int(torch.randint(0, 2**62, (1,), generator=gen)),
+            lambd_bd=fparams["lambd_bd"], seed=seed,
         )
-        x = x.reshape(n_repeats, n_x, 3).cpu()
-        out_dir = os.path.join(gt_dir, str(i))
-        os.makedirs(out_dir, exist_ok=True)
-        for j in range(n_repeats):
-            np.save(os.path.join(out_dir, f"{j}.npy"), x[j].numpy())
-        if i in plot_ys:
-            evaluate.plot_posteriors(out_dir, i, {"mcmc": x[-1]}, 75, (-1.2, 1.2), [-1, 0, 1])
+        if mesh is not None:
+            x = mesh.all_gather(x)[: n_repeats * n_x]
+        if is_root(mesh):
+            x = x.reshape(n_repeats, n_x, 3).cpu()
+            out_dir = os.path.join(gt_dir, str(i))
+            os.makedirs(out_dir, exist_ok=True)
+            for j in range(n_repeats):
+                np.save(os.path.join(out_dir, f"{j}.npy"), x[j].numpy())
+            if i in plot_ys:
+                evaluate.plot_posteriors(out_dir, i, {"mcmc": x[-1]}, 75, (-1.2, 1.2), [-1, 0, 1])
         print(f"gt {i + 1}/{y_test.shape[0]} done", flush=True)
+    barrier(mesh)
 
 
 def main(argv=None) -> None:
@@ -84,12 +117,14 @@ def main(argv=None) -> None:
                         "so use the n_samples_y of the config that will be evaluated)")
     p.add_argument("--mcmc_seed", type=int, default=None,
                    help="fresh-seed GT: same conditions, independent chains")
+    p.add_argument("--devices", type=int, default=1,
+                   help="shard the chains over a world of this many ranks (0 or -1: all of them)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
     config = load_config(args.config)
     if args.n_samples_y is not None:
         config["n_samples_y"] = args.n_samples_y
-    run(config, args.gt_dir, device=args.device, mcmc_seed=args.mcmc_seed)
+    run(config, args.gt_dir, device=args.device, mcmc_seed=args.mcmc_seed, devices=args.devices)
 
 
 if __name__ == "__main__":

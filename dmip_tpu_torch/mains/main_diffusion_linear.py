@@ -14,6 +14,11 @@ row, refined on the analytic posterior's energy, into ``out_dir +
 its PosteriorLoss needs a forward model, which the linear problem does not
 hand it.
 
+Under ``torchrun --nproc_per_node N`` the config's ``mesh`` (default
+``auto``) trains data-parallel over the N ranks and splits the evaluation's
+conditions among them; rank 0 writes the logs, the checkpoint and
+results.csv.
+
 Usage: python -m dmip_tpu_torch.mains.main_diffusion_linear \
           [--config configs/config_linear.yml] [--refine mh,20,0.2] [--device cuda|cpu]
 """
@@ -21,12 +26,14 @@ Usage: python -m dmip_tpu_torch.mains.main_diffusion_linear \
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 import torch
 
 from .. import checkpoints, data, evaluate, resolve_device, train
 from ..models.refined import for_problem
+from ..parallel.mesh import barrier, init_multihost, is_root
 from ..problems import LinearForwardProblem
 from ..utils import MetricsWriter, load_config, set_directories
 from .eval_diffusion import linear_split
@@ -35,6 +42,8 @@ from .eval_diffusion import linear_split
 def run(config: dict, device=None) -> tuple:
     """Train and evaluate; returns (params, (KL, NLPD, score-MSE))."""
     evaluate.require_plotting(config.get("plot_ys", ()))
+    init_multihost(device=device)
+    mesh = train.resolve_mesh(config.get("mesh", "auto"))
     dev = resolve_device(device)
     prob = LinearForwardProblem()
     seed = int(config.get("random_state", 7))
@@ -56,7 +65,10 @@ def run(config: dict, device=None) -> tuple:
         train_seed = restored.get("seed", train_seed)
         print(f"resumed from epoch {start_epoch}")
 
-    log_dir = set_directories(config["train_dir"], config["out_dir"], resume)
+    log_dir = os.path.join(config["train_dir"], "logs")
+    if is_root(mesh):
+        set_directories(config["train_dir"], config["out_dir"], resume)
+    barrier(mesh)
     epc = int(config.get("epochs_per_call", 25))
     epoch_fn = train.select_epoch_fn(
         config, model, loss_fn, optimizer,
@@ -64,12 +76,13 @@ def run(config: dict, device=None) -> tuple:
         epochs_per_call=epc,
     )
     n_epochs = int(config["n_epochs"])
-    with MetricsWriter(log_dir) as logger:
+    with MetricsWriter(log_dir) if is_root(mesh) else contextlib.nullcontext() as logger:
         params, opt_state, _ = train.fit(
             epoch_fn, params, optimizer, train_seed, num_epochs=n_epochs, epochs_per_call=epc,
             logger=logger, desc="diffusion-linear", opt_state=opt_state, start_epoch=start_epoch,
         )
-    checkpoints.save_checkpoint(ckpt_dir, params, opt_state=opt_state, step=n_epochs, seed=train_seed)
+    if is_root(mesh):
+        checkpoints.save_checkpoint(ckpt_dir, params, opt_state=opt_state, step=n_epochs, seed=train_seed)
 
     def score(m, out_dir, plot_ys=()):
         return evaluate.evaluate_linear(
@@ -77,7 +90,7 @@ def run(config: dict, device=None) -> tuple:
             torch.Generator(device=dev).manual_seed(seed + 3), out_dir=out_dir,
             n_samples_x=int(config["n_samples_x"]), n_repeats=int(config.get("n_repeats", 10)),
             num_steps=int(config.get("eval_num_steps", 200)), method=str(config.get("eval_method", "auto")),
-            plot_ys=plot_ys,
+            plot_ys=plot_ys, mesh=mesh,
         )
 
     metrics = score(model, config["out_dir"], config.get("plot_ys", ()))

@@ -18,6 +18,11 @@ trained prior net under analytic guidance (``guidance_clip``; the fused
 guided kernel on the card, 200 steps whatever ``eval_method`` says, as in
 the JAX driver) into ``out_dir + "_analytic"``.
 
+Under ``torchrun --nproc_per_node N`` the config's ``mesh`` (default
+``auto``) trains data-parallel over the N ranks and splits the evaluation's
+conditions (and their ground truth) among them; rank 0 writes the logs,
+the checkpoint and results.csv.
+
 Usage: python -m dmip_tpu_torch.mains.main_diffusion_scatterometry \
           [--config configs/config_scatterometry.yml] [--gt_dir data/gt...] [--device cuda|cpu]
 """
@@ -25,12 +30,14 @@ Usage: python -m dmip_tpu_torch.mains.main_diffusion_scatterometry \
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 import torch
 
 from .. import checkpoints, data, evaluate, resolve_device, train
 from ..models.refined import for_problem
+from ..parallel.mesh import barrier, init_multihost, is_root
 from ..problems import scatterometry as scat
 from ..utils import MetricsWriter, load_config, set_directories
 from .eval_diffusion import analytic_row
@@ -41,6 +48,8 @@ def run(config: dict, gt_dir: str, device=None) -> tuple:
     """Train and evaluate; returns (params, (KL, NLPD, score-MSE)) of the
     learned row."""
     evaluate.require_plotting(config.get("plot_ys", ()))
+    init_multihost(device=device)
+    mesh = train.resolve_mesh(config.get("mesh", "auto"))
     dev = resolve_device(device)
     forward_model, fparams = scat.load_forward_model(device=dev)
     seed = int(config.get("RANDOM_STATE", 13))
@@ -69,7 +78,10 @@ def run(config: dict, gt_dir: str, device=None) -> tuple:
         train_seed = restored.get("seed", train_seed)
         print(f"resumed from epoch {start_epoch}")
 
-    log_dir = set_directories(config["train_dir"], config["out_dir"], resume)
+    log_dir = os.path.join(config["train_dir"], "logs")
+    if is_root(mesh):
+        set_directories(config["train_dir"], config["out_dir"], resume)
+    barrier(mesh)
     epc = int(config.get("epochs_per_call", 100))
     epoch_fn = train.select_epoch_fn(
         config, model, loss_fn, optimizer,
@@ -77,12 +89,13 @@ def run(config: dict, gt_dir: str, device=None) -> tuple:
             g, forward_model, fparams["a"], fparams["b"], fparams["lambd_bd"], int(config["batch_size"])),
         epochs_per_call=epc,
     )
-    with MetricsWriter(log_dir) as logger:
+    with MetricsWriter(log_dir) if is_root(mesh) else contextlib.nullcontext() as logger:
         params, opt_state, _ = train.fit(
             epoch_fn, params, optimizer, train_seed, num_epochs=n_epochs, epochs_per_call=epc,
             logger=logger, desc="diffusion-scat", opt_state=opt_state, start_epoch=start_epoch,
         )
-    checkpoints.save_checkpoint(ckpt_dir, params, opt_state=opt_state, step=n_epochs, seed=train_seed)
+    if is_root(mesh):
+        checkpoints.save_checkpoint(ckpt_dir, params, opt_state=opt_state, step=n_epochs, seed=train_seed)
 
     def score(m, out_dir, plot_ys=(), method=str(config.get("eval_method", "auto")),
               num_steps=int(config.get("eval_num_steps", 200))):
@@ -90,7 +103,7 @@ def run(config: dict, gt_dir: str, device=None) -> tuple:
             m, params, forward_model, fparams, score_post, y_test, data.gt_loader(gt_dir),
             torch.Generator(device=dev).manual_seed(seed + 4), out_dir=out_dir,
             n_samples_x=int(config["n_samples_x"]), n_repeats=int(config.get("n_repeats", 10)),
-            num_steps=num_steps, method=method, plot_ys=plot_ys,
+            num_steps=num_steps, method=method, plot_ys=plot_ys, mesh=mesh,
         )
 
     metrics = score(model, config["out_dir"], config.get("plot_ys", ()))

@@ -10,6 +10,9 @@ against the MCMC ground truth in ``--gt_dir`` (written by
 kept on the device after its first load unless ``eval_gt_cache: false``.
 Seeds follow ``main_diffusion_scatterometry``: conditions ``RANDOM_STATE``,
 init ``+ 2``, training ``+ 3``, evaluation ``+ 4``.
+Under ``torchrun --nproc_per_node N`` the config's ``mesh`` works as in
+the linear grid driver; each rank loads the ground truth of its own
+conditions only.
 
 Usage: python -m dmip_tpu_torch.mains.run_grid_search_scatterometry \
           [--config configs/config_gridsearch_scatterometry.yml] \
@@ -19,11 +22,13 @@ Usage: python -m dmip_tpu_torch.mains.run_grid_search_scatterometry \
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 import torch
 
 from .. import data, ensemble, evaluate, gridsearch, resolve_device, train
+from ..parallel.mesh import init_multihost, is_root
 from ..problems import scatterometry as scat
 from ..utils import MetricsWriter, load_config
 from .generate_scatterometry_ground_truth import test_conditions
@@ -33,6 +38,8 @@ from .run_grid_search_linear import host_filter
 def run(config: dict, gt_dir: str, device=None, host: int = 0, n_hosts: int = 1) -> dict:
     """Run the grid; returns ``grid_search``'s result."""
     evaluate.require_plotting(config.get("plot_ys", ()))
+    init_multihost(device=device)
+    mesh = train.resolve_mesh(config.get("mesh", "auto"))
     dev = resolve_device(device)
     forward_model, fparams = scat.load_forward_model(device=dev)
     seed = int(config.get("RANDOM_STATE", 13))
@@ -50,8 +57,8 @@ def run(config: dict, gt_dir: str, device=None, host: int = 0, n_hosts: int = 1)
         loss_fn = model.make_loss_fn(loss_cfg, **loss_kwargs)
         params = model.init(torch.Generator().manual_seed(seed + 2), device=dev)
         optimizer = train.build_optimizer(float(config["lr"]), config.get("grad_clip"))
-        epoch_fn = train.make_epoch_fn(loss_fn, optimizer, batch_fn, epochs_per_call=epc)
-        with MetricsWriter(log_dir) as logger:
+        epoch_fn = train.make_epoch_fn(loss_fn, optimizer, batch_fn, epochs_per_call=epc, mesh=mesh)
+        with MetricsWriter(log_dir) if is_root(mesh) else contextlib.nullcontext() as logger:
             params, _, _ = train.fit(epoch_fn, params, optimizer, seed + 3, num_epochs=n_epochs,
                                      epochs_per_call=epc, logger=logger, desc=os.path.basename(train_dir))
         return params
@@ -67,7 +74,7 @@ def run(config: dict, gt_dir: str, device=None, host: int = 0, n_hosts: int = 1)
             # the selection protocol: fewer repeats rank trials at a fraction
             # of the full protocol's cost
             n_repeats=int(config.get("eval_n_repeats", 10)), num_steps=int(config.get("eval_num_steps", 200)),
-            chunk=int(config.get("eval_chunk", 0)) or None,
+            chunk=int(config.get("eval_chunk", 0)) or None, mesh=mesh,
         )
 
     train_many = None
@@ -75,12 +82,12 @@ def run(config: dict, gt_dir: str, device=None, host: int = 0, n_hosts: int = 1)
         train_many = ensemble.make_train_many(
             batch_fn, seed + 2, seed + 3, float(config["lr"]), n_epochs=n_epochs, epochs_per_call=epc,
             loss_kwargs=loss_kwargs, grad_clip=config.get("grad_clip"),
-            backend=str(config.get("ensemble_backend", "auto")), device=dev,
+            mesh=mesh, backend=str(config.get("ensemble_backend", "auto")), device=dev,
         )
 
     return gridsearch.grid_search(
         y_test, config, fparams, train_fn, eval_fn, {}, {}, trial_filter=host_filter(host, n_hosts),
-        train_many=train_many, skip_existing=bool(config.get("skip_existing", False)), device=dev,
+        train_many=train_many, skip_existing=bool(config.get("skip_existing", False)), device=dev, mesh=mesh,
     )
 
 

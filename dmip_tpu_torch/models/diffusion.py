@@ -20,6 +20,7 @@ CDE and the Posterior model also sample by ``heun`` and
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -154,6 +155,9 @@ class DiffusionModel:
         the shape of z0), and for a Hutchinson divergence the Rademacher
         probe v.  DSM draws no probe.  Passing t, eps and v (generator None)
         is the injection form the tests feed with another package's draws.
+        ``loss_fn.draws(generator, x, y)`` is :meth:`loss_draws` for this
+        loss: what it would draw, for a caller that cuts the batch (the
+        data-parallel step, ``train.make_train_step``).
         ``forward_model`` and ``forward_params`` are taken, as in the JAX
         package, so that every model is built alike; only the Posterior
         model's loss uses them.
@@ -183,6 +187,7 @@ class DiffusionModel:
             fn = L.pinn_loss if cfg.name == "PINNLoss" else L.pinn2_loss
             return fn(self.apply_a, params, base, x, y, z0, eps, t, v=v, **pinn_kw)
 
+        loss_fn.draws = functools.partial(self.loss_draws, cfg)
         return loss_fn
 
     def loss_draws(self, cfg: LossConfig, generator: Optional[torch.Generator], x: Tensor, y: Tensor):
@@ -344,6 +349,7 @@ class PosteriorDiffusionEstimator(DiffusionModel):
                 base, forward_model, x, y, eps, t, a=a, b=b, lam=cfg.lam,
             )
 
+        loss_fn.draws = functools.partial(self.loss_draws, cfg)
         return loss_fn
 
     def loss_draws(self, cfg: LossConfig, generator: Optional[torch.Generator], x: Tensor, y: Tensor):

@@ -328,15 +328,18 @@ def _launch(prior_params, surrogate_params, x0, y, a, b, guidance_clip, num_step
     fn = lib.guided_em_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    err = fn(
-        x0.data_ptr(), y_dev.data_ptr(), pp, len(prior_params) - 2, H, sp, len(surrogate_params) - 2, S,
-        None if noise is None else noise.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        None if stamps is None else stamps.data_ptr(),
-        n, xdim, ydim, num_steps, steps.start, steps.stop, int(guidance == "pgdm"), int(guidance_clip is not None),
-        T, beta_min, beta_max - beta_min, 1.0 - 0.5 * lmbd, (1.0 - lmbd) ** 0.5, delta, delta**0.5,
-        noise_scale, a * a, b * b, 0.0 if guidance_clip is None else float(guidance_clip),
-        seed & (2**64 - 1), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # the launcher sets attributes and launches on the current device
+    with torch.cuda.device(dev):
+        err = fn(
+            x0.data_ptr(), y_dev.data_ptr(), pp, len(prior_params) - 2, H, sp, len(surrogate_params) - 2, S,
+            None if noise is None else noise.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            None if stamps is None else stamps.data_ptr(),
+            n, xdim, ydim, num_steps, steps.start, steps.stop, int(guidance == "pgdm"),
+            int(guidance_clip is not None),
+            T, beta_min, beta_max - beta_min, 1.0 - 0.5 * lmbd, (1.0 - lmbd) ** 0.5, delta, delta**0.5,
+            noise_scale, a * a, b * b, 0.0 if guidance_clip is None else float(guidance_clip),
+            seed & (2**64 - 1), torch.cuda.current_stream(dev).cuda_stream,
+        )
     build.check(lib, err, "guided_em_launch")
     fused_guided_em_sampler.launches += 1
     return out

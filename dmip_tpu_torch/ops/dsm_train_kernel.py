@@ -262,9 +262,11 @@ def _launch(params, mu, nu, count, h0, eps, s1, n_epochs, n_batches, batch_real,
     fn = lib.dsm_train_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    err = fn(ptrs, (ctypes.c_int64 * len(flat_offs))(*flat_offs), (ctypes.c_int * (L + 1))(*wd),
-             (ctypes.c_int * len(iargs))(*iargs), (ctypes.c_float * len(fargs))(*fargs),
-             torch.cuda.current_stream(dev).cuda_stream)
+    # the launcher reads the current device, sets attributes and launches on it
+    with torch.cuda.device(dev):
+        err = fn(ptrs, (ctypes.c_int64 * len(flat_offs))(*flat_offs), (ctypes.c_int * (L + 1))(*wd),
+                 (ctypes.c_int * len(iargs))(*iargs), (ctypes.c_float * len(fargs))(*fargs),
+                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "dsm_train_launch")
     fused_dsm_train_epochs.launches += 1
 

@@ -276,15 +276,17 @@ def _em_launch(net: dict, cdiffe: bool, x0, y_dev, noise, stamps, ydim, num_step
     fn = lib.em_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    err = fn(
-        int(cdiffe), x0.data_ptr(), ptr(y_dev), net["c1"].data_ptr(), net["w1t"].data_ptr(),
-        net["w1"].data_ptr(), wh, bh, widths, n_hidden,
-        net["wout"].data_ptr(), net["bout"].data_ptr(), ptr(noise), out.data_ptr(), ptr(stamps),
-        n, xdim, ydim, num_steps,
-        T, beta_min, beta_max - beta_min, 1.0 - 0.5 * lmbd, (1.0 - lmbd) ** 0.5,
-        delta, delta**0.5, noise_scale, seed & (2**64 - 1),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # the launcher sets attributes and launches on the current device
+    with torch.cuda.device(dev):
+        err = fn(
+            int(cdiffe), x0.data_ptr(), ptr(y_dev), net["c1"].data_ptr(), net["w1t"].data_ptr(),
+            net["w1"].data_ptr(), wh, bh, widths, n_hidden,
+            net["wout"].data_ptr(), net["bout"].data_ptr(), ptr(noise), out.data_ptr(), ptr(stamps),
+            n, xdim, ydim, num_steps,
+            T, beta_min, beta_max - beta_min, 1.0 - 0.5 * lmbd, (1.0 - lmbd) ** 0.5,
+            delta, delta**0.5, noise_scale, seed & (2**64 - 1),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     build.check(lib, err, "em_launch")
     return out
 

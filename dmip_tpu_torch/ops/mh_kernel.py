@@ -201,11 +201,13 @@ def _launch(weights, x0, y, num_steps, noise_std, a, b, lambd_bd, seed, noise, u
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = fn(
-        x0.data_ptr(), y.data_ptr(), *[t.data_ptr() for t in flat], ptr(noise), ptr(uniforms),
-        out.data_ptr(), ptr(energy_out), ptr(stamps), n, ydim, num_steps, noise_std, a, b * b, lambd_bd,
-        seed & (2**64 - 1), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # the launcher sets attributes and launches on the current device
+    with torch.cuda.device(dev):
+        err = fn(
+            x0.data_ptr(), y.data_ptr(), *[t.data_ptr() for t in flat], ptr(noise), ptr(uniforms),
+            out.data_ptr(), ptr(energy_out), ptr(stamps), n, ydim, num_steps, noise_std, a, b * b, lambd_bd,
+            seed & (2**64 - 1), torch.cuda.current_stream(dev).cuda_stream,
+        )
     build.check(lib, err, "mh_chains_launch")
     fused_mh_scatterometry.launches += 1
     return out

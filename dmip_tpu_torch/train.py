@@ -11,7 +11,9 @@ Port of ``dmip_tpu/train.py``:
                             and the skip-nonfinite guard
   * ``make_epoch_fn``    -- ``epochs_per_call`` epochs per call, each
                             drawing its batches and noise from a generator
-                            seeded by (seed, global epoch index)
+                            seeded by (seed, global epoch index); with a
+                            mesh, data-parallel over its ranks
+  * ``resolve_mesh``     -- ``mesh: auto | null`` or a mesh -> a mesh or None
   * ``select_epoch_fn``  -- ``train_backend: xla | fused_pallas``
   * ``fit``              -- the Python-level epoch driver
   * ``get_model_from_args`` -- config keys -> (model, loss config)
@@ -25,7 +27,9 @@ leaves its arguments as they were.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import sys
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -33,6 +37,7 @@ import torch
 
 from . import pytree
 from .models.diffusion import CDE, CDiffE, DiffusionModel, LossConfig, PosteriorDiffusionEstimator
+from .parallel.mesh import Mesh, get_mesh
 
 Tensor = torch.Tensor
 Tree = Any  # a tree of tensors, see dmip_tpu_torch.pytree
@@ -129,20 +134,36 @@ def build_optimizer(
     raise ValueError(f"unknown lr schedule {schedule!r}; options: 'constant', 'cosine'")
 
 
-def make_train_step(loss_fn, optimizer: Optimizer, skip_nonfinite: bool = True):
+def make_train_step(loss_fn, optimizer: Optimizer, skip_nonfinite: bool = True, mesh: Optional[Mesh] = None):
     """One step: (params, opt_state, generator, x, y) -> (params, opt_state,
     loss, info), loss and info detached.
 
     With ``skip_nonfinite`` a step whose gradients hold an inf or nan keeps
     the old params and the old optimizer state, counts included; the choice
     is made on the device, without a host sync.
+
+    With a ``mesh`` the step is data-parallel: every rank is handed the same
+    full batch and generator, draws the batch's t, eps and probe
+    (``loss_fn.draws``, the loss's own draws in its order), and computes the
+    loss and its gradient on its :meth:`~Mesh.rows` of the batch and of
+    every draw.  Every term of the losses is a mean over rows, so the
+    ranks' means, each weighted by its share of the rows and averaged, are
+    the full batch's loss, info and gradient; the clip, the guard and Adam
+    then run on the same numbers on every rank, and the parameters stay
+    replicated.  A batch that the size does not divide is split into parts
+    one row apart, each weighted by its true count; a batch with fewer rows
+    than ranks raises.
     """
 
     def step(params, opt_state: AdamState, generator, x, y):
         leaves = [t.detach().requires_grad_(True) for t in pytree.leaves(params)]
         tree = lambda flat: pytree.unflatten(params, flat)
-        loss, info = loss_fn(tree(leaves), generator, x, y)
-        grads = torch.autograd.grad(loss, leaves)
+        if mesh is None:
+            loss, info = loss_fn(tree(leaves), generator, x, y)
+            grads = torch.autograd.grad(loss, leaves)
+        else:
+            loss, info = _shard_loss(loss_fn, mesh, tree(leaves), generator, x, y)
+            grads, loss, info = _mean_over_ranks(mesh, torch.autograd.grad(loss, leaves), loss, info, x.shape[0])
         updates, new_state = optimizer.update(tree(grads), opt_state)
         new_params = apply_updates(tree([t.detach() for t in leaves]), updates)
         if skip_nonfinite:
@@ -155,6 +176,34 @@ def make_train_step(loss_fn, optimizer: Optimizer, skip_nonfinite: bool = True):
     return step
 
 
+def _shard_loss(loss_fn, mesh: Mesh, params, generator, x: Tensor, y: Tensor):
+    """This rank's loss on its rows of the batch and of the batch's draws."""
+    if x.shape[0] < mesh.size:
+        raise ValueError(f"a batch of {x.shape[0]} rows cannot be split over {mesh.size} ranks")
+    t, eps, v = loss_fn.draws(generator, x, y)
+    draws = {"t": mesh.local(t), "eps": mesh.local(eps)}
+    if v is not None:
+        draws["v"] = mesh.local(v)
+    return loss_fn(params, None, mesh.local(x), mesh.local(y), **draws)
+
+
+def _mean_over_ranks(mesh: Mesh, grads, loss: Tensor, info: Dict[str, Tensor], n: int):
+    """The batch's gradient, loss and info from every rank's mean over its
+    rows: each weighted by its rows' share (1 when the parts are equal) and
+    averaged over the ranks, in one all-reduce."""
+    rows = mesh.rows(n)
+    weight = (rows.stop - rows.start) * mesh.size / n
+    parts = [g.reshape(-1) for g in grads] + [loss.detach().reshape(1)] + [v.detach().reshape(1) for v in info.values()]
+    flat = torch.cat(parts)
+    if weight != 1:
+        flat = flat * weight
+    flat = list(mesh.all_reduce(flat, mean=True).split([p.numel() for p in parts]))
+    grads = [g.view_as(like) for g, like in zip(flat, grads)]
+    loss = flat[len(grads)].reshape(())
+    info = {k: v.reshape(()) for k, v in zip(info, flat[len(grads) + 1:])}
+    return grads, loss, info
+
+
 def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
     """The generator of one epoch, seeded from (seed, global epoch index):
     the schedule does not depend on how epochs are grouped into calls, so
@@ -164,10 +213,31 @@ def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed((int(seed) % 2**31) * 2**32 + int(epoch))
 
 
-def single_device(mesh) -> bool:
-    """True for the meshes the port trains on: none, or ``'auto'`` on a
-    host with at most one CUDA device."""
-    return mesh is None or (mesh == "auto" and torch.cuda.device_count() <= 1)
+def resolve_mesh(mesh) -> Optional[Mesh]:
+    """The mesh to run on: ``None``, or a :class:`Mesh` as given; ``'auto'``
+    is this process group's mesh when the world has more than one rank, and
+    None otherwise.  One process on a host with several GPUs runs on its
+    current device and notes once (stderr) that ``torchrun
+    --nproc_per_node N`` would use the others: the JAX package's 'auto'
+    spans every local chip from one process instead (ROADMAP.md,
+    divergences)."""
+    if mesh is None or isinstance(mesh, Mesh):
+        return mesh
+    if mesh != "auto":
+        raise ValueError(f"mesh must be None, 'auto' or a Mesh, got {mesh!r}")
+    if torch.distributed.is_available() and torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1:
+        return get_mesh()
+    n = torch.cuda.device_count()
+    if n > 1:
+        _note_unused_gpus(n)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _note_unused_gpus(n: int) -> None:
+    print(f"[mesh] one process on a host with {n} GPUs runs on one of them; "
+          f"torchrun --nproc_per_node {n} uses the others", file=sys.stderr, flush=True)
 
 
 def make_epoch_fn(
@@ -186,13 +256,19 @@ def make_epoch_fn(
     batch's t, eps and probe, from ``epoch_generator(seed, epoch0 + j)`` on
     the params' device.  Epochs at j >= n_active are not run; their losses
     and info are nan.
+
+    ``mesh``: None, 'auto' or a :class:`Mesh` (:func:`resolve_mesh`).  With
+    one, every rank builds the same batches and draws, and each step is
+    data-parallel (:func:`make_train_step`); params and state must be the
+    same on every rank, as the drivers' seeded inits and checkpoints make
+    them, and stay so.  The loss must expose its draws (``loss_fn.draws``),
+    as the diffusion models' losses do.
     """
-    if not single_device(mesh):
-        raise NotImplementedError(
-            "multi-device training is not ported yet (ROADMAP.md §A7, multi-GPU); "
-            "set mesh: null to train on one device"
-        )
-    train_step = make_train_step(loss_fn, optimizer)
+    mesh = resolve_mesh(mesh)
+    if mesh is not None and not hasattr(loss_fn, "draws"):
+        raise ValueError("a loss trained over a mesh must expose its draws (loss_fn.draws), "
+                         "as DiffusionModel.make_loss_fn's losses do")
+    train_step = make_train_step(loss_fn, optimizer, mesh=mesh)
 
     def epochs(params, opt_state: AdamState, seed: int, epoch0: int, n_active: int = epochs_per_call):
         dev = pytree.leaves(params)[0].device
@@ -230,7 +306,8 @@ def select_epoch_fn(
     ``train_backend: fused_pallas`` -- the fused DSM training kernel
     (``ops/dsm_train_kernel.py``), whole epochs per launch.  Only for DSM
     with plain Adam at a constant lr (no grad_clip, no schedule), a CDE or a
-    CDiffE, and one device; any other combination raises with the reasons.
+    CDiffE, and one device (a mesh of one rank included); any other
+    combination raises with the reasons.
 
     ``train_guard`` (fused engine only): 'grads' (default; the autograd
     engine's skip-nonfinite rule), 'loss' (skip a step whose batch loss is
@@ -250,7 +327,8 @@ def select_epoch_fn(
             problems.append("grad_clip is not supported")
         if config.get("lr_schedule", "constant") not in (None, "constant"):
             problems.append("lr_schedule must be constant")
-        if not single_device(config.get("mesh", "auto")):
+        mesh = resolve_mesh(config.get("mesh", "auto"))
+        if mesh is not None and mesh.size > 1:
             problems.append("multi-device mesh is not supported (use train_backend: xla for data parallelism)")
         guard = config.get("train_guard", "grads")
         if guard not in ("grads", "loss", "off"):

@@ -759,3 +759,104 @@ def test_grid_evaluation_reaches_b1(cuda, tmp_path):
     assert fused_em_sampler.launches == before + 2
     assert len(out["results"]) == 2 and all(np.isfinite([r["kl"], r["nlpd"], r["fisher"]]).all()
                                             for r in out["results"])
+
+
+def test_b1_launches_on_its_tensors_device(cuda):
+    """B1 launches on its tensors' device whatever the current device is,
+    and leaves the current device as it was: each card in turn holds the
+    tensors while the current device is set (torch.cuda.set_device) to
+    another card, or to the same one on a host with one card, where the
+    fault this guards against cannot show."""
+    n = torch.cuda.device_count()
+    prev = torch.cuda.current_device()
+    try:
+        for d in range(n):
+            dev = torch.device("cuda", d)
+            tp = mlp_init(5, 2, (64, 64), generator=torch.Generator().manual_seed(1), device=dev)
+            x0 = torch.randn(300, 2, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+            y = torch.tensor([0.8, -0.3], device=dev)
+            torch.cuda.set_device((d + 1) % n)
+            out = fused_em_sampler(tp, x0, y, 20, noise_scale=0.0)
+            assert torch.cuda.current_device() == (d + 1) % n and out.device == dev
+            ref = em_sampler_reference(tp, x0, y, 20, noise_scale=0.0)
+            torch.cuda.synchronize(dev)
+            assert float((out - ref).abs().max() / ref.abs().max()) < 1e-2
+    finally:
+        torch.cuda.set_device(prev)
+
+
+def _world_of_one_train(mesh):
+    """Five PINNLoss steps of a 64-wide net on the card, over ``mesh``."""
+    from dmip_tpu_torch import data, train
+
+    prob = LinearForwardProblem()
+    xs, ys = data.generate_dataset_linear(2, prob.forward, 500, torch.Generator().manual_seed(0), "cuda")
+    model, cfg = train.get_model_from_args({"model": "CDE", "loss_fn": "PINNLoss", "hidden_layers": [64, 64]},
+                                           {"xdim": 2, "ydim": 2})
+    opt = train.build_optimizer(1e-3)
+    fn = train.make_epoch_fn(model.make_loss_fn(cfg, initial_condition=prob.score_posterior), opt,
+                             lambda g: data.linear_epoch_batches(g, xs, ys, prob.noise_std, 100), mesh=mesh)
+    p = model.init(torch.Generator().manual_seed(1), device="cuda")
+    p, st, losses, infos = fn(p, opt.init(p), 3, 0)
+    return p, st, losses, infos
+
+
+def test_world_of_one_nccl_rank_is_the_meshless_run(cuda):
+    """A world of one NCCL rank: the collectives give their input back bit
+    for bit, the data-parallel engine equals the meshless one bit for bit
+    (params, Adam state, losses), and evaluate_linear with the mesh equals
+    itself run again (each condition's own generator)."""
+    from dmip_tpu_torch import evaluate, pytree
+    from dmip_tpu_torch.parallel import get_mesh, init_multihost, local_address
+
+    assert init_multihost(local_address(), 1, 0)
+    try:
+        mesh = get_mesh()
+        assert (mesh.size, mesh.backend, mesh.device) == (1, "nccl", torch.device("cuda", 0))
+        t = torch.randn(1000, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+        assert torch.equal(mesh.all_reduce(t, mean=True), t) and torch.equal(mesh.all_gather(t), t)
+        assert torch.equal(mesh.broadcast(t), t) and mesh.all_gather_objects({"a": 1.5}) == [{"a": 1.5}]
+        got, ref = _world_of_one_train(mesh), _world_of_one_train(None)
+        for a, b in zip(pytree.leaves(got), pytree.leaves(ref)):
+            assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+        prob = LinearForwardProblem()
+        model = CDE(2, 2, (64, 64))
+        params = model.init(torch.Generator().manual_seed(2), device="cuda")
+        ys = prob.forward(torch.randn(3, 2, generator=torch.Generator().manual_seed(3)).to(cuda))
+        runs = [evaluate.evaluate_linear(model, params, prob, ys, torch.Generator(device=cuda).manual_seed(4),
+                                         n_samples_x=2000, n_repeats=2, num_steps=20, verbose=False, mesh=mesh)
+                for _ in range(2)]
+        assert runs[0] == runs[1] and np.isfinite(runs[0]).all()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _gloo_ranks_on_one_card(rank, address, out_dir):
+    from dmip_tpu_torch.parallel import get_mesh, init_multihost
+
+    init_multihost(address, 2, rank)
+    mesh = get_mesh()
+    t = torch.full((3,), float(rank + 1), device=mesh.device)
+    out = {"backend": mesh.backend, "device": str(mesh.device), "sum": mesh.all_reduce(t).tolist(),
+           "mean": mesh.all_reduce(t, mean=True).tolist(), "gather": mesh.all_gather(t[:2]).tolist(),
+           "broadcast": mesh.broadcast(t).tolist(), "objects": mesh.all_gather_objects(rank)}
+    mesh.barrier()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two ranks on a host with fewer cards than ranks: gloo on the shared
+    card, every collective of the mesh on CUDA tensors."""
+    import torch.multiprocessing as mp
+
+    from dmip_tpu_torch.parallel import local_address
+
+    if torch.cuda.device_count() > 1:
+        pytest.skip("two ranks get a card each here (NCCL)")
+    mp.spawn(_gloo_ranks_on_one_card, args=(local_address(), str(tmp_path)), nprocs=2, join=True)
+    for r in range(2):
+        out = torch.load(tmp_path / f"rank{r}.pt")
+        assert (out["backend"], out["device"]) == ("gloo", "cuda:0")
+        assert out["sum"] == [3.0] * 3 and out["mean"] == [1.5] * 3 and out["gather"] == [1.0, 1.0, 2.0, 2.0]
+        assert out["broadcast"] == [1.0] * 3 and out["objects"] == [0, 1]

@@ -22,6 +22,7 @@ from dmip_tpu.problems import LinearForwardProblem as JLinear
 from dmip_tpu.sde import sample_t as jax_sample_t
 from dmip_tpu_torch import checkpoints, data, ensemble, pytree, train
 from dmip_tpu_torch.checkpoints import params_from_numpy
+from dmip_tpu_torch.parallel import Mesh
 from dmip_tpu_torch.problems import LinearForwardProblem
 from dmip_tpu_torch.problems import scatterometry as scat
 
@@ -170,19 +171,18 @@ def test_make_train_many_writes_logs_and_checkpoints(tmp_path):
 
 
 def test_backend_and_mesh_guards():
-    """'pinned' and a multi-device mesh name ROADMAP.md §A7; an unknown
-    backend lists the options; 'auto' and 'vmap' select vmap on one
-    device."""
+    """'pinned' resolves (on no mesh it runs the trials one by one); a mesh
+    of several ranks is taken by the vmap engine and makes 'auto' pinned;
+    an unknown backend lists the options; 'auto' and 'vmap' select vmap on
+    one device."""
     _, batch_fn = _linear_batch_fn(1000)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A7, multi-GPU"):
-        ensemble.make_train_many(batch_fn, 1, 2, 1e-3, 1, backend="pinned", mesh=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A7, multi-GPU"):
-        ensemble.make_train_many(batch_fn, 1, 2, 1e-3, 1, mesh=object())
+    two = Mesh(2, 0, torch.device("cpu"), "gloo")
+    assert ensemble.resolve_backend("pinned", None) == ensemble.resolve_backend("auto", two) == "pinned"
+    assert callable(ensemble.make_train_many(batch_fn, 1, 2, 1e-3, 1, backend="pinned", mesh=None))
     with pytest.raises(ValueError, match="'auto', 'vmap', 'pinned'"):
         ensemble.make_train_many(batch_fn, 1, 2, 1e-3, 1, backend="shard_map")
     model, cfg = train.get_model_from_args(_config("PINNLoss"), DIMS)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A7, multi-GPU"):
-        ensemble.make_ensemble_epoch_fn(model, cfg, train.build_optimizer(1e-3), batch_fn, mesh=object())
+    assert callable(ensemble.make_ensemble_epoch_fn(model, cfg, train.build_optimizer(1e-3), batch_fn, mesh=two))
     assert ensemble.resolve_backend("auto", None) == ensemble.resolve_backend("vmap", "auto") == "vmap"
 
 

@@ -21,6 +21,7 @@ from dmip_tpu.sde import ReverseSDE as JReverseSDE
 from dmip_tpu.sde import sample_t as jax_sample_t
 from dmip_tpu_torch import checkpoints, data, train
 from dmip_tpu_torch.checkpoints import adam_state_from_numpy, params_from_numpy
+from dmip_tpu_torch.parallel import Mesh
 from dmip_tpu_torch.problems import LinearForwardProblem
 from dmip_tpu_torch.problems import scatterometry as scat
 from dmip_tpu_torch.sde import VPSDE, ReverseSDE, sample_t
@@ -238,7 +239,7 @@ def test_checkpoints_cross_load_between_packages(tmp_path, kind):
 
 
 def test_select_epoch_fn_rejects_what_the_fused_engine_does_not_take():
-    model, _ = train.get_model_from_args({"model": "CDE", "loss_fn": "DSM"}, {"xdim": 2, "ydim": 2})
+    model, cfg = train.get_model_from_args({"model": "CDE", "loss_fn": "DSM"}, {"xdim": 2, "ydim": 2})
     opt = train.build_optimizer(1e-3)
     bad = {"model": "CDE", "loss_fn": "PINNLoss", "train_backend": "fused_pallas", "grad_clip": 1.0,
            "lr_schedule": "cosine", "train_guard": "always"}
@@ -248,7 +249,12 @@ def test_select_epoch_fn_rejects_what_the_fused_engine_does_not_take():
         assert why in str(e.value)
     with pytest.raises(ValueError, match="unknown train_backend"):
         train.select_epoch_fn({"train_backend": "fused"}, model, None, opt, None, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.make_epoch_fn(None, opt, None, mesh=object())
+    # a mesh of two ranks: the autograd engine takes it, the fused engine
+    # refuses it with the JAX package's reason
+    two = Mesh(2, 0, torch.device("cpu"), "gloo")
+    assert callable(train.make_epoch_fn(model.make_loss_fn(cfg), opt, None, mesh=two))
+    with pytest.raises(ValueError, match=r"multi-device mesh is not supported \(use train_backend: xla"):
+        train.select_epoch_fn({"model": "CDE", "loss_fn": "DSM", "train_backend": "fused_pallas", "mesh": two},
+                              model, None, opt, None, 1)
     with pytest.raises(ValueError, match="cosine"):
         train.build_optimizer(1e-3, schedule="cosine")
