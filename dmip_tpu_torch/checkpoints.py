@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from . import pytree
+from .parallel.mesh import is_writer
 from .pytree import leaves as _leaves
 
 
@@ -148,6 +149,11 @@ def save_checkpoint(
     seed: Optional[int] = None,
     extra: Optional[Dict[str, Any]] = None,
 ) -> None:
+    """Write params (and opt_state) with a manifest of step, seed and
+    ``extra``; off rank 0 of a multi-rank run, nothing
+    (``parallel.is_writer``)."""
+    if not is_writer():
+        return
     os.makedirs(ckpt_dir, exist_ok=True)
     save_pytree(ckpt_dir, params, "params")
     manifest: Dict[str, Any] = {"step": int(step)}

@@ -21,9 +21,10 @@ ranks gives each rank its block of the (padded) trial axis, with no
 communication between trials; ``pinned``, one trial a rank in waves of the
 world size, each running the unchanged sequential program
 (:func:`make_pinned_ensemble_epoch_fn`); ``auto``, ``pinned`` on a mesh of
-several ranks and ``vmap`` otherwise, as the JAX package picks them.  Every
-rank ends a call with every trial's state (an all-gather of the trial
-axis), and rank 0 writes the logs and checkpoints.
+several ranks and ``vmap`` otherwise, as the JAX package picks them.  With
+no ranks to pin trials to, ``pinned`` is ``vmap`` too.  Every rank ends a
+call with every trial's state (an all-gather of the trial axis), and rank 0
+writes the logs and checkpoints (``parallel.is_writer``).
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from torch.func import grad_and_value, vmap
 from . import pytree
 from .checkpoints import save_checkpoint
 from .models.diffusion import DiffusionModel, LossConfig
-from .parallel.mesh import Mesh, barrier, is_root
+from .parallel.mesh import Mesh
 from .train import (AdamState, Optimizer, apply_updates, build_optimizer, epoch_generator, make_epoch_fn,
                     resolve_mesh)
 from .utils.metrics import MetricsWriter
@@ -201,14 +202,13 @@ def make_pinned_ensemble_epoch_fn(
     cfg: LossConfig,
     optimizer: Optimizer,
     batch_fn: Callable[[torch.Generator], Tuple[Tensor, Tensor]],
-    mesh: Optional[Mesh],
+    mesh: Mesh,
     epochs_per_call: int = 1,
     loss_kwargs: Optional[Dict[str, Any]] = None,
 ):
     """The ``pinned`` backend: one trial a rank.  Same signature as
     :func:`make_ensemble_epoch_fn`'s return, for a wave of K = mesh.size
-    trials (one trial without a mesh): rank r trains trial r as the
-    sequential engine would
+    trials: rank r trains trial r as the sequential engine would
     (:func:`dmip_tpu_torch.train.make_epoch_fn` on the loss at lams[r],
     lam2s[r], with no trial axis), so the trial equals its sequential run;
     then every rank gets the wave's state, gathered.  For losses whose one
@@ -218,9 +218,9 @@ def make_pinned_ensemble_epoch_fn(
 
     def epochs(params, opt_state: AdamState, seed: int, epoch0: int, lams: Tensor, lam2s: Tensor,
                n_active: int = epochs_per_call):
-        size, r = (1, 0) if mesh is None else (mesh.size, mesh.rank)
-        if lams.shape[0] != size:
-            raise ValueError(f"the pinned ensemble needs n_trials == mesh.size ({lams.shape[0]} != {size}); "
+        r = mesh.rank
+        if lams.shape[0] != mesh.size:
+            raise ValueError(f"the pinned ensemble needs n_trials == mesh.size ({lams.shape[0]} != {mesh.size}); "
                              "pad with pad_trials()")
         trial_cfg = dataclasses.replace(cfg, lam=lams[r].item(), lam2=lam2s[r].item())
         run = make_epoch_fn(model.make_loss_fn(trial_cfg, **kw), optimizer, batch_fn, epochs_per_call)
@@ -228,7 +228,7 @@ def make_pinned_ensemble_epoch_fn(
         p, st, losses, infos = run(mine(params), mine(opt_state), seed, epoch0, n_active)
         one = lambda tree: pytree.map(lambda a: a.unsqueeze(0), tree)
         out = (one(p), one(st), losses[:, None], {k: v[:, None] for k, v in infos.items()})
-        return out if mesh is None else _gather_trials(mesh, *out)
+        return _gather_trials(mesh, *out)
 
     return epochs
 
@@ -276,17 +276,14 @@ def ensemble_fit(
 
 
 def resolve_backend(backend: str, mesh) -> str:
-    """The backend that runs: 'pinned' for 'auto' on a mesh of several
-    ranks, else 'vmap'; 'vmap' and 'pinned' as given (pinned on no mesh
-    runs the trials one after another, each as its sequential run).
-    ``mesh``: None, 'auto' or a Mesh.
-    Anything else raises with the options."""
+    """The backend that runs: 'pinned' for 'auto' or 'pinned' on a mesh of
+    several ranks, else 'vmap' (one rank has nothing to pin trials to).
+    ``mesh``: None, 'auto' or a Mesh.  Anything else raises with the
+    options."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown ensemble_backend {backend!r}; options: {', '.join(map(repr, BACKENDS))}")
-    if backend != "auto":
-        return backend
     mesh = resolve_mesh(mesh)
-    return "pinned" if mesh is not None and mesh.size > 1 else "vmap"
+    return "pinned" if backend != "vmap" and mesh is not None and mesh.size > 1 else "vmap"
 
 
 def make_train_many(
@@ -298,7 +295,7 @@ def make_train_many(
     epochs_per_call: int = 1,
     loss_kwargs: Optional[Dict[str, Any]] = None,
     grad_clip: Optional[float] = None,
-    mesh="auto",
+    mesh=None,
     backend: str = "auto",
     device=None,
 ):
@@ -340,17 +337,15 @@ def make_train_many(
                                               mesh=mesh)
             ens, hist = ensemble_fit(epoch_fn, ens, optimizer, train_seed, n_epochs, lams_t, lam2s_t, **fit_kw)
         out = [trial_params(ens, i) for i in range(n_valid)]
-        if is_root(mesh):
-            for i, ld in enumerate(log_dirs):
-                with MetricsWriter(ld) as w:
-                    for e in range(hist.shape[0]):
-                        w.scalar("Train/Loss", float(hist[e, i]), e)
-            # per-trial checkpoints: finalists can be re-evaluated without
-            # retraining, and a crash after training loses nothing
-            for i, tdir in enumerate(train_dirs):
-                save_checkpoint(os.path.join(tdir, "checkpoint"), out[i], step=n_epochs, seed=int(train_seed),
-                                extra={"lam": lams[i], "lam2": lam2s[i]})
-        barrier(mesh)
+        for i, ld in enumerate(log_dirs):
+            with MetricsWriter(ld) as w:
+                for e in range(hist.shape[0]):
+                    w.scalar("Train/Loss", float(hist[e, i]), e)
+        # per-trial checkpoints: finalists can be re-evaluated without
+        # retraining, and a crash after training loses nothing
+        for i, tdir in enumerate(train_dirs):
+            save_checkpoint(os.path.join(tdir, "checkpoint"), out[i], step=n_epochs, seed=int(train_seed),
+                            extra={"lam": lams[i], "lam2": lam2s[i]})
         return out
 
     return train_many

@@ -18,6 +18,14 @@ train, so a host without matplotlib fails at once.
 ``chunk=None`` (the same draws in the same order); in the JAX package a
 chunk is one dispatch, and batching a chunk into one pass here is the
 eager evaluation's rework (ROADMAP.md C3).
+
+``mesh=`` (None, the default; 'auto' or a Mesh, as the drivers pass it)
+splits the conditions over the ranks, a block each.  Condition i then draws
+from its own generator, seeded from one seed drawn from the caller's
+generator and i, so its row does not depend on the number of ranks (a mesh
+of one gives the rows of any other); without a mesh the walk keeps the
+caller's one stream.  Rank 0 gathers the rows in condition order and the
+plotted conditions' samples, and writes results.csv and the plots.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ import numpy as np
 import torch
 
 from .models.diffusion import DiffusionModel
-from .parallel.mesh import Mesh, barrier, fold_in, is_root
+from .parallel.mesh import Mesh, barrier, fold_in, is_writer
 from .train import resolve_mesh
 
 Tensor = torch.Tensor
@@ -111,7 +119,10 @@ def plot_posteriors(out_dir: str, i: int, samples: Dict[str, Tensor], nbins: int
                     xticks, show_mean: bool = False) -> None:
     """``posterior-<tag>-<i>.svg`` in ``out_dir`` for each (tag, samples),
     with the JAX drivers' arguments: ``nbins`` bins on the box ``xlim``,
-    size (12, 12), label size 30."""
+    size (12, 12), label size 30.  Off rank 0 of a multi-rank run, nothing
+    (``parallel.is_writer``)."""
+    if not is_writer():
+        return
     from .utils.plotting import plot_density
 
     os.makedirs(out_dir, exist_ok=True)
@@ -121,6 +132,8 @@ def plot_posteriors(out_dir: str, i: int, samples: Dict[str, Tensor], nbins: int
 
 
 def _write_results_csv(path: str, columns: Dict[str, Sequence[float]]) -> None:
+    if not is_writer():
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     keys = list(columns.keys())
     with open(path, "w", newline="") as f:
@@ -163,20 +176,23 @@ def _walk(n_y: int, chunk: Optional[int], generator: Optional[torch.Generator], 
     return order[mesh.rows(n_y)], lambda i: torch.Generator(device=device).manual_seed(fold_in(seed, i))
 
 
-def _all_rows(cols: Dict[str, list], mesh: Optional[Mesh]) -> Dict[str, list]:
+def _gather(cols: Dict[str, list], plots: Dict[int, Dict[str, Tensor]], mesh: Optional[Mesh]):
     """Every rank's rows (a block of conditions each, in rank order), so in
-    condition order, on every rank."""
+    condition order, and every rank's plot samples, on every rank."""
     if mesh is None:
-        return cols
-    parts = mesh.all_gather_objects(cols)
-    return {k: [v for p in parts for v in p[k]] for k in cols}
+        return cols, plots
+    parts = mesh.all_gather_objects((cols, {i: {k: x.cpu() for k, x in p.items()} for i, p in plots.items()}))
+    return {k: [v for c, _ in parts for v in c[k]] for k in cols}, {i: p for _, ps in parts for i, p in ps.items()}
 
 
-def _write_results(out_dir: Optional[str], cols: Dict[str, Sequence[float]], mesh: Optional[Mesh]) -> None:
-    """results.csv in ``out_dir``, by rank 0; every rank returns once it
-    is written."""
-    if out_dir is not None and is_root(mesh):
+def _write(out_dir: Optional[str], cols: Dict[str, Sequence[float]], plots: Dict[int, Dict[str, Tensor]],
+           mesh: Optional[Mesh], nbins: int, xlim: Tuple[float, float], xticks, show_mean: bool = False) -> None:
+    """results.csv and the corner plots of every condition in ``plots``
+    into ``out_dir``; every rank returns once they are written."""
+    if out_dir is not None:
         _write_results_csv(os.path.join(out_dir, "results.csv"), cols)
+        for i, samples in sorted(plots.items()):
+            plot_posteriors(out_dir, i, samples, nbins, xlim, xticks, show_mean=show_mean)
     barrier(mesh)
 
 
@@ -234,7 +250,7 @@ def evaluate_linear(
     method: str = "auto",
     plot_ys: Sequence[int] = (),
     chunk: Optional[int] = None,
-    mesh="auto",
+    mesh=None,
 ) -> Tuple[float, float, float]:
     """Linear evaluation against the analytic posterior; returns (mean KL,
     mean NLPD, mean score-MSE).  Runs on ys's device.  results.csv columns:
@@ -245,6 +261,7 @@ def evaluate_linear(
     lo, hi = xlim
     mesh = resolve_mesh(mesh)
     cols = {"KL2": [], "NLL_true": [], "NLL_diffusion": [], "MSE": [], "W2": []}
+    plots = {}
     conditions, generator_of = _walk(ys.shape[0], chunk, generator, mesh, ys.device)
     for i in conditions:
         y = ys[i]
@@ -266,16 +283,15 @@ def evaluate_linear(
             nll_p = -torch.mean(problem.posterior_log_prob(x_pred, y))
             stats.append(torch.stack([nll_t, nll_p, mse, w2]))
         if out_dir is not None and i in plot_ys:
-            plot_posteriors(out_dir, i, {"true": x_true, "diffusion": x_pred}, nbins, xlim, list(xlim),
-                            show_mean=True)
+            plots[i] = {"true": x_true, "diffusion": x_pred}
         kl, _ = kl_pair(hist_t, hist_p)
         nll_t, nll_p, mse, w2 = torch.stack(stats).mean(0).tolist()
         for k, v in zip(cols, (float(kl), nll_t, nll_p, mse, w2)):
             cols[k].append(v)
-    cols = _all_rows(cols, mesh)
+    cols, plots = _gather(cols, plots, mesh)
     kl_arr = np.asarray(cols["KL2"])
     nlpd = np.abs(np.asarray(cols["NLL_true"]) - np.asarray(cols["NLL_diffusion"]))
-    _write_results(out_dir, cols, mesh)
+    _write(out_dir, cols, plots, mesh, nbins, xlim, list(xlim), show_mean=True)
     if verbose:
         var = np.sum((kl_arr - kl_arr.mean()) ** 2) / len(kl_arr)
         print(f"KL2: {kl_arr.mean()} +- {var}")
@@ -303,7 +319,7 @@ def evaluate_scatterometry(
     progress_every: int = 0,
     plot_ys: Sequence[int] = (),
     chunk: Optional[int] = None,
-    mesh="auto",
+    mesh=None,
 ) -> Tuple[float, float, float]:
     """Scatterometry evaluation against MCMC ground truth; ``gt_loader(i, j)``
     gives condition i's repeat j (each rank loads only its conditions').
@@ -324,6 +340,7 @@ def evaluate_scatterometry(
     mesh = resolve_mesh(mesh)
     a, b, lambd_bd = fparams["a"], fparams["b"], fparams["lambd_bd"]
     cols = {"KL2": [], "KL_reverse": [], "NLL_mcmc": [], "NLL_diffusion": [], "MSE": [], "W2": []}
+    plots = {}
     t_start = time.time()
     step = _chunk_size(chunk)
     conditions, generator_of = _walk(ys.shape[0], chunk, generator, mesh, dev)
@@ -350,7 +367,7 @@ def evaluate_scatterometry(
             hist_p = hist_p + histogramdd_flat(x_pred, nbins, lo, hi)
             stats.append(torch.stack([torch.mean(energy(x_true)), torch.mean(energy(x_pred)), mse, w2]))
         if out_dir is not None and i in plot_ys:
-            plot_posteriors(out_dir, i, {"mcmc": x_true, "diffusion": x_pred}, nbins, xlim, [-1, 0, 1])
+            plots[i] = {"mcmc": x_true, "diffusion": x_pred}
         kl, kl_rev = kl_pair(hist_t, hist_p)
         nll_t, nll_p, mse, w2 = torch.stack(stats).mean(0).tolist()
         for k, v in zip(cols, (float(kl), float(kl_rev), nll_t, nll_p, mse, w2)):
@@ -361,10 +378,10 @@ def evaluate_scatterometry(
         if progress_every and (done // progress_every > prev // progress_every or done == n_y):
             rate = done / max(time.time() - t_start, 1e-9)
             print(f"[eval-scat] {done}/{n_y} conditions ({rate:.2f} cond/s, {n_repeats} repeats)", flush=True)
-    cols = _all_rows(cols, mesh)
+    cols, plots = _gather(cols, plots, mesh)
     kl_arr = np.asarray(cols["KL2"])
     nlpd = np.abs(np.asarray(cols["NLL_diffusion"]) - np.asarray(cols["NLL_mcmc"]))
-    _write_results(out_dir, cols, mesh)
+    _write(out_dir, cols, plots, mesh, nbins, xlim, [-1, 0, 1])
     if verbose:
         var = np.sum((kl_arr - kl_arr.mean()) ** 2) / len(kl_arr)
         print(f"KL2: {kl_arr.mean()} +- {var}  W2: {np.mean(cols['W2']):.4f}")

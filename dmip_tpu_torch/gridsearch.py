@@ -7,10 +7,11 @@ in lam / lam2 train together through ``train_many`` (the trial-stacked
 ensemble, :mod:`dmip_tpu_torch.ensemble`), the others one by one through
 ``train``; every trial is evaluated into ``<trial_dir>/results/results.csv``
 and the whole grid summarised in ``<src_dir>/grid_summary.csv``.
-``skip_existing`` resumes a grid trial by trial.  With a mesh every rank
-walks the same trials, the ensemble and the evaluation split their work
-among the ranks, and rank 0 alone makes the directories and writes the
-files, so the tree is the one-process tree.  The post-hoc walker
+``skip_existing`` resumes a grid trial by trial.  Under a multi-rank run
+every rank walks the same trials, the ensemble and the evaluation split
+their work among the ranks, and rank 0 alone makes the directories and
+writes the files (``parallel.is_writer``), so the tree is the one-process
+tree.  The post-hoc walker
 (:func:`traverse_subfolders`, :func:`main`) reads a results tree back and
 names the best trials.
 """
@@ -24,7 +25,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .parallel.mesh import barrier, is_root
+from .parallel.mesh import is_writer
 from .train import get_model_from_args
 from .utils.config import product_dict, set_directories
 
@@ -87,7 +88,6 @@ def grid_search(
     train_many: Optional[Callable[..., List[Any]]] = None,
     skip_existing: bool = False,
     device=None,
-    mesh=None,
 ) -> Dict[str, Any]:
     """The Cartesian grid over config['params'], tracking the best trial by
     KL, NLPD and Fisher divergence (score-MSE).
@@ -108,19 +108,7 @@ def grid_search(
     neither results nor a checkpoint; a trial with a checkpoint and no
     results is evaluated from the checkpoint, loaded onto ``device`` (the
     CPU when None).
-
-    ``mesh`` (a Mesh or None, the one ``train`` / ``train_many`` /
-    ``evaluate`` run on): rank 0 makes each trial's directories and writes
-    grid_summary.csv, and every rank waits for the directories before it
-    goes on.
     """
-
-    def directories(tdir: str, out_dir: str) -> str:
-        if is_root(mesh):
-            set_directories(tdir, out_dir)
-        barrier(mesh)
-        return os.path.join(tdir, "logs")
-
     already_visited: List[Tuple[Any, Any, Any]] = []
     best = {"kl": (np.inf, {}), "nlpd": (np.inf, {}), "fisher": (np.inf, {})}
     results = []
@@ -161,7 +149,7 @@ def grid_search(
             tdirs, log_dirs = [], []
             for fc in full_cfgs:
                 tdir = trial_dir(config["src_dir"], fc, loss_cfg.name)
-                log_dirs.append(directories(tdir, os.path.join(tdir, "results")))
+                log_dirs.append(set_directories(tdir, os.path.join(tdir, "results")))
                 tdirs.append(tdir)
             print("=================")
             print(f"ensemble of {len(poss)} trials: {[trials[p][0] for p in poss]}", flush=True)
@@ -184,7 +172,7 @@ def grid_search(
             kl, nlpd, fisher = _metrics_from_results(existing)
             print(f"(existing results reused: KL={kl:.4f})", flush=True)
         else:
-            log_dir = directories(tdir, out_dir)
+            log_dir = set_directories(tdir, out_dir)
             ckpt_dir = os.path.join(tdir, "checkpoint")
             if pos in trained:
                 params = trained[pos]
@@ -212,7 +200,7 @@ def grid_search(
             print("-------------------", flush=True)
 
     # one row per trial at the tree's root
-    if results and is_root(mesh):
+    if results and is_writer():
         os.makedirs(config["src_dir"], exist_ok=True)
         with open(os.path.join(config["src_dir"], "grid_summary.csv"), "w", newline="") as f:
             w = csv.DictWriter(f, fieldnames=list(results[0].keys()))

@@ -48,7 +48,6 @@ from .. import data, evaluate, resolve_device, train
 from ..checkpoints import load_archived_params
 from ..models import AnalyticGuidanceDPS, PosteriorDiffusionEstimator
 from ..models.refined import for_problem
-from ..parallel.mesh import init_multihost
 from ..problems import LinearForwardProblem
 from ..problems import scatterometry as scat
 from ..utils import load_config
@@ -130,8 +129,7 @@ def run(
     heartbeat every that many conditions.  A config with ``refine`` is
     scored as its refined row."""
     refine = config.get("refine")
-    init_multihost(device=device)
-    mesh = config.get("mesh", "auto")
+    mesh = train.driver_mesh(config, device)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_x = int(config["n_samples_x"])

@@ -12,12 +12,14 @@ fit to its noise.  Each condition index in the config's ``plot_ys`` (or
 ``plot_y``) also gets ``<gt_dir>/<i>/posterior-mcmc-<i>.svg``, the corner
 plot of its last repeat; ``plot_ys: []`` draws none.
 
-``--devices N`` shards every condition's chains over a world of N ranks
-(``torchrun --nproc_per_node N``; 0 or -1: the whole world): every rank
-draws the condition's starting points and kernel seed as one process does,
-runs its block of the chains with the seed folded with its rank (as the
-JAX driver folds the axis index), and rank 0 gathers the chains in rank
-order and writes them.
+Under ``torchrun --nproc_per_node N`` the config's ``mesh`` (default
+``auto``), as in every driver, shards each condition's chains over the N
+ranks: every rank draws the condition's starting points and kernel seed as
+one process does, runs its block of the chains with the seed folded with
+its rank (as the JAX driver folds the axis index), and rank 0 gathers the
+chains in rank order and writes them.  ``--devices N`` (the JAX driver's
+flag) is a check: the run fails unless the world has N ranks (0 or -1:
+whatever it has).
 
 Usage: python -m dmip_tpu_torch.mains.generate_scatterometry_ground_truth \
           [--config configs/config_scatterometry.yml] [--gt_dir data/gt...] \
@@ -32,11 +34,9 @@ import os
 import numpy as np
 import torch
 
-import torch.distributed as dist
-
-from .. import data, evaluate, resolve_device
+from .. import data, evaluate, resolve_device, train
 from ..ops.mh_kernel import fused_mh_scatterometry
-from ..parallel.mesh import barrier, fold_in, get_mesh, init_multihost, is_root, pad_to_multiple
+from ..parallel.mesh import barrier, fold_in, is_writer, pad_to_multiple
 from ..problems import scatterometry as scat
 from ..utils import load_config
 
@@ -53,27 +53,26 @@ def test_conditions(config: dict, forward_model, fparams, device) -> torch.Tenso
     return y_test
 
 
-def gt_mesh(devices: int):
-    """The mesh of ``--devices``: None for 1 in a world of one; a world of
-    N ranks for N (0 and -1: the world's size); any other world raises."""
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    n = world if devices in (0, -1) else int(devices)
-    if n != world:
-        raise ValueError(f"--devices {devices} needs a world of {n} ranks (torchrun --nproc_per_node {n}); "
-                         f"this one has {world}")
-    return get_mesh() if world > 1 else None
+def gt_mesh(devices=None, mesh="auto"):
+    """The mesh the chains shard over, ``train.resolve_mesh(mesh)``.
+    ``devices``, when given, must be its number of ranks (0 and -1: any)."""
+    mesh = train.resolve_mesh(mesh)
+    world = 1 if mesh is None else mesh.size
+    if devices not in (None, 0, -1) and int(devices) != world:
+        raise ValueError(f"--devices {devices} needs a world of {devices} ranks (torchrun --nproc_per_node "
+                         f"{devices}); this one has {world}")
+    return mesh
 
 
-def run(config: dict, gt_dir: str, device=None, mcmc_seed=None, devices: int = 1) -> None:
+def run(config: dict, gt_dir: str, device=None, mcmc_seed=None, devices=None) -> None:
     """Writes the ground truth of every test condition.  The chains draw
     from a generator seeded with ``RANDOM_STATE + 1``, or with
     ``mcmc_seed`` when given; the conditions do not change with it.
-    ``devices``: the ranks to shard the chains over (see the module
+    ``devices``: the number of ranks the run must have (see the module
     docstring)."""
     plot_ys = config.get("plot_ys", config.get("plot_y", ()))
     evaluate.require_plotting(plot_ys)
-    init_multihost(device=device)
-    mesh = gt_mesh(devices)
+    mesh = gt_mesh(devices, train.driver_mesh(config, device))
     dev = resolve_device(device)
     forward_model, fparams = scat.load_forward_model(device=dev)
     y_test = test_conditions(config, forward_model, fparams, dev)
@@ -96,7 +95,7 @@ def run(config: dict, gt_dir: str, device=None, mcmc_seed=None, devices: int = 1
         )
         if mesh is not None:
             x = mesh.all_gather(x)[: n_repeats * n_x]
-        if is_root(mesh):
+        if is_writer():
             x = x.reshape(n_repeats, n_x, 3).cpu()
             out_dir = os.path.join(gt_dir, str(i))
             os.makedirs(out_dir, exist_ok=True)
@@ -117,8 +116,8 @@ def main(argv=None) -> None:
                         "so use the n_samples_y of the config that will be evaluated)")
     p.add_argument("--mcmc_seed", type=int, default=None,
                    help="fresh-seed GT: same conditions, independent chains")
-    p.add_argument("--devices", type=int, default=1,
-                   help="shard the chains over a world of this many ranks (0 or -1: all of them)")
+    p.add_argument("--devices", type=int, default=None,
+                   help="the number of ranks the chains shard over: fail unless the world has it (0 or -1: any)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
     config = load_config(args.config)

@@ -26,14 +26,12 @@ Usage: python -m dmip_tpu_torch.mains.main_diffusion_linear \
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 
 import torch
 
 from .. import checkpoints, data, evaluate, resolve_device, train
 from ..models.refined import for_problem
-from ..parallel.mesh import barrier, init_multihost, is_root
 from ..problems import LinearForwardProblem
 from ..utils import MetricsWriter, load_config, set_directories
 from .eval_diffusion import linear_split
@@ -42,8 +40,7 @@ from .eval_diffusion import linear_split
 def run(config: dict, device=None) -> tuple:
     """Train and evaluate; returns (params, (KL, NLPD, score-MSE))."""
     evaluate.require_plotting(config.get("plot_ys", ()))
-    init_multihost(device=device)
-    mesh = train.resolve_mesh(config.get("mesh", "auto"))
+    mesh = train.driver_mesh(config, device)
     dev = resolve_device(device)
     prob = LinearForwardProblem()
     seed = int(config.get("random_state", 7))
@@ -65,10 +62,7 @@ def run(config: dict, device=None) -> tuple:
         train_seed = restored.get("seed", train_seed)
         print(f"resumed from epoch {start_epoch}")
 
-    log_dir = os.path.join(config["train_dir"], "logs")
-    if is_root(mesh):
-        set_directories(config["train_dir"], config["out_dir"], resume)
-    barrier(mesh)
+    log_dir = set_directories(config["train_dir"], config["out_dir"], resume)
     epc = int(config.get("epochs_per_call", 25))
     epoch_fn = train.select_epoch_fn(
         config, model, loss_fn, optimizer,
@@ -76,13 +70,12 @@ def run(config: dict, device=None) -> tuple:
         epochs_per_call=epc,
     )
     n_epochs = int(config["n_epochs"])
-    with MetricsWriter(log_dir) if is_root(mesh) else contextlib.nullcontext() as logger:
+    with MetricsWriter(log_dir) as logger:
         params, opt_state, _ = train.fit(
             epoch_fn, params, optimizer, train_seed, num_epochs=n_epochs, epochs_per_call=epc,
             logger=logger, desc="diffusion-linear", opt_state=opt_state, start_epoch=start_epoch,
         )
-    if is_root(mesh):
-        checkpoints.save_checkpoint(ckpt_dir, params, opt_state=opt_state, step=n_epochs, seed=train_seed)
+    checkpoints.save_checkpoint(ckpt_dir, params, opt_state=opt_state, step=n_epochs, seed=train_seed)
 
     def score(m, out_dir, plot_ys=()):
         return evaluate.evaluate_linear(

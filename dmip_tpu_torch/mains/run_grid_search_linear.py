@@ -25,13 +25,11 @@ Usage: python -m dmip_tpu_torch.mains.run_grid_search_linear \
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 
 import torch
 
 from .. import data, ensemble, evaluate, gridsearch, resolve_device, train
-from ..parallel.mesh import init_multihost, is_root
 from ..problems import LinearForwardProblem
 from ..utils import MetricsWriter, load_config
 from .eval_diffusion import linear_split
@@ -47,8 +45,7 @@ def host_filter(host: int, n_hosts: int):
 def run(config: dict, device=None, host: int = 0, n_hosts: int = 1) -> dict:
     """Run the grid; returns ``grid_search``'s result."""
     evaluate.require_plotting(config.get("plot_ys", ()))
-    init_multihost(device=device)
-    mesh = train.resolve_mesh(config.get("mesh", "auto"))
+    mesh = train.driver_mesh(config, device)
     dev = resolve_device(device)
     prob = LinearForwardProblem()
     seed = int(config.get("random_state", 7))
@@ -64,7 +61,7 @@ def run(config: dict, device=None, host: int = 0, n_hosts: int = 1) -> dict:
         params = model.init(torch.Generator().manual_seed(seed + 1), device=dev)
         optimizer = train.build_optimizer(float(config["lr"]), config.get("grad_clip"))
         epoch_fn = train.make_epoch_fn(loss_fn, optimizer, batch_fn, epochs_per_call=epc, mesh=mesh)
-        with MetricsWriter(log_dir) if is_root(mesh) else contextlib.nullcontext() as logger:
+        with MetricsWriter(log_dir) as logger:
             params, _, _ = train.fit(epoch_fn, params, optimizer, seed + 2, num_epochs=n_epochs,
                                      epochs_per_call=epc, logger=logger, desc=os.path.basename(train_dir))
         return params
@@ -88,7 +85,7 @@ def run(config: dict, device=None, host: int = 0, n_hosts: int = 1) -> dict:
     return gridsearch.grid_search(
         y_test[: int(config["n_samples_y"])], config, {"xdim": prob.xdim, "ydim": prob.ydim},
         train_fn, eval_fn, {}, {}, trial_filter=host_filter(host, n_hosts), train_many=train_many,
-        skip_existing=bool(config.get("skip_existing", False)), device=dev, mesh=mesh,
+        skip_existing=bool(config.get("skip_existing", False)), device=dev,
     )
 
 

@@ -22,13 +22,11 @@ Usage: python -m dmip_tpu_torch.mains.run_grid_search_scatterometry \
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 
 import torch
 
 from .. import data, ensemble, evaluate, gridsearch, resolve_device, train
-from ..parallel.mesh import init_multihost, is_root
 from ..problems import scatterometry as scat
 from ..utils import MetricsWriter, load_config
 from .generate_scatterometry_ground_truth import test_conditions
@@ -38,8 +36,7 @@ from .run_grid_search_linear import host_filter
 def run(config: dict, gt_dir: str, device=None, host: int = 0, n_hosts: int = 1) -> dict:
     """Run the grid; returns ``grid_search``'s result."""
     evaluate.require_plotting(config.get("plot_ys", ()))
-    init_multihost(device=device)
-    mesh = train.resolve_mesh(config.get("mesh", "auto"))
+    mesh = train.driver_mesh(config, device)
     dev = resolve_device(device)
     forward_model, fparams = scat.load_forward_model(device=dev)
     seed = int(config.get("RANDOM_STATE", 13))
@@ -58,7 +55,7 @@ def run(config: dict, gt_dir: str, device=None, host: int = 0, n_hosts: int = 1)
         params = model.init(torch.Generator().manual_seed(seed + 2), device=dev)
         optimizer = train.build_optimizer(float(config["lr"]), config.get("grad_clip"))
         epoch_fn = train.make_epoch_fn(loss_fn, optimizer, batch_fn, epochs_per_call=epc, mesh=mesh)
-        with MetricsWriter(log_dir) if is_root(mesh) else contextlib.nullcontext() as logger:
+        with MetricsWriter(log_dir) as logger:
             params, _, _ = train.fit(epoch_fn, params, optimizer, seed + 3, num_epochs=n_epochs,
                                      epochs_per_call=epc, logger=logger, desc=os.path.basename(train_dir))
         return params
@@ -87,7 +84,7 @@ def run(config: dict, gt_dir: str, device=None, host: int = 0, n_hosts: int = 1)
 
     return gridsearch.grid_search(
         y_test, config, fparams, train_fn, eval_fn, {}, {}, trial_filter=host_filter(host, n_hosts),
-        train_many=train_many, skip_existing=bool(config.get("skip_existing", False)), device=dev, mesh=mesh,
+        train_many=train_many, skip_existing=bool(config.get("skip_existing", False)), device=dev,
     )
 
 

@@ -1,4 +1,4 @@
-from .mesh import Mesh, barrier, fold_in, get_mesh, init_multihost, is_root, local_address, pad_to_multiple
+from .mesh import Mesh, barrier, fold_in, get_mesh, init_multihost, is_writer, local_address, pad_to_multiple
 
-__all__ = ["Mesh", "barrier", "fold_in", "get_mesh", "init_multihost", "is_root", "local_address",
+__all__ = ["Mesh", "barrier", "fold_in", "get_mesh", "init_multihost", "is_writer", "local_address",
            "pad_to_multiple"]

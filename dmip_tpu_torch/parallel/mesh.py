@@ -16,6 +16,12 @@ on N times that work), and the code calls the collectives itself:
     rank's part, in rank order, on every rank;
   * :meth:`Mesh.broadcast` -- rank 0's value (``replicate``).
 
+Rank 0 writes the run's files and the other ranks write none
+(:func:`is_writer`): every writer of the package asks it -- the
+directories, the metrics logs, checkpoints, results.csv, the plots, the
+ground truth -- so a run of N ranks leaves the tree of one process, and a
+driver needs no rule of its own.
+
 The backend is NCCL when every rank of a host has a CUDA device of its
 own, and gloo on the CPU or when ranks share a device (NCCL refuses two
 ranks on one device).  Gloo takes CUDA tensors for every collective used
@@ -119,11 +125,6 @@ class Mesh:
     device: torch.device
     backend: str
 
-    @property
-    def is_root(self) -> bool:
-        """Rank 0, the one that writes the run's files."""
-        return self.rank == 0
-
     def rows(self, n: int) -> slice:
         """This rank's part of an axis of length ``n``: contiguous, in rank
         order, the parts' lengths differing by at most one (equal when
@@ -184,10 +185,12 @@ def get_mesh() -> Mesh:
     return Mesh(dist.get_world_size(), dist.get_rank(), dev, backend)
 
 
-def is_root(mesh: Optional[Mesh]) -> bool:
-    """Whether this process writes the run's files: without a mesh it is
-    the only process; with one, rank 0."""
-    return mesh is None or mesh.is_root
+def is_writer() -> bool:
+    """Whether this process writes the run's files: the only process, or
+    rank 0 of the process group.  The other ranks compute the same run and
+    write nothing; a rank that reads a file rank 0 has just written waits
+    for it (:func:`barrier`) first."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def barrier(mesh: Optional[Mesh]) -> None:

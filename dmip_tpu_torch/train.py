@@ -14,6 +14,8 @@ Port of ``dmip_tpu/train.py``:
                             seeded by (seed, global epoch index); with a
                             mesh, data-parallel over its ranks
   * ``resolve_mesh``     -- ``mesh: auto | null`` or a mesh -> a mesh or None
+  * ``driver_mesh``      -- a driver's mesh: join torchrun's group, resolve
+                            the config's ``mesh``
   * ``select_epoch_fn``  -- ``train_backend: xla | fused_pallas``
   * ``fit``              -- the Python-level epoch driver
   * ``get_model_from_args`` -- config keys -> (model, loss config)
@@ -37,7 +39,7 @@ import torch
 
 from . import pytree
 from .models.diffusion import CDE, CDiffE, DiffusionModel, LossConfig, PosteriorDiffusionEstimator
-from .parallel.mesh import Mesh, get_mesh
+from .parallel.mesh import Mesh, get_mesh, init_multihost
 
 Tensor = torch.Tensor
 Tree = Any  # a tree of tensors, see dmip_tpu_torch.pytree
@@ -232,6 +234,14 @@ def resolve_mesh(mesh) -> Optional[Mesh]:
     if n > 1:
         _note_unused_gpus(n)
     return None
+
+
+def driver_mesh(config: dict, device=None) -> Optional[Mesh]:
+    """The mesh an entry point runs on: joins the process group when
+    ``torchrun`` started this process (``init_multihost``; a no-op
+    otherwise), then resolves the config's ``mesh`` (default 'auto')."""
+    init_multihost(device=device)
+    return resolve_mesh(config.get("mesh", "auto"))
 
 
 @functools.lru_cache(maxsize=None)

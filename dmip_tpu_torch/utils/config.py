@@ -10,6 +10,8 @@ from typing import Any, Dict, Iterator
 
 import yaml
 
+from ..parallel.mesh import is_writer
+
 
 def load_config(path: str) -> Dict[str, Any]:
     with open(path) as f:
@@ -25,11 +27,14 @@ def product_dict(**kwargs) -> Iterator[Dict[str, Any]]:
 
 def set_directories(train_dir: str, out_dir: str, resume_training: bool = False) -> str:
     """Wipe and recreate the out and log directories unless resuming;
-    returns the log directory."""
+    returns the log directory.  Off rank 0 of a multi-rank run it touches
+    nothing (``parallel.is_writer``)."""
+    log_dir = os.path.join(train_dir, "logs")
+    if not is_writer():
+        return log_dir
     if os.path.exists(out_dir) and not resume_training:
         shutil.rmtree(out_dir)
     os.makedirs(out_dir, exist_ok=True)
-    log_dir = os.path.join(train_dir, "logs")
     if os.path.exists(log_dir) and not resume_training:
         shutil.rmtree(log_dir)
     os.makedirs(log_dir, exist_ok=True)

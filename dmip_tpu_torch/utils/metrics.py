@@ -2,7 +2,8 @@
 
 Scalars go to a JSONL event stream and to one ``<tag>.csv`` per tag with
 Step,Value columns ('/' in a tag becomes '_'), with an explicit
-``step_offset``.
+``step_offset``.  Off rank 0 of a multi-rank run a writer records
+nothing (``parallel.is_writer``), so every rank can log the same run.
 """
 
 from __future__ import annotations
@@ -13,16 +14,22 @@ import time
 from collections import defaultdict
 from typing import Dict, List, Tuple
 
+from ..parallel.mesh import is_writer
+
 
 class MetricsWriter:
     def __init__(self, log_dir: str, step_offset: int = 0):
         self.log_dir = log_dir
         self.step_offset = step_offset
-        os.makedirs(log_dir, exist_ok=True)
-        self._jsonl = open(os.path.join(log_dir, "events.jsonl"), "a")
         self._buffers: Dict[str, List[Tuple[int, float]]] = defaultdict(list)
+        self._jsonl = None
+        if is_writer():
+            os.makedirs(log_dir, exist_ok=True)
+            self._jsonl = open(os.path.join(log_dir, "events.jsonl"), "a")
 
     def scalar(self, tag: str, value: float, step: int) -> None:
+        if self._jsonl is None:
+            return
         step = step + self.step_offset
         self._jsonl.write(json.dumps({"tag": tag, "value": value, "step": step, "t": time.time()}) + "\n")
         self._buffers[tag].append((step, value))
@@ -42,13 +49,16 @@ class MetricsWriter:
                 f.write(f"{s},{v}\n")
 
     def flush(self) -> None:
+        if self._jsonl is None:
+            return
         for tag in list(self._buffers):
             self._flush_tag(tag)
         self._jsonl.flush()
 
     def close(self) -> None:
-        self.flush()
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self.flush()
+            self._jsonl.close()
 
     def __enter__(self):
         return self

@@ -171,13 +171,14 @@ def test_make_train_many_writes_logs_and_checkpoints(tmp_path):
 
 
 def test_backend_and_mesh_guards():
-    """'pinned' resolves (on no mesh it runs the trials one by one); a mesh
-    of several ranks is taken by the vmap engine and makes 'auto' pinned;
-    an unknown backend lists the options; 'auto' and 'vmap' select vmap on
-    one device."""
+    """'pinned' resolves: on a mesh of several ranks it is pinned, as
+    'auto' is, and on one device vmap; a mesh of several ranks is taken by
+    the vmap engine; an unknown backend lists the options; 'auto' and
+    'vmap' select vmap on one device."""
     _, batch_fn = _linear_batch_fn(1000)
     two = Mesh(2, 0, torch.device("cpu"), "gloo")
-    assert ensemble.resolve_backend("pinned", None) == ensemble.resolve_backend("auto", two) == "pinned"
+    assert ensemble.resolve_backend("pinned", two) == ensemble.resolve_backend("auto", two) == "pinned"
+    assert ensemble.resolve_backend("pinned", None) == "vmap"
     assert callable(ensemble.make_train_many(batch_fn, 1, 2, 1e-3, 1, backend="pinned", mesh=None))
     with pytest.raises(ValueError, match="'auto', 'vmap', 'pinned'"):
         ensemble.make_train_many(batch_fn, 1, 2, 1e-3, 1, backend="shard_map")

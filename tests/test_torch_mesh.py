@@ -313,13 +313,14 @@ def _gt_config():
 
 
 def _evaluate_linear(mesh, out_dir):
-    """3 conditions (parts of 2 and 1 over two ranks), 2 repeats."""
+    """3 conditions (parts of 2 and 1 over two ranks), 2 repeats; the
+    corner plots of condition 2, which rank 1 evaluates."""
     prob = LinearForwardProblem()
     model, _ = _model()
     params = model.init(torch.Generator().manual_seed(4))
     ys = prob.forward(torch.randn(3, 2, generator=torch.Generator().manual_seed(6)))
     m = evaluate.evaluate_linear(model, params, prob, ys, torch.Generator().manual_seed(7), out_dir=out_dir,
-                                 verbose=False, mesh=mesh, **EVAL)
+                                 verbose=False, mesh=mesh, plot_ys=(2,), **EVAL)
     return m, _rows(out_dir)
 
 
@@ -375,16 +376,17 @@ def test_sharded_evaluation_rows_equal_a_mesh_of_one(served, mesh_of_one, tmp_pa
     """Both harnesses over two ranks give, bit for bit, the rows and
     metrics of a mesh of one rank (each condition draws from its own
     generator); both ranks return the same metrics; rank 0 alone writes
-    results.csv.  Without a mesh the walk keeps the caller's one stream,
-    so its rows differ."""
+    results.csv, and the plots of a condition rank 1 evaluated.  Without a
+    mesh the walk keeps the caller's one stream, so its rows differ."""
     root, ranks = served
     for name, run in (("linear", lambda m, d: _evaluate_linear(m, d)),
                       ("scat", lambda m, d: _evaluate_scat(m, os.path.join(root, "gt"), d))):
         one = run(mesh_of_one, str(tmp_path / name))
         assert ranks[0][name] == ranks[1][name] == one
         assert run(None, str(tmp_path / (name + "_meshless")))[1] != one[1]
-    for r, expect in ((0, {"lin/results.csv", "scat/results.csv"}), (1, set())):
-        assert {w for w in ranks[r]["writes"] if not w.startswith("gt")} == expect
+    rank0 = ["lin/results.csv", "lin/posterior-true-2.svg", "lin/posterior-diffusion-2.svg", "scat/results.csv"]
+    for r, expect in ((0, rank0), (1, [])):
+        assert sorted(w for w in ranks[r]["writes"] if not w.startswith("gt")) == sorted(expect)
 
 
 def test_gt_driver_devices_2_shards_the_chains(served, one_thread):
@@ -510,6 +512,6 @@ def test_auto_mesh_in_one_process_on_a_multi_gpu_host(monkeypatch, capsys):
                                         batch_fn, mesh="auto"))
     assert ensemble.resolve_backend("auto", "auto") == "vmap"
     assert callable(ensemble.make_ensemble_epoch_fn(model, cfg, opt, batch_fn, mesh="auto"))
-    assert callable(ensemble.make_train_many(batch_fn, 1, 2, 1e-3, 1))
+    assert callable(ensemble.make_train_many(batch_fn, 1, 2, 1e-3, 1, mesh="auto"))
     with pytest.raises(ValueError, match="mesh must be None, 'auto' or a Mesh"):
         train.resolve_mesh(object())
