@@ -16,6 +16,13 @@ width:
     ``benchmarks/checkpoints/dps_prior`` under analytic DPS guidance
     (``configs/config_scatterometry_dps.yml``: clip 100, 'dps') through the
     guided kernel, against the same ground truth;
+  * the f32-weight mode of the E-M and CDiffE kernels (``serve_f32``):
+    ``cde_500k`` through ``CDE.sample(compute_dtype=torch.float32)`` on the
+    same conditions and ground truth (2 repeats), beside the bf16 kernel and
+    the plain f32 path on the same repeats; ``linear_refined_winner`` on 2
+    linear conditions x 10 repeats, beside the serving phase's rows of them;
+    one ``cdiffe_scat`` condition through ``CDiffE.sample(compute_dtype=
+    torch.float32)``;
   * energy-refined serving through the eval driver, on the same conditions
     and ground truth: ``cde_500k`` under ``config_scatterometry_refined.yml``'s
     own chain (annealed MH, 20 steps), ``linear_refined_winner`` under
@@ -88,11 +95,17 @@ kernel at ``cdiffe_scat``'s and a linear CDiffE's shapes, and the guided
 kernel at the ``dps_prior`` + surrogate shapes in both guidance modes.  The
 E-M and CDiffE kernels' same-noise samples are also held against their
 plain version run unrounded in float64 (a float64 witness, as the MH and
-guided kernels have).  Each kernel's ``ms``, ``plain_ms`` and ``bound_ms``
+guided kernels have).  Both run again in their f32-weight mode at every
+shape where they run in bf16, on the same x0 and noise, against the f32
+plain version (``EM_F32_*`` tolerances), float64 (within ``EM_F64_RATIO``
+of the f32 plain version and ``EM_F32_OVER_BF16_F64`` of the bf16 kernel)
+and the Philox moments.  Each kernel's ``ms``, ``plain_ms`` and ``bound_ms``
 are per launch, averaged over the main path's launches of each shape; the
 timing phase also splits the E-M kernel's step over its phases at both nets
-(``b1_phase_us_by_net``), the MH kernel's (``b2_phase_us``), the training
-kernel's (``b3_phase_us_by_net``), the CDiffE kernel's (``b4_phase_us``)
+(``b1_phase_us_by_net``; in f32 ``b1_f32_phase_us_by_net`` and
+``b4_f32_phase_us``, beside the f32 and split-TF32 bounds), the MH
+kernel's (``b2_phase_us``), the training kernel's
+(``b3_phase_us_by_net``), the CDiffE kernel's (``b4_phase_us``)
 and the guided kernel's, in both guidance modes
 (``b5_phase_us_by_guidance``).  The MH kernel's one-step check also holds
 the energies it carries against the plain energy in float64.
@@ -185,6 +198,22 @@ B4_P999_TOL = 5e-2
 # activation to bf16, so their distances to float64 are alike; a wrong term
 # or a lost partial sum would put the kernel's far above
 EM_F64_RATIO = 2.0
+# B1 and B4 with f32 weights (compute_dtype=torch.float32) against their f32
+# plain versions on the same x0 and noise: f32 in another sum order and
+# split-TF32 products only, so 10x tighter than the bf16 mode's tolerances;
+# against float64 they are held by EM_F64_RATIO to the f32 plain version
+EM_F32_MEAN_ABS_TOL = 2e-4
+EM_F32_P999_TOL = 5e-3
+# the f32 kernel's p999 distance to float64 at most this share of the bf16
+# kernel's on the same inputs: an approximate tanh or a TF32 sum left to the
+# tensor core would keep it bf16-class
+EM_F32_OVER_BF16_F64 = 0.1
+# serve_f32, CDE.sample(compute_dtype=torch.float32) at full width: cde_500k
+# on serve()'s conditions at this many repeats, beside the bf16 kernel and
+# the plain f32 path on the same repeats; linear_refined_winner on serve()'s
+# first conditions at REPEATS, beside serve()'s rows of them
+SERVE_F32_SCAT_REPEATS = 2
+SERVE_F32_LIN_CONDITIONS = 2
 B4_LIN_NET = (5, 4)           # linear CDiffE: [x, y, t] = 5 -> 512^3 -> xdim + ydim = 4
 # CDiffE serving, kernel (bf16) vs plain (f32) KL on the same GT: at least
 # SCAT_KL_AGREE, widened to 3x the plain path's own spread between two seeds
@@ -394,13 +423,15 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def em_work(params, n: int, steps: int):
+def em_work(params, n: int, steps: int, weight_size: int = 2):
     """(FLOPs, bytes) the E-M sampler must do: every product of every step,
-    x0 read and x written once, the weights read once."""
+    x0 read and x written once, the weights read once (the hidden ones
+    ``weight_size`` bytes an entry: 2 in the bf16 mode, 4 in f32)."""
     xdim = params[-1][0].shape[1]
     macs = sum(w.shape[0] * w.shape[1] for w, _ in params) - (params[0][0].shape[0] - xdim) * params[0][0].shape[1]
     hidden = sum(w.numel() for w, _ in params[1:-1])
-    weight_bytes = 2 * hidden + 4 * (params[0][0].numel() + params[-1][0].numel() + sum(b.numel() for _, b in params))
+    weight_bytes = weight_size * hidden + 4 * (params[0][0].numel() + params[-1][0].numel()
+                                               + sum(b.numel() for _, b in params))
     return 2.0 * n * steps * macs, 2 * n * xdim * 4 + weight_bytes
 
 
@@ -410,14 +441,15 @@ def mh_work(weights, n: int, steps: int):
     return 2.0 * n * (steps + 1) * macs, 2 * n * 3 * 4 + wbytes
 
 
-def cdiffe_work(params, xdim: int, n: int, steps: int):
+def cdiffe_work(params, xdim: int, n: int, steps: int, weight_size: int = 2):
     """(FLOPs, bytes) of the CDiffE sampler: per step the first layer over
     [x, y_t], the hidden products and the output's x block; x0 read and x
-    written once, the weights read once."""
+    written once, the weights read once (``weight_size`` as in em_work)."""
     width, h1 = params[0][0].shape[0] - 1, params[0][0].shape[1]
     hidden = sum(w.numel() for w, _ in params[1:-1])
     macs = width * h1 + hidden + params[-1][0].shape[0] * xdim
-    weight_bytes = 2 * hidden + 4 * (params[0][0].numel() + params[-1][0].numel() + sum(b.numel() for _, b in params))
+    weight_bytes = weight_size * hidden + 4 * (params[0][0].numel() + params[-1][0].numel()
+                                               + sum(b.numel() for _, b in params))
     return 2.0 * n * steps * macs, 2 * n * xdim * 4 + weight_bytes
 
 
@@ -456,16 +488,51 @@ def f64_witness(torch, out_k, out_p, out_d) -> dict:
     return res
 
 
-def check_b1(torch, params, y, gen):
-    """B1 against its plain version on the net ``params`` and condition y,
-    at the serving path's 30k samples x 200 steps."""
+def em_mode(torch, compute_dtype) -> str:
+    return "f32" if compute_dtype == torch.float32 else "bf16"
+
+
+def em_tols(torch, compute_dtype):
+    """The bulk tolerances (mean, p999) of a mode's kernel against its plain
+    version on the same noise."""
+    if compute_dtype == torch.float32:
+        return EM_F32_MEAN_ABS_TOL, EM_F32_P999_TOL
+    return B1_MEAN_ABS_TOL, B1_P999_TOL
+
+
+def check_f64(torch, res, label, compute_dtype, bf16_f64_p999):
+    """A kernel's float64 witness: its p999 within EM_F64_RATIO of its
+    mode's plain version's; in f32 also within EM_F32_OVER_BF16_F64 of the
+    bf16 kernel's on the same inputs."""
+    mode = em_mode(torch, compute_dtype)
+    check(res["f64_kernel_p999"] <= EM_F64_RATIO * res["f64_plain_p999"],
+          f"{label} ({mode}) further from float64 than the {mode} plain version: {res}")
+    if bf16_f64_p999 is not None:
+        res["f64_bf16_kernel_p999"] = bf16_f64_p999
+        check(res["f64_kernel_p999"] <= EM_F32_OVER_BF16_F64 * bf16_f64_p999,
+              f"{label} (f32) not {1 / EM_F32_OVER_BF16_F64:g}x nearer float64 than the bf16 kernel: {res}")
+
+
+def check_b1(torch, params, y, gen, compute_dtype=None, inputs=None, bf16_f64_p999=None):
+    """B1 in the mode ``compute_dtype`` (bf16 by default) against its plain
+    version in that mode on the net ``params`` and condition y, at the
+    serving path's 30k samples x 200 steps, and both against the plain
+    version run unrounded in float64; then the Philox stream's moments
+    against torch's.  ``inputs``: the (x0, noise) of an earlier check,
+    drawn from ``gen`` when None; ``bf16_f64_p999``: the bf16 kernel's
+    float64 distance on them, which the f32 kernel must beat tenfold.
+    Returns the results and the inputs."""
     from dmip_tpu_torch.ops.em_kernel import em_sampler_reference, fused_em_sampler
 
+    compute_dtype = compute_dtype or torch.bfloat16
     xdim = params[-1][0].shape[1]
-    x0 = torch.randn(N_SAMPLES, xdim, generator=gen, device="cuda")
-    noise = torch.randn(EM_STEPS, N_SAMPLES, xdim, generator=gen, device="cuda")
-    out_k = fused_em_sampler(params, x0, y, EM_STEPS, noise=noise)
-    out_p = em_sampler_reference(params, x0, y, EM_STEPS, noise=noise)
+    if inputs is None:
+        inputs = (torch.randn(N_SAMPLES, xdim, generator=gen, device="cuda"),
+                  torch.randn(EM_STEPS, N_SAMPLES, xdim, generator=gen, device="cuda"))
+    x0, noise = inputs
+    cd = dict(compute_dtype=compute_dtype)
+    out_k = fused_em_sampler(params, x0, y, EM_STEPS, noise=noise, **cd)
+    out_p = em_sampler_reference(params, x0, y, EM_STEPS, noise=noise, **cd)
     out_d = em_sampler_reference(params, x0, y, EM_STEPS, noise=noise, compute_dtype=torch.float64,
                                  dtype=torch.float64)
     torch.cuda.synchronize()
@@ -477,17 +544,17 @@ def check_b1(torch, params, y, gen):
         "p999_abs_err": float(torch.quantile(err, 0.999)),
         **f64_witness(torch, out_k, out_p, out_d),
     }
-    check(res["mean_abs_err"] <= B1_MEAN_ABS_TOL and res["p999_abs_err"] <= B1_P999_TOL,
-          f"B1 vs plain (same noise) out of tolerance: {res}")
-    check(res["f64_kernel_p999"] <= EM_F64_RATIO * res["f64_plain_p999"],
-          f"B1 further from float64 than the bf16 plain version: {res}")
-    xk = fused_em_sampler(params, x0, y, EM_STEPS, seed=1234)
-    xp = em_sampler_reference(params, x0, y, EM_STEPS, generator=gen)
+    mean_tol, p999_tol = em_tols(torch, compute_dtype)
+    check(res["mean_abs_err"] <= mean_tol and res["p999_abs_err"] <= p999_tol,
+          f"B1 ({em_mode(torch, compute_dtype)}) vs plain (same noise) out of tolerance: {res}")
+    check_f64(torch, res, "B1", compute_dtype, bf16_f64_p999)
+    xk = fused_em_sampler(params, x0, y, EM_STEPS, seed=1234, **cd)
+    xp = em_sampler_reference(params, x0, y, EM_STEPS, generator=gen, **cd)
     dm = float((xk.mean(0) - xp.mean(0)).abs().max())
     dc = float((torch.cov(xk.T) - torch.cov(xp.T)).abs().max())
     res.update(philox_mean_diff=dm, philox_cov_diff=dc)
     check(dm <= MOMENT_TOL and dc <= MOMENT_TOL, f"B1 Philox moments off: {res}")
-    return res
+    return res, inputs
 
 
 def check_b2(torch, weights, y, gen, fparams, n=MH_CHAINS):
@@ -547,47 +614,53 @@ def check_b2(torch, weights, y, gen, fparams, n=MH_CHAINS):
     return res
 
 
-def check_b4(torch, params, y, gen, moments=True):
-    """B4 against its plain version on the joint net ``params`` and
-    condition y at the serving path's 30k samples x 200 steps: the same x0
-    and (steps, N, xdim + ydim) noise, and the noise-off trajectory; with
-    the same noise also both against the plain version run unrounded in
-    float64 (the float64 witness); with ``moments``, the Philox stream's
-    moments against torch's."""
+def check_b4(torch, params, y, gen, moments=True, compute_dtype=None, inputs=None, bf16_f64_p999=None):
+    """B4 in the mode ``compute_dtype`` (bf16 by default) against its plain
+    version in that mode on the joint net ``params`` and condition y at
+    the serving path's 30k samples x 200 steps: the same x0 and (steps, N,
+    xdim + ydim) noise, and the noise-off trajectory; with the same noise
+    also both against the plain version run unrounded in float64 (the
+    float64 witness); with ``moments``, the Philox stream's moments against
+    torch's.  ``inputs`` and ``bf16_f64_p999`` as in check_b1.  Returns the
+    results and the inputs."""
     from dmip_tpu_torch.ops.em_kernel import em_cdiffe_reference, fused_em_sampler_cdiffe
 
+    compute_dtype = compute_dtype or torch.bfloat16
+    mode = em_mode(torch, compute_dtype)
     width = params[0][0].shape[0] - 1
     xdim = width - y.numel()
-    x0 = torch.randn(N_SAMPLES, xdim, generator=gen, device="cuda")
-    noise = torch.randn(EM_STEPS, N_SAMPLES, width, generator=gen, device="cuda")
+    if inputs is None:
+        inputs = (torch.randn(N_SAMPLES, xdim, generator=gen, device="cuda"),
+                  torch.randn(EM_STEPS, N_SAMPLES, width, generator=gen, device="cuda"))
+    x0, noise = inputs
+    cd = dict(compute_dtype=compute_dtype)
+    mean_tol, p999_tol = (B4_MEAN_ABS_TOL, B4_P999_TOL) if mode == "bf16" else em_tols(torch, compute_dtype)
     res = {}
     for label, kw in (("same_noise", dict(noise=noise)), ("noise_off", dict(noise_scale=0.0))):
-        out_k = fused_em_sampler_cdiffe(params, x0, y, EM_STEPS, **kw)
-        out_p = em_cdiffe_reference(params, x0, y, EM_STEPS, **kw)
+        out_k = fused_em_sampler_cdiffe(params, x0, y, EM_STEPS, **kw, **cd)
+        out_p = em_cdiffe_reference(params, x0, y, EM_STEPS, **kw, **cd)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(out_k).all()), f"B4 ({label}) produced non-finite samples")
+        check(bool(torch.isfinite(out_k).all()), f"B4 ({mode}, {label}) produced non-finite samples")
         err = (out_k - out_p).abs().amax(dim=1)
         r = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
              "p999_abs_err": float(torch.quantile(err, 0.999))}
         res.update({f"{label}_{k}": v for k, v in r.items()})
-        check(r["mean_abs_err"] <= B4_MEAN_ABS_TOL and r["p999_abs_err"] <= B4_P999_TOL,
-              f"B4 vs plain ({label}) out of tolerance: {r}")
+        check(r["mean_abs_err"] <= mean_tol and r["p999_abs_err"] <= p999_tol,
+              f"B4 ({mode}) vs plain ({label}) out of tolerance: {r}")
         if label == "same_noise":
             out_d = em_cdiffe_reference(params, x0, y, EM_STEPS, compute_dtype=torch.float64, dtype=torch.float64,
                                         **kw)
             res.update(f64_witness(torch, out_k, out_p, out_d))
-            check(res["f64_kernel_p999"] <= EM_F64_RATIO * res["f64_plain_p999"],
-                  f"B4 further from float64 than the bf16 plain version: {res}")
-    del noise
+            check_f64(torch, res, "B4", compute_dtype, bf16_f64_p999)
     res["max_abs_err"] = max(res["same_noise_max_abs_err"], res["noise_off_max_abs_err"])
     if moments:
-        xk = fused_em_sampler_cdiffe(params, x0, y, EM_STEPS, seed=1234)
-        xp = em_cdiffe_reference(params, x0, y, EM_STEPS, generator=gen)
+        xk = fused_em_sampler_cdiffe(params, x0, y, EM_STEPS, seed=1234, **cd)
+        xp = em_cdiffe_reference(params, x0, y, EM_STEPS, generator=gen, **cd)
         dm = float((xk.mean(0) - xp.mean(0)).abs().max())
         dc = float((torch.cov(xk.T) - torch.cov(xp.T)).abs().max())
         res.update(philox_mean_diff=dm, philox_cov_diff=dc)
-        check(dm <= MOMENT_TOL and dc <= MOMENT_TOL, f"B4 Philox moments off: {res}")
-    return res
+        check(dm <= MOMENT_TOL and dc <= MOMENT_TOL, f"B4 ({mode}) Philox moments off: {res}")
+    return res, inputs
 
 
 def check_b5_steps(torch, prior, weights, y, gen, kw):
@@ -878,6 +951,100 @@ def serve_cdiffe_dps(torch, gt_dir) -> dict:
     check(n_b5 == DPS_REPEATS * SCAT_CONDITIONS, f"serve_scat_dps: {n_b5} B5 launches")
     check(_finite([*d, *cols.values()]), f"non-finite analytic-DPS metrics {cols}")
     return {"em_cdiffe": n_b4, "guided": n_b5}
+
+
+class F32Sampling:
+    """A diffusion model whose ``sample`` asks for compute_dtype=torch.float32
+    (on the card, the f32-weight kernels); everything else is the model's."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def sample(self, *args, **kw):
+        import torch
+
+        return self.model.sample(*args, compute_dtype=torch.float32, **kw)
+
+
+def serve_f32(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
+    """The f32-weight mode served at full width through the evaluation and
+    CDE.sample(compute_dtype=torch.float32), f32 launches counted from zero
+    around each: ``cde_500k`` on serve()'s SCAT_CONDITIONS conditions x
+    SERVE_F32_SCAT_REPEATS repeats against serve()'s GT, beside the bf16
+    kernel and the plain f32 path on the same conditions and repeats;
+    ``linear_refined_winner`` on serve()'s first SERVE_F32_LIN_CONDITIONS
+    conditions x REPEATS, beside serve()'s bf16 and plain rows of them;
+    ``cdiffe_scat`` through CDiffE.sample(compute_dtype=torch.float32) on one
+    condition x one repeat.  Returns the f32 launches of B1 and B4."""
+    from dmip_tpu_torch import data, evaluate
+    from dmip_tpu_torch.mains import eval_diffusion
+    from dmip_tpu_torch.mains import generate_scatterometry_ground_truth as gt
+    from dmip_tpu_torch.ops import fused_em_sampler, fused_em_sampler_cdiffe
+    from dmip_tpu_torch.problems import LinearForwardProblem
+    from dmip_tpu_torch.problems import scatterometry as scat
+
+    ckpt = lambda name: os.path.join(REPO, "benchmarks/checkpoints", name)
+    f32_launches = lambda fn: fn.launches_by_dtype["float32"]
+    for fn in (fused_em_sampler, fused_em_sampler_cdiffe):
+        fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
+    forward_model, fparams = scat.load_forward_model(device="cuda")
+    sc = dict(scat_cfg, n_samples_y=SCAT_CONDITIONS, n_samples_x=N_SAMPLES, n_repeats=SERVE_F32_SCAT_REPEATS)
+    ys = gt.test_conditions(sc, forward_model, fparams, "cuda")
+    score_post = scat.score_posterior(forward_model, fparams["a"], fparams["b"], fparams["lambd_bd"])
+
+    def scat_eval(model, params, conditions, repeats, method="auto"):
+        return evaluate.evaluate_scatterometry(
+            model, params, forward_model, fparams, score_post, conditions, data.gt_loader(gt_dir),
+            torch.Generator(device="cuda").manual_seed(0), n_samples_x=N_SAMPLES, n_repeats=repeats,
+            num_steps=EM_STEPS, method=method, verbose=False)
+
+    model, params = eval_diffusion._load_net(sc, fparams, ckpt("cde_500k"), "cuda")
+    t0 = time.time()
+    k32 = scat_eval(F32Sampling(model), params, ys, SERVE_F32_SCAT_REPEATS)
+    torch.cuda.synchronize()
+    n_scat = f32_launches(fused_em_sampler)
+    t1 = time.time()
+    kbf = scat_eval(model, params, ys, SERVE_F32_SCAT_REPEATS)
+    kpl = scat_eval(model, params, ys, SERVE_F32_SCAT_REPEATS, method="plain")
+    phase("serve_f32_scat", t0, conditions=SCAT_CONDITIONS, repeats=SERVE_F32_SCAT_REPEATS,
+          f32_seconds=t1 - t0, KL=k32[0], NLPD=k32[1], score_MSE=k32[2], KL_bf16_kernel=kbf[0], KL_plain_f32=kpl[0],
+          launches_f32=n_scat)
+    check(n_scat == SCAT_CONDITIONS * SERVE_F32_SCAT_REPEATS, f"serve_f32_scat: {n_scat} f32 B1 launches")
+    check(_finite([*k32]), f"non-finite f32 scatterometry metrics {k32}")
+    check(abs(k32[0] - kpl[0]) <= SCAT_KL_AGREE, f"scatterometry KL f32 kernel {k32[0]} vs plain {kpl[0]}")
+
+    lin = dict(lin_cfg, n_samples_y=LIN_CONDITIONS, n_samples_x=N_SAMPLES, n_repeats=REPEATS)
+    prob = LinearForwardProblem()
+    y_lin = eval_diffusion.linear_test_conditions(lin, prob, "cuda")[:SERVE_F32_LIN_CONDITIONS]
+    lmodel, lparams = eval_diffusion._load_net(lin, {"xdim": prob.xdim, "ydim": prob.ydim},
+                                               ckpt("linear_refined_winner"), "cuda")
+    t0 = time.time()
+    l32 = evaluate.evaluate_linear(F32Sampling(lmodel), lparams, prob, y_lin, torch.Generator(device="cuda").manual_seed(0),
+                                   n_samples_x=N_SAMPLES, n_repeats=REPEATS, num_steps=EM_STEPS, verbose=False)
+    torch.cuda.synchronize()
+    n_lin = f32_launches(fused_em_sampler) - n_scat
+    served = lambda sub: sum(_column(os.path.join(gt_dir, sub, "results.csv"), "KL2")[:SERVE_F32_LIN_CONDITIONS]) / \
+        SERVE_F32_LIN_CONDITIONS
+    lbf, lpl = served("lin"), served("lin_plain")
+    phase("serve_f32_linear", t0, conditions=SERVE_F32_LIN_CONDITIONS, repeats=REPEATS, KL=l32[0], NLPD=l32[1],
+          score_MSE=l32[2], KL_bf16_kernel=lbf, KL_plain_f32=lpl, launches_f32=n_lin)
+    check(n_lin == SERVE_F32_LIN_CONDITIONS * REPEATS, f"serve_f32_linear: {n_lin} f32 B1 launches")
+    check(l32[0] < LIN_KL_BOUND, f"linear KL (f32 kernel) {l32[0]} above {LIN_KL_BOUND}")
+    check(abs(l32[0] - lpl) <= LIN_KL_AGREE, f"linear KL f32 kernel {l32[0]} vs plain {lpl}")
+
+    cd = dict(card_config("config_scatterometry_cdiffe.yml"), n_samples_y=SCAT_CONDITIONS, n_samples_x=N_SAMPLES)
+    cmodel, cparams = eval_diffusion._load_net(cd, fparams, ckpt("cdiffe_scat"), "cuda")
+    t0 = time.time()
+    c32 = scat_eval(F32Sampling(cmodel), cparams, ys[:1], 1)
+    torch.cuda.synchronize()
+    n_b4 = f32_launches(fused_em_sampler_cdiffe)
+    phase("serve_f32_cdiffe", t0, conditions=1, repeats=1, KL=c32[0], NLPD=c32[1], score_MSE=c32[2],
+          launches_f32=n_b4)
+    check(n_b4 == 1 and _finite([*c32]), f"serve_f32_cdiffe: {n_b4} f32 B4 launches, metrics {c32}")
+    return {"em": n_scat + n_lin, "em_cdiffe": n_b4, "em_by_net": {"cde_500k": n_scat, "linear_refined_winner": n_lin}}
 
 
 def _column(path, name):
@@ -2120,6 +2287,52 @@ def b5_phase_split(torch, prior, weights, y, x0, fparams) -> dict:
     return out
 
 
+def em_f32_timing(torch, nets, cd_params, y0, f32_launches, gen) -> dict:
+    """The f32 mode's times at the main path's shapes: B1 at both nets
+    (per launch, and weighted by serve_f32's launches of each) and B4 at
+    ``cdiffe_scat`` (its one shape there), each beside its f32 plain
+    version, its bounds (the f32 peak, and three TF32 products a MAC: the
+    least the card could take at f32 accuracy) and its phase split."""
+    from dmip_tpu_torch.ops.em_kernel import em_cdiffe_reference, em_sampler_reference
+    from dmip_tpu_torch.ops.em_kernel import fused_em_sampler, fused_em_sampler_cdiffe
+    from dmip_tpu_torch.ops.em_kernel import phase_names as em_phase_names
+
+    f32 = dict(compute_dtype=torch.float32)
+    b1_f32 = lambda *a, **kw: fused_em_sampler(*a, **kw, **f32)
+    b4_f32 = lambda *a, **kw: fused_em_sampler_cdiffe(*a, **kw, **f32)
+    t, flops, nbytes, split = {}, 0.0, 0.0, {}
+    by_net = f32_launches["em_by_net"]
+    for name, (params, y) in nets.items():
+        x0 = torch.randn(N_SAMPLES, params[-1][0].shape[1], generator=gen, device="cuda")
+        t[name] = (cuda_ms(lambda: b1_f32(params, x0, y, EM_STEPS, seed=7), 3),
+                   cuda_ms(lambda: em_sampler_reference(params, x0, y, EM_STEPS, generator=gen, **f32), 2))
+        f, b = em_work(params, N_SAMPLES, EM_STEPS, weight_size=4)
+        flops, nbytes = flops + by_net[name] * f, nbytes + by_net[name] * b
+        split[name] = em_phase_split(torch, b1_f32, em_phase_names(len(params) - 2), params, y, x0,
+                                     f"B1 f32 ({name})")
+    n = f32_launches["em"]
+    b1_bound, b1_by = bound_ms(flops, nbytes, H100_TF32_FLOPS / 3)
+    x0 = torch.randn(N_SAMPLES, 3, generator=gen, device="cuda")
+    cd_work = cdiffe_work(cd_params, 3, N_SAMPLES, EM_STEPS, weight_size=4)
+    b4_bound, b4_by = bound_ms(*cd_work, H100_TF32_FLOPS / 3)
+    return {
+        "b1_f32_ms_by_net": {k: v[0] for k, v in t.items()},
+        "b1_f32_plain_ms_by_net": {k: v[1] for k, v in t.items()},
+        "b1_f32_launches_by_net": by_net,
+        "b1_f32_ms": sum(by_net[k] * t[k][0] for k in t) / n,
+        "b1_f32_plain_ms": sum(by_net[k] * t[k][1] for k in t) / n,
+        "b1_f32_bound_ms": bound_ms(flops, nbytes, H100_F32_FLOPS)[0] / n,
+        "b1_f32_split_tf32_bound_ms": b1_bound / n, "b1_f32_bound_by": b1_by,
+        "b1_f32_phase_us_by_net": split,
+        "b4_f32_ms": cuda_ms(lambda: b4_f32(cd_params, x0, y0, EM_STEPS, seed=7), 3),
+        "b4_f32_plain_ms": cuda_ms(lambda: em_cdiffe_reference(cd_params, x0, y0, EM_STEPS, generator=gen, **f32), 1),
+        "b4_f32_bound_ms": bound_ms(*cd_work, H100_F32_FLOPS)[0],
+        "b4_f32_split_tf32_bound_ms": b4_bound, "b4_f32_bound_by": b4_by,
+        "b4_f32_phase_us": em_phase_split(torch, b4_f32, em_phase_names(len(cd_params) - 2, cdiffe=True), cd_params,
+                                          y0, x0, "B4 f32"),
+    }
+
+
 def run() -> list:
     import torch
 
@@ -2158,11 +2371,19 @@ def run() -> list:
             os.path.join(REPO, "benchmarks/checkpoints/linear_refined_winner"), device="cuda"), y_lin),
     }
     kw = dict(noise_std=0.5, a=fparams["a"], b=fparams["b"], lambd_bd=fparams["lambd_bd"])
-    b1 = {}
+    # each net's f32 check on the bf16 check's x0 and noise, drawing its
+    # moments on a generator of its own, so the later checks draw what they
+    # drew before
+    gen_f32 = torch.Generator(device="cuda").manual_seed(3)
+    b1, b1_f32 = {}, {}
     for name, (params, y) in nets.items():
         t0 = time.time()
-        b1[name] = check_b1(torch, params, y, gen)
+        b1[name], inputs = check_b1(torch, params, y, gen)
         phase("b1_vs_plain", t0, net=name, **b1[name])
+        t0 = time.time()
+        b1_f32[name], _ = check_b1(torch, params, y, gen_f32, torch.float32, inputs, b1[name]["f64_kernel_p999"])
+        phase("b1_f32_vs_plain", t0, net=name, **b1_f32[name])
+        del inputs
     b2 = {}
     # one process's GT launch, then a rank's of two (on a generator of its
     # own, so the later checks draw what they drew before)
@@ -2181,12 +2402,18 @@ def run() -> list:
         "linear_cdiffe": (mlp_init(*B4_LIN_NET, (512, 512, 512),
                                    generator=torch.Generator().manual_seed(13), device="cuda"), y_lin),
     }
-    b4 = {}
+    b4, b4_f32 = {}, {}
     for name, (params, y) in cdiffe_nets.items():
-        t0 = time.time()
         # the random linear net's samples are heavy-tailed: same-noise checks only
-        b4[name] = check_b4(torch, params, y, gen, moments=name == "cdiffe_scat")
+        moments = name == "cdiffe_scat"
+        t0 = time.time()
+        b4[name], inputs = check_b4(torch, params, y, gen, moments=moments)
         phase("b4_vs_plain", t0, net=name, **b4[name])
+        t0 = time.time()
+        b4_f32[name], _ = check_b4(torch, params, y, gen_f32, moments, torch.float32, inputs,
+                                   b4[name]["f64_kernel_p999"])
+        phase("b4_f32_vs_plain", t0, net=name, **b4_f32[name])
+        del inputs
     prior = load_archived_params(os.path.join(REPO, "benchmarks/checkpoints/dps_prior"), device="cuda")["prior"]
     t0 = time.time()
     b5 = check_b5(torch, prior, weights, ys, gen)
@@ -2198,6 +2425,7 @@ def run() -> list:
         serve_samplers(torch, lin_cfg, scat_cfg, served, work)
         profile_serve(torch, lin_cfg, work)
         launches.update(serve_cdiffe_dps(torch, work))
+        f32_launches = serve_f32(torch, lin_cfg, scat_cfg, work)
         baseline_launches = serve_baselines_scat(torch, work)
         b3_launches = train(torch, lin_cfg, scat_cfg, work)
         cdiffe_train = train_cdiffe(torch, work, gen)
@@ -2275,6 +2503,7 @@ def run() -> list:
     b4_bound, b4_by = bound_ms(*cdiffe_work(cd_params, 3, N_SAMPLES, EM_STEPS), H100_BF16_FLOPS)
     b4_split = em_phase_split(torch, fused_em_sampler_cdiffe, em_phase_names(len(cd_params) - 2, cdiffe=True),
                               cd_params, y0, x0, "B4")
+    f32_t = em_f32_timing(torch, nets, cd_params, y0, f32_launches, gen)
     b5_t = {}
     for guidance in ("dps", "pgdm"):
         gkw = dict(a=fparams["a"], b=fparams["b"], guidance_clip=100.0, num_steps=EM_STEPS, guidance=guidance)
@@ -2299,6 +2528,7 @@ def run() -> list:
           b5_ms_by_guidance={k: v[0] for k, v in b5_t.items()},
           b5_plain_ms_by_guidance={k: v[1] for k, v in b5_t.items()},
           b5_bound_ms_by_guidance={k: v[2] for k, v in b5_t.items()}, b5_phase_us_by_guidance=b5_split,
+          **f32_t,
           b1_ms_two_ranks_sharing=dist["b1_ms"], mh_ms_two_ranks_sharing_half_chains=dist["b2_ms"],
           sm_clock_power_temp=clocks)
 
@@ -2319,6 +2549,16 @@ def run() -> list:
          "replaces": "dmip_tpu/ops/em_kernel.py:319", "launches": launches["em_cdiffe"],
          "max_abs_err": max(r["max_abs_err"] for r in b4.values()), "ms": b4_ms, "plain_ms": b4_plain_ms,
          "bound_ms": b4_bound, "bound_by": b4_by, "library_ms": None},
+        {"name": "fused_em_sampler[f32]", "route": "cuda", "source": "dmip_tpu_torch/csrc/em_kernel.cu",
+         "replaces": "dmip_tpu/ops/em_kernel.py:421", "launches": f32_launches["em"],
+         "max_abs_err": max(r["max_abs_err"] for r in b1_f32.values()), "ms": f32_t["b1_f32_ms"],
+         "plain_ms": f32_t["b1_f32_plain_ms"], "bound_ms": f32_t["b1_f32_split_tf32_bound_ms"],
+         "bound_by": f32_t["b1_f32_bound_by"], "library_ms": None},
+        {"name": "fused_em_sampler_cdiffe[f32]", "route": "cuda", "source": "dmip_tpu_torch/csrc/em_kernel.cu",
+         "replaces": "dmip_tpu/ops/em_kernel.py:319", "launches": f32_launches["em_cdiffe"],
+         "max_abs_err": max(r["max_abs_err"] for r in b4_f32.values()), "ms": f32_t["b4_f32_ms"],
+         "plain_ms": f32_t["b4_f32_plain_ms"], "bound_ms": f32_t["b4_f32_split_tf32_bound_ms"],
+         "bound_by": f32_t["b4_f32_bound_by"], "library_ms": None},
         {"name": "fused_guided_em_sampler", "route": "cuda", "source": "dmip_tpu_torch/csrc/dps_kernel.cu",
          "replaces": "dmip_tpu/ops/dps_kernel.py:380", "launches": launches["guided"],
          "max_abs_err": b5["max_abs_err"], "ms": b5_t["dps"][0], "plain_ms": b5_t["dps"][1],

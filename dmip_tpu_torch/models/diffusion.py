@@ -222,8 +222,9 @@ class DiffusionModel:
         probability-flow ODE, ``samplers.heun_ode``) or
         'expint[:ode|:sde][:1|:2]' (``samplers.exponential_integrator``,
         SDE form of order 1 by default; num_steps + 1 net evaluations).
-        The device is ``device``, else y's.  compute_dtype ('auto' = bf16)
-        is the kernel's weight/activation dtype; its sums and state stay
+        The device is ``device``, else y's.  compute_dtype ('auto' =
+        torch.bfloat16, or torch.float32) is the kernel's weight/activation
+        dtype, each a kernel of its own on the card; its sums and state stay
         f32.  The other samplers compute in f32.
         """
         dev = _device_of(params, y, device)
@@ -291,7 +292,8 @@ class CDiffE(DiffusionModel):
         the joint reverse SDE.  method: 'auto' (the fused CDiffE kernel on a
         CUDA device, the plain ``euler_maruyama_cdiffe`` on the CPU),
         'kernel' or 'plain'; no Heun or exponential integrator, as in the
-        JAX package (the re-diffusion is SDE-specific)."""
+        JAX package (the re-diffusion is SDE-specific).  compute_dtype as
+        :meth:`DiffusionModel.sample`."""
         if method not in ("auto", "kernel", "plain"):
             raise ValueError(f"CDiffE sampler method {method!r} unsupported")
         dev = _device_of(params, y, device)

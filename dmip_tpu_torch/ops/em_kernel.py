@@ -11,11 +11,16 @@ Port of ``dmip_tpu/ops/em_kernel.py``:
     :func:`em_cdiffe_reference` through
     :func:`dmip_tpu_torch.samplers.euler_maruyama_cdiffe`.
 
-Both kernels live in ``csrc/em_kernel.cu``, one template for both, which
-takes every weight as the image of its tiles in shared memory
-(:func:`pack_mma_b` for the first layer, :func:`pack_wgmma_tiles` for the
-rest).  A wrapper takes the plain version only for CPU tensors; for a CUDA
-tensor it launches the kernel or raises.
+Both kernels live in ``csrc/em_kernel.cu``, in two modes, the
+``compute_dtype`` of the JAX kernels.  With bf16 weights (the default) one
+template serves both, taking every weight as the image of its tiles in
+shared memory (:func:`pack_mma_b` for the first layer,
+:func:`pack_wgmma_tiles` for the rest).  With f32 weights a second template
+runs the first and the hidden layers' products in split TF32 from weights
+in B-fragment order (:func:`dmip_tpu_torch.ops.mh_kernel.pack_tf32_b`),
+the output layer in f32.  A wrapper takes the plain version only for CPU
+tensors; for a CUDA tensor it launches the kernel or raises.  Each counts
+its launches (``launches``) and, apart, each mode's (``launches_by_dtype``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 from ..samplers import euler_maruyama, euler_maruyama_cdiffe
 from ..sde import ReverseSDE, VPSDE
 from . import build
+from .mh_kernel import pack_tf32_b
 
 Tensor = torch.Tensor
 
@@ -35,6 +41,8 @@ MAX_HIDDEN = 8
 MAX_XDIM = 4
 MAX_WIDTH = 512  # every width, after padding to a multiple of 128
 K1 = 32  # the first layer's [x] (B1) or [x, y] (B4) rows, zero-padded: one 32-deep mma.sync slice
+# the kernels' two modes, as ``compute_dtype``: bf16 or f32 weights and activations
+COMPUTE_DTYPES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 
 
 def phase_names(n_hidden: int, cdiffe: bool = False) -> Tuple[str, ...]:
@@ -63,6 +71,12 @@ def _pad1(b: Tensor, n: int) -> Tensor:
     out = b.new_zeros(n)
     out[: b.shape[0]] = b
     return out
+
+
+def check_compute_dtype(compute_dtype) -> None:
+    """Raise unless ``compute_dtype`` is one of the kernels' two modes."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"the E-M kernels compute in torch.bfloat16 or torch.float32, got {compute_dtype}")
 
 
 def pack_mma_b(w: Tensor) -> Tensor:
@@ -181,40 +195,56 @@ def em_sampler_reference(
     )
 
 
-def _device_net(params, xdim: int, y: Optional[Tensor]):
+def _first_layer(w: Tensor, h1: int, f32_mode: bool) -> Tensor:
+    """The first layer's weight over [x] (B1) or [x, y] (B4), (k, h1
+    unpadded) f32, in a mode's layout: bf16 with its rows padded to 32,
+    packed for mma.sync; or f32 with its rows padded to a multiple of 8, in
+    split-TF32 B-fragment order (:func:`pack_tf32_b`)."""
+    if f32_mode:
+        return pack_tf32_b(_pad2(w, -(-w.shape[0] // 8) * 8, h1))
+    return pack_mma_b(_pad2(w, K1, h1))
+
+
+def _device_net(params, xdim: int, y: Optional[Tensor], f32_mode: bool = False):
     """B1's layout of the net for the condition y: widths zero-padded to
     multiples of 128 (exact: a padded unit has zero weights in and out),
-    W1x's rows padded to 32 and packed for mma.sync, the condition folded
-    into c1 = cy = y . W1y + b1 (f32, as the plain version computes it), the
-    layers after as :func:`_add_hidden_and_out`."""
+    W1x in the mode's first-layer layout (:func:`_first_layer`), the
+    condition folded into c1 = cy = y . W1y + b1 (f32, as the plain version
+    computes it), the layers after as :func:`_add_hidden_and_out`."""
     w1x, w1y, w1t, b1, ydim = _split_first_layer(params, xdim)
     _check_y(y, ydim)
     f32 = lambda t: t.to(torch.float32)
     cy = f32(b1) if ydim == 0 else y.reshape(1, ydim).to(device=b1.device, dtype=torch.float32) @ f32(w1y) + f32(b1)
     h1 = _ceil128(w1x.shape[1])
     net = {
-        "w1": pack_mma_b(_pad2(f32(w1x), K1, h1)),
+        "w1": _first_layer(f32(w1x), h1, f32_mode),
         "w1t": _pad1(f32(w1t), h1),
         "c1": _pad1(cy.reshape(-1), h1),
         "ydim": ydim,
     }
-    return _add_hidden_and_out(net, params, h1, xdim)
+    return _add_hidden_and_out(net, params, h1, xdim, f32_mode)
 
 
-def _add_hidden_and_out(net: dict, params, h1: int, xdim: int) -> dict:
+def _add_hidden_and_out(net: dict, params, h1: int, xdim: int, f32_mode: bool = False) -> dict:
     """The layout B1 and B4 share after the first layer: hidden weights
-    padded to multiples of 128 and packed as ring tiles, f32 biases, and the
-    output layer's first xdim columns padded to 8 and packed as one wgmma
-    operand."""
+    padded to multiples of 128, f32 biases, and the output layer's first
+    xdim columns.  bf16: the hidden weights packed as ring tiles, the
+    output columns padded to 8 and packed as one wgmma operand.  f32: the
+    hidden weights in split-TF32 B-fragment order (:func:`pack_tf32_b`),
+    the output columns padded to 4, (hl, 4)."""
     f32 = lambda t: t.to(torch.float32)
+    pack = pack_tf32_b if f32_mode else pack_wgmma_tiles
     net.update(wh=[], bh=[], widths=[h1])
     for w, b in params[1:-1]:
         k, n = _ceil128(w.shape[0]), _ceil128(w.shape[1])
-        net["wh"].append(pack_wgmma_tiles(_pad2(f32(w), k, n)))
+        net["wh"].append(pack(_pad2(f32(w), k, n)))
         net["bh"].append(_pad1(f32(b), n))
         net["widths"].append(n)
     w_out, b_out = params[-1]
-    net["wout"] = pack_wgmma_tiles(_pad2(f32(w_out[:, :xdim]), net["widths"][-1], 8), parts=1)
+    if f32_mode:
+        net["wout"] = _pad2(f32(w_out[:, :xdim]), net["widths"][-1], 4)
+    else:
+        net["wout"] = pack_wgmma_tiles(_pad2(f32(w_out[:, :xdim]), net["widths"][-1], 8), parts=1)
     net["bout"] = f32(b_out[:xdim]).contiguous()
     return net
 
@@ -262,10 +292,11 @@ _ARGTYPES = (
 )
 
 
-def _em_launch(net: dict, cdiffe: bool, x0, y_dev, noise, stamps, ydim, num_steps, T, beta_min, beta_max, lmbd,
-               noise_scale, seed) -> Tensor:
-    """Launch B1 or B4 on the device net ``net`` (B4 with its observation
-    ``y_dev``); returns the samples."""
+def _em_launch(net: dict, cdiffe: bool, f32_mode: bool, x0, y_dev, noise, stamps, ydim, num_steps, T, beta_min, beta_max,
+               lmbd, noise_scale, seed) -> Tensor:
+    """Launch B1 or B4, in the f32 or the bf16 mode, on the device net
+    ``net`` laid out for that mode (B4 with its observation ``y_dev``);
+    returns the samples."""
     n, xdim = x0.shape
     dev = x0.device
     out = torch.empty_like(x0)
@@ -273,7 +304,7 @@ def _em_launch(net: dict, cdiffe: bool, x0, y_dev, noise, stamps, ydim, num_step
     delta = T / num_steps
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = build.load("em_kernel")
-    fn = lib.em_launch
+    fn = lib.em_f32_launch if f32_mode else lib.em_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     # the launcher sets attributes and launches on the current device
@@ -287,7 +318,7 @@ def _em_launch(net: dict, cdiffe: bool, x0, y_dev, noise, stamps, ydim, num_step
             delta, delta**0.5, noise_scale, seed & (2**64 - 1),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    build.check(lib, err, "em_launch")
+    build.check(lib, err, "em_f32_launch" if f32_mode else "em_launch")
     return out
 
 
@@ -297,15 +328,21 @@ def _check_stamps(stamps: Optional[Tensor], n_phases: int, num_steps: int, dev) 
         raise ValueError(f"stamps must be an int64 tensor of >= {need} entries on {dev}")
 
 
-def _launch(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps):
+def _count(fn, compute_dtype) -> None:
+    fn.launches += 1
+    fn.launches_by_dtype[COMPUTE_DTYPES[compute_dtype]] += 1
+
+
+def _launch(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps, compute_dtype):
     n, xdim = x0.shape
     dev = x0.device
+    f32_mode = compute_dtype == torch.float32
     _check_launch(params, x0, noise, num_steps, xdim)
     _check_stamps(stamps, len(phase_names(len(params) - 2)), num_steps, dev)
-    net = _device_net(params, xdim, y)
-    out = _em_launch(net, False, x0, None, noise, stamps, net["ydim"], num_steps, T, beta_min, beta_max,
+    net = _device_net(params, xdim, y, f32_mode)
+    out = _em_launch(net, False, f32_mode, x0, None, noise, stamps, net["ydim"], num_steps, T, beta_min, beta_max,
                      lmbd, noise_scale, seed)
-    fused_em_sampler.launches += 1
+    _count(fused_em_sampler, compute_dtype)
     return out
 
 
@@ -327,10 +364,14 @@ def fused_em_sampler(
     """Run the fused E-M sampler from x0 (N, xdim) for the single condition
     y (ydim,) or None.  Returns (N, xdim) float32.
 
-    On a CUDA tensor this launches the kernel (bf16 weights only), with
-    Philox noise keyed by ``seed``, or ``noise`` (num_steps, N, xdim) when
-    given.  On a CPU tensor it runs :func:`em_sampler_reference`, drawing
-    noise from a generator seeded with ``seed``.
+    ``compute_dtype`` is torch.bfloat16 (bf16 weights and activations, f32
+    sums and state) or torch.float32 (every product's inputs f32, the
+    JAX kernel's way to reproduce the f32 sampler); another raises.  On a
+    CUDA tensor this launches that mode's kernel, with Philox noise keyed
+    by ``seed`` (the same normals in both modes), or ``noise`` (num_steps,
+    N, xdim) when given.  On a CPU tensor it runs
+    :func:`em_sampler_reference`, drawing noise from a generator seeded
+    with ``seed``.
 
     ``stamps``, taken only by the kernel, is an int64 tensor of >= 2 x (1 +
     P x num_steps) entries, P = len(phase_names(n_hidden)): it receives
@@ -338,6 +379,7 @@ def fused_em_sampler(
     first step and then at the end of each phase of each step.  The samples
     do not change.
     """
+    check_compute_dtype(compute_dtype)
     if x0.device.type == "cpu":
         if stamps is not None:
             raise ValueError("stamps are taken only by the CUDA kernel")
@@ -348,15 +390,12 @@ def fused_em_sampler(
         )
     if x0.device.type != "cuda":
         raise ValueError(f"no kernel for device {x0.device}")
-    if compute_dtype != torch.bfloat16:
-        raise NotImplementedError(
-            "the CUDA E-M kernel computes with bf16 weights; other compute "
-            "dtypes are queued in ROADMAP.md"
-        )
-    return _launch(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps)
+    return _launch(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps,
+                   compute_dtype)
 
 
 fused_em_sampler.launches = 0
+fused_em_sampler.launches_by_dtype = dict.fromkeys(COMPUTE_DTYPES.values(), 0)
 
 
 def em_cdiffe_reference(
@@ -405,23 +444,24 @@ def em_cdiffe_reference(
     )
 
 
-def _cdiffe_device_net(params, xdim: int):
-    """B4's layout of the joint net: the first layer's [x, y] rows padded
-    to 32 x h1 and packed for mma.sync, hidden layers as B1, the output
-    layer's x block transposed; bf16 where the kernel computes in bf16."""
+def _cdiffe_device_net(params, xdim: int, f32_mode: bool = False):
+    """B4's layout of the joint net: the first layer's [x, y] rows in the
+    mode's first-layer layout (:func:`_first_layer`), hidden and output
+    layers as B1's."""
     w1, b1 = params[0]
     width = w1.shape[0] - 1
     f32 = lambda t: t.to(torch.float32)
     h1 = _ceil128(w1.shape[1])
     net = {
-        "w1": pack_mma_b(_pad2(f32(w1[:width]), K1, h1)),
+        "w1": _first_layer(f32(w1[:width]), h1, f32_mode),
         "w1t": _pad1(f32(w1[width]), h1),
         "c1": _pad1(f32(b1), h1),
     }
-    return _add_hidden_and_out(net, params, h1, xdim)
+    return _add_hidden_and_out(net, params, h1, xdim, f32_mode)
 
 
-def _launch_cdiffe(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps):
+def _launch_cdiffe(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps,
+                   compute_dtype):
     n, xdim = x0.shape
     dev = x0.device
     width = params[0][0].shape[0] - 1
@@ -433,11 +473,12 @@ def _launch_cdiffe(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_
     _check_launch(params, x0, noise, num_steps, width)
     _check_stamps(stamps, len(phase_names(len(params) - 2, cdiffe=True)), num_steps, dev)
     _check_y(y, ydim)
-    net = _cdiffe_device_net(params, xdim)
+    f32_mode = compute_dtype == torch.float32
+    net = _cdiffe_device_net(params, xdim, f32_mode)
     y_dev = y.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
-    out = _em_launch(net, True, x0, y_dev, noise, stamps, ydim, num_steps, T, beta_min, beta_max, lmbd,
+    out = _em_launch(net, True, f32_mode, x0, y_dev, noise, stamps, ydim, num_steps, T, beta_min, beta_max, lmbd,
                      noise_scale, seed)
-    fused_em_sampler_cdiffe.launches += 1
+    _count(fused_em_sampler_cdiffe, compute_dtype)
     return out
 
 
@@ -459,12 +500,14 @@ def fused_em_sampler_cdiffe(
     """Run the CDiffE sampler from x0 (N, xdim) for the observed y (ydim,)
     on the joint net ([x, y, t] -> xdim + ydim).  Returns (N, xdim) float32.
 
-    On a CUDA tensor this launches B4 (bf16 weights only), with Philox
-    noise keyed by ``seed``, or ``noise`` (num_steps, N, xdim + ydim) when
-    given.  On a CPU tensor it runs :func:`em_cdiffe_reference`, drawing
-    noise from a generator seeded with ``seed``.  ``stamps`` as
-    :func:`fused_em_sampler`, over ``phase_names(n_hidden, cdiffe=True)``.
+    ``compute_dtype`` as :func:`fused_em_sampler`.  On a CUDA tensor this
+    launches that mode's B4, with Philox noise keyed by ``seed``, or
+    ``noise`` (num_steps, N, xdim + ydim) when given.  On a CPU tensor it
+    runs :func:`em_cdiffe_reference`, drawing noise from a generator seeded
+    with ``seed``.  ``stamps`` as :func:`fused_em_sampler`, over
+    ``phase_names(n_hidden, cdiffe=True)``.
     """
+    check_compute_dtype(compute_dtype)
     if x0.device.type == "cpu":
         if stamps is not None:
             raise ValueError("stamps are taken only by the CUDA kernel")
@@ -475,12 +518,9 @@ def fused_em_sampler_cdiffe(
         )
     if x0.device.type != "cuda":
         raise ValueError(f"no kernel for device {x0.device}")
-    if compute_dtype != torch.bfloat16:
-        raise NotImplementedError(
-            "the CUDA CDiffE kernel computes with bf16 weights; other compute "
-            "dtypes are queued in ROADMAP.md"
-        )
-    return _launch_cdiffe(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps)
+    return _launch_cdiffe(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps,
+                          compute_dtype)
 
 
 fused_em_sampler_cdiffe.launches = 0
+fused_em_sampler_cdiffe.launches_by_dtype = dict.fromkeys(COMPUTE_DTYPES.values(), 0)

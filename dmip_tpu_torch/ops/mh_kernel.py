@@ -141,19 +141,24 @@ def mh_chains_reference(
 
 
 def pack_tf32_b(w: Tensor) -> Tensor:
-    """(256, 256) hidden weight -> float32 in mma.sync m16n8k8 TF32
-    B-fragment order, as ``csrc/mh_kernel.cu``'s hidden products read it.
+    """(K, N) weight -> float32 in mma.sync m16n8k8 TF32 B-fragment order,
+    as the split-TF32 products read it: B2's (256, 256) hidden layers
+    (``csrc/mh_kernel.cu``) and every layer but the output of B1 and B4 in
+    their f32 mode (``csrc/em_kernel.cu``: widths zero-padded to multiples
+    of 128, the first layer's K to one of 8).
 
-    Output shape (16, 32, 32, 2, 2): n-tile pair, 8-deep k-step, lane,
+    Output shape (N/16, K/8, 32, 2, 2): n-tile pair, 8-deep k-step, lane,
     n-tile within the pair, fragment register.  Element [np, ks, lane, nh,
     kh] is W[8 ks + 4 kh + lane % 4, 16 np + 8 nh + lane // 4], so a lane
-    reads both n-tiles' fragments for one k-step as one 16-byte load.
+    reads both n-tiles' fragments for one k-step as one 16-byte load.  K
+    must be a multiple of 8 and N of 128, each at most 512.
     """
-    if tuple(w.shape) != (HIDDEN, HIDDEN):
-        raise ValueError(f"pack_tf32_b takes a ({HIDDEN}, {HIDDEN}) weight, got {tuple(w.shape)}")
+    K, N = w.shape
+    if K % 8 or N % 128 or not (0 < K <= 512 and 0 < N <= 512):
+        raise ValueError(f"pack_tf32_b takes K a multiple of 8 and N of 128, each up to 512, got {tuple(w.shape)}")
     # W[k, n] with k = 8 ks + 4 kh + t and n = 16 np + 8 nh + g, lane = 4 g + t
-    wr = w.reshape(HIDDEN // 8, 2, 4, HIDDEN // 16, 2, 8)   # ks, kh, t, np, nh, g
-    return wr.permute(3, 0, 5, 2, 4, 1).reshape(HIDDEN // 16, HIDDEN // 8, 32, 2, 2).contiguous()
+    wr = w.reshape(K // 8, 2, 4, N // 16, 2, 8)   # ks, kh, t, np, nh, g
+    return wr.permute(3, 0, 5, 2, 4, 1).reshape(N // 16, K // 8, 32, 2, 2).contiguous()
 
 
 _ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4 + [

@@ -21,6 +21,7 @@ from dmip_tpu_torch import data, nets, samplers, sde, train
 from dmip_tpu_torch.checkpoints import params_from_numpy
 from dmip_tpu_torch.models import CDiffE, PosteriorDiffusionEstimator
 from dmip_tpu_torch.ops.dsm_train_kernel import make_fused_dsm_epoch_fn
+from dmip_tpu_torch.ops import em_kernel
 from dmip_tpu_torch.ops.em_kernel import em_cdiffe_reference, fused_em_sampler_cdiffe
 from dmip_tpu_torch.problems import LinearForwardProblem
 
@@ -219,3 +220,70 @@ def test_fused_engine_trains_cdiffe_like_the_autograd_engine():
     p3, _, l3, _ = f32_fn(params, opt.init(params), 9, 4, 1)
     assert max(float((x - y).abs().max()) for a, b in zip(p1, p3) for x, y in zip(a, b)) < 1e-5
     assert abs(l3.item() - l1.item()) / l1.item() < 1e-5
+
+
+def test_plain_f32_matches_pallas_kernel_interpret_at_served_width():
+    """B4's plain version at the served width (``cdiffe_scat``'s 27 ->
+    512^3 -> 26, random weights) in f32, noise off, 128 rows in one block,
+    8 steps, against JAX's interpreted f32 kernel (rel 1e-4, f32 rounding)."""
+    jp, tp = _net(hidden=(512, 512, 512), xdim=3, ydim=23, seed=5)
+    rng = np.random.default_rng(5)
+    y = (0.3 * rng.normal(size=23)).astype(np.float32)
+    x0 = rng.normal(size=(128, 3)).astype(np.float32)
+    ref = np.asarray(jax_fused_cdiffe(
+        jp, jnp.asarray(x0), jnp.asarray(y), 3, num_steps=8, seed=7, block_rows=128,
+        compute_dtype=jnp.float32, noise_scale=0.0, interpret=pltpu.InterpretParams()))
+    out = em_cdiffe_reference(tp, torch.from_numpy(x0), torch.from_numpy(y), 8, noise_scale=0.0,
+                              compute_dtype=torch.float32)
+    assert _rel(out.numpy(), ref) < 1e-4
+
+
+def _unpack_tf32_b(p):
+    """The inverse of pack_tf32_b, from its documented element map."""
+    w = torch.zeros(8 * p.shape[1], 16 * p.shape[0])
+    np_, ks, lane, nh, kh = torch.meshgrid(*[torch.arange(s) for s in p.shape], indexing="ij")
+    w[8 * ks + 4 * kh + lane % 4, 16 * np_ + 8 * nh + lane // 4] = p
+    return w
+
+
+def test_f32_device_net_layout_computes_the_same_sampler():
+    """B4's f32 layout of a joint 8 -> 40 -> 200 -> 7 net ([x, y] 7 wide,
+    padded to one k-step of 8; widths padded to 128 and 256), unpacked,
+    runs the f32 plain version to the original net's trajectory."""
+    _, tp = _net(hidden=(40, 200), xdim=3, ydim=4, seed=6)
+    dn = em_kernel._cdiffe_device_net(tp, 3, f32_mode=True)
+    assert dn["widths"] == [128, 256] and dn["w1"].shape == (8, 1, 32, 2, 2) and dn["wout"].shape == (256, 4)
+    w1 = _unpack_tf32_b(dn["w1"])
+    assert not w1[7:].any() and not dn["wout"][:, 3:].any()
+    w_out = torch.zeros(256, 7)
+    w_out[:, :3] = dn["wout"][:, :3]
+    b_out = torch.cat([dn["bout"], torch.zeros(4)])
+    padded = ((torch.cat([w1[:7], dn["w1t"][None]], 0), dn["c1"]), (_unpack_tf32_b(dn["wh"][0]), dn["bh"][0]),
+              (w_out, b_out))
+    rng = np.random.default_rng(3)
+    x0 = torch.from_numpy(rng.normal(size=(64, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=4).astype(np.float32))
+    noise = torch.from_numpy(rng.normal(size=(8, 64, 7)).astype(np.float32))
+    a = em_cdiffe_reference(tp, x0, y, 8, compute_dtype=torch.float32, noise=noise)
+    b = em_cdiffe_reference(padded, x0, y, 8, compute_dtype=torch.float32, noise=noise)
+    torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_cdiffe_sample_f32_kernel_method_on_cpu_is_the_f32_plain_version():
+    """CDiffE.sample(method='kernel', compute_dtype=torch.float32) on the
+    CPU is B4's f32 plain version on the sampler's own draws, bit for bit,
+    and launches nothing."""
+    model = CDiffE(xdim=2, ydim=2, hidden_layers=(32, 32))
+    params = model.init(torch.Generator().manual_seed(0))
+    y = torch.tensor([0.3, -0.2])
+    before = fused_em_sampler_cdiffe.launches, dict(fused_em_sampler_cdiffe.launches_by_dtype)
+    out = model.sample(params, y, 64, 6, generator=torch.Generator().manual_seed(1), method="kernel",
+                       compute_dtype=torch.float32)
+    g = torch.Generator().manual_seed(1)
+    x0 = torch.randn(64, 2, generator=g)
+    seed = int(torch.randint(0, 2**62, (1,), generator=g))
+    base = model.sde.base
+    ref = em_cdiffe_reference(params, x0, y, 6, T=model.sde.T, beta_min=base.beta_min, beta_max=base.beta_max,
+                              compute_dtype=torch.float32, generator=torch.Generator().manual_seed(seed))
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert (fused_em_sampler_cdiffe.launches, fused_em_sampler_cdiffe.launches_by_dtype) == before

@@ -62,17 +62,35 @@ def test_em_kernel_matches_plain(cuda):
 
 def test_em_kernel_deterministic_and_rejects_what_it_does_not_take(cuda):
     """noise_scale=0 gives the plain trajectory (rel 1e-2: bf16 rounding
-    edges only); same seed, same samples; f32 weights and wrong shapes raise."""
+    edges only); same seed, same samples.  The f32 mode against the f32
+    plain version, with noise given and with noise off, each row's error
+    relative to 1 + its largest coordinate at 10x B1's bulk tolerances
+    (mean 2e-4, 99.9th percentile 5e-3: f32 sum order and split-TF32
+    products only), counted as an f32 launch; same seed, same samples.
+    A third compute dtype and wrong shapes raise."""
     tp = mlp_init(5, 2, (64, 64), generator=torch.Generator().manual_seed(1), device=cuda)
-    x0 = torch.randn(300, 2, generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x0 = torch.randn(300, 2, generator=gen, device=cuda)
     y = torch.tensor([0.8, -0.3], device=cuda)
     out = fused_em_sampler(tp, x0, y, 40, noise_scale=0.0)
     ref = em_sampler_reference(tp, x0, y, 40, noise_scale=0.0)
     assert float((out - ref).abs().max() / ref.abs().max()) < 1e-2
     torch.testing.assert_close(fused_em_sampler(tp, x0, y, 40, seed=3), fused_em_sampler(tp, x0, y, 40, seed=3),
                                rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        fused_em_sampler(tp, x0, y, 5, compute_dtype=torch.float32)
+    f32 = dict(compute_dtype=torch.float32)
+    noise = torch.randn(40, 300, 2, generator=gen, device=cuda)
+    before = fused_em_sampler.launches_by_dtype["float32"]
+    for kw in (dict(noise=noise), dict(noise_scale=0.0)):
+        out = fused_em_sampler(tp, x0, y, 40, **kw, **f32)
+        ref = em_sampler_reference(tp, x0, y, 40, **kw, **f32)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().amax(dim=1) / (1 + ref.abs().amax(dim=1))
+        assert float(err.mean()) < 2e-4 and float(torch.quantile(err, 0.999)) < 5e-3
+    assert fused_em_sampler.launches_by_dtype["float32"] == before + 2
+    torch.testing.assert_close(fused_em_sampler(tp, x0, y, 40, seed=3, **f32),
+                               fused_em_sampler(tp, x0, y, 40, seed=3, **f32), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="torch.bfloat16 or torch.float32"):
+        fused_em_sampler(tp, x0, y, 5, compute_dtype=torch.float16)
     with pytest.raises(ValueError):
         fused_em_sampler(tp, x0, y, 5, noise=torch.zeros(4, 300, 2, device=cuda))
     with pytest.raises(ValueError):
@@ -91,14 +109,21 @@ EM_SHAPES = {
 }
 
 
+# each mode's bulk tolerances on a row's error relative to 1 + its largest
+# coordinate: bf16 B1's (mean 2e-3, 99.9th percentile 5e-2), and 10x tighter
+# for f32 (f32 sum order and split-TF32 products only)
+EM_TOLS = {torch.bfloat16: (2e-3, 5e-2), torch.float32: (2e-4, 5e-3)}
+
+
+@pytest.mark.parametrize("compute_dtype", list(EM_TOLS), ids=["bf16", "f32"])
 @pytest.mark.parametrize("cdiffe", [False, True])
 @pytest.mark.parametrize("shape", list(EM_SHAPES))
-def test_em_kernels_widths_and_shapes(cuda, cdiffe, shape):
-    """B1 and B4 against their plain versions, same x0 and noise, 30 steps,
-    over the layout's shapes; each row's error relative to 1 + its largest
-    coordinate (random nets move the state further than trained ones), held
-    at B1's bulk tolerances (mean 2e-3, 99.9th percentile 5e-2).  The same
-    seed gives the same samples."""
+def test_em_kernels_widths_and_shapes(cuda, cdiffe, shape, compute_dtype):
+    """B1 and B4 in both modes against their plain versions in the same
+    mode, same x0 and noise, 30 steps, over the layout's shapes; each row's
+    error relative to 1 + its largest coordinate (random nets move the
+    state further than trained ones), held at the mode's bulk tolerances
+    (``EM_TOLS``).  The same seed gives the same samples."""
     hidden, xdim, ydim, n = EM_SHAPES[shape]
     if cdiffe and ydim == 0:
         ydim = 2  # B4 needs a condition
@@ -112,13 +137,15 @@ def test_em_kernels_widths_and_shapes(cuda, cdiffe, shape):
     x0 = torch.randn(n, xdim, generator=gen, device=cuda)
     y = 0.3 * torch.randn(ydim, generator=gen, device=cuda) if ydim else None
     noise = torch.randn(30, n, out_dim if cdiffe else xdim, generator=gen, device=cuda)
-    out = fn(tp, x0, y, 30, noise=noise)
-    ref = ref_fn(tp, x0, y, 30, noise=noise)
+    out = fn(tp, x0, y, 30, noise=noise, compute_dtype=compute_dtype)
+    ref = ref_fn(tp, x0, y, 30, noise=noise, compute_dtype=compute_dtype)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all())
     err = (out - ref).abs().amax(dim=1) / (1 + ref.abs().amax(dim=1))
-    assert float(err.mean()) < 2e-3 and float(torch.quantile(err, 0.999)) < 5e-2
-    torch.testing.assert_close(fn(tp, x0, y, 30, seed=9), fn(tp, x0, y, 30, seed=9), rtol=0, atol=0)
+    mean_tol, p999_tol = EM_TOLS[compute_dtype]
+    assert float(err.mean()) < mean_tol and float(torch.quantile(err, 0.999)) < p999_tol
+    torch.testing.assert_close(fn(tp, x0, y, 30, seed=9, compute_dtype=compute_dtype),
+                               fn(tp, x0, y, 30, seed=9, compute_dtype=compute_dtype), rtol=0, atol=0)
 
 
 def test_em_kernels_refuse_widths_past_512(cuda):
@@ -129,12 +156,15 @@ def test_em_kernels_refuse_widths_past_512(cuda):
         fused_em_sampler(tp, x0, torch.zeros(2, device=cuda), 5)
 
 
+@pytest.mark.parametrize("compute_dtype", list(EM_TOLS), ids=["bf16", "f32"])
 @pytest.mark.parametrize("cdiffe", [False, True])
-def test_em_kernel_stamps(cuda, cdiffe):
-    """B1 and B4 with stamps: block 0's clock readings rise through the
-    launch, every phase of every step, and the samples are bit for bit
-    those of the run without stamps.  A stamps tensor too short raises."""
-    fn = fused_em_sampler_cdiffe if cdiffe else fused_em_sampler
+def test_em_kernel_stamps(cuda, cdiffe, compute_dtype):
+    """B1 and B4 in both modes with stamps: block 0's clock readings rise
+    through the launch, every phase of every step, and the samples are bit
+    for bit those of the run without stamps.  A stamps tensor too short
+    raises."""
+    base = fused_em_sampler_cdiffe if cdiffe else fused_em_sampler
+    fn = lambda *a, **kw: base(*a, compute_dtype=compute_dtype, **kw)
     tp = mlp_init(27, 26 if cdiffe else 3, (512, 512, 512), generator=torch.Generator().manual_seed(3),
                   device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -350,11 +380,13 @@ def test_dsm_train_kernel_is_deterministic_and_chunks_exactly(cuda, net):
 
 
 def test_em_cdiffe_kernel_matches_plain(cuda):
-    """B4 (bf16) vs its plain version on a joint 27 -> 96 -> 80 -> 64 -> 26
-    net (widths not multiples of 32), 1000 rows (a ragged last block): the
-    same x0 and (steps, N, 26) noise, and the noise-off trajectory.  Mean abs
-    error 2e-3 and 99.9th percentile 5e-2, B1's tolerances (the same bf16
-    rounding rule).  f32 weights and bad shapes raise."""
+    """B4 vs its plain version on a joint 27 -> 96 -> 80 -> 64 -> 26 net
+    (widths not multiples of 32), 1000 rows (a ragged last block): the same
+    x0 and (steps, N, 26) noise, and the noise-off trajectory.  bf16: mean
+    abs error 2e-3 and 99.9th percentile 5e-2, B1's tolerances (the same
+    bf16 rounding rule); f32 against the f32 plain version at 10x tighter
+    (2e-4, 5e-3), counted as f32 launches; the same seed gives the same f32
+    samples.  A third compute dtype and bad shapes raise."""
     tp = mlp_init(27, 26, (96, 80, 64), generator=torch.Generator().manual_seed(5), device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(0)
     x0 = torch.randn(1000, 3, generator=gen, device=cuda)
@@ -368,8 +400,19 @@ def test_em_cdiffe_kernel_matches_plain(cuda):
         err = (out - ref).abs().amax(dim=1)
         assert float(err.mean()) < 2e-3 and float(torch.quantile(err, 0.999)) < 5e-2
     assert fused_em_sampler_cdiffe.launches == before + 2
-    with pytest.raises(NotImplementedError):
-        fused_em_sampler_cdiffe(tp, x0, y, 5, compute_dtype=torch.float32)
+    f32 = dict(compute_dtype=torch.float32)
+    before = fused_em_sampler_cdiffe.launches_by_dtype["float32"]
+    for kw in (dict(noise=noise), dict(noise_scale=0.0)):
+        out = fused_em_sampler_cdiffe(tp, x0, y, 50, **kw, **f32)
+        ref = em_cdiffe_reference(tp, x0, y, 50, **kw, **f32)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().amax(dim=1)
+        assert float(err.mean()) < 2e-4 and float(torch.quantile(err, 0.999)) < 5e-3
+    assert fused_em_sampler_cdiffe.launches_by_dtype["float32"] == before + 2
+    torch.testing.assert_close(fused_em_sampler_cdiffe(tp, x0, y, 50, seed=3, **f32),
+                               fused_em_sampler_cdiffe(tp, x0, y, 50, seed=3, **f32), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="torch.bfloat16 or torch.float32"):
+        fused_em_sampler_cdiffe(tp, x0, y, 5, compute_dtype=torch.float16)
     with pytest.raises(ValueError):
         fused_em_sampler_cdiffe(tp, x0, y, 5, noise=noise[:5, :, :3].contiguous())
     with pytest.raises(ValueError):

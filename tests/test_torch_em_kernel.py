@@ -18,7 +18,8 @@ from dmip_tpu_torch import nets, samplers, sde
 from dmip_tpu_torch.checkpoints import params_from_numpy
 from dmip_tpu_torch.models import CDE
 from dmip_tpu_torch.ops import em_kernel
-from dmip_tpu_torch.ops.em_kernel import em_sampler_reference, fused_em_sampler
+from dmip_tpu_torch.ops.em_kernel import em_sampler_reference, fused_em_sampler, fused_em_sampler_cdiffe
+from dmip_tpu_torch.ops.mh_kernel import pack_tf32_b
 
 
 def _net(hidden=(64, 64), xdim=2, ydim=2, seed=0):
@@ -192,3 +193,107 @@ def test_model_sample_on_cpu_takes_plain_sampler():
     hp = samplers.heun_ode(model.sde, lambda z, c, s: model.apply_a(params, z, c, s), y, 64, 2, 5,
                            generator=torch.Generator().manual_seed(1))
     torch.testing.assert_close(h, hp, rtol=0, atol=0)
+
+
+def test_plain_f32_matches_pallas_kernel_interpret_at_served_width():
+    """The served 512^3 width (the linear nets' 5 -> 512^3 -> 2, random
+    weights) in f32, noise off, 128 rows in one block, 10 steps: the plain
+    version the f32 kernel is held to on the card against JAX's
+    interpreted f32 kernel, to f32 sum order (rel 1e-4)."""
+    jp, tp = _net(hidden=(512, 512, 512), seed=8)
+    y = np.array([0.4, -0.6], np.float32)
+    x0 = np.random.default_rng(4).normal(size=(128, 2)).astype(np.float32)
+    ref = np.asarray(jax_fused_em_sampler(
+        jp, jnp.asarray(x0), jnp.asarray(y), num_steps=10, seed=7, block_rows=128, compute_dtype=jnp.float32,
+        noise_scale=0.0, interpret=pltpu.InterpretParams()))
+    out = em_sampler_reference(tp, torch.from_numpy(x0), torch.from_numpy(y), 10, noise_scale=0.0,
+                               compute_dtype=torch.float32)
+    assert _rel(out.numpy(), ref) < 1e-4
+
+
+def _unpack_tf32_b(p):
+    """The inverse of pack_tf32_b, from its documented element map."""
+    w = torch.zeros(8 * p.shape[1], 16 * p.shape[0])
+    np_, ks, lane, nh, kh = torch.meshgrid(*[torch.arange(s) for s in p.shape], indexing="ij")
+    w[8 * ks + 4 * kh + lane % 4, 16 * np_ + 8 * nh + lane // 4] = p
+    return w
+
+
+@pytest.mark.parametrize("k,n", [(96, 96), (256, 256), (384, 384), (512, 512), (96, 512), (512, 200), (26, 512)])
+def test_pack_tf32_b_unpacks_to_the_zero_padded_weight(k, n):
+    """The f32 kernel's weights: zero-padded as the wrapper pads them
+    (widths to multiples of 128, the first layer's K (26 here, [x, y] of
+    the scatterometry CDiffE) to one of 8), packed in split-TF32 B-fragment
+    order, and unpacked from the documented element map, give the padded
+    weight back exactly, for square widths 96 -> 128, 256, 384, 512 and for
+    K != N."""
+    w = torch.randn(k, n, generator=torch.Generator().manual_seed(k + n))
+    rows = -(-k // 8) * 8 if k < 32 else em_kernel._ceil128(k)
+    padded = em_kernel._pad2(w, rows, em_kernel._ceil128(n))
+    p = pack_tf32_b(padded)
+    assert p.dtype == torch.float32 and p.shape == (padded.shape[1] // 16, padded.shape[0] // 8, 32, 2, 2)
+    torch.testing.assert_close(_unpack_tf32_b(p), padded, rtol=0, atol=0)
+
+
+def test_f32_device_net_layout_computes_the_same_sampler():
+    """The f32 kernel's padded net (widths 40 -> 128 and 200 -> 256; W1x's
+    3 rows padded to one k-step of 8 with the condition folded into c1, and
+    the hidden weight, in B-fragment order; the output's x block (hl, 4)),
+    unpacked, runs the f32 plain version to the original net's trajectory."""
+    _, tp = _net(hidden=(40, 200), xdim=3, ydim=5, seed=4)
+    y = torch.randn(5, generator=torch.Generator().manual_seed(2))
+    dn = em_kernel._device_net(tp, 3, y, f32_mode=True)
+    assert dn["widths"] == [128, 256] and dn["ydim"] == 5
+    assert dn["w1"].shape == (8, 1, 32, 2, 2) and dn["wout"].shape == (256, 4)
+    assert all(t.dtype == torch.float32 for t in (dn["w1"], dn["wh"][0], dn["wout"]))
+    w1x = _unpack_tf32_b(dn["w1"])
+    assert not w1x[3:].any() and not dn["wout"][:, 3:].any()
+    w1 = torch.cat([w1x[:3], dn["w1t"][None]], 0)
+    padded = ((w1, dn["c1"]), (_unpack_tf32_b(dn["wh"][0]), dn["bh"][0]), (dn["wout"][:, :3], dn["bout"]))
+    x0 = torch.randn(64, 3, generator=torch.Generator().manual_seed(1))
+    a = em_sampler_reference(tp, x0, y, 8, noise_scale=0.0, compute_dtype=torch.float32)
+    b = em_sampler_reference(padded, x0, None, 8, noise_scale=0.0, compute_dtype=torch.float32)
+    torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_model_sample_f32_kernel_method_on_cpu_is_the_f32_plain_version():
+    """CDE.sample(method='kernel', compute_dtype=torch.float32) on the CPU
+    is the f32 plain version on the sampler's own draws (x0, then the
+    kernel's seed, from the generator) bit for bit, and launches nothing;
+    the default mode is bf16."""
+    model = CDE(xdim=2, ydim=2, hidden_layers=(32, 32))
+    params = model.init(torch.Generator().manual_seed(0))
+    y = torch.tensor([0.3, -0.2])
+    before = fused_em_sampler.launches, dict(fused_em_sampler.launches_by_dtype)
+    out = model.sample(params, y, 64, 6, generator=torch.Generator().manual_seed(1), method="kernel",
+                       compute_dtype=torch.float32)
+    g = torch.Generator().manual_seed(1)
+    x0 = torch.randn(64, 2, generator=g)
+    seed = int(torch.randint(0, 2**62, (1,), generator=g))
+    base = model.sde.base
+    kw = dict(T=model.sde.T, beta_min=base.beta_min, beta_max=base.beta_max)
+    ref = em_sampler_reference(params, x0, y, 6, compute_dtype=torch.float32,
+                               generator=torch.Generator().manual_seed(seed), **kw)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert (fused_em_sampler.launches, fused_em_sampler.launches_by_dtype) == before
+    bf16 = model.sample(params, y, 64, 6, generator=torch.Generator().manual_seed(1), method="kernel")
+    ref_bf16 = em_sampler_reference(params, x0, y, 6, generator=torch.Generator().manual_seed(seed), **kw)
+    torch.testing.assert_close(bf16, ref_bf16, rtol=0, atol=0)
+    assert not torch.equal(bf16, out)
+
+
+@pytest.mark.parametrize("bad", [torch.float16, torch.float64, "auto"])
+def test_wrappers_take_bf16_or_f32_only(bad):
+    """Both wrappers take the kernels' two modes and raise a ValueError
+    that names them for any other compute_dtype, on the CPU as on a card;
+    f32 and bf16 run the plain version here."""
+    _, tp = _net(seed=3)
+    _, cd = _net(xdim=2, ydim=2, seed=3)
+    cd = [*cd[:-1], (torch.randn(64, 4), torch.zeros(4))]
+    x0 = torch.randn(16, 2, generator=torch.Generator().manual_seed(0))
+    y = torch.tensor([0.2, 0.1])
+    for fn, net in ((fused_em_sampler, tp), (fused_em_sampler_cdiffe, cd)):
+        with pytest.raises(ValueError, match="torch.bfloat16 or torch.float32"):
+            fn(net, x0, y, 3, compute_dtype=bad)
+        for ok in (torch.bfloat16, torch.float32):
+            assert bool(torch.isfinite(fn(net, x0, y, 3, compute_dtype=ok)).all())

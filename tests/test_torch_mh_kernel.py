@@ -240,7 +240,11 @@ def test_pack_tf32_b_is_the_kernels_fragment_layout():
                 out[:, n0:n0 + 8] += act[:, 8 * ks:8 * ks + 8].double() @ b.double()
     torch.testing.assert_close(out, act.double() @ w.double())
     with pytest.raises(ValueError):
-        pack_tf32_b(w[:128])
+        pack_tf32_b(w[:, :96])
+    with pytest.raises(ValueError):
+        pack_tf32_b(w[:100])
+    with pytest.raises(ValueError):
+        pack_tf32_b(torch.zeros(640, 256))
 
 
 def test_split_tf32_study_runs_small():
