@@ -380,13 +380,16 @@ def phase(name: str, t0: float, **fields) -> None:
 
 def ptxas_lines(report: str) -> list:
     """nvcc's ``-Xptxas -v`` report cut to its register and spill lines,
-    each spill line named by the (mangled) function it describes."""
+    each named by the (mangled) function it describes, its warnings and
+    its notes of a serialized wgmma pipeline."""
     out, fn = [], None
     for ln in report.splitlines():
         if "Function properties for" in ln:
             fn = ln.split("Function properties for", 1)[1].strip()
         elif "spill" in ln or "registers" in ln:
-            out.append(f"{fn}: {ln.strip()}" if "spill" in ln and fn else ln.strip())
+            out.append(f"{fn}: {ln.strip()}" if fn else ln.strip())
+        elif "warning" in ln.lower() or "Performance Loss" in ln:
+            out.append(ln.strip())
     return out
 
 
@@ -2254,16 +2257,24 @@ def b2_phase_split(torch, weights, y, x0, kw) -> dict:
     return stamp_split(torch, stamps, MH_STEPS, PHASES)
 
 
-def em_phase_split(torch, fn, names, params, y, x0, label: str) -> dict:
+def em_phase_split(torch, fn, names, params, y, x0, label: str, ring_waits: bool = False) -> dict:
     """An E-M sampler's time per step split over its phases at the main
     path's shape: one launch whose block 0 reads the card's clock at the
-    end of each phase, after one without, which it must match bit for bit."""
+    end of each phase, after one without, which it must match bit for bit.
+    With ``ring_waits`` (the f32 template) the same launch also counts the
+    cycles block 0's first thread waited for weight tiles: ``ring_wait_us``,
+    each phase's mean wait per step at the launch's SM clock."""
     stamps = torch.zeros(2 * (1 + len(names) * EM_STEPS), dtype=torch.int64, device="cuda")
+    waits = torch.zeros(len(names) * EM_STEPS, dtype=torch.int64, device="cuda") if ring_waits else None
     plain = fn(params, x0, y, EM_STEPS, seed=7)
-    stamped = fn(params, x0, y, EM_STEPS, seed=7, stamps=stamps)
+    stamped = fn(params, x0, y, EM_STEPS, seed=7, stamps=stamps, **({"ring_waits": waits} if ring_waits else {}))
     torch.cuda.synchronize()
     check(torch.equal(plain, stamped), f"{label} with stamps differs from the run without")
-    return stamp_split(torch, stamps, EM_STEPS, names)
+    split = stamp_split(torch, stamps, EM_STEPS, names)
+    if ring_waits:
+        cycles = waits.view(EM_STEPS, len(names)).double().mean(0)
+        split["ring_wait_us"] = {n: float(c) / split["sm_mhz"] for n, c in zip(names, cycles)}
+    return split
 
 
 def b5_phase_split(torch, prior, weights, y, x0, fparams) -> dict:
@@ -2287,12 +2298,23 @@ def b5_phase_split(torch, prior, weights, y, x0, fparams) -> dict:
     return out
 
 
+def f32_ring_bytes(params, k0: int) -> int:
+    """The f32 template's weight bytes a block-step, all from L2: every
+    ring tile of layer 0 (k0 input rows padded to a tile's two k-steps, 16)
+    and of the hidden layers (widths padded to 128), hi and lo, f32."""
+    widths = [-(-w.shape[1] // 128) * 128 for w, _ in params[:-1]]
+    entries = -(-k0 // 16) * 16 * widths[0] + sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    return 8 * entries
+
+
 def em_f32_timing(torch, nets, cd_params, y0, f32_launches, gen) -> dict:
     """The f32 mode's times at the main path's shapes: B1 at both nets
     (per launch, and weighted by serve_f32's launches of each) and B4 at
     ``cdiffe_scat`` (its one shape there), each beside its f32 plain
     version, its bounds (the f32 peak, and three TF32 products a MAC: the
-    least the card could take at f32 accuracy) and its phase split."""
+    least the card could take at f32 accuracy) and the share of the latter
+    it reaches, its phase split with the ring's waits, and the weight bytes
+    a block-step moves from L2 (with the rate that is over the step)."""
     from dmip_tpu_torch.ops.em_kernel import em_cdiffe_reference, em_sampler_reference
     from dmip_tpu_torch.ops.em_kernel import fused_em_sampler, fused_em_sampler_cdiffe
     from dmip_tpu_torch.ops.em_kernel import phase_names as em_phase_names
@@ -2309,27 +2331,36 @@ def em_f32_timing(torch, nets, cd_params, y0, f32_launches, gen) -> dict:
         f, b = em_work(params, N_SAMPLES, EM_STEPS, weight_size=4)
         flops, nbytes = flops + by_net[name] * f, nbytes + by_net[name] * b
         split[name] = em_phase_split(torch, b1_f32, em_phase_names(len(params) - 2), params, y, x0,
-                                     f"B1 f32 ({name})")
+                                     f"B1 f32 ({name})", ring_waits=True)
+        split[name]["ring_bytes_per_block_step"] = f32_ring_bytes(params, params[-1][0].shape[1])
+        split[name]["ring_gb_per_s_per_sm"] = split[name]["ring_bytes_per_block_step"] / split[name]["step_us"] / 1e3
     n = f32_launches["em"]
     b1_bound, b1_by = bound_ms(flops, nbytes, H100_TF32_FLOPS / 3)
     x0 = torch.randn(N_SAMPLES, 3, generator=gen, device="cuda")
     cd_work = cdiffe_work(cd_params, 3, N_SAMPLES, EM_STEPS, weight_size=4)
     b4_bound, b4_by = bound_ms(*cd_work, H100_TF32_FLOPS / 3)
+    b4_ms = cuda_ms(lambda: b4_f32(cd_params, x0, y0, EM_STEPS, seed=7), 3)
+    b4_split = em_phase_split(torch, b4_f32, em_phase_names(len(cd_params) - 2, cdiffe=True), cd_params, y0, x0,
+                              "B4 f32", ring_waits=True)
+    b4_split["ring_bytes_per_block_step"] = f32_ring_bytes(cd_params, cd_params[0][0].shape[0] - 1)
+    b4_split["ring_gb_per_s_per_sm"] = b4_split["ring_bytes_per_block_step"] / b4_split["step_us"] / 1e3
+    b1_ms = sum(by_net[k] * t[k][0] for k in t) / n
     return {
         "b1_f32_ms_by_net": {k: v[0] for k, v in t.items()},
         "b1_f32_plain_ms_by_net": {k: v[1] for k, v in t.items()},
         "b1_f32_launches_by_net": by_net,
-        "b1_f32_ms": sum(by_net[k] * t[k][0] for k in t) / n,
+        "b1_f32_ms": b1_ms,
         "b1_f32_plain_ms": sum(by_net[k] * t[k][1] for k in t) / n,
         "b1_f32_bound_ms": bound_ms(flops, nbytes, H100_F32_FLOPS)[0] / n,
         "b1_f32_split_tf32_bound_ms": b1_bound / n, "b1_f32_bound_by": b1_by,
+        "b1_f32_share_of_split_tf32_bound": b1_bound / n / b1_ms,
         "b1_f32_phase_us_by_net": split,
-        "b4_f32_ms": cuda_ms(lambda: b4_f32(cd_params, x0, y0, EM_STEPS, seed=7), 3),
+        "b4_f32_ms": b4_ms,
         "b4_f32_plain_ms": cuda_ms(lambda: em_cdiffe_reference(cd_params, x0, y0, EM_STEPS, generator=gen, **f32), 1),
         "b4_f32_bound_ms": bound_ms(*cd_work, H100_F32_FLOPS)[0],
         "b4_f32_split_tf32_bound_ms": b4_bound, "b4_f32_bound_by": b4_by,
-        "b4_f32_phase_us": em_phase_split(torch, b4_f32, em_phase_names(len(cd_params) - 2, cdiffe=True), cd_params,
-                                          y0, x0, "B4 f32"),
+        "b4_f32_share_of_split_tf32_bound": b4_bound / b4_ms,
+        "b4_f32_phase_us": b4_split,
     }
 
 

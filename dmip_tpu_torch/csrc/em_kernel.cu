@@ -66,27 +66,35 @@
 // every product's inputs and every activation f32, tanh accurate (tanhf),
 // the first layer x . W1x + s w1t + cy (B4: [x, y_t] . W1 + (s w1t + b1)).
 // Its bound is the same products in f32, ~94.5 / 96.5 ms at the 67 TFLOP/s
-// f32 peak, or ~38.4 / 39.2 ms as three TF32 products at 495 TFLOP/s.  The
-// bf16 design does not carry over: 64 rows x 512 f32 activations are 128 KB,
-// which with the ring passes the 227 KB a block may have; plain TF32 and
-// tanh.approx.f32 keep bf16-class accuracy.  So em_sampler_f32_kernel is a
-// second template, B2's split-TF32 design widened (csrc/mh_kernel.cu,
-// tf32.cuh): a block of 16 warps owns 64 rows, their activations f32 and
-// K-major in shared memory ([unit][row], rows of 72 floats, so a warp's
-// A-fragment loads hit 32 banks; ~147 KB at 512 units, one block an SM,
-// half the L2 weight traffic of two 32-row blocks).  Each hidden product
-// runs on mma.sync m16n8k8 TF32: every operand split into hi + lo, a
-// k-step's three products (lo hi, hi lo, hi hi) into a fresh tile, added
-// into the f32 accumulators by FADD.  The warps split the columns in
-// groups of 32 and, at widths under 512, the rows as well; a warp reads
-// its weights, packed by the wrapper in B-fragment order, from L2 one
-// k-step ahead and splits them in registers.  Results wait in registers
-// until every warp has read the layer's input, then bias and tanhf write
-// them over it.  Layer 0 takes the same path from its own K-major input
-// ([x] or [x, y_t], zero-padded to K = 8 or 32); the output layer (xdim <=
-// 4 columns) is f32 FMA.  The noise, the update and the stamps are the
-// device functions both modes call, so the two draw the same normals for
-// the same seed.  PERF.md has its phase times.
+// f32 peak, or ~38.4 / 39.2 ms as three TF32 products at 495 TFLOP/s.
+// Plain TF32 and tanh.approx.f32 keep bf16-class accuracy, so every product
+// runs in split TF32: each operand split into hi = tf32(v) and lo = v - hi,
+// a k-step's three products (lo hi, hi lo, hi hi) into a fresh tile, added
+// into f32 accumulators by FADD (the tensor core truncates as it sums, and
+// left the whole K it fails B2's float64 witness; tf32.cuh).
+// em_sampler_f32_kernel: a block owns 64 rows; four warpgroups split every
+// layer's columns in quarters and load their own weight tiles into a ring
+// by 1-D bulk copies, so no producer warp costs registers.
+//   act       64 rows x hmax f32 activations (128 KB at 512), row-major,
+//             8-unit groups XOR-ed with the row; layer 0's input [x] or [x,
+//             y_t], zero-padded to K = 16 or 32, sits in its first units
+//             and each layer writes its output over its input;
+//   weights   split once by the wrapper into hi and lo and packed as the
+//             ring's tiles: per k-step (8 rows of W) and column, 64 bytes,
+//             hi's 8 then lo's 8, swizzled by 64 bytes (ops/em_kernel.py
+//             pack_tf32_tiles); a tile is one warpgroup's quarter of two
+//             k-steps (16 KB at 512 wide), the ring 5 slots;
+//   products  wgmma m64n64k8 TF32 with A from registers: per k-step each
+//             thread loads its fragment from act (two float2: the wrapper
+//             orders W's rows in a k-step to match) and splits it; per 64
+//             columns three wgmma into a fresh tile, waited for, then added
+//             into the accumulators: one warpgroup's adds and waits leave
+//             the tensor cores to the other three;
+//   epilogue  once every warpgroup has read act: bias, tanhf, stored over
+//             it; the output layer (xdim <= 4 columns) is f32 FMA.
+// The noise, the update and the stamps are the device functions both modes
+// call, so the two draw the same normals for the same seed.  PERF.md has
+// its phase times and the ring's waits.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -123,6 +131,7 @@ struct EmArgs {
   const float* noise;  // B1 (num_steps, n, xdim), B4 (num_steps, n, xdim + ydim), or null
   float* out;          // (n, xdim)
   long long* stamps;   // null, or 1 + (n_hidden + 3 (B1) or 4 (B4)) x num_steps (%globaltimer, clock64) pairs
+  long long* waits;    // f32 only: null, or P x num_steps ring-wait cycle counts, one a phase as stamps end them
   int n, xdim, ydim, num_steps, hmax;
   float T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale;
   unsigned long long seed;
@@ -552,210 +561,356 @@ __global__ void __launch_bounds__(EM_THREADS, 1) em_sampler_kernel(const EmArgs 
 
 // ---- The f32-weight mode: em_sampler_f32_kernel (see the note at the top) ----
 
-#define EMF_THREADS 512                 // 16 warps, every one computing
-#define EMF_AS (EM_ROWS + 8)            // activation row stride: 64 rows + 8 floats of padding
-#define EMF_KQ (EMF_THREADS / EM_ROWS)  // the output layer's K parts
+// Four warpgroups and no producer: sixteen warps, four on each of the SM's
+// schedulers, to hide the wait of every fresh tile (two leave the tensor
+// cores idle a third of the time), at 128 registers a thread.  A ninth
+// warp on top of eight would cut a thread's registers to 168 (a scheduler
+// holding three warps), and setmaxnreg does not raise what ptxas allocates.
+#define EMF_WG 4
+#define EMF_THREADS (128 * EMF_WG)
+#define EMF_KPT 2                        // k-steps a ring tile
+#define EMF_SLOT 16384                   // a ring slot: one tile, up to 128 columns x 16 K x (hi, lo) f32
+#define EMF_STAGES 5                     // the slots 512-wide activations leave room for
+#define EMF_KQ 8                         // the output layer's K parts, on neighbouring lanes
+#define EMF_CURSOR_BYTES 48              // a warpgroup's TileCursor
 
-// Float offsets in the block's shared memory.
+// Byte offsets in the block's shared memory (from a 1024-byte boundary).
 struct EmF32Layout {
-  int act, wout, zt, bias1, opart, xs, xi, y0, floats;
+  int act, bias1, oa, xs, xi, y0, bars, ring, bytes;
 };
 
-__host__ __device__ inline EmF32Layout emf_layout(int h1, int hl, int hmax) {
+__host__ __device__ inline EmF32Layout emf_layout(int h1, int hmax) {
   EmF32Layout L;
-  L.act = 0;                                      // [hmax][EMF_AS]: [unit][row]
-  L.wout = L.act + hmax * EMF_AS;                 // [hl] float4: the output layer's x block, xdim padded to 4
-  L.zt = L.wout + 4 * hl;                         // [EM_K1][EMF_AS]: the first layer's input, K-major
-  L.bias1 = L.zt + EM_K1 * EMF_AS;                // [h1]: s w1t + c1
-  L.opart = L.bias1 + h1;                         // [EMF_KQ][EM_ROWS][EM_MAX_XDIM]
-  L.xs = L.opart + EMF_KQ * EM_ROWS * EM_MAX_XDIM;  // [EM_ROWS][EM_MAX_XDIM]
-  L.xi = L.xs + EM_ROWS * EM_MAX_XDIM;
-  L.y0 = L.xi + EM_ROWS * EM_MAX_XDIM;            // [EM_K1]
-  L.floats = L.y0 + EM_K1;
+  L.act = 0;                                      // [EM_ROWS][hmax] f32, row-major, swizzled (act_f32)
+  L.bias1 = L.act + EM_ROWS * hmax * 4;           // [h1]: s w1t + c1
+  L.oa = L.bias1 + h1 * 4;                        // [EM_ROWS][EM_MAX_XDIM]: the output layer's sums
+  L.xs = L.oa + EM_ROWS * EM_MAX_XDIM * 4;        // [EM_ROWS][EM_MAX_XDIM]
+  L.xi = L.xs + EM_ROWS * EM_MAX_XDIM * 4;
+  L.y0 = L.xi + EM_ROWS * EM_MAX_XDIM * 4;        // [EM_K1]
+  L.bars = L.y0 + EM_K1 * 4;                      // full [EMF_STAGES], then TileCursor [EMF_WG]
+  L.ring = (L.bars + EMF_STAGES * 8 + EMF_WG * EMF_CURSOR_BYTES + 1023) & ~1023;
+  L.bytes = L.ring + EMF_STAGES * EMF_SLOT + 1024;  // + slack to align the base
   return L;
 }
 
-// One layer in split TF32: out[:N] <- tanh(in[:K] . W + b), in and out
-// K-major ([unit][row], rows of EMF_AS floats); in place when in == out
-// (the hidden layers), from zt into act for layer 0 (K = 8 or 32, its
-// input zero-padded).  wp is W (K x N) in B-fragment order
-// (ops/mh_kernel.py pack_tf32_b):
-// [n-tile pair][k-step][lane] float4 = (W[8 ks + t][16 np + g], W[8 ks + t
-// + 4][16 np + g], the same at column 16 np + 8 + g), lane = 4 g + t.  The
-// N / 32 column groups of two n-tile pairs go to warps w % (N / 32); the
-// 4 m-tiles of rows are cut into parts of MT for the warps w / (N / 32)
-// (MT = 4 at N = 512 and 384, where warps 12-15 have no part; 2 at 256; 1
-// at 128).  A warp keeps MT x 4 tiles of accumulators.
-template <int MT>
-__device__ __forceinline__ void f32_layer(const float* in, float* out, const float4* __restrict__ wp,
-                                          const float* bias, int K, int N) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int groups = N >> 5, cg = warp % groups, rg = warp / groups;
-  const bool active = rg < 4 / MT;
-  const int ksteps = K >> 3;
-  float acc[MT][4][4];
+// act's element (r, c): rows of hmax floats, 8-unit groups XOR-ed with r %
+// 8, so a warp's A-fragment loads and epilogue stores (float2 each) hit 32
+// banks per half-warp.
+__device__ __forceinline__ int act_f32(int r, int c, int hmax) { return r * hmax + (c ^ ((r & 7) << 3)); }
+
+// A position in the stream of ring tiles: per step, per layer (0: the
+// first, l: hidden l - 1), per pair of k-steps, one tile a warpgroup, its
+// quarter of the layer's columns.  A layer's weights are packed as [k-step
+// pair][quarter h][k-step of the pair][column of the quarter][16 floats]
+// (ops/em_kernel.py pack_tf32_tiles); the cursor keeps its layer's base,
+// quarter width and pair count.  Each warpgroup's lies in shared memory,
+// kept by its first thread.
+struct TileCursor {
+  const uint8_t* w;
+  int step, layer, kp, nw, kpairs, k0pairs;
+  long long waited;  // block 0's first thread, with waits: cycles waited for tiles in this phase
+  __device__ __forceinline__ void set_layer(const EmArgs& p) {
+    w = layer == 0 ? p.w1 : p.wh[layer - 1];
+    nw = p.width[layer] / EMF_WG;
+    kpairs = layer == 0 ? k0pairs : p.width[layer - 1] / (8 * EMF_KPT);
+  }
+  // At the stream's start, `pairs` pairs on.
+  __device__ __forceinline__ void reset(const EmArgs& p, int k0, int pairs) {
+    step = layer = kp = 0;
+    k0pairs = k0;
+    waited = 0;
+    set_layer(p);
+    for (int i = 0; i < pairs; ++i) advance(p);
+  }
+  __device__ __forceinline__ void advance(const EmArgs& p) {
+    if (++kp < kpairs) return;
+    kp = 0;
+    if (++layer > p.n_hidden) {
+      layer = 0;
+      ++step;
+    }
+    set_layer(p);
+  }
+  // Warpgroup h's tile here into `slot` by one bulk copy, completing on `bar`.
+  __device__ __forceinline__ void load(int h, uint8_t* slot, uint64_t* bar) const {
+    const uint32_t bytes = nw * 64 * EMF_KPT;
+    mbar_expect_tx(bar, bytes);
+    bulk_copy(slot, w + (size_t)(EMF_WG * kp + h) * bytes, bytes, bar);
+  }
+};
+
+static_assert(sizeof(TileCursor) <= EMF_CURSOR_BYTES, "the layout's room for a cursor");
+
+// The f32 ring: tile g of the stream (warpgroup g % 4's at pair g / 4)
+// sits in slot g % EMF_STAGES.  Warpgroup h takes tiles 4 j + h; once its
+// four warps are done with one, its first thread loads tile g + EMF_STAGES
+// (warpgroup (h + EMF_STAGES) % 4's, a pair on) into that slot.  `timed`
+// (block 0's first thread, with waits) counts the cycles it spends waiting
+// for tiles.
+struct RingF {
+  uint8_t* base;
+  uint64_t* full;  // [EMF_STAGES], then the warpgroups' cursors
+  uint32_t taken;
+  bool timed;
+  __device__ __forceinline__ uint32_t g(uint32_t jj) const { return EMF_WG * jj + (threadIdx.x >> 7); }
+  __device__ __forceinline__ uint8_t* slot(uint32_t gg) const { return base + (gg % EMF_STAGES) * EMF_SLOT; }
+  __device__ __forceinline__ TileCursor& cursor() const {
+    return reinterpret_cast<TileCursor*>(full + EMF_STAGES)[threadIdx.x >> 7];
+  }
+  // The warpgroup's first thread loads its own tiles among the stream's
+  // first EMF_STAGES, and places its cursor at its first refill, tile h +
+  // EMF_STAGES.
+  __device__ __forceinline__ void start(const EmArgs& p, int k0pairs) {
+    if (threadIdx.x & 127) return;
+    const int h = threadIdx.x >> 7;
+    TileCursor& c = cursor();
+    c.reset(p, k0pairs, 0);
+    for (int gg = h; gg < EMF_STAGES && c.step < p.num_steps; gg += EMF_WG) {
+      c.load(h, slot(gg), &full[gg]);
+      c.advance(p);
+    }
+    c.reset(p, k0pairs, (h + EMF_STAGES) / EMF_WG);
+  }
+  // Wait for this warpgroup's next tile; returns its slot.
+  __device__ __forceinline__ uint8_t* take() {
+    const uint32_t gg = g(taken++), st = gg % EMF_STAGES, parity = (gg / EMF_STAGES) & 1;
+    if (timed) {
+      const long long t0 = clock64();
+      mbar_wait(&full[st], parity);
+      cursor().waited += clock64() - t0;
+    } else {
+      mbar_wait(&full[st], parity);
+    }
+    return base + st * EMF_SLOT;
+  }
+  // This warp is done with the tile it took last: once the warpgroup's
+  // other warps are too, its slot takes the tile EMF_STAGES on.
+  __device__ __forceinline__ void give(const EmArgs& p) {
+    const uint32_t gg = g(taken - 1) + EMF_STAGES;
+    named_sync(2 + (threadIdx.x >> 7), 128);
+    if ((threadIdx.x & 127) == 0) {
+      TileCursor& c = cursor();
+      if (c.step < p.num_steps) {
+        c.load((int)(gg % EMF_WG), slot(gg), &full[gg % EMF_STAGES]);
+        c.advance(p);
+      }
+    }
+  }
+};
+
+// One layer of a consumer warpgroup in split TF32: its NW columns [h NW,
+// (h + 1) NW) of tanh(act[:, :K] . W + b) over K / 8 k-steps, written over
+// act once every warpgroup has read it.  Per k-step, each thread loads its
+// A fragment (rows 16 w + g and + 8, units 8 ks + 2 t and + 1) from act as
+// two float2 and splits it into hi and lo; the ring's tile holds two
+// k-steps' weights for the NW columns, hi and lo.  The columns go by fresh
+// tiles of CW: three wgmma (lo hi, hi lo, hi hi) into a fresh tile, then,
+// once it is done, its FADD into the f32 accumulators.  (Overlapping a
+// tile's adds with the next tile's products makes ptxas serialize every
+// wgmma; the other three warpgroups fill the tensor cores instead.)
+template <int NW>
+struct F32Layer {
+  static constexpr int CW = NW % 64 ? 32 : 64, NC = NW / CW, R = CW / 2;
+  float acc[NC][R];
+  float fresh[R];
+  uint32_t a[2][4];  // [hi, lo][fragment]
+  const float *row0, *row1;
+  int sw, t;
+
+  __device__ __forceinline__ F32Layer(const float* act, int hmax) {
+    const int lane = threadIdx.x & 31, r0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+    t = lane & 3;
+    sw = (r0 & 7) << 3;  // rows r0 and r0 + 8 share it
+    row0 = act + r0 * hmax;
+    row1 = row0 + 8 * hmax;
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+    for (int i = 0; i < R; ++i) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
+      for (int c = 0; c < NC; ++c) acc[c][i] = 0.f;
+      fresh[i] = 0.f;
+    }
+  }
+
+  // K-step ks, its weights (NW columns) at w.
+  __device__ __forceinline__ void kstep(int ks, const uint8_t* w) {
+    const int k = ((8 * ks) ^ sw) + 2 * t;
+    const float2 x0 = *reinterpret_cast<const float2*>(row0 + k);
+    const float2 x1 = *reinterpret_cast<const float2*>(row1 + k);
+    // fragment [0], [1]: units 8 ks + 2 t (the product's k = t); [2], [3]:
+    // 8 ks + 2 t + 1 (k = t + 4), as the wrapper orders W's rows in a k-step
+    split_tf32(x0.x, a[0][0], a[1][0]);
+    split_tf32(x1.x, a[0][1], a[1][1]);
+    split_tf32(x0.y, a[0][2], a[1][2]);
+    split_tf32(x1.y, a[0][3], a[1][3]);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][q][e] = 0.f;
-  if (active) {
-    const size_t pair = (size_t)ksteps * 32;  // float4s of one n-tile pair
-    const float4* wq = wp + 2 * cg * pair + lane;
-    float4 c0 = __ldg(wq), c1 = __ldg(wq + pair);
-    const float* arow = in + t * EMF_AS + 16 * MT * rg + g;
+    for (int c = 0; c < NC; ++c) {
+      const uint64_t db = wg_desc64(w + c * CW * 64);  // hi at +0, lo 32 bytes on (+2)
+      wgmma_fence();
+      WgmmaTf32<CW>::mma(fresh, a[1], db, 0);      // lo . hi
+      WgmmaTf32<CW>::mma(fresh, a[0], db + 2, 1);  // hi . lo
+      WgmmaTf32<CW>::mma(fresh, a[0], db, 1);      // hi . hi
+      wgmma_commit();
+      wgmma_wait<0>();
+      // the adds end in fence_acc, so the compiler keeps them out of the
+      // next tile's wgmma pipeline stage
+      fence_acc(fresh);
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc[c][i] += fresh[i];
+      fence_acc(acc[c]);
+    }
+  }
+};
+
+template <int NW>
+__device__ __forceinline__ void f32_layer(RingF& ring, const EmArgs& p, float* act, int hmax, int ksteps,
+                                          const float* bias) {
+  using Layer = F32Layer<NW>;
+  Layer L(act, hmax);
 #pragma unroll 1
-    for (int ks = 0; ks < ksteps; ++ks) {
-      const int kn = ks + 1 < ksteps ? ks + 1 : ks;  // the next k-step (the last one reloads its own)
-      const float4 n0 = __ldg(wq + kn * 32), n1 = __ldg(wq + pair + kn * 32);
-      uint32_t bh[4][2], bl[4][2];
-      split_tf32(c0.x, bh[0][0], bl[0][0]);
-      split_tf32(c0.y, bh[0][1], bl[0][1]);
-      split_tf32(c0.z, bh[1][0], bl[1][0]);
-      split_tf32(c0.w, bh[1][1], bl[1][1]);
-      split_tf32(c1.x, bh[2][0], bl[2][0]);
-      split_tf32(c1.y, bh[2][1], bl[2][1]);
-      split_tf32(c1.z, bh[3][0], bl[3][0]);
-      split_tf32(c1.w, bh[3][1], bl[3][1]);
-      const float* ak = arow + ks * 8 * EMF_AS;
+  for (int ks = 0; ks < ksteps; ks += EMF_KPT) {
+    const uint8_t* tile = ring.take();
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        uint32_t ah[4], al[4];
-        split_tf32(ak[16 * m], ah[0], al[0]);
-        split_tf32(ak[16 * m + 8], ah[1], al[1]);
-        split_tf32(ak[4 * EMF_AS + 16 * m], ah[2], al[2]);
-        split_tf32(ak[4 * EMF_AS + 16 * m + 8], ah[3], al[3]);
-        // a k-step's three products into a fresh tile, the small terms
-        // first, then one f32 add into the accumulators
+    for (int s = 0; s < EMF_KPT; ++s) L.kstep(ks + s, tile + s * NW * 64);
+    ring.give(p);
+  }
+  named_sync(1, EMF_THREADS);  // every warpgroup has read act
+  const int lane = threadIdx.x & 31, r0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int c0 = (threadIdx.x >> 7) * NW + 2 * (lane & 3);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          float tile[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(tile, al, bh[q]);
-          mma_tf32(tile, ah, bl[q]);
-          mma_tf32(tile, ah, bh[q]);
+  for (int cc = 0; cc < Layer::NC; ++cc) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[m][q][e] += tile[e];
-        }
-      }
-      c0 = n0;
-      c1 = n1;
+    for (int j = 0; j < Layer::CW / 8; ++j) {
+      const int c = c0 + cc * Layer::CW + 8 * j;
+      const float2 b = *reinterpret_cast<const float2*>(bias + c);
+      const float v0 = L.acc[cc][4 * j], v1 = L.acc[cc][4 * j + 1], v2 = L.acc[cc][4 * j + 2],
+                  v3 = L.acc[cc][4 * j + 3];
+      *reinterpret_cast<float2*>(act + act_f32(r0, c, hmax)) = make_float2(tanhf(v0 + b.x), tanhf(v1 + b.y));
+      *reinterpret_cast<float2*>(act + act_f32(r0 + 8, c, hmax)) = make_float2(tanhf(v2 + b.x), tanhf(v3 + b.y));
     }
   }
-  __syncthreads();  // every warp has read the input
-  if (active) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int col = 32 * cg + 8 * q + 2 * t;
-      const float b0 = bias[col], b1 = bias[col + 1];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const int row = 16 * (MT * rg + m) + g;
-        out[col * EMF_AS + row] = tanhf(acc[m][q][0] + b0);
-        out[(col + 1) * EMF_AS + row] = tanhf(acc[m][q][1] + b1);
-        out[col * EMF_AS + row + 8] = tanhf(acc[m][q][2] + b0);
-        out[(col + 1) * EMF_AS + row + 8] = tanhf(acc[m][q][3] + b1);
-      }
-    }
-  }
-  __syncthreads();
+  named_sync(1, EMF_THREADS);  // the layer's output is in act
 }
 
-// The output layer's x block in f32 FMA: thread (r = tid % 64, part q =
-// tid / 64) sums act's units [q hl/8, (q + 1) hl/8) of row r against wout
-// (a float4 a unit, read at one address across the warp) into opart[q][r].
-__device__ __forceinline__ void f32_output_layer(const float* act, const float4* wout, int hl, float* opart) {
-  const int r = threadIdx.x & (EM_ROWS - 1), q = threadIdx.x / EM_ROWS;
-  const int kn = hl / EMF_KQ;
+#define EMF_DISPATCH(nw, CALL)                        \
+  switch (nw) {                                       \
+    case 32: { constexpr int NW = 32; CALL; } break;  \
+    case 64: { constexpr int NW = 64; CALL; } break;  \
+    case 96: { constexpr int NW = 96; CALL; } break;  \
+    default: { constexpr int NW = 128; CALL; } break; \
+  }
+
+// The output layer's x block in f32 FMA: thread (row r = tid / 8, part q =
+// tid % 8) sums act's units q, q + 8, ... of row r against the output
+// weights (a float4 a unit, from global memory through L1: a warp's eight
+// parts read 128 consecutive bytes); the row's eight parts, on neighbouring
+// lanes, meet by shuffles, and part 0 writes the row's sums to oa.
+__device__ __forceinline__ void f32_output_layer(const float* act, int hmax, const float4* __restrict__ wout, int hl,
+                                                 float* oa) {
+  const int r = threadIdx.x >> 3, q = threadIdx.x & (EMF_KQ - 1), sw = (r & 7) << 3;
+  const float* row = act + r * hmax;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int k = q * kn; k < (q + 1) * kn; ++k) {
-    const float a = act[k * EMF_AS + r];
-    const float4 w = wout[k];
+#pragma unroll 4
+  for (int k = q; k < hl; k += EMF_KQ) {
+    const float a = row[k ^ sw];
+    const float4 w = __ldg(wout + k);
     acc.x = fmaf(a, w.x, acc.x);
     acc.y = fmaf(a, w.y, acc.y);
     acc.z = fmaf(a, w.z, acc.z);
     acc.w = fmaf(a, w.w, acc.w);
   }
-  reinterpret_cast<float4*>(opart)[q * EM_ROWS + r] = acc;
+#pragma unroll
+  for (int m = 1; m < EMF_KQ; m <<= 1) {
+    acc.x += __shfl_xor_sync(0xffffffffu, acc.x, m);
+    acc.y += __shfl_xor_sync(0xffffffffu, acc.y, m);
+    acc.z += __shfl_xor_sync(0xffffffffu, acc.z, m);
+    acc.w += __shfl_xor_sync(0xffffffffu, acc.w, m);
+  }
+  if (q == 0) reinterpret_cast<float4*>(oa)[r] = acc;
 }
 
-#define EMF_DISPATCH(n, CALL)                           \
-  switch (n) {                                          \
-    case 128: { constexpr int MT = 1; CALL; } break;    \
-    case 256: { constexpr int MT = 2; CALL; } break;    \
-    default: { constexpr int MT = 4; CALL; } break;     \
+// A stamp of the f32 template: the phase's end, and with waits, the cycles
+// block 0's first thread waited for ring tiles during the phase.
+__device__ __forceinline__ void stamp_f32(const EmArgs& p, long long i, RingF& ring) {
+  stamp(p.stamps, i);
+  if (ring.timed) {
+    p.waits[i - 1] = ring.cursor().waited;
+    ring.cursor().waited = 0;
   }
+}
 
 template <bool CD>
 __global__ void __launch_bounds__(EMF_THREADS, 1) em_sampler_f32_kernel(const EmArgs p) {
-  extern __shared__ float4 emf_smem[];
-  float* sm = reinterpret_cast<float*>(emf_smem);
+  extern __shared__ uint8_t emf_smem[];
+  uint8_t* sm = emf_smem + ((1024 - (smem_u32(emf_smem) & 1023)) & 1023);
   const int tid = threadIdx.x;
-  const int h1 = p.width[0], hl = p.width[p.n_hidden], xdim = p.xdim;
-  const int k1 = ((CD ? xdim + p.ydim : xdim) + 7) & ~7;  // layer 0's K, padded to a k-step
+  const int h1 = p.width[0], hl = p.width[p.n_hidden], xdim = p.xdim, hmax = p.hmax;
+  const int d0 = CD ? xdim + p.ydim : xdim;  // layer 0's input width,
+  const int k0 = (d0 + 8 * EMF_KPT - 1) / (8 * EMF_KPT) * (8 * EMF_KPT);  // zero-padded to a tile's k-steps
   const int row0 = blockIdx.x * EM_ROWS;
-  const EmF32Layout L = emf_layout(h1, hl, p.hmax);
+  const EmF32Layout L = emf_layout(h1, hmax);
 
-  float* act = sm + L.act;
-  float4* wout = reinterpret_cast<float4*>(sm + L.wout);
-  float* zt = sm + L.zt;
-  float* bias1 = sm + L.bias1;
-  float* opart = sm + L.opart;
-  float* xs = sm + L.xs;
-  float* xi = sm + L.xi;
-  float* y0 = sm + L.y0;
+  float* act = reinterpret_cast<float*>(sm + L.act);
+  float* bias1 = reinterpret_cast<float*>(sm + L.bias1);
+  float* oa = reinterpret_cast<float*>(sm + L.oa);
+  float* xs = reinterpret_cast<float*>(sm + L.xs);
+  float* xi = reinterpret_cast<float*>(sm + L.xi);
+  float* y0 = reinterpret_cast<float*>(sm + L.y0);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bars);
 
-  for (int i = tid; i < hl; i += EMF_THREADS) wout[i] = reinterpret_cast<const float4*>(p.wout)[i];
-  for (int i = tid; i < EM_K1 * EMF_AS; i += EMF_THREADS) zt[i] = 0.f;
   if (CD && tid < p.ydim) y0[tid] = p.y[tid];
   for (int i = tid; i < EM_ROWS * xdim; i += EMF_THREADS) {
     const int r = i / xdim, d = i - r * xdim, row = row0 + r;
     xs[r * EM_MAX_XDIM + d] = row < p.n ? p.x0[(size_t)row * xdim + d] : 0.f;
   }
+  if (tid == 0) {
+    for (int s = 0; s < EMF_STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+  }
   __syncthreads();
 
+  RingF ring{sm + L.ring, full, 0u, p.waits != nullptr && blockIdx.x == 0 && tid == 0};
+  ring.start(p, k0 / (8 * EMF_KPT));
   const int n_phases = p.n_hidden + (CD ? 4 : 3);
   stamp(p.stamps, 0);
   for (int step = 0; step < p.num_steps; ++step) {
     long long ph = 1 + (long long)step * n_phases;
     const EmStep st = em_step(p, step);
 
-    // the first layer's input, f32 and K-major, and its bias s w1t + c1
-    if (CD) {
+    // the first layer's input [x] or [x, y_t], zero-padded to k0 units, in
+    // act's first units, and its bias s w1t + c1
+    if (CD)
       cdiffe_inputs(p, step, st.s, row0, xs, xi, y0, tid, EMF_THREADS,
-                    [&](int rr, int dd, float v) { zt[dd * EMF_AS + rr] = v; });
-    } else if (tid < EM_ROWS * xdim) {
-      const int r = tid / xdim, d = tid - r * xdim;
-      zt[d * EMF_AS + r] = xs[r * EM_MAX_XDIM + d];
+                    [&](int rr, int dd, float v) { act[act_f32(rr, dd, hmax)] = v; });
+    for (int i = tid; i < EM_ROWS * k0; i += EMF_THREADS) {
+      const int r = i / k0, d = i - r * k0;
+      if (d >= d0)
+        act[act_f32(r, d, hmax)] = 0.f;
+      else if (!CD)
+        act[act_f32(r, d, hmax)] = xs[r * EM_MAX_XDIM + d];
     }
     for (int j = tid; j < h1; j += EMF_THREADS) bias1[j] = st.s * __ldg(p.w1t + j) + __ldg(p.c1 + j);
-    __syncthreads();
-    if (CD) stamp(p.stamps, ph++);
+    named_sync(1, EMF_THREADS);
+    if (CD) stamp_f32(p, ph++, ring);
 
-    EMF_DISPATCH(h1, f32_layer<MT>(zt, act, reinterpret_cast<const float4*>(p.w1), bias1, k1, h1));
-    stamp(p.stamps, ph++);
+    EMF_DISPATCH(h1 / EMF_WG, f32_layer<NW>(ring, p, act, hmax, k0 >> 3, bias1));
+    stamp_f32(p, ph++, ring);
 
     for (int l = 0; l < p.n_hidden; ++l) {
-      EMF_DISPATCH(p.width[l + 1], f32_layer<MT>(act, act, reinterpret_cast<const float4*>(p.wh[l]), p.bh[l],
-                                                 p.width[l], p.width[l + 1]));
-      stamp(p.stamps, ph++);
+      EMF_DISPATCH(p.width[l + 1] / EMF_WG, f32_layer<NW>(ring, p, act, hmax, p.width[l] >> 3, p.bh[l]));
+      stamp_f32(p, ph++, ring);
     }
 
-    f32_output_layer(act, wout, hl, opart);
-    __syncthreads();
-    stamp(p.stamps, ph++);
+    f32_output_layer(act, hmax, reinterpret_cast<const float4*>(p.wout), hl, oa);
+    named_sync(1, EMF_THREADS);
+    stamp_f32(p, ph++, ring);
 
     if (tid < EM_ROWS * xdim) {
       const int r = tid / xdim, d = tid - r * xdim;
-      float a = opart[r * EM_MAX_XDIM + d];
-#pragma unroll
-      for (int q = 1; q < EMF_KQ; ++q) a += opart[(q * EM_ROWS + r) * EM_MAX_XDIM + d];
-      a += p.bout[d];
+      const float a = oa[r * EM_MAX_XDIM + d] + p.bout[d];
       xs[r * EM_MAX_XDIM + d] = em_update<CD>(p, step, r, d, row0 + r, a, xs[r * EM_MAX_XDIM + d], st, xi);
     }
-    __syncthreads();
-    stamp(p.stamps, ph++);
+    named_sync(1, EMF_THREADS);
+    stamp_f32(p, ph++, ring);
   }
 
   for (int i = tid; i < EM_ROWS * xdim; i += EMF_THREADS) {
@@ -769,7 +924,8 @@ __global__ void __launch_bounds__(EMF_THREADS, 1) em_sampler_f32_kernel(const Em
 static int em_args(EmArgs& p, int cdiffe, const float* x0, const float* y, const float* c1, const float* w1t,
                    const void* w1, const unsigned long long* wh_ptrs, const unsigned long long* bh_ptrs,
                    const int* widths, int n_hidden, const void* wout, const float* bout, const float* noise,
-                   float* out, long long* stamps, int n, int xdim, int ydim, int num_steps, float T,
+                   float* out, long long* stamps, long long* waits, int n, int xdim, int ydim, int num_steps,
+                   float T,
                    float beta_min, float bd, float c_drift, float c_sigma, float delta, float sqrt_delta,
                    float noise_scale, unsigned long long seed) {
   if (n_hidden < 0 || n_hidden > EM_MAX_HIDDEN || xdim < 1 || xdim > EM_MAX_XDIM || n < 1 || num_steps < 1 ||
@@ -788,7 +944,7 @@ static int em_args(EmArgs& p, int cdiffe, const float* x0, const float* y, const
   }
   p.n_hidden = n_hidden;
   p.wout = reinterpret_cast<const uint8_t*>(wout); p.bout = bout; p.noise = noise; p.out = out;
-  p.stamps = stamps;
+  p.stamps = stamps; p.waits = waits;
   p.n = n; p.xdim = xdim; p.ydim = ydim; p.num_steps = num_steps; p.hmax = hmax;
   p.T = T; p.beta_min = beta_min; p.bd = bd; p.c_drift = c_drift; p.c_sigma = c_sigma;
   p.delta = delta; p.sqrt_delta = sqrt_delta; p.noise_scale = noise_scale; p.seed = seed;
@@ -812,22 +968,24 @@ const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)
 #define EM_PARAMS                                                                                           \
   int cdiffe, const float *x0, const float *y, const float *c1, const float *w1t, const void *w1,                 \
       const unsigned long long *wh_ptrs, const unsigned long long *bh_ptrs, const int *widths, int n_hidden,      \
-      const void *wout, const float *bout, const float *noise, float *out, long long *stamps, int n, int xdim,   \
-      int ydim, int num_steps, float T, float beta_min, float bd, float c_drift, float c_sigma, float delta,      \
-      float sqrt_delta, float noise_scale, unsigned long long seed
+      const void *wout, const float *bout, const float *noise, float *out, long long *stamps, long long *waits,   \
+      int n, int xdim, int ydim, int num_steps, float T, float beta_min, float bd, float c_drift, float c_sigma,  \
+      float delta, float sqrt_delta, float noise_scale, unsigned long long seed
 #define EM_ARGS                                                                                                  \
-  cdiffe, x0, y, c1, w1t, w1, wh_ptrs, bh_ptrs, widths, n_hidden, wout, bout, noise, out, stamps, n, xdim, ydim, \
-      num_steps, T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale, seed
+  cdiffe, x0, y, c1, w1t, w1, wh_ptrs, bh_ptrs, widths, n_hidden, wout, bout, noise, out, stamps, waits, n, xdim, \
+      ydim, num_steps, T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale, seed
 
 // Launch B1 (cdiffe = 0) or B4 (cdiffe = 1) with bf16 weights on `stream`.
 // wh_ptrs / bh_ptrs / widths are host arrays of n_hidden, n_hidden and
 // n_hidden + 1 entries; every width a multiple of 128, at most 512; xdim +
 // ydim <= 32 for B4.  w1, wh and wout as ops/em_kernel.py packs them for
-// this mode.  Returns a cudaError_t.
+// this mode; waits null (only the f32 template counts ring waits).  Returns
+// a cudaError_t.
 int em_launch(EM_PARAMS, void* stream) {
   EmArgs p;
   const int bad = em_args(p, EM_ARGS);
   if (bad) return bad;
+  if (waits != nullptr) return (int)cudaErrorInvalidValue;
   const EmLayout L = em_layout(widths[0], widths[n_hidden], p.hmax);
   const void* fn = cdiffe ? (const void*)em_sampler_kernel<true> : (const void*)em_sampler_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
@@ -841,14 +999,17 @@ int em_launch(EM_PARAMS, void* stream) {
 }
 
 // Launch B1 or B4 with f32 weights (em_sampler_f32_kernel): the same
-// arguments as em_launch, with w1 and wh in split-TF32 B-fragment order,
-// w1's K (xdim, or xdim + ydim for B4) zero-padded to a multiple of 8, and
-// wout (hl, 4) f32.
+// arguments as em_launch, with w1 and wh split into TF32 hi and lo and
+// packed as the ring's tiles (ops/em_kernel.py pack_tf32_tiles), w1's K
+// (xdim, or xdim + ydim for B4) zero-padded to a multiple of 8, and wout
+// (hl, 4) f32.  waits: null, or P x num_steps entries (P phases a step, in
+// the stamps' order): the cycles block 0's first thread waited for ring
+// tiles in each phase of each step.
 int em_f32_launch(EM_PARAMS, void* stream) {
   EmArgs p;
   const int bad = em_args(p, EM_ARGS);
   if (bad) return bad;
-  const size_t bytes = sizeof(float) * emf_layout(widths[0], widths[n_hidden], p.hmax).floats;
+  const size_t bytes = emf_layout(widths[0], p.hmax).bytes;
   const int blocks = (n + EM_ROWS - 1) / EM_ROWS;
   const cudaStream_t st = (cudaStream_t)stream;
   return cdiffe ? em_f32_start<true>(p, blocks, bytes, st) : em_f32_start<false>(p, blocks, bytes, st);

@@ -17,6 +17,14 @@ __device__ __forceinline__ uint64_t wg_desc(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// The same for an operand with the 64-byte swizzle: rows of 64 bytes,
+// 8-row groups 512 bytes apart, the tile based on a 512-byte boundary;
+// 16-byte piece pc of row r sits at pc ^ ((r / 2) % 4).  32 bytes further
+// along a row adds 2 units.
+__device__ __forceinline__ uint64_t wg_desc64(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
+}
+
 // Shared-memory writes of the generic proxy (st.shared, cp.async) made
 // visible to wgmma and bulk copies, which use the async proxy.
 __device__ __forceinline__ void fence_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }

@@ -143,9 +143,7 @@ def mh_chains_reference(
 def pack_tf32_b(w: Tensor) -> Tensor:
     """(K, N) weight -> float32 in mma.sync m16n8k8 TF32 B-fragment order,
     as the split-TF32 products read it: B2's (256, 256) hidden layers
-    (``csrc/mh_kernel.cu``) and every layer but the output of B1 and B4 in
-    their f32 mode (``csrc/em_kernel.cu``: widths zero-padded to multiples
-    of 128, the first layer's K to one of 8).
+    (``csrc/mh_kernel.cu``).
 
     Output shape (N/16, K/8, 32, 2, 2): n-tile pair, 8-deep k-step, lane,
     n-tile within the pair, fragment register.  Element [np, ks, lane, nh,

@@ -238,27 +238,31 @@ def test_plain_f32_matches_pallas_kernel_interpret_at_served_width():
     assert _rel(out.numpy(), ref) < 1e-4
 
 
-def _unpack_tf32_b(p):
-    """The inverse of pack_tf32_b, from its documented element map."""
-    w = torch.zeros(8 * p.shape[1], 16 * p.shape[0])
-    np_, ks, lane, nh, kh = torch.meshgrid(*[torch.arange(s) for s in p.shape], indexing="ij")
-    w[8 * ks + 4 * kh + lane % 4, 16 * np_ + 8 * nh + lane // 4] = p
-    return w
+def _unpack_tf32_tiles(p):
+    """The inverse of pack_tf32_tiles, from its documented element map:
+    hi + lo, the (K, N) weight."""
+    kps, _, _, cols, _ = p.shape
+    planes = torch.zeros(2, 16 * kps, 4 * cols)
+    kp, h, s, n, q, e = torch.meshgrid(*[torch.arange(m) for m in (kps, 4, 2, cols, 4, 4)], indexing="ij")
+    lp = q ^ ((n // 2) % 4)
+    planes[lp // 2, 16 * kp + 8 * s + 2 * e + lp % 2, h * cols + n] = p.reshape(kps, 4, 2, cols, 4, 4)
+    return planes[0] + planes[1]
 
 
 def test_f32_device_net_layout_computes_the_same_sampler():
     """B4's f32 layout of a joint 8 -> 40 -> 200 -> 7 net ([x, y] 7 wide,
-    padded to one k-step of 8; widths padded to 128 and 256), unpacked,
-    runs the f32 plain version to the original net's trajectory."""
+    padded to two k-steps, 16; widths padded to 128 and 256; weights split
+    into TF32 hi and lo as ring tiles), unpacked, runs the f32 plain
+    version to the original net's trajectory."""
     _, tp = _net(hidden=(40, 200), xdim=3, ydim=4, seed=6)
     dn = em_kernel._cdiffe_device_net(tp, 3, f32_mode=True)
-    assert dn["widths"] == [128, 256] and dn["w1"].shape == (8, 1, 32, 2, 2) and dn["wout"].shape == (256, 4)
-    w1 = _unpack_tf32_b(dn["w1"])
+    assert dn["widths"] == [128, 256] and dn["w1"].shape == (1, 4, 2, 32, 16) and dn["wout"].shape == (256, 4)
+    w1 = _unpack_tf32_tiles(dn["w1"])
     assert not w1[7:].any() and not dn["wout"][:, 3:].any()
     w_out = torch.zeros(256, 7)
     w_out[:, :3] = dn["wout"][:, :3]
     b_out = torch.cat([dn["bout"], torch.zeros(4)])
-    padded = ((torch.cat([w1[:7], dn["w1t"][None]], 0), dn["c1"]), (_unpack_tf32_b(dn["wh"][0]), dn["bh"][0]),
+    padded = ((torch.cat([w1[:7], dn["w1t"][None]], 0), dn["c1"]), (_unpack_tf32_tiles(dn["wh"][0]), dn["bh"][0]),
               (w_out, b_out))
     rng = np.random.default_rng(3)
     x0 = torch.from_numpy(rng.normal(size=(64, 3)).astype(np.float32))

@@ -161,8 +161,10 @@ def test_em_kernels_refuse_widths_past_512(cuda):
 def test_em_kernel_stamps(cuda, cdiffe, compute_dtype):
     """B1 and B4 in both modes with stamps: block 0's clock readings rise
     through the launch, every phase of every step, and the samples are bit
-    for bit those of the run without stamps.  A stamps tensor too short
-    raises."""
+    for bit those of the run without stamps.  In f32 the stamped run also
+    counts the ring's waits, each phase's within its cycles and none in the
+    phases that take no weight tile; bf16 refuses ring_waits.  A stamps
+    tensor too short raises."""
     base = fused_em_sampler_cdiffe if cdiffe else fused_em_sampler
     fn = lambda *a, **kw: base(*a, compute_dtype=compute_dtype, **kw)
     tp = mlp_init(27, 26 if cdiffe else 3, (512, 512, 512), generator=torch.Generator().manual_seed(3),
@@ -172,14 +174,26 @@ def test_em_kernel_stamps(cuda, cdiffe, compute_dtype):
     y = 0.3 * torch.randn(23, generator=gen, device=cuda)
     steps, names = 12, EM_CDIFFE_PHASES if cdiffe else EM_PHASES
     stamps = torch.zeros(2 * (1 + len(names) * steps), dtype=torch.int64, device=cuda)
+    waits = torch.full((len(names) * steps,), -1, dtype=torch.int64, device=cuda)
+    f32 = compute_dtype == torch.float32
     plain = fn(tp, x0, y, steps, seed=11)
-    stamped = fn(tp, x0, y, steps, seed=11, stamps=stamps)
+    stamped = fn(tp, x0, y, steps, seed=11, stamps=stamps, **({"ring_waits": waits} if f32 else {}))
     torch.cuda.synchronize()
     assert torch.equal(plain, stamped)
     for clock in (stamps[0::2], stamps[1::2]):
         assert bool((clock > 0).all()) and bool((clock[1:] >= clock[:-1]).all())
         ends = clock[1:].reshape(steps, len(names))[:, -1]
         assert bool((ends > torch.cat([clock[:1], ends[:-1]])).all())
+    if f32:
+        cyc = stamps[1::2]
+        spans = (cyc[1:] - cyc[:-1]).reshape(steps, len(names))
+        w = waits.reshape(steps, len(names))
+        assert bool((w >= 0).all()) and bool((w <= spans).all())
+        idle = [i for i, n in enumerate(names) if n in ("noise", "output", "update")]
+        assert not w[:, idle].any()
+    else:
+        with pytest.raises(ValueError, match="ring_waits"):
+            fn(tp, x0, y, steps, seed=11, ring_waits=waits)
     with pytest.raises(ValueError, match="stamps"):
         fn(tp, x0, y, steps, seed=11, stamps=stamps[:-1])
 

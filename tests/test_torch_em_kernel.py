@@ -19,7 +19,7 @@ from dmip_tpu_torch.checkpoints import params_from_numpy
 from dmip_tpu_torch.models import CDE
 from dmip_tpu_torch.ops import em_kernel
 from dmip_tpu_torch.ops.em_kernel import em_sampler_reference, fused_em_sampler, fused_em_sampler_cdiffe
-from dmip_tpu_torch.ops.mh_kernel import pack_tf32_b
+from dmip_tpu_torch.ops.mh_kernel import pack_tf32_b, tf32_rna
 
 
 def _net(hidden=(64, 64), xdim=2, ydim=2, seed=0):
@@ -87,6 +87,8 @@ def test_cpu_wrapper_runs_plain_version_seeded():
     assert fused_em_sampler.launches == before
     with pytest.raises(ValueError, match="stamps"):
         fused_em_sampler(tp, x0, y, 10, stamps=torch.zeros(2 * (1 + 4 * 10), dtype=torch.int64))
+    with pytest.raises(ValueError, match="ring_waits"):
+        fused_em_sampler(tp, x0, y, 10, compute_dtype=torch.float32, ring_waits=torch.zeros(40, dtype=torch.int64))
 
 
 @pytest.mark.parametrize("noise_scale", [0.0, 1.0])
@@ -221,12 +223,10 @@ def _unpack_tf32_b(p):
 
 @pytest.mark.parametrize("k,n", [(96, 96), (256, 256), (384, 384), (512, 512), (96, 512), (512, 200), (26, 512)])
 def test_pack_tf32_b_unpacks_to_the_zero_padded_weight(k, n):
-    """The f32 kernel's weights: zero-padded as the wrapper pads them
-    (widths to multiples of 128, the first layer's K (26 here, [x, y] of
-    the scatterometry CDiffE) to one of 8), packed in split-TF32 B-fragment
-    order, and unpacked from the documented element map, give the padded
-    weight back exactly, for square widths 96 -> 128, 256, 384, 512 and for
-    K != N."""
+    """B2's split-TF32 B-fragment order, at widths beyond B2's own: weights
+    zero-padded to multiples of 128 (K to one of 8 under 32), packed and
+    unpacked from the documented element map, come back exactly, for square
+    widths 96 -> 128, 256, 384, 512 and for K != N."""
     w = torch.randn(k, n, generator=torch.Generator().manual_seed(k + n))
     rows = -(-k // 8) * 8 if k < 32 else em_kernel._ceil128(k)
     padded = em_kernel._pad2(w, rows, em_kernel._ceil128(n))
@@ -235,21 +235,74 @@ def test_pack_tf32_b_unpacks_to_the_zero_padded_weight(k, n):
     torch.testing.assert_close(_unpack_tf32_b(p), padded, rtol=0, atol=0)
 
 
+def _unpack_tf32_tiles(p):
+    """The inverse of pack_tf32_tiles, from its documented element map:
+    the (hi, lo) planes, each (K, N)."""
+    kps, _, _, cols, _ = p.shape
+    planes = torch.zeros(2, 16 * kps, 4 * cols)
+    kp, h, s, n, q, e = torch.meshgrid(*[torch.arange(m) for m in (kps, 4, 2, cols, 4, 4)], indexing="ij")
+    lp = q ^ ((n // 2) % 4)
+    planes[lp // 2, 16 * kp + 8 * s + 2 * e + lp % 2, h * cols + n] = p.reshape(kps, 4, 2, cols, 4, 4)
+    return planes[0], planes[1]
+
+
+@pytest.mark.parametrize("k,n", [(128, 128), (256, 256), (384, 384), (512, 512), (96, 200), (3, 512), (16, 128),
+                                 (26, 512), (32, 384)])
+def test_pack_tf32_tiles_splits_and_unpacks_to_the_zero_padded_weight(k, n):
+    """The f32 kernel's ring tiles: a weight zero-padded as the wrapper pads
+    it (widths to multiples of 128; the first layer's K, 3 ([x]) or 26 ([x,
+    y] of the scatterometry CDiffE), to one of 16: layer-0 K of 16 and 32),
+    packed, and unpacked from the documented swizzled element map: the hi
+    plane is tf32_rna of the weight bit for bit, hi + lo is the weight
+    exactly, and lo is what hi leaves, below TF32's half unit."""
+    w = torch.randn(k, n, generator=torch.Generator().manual_seed(k + n)) * 3
+    rows = -(-k // 16) * 16 if k < 32 else em_kernel._ceil128(k)
+    padded = em_kernel._pad2(w, rows, em_kernel._ceil128(n))
+    p = em_kernel.pack_tf32_tiles(padded)
+    assert p.dtype == torch.float32 and p.shape == (padded.shape[0] // 16, 4, 2, padded.shape[1] // 4, 16)
+    hi, lo = _unpack_tf32_tiles(p)
+    assert torch.equal(hi.view(torch.int32), tf32_rna(padded).view(torch.int32))
+    assert not bool((hi.view(torch.int32) & 0x1FFF).any())
+    torch.testing.assert_close(hi + lo, padded, rtol=0, atol=0)
+    assert bool((lo.abs() <= hi.abs() * 2.0**-11).all())
+
+
+def test_pack_tf32_tiles_element_map_and_bad_shapes():
+    """Spot entries of the documented map: [kp, h, s, n, 4 q + e] is
+    plane(p // 2)[16 kp + 8 s + 2 e + p % 2, h N/4 + n], p = q ^ ((n // 2) %
+    4); every ring tile, a pair of k-steps' quarter of the columns, is
+    consecutive memory, 16 KB at 512 wide.  A K off the pair of k-steps, N
+    off 128 or a bf16 weight raises."""
+    w = torch.randn(32, 512, generator=torch.Generator().manual_seed(0))
+    p = em_kernel.pack_tf32_tiles(w)
+    hi = tf32_rna(w)
+    planes = (hi, w - hi)
+    for kp, h, s, n, q, e in [(0, 0, 0, 0, 0, 0), (1, 3, 1, 127, 3, 3), (0, 1, 1, 6, 1, 2), (1, 2, 0, 77, 2, 1)]:
+        lp = q ^ ((n // 2) % 4)
+        assert p[kp, h, s, n, 4 * q + e] == planes[lp // 2][16 * kp + 8 * s + 2 * e + lp % 2, 128 * h + n]
+    assert p[1, 2].numel() * 4 == 16384 and p[1, 2].is_contiguous()
+    for bad in (torch.zeros(8, 128), torch.zeros(16, 192), torch.zeros(16, 128, dtype=torch.bfloat16)):
+        with pytest.raises(ValueError):
+            em_kernel.pack_tf32_tiles(bad)
+
+
 def test_f32_device_net_layout_computes_the_same_sampler():
     """The f32 kernel's padded net (widths 40 -> 128 and 200 -> 256; W1x's
-    3 rows padded to one k-step of 8 with the condition folded into c1, and
-    the hidden weight, in B-fragment order; the output's x block (hl, 4)),
-    unpacked, runs the f32 plain version to the original net's trajectory."""
+    3 rows padded to two k-steps, 16, with the condition folded into c1, and
+    the hidden weight, split into TF32 hi and lo as ring tiles; the
+    output's x block (hl, 4)), unpacked (hi + lo), runs the f32 plain
+    version to the original net's trajectory."""
     _, tp = _net(hidden=(40, 200), xdim=3, ydim=5, seed=4)
     y = torch.randn(5, generator=torch.Generator().manual_seed(2))
     dn = em_kernel._device_net(tp, 3, y, f32_mode=True)
     assert dn["widths"] == [128, 256] and dn["ydim"] == 5
-    assert dn["w1"].shape == (8, 1, 32, 2, 2) and dn["wout"].shape == (256, 4)
+    assert dn["w1"].shape == (1, 4, 2, 32, 16) and dn["wh"][0].shape == (8, 4, 2, 64, 16)
+    assert dn["wout"].shape == (256, 4)
     assert all(t.dtype == torch.float32 for t in (dn["w1"], dn["wh"][0], dn["wout"]))
-    w1x = _unpack_tf32_b(dn["w1"])
+    w1x = sum(_unpack_tf32_tiles(dn["w1"]))
     assert not w1x[3:].any() and not dn["wout"][:, 3:].any()
     w1 = torch.cat([w1x[:3], dn["w1t"][None]], 0)
-    padded = ((w1, dn["c1"]), (_unpack_tf32_b(dn["wh"][0]), dn["bh"][0]), (dn["wout"][:, :3], dn["bout"]))
+    padded = ((w1, dn["c1"]), (sum(_unpack_tf32_tiles(dn["wh"][0])), dn["bh"][0]), (dn["wout"][:, :3], dn["bout"]))
     x0 = torch.randn(64, 3, generator=torch.Generator().manual_seed(1))
     a = em_sampler_reference(tp, x0, y, 8, noise_scale=0.0, compute_dtype=torch.float32)
     b = em_sampler_reference(padded, x0, None, 8, noise_scale=0.0, compute_dtype=torch.float32)
