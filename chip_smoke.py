@@ -2257,23 +2257,27 @@ def b2_phase_split(torch, weights, y, x0, kw) -> dict:
     return stamp_split(torch, stamps, MH_STEPS, PHASES)
 
 
-def em_phase_split(torch, fn, names, params, y, x0, label: str, ring_waits: bool = False) -> dict:
+def em_phase_split(torch, fn, names, params, y, x0, label: str, f32: bool = False) -> dict:
     """An E-M sampler's time per step split over its phases at the main
     path's shape: one launch whose block 0 reads the card's clock at the
     end of each phase, after one without, which it must match bit for bit.
-    With ``ring_waits`` (the f32 template) the same launch also counts the
-    cycles block 0's first thread waited for weight tiles: ``ring_wait_us``,
-    each phase's mean wait per step at the launch's SM clock."""
-    stamps = torch.zeros(2 * (1 + len(names) * EM_STEPS), dtype=torch.int64, device="cuda")
-    waits = torch.zeros(len(names) * EM_STEPS, dtype=torch.int64, device="cuda") if ring_waits else None
+    In the f32 template (``f32``) the stamps also carry the cycles each of
+    block 0's four warpgroups waited for weight tiles: ``ring_wait_us``,
+    each phase's mean wait per step for each warpgroup at the launch's SM
+    clock."""
+    from dmip_tpu_torch.ops.em_kernel import stamp_entries
+
+    pairs = 2 * (1 + len(names) * EM_STEPS)
+    stamps = torch.zeros(stamp_entries(len(names), EM_STEPS, torch.float32 if f32 else torch.bfloat16),
+                         dtype=torch.int64, device="cuda")
     plain = fn(params, x0, y, EM_STEPS, seed=7)
-    stamped = fn(params, x0, y, EM_STEPS, seed=7, stamps=stamps, **({"ring_waits": waits} if ring_waits else {}))
+    stamped = fn(params, x0, y, EM_STEPS, seed=7, stamps=stamps)
     torch.cuda.synchronize()
     check(torch.equal(plain, stamped), f"{label} with stamps differs from the run without")
-    split = stamp_split(torch, stamps, EM_STEPS, names)
-    if ring_waits:
-        cycles = waits.view(EM_STEPS, len(names)).double().mean(0)
-        split["ring_wait_us"] = {n: float(c) / split["sm_mhz"] for n, c in zip(names, cycles)}
+    split = stamp_split(torch, stamps[:pairs], EM_STEPS, names)
+    if f32:
+        cycles = stamps[pairs:].view(EM_STEPS, len(names), 4).double().mean(0)
+        split["ring_wait_us"] = {n: [float(c) / split["sm_mhz"] for c in wg] for n, wg in zip(names, cycles)}
     return split
 
 
@@ -2300,10 +2304,12 @@ def b5_phase_split(torch, prior, weights, y, x0, fparams) -> dict:
 
 def f32_ring_bytes(params, k0: int) -> int:
     """The f32 template's weight bytes a block-step, all from L2: every
-    ring tile of layer 0 (k0 input rows padded to a tile's two k-steps, 16)
-    and of the hidden layers (widths padded to 128), hi and lo, f32."""
+    ring tile of layer 0 (k0 input rows padded to one k-step, 8, or past 8
+    to tiles of two, 16) and of the hidden layers (widths padded to 128),
+    hi and lo, f32."""
     widths = [-(-w.shape[1] // 128) * 128 for w, _ in params[:-1]]
-    entries = -(-k0 // 16) * 16 * widths[0] + sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    k0 = 8 if k0 <= 8 else -(-k0 // 16) * 16
+    entries = k0 * widths[0] + sum(a * b for a, b in zip(widths[:-1], widths[1:]))
     return 8 * entries
 
 
@@ -2331,7 +2337,7 @@ def em_f32_timing(torch, nets, cd_params, y0, f32_launches, gen) -> dict:
         f, b = em_work(params, N_SAMPLES, EM_STEPS, weight_size=4)
         flops, nbytes = flops + by_net[name] * f, nbytes + by_net[name] * b
         split[name] = em_phase_split(torch, b1_f32, em_phase_names(len(params) - 2), params, y, x0,
-                                     f"B1 f32 ({name})", ring_waits=True)
+                                     f"B1 f32 ({name})", f32=True)
         split[name]["ring_bytes_per_block_step"] = f32_ring_bytes(params, params[-1][0].shape[1])
         split[name]["ring_gb_per_s_per_sm"] = split[name]["ring_bytes_per_block_step"] / split[name]["step_us"] / 1e3
     n = f32_launches["em"]
@@ -2341,7 +2347,7 @@ def em_f32_timing(torch, nets, cd_params, y0, f32_launches, gen) -> dict:
     b4_bound, b4_by = bound_ms(*cd_work, H100_TF32_FLOPS / 3)
     b4_ms = cuda_ms(lambda: b4_f32(cd_params, x0, y0, EM_STEPS, seed=7), 3)
     b4_split = em_phase_split(torch, b4_f32, em_phase_names(len(cd_params) - 2, cdiffe=True), cd_params, y0, x0,
-                              "B4 f32", ring_waits=True)
+                              "B4 f32", f32=True)
     b4_split["ring_bytes_per_block_step"] = f32_ring_bytes(cd_params, cd_params[0][0].shape[0] - 1)
     b4_split["ring_gb_per_s_per_sm"] = b4_split["ring_bytes_per_block_step"] / b4_split["step_us"] / 1e3
     b1_ms = sum(by_net[k] * t[k][0] for k in t) / n

@@ -77,13 +77,15 @@
 // by 1-D bulk copies, so no producer warp costs registers.
 //   act       64 rows x hmax f32 activations (128 KB at 512), row-major,
 //             8-unit groups XOR-ed with the row; layer 0's input [x] or [x,
-//             y_t], zero-padded to K = 16 or 32, sits in its first units
-//             and each layer writes its output over its input;
+//             y_t], zero-padded to K = 8, 16 or 32, sits in its first
+//             units and each layer writes its output over its input;
 //   weights   split once by the wrapper into hi and lo and packed as the
 //             ring's tiles: per k-step (8 rows of W) and column, 64 bytes,
 //             hi's 8 then lo's 8, swizzled by 64 bytes (ops/em_kernel.py
 //             pack_tf32_tiles); a tile is one warpgroup's quarter of two
-//             k-steps (16 KB at 512 wide), the ring 5 slots;
+//             k-steps (16 KB at 512 wide; layer 0 at K = 8: one k-step),
+//             the ring 5 slots, each tile completing on a barrier of its
+//             warpgroup's (RingF);
 //   products  wgmma m64n64k8 TF32 with A from registers: per k-step each
 //             thread loads its fragment from act (two float2: the wrapper
 //             orders W's rows in a k-step to match) and splits it; per 64
@@ -130,8 +132,8 @@ struct EmArgs {
   const float* bout;   // (xdim,)
   const float* noise;  // B1 (num_steps, n, xdim), B4 (num_steps, n, xdim + ydim), or null
   float* out;          // (n, xdim)
-  long long* stamps;   // null, or 1 + (n_hidden + 3 (B1) or 4 (B4)) x num_steps (%globaltimer, clock64) pairs
-  long long* waits;    // f32 only: null, or P x num_steps ring-wait cycle counts, one a phase as stamps end them
+  long long* stamps;   // null, or 1 + (n_hidden + 3 (B1) or 4 (B4)) x num_steps (%globaltimer, clock64) pairs;
+                       // f32: then 4 ring-wait cycle counts a phase (em_f32_launch)
   int n, xdim, ydim, num_steps, hmax;
   float T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale;
   unsigned long long seed;
@@ -568,7 +570,7 @@ __global__ void __launch_bounds__(EM_THREADS, 1) em_sampler_kernel(const EmArgs 
 // holding three warps), and setmaxnreg does not raise what ptxas allocates.
 #define EMF_WG 4
 #define EMF_THREADS (128 * EMF_WG)
-#define EMF_KPT 2                        // k-steps a ring tile
+#define EMF_KPT 2                        // k-steps a ring tile (layer 0 at K = 8: one)
 #define EMF_SLOT 16384                   // a ring slot: one tile, up to 128 columns x 16 K x (hi, lo) f32
 #define EMF_STAGES 5                     // the slots 512-wide activations leave room for
 #define EMF_KQ 8                         // the output layer's K parts, on neighbouring lanes
@@ -587,8 +589,8 @@ __host__ __device__ inline EmF32Layout emf_layout(int h1, int hmax) {
   L.xs = L.oa + EM_ROWS * EM_MAX_XDIM * 4;        // [EM_ROWS][EM_MAX_XDIM]
   L.xi = L.xs + EM_ROWS * EM_MAX_XDIM * 4;
   L.y0 = L.xi + EM_ROWS * EM_MAX_XDIM * 4;        // [EM_K1]
-  L.bars = L.y0 + EM_K1 * 4;                      // full [EMF_STAGES], then TileCursor [EMF_WG]
-  L.ring = (L.bars + EMF_STAGES * 8 + EMF_WG * EMF_CURSOR_BYTES + 1023) & ~1023;
+  L.bars = L.y0 + EM_K1 * 4;                      // full [EMF_WG][EMF_STAGES], then TileCursor [EMF_WG]
+  L.ring = (L.bars + EMF_WG * EMF_STAGES * 8 + EMF_WG * EMF_CURSOR_BYTES + 1023) & ~1023;
   L.bytes = L.ring + EMF_STAGES * EMF_SLOT + 1024;  // + slack to align the base
   return L;
 }
@@ -599,31 +601,34 @@ __host__ __device__ inline EmF32Layout emf_layout(int h1, int hmax) {
 __device__ __forceinline__ int act_f32(int r, int c, int hmax) { return r * hmax + (c ^ ((r & 7) << 3)); }
 
 // A position in the stream of ring tiles: per step, per layer (0: the
-// first, l: hidden l - 1), per pair of k-steps, one tile a warpgroup, its
-// quarter of the layer's columns.  A layer's weights are packed as [k-step
-// pair][quarter h][k-step of the pair][column of the quarter][16 floats]
-// (ops/em_kernel.py pack_tf32_tiles); the cursor keeps its layer's base,
-// quarter width and pair count.  Each warpgroup's lies in shared memory,
+// first, l: hidden l - 1), per tile of the layer, one tile a warpgroup, its
+// quarter of the layer's columns over two k-steps (layer 0 at K = 8: one).
+// A layer's weights are packed as [tile][quarter h][k-step of the
+// tile][column of the quarter][16 floats] (ops/em_kernel.py
+// pack_tf32_tiles); the cursor keeps its layer's base, quarter width,
+// k-steps a tile and tile count.  Each warpgroup's lies in shared memory,
 // kept by its first thread.
 struct TileCursor {
   const uint8_t* w;
-  int step, layer, kp, nw, kpairs, k0pairs;
-  long long waited;  // block 0's first thread, with waits: cycles waited for tiles in this phase
+  int step, layer, kp, nw, kpt, tiles, k0;
+  long long waited;  // block 0, with stamps: cycles the warpgroup waited for tiles in this phase
   __device__ __forceinline__ void set_layer(const EmArgs& p) {
     w = layer == 0 ? p.w1 : p.wh[layer - 1];
     nw = p.width[layer] / EMF_WG;
-    kpairs = layer == 0 ? k0pairs : p.width[layer - 1] / (8 * EMF_KPT);
+    const int ksteps = (layer == 0 ? k0 : p.width[layer - 1]) / 8;
+    kpt = ksteps < EMF_KPT ? ksteps : EMF_KPT;
+    tiles = ksteps / kpt;
   }
-  // At the stream's start, `pairs` pairs on.
-  __device__ __forceinline__ void reset(const EmArgs& p, int k0, int pairs) {
+  // At the stream's start, `n` tiles of this warpgroup's on.
+  __device__ __forceinline__ void reset(const EmArgs& p, int k0_, int n) {
     step = layer = kp = 0;
-    k0pairs = k0;
+    k0 = k0_;
     waited = 0;
     set_layer(p);
-    for (int i = 0; i < pairs; ++i) advance(p);
+    for (int i = 0; i < n; ++i) advance(p);
   }
   __device__ __forceinline__ void advance(const EmArgs& p) {
-    if (++kp < kpairs) return;
+    if (++kp < tiles) return;
     kp = 0;
     if (++layer > p.n_hidden) {
       layer = 0;
@@ -633,7 +638,7 @@ struct TileCursor {
   }
   // Warpgroup h's tile here into `slot` by one bulk copy, completing on `bar`.
   __device__ __forceinline__ void load(int h, uint8_t* slot, uint64_t* bar) const {
-    const uint32_t bytes = nw * 64 * EMF_KPT;
+    const uint32_t bytes = nw * 64 * kpt;
     mbar_expect_tx(bar, bytes);
     bulk_copy(slot, w + (size_t)(EMF_WG * kp + h) * bytes, bytes, bar);
   }
@@ -641,47 +646,58 @@ struct TileCursor {
 
 static_assert(sizeof(TileCursor) <= EMF_CURSOR_BYTES, "the layout's room for a cursor");
 
-// The f32 ring: tile g of the stream (warpgroup g % 4's at pair g / 4)
+// The f32 ring: tile g of the stream (warpgroup g % 4's at its tile g / 4)
 // sits in slot g % EMF_STAGES.  Warpgroup h takes tiles 4 j + h; once its
 // four warps are done with one, its first thread loads tile g + EMF_STAGES
-// (warpgroup (h + EMF_STAGES) % 4's, a pair on) into that slot.  `timed`
-// (block 0's first thread, with waits) counts the cycles it spends waiting
-// for tiles.
+// (warpgroup (h + EMF_STAGES) % 4's) into that slot.  A slot's loads are
+// thus in stream order, each after the one before was consumed, but its
+// successive tiles go to different warpgroups, which drift apart: a barrier
+// a slot, waited for by parity, would let a warpgroup that runs ahead
+// match the phase before its tile's.  So tile g completes on barrier
+// (g % 4, g % EMF_STAGES), whose phases are the tiles of one warpgroup in
+// one slot, g, g + 20, g + 40, ...: that warpgroup waits for them in order,
+// and the next cannot be loaded until it has consumed this one, so phase
+// g / 20 is the barrier's current or last phase and its parity names it.
+// `waits` (block 0's, each warpgroup's first thread, with stamps) counts
+// the cycles the warpgroup spends waiting for tiles.
 struct RingF {
   uint8_t* base;
-  uint64_t* full;  // [EMF_STAGES], then the warpgroups' cursors
+  uint64_t* full;  // [EMF_WG][EMF_STAGES], then the warpgroups' cursors
   uint32_t taken;
-  bool timed;
+  long long* waits;
   __device__ __forceinline__ uint32_t g(uint32_t jj) const { return EMF_WG * jj + (threadIdx.x >> 7); }
   __device__ __forceinline__ uint8_t* slot(uint32_t gg) const { return base + (gg % EMF_STAGES) * EMF_SLOT; }
+  __device__ __forceinline__ uint64_t* bar(uint32_t gg) const {
+    return full + (gg % EMF_WG) * EMF_STAGES + gg % EMF_STAGES;
+  }
   __device__ __forceinline__ TileCursor& cursor() const {
-    return reinterpret_cast<TileCursor*>(full + EMF_STAGES)[threadIdx.x >> 7];
+    return reinterpret_cast<TileCursor*>(full + EMF_WG * EMF_STAGES)[threadIdx.x >> 7];
   }
   // The warpgroup's first thread loads its own tiles among the stream's
   // first EMF_STAGES, and places its cursor at its first refill, tile h +
   // EMF_STAGES.
-  __device__ __forceinline__ void start(const EmArgs& p, int k0pairs) {
+  __device__ __forceinline__ void start(const EmArgs& p, int k0) {
     if (threadIdx.x & 127) return;
     const int h = threadIdx.x >> 7;
     TileCursor& c = cursor();
-    c.reset(p, k0pairs, 0);
+    c.reset(p, k0, 0);
     for (int gg = h; gg < EMF_STAGES && c.step < p.num_steps; gg += EMF_WG) {
-      c.load(h, slot(gg), &full[gg]);
+      c.load(h, slot(gg), bar(gg));
       c.advance(p);
     }
-    c.reset(p, k0pairs, (h + EMF_STAGES) / EMF_WG);
+    c.reset(p, k0, (h + EMF_STAGES) / EMF_WG);
   }
   // Wait for this warpgroup's next tile; returns its slot.
   __device__ __forceinline__ uint8_t* take() {
-    const uint32_t gg = g(taken++), st = gg % EMF_STAGES, parity = (gg / EMF_STAGES) & 1;
-    if (timed) {
+    const uint32_t gg = g(taken++), parity = (gg / (EMF_WG * EMF_STAGES)) & 1;
+    if (waits != nullptr) {
       const long long t0 = clock64();
-      mbar_wait(&full[st], parity);
+      mbar_wait(bar(gg), parity);
       cursor().waited += clock64() - t0;
     } else {
-      mbar_wait(&full[st], parity);
+      mbar_wait(bar(gg), parity);
     }
-    return base + st * EMF_SLOT;
+    return slot(gg);
   }
   // This warp is done with the tile it took last: once the warpgroup's
   // other warps are too, its slot takes the tile EMF_STAGES on.
@@ -691,7 +707,12 @@ struct RingF {
     if ((threadIdx.x & 127) == 0) {
       TileCursor& c = cursor();
       if (c.step < p.num_steps) {
-        c.load((int)(gg % EMF_WG), slot(gg), &full[gg % EMF_STAGES]);
+#ifdef EMF_SKEW_NS
+        // a test build: one warpgroup at a time, turn by turn, refills late
+        // while the others run ahead (tests/test_torch_cuda.py)
+        if ((gg >> 5) % EMF_WG == (threadIdx.x >> 7)) __nanosleep(EMF_SKEW_NS);
+#endif
+        c.load((int)(gg % EMF_WG), slot(gg), bar(gg));
         c.advance(p);
       }
     }
@@ -761,16 +782,17 @@ struct F32Layer {
   }
 };
 
-template <int NW>
+// KPT: the layer's k-steps a tile, EMF_KPT or (layer 0 at K = 8) one.
+template <int NW, int KPT>
 __device__ __forceinline__ void f32_layer(RingF& ring, const EmArgs& p, float* act, int hmax, int ksteps,
                                           const float* bias) {
   using Layer = F32Layer<NW>;
   Layer L(act, hmax);
 #pragma unroll 1
-  for (int ks = 0; ks < ksteps; ks += EMF_KPT) {
+  for (int ks = 0; ks < ksteps; ks += KPT) {
     const uint8_t* tile = ring.take();
 #pragma unroll
-    for (int s = 0; s < EMF_KPT; ++s) L.kstep(ks + s, tile + s * NW * 64);
+    for (int s = 0; s < KPT; ++s) L.kstep(ks + s, tile + s * NW * 64);
     ring.give(p);
   }
   named_sync(1, EMF_THREADS);  // every warpgroup has read act
@@ -828,12 +850,12 @@ __device__ __forceinline__ void f32_output_layer(const float* act, int hmax, con
   if (q == 0) reinterpret_cast<float4*>(oa)[r] = acc;
 }
 
-// A stamp of the f32 template: the phase's end, and with waits, the cycles
-// block 0's first thread waited for ring tiles during the phase.
+// A stamp of the f32 template: the phase's end, and the cycles each
+// warpgroup of block 0 waited for ring tiles during the phase.
 __device__ __forceinline__ void stamp_f32(const EmArgs& p, long long i, RingF& ring) {
   stamp(p.stamps, i);
-  if (ring.timed) {
-    p.waits[i - 1] = ring.cursor().waited;
+  if (ring.waits != nullptr) {
+    ring.waits[EMF_WG * (i - 1) + (threadIdx.x >> 7)] = ring.cursor().waited;
     ring.cursor().waited = 0;
   }
 }
@@ -845,7 +867,7 @@ __global__ void __launch_bounds__(EMF_THREADS, 1) em_sampler_f32_kernel(const Em
   const int tid = threadIdx.x;
   const int h1 = p.width[0], hl = p.width[p.n_hidden], xdim = p.xdim, hmax = p.hmax;
   const int d0 = CD ? xdim + p.ydim : xdim;  // layer 0's input width,
-  const int k0 = (d0 + 8 * EMF_KPT - 1) / (8 * EMF_KPT) * (8 * EMF_KPT);  // zero-padded to a tile's k-steps
+  const int k0 = d0 <= 8 ? 8 : (d0 + 15) / 16 * 16;  // zero-padded to one k-step or to whole tiles of two
   const int row0 = blockIdx.x * EM_ROWS;
   const EmF32Layout L = emf_layout(h1, hmax);
 
@@ -863,14 +885,15 @@ __global__ void __launch_bounds__(EMF_THREADS, 1) em_sampler_f32_kernel(const Em
     xs[r * EM_MAX_XDIM + d] = row < p.n ? p.x0[(size_t)row * xdim + d] : 0.f;
   }
   if (tid == 0) {
-    for (int s = 0; s < EMF_STAGES; ++s) mbar_init(&full[s], 1);
+    for (int s = 0; s < EMF_WG * EMF_STAGES; ++s) mbar_init(&full[s], 1);
     mbar_init_fence();
   }
   __syncthreads();
 
-  RingF ring{sm + L.ring, full, 0u, p.waits != nullptr && blockIdx.x == 0 && tid == 0};
-  ring.start(p, k0 / (8 * EMF_KPT));
   const int n_phases = p.n_hidden + (CD ? 4 : 3);
+  const bool timed = p.stamps != nullptr && blockIdx.x == 0 && (tid & 127) == 0;
+  RingF ring{sm + L.ring, full, 0u, timed ? p.stamps + 2 * (1 + (long long)n_phases * p.num_steps) : nullptr};
+  ring.start(p, k0);
   stamp(p.stamps, 0);
   for (int step = 0; step < p.num_steps; ++step) {
     long long ph = 1 + (long long)step * n_phases;
@@ -892,11 +915,16 @@ __global__ void __launch_bounds__(EMF_THREADS, 1) em_sampler_f32_kernel(const Em
     named_sync(1, EMF_THREADS);
     if (CD) stamp_f32(p, ph++, ring);
 
-    EMF_DISPATCH(h1 / EMF_WG, f32_layer<NW>(ring, p, act, hmax, k0 >> 3, bias1));
+    if (k0 == 8) {
+      EMF_DISPATCH(h1 / EMF_WG, (f32_layer<NW, 1>(ring, p, act, hmax, 1, bias1)));
+    } else {
+      EMF_DISPATCH(h1 / EMF_WG, (f32_layer<NW, EMF_KPT>(ring, p, act, hmax, k0 >> 3, bias1)));
+    }
     stamp_f32(p, ph++, ring);
 
     for (int l = 0; l < p.n_hidden; ++l) {
-      EMF_DISPATCH(p.width[l + 1] / EMF_WG, f32_layer<NW>(ring, p, act, hmax, p.width[l] >> 3, p.bh[l]));
+      EMF_DISPATCH(p.width[l + 1] / EMF_WG,
+                   (f32_layer<NW, EMF_KPT>(ring, p, act, hmax, p.width[l] >> 3, p.bh[l])));
       stamp_f32(p, ph++, ring);
     }
 
@@ -924,8 +952,7 @@ __global__ void __launch_bounds__(EMF_THREADS, 1) em_sampler_f32_kernel(const Em
 static int em_args(EmArgs& p, int cdiffe, const float* x0, const float* y, const float* c1, const float* w1t,
                    const void* w1, const unsigned long long* wh_ptrs, const unsigned long long* bh_ptrs,
                    const int* widths, int n_hidden, const void* wout, const float* bout, const float* noise,
-                   float* out, long long* stamps, long long* waits, int n, int xdim, int ydim, int num_steps,
-                   float T,
+                   float* out, long long* stamps, int n, int xdim, int ydim, int num_steps, float T,
                    float beta_min, float bd, float c_drift, float c_sigma, float delta, float sqrt_delta,
                    float noise_scale, unsigned long long seed) {
   if (n_hidden < 0 || n_hidden > EM_MAX_HIDDEN || xdim < 1 || xdim > EM_MAX_XDIM || n < 1 || num_steps < 1 ||
@@ -944,7 +971,7 @@ static int em_args(EmArgs& p, int cdiffe, const float* x0, const float* y, const
   }
   p.n_hidden = n_hidden;
   p.wout = reinterpret_cast<const uint8_t*>(wout); p.bout = bout; p.noise = noise; p.out = out;
-  p.stamps = stamps; p.waits = waits;
+  p.stamps = stamps;
   p.n = n; p.xdim = xdim; p.ydim = ydim; p.num_steps = num_steps; p.hmax = hmax;
   p.T = T; p.beta_min = beta_min; p.bd = bd; p.c_drift = c_drift; p.c_sigma = c_sigma;
   p.delta = delta; p.sqrt_delta = sqrt_delta; p.noise_scale = noise_scale; p.seed = seed;
@@ -968,24 +995,22 @@ const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)
 #define EM_PARAMS                                                                                           \
   int cdiffe, const float *x0, const float *y, const float *c1, const float *w1t, const void *w1,                 \
       const unsigned long long *wh_ptrs, const unsigned long long *bh_ptrs, const int *widths, int n_hidden,      \
-      const void *wout, const float *bout, const float *noise, float *out, long long *stamps, long long *waits,   \
-      int n, int xdim, int ydim, int num_steps, float T, float beta_min, float bd, float c_drift, float c_sigma,  \
-      float delta, float sqrt_delta, float noise_scale, unsigned long long seed
+      const void *wout, const float *bout, const float *noise, float *out, long long *stamps, int n, int xdim,   \
+      int ydim, int num_steps, float T, float beta_min, float bd, float c_drift, float c_sigma, float delta,      \
+      float sqrt_delta, float noise_scale, unsigned long long seed
 #define EM_ARGS                                                                                                  \
-  cdiffe, x0, y, c1, w1t, w1, wh_ptrs, bh_ptrs, widths, n_hidden, wout, bout, noise, out, stamps, waits, n, xdim, \
-      ydim, num_steps, T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale, seed
+  cdiffe, x0, y, c1, w1t, w1, wh_ptrs, bh_ptrs, widths, n_hidden, wout, bout, noise, out, stamps, n, xdim, ydim, \
+      num_steps, T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale, seed
 
 // Launch B1 (cdiffe = 0) or B4 (cdiffe = 1) with bf16 weights on `stream`.
 // wh_ptrs / bh_ptrs / widths are host arrays of n_hidden, n_hidden and
 // n_hidden + 1 entries; every width a multiple of 128, at most 512; xdim +
 // ydim <= 32 for B4.  w1, wh and wout as ops/em_kernel.py packs them for
-// this mode; waits null (only the f32 template counts ring waits).  Returns
-// a cudaError_t.
+// this mode.  Returns a cudaError_t.
 int em_launch(EM_PARAMS, void* stream) {
   EmArgs p;
   const int bad = em_args(p, EM_ARGS);
   if (bad) return bad;
-  if (waits != nullptr) return (int)cudaErrorInvalidValue;
   const EmLayout L = em_layout(widths[0], widths[n_hidden], p.hmax);
   const void* fn = cdiffe ? (const void*)em_sampler_kernel<true> : (const void*)em_sampler_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
@@ -1001,10 +1026,11 @@ int em_launch(EM_PARAMS, void* stream) {
 // Launch B1 or B4 with f32 weights (em_sampler_f32_kernel): the same
 // arguments as em_launch, with w1 and wh split into TF32 hi and lo and
 // packed as the ring's tiles (ops/em_kernel.py pack_tf32_tiles), w1's K
-// (xdim, or xdim + ydim for B4) zero-padded to a multiple of 8, and wout
-// (hl, 4) f32.  waits: null, or P x num_steps entries (P phases a step, in
-// the stamps' order): the cycles block 0's first thread waited for ring
-// tiles in each phase of each step.
+// (xdim, or xdim + ydim for B4) zero-padded to 8 or else to a multiple of
+// 16, and wout (hl, 4) f32.  stamps: null, or the pairs followed by 4 x P x
+// num_steps entries (P phases a step, in the stamps' order): the cycles
+// each warpgroup of block 0 waited for ring tiles in each phase of each
+// step, [step][phase][warpgroup].
 int em_f32_launch(EM_PARAMS, void* stream) {
   EmArgs p;
   const int bad = em_args(p, EM_ARGS);

@@ -135,28 +135,29 @@ def pack_tf32_tiles(w: Tensor) -> Tensor:
     into hi = :func:`tf32_rna` (w) and lo = w - hi (exact), both f32, in the
     order the products take them.
 
-    Output shape (K/16, 4, 2, N/4, 16): pair of 8-deep k-steps, column
-    quarter (one per warpgroup), k-step of the pair, column within the
-    quarter, and 64 bytes for that column: four 16-byte pieces, hi's then
-    lo's, each plane's 8 rows of the k-step in the order (0, 2, 4, 6 | 1,
-    3, 5, 7), the pieces swizzled by 64 bytes, logical piece p of column n
-    at p ^ ((n // 2) % 4).  So element [kp, h, s, n, 4 q + e] is plane(p //
-    2)[16 kp + 8 s + 2 e + p % 2, h N/4 + n] with p = q ^ ((n // 2) % 4),
-    plane 0 hi and 1 lo.  K must be a multiple of 16 and N of 128.  Each
-    [kp, h] is one ring tile.
+    A tile holds S = 2 8-deep k-steps, or S = 1 when K = 8 (the first
+    layer of a net whose input is at most 8 wide).  Output shape (K/(8 S),
+    4, S, N/4, 16): tile, column quarter (one per warpgroup), k-step of the
+    tile, column within the quarter, and 64 bytes for that column: four
+    16-byte pieces, hi's then lo's, each plane's 8 rows of the k-step in
+    the order (0, 2, 4, 6 | 1, 3, 5, 7), the pieces swizzled by 64 bytes,
+    logical piece p of column n at p ^ ((n // 2) % 4).  So element [kp, h,
+    s, n, 4 q + e] is plane(p // 2)[8 (S kp + s) + 2 e + p % 2, h N/4 + n]
+    with p = q ^ ((n // 2) % 4), plane 0 hi and 1 lo.  K must be 8 or a
+    multiple of 16 and N a multiple of 128.  Each [kp, h] is one ring tile.
     """
     K, N = w.shape
-    if K % 16 or N % 128 or w.dtype != torch.float32:
-        raise ValueError(f"pack_tf32_tiles takes f32 with K % 16 == 0 and N % 128 == 0, got {w.dtype} "
+    if (K != 8 and K % 16) or N % 128 or w.dtype != torch.float32:
+        raise ValueError(f"pack_tf32_tiles takes f32 with K == 8 or K % 16 == 0 and N % 128 == 0, got {w.dtype} "
                          f"{tuple(w.shape)}")
     hi = tf32_rna(w)
-    cols = N // 4
-    t = torch.stack([hi, w - hi]).reshape(2, K // 16, 2, 4, 2, 4, cols)  # plane, kp, s, e, p % 2, h, n
-    t = t.permute(1, 5, 2, 6, 0, 4, 3).reshape(K // 16, 4, 2, cols, 4, 4)  # kp, h, s, n, p, e
+    S, cols = min(2, K // 8), N // 4
+    t = torch.stack([hi, w - hi]).reshape(2, K // (8 * S), S, 4, 2, 4, cols)  # plane, kp, s, e, p % 2, h, n
+    t = t.permute(1, 5, 2, 6, 0, 4, 3).reshape(K // (8 * S), 4, S, cols, 4, 4)  # kp, h, s, n, p, e
     n = torch.arange(cols, device=w.device).view(cols, 1)
     q = torch.arange(4, device=w.device).view(1, 4)
-    src = (q ^ ((n // 2) % 4)).view(1, 1, 1, cols, 4, 1).expand(K // 16, 4, 2, cols, 4, 4)
-    return torch.gather(t, 4, src).reshape(K // 16, 4, 2, cols, 16).contiguous()
+    src = (q ^ ((n // 2) % 4)).view(1, 1, 1, cols, 4, 1).expand(K // (8 * S), 4, S, cols, 4, 4)
+    return torch.gather(t, 4, src).reshape(K // (8 * S), 4, S, cols, 16).contiguous()
 
 
 def _split_first_layer(params, xdim: int):
@@ -228,11 +229,11 @@ def em_sampler_reference(
 def _first_layer(w: Tensor, h1: int, f32_mode: bool) -> Tensor:
     """The first layer's weight over [x] (B1) or [x, y] (B4), (k, h1
     unpadded) f32, in a mode's layout: bf16 with its rows padded to 32,
-    packed for mma.sync; or f32 with its rows padded to a multiple of 16 (a
-    pair of k-steps), split and packed as ring tiles
-    (:func:`pack_tf32_tiles`)."""
+    packed for mma.sync; or f32 with its rows padded to one k-step, 8, or
+    past 8 to a multiple of 16 (tiles of two k-steps), split and packed as
+    ring tiles (:func:`pack_tf32_tiles`)."""
     if f32_mode:
-        return pack_tf32_tiles(_pad2(w, -(-w.shape[0] // 16) * 16, h1))
+        return pack_tf32_tiles(_pad2(w, 8 if w.shape[0] <= 8 else -(-w.shape[0] // 16) * 16, h1))
     return pack_mma_b(_pad2(w, K1, h1))
 
 
@@ -316,15 +317,15 @@ _ARGTYPES = (
     [ctypes.c_int]
     + [ctypes.c_void_p] * 5
     + [ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-    + [ctypes.c_void_p] * 6
+    + [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 4
     + [ctypes.c_float] * 8
     + [ctypes.c_uint64, ctypes.c_void_p]
 )
 
 
-def _em_launch(net: dict, cdiffe: bool, f32_mode: bool, x0, y_dev, noise, stamps, waits, ydim, num_steps, T, beta_min,
-               beta_max, lmbd, noise_scale, seed) -> Tensor:
+def _em_launch(net: dict, cdiffe: bool, f32_mode: bool, x0, y_dev, noise, stamps, ydim, num_steps, T, beta_min, beta_max,
+               lmbd, noise_scale, seed) -> Tensor:
     """Launch B1 or B4, in the f32 or the bf16 mode, on the device net
     ``net`` laid out for that mode (B4 with its observation ``y_dev``);
     returns the samples."""
@@ -343,7 +344,7 @@ def _em_launch(net: dict, cdiffe: bool, f32_mode: bool, x0, y_dev, noise, stamps
         err = fn(
             int(cdiffe), x0.data_ptr(), ptr(y_dev), net["c1"].data_ptr(), net["w1t"].data_ptr(),
             net["w1"].data_ptr(), wh, bh, widths, n_hidden,
-            net["wout"].data_ptr(), net["bout"].data_ptr(), ptr(noise), out.data_ptr(), ptr(stamps), ptr(waits),
+            net["wout"].data_ptr(), net["bout"].data_ptr(), ptr(noise), out.data_ptr(), ptr(stamps),
             n, xdim, ydim, num_steps,
             T, beta_min, beta_max - beta_min, 1.0 - 0.5 * lmbd, (1.0 - lmbd) ** 0.5,
             delta, delta**0.5, noise_scale, seed & (2**64 - 1),
@@ -353,15 +354,20 @@ def _em_launch(net: dict, cdiffe: bool, f32_mode: bool, x0, y_dev, noise, stamps
     return out
 
 
-def _check_stamps(stamps: Optional[Tensor], waits: Optional[Tensor], n_phases: int, num_steps: int, dev,
-                  compute_dtype) -> None:
-    for name, t, need in (("stamps", stamps, 2 * (1 + n_phases * num_steps)),
-                          ("ring_waits", waits, n_phases * num_steps)):
-        if t is not None and (t.dtype != torch.int64 or t.device != dev or t.numel() < need
-                              or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous int64 tensor of >= {need} entries on {dev}")
-    if waits is not None and compute_dtype != torch.float32:
-        raise ValueError("ring_waits are counted only by the f32-weight kernel (compute_dtype=torch.float32)")
+def stamp_entries(n_phases: int, num_steps: int, compute_dtype=torch.bfloat16) -> int:
+    """The int64 entries a ``stamps`` tensor needs: a (clock, cycles) pair
+    before the first step and at the end of each of the ``n_phases`` phases
+    of each step; with f32 weights then the ring's waits, one count for
+    each of the four warpgroups in each phase of each step."""
+    pairs = 2 * (1 + n_phases * num_steps)
+    return pairs + 4 * n_phases * num_steps if compute_dtype == torch.float32 else pairs
+
+
+def _check_stamps(stamps: Optional[Tensor], n_phases: int, num_steps: int, dev, compute_dtype) -> None:
+    need = stamp_entries(n_phases, num_steps, compute_dtype)
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != dev or stamps.numel() < need
+                               or not stamps.is_contiguous()):
+        raise ValueError(f"stamps must be a contiguous int64 tensor of >= {need} entries on {dev}")
 
 
 def _count(fn, compute_dtype) -> None:
@@ -369,16 +375,15 @@ def _count(fn, compute_dtype) -> None:
     fn.launches_by_dtype[COMPUTE_DTYPES[compute_dtype]] += 1
 
 
-def _launch(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps, waits,
-            compute_dtype):
+def _launch(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps, compute_dtype):
     n, xdim = x0.shape
     dev = x0.device
     f32_mode = compute_dtype == torch.float32
     _check_launch(params, x0, noise, num_steps, xdim)
-    _check_stamps(stamps, waits, len(phase_names(len(params) - 2)), num_steps, dev, compute_dtype)
+    _check_stamps(stamps, len(phase_names(len(params) - 2)), num_steps, dev, compute_dtype)
     net = _device_net(params, xdim, y, f32_mode)
-    out = _em_launch(net, False, f32_mode, x0, None, noise, stamps, waits, net["ydim"], num_steps, T, beta_min,
-                     beta_max, lmbd, noise_scale, seed)
+    out = _em_launch(net, False, f32_mode, x0, None, noise, stamps, net["ydim"], num_steps, T, beta_min, beta_max,
+                     lmbd, noise_scale, seed)
     _count(fused_em_sampler, compute_dtype)
     return out
 
@@ -397,7 +402,6 @@ def fused_em_sampler(
     noise_scale: float = 1.0,
     noise: Optional[Tensor] = None,
     stamps: Optional[Tensor] = None,
-    ring_waits: Optional[Tensor] = None,
 ) -> Tensor:
     """Run the fused E-M sampler from x0 (N, xdim) for the single condition
     y (ydim,) or None.  Returns (N, xdim) float32.
@@ -411,19 +415,19 @@ def fused_em_sampler(
     :func:`em_sampler_reference`, drawing noise from a generator seeded
     with ``seed``.
 
-    ``stamps``, taken only by the kernel, is an int64 tensor of >= 2 x (1 +
-    P x num_steps) entries, P = len(phase_names(n_hidden)): it receives
-    block 0's clock (ns) and its SM's cycle count, a pair, once before the
-    first step and then at the end of each phase of each step.
-    ``ring_waits``, taken only by the f32-weight kernel, is an int64 tensor
-    of >= P x num_steps entries: the cycles block 0's first thread waited
-    for weight tiles in each phase of each step, in the stamps' order.  The
-    samples do not change.
+    ``stamps``, taken only by the kernel, is a contiguous int64 tensor of
+    >= ``stamp_entries(P, num_steps, compute_dtype)`` entries, P =
+    len(phase_names(n_hidden)): it receives block 0's clock (ns) and its
+    SM's cycle count, a pair, once before the first step and then at the
+    end of each phase of each step; with f32 weights these 2 (1 + P x
+    num_steps) entries are followed by P x num_steps x 4 more,
+    [step][phase][warpgroup]: the cycles each of block 0's four warpgroups
+    waited for weight tiles in that phase.  The samples do not change.
     """
     check_compute_dtype(compute_dtype)
     if x0.device.type == "cpu":
-        if stamps is not None or ring_waits is not None:
-            raise ValueError("stamps and ring_waits are taken only by the CUDA kernel")
+        if stamps is not None:
+            raise ValueError("stamps are taken only by the CUDA kernel")
         gen = torch.Generator().manual_seed(seed) if noise is None else None
         return em_sampler_reference(
             params, x0, y, num_steps, T, beta_min, beta_max, lmbd,
@@ -432,7 +436,7 @@ def fused_em_sampler(
     if x0.device.type != "cuda":
         raise ValueError(f"no kernel for device {x0.device}")
     return _launch(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps,
-                   ring_waits, compute_dtype)
+                   compute_dtype)
 
 
 fused_em_sampler.launches = 0
@@ -501,7 +505,7 @@ def _cdiffe_device_net(params, xdim: int, f32_mode: bool = False):
     return _add_hidden_and_out(net, params, h1, xdim, f32_mode)
 
 
-def _launch_cdiffe(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps, waits,
+def _launch_cdiffe(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps,
                    compute_dtype):
     n, xdim = x0.shape
     dev = x0.device
@@ -512,13 +516,13 @@ def _launch_cdiffe(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_
     if params[-1][0].shape[1] != width:
         raise ValueError(f"a CDiffE net ends in xdim + ydim = {width} outputs, not {params[-1][0].shape[1]}")
     _check_launch(params, x0, noise, num_steps, width)
-    _check_stamps(stamps, waits, len(phase_names(len(params) - 2, cdiffe=True)), num_steps, dev, compute_dtype)
+    _check_stamps(stamps, len(phase_names(len(params) - 2, cdiffe=True)), num_steps, dev, compute_dtype)
     _check_y(y, ydim)
     f32_mode = compute_dtype == torch.float32
     net = _cdiffe_device_net(params, xdim, f32_mode)
     y_dev = y.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
-    out = _em_launch(net, True, f32_mode, x0, y_dev, noise, stamps, waits, ydim, num_steps, T, beta_min, beta_max,
-                     lmbd, noise_scale, seed)
+    out = _em_launch(net, True, f32_mode, x0, y_dev, noise, stamps, ydim, num_steps, T, beta_min, beta_max, lmbd,
+                     noise_scale, seed)
     _count(fused_em_sampler_cdiffe, compute_dtype)
     return out
 
@@ -537,7 +541,6 @@ def fused_em_sampler_cdiffe(
     noise_scale: float = 1.0,
     noise: Optional[Tensor] = None,
     stamps: Optional[Tensor] = None,
-    ring_waits: Optional[Tensor] = None,
 ) -> Tensor:
     """Run the CDiffE sampler from x0 (N, xdim) for the observed y (ydim,)
     on the joint net ([x, y, t] -> xdim + ydim).  Returns (N, xdim) float32.
@@ -546,13 +549,13 @@ def fused_em_sampler_cdiffe(
     launches that mode's B4, with Philox noise keyed by ``seed``, or
     ``noise`` (num_steps, N, xdim + ydim) when given.  On a CPU tensor it
     runs :func:`em_cdiffe_reference`, drawing noise from a generator seeded
-    with ``seed``.  ``stamps`` and ``ring_waits`` as :func:`fused_em_sampler`,
-    over ``phase_names(n_hidden, cdiffe=True)``.
+    with ``seed``.  ``stamps`` as :func:`fused_em_sampler`, over
+    ``phase_names(n_hidden, cdiffe=True)``.
     """
     check_compute_dtype(compute_dtype)
     if x0.device.type == "cpu":
-        if stamps is not None or ring_waits is not None:
-            raise ValueError("stamps and ring_waits are taken only by the CUDA kernel")
+        if stamps is not None:
+            raise ValueError("stamps are taken only by the CUDA kernel")
         gen = torch.Generator().manual_seed(seed) if noise is None else None
         return em_cdiffe_reference(
             params, x0, y, num_steps, T, beta_min, beta_max, lmbd,
@@ -561,7 +564,7 @@ def fused_em_sampler_cdiffe(
     if x0.device.type != "cuda":
         raise ValueError(f"no kernel for device {x0.device}")
     return _launch_cdiffe(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps,
-                          ring_waits, compute_dtype)
+                          compute_dtype)
 
 
 fused_em_sampler_cdiffe.launches = 0

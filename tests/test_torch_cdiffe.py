@@ -241,22 +241,23 @@ def test_plain_f32_matches_pallas_kernel_interpret_at_served_width():
 def _unpack_tf32_tiles(p):
     """The inverse of pack_tf32_tiles, from its documented element map:
     hi + lo, the (K, N) weight."""
-    kps, _, _, cols, _ = p.shape
-    planes = torch.zeros(2, 16 * kps, 4 * cols)
-    kp, h, s, n, q, e = torch.meshgrid(*[torch.arange(m) for m in (kps, 4, 2, cols, 4, 4)], indexing="ij")
+    kps, _, S, cols, _ = p.shape
+    planes = torch.zeros(2, 8 * S * kps, 4 * cols)
+    kp, h, s, n, q, e = torch.meshgrid(*[torch.arange(m) for m in (kps, 4, S, cols, 4, 4)], indexing="ij")
     lp = q ^ ((n // 2) % 4)
-    planes[lp // 2, 16 * kp + 8 * s + 2 * e + lp % 2, h * cols + n] = p.reshape(kps, 4, 2, cols, 4, 4)
+    planes[lp // 2, 8 * (S * kp + s) + 2 * e + lp % 2, h * cols + n] = p.reshape(kps, 4, S, cols, 4, 4)
     return planes[0] + planes[1]
 
 
 def test_f32_device_net_layout_computes_the_same_sampler():
     """B4's f32 layout of a joint 8 -> 40 -> 200 -> 7 net ([x, y] 7 wide,
-    padded to two k-steps, 16; widths padded to 128 and 256; weights split
+    padded to one k-step, 8; widths padded to 128 and 256; weights split
     into TF32 hi and lo as ring tiles), unpacked, runs the f32 plain
-    version to the original net's trajectory."""
+    version to the original net's trajectory; a 20-wide [x, y] pads to
+    two tiles of two k-steps, 32."""
     _, tp = _net(hidden=(40, 200), xdim=3, ydim=4, seed=6)
     dn = em_kernel._cdiffe_device_net(tp, 3, f32_mode=True)
-    assert dn["widths"] == [128, 256] and dn["w1"].shape == (1, 4, 2, 32, 16) and dn["wout"].shape == (256, 4)
+    assert dn["widths"] == [128, 256] and dn["w1"].shape == (1, 4, 1, 32, 16) and dn["wout"].shape == (256, 4)
     w1 = _unpack_tf32_tiles(dn["w1"])
     assert not w1[7:].any() and not dn["wout"][:, 3:].any()
     w_out = torch.zeros(256, 7)
@@ -271,6 +272,11 @@ def test_f32_device_net_layout_computes_the_same_sampler():
     a = em_cdiffe_reference(tp, x0, y, 8, compute_dtype=torch.float32, noise=noise)
     b = em_cdiffe_reference(padded, x0, y, 8, compute_dtype=torch.float32, noise=noise)
     torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    _, wide = _net(hidden=(40, 200), xdim=3, ydim=17, seed=6)
+    w1 = em_kernel._cdiffe_device_net(wide, 3, f32_mode=True)["w1"]
+    assert w1.shape == (2, 4, 2, 32, 16)
+    torch.testing.assert_close(_unpack_tf32_tiles(w1)[:20, :40], wide[0][0][:20], rtol=0, atol=0)
+    assert not _unpack_tf32_tiles(w1)[20:].any()
 
 
 def test_cdiffe_sample_f32_kernel_method_on_cpu_is_the_f32_plain_version():

@@ -18,8 +18,9 @@ from dmip_tpu_torch.models.refined import from_config
 from dmip_tpu_torch.nets import mlp_init, score_mlp_apply
 from dmip_tpu_torch.ops.dsm_train_kernel import dsm_train_epochs_reference, fused_dsm_train_epochs
 from dmip_tpu_torch.ops.dps_kernel import fused_guided_em_sampler, guided_em_reference
+from dmip_tpu_torch.ops import build
 from dmip_tpu_torch.ops.em_kernel import (em_cdiffe_reference, em_sampler_reference, fused_em_sampler,
-                                          fused_em_sampler_cdiffe)
+                                          fused_em_sampler_cdiffe, stamp_entries)
 from dmip_tpu_torch.ops.em_kernel import CDIFFE_PHASES as EM_CDIFFE_PHASES
 from dmip_tpu_torch.ops.em_kernel import PHASES as EM_PHASES
 from dmip_tpu_torch.ops.mh_kernel import PHASES as MH_PHASES
@@ -156,14 +157,52 @@ def test_em_kernels_refuse_widths_past_512(cuda):
         fused_em_sampler(tp, x0, torch.zeros(2, device=cuda), 5)
 
 
+@pytest.mark.parametrize("cdiffe", [False, True])
+@pytest.mark.parametrize("width", [128, 512])
+def test_em_f32_ring_under_skew(cuda, monkeypatch, width, cdiffe):
+    """The f32 template's weight ring does not depend on its warpgroups
+    keeping pace: built with EMF_SKEW_NS, one warpgroup at a time stalls
+    2 us before each refill it issues while the others run ahead.  At 128
+    (a warpgroup's tile a few hundred ns of products) and 512 wide, B1 and
+    B4 give the samples of the plain build bit for bit, within the f32
+    tolerances of the plain version, and wait for tiles longer than it."""
+    base = fused_em_sampler_cdiffe if cdiffe else fused_em_sampler
+    fn = lambda *a, **kw: base(*a, compute_dtype=torch.float32, **kw)
+    xdim, ydim, n, steps = 3, 23, 1000, 20
+    out_dim = xdim + ydim if cdiffe else xdim
+    tp = mlp_init(xdim + ydim + 1, out_dim, (width,) * 3, generator=torch.Generator().manual_seed(5), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x0 = torch.randn(n, xdim, generator=gen, device=cuda)
+    y = 0.3 * torch.randn(ydim, generator=gen, device=cuda)
+    noise = torch.randn(steps, n, out_dim, generator=gen, device=cuda)
+    names = EM_CDIFFE_PHASES if cdiffe else EM_PHASES
+    pairs = 2 * (1 + len(names) * steps)
+    runs = {}
+    for skew in (False, True):
+        if skew:
+            load = build.load
+            monkeypatch.setattr(build, "load", lambda name: load(name, defines=("EMF_SKEW_NS=2000",)))
+        stamps = torch.zeros(stamp_entries(len(names), steps, torch.float32), dtype=torch.int64, device=cuda)
+        runs[skew] = fn(tp, x0, y, steps, noise=noise, stamps=stamps), int(stamps[pairs:].sum())
+    torch.cuda.synchronize()
+    (plain, plain_wait), (skewed, skewed_wait) = runs[False], runs[True]
+    assert torch.equal(plain, skewed)
+    assert skewed_wait > plain_wait
+    ref = (em_cdiffe_reference if cdiffe else em_sampler_reference)(tp, x0, y, steps, noise=noise,
+                                                                     compute_dtype=torch.float32)
+    err = (skewed - ref).abs().amax(dim=1) / (1 + ref.abs().amax(dim=1))
+    mean_tol, p999_tol = EM_TOLS[torch.float32]
+    assert float(err.mean()) < mean_tol and float(torch.quantile(err, 0.999)) < p999_tol
+
+
 @pytest.mark.parametrize("compute_dtype", list(EM_TOLS), ids=["bf16", "f32"])
 @pytest.mark.parametrize("cdiffe", [False, True])
 def test_em_kernel_stamps(cuda, cdiffe, compute_dtype):
     """B1 and B4 in both modes with stamps: block 0's clock readings rise
     through the launch, every phase of every step, and the samples are bit
-    for bit those of the run without stamps.  In f32 the stamped run also
-    counts the ring's waits, each phase's within its cycles and none in the
-    phases that take no weight tile; bf16 refuses ring_waits.  A stamps
+    for bit those of the run without stamps.  In f32 the stamps then hold
+    the ring's waits, each warpgroup's in each phase within the phase's
+    cycles and none in the phases that take no weight tile.  A stamps
     tensor too short raises."""
     base = fused_em_sampler_cdiffe if cdiffe else fused_em_sampler
     fn = lambda *a, **kw: base(*a, compute_dtype=compute_dtype, **kw)
@@ -173,27 +212,23 @@ def test_em_kernel_stamps(cuda, cdiffe, compute_dtype):
     x0 = torch.randn(700, 3, generator=gen, device=cuda)
     y = 0.3 * torch.randn(23, generator=gen, device=cuda)
     steps, names = 12, EM_CDIFFE_PHASES if cdiffe else EM_PHASES
-    stamps = torch.zeros(2 * (1 + len(names) * steps), dtype=torch.int64, device=cuda)
-    waits = torch.full((len(names) * steps,), -1, dtype=torch.int64, device=cuda)
-    f32 = compute_dtype == torch.float32
+    pairs = 2 * (1 + len(names) * steps)
+    stamps = torch.full((stamp_entries(len(names), steps, compute_dtype),), -1, dtype=torch.int64, device=cuda)
     plain = fn(tp, x0, y, steps, seed=11)
-    stamped = fn(tp, x0, y, steps, seed=11, stamps=stamps, **({"ring_waits": waits} if f32 else {}))
+    stamped = fn(tp, x0, y, steps, seed=11, stamps=stamps)
     torch.cuda.synchronize()
     assert torch.equal(plain, stamped)
-    for clock in (stamps[0::2], stamps[1::2]):
+    for clock in (stamps[0:pairs:2], stamps[1:pairs:2]):
         assert bool((clock > 0).all()) and bool((clock[1:] >= clock[:-1]).all())
         ends = clock[1:].reshape(steps, len(names))[:, -1]
         assert bool((ends > torch.cat([clock[:1], ends[:-1]])).all())
-    if f32:
-        cyc = stamps[1::2]
-        spans = (cyc[1:] - cyc[:-1]).reshape(steps, len(names))
-        w = waits.reshape(steps, len(names))
+    if compute_dtype == torch.float32:
+        cyc = stamps[1:pairs:2]
+        spans = (cyc[1:] - cyc[:-1]).reshape(steps, len(names), 1)
+        w = stamps[pairs:].reshape(steps, len(names), 4)
         assert bool((w >= 0).all()) and bool((w <= spans).all())
         idle = [i for i, n in enumerate(names) if n in ("noise", "output", "update")]
         assert not w[:, idle].any()
-    else:
-        with pytest.raises(ValueError, match="ring_waits"):
-            fn(tp, x0, y, steps, seed=11, ring_waits=waits)
     with pytest.raises(ValueError, match="stamps"):
         fn(tp, x0, y, steps, seed=11, stamps=stamps[:-1])
 

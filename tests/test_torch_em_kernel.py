@@ -3,6 +3,8 @@ Pallas kernel (interpret mode) and the JAX XLA sampler, and the kernel's
 weight layout.  The CUDA kernel itself is held against the plain version in
 tests/test_torch_cuda.py."""
 
+import random
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -85,10 +87,13 @@ def test_cpu_wrapper_runs_plain_version_seeded():
     ref = em_sampler_reference(tp, x0, y, 10, generator=torch.Generator().manual_seed(5))
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     assert fused_em_sampler.launches == before
-    with pytest.raises(ValueError, match="stamps"):
-        fused_em_sampler(tp, x0, y, 10, stamps=torch.zeros(2 * (1 + 4 * 10), dtype=torch.int64))
-    with pytest.raises(ValueError, match="ring_waits"):
-        fused_em_sampler(tp, x0, y, 10, compute_dtype=torch.float32, ring_waits=torch.zeros(40, dtype=torch.int64))
+    for dtype in (torch.bfloat16, torch.float32):
+        stamps = torch.zeros(em_kernel.stamp_entries(4, 10, dtype), dtype=torch.int64)
+        with pytest.raises(ValueError, match="stamps"):
+            fused_em_sampler(tp, x0, y, 10, stamps=stamps, compute_dtype=dtype)
+    # the f32 kernel's stamps carry the ring's waits after the pairs: four a phase
+    assert em_kernel.stamp_entries(4, 10) == 2 * (1 + 4 * 10)
+    assert em_kernel.stamp_entries(4, 10, torch.float32) == 2 * (1 + 4 * 10) + 4 * 4 * 10
 
 
 @pytest.mark.parametrize("noise_scale", [0.0, 1.0])
@@ -238,11 +243,11 @@ def test_pack_tf32_b_unpacks_to_the_zero_padded_weight(k, n):
 def _unpack_tf32_tiles(p):
     """The inverse of pack_tf32_tiles, from its documented element map:
     the (hi, lo) planes, each (K, N)."""
-    kps, _, _, cols, _ = p.shape
-    planes = torch.zeros(2, 16 * kps, 4 * cols)
-    kp, h, s, n, q, e = torch.meshgrid(*[torch.arange(m) for m in (kps, 4, 2, cols, 4, 4)], indexing="ij")
+    kps, _, S, cols, _ = p.shape
+    planes = torch.zeros(2, 8 * S * kps, 4 * cols)
+    kp, h, s, n, q, e = torch.meshgrid(*[torch.arange(m) for m in (kps, 4, S, cols, 4, 4)], indexing="ij")
     lp = q ^ ((n // 2) % 4)
-    planes[lp // 2, 16 * kp + 8 * s + 2 * e + lp % 2, h * cols + n] = p.reshape(kps, 4, 2, cols, 4, 4)
+    planes[lp // 2, 8 * (S * kp + s) + 2 * e + lp % 2, h * cols + n] = p.reshape(kps, 4, S, cols, 4, 4)
     return planes[0], planes[1]
 
 
@@ -250,16 +255,18 @@ def _unpack_tf32_tiles(p):
                                  (26, 512), (32, 384)])
 def test_pack_tf32_tiles_splits_and_unpacks_to_the_zero_padded_weight(k, n):
     """The f32 kernel's ring tiles: a weight zero-padded as the wrapper pads
-    it (widths to multiples of 128; the first layer's K, 3 ([x]) or 26 ([x,
-    y] of the scatterometry CDiffE), to one of 16: layer-0 K of 16 and 32),
-    packed, and unpacked from the documented swizzled element map: the hi
-    plane is tf32_rna of the weight bit for bit, hi + lo is the weight
-    exactly, and lo is what hi leaves, below TF32's half unit."""
+    it (widths to multiples of 128; the first layer's K, 3 ([x]) to one
+    k-step, 8, 16, or 26 ([x, y] of the scatterometry CDiffE) to 32: tiles
+    of one k-step at K = 8, of two past it), packed, and unpacked from the
+    documented swizzled element map: the hi plane is tf32_rna of the weight
+    bit for bit, hi + lo is the weight exactly, and lo is what hi leaves,
+    below TF32's half unit."""
     w = torch.randn(k, n, generator=torch.Generator().manual_seed(k + n)) * 3
-    rows = -(-k // 16) * 16 if k < 32 else em_kernel._ceil128(k)
+    rows = 8 if k <= 8 else -(-k // 16) * 16 if k < 32 else em_kernel._ceil128(k)
     padded = em_kernel._pad2(w, rows, em_kernel._ceil128(n))
     p = em_kernel.pack_tf32_tiles(padded)
-    assert p.dtype == torch.float32 and p.shape == (padded.shape[0] // 16, 4, 2, padded.shape[1] // 4, 16)
+    S = 1 if rows == 8 else 2
+    assert p.dtype == torch.float32 and p.shape == (rows // (8 * S), 4, S, padded.shape[1] // 4, 16)
     hi, lo = _unpack_tf32_tiles(p)
     assert torch.equal(hi.view(torch.int32), tf32_rna(padded).view(torch.int32))
     assert not bool((hi.view(torch.int32) & 0x1FFF).any())
@@ -269,26 +276,31 @@ def test_pack_tf32_tiles_splits_and_unpacks_to_the_zero_padded_weight(k, n):
 
 def test_pack_tf32_tiles_element_map_and_bad_shapes():
     """Spot entries of the documented map: [kp, h, s, n, 4 q + e] is
-    plane(p // 2)[16 kp + 8 s + 2 e + p % 2, h N/4 + n], p = q ^ ((n // 2) %
-    4); every ring tile, a pair of k-steps' quarter of the columns, is
-    consecutive memory, 16 KB at 512 wide.  A K off the pair of k-steps, N
-    off 128 or a bf16 weight raises."""
-    w = torch.randn(32, 512, generator=torch.Generator().manual_seed(0))
-    p = em_kernel.pack_tf32_tiles(w)
-    hi = tf32_rna(w)
-    planes = (hi, w - hi)
-    for kp, h, s, n, q, e in [(0, 0, 0, 0, 0, 0), (1, 3, 1, 127, 3, 3), (0, 1, 1, 6, 1, 2), (1, 2, 0, 77, 2, 1)]:
-        lp = q ^ ((n // 2) % 4)
-        assert p[kp, h, s, n, 4 * q + e] == planes[lp // 2][16 * kp + 8 * s + 2 * e + lp % 2, 128 * h + n]
-    assert p[1, 2].numel() * 4 == 16384 and p[1, 2].is_contiguous()
-    for bad in (torch.zeros(8, 128), torch.zeros(16, 192), torch.zeros(16, 128, dtype=torch.bfloat16)):
+    plane(p // 2)[8 (S kp + s) + 2 e + p % 2, h N/4 + n], p = q ^ ((n // 2)
+    % 4), with S = 2 k-steps a tile, or 1 at K = 8; every ring tile, a
+    tile's quarter of the columns, is consecutive memory, 16 KB at 512 wide
+    (8 KB at K = 8).  A K neither 8 nor a multiple of 16, N off 128 or a
+    bf16 weight raises."""
+    for K, spots in ((32, [(0, 0, 0, 0, 0, 0), (1, 3, 1, 127, 3, 3), (0, 1, 1, 6, 1, 2), (1, 2, 0, 77, 2, 1)]),
+                     (8, [(0, 0, 0, 0, 0, 0), (0, 3, 0, 127, 3, 3), (0, 1, 0, 6, 1, 2), (0, 2, 0, 77, 2, 1)])):
+        w = torch.randn(K, 512, generator=torch.Generator().manual_seed(K))
+        p = em_kernel.pack_tf32_tiles(w)
+        S = min(2, K // 8)
+        hi = tf32_rna(w)
+        planes = (hi, w - hi)
+        for kp, h, s, n, q, e in spots:
+            lp = q ^ ((n // 2) % 4)
+            assert p[kp, h, s, n, 4 * q + e] == planes[lp // 2][8 * (S * kp + s) + 2 * e + lp % 2, 128 * h + n]
+        assert p[-1, 2].numel() * 4 == 8192 * S and p[-1, 2].is_contiguous()
+    for bad in (torch.zeros(24, 128), torch.zeros(4, 128), torch.zeros(16, 192),
+                torch.zeros(16, 128, dtype=torch.bfloat16)):
         with pytest.raises(ValueError):
             em_kernel.pack_tf32_tiles(bad)
 
 
 def test_f32_device_net_layout_computes_the_same_sampler():
     """The f32 kernel's padded net (widths 40 -> 128 and 200 -> 256; W1x's
-    3 rows padded to two k-steps, 16, with the condition folded into c1, and
+    3 rows padded to one k-step, 8, with the condition folded into c1, and
     the hidden weight, split into TF32 hi and lo as ring tiles; the
     output's x block (hl, 4)), unpacked (hi + lo), runs the f32 plain
     version to the original net's trajectory."""
@@ -296,7 +308,7 @@ def test_f32_device_net_layout_computes_the_same_sampler():
     y = torch.randn(5, generator=torch.Generator().manual_seed(2))
     dn = em_kernel._device_net(tp, 3, y, f32_mode=True)
     assert dn["widths"] == [128, 256] and dn["ydim"] == 5
-    assert dn["w1"].shape == (1, 4, 2, 32, 16) and dn["wh"][0].shape == (8, 4, 2, 64, 16)
+    assert dn["w1"].shape == (1, 4, 1, 32, 16) and dn["wh"][0].shape == (8, 4, 2, 64, 16)
     assert dn["wout"].shape == (256, 4)
     assert all(t.dtype == torch.float32 for t in (dn["w1"], dn["wh"][0], dn["wout"]))
     w1x = sum(_unpack_tf32_tiles(dn["w1"]))
@@ -350,3 +362,63 @@ def test_wrappers_take_bf16_or_f32_only(bad):
             fn(net, x0, y, 3, compute_dtype=bad)
         for ok in (torch.bfloat16, torch.float32):
             assert bool(torch.isfinite(fn(net, x0, y, 3, compute_dtype=ok)).all())
+
+
+def _ring_schedule(per_warpgroup: bool, seed: int, tiles: int = 400, wgs: int = 4, stages: int = 5) -> str:
+    """A model of the f32 kernel's weight ring (csrc/em_kernel.cu, RingF)
+    under one random interleaving: tile g sits in slot g % stages and is
+    taken by warpgroup g % wgs, which then loads tile g + stages into that
+    slot; a copy lands some time after it is issued and completes a phase
+    of its mbarrier, which try_wait.parity passes once the phase of the
+    parity asked for is done (the barrier's count of completed phases has
+    the other parity).  With ``per_warpgroup``, the kernel's scheme: tile g
+    on barrier (g % wgs, g % stages), parity (g // (wgs stages)) % 2;
+    else one barrier a slot, parity (g // stages) % 2.  Warpgroups run at
+    random speeds.  Returns "ok", "deadlock" or what went wrong."""
+    rng = random.Random(seed)
+    if per_warpgroup:
+        bar, parity = (lambda g: (g % wgs) * stages + g % stages), (lambda g: (g // (wgs * stages)) % 2)
+    else:
+        bar, parity = (lambda g: g % stages), (lambda g: (g // stages) % 2)
+    done = [0] * (wgs * stages)  # each barrier's completed phases
+    slot, in_flight, nxt = [None] * stages, [], list(range(wgs))
+    speed = [rng.choice((1, 1, 3, 10)) for _ in range(wgs)]
+
+    def issue(g):
+        if g < tiles:
+            if any(bar(f) == bar(g) for f in in_flight):
+                raise AssertionError(f"two copies in flight on the barrier of tile {g}")
+            slot[g % stages] = "in flight"
+            in_flight.append(g)
+
+    for g in range(stages):
+        issue(g)
+    while any(n < tiles for n in nxt):
+        ready = [h for h in range(wgs) if nxt[h] < tiles and done[bar(nxt[h])] % 2 != parity(nxt[h])]
+        acts = [("take", h) for h in ready for _ in range(speed[h])] + [("land", i) for i in range(len(in_flight))]
+        if not acts:
+            return "deadlock"
+        kind, i = rng.choice(acts)
+        if kind == "land":
+            g = in_flight.pop(i)
+            slot[g % stages] = g
+            done[bar(g)] += 1
+            continue
+        g = nxt[i]
+        if slot[g % stages] != g:
+            return f"warpgroup {i} took tile {g} from a slot holding {slot[g % stages]}"
+        nxt[i] += wgs
+        issue(g + stages)
+    return "ok"
+
+
+def test_f32_ring_schedule_never_hands_a_stale_tile():
+    """The f32 kernel's ring protocol, modelled: under 60 random
+    interleavings, with warpgroups up to 10x apart in speed, every
+    warpgroup takes each of its tiles only once that tile has landed, no
+    barrier has two copies in flight, and nothing deadlocks.  The control:
+    one barrier a slot, waited for by parity, hands a warpgroup that runs
+    ahead the slot's earlier tile (or one still in flight) in the same
+    interleavings."""
+    assert [_ring_schedule(True, s) for s in range(60)] == ["ok"] * 60
+    assert all(_ring_schedule(False, s).startswith("warpgroup") for s in range(60))
