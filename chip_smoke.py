@@ -363,6 +363,20 @@ DIST_LEAF_REL_TOL = 1e-4
 # GT's own floor, its first half against its second (the same sizes).
 DIST_GT_KL_FACTOR = 1.5
 DIST_TIMING_REPS = 3
+# The captured train step (train.StepGraph; train_captured): config_linear.yml
+# as shipped (PINNLoss, 512^3, batch 1000, 90 steps an epoch, 25 epochs a
+# call), cut to two engine calls and LIN_CONDITIONS conditions of its
+# evaluation.  Captured against eager from the same params and seed: bit for
+# bit, or, where cuBLAS picks other algorithms under capture, the two-rank
+# limits above.  The re-timed phases compare GRAPH_COMPARE_STEPS steps a
+# side (the linear PINN one whole epoch); the traces hold
+# GRAPH_PROFILE_STEPS steps.
+CAPTURED_EPOCHS = 50
+GRAPH_LOSS_REL_TOL, GRAPH_LEAF_REL_TOL = DIST_LOSS_REL_TOL, DIST_LEAF_REL_TOL
+GRAPH_COMPARE_STEPS = 10
+GRAPH_PROFILE_STEPS = 10
+# the CUDA runtime's calls that make the host wait for the card
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy")
 
 
 class CheckFailed(Exception):
@@ -1371,6 +1385,176 @@ def train(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
     return {"linear": n_lin["dsm_train"], "scat": n_scat["dsm_train"]}
 
 
+def first_batches(batch_fn, n: int):
+    """``batch_fn`` cut to the first n batches of its epoch."""
+    def cut(g):
+        xb, yb = batch_fn(g)
+        return xb[:n], yb[:n]
+    return cut
+
+
+def graph_parity(torch, eager, graph, p0) -> dict:
+    """A captured call's (params, state, losses) against the eager call's
+    from the same start: bit for bit, else the losses' largest relative
+    error and the leaves' against their update (``_leaf_rel``)."""
+    from dmip_tpu_torch import pytree
+
+    (pe, se, le), (pg, sg, lg) = eager, graph
+    same = torch.equal(le, lg) and all(torch.equal(a, b) for a, b in zip(pytree.leaves((pe, se)),
+                                                                         pytree.leaves((pg, sg))))
+    return {"bit_for_bit": same, "loss_rel_err": float(((lg - le).abs() / le.abs()).max()),
+            "leaf_rel_err_max": _leaf_rel(pg, pe, p0)}
+
+
+def check_parity(res: dict, what: str) -> None:
+    check(res["bit_for_bit"] or (res["loss_rel_err"] <= GRAPH_LOSS_REL_TOL
+                                 and res["leaf_rel_err_max"] <= GRAPH_LEAF_REL_TOL),
+          f"{what}: the captured step against the eager one: {res}")
+
+
+def engine_ms(torch, make, p0, s0, n_steps: int, what: str) -> dict:
+    """ms a step of one call of n_steps steps through ``make(capture)``'s
+    run(params, state) -> (params, state, losses), eager and captured, each
+    timed on its second call from p0 and s0 (the first, which captures,
+    timed apart); the first calls' parity, checked."""
+    out, res = {}, {}
+    for capture, name in ((False, "eager"), (True, "captured")):
+        run = make(capture)
+        torch.cuda.synchronize()
+        t = time.time()
+        res[capture] = run(p0, s0)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        run(p0, s0)
+        torch.cuda.synchronize()
+        out.update({f"{name}_ms": 1e3 * (time.time() - t1) / n_steps, f"first_{name}_call_s": t1 - t})
+    out["speedup"] = out["eager_ms"] / out["captured_ms"]
+    out["parity"] = graph_parity(torch, res[False], res[True], p0)
+    check_parity(out["parity"], what)
+    return out
+
+
+def host_trace(torch, run, n_steps: int) -> dict:
+    """``run()`` (n_steps steps) traced inside one span: the CUDA runtime
+    calls the host made in the span, a step (launches, graph launches,
+    syncs), the card's busy share of the trace and its top operations."""
+    from collections import Counter
+
+    from dmip_tpu_torch.utils import profiling
+
+    with profiling.trace() as prof:
+        with torch.profiler.record_function("train_steps"):
+            run()
+    events = prof.events()
+    span = next(e for e in events if e.name == "train_steps").time_range
+    calls = Counter(e.name for e in events if e.name.startswith("cuda")
+                    and span.start <= e.time_range.start <= span.end)
+    return {"syncs_per_step": sum(calls[n] for n in SYNC_CALLS) / n_steps,
+            "runtime_calls_per_step": {k: v / n_steps for k, v in calls.most_common()},
+            "card": profiling.busy_share(prof), "top_ops": profiling.top_ops(prof, "device", 8)}
+
+
+def replay_trace(torch, graph) -> dict:
+    """One replay of a captured step alone: its nodes (the card's kernels
+    and copies in the trace), the card's busy time, the ops that hold it,
+    and the replay's ms by CUDA events (20 replays)."""
+    from dmip_tpu_torch.utils import profiling
+
+    sec, _ = profiling.timeit(graph.replay, reps=20)
+    out = {"replay_ms": 1e3 * sec}
+    with profiling.trace() as prof:
+        graph.replay()
+    try:
+        card = profiling.busy_share(prof)
+    except RuntimeError as e:  # the profiler saw no device activity: the CUDA events stand alone
+        return dict(out, nodes="not traced", note=str(e))
+    return dict(out, nodes=card["kernels"], busy_us=card["busy_us"], top_ops=profiling.top_ops(prof, "device", 8))
+
+
+def train_captured(torch, lin_cfg, gt_dir) -> int:
+    """The captured train step on ``config_linear.yml`` at full width: the
+    driver for CAPTURED_EPOCHS epochs (two engine calls), its evaluation
+    through B1 on LIN_CONDITIONS conditions, launches counted from zero
+    around the run; epochs/s of the second call from the log.  Then one
+    epoch from the driver's init and seeds, eager against captured (ms a
+    step, parity); a trace of GRAPH_PROFILE_STEPS replayed steps and of as
+    many eager ones (syncs and runtime calls a step) and of one replay
+    alone (nodes, the ops inside).  Returns B1's launches."""
+    from dmip_tpu_torch import data, train
+    from dmip_tpu_torch.mains import main_diffusion_linear as mlin
+    from dmip_tpu_torch.mains.eval_diffusion import linear_split
+    from dmip_tpu_torch.ops import fused_dsm_train_epochs, fused_em_sampler
+    from dmip_tpu_torch.problems import LinearForwardProblem
+
+    shipped = {k: lin_cfg.get(k) for k in ("loss_fn", "hidden_layers", "batch_size", "epochs_per_call",
+                                           "train_backend", "dataset_size", "train_size")}
+    check(shipped == {"loss_fn": "PINNLoss", "hidden_layers": [512] * 3, "batch_size": 1000, "epochs_per_call": 25,
+                      "train_backend": None, "dataset_size": 100000, "train_size": 0.9},
+          f"train_captured: config_linear.yml changed: {shipped}")
+    cfg = dict(lin_cfg, n_epochs=CAPTURED_EPOCHS, n_samples_y=LIN_CONDITIONS, n_samples_x=N_SAMPLES,
+               n_repeats=REPEATS, train_dir=os.path.join(gt_dir, "train_captured"),
+               out_dir=os.path.join(gt_dir, "out_captured"))
+    fused_em_sampler.launches = fused_dsm_train_epochs.launches = 0
+    t0 = time.time()
+    _, m = mlin.run(cfg, device="cuda")
+    torch.cuda.synchronize()
+    n_b1, n_b3 = fused_em_sampler.launches, fused_dsm_train_epochs.launches
+    run_s = time.time() - t0
+    steps, losses, _ = train_log(cfg)
+    rate = epochs_per_s(cfg)
+    check(n_b1 == REPEATS * LIN_CONDITIONS and n_b3 == 0, f"train_captured: B1 {n_b1}, B3 {n_b3} launches")
+    check(_finite([*m, *losses]) and len(losses) == CAPTURED_EPOCHS, f"train_captured: losses {losses}, metrics {m}")
+
+    # one epoch from the driver's init and seeds, eager against captured
+    t1 = time.time()
+    prob = LinearForwardProblem()
+    seed = int(cfg["random_state"])
+    x_train, _, y_train, _ = linear_split(cfg, prob, "cuda")
+    model, loss_cfg = train.get_model_from_args(cfg, {"xdim": prob.xdim, "ydim": prob.ydim})
+    loss_fn = model.make_loss_fn(loss_cfg, initial_condition=prob.score_posterior)
+    opt = train.build_optimizer(float(cfg["lr"]), cfg.get("grad_clip"))
+    batch_fn = lambda g: data.linear_epoch_batches(g, x_train, y_train, prob.noise_std, int(cfg["batch_size"]))
+    p0 = model.init(torch.Generator().manual_seed(seed + 1), device="cuda")
+    n_steps = x_train.shape[0] // int(cfg["batch_size"])
+    engines = {}
+
+    def make(capture):
+        engines[capture] = train.make_epoch_fn(loss_fn, opt, batch_fn, capture=capture)
+        return lambda p, s: engines[capture](p, s, seed + 2, 0)[:3]
+
+    epoch = engine_ms(torch, make, p0, opt.init(p0), n_steps, "train_captured")
+    short = {c: train.make_epoch_fn(loss_fn, opt, first_batches(batch_fn, GRAPH_PROFILE_STEPS), capture=c)
+             for c in (False, True)}
+    for fn in short.values():
+        fn(p0, opt.init(p0), seed + 2, 0)  # the captured engine captures here
+    traces = {("captured" if c else "eager"): host_trace(torch, lambda: fn(p0, opt.init(p0), seed + 2, 1),
+                                                         GRAPH_PROFILE_STEPS) for c, fn in short.items()}
+    replay = replay_trace(torch, short[True].graph.cuda_graph)
+    phase("train_captured", t0, epochs=CAPTURED_EPOCHS, epochs_per_call=cfg["epochs_per_call"],
+          steps_per_epoch=n_steps, run_seconds=run_s, epochs_per_s_second_call=rate,
+          ms_per_step_second_call=1e3 / (rate * n_steps), first_last_loss=[losses[0], losses[-1]],
+          KL=m[0], NLPD=m[1], score_MSE=m[2], b1_launches=n_b1, b3_launches=n_b3,
+          one_epoch=epoch, captures=engines[True].graph.captures, trace=traces, replay=replay,
+          tolerance={"loss": GRAPH_LOSS_REL_TOL, "leaf": GRAPH_LEAF_REL_TOL}, compare_seconds=time.time() - t1)
+    check(traces["captured"]["syncs_per_step"] == 0, f"train_captured: host syncs in a replayed step: {traces}")
+    check(engines[True].graph.captures == 1, "train_captured: the engine captured more than once")
+    return n_b1
+
+
+def compare_engines(torch, loss_fn, opt, batch_fn, p0, seed: int, what: str) -> dict:
+    """engine_ms for make_epoch_fn on the first GRAPH_COMPARE_STEPS batches."""
+    from dmip_tpu_torch import train
+
+    cut = first_batches(batch_fn, GRAPH_COMPARE_STEPS)
+    n_steps = cut(train.epoch_generator(seed, 0, "cuda"))[0].shape[0]
+
+    def make(capture):
+        fn = train.make_epoch_fn(loss_fn, opt, cut, capture=capture)
+        return lambda p, s: fn(p, s, seed, 0)[:3]
+
+    return engine_ms(torch, make, p0, opt.init(p0), n_steps, what)
+
+
 def stage_baselines(train_dir: str) -> None:
     """The committed baselines_{snf,dsm,inn} archives under ``train_dir``
     with the baseline drivers' names."""
@@ -1487,10 +1671,10 @@ def train_baselines(torch, gt_dir) -> None:
     through B1 (scatterometry on serve()'s GT).  Each model's epochs/s from
     the log, first call excluded; every loss finite; the checkpoints reload.
     Then the linear evaluation's ms per repeat."""
-    from dmip_tpu_torch import pytree
+    from dmip_tpu_torch import data, flows, pytree, train
     from dmip_tpu_torch.mains import main_baselines_linear as mbl
     from dmip_tpu_torch.mains import main_baselines_scatterometry as mbs
-    from dmip_tpu_torch.mains.eval_diffusion import linear_test_conditions
+    from dmip_tpu_torch.mains.eval_diffusion import linear_split, linear_test_conditions
     from dmip_tpu_torch.ops import fused_dsm_train_epochs, fused_em_sampler
     from dmip_tpu_torch.problems import LinearForwardProblem
     from dmip_tpu_torch.utils import profiling
@@ -1519,6 +1703,23 @@ def train_baselines(torch, gt_dir) -> None:
         check(all(r["all_finite"] for r in rates.values()) and _finite(m.values()),
               f"train_baselines {problem}: losses {rates}, metrics {m}")
         check(reload_ok, f"train_baselines {problem}: a checkpoint did not reload")
+
+    # the linear driver's three models on its data and init, eager against captured
+    t0 = time.time()
+    cfg = res["linear"][0]
+    prob = LinearForwardProblem()
+    x_train, _, y_train, _ = linear_split(cfg, prob, "cuda")
+    batch_fn = lambda g: data.linear_epoch_batches(g, x_train, y_train, prob.noise_std, int(cfg["batch_size"]))
+    models = mbl.build_models(cfg, lambda x, ys: prob.log_posterior(x, ys)[:, 0], 2, 2)
+    snf, (diffusion, loss_cfg), inn = models
+    seed = int(cfg.get("random_state", 7))
+    inits = mbl.init_params(models, seed + 1, "cuda")
+    losses = (flows.snf_loss_fn(snf), diffusion.make_loss_fn(loss_cfg), flows.inn_loss_fn(inn))
+    lrs = (float(cfg["lr"]), float(cfg["lr"]), float(cfg["lr_INN"]))
+    engines = {name: compare_engines(torch, loss_fn, train.build_optimizer(lr), batch_fn, p0, seed + 2,
+                                     f"train_baselines_engines ({name})")
+               for name, loss_fn, lr, p0 in zip(("SNF", "diffusion", "INN"), losses, lrs, inits)}
+    phase("train_baselines_engines", t0, problem="linear", steps=GRAPH_COMPARE_STEPS, **engines)
 
     # the linear baselines evaluation's ms per repeat (one condition), after a warm-up call
     t0 = time.time()
@@ -1605,7 +1806,7 @@ def train_dps(torch, gt_dir) -> int:
     by the plain scan and the analytic row through B5, launches counted from
     zero around the run; the learned row's ms per 30k-sample posterior;
     then one more call resumed from the checkpoint.  Returns B5's launches."""
-    from dmip_tpu_torch import train
+    from dmip_tpu_torch import data, train
     from dmip_tpu_torch.checkpoints import load_archived_params
     from dmip_tpu_torch.mains import main_diffusion_scatterometry as mscat
     from dmip_tpu_torch.mains.generate_scatterometry_ground_truth import test_conditions
@@ -1640,15 +1841,22 @@ def train_dps(torch, gt_dir) -> int:
                 "score_MSE": cols["MSE"], "W2": cols["W2"]}
 
     # the learned row's time per 30k-sample posterior (plain f32 scan, two nets)
-    model, _ = train.get_model_from_args(cfg, {"xdim": 3, "ydim": 23})
+    model, model_cfg = train.get_model_from_args(cfg, {"xdim": 3, "ydim": 23})
     forward_model, fp = scat.load_forward_model(device="cuda")
     y = test_conditions(cfg, forward_model, fp, "cuda")[0]
     gen = torch.Generator(device="cuda").manual_seed(14)
     with torch.no_grad():
         learned_ms = cuda_ms(lambda: model.sample(params, y, N_SAMPLES, EM_STEPS, generator=gen, device="cuda"),
                              DPS_TIMING_REPS)
+    # one epoch of the driver's loss, data and init, eager against captured
+    loss_fn = model.make_loss_fn(model_cfg, forward_model=forward_model, forward_params=fp)
+    batch_fn = lambda g: data.scatterometry_epoch_batches(g, forward_model, fp["a"], fp["b"], fp["lambd_bd"],
+                                                          int(cfg["batch_size"]))
+    p0 = model.init(torch.Generator().manual_seed(int(cfg["RANDOM_STATE"]) + 2), device="cuda")
+    engine = compare_engines(torch, loss_fn, train.build_optimizer(float(cfg["lr"]), cfg.get("grad_clip")), batch_fn,
+                             p0, int(cfg["RANDOM_STATE"]) + 3, "train_dps")
     phase("train_dps", t0, epochs=cfg["n_epochs"], epochs_per_call=cfg["epochs_per_call"],
-          first_last={k: [v[0], v[-1]] for k, v in logs.items()}, epochs_per_s=rate,
+          first_last={k: [v[0], v[-1]] for k, v in logs.items()}, epochs_per_s=rate, engine=engine,
           ms_per_step=1e3 / (rate * 8), learned={"KL": learned[0], "NLPD": learned[1], "score_MSE": learned[2]},
           analytic=analytic, b5_launches=n_b5, other_kernel_launches=other, learned_ms_per_posterior=learned_ms,
           manifest_step=manifest["step"], treedef=treedef)
@@ -1772,6 +1980,17 @@ def grid_ensemble_card(torch) -> dict:
                   "first_loss_rel_err": abs(first[i] - seq_first) / abs(seq_first),
                   "leaf_rel_err_max": max(leaf), "leaf_rel_err": leaf, "epoch_loss": float(hist[-1][i]),
                   "p_seq": p_seq}
+    cut = first_batches(batch_fn, GRAPH_COMPARE_STEPS)
+
+    def make_ens(capture):
+        efn_c = ensemble.make_ensemble_epoch_fn(model, loss_cfg, opt, cut, 1, kw, capture=capture)
+        return lambda p, s: efn_c(p, s, seed + 2, 0, lams_t, lam2s_t)[:3]
+
+    engines = {"ensemble": engine_ms(torch, make_ens, ens0, ensemble.init_opt_state(opt, ens0), GRAPH_COMPARE_STEPS,
+                                     "grid_ensemble_card (ensemble)"),
+               "sequential_trial_0": compare_engines(
+                   torch, model.make_loss_fn(dataclasses.replace(loss_cfg, lam=lams[0], lam2=lam2s[0]), **kw), opt,
+                   batch_fn, p0, seed + 2, "grid_ensemble_card (sequential)")}
     a, b = GRID_CHECK_TRIALS
     contrast = min(float((x - y).norm() / (y - c).norm()) for x, y, c in
                    zip(pytree.leaves(res[a].pop("p_seq")), pytree.leaves(res[b].pop("p_seq")), pytree.leaves(p0)))
@@ -1781,7 +2000,7 @@ def grid_ensemble_card(torch) -> dict:
           trial_epochs_per_s=k * GRID_ENSEMBLE_EPOCHS / ens_s, sequential_ms_per_step=seq_ms,
           step_ratio=ens_ms / seq_ms, per_trial_speedup=k * seq_ms / ens_ms,
           tolerance={"first_loss": GRID_STEP_LOSS_REL_TOL, "leaf": GRID_LEAF_REL_TOL},
-          other_trial_leaf_contrast_min=contrast, trials_checked=res)
+          other_trial_leaf_contrast_min=contrast, trials_checked=res, engines=engines)
     check(_finite(hist.ravel().tolist() + first), f"grid_ensemble_card: non-finite losses {hist}")
     check(GRID_LEAF_REL_TOL < contrast / 10, f"grid_ensemble_card: trials {a} and {b} barely differ ({contrast})")
     for i, r in res.items():
@@ -2465,6 +2684,7 @@ def run() -> list:
         f32_launches = serve_f32(torch, lin_cfg, scat_cfg, work)
         baseline_launches = serve_baselines_scat(torch, work)
         b3_launches = train(torch, lin_cfg, scat_cfg, work)
+        captured_b1 = train_captured(torch, lin_cfg, work)
         cdiffe_train = train_cdiffe(torch, work, gen)
         train_baselines(torch, work)
         dps_step_card_vs_cpu(torch)
@@ -2483,13 +2703,14 @@ def run() -> list:
     # net's shape, the scatterometry grid's cde_500k's)
     # and the multi-GPU phases' (the linear evaluations and pinned grid at the
     # linear net's shape, the sharded scatterometry grid at cde_500k's)
+    # and train_captured's evaluation of its PINN net (the linear net's shape)
     dist_linear = world1["b1"] + dist["linear"]
     em_n = {"linear_refined_winner": launches["em_linear"] + refined_launches["linear"] + grid_launches["linear"]
-            + dist_linear,
+            + dist_linear + captured_b1,
             "cde_500k": launches["em"] - launches["em_linear"] + refined_launches["cde_500k"] + baseline_launches
             + grid_launches["cde_500k"] + dist["cde_500k"]}
     launches["em"] += (sum(refined_launches.values()) + baseline_launches + sum(grid_launches.values())
-                       + dist_linear + dist["cde_500k"])
+                       + dist_linear + dist["cde_500k"] + captured_b1)
     launches["mh"] += dist["mh"]
     em_t, em_flops, em_bytes = {}, 0.0, 0.0
     for name, (params, y) in nets.items():

@@ -13,9 +13,11 @@ back.  The hot loops are hand-written CUDA kernels (``ops/``, sources in
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["device_constant", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -28,3 +30,14 @@ def resolve_device(device=None) -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The 0-d tensor ``torch.tensor(value, dtype=dtype, device=device)``,
+    made once per (value, dtype, device) and shared; never write to it.
+    ``torch.tensor`` of a Python number copies it from pageable host memory,
+    which on a card waits for the stream, and cannot be captured in a CUDA
+    graph: a train step takes its constants from here instead."""
+    with torch.inference_mode(False), torch.no_grad():
+        return torch.tensor(value, dtype=dtype, device=device)

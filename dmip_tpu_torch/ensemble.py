@@ -42,8 +42,8 @@ from . import pytree
 from .checkpoints import save_checkpoint
 from .models.diffusion import DiffusionModel, LossConfig
 from .parallel.mesh import Mesh
-from .train import (AdamState, Optimizer, apply_updates, build_optimizer, epoch_generator, make_epoch_fn,
-                    resolve_mesh)
+from .train import (AdamState, Optimizer, StepGraph, apply_updates, build_optimizer, make_epoch_fn, resolve_mesh,
+                    run_epochs, use_capture)
 from .utils.metrics import MetricsWriter
 
 Tensor = torch.Tensor
@@ -145,6 +145,7 @@ def make_ensemble_epoch_fn(
     epochs_per_call: int = 1,
     loss_kwargs: Optional[Dict[str, Any]] = None,
     mesh=None,
+    capture: Optional[bool] = None,
 ):
     """The ``vmap`` backend: epochs(ens_params, ens_opt_state, seed, epoch0,
     lams, lam2s, n_active) -> (ens_params, ens_opt_state, losses
@@ -155,34 +156,36 @@ def make_ensemble_epoch_fn(
     ``lams`` / ``lam2s`` are (K,) tensors, replacing cfg's lam / lam2 per
     trial (:func:`make_ensemble_step`).  Epoch j draws its batches, then
     each batch's draws, from ``epoch_generator(seed, epoch0 + j)`` on the
-    params' device, as :func:`dmip_tpu_torch.train.make_epoch_fn` does.
+    params' device, as :func:`dmip_tpu_torch.train.make_epoch_fn` does, and
+    on a CUDA device with no mesh each K-trial step is one replay of a CUDA
+    graph, as there (``capture`` as there).
 
     ``mesh`` (None, 'auto' or a Mesh): each rank trains its block of the K
     trials (K a multiple of the size: :func:`pad_trials`) on the same
-    batches and draws, and returns every trial's state, gathered."""
+    batches and draws, eagerly, and returns every trial's state, gathered."""
     mesh = resolve_mesh(mesh)
     step = make_ensemble_step(model, cfg, optimizer, loss_kwargs)
+    info_names: list = []
+
+    def one_step(state, inputs, generator=None):
+        params, opt_state, loss, info = step(*state, *inputs)
+        info_names[:] = info
+        return (params, opt_state), torch.stack([loss, *info.values()])
+
+    graph = StepGraph(one_step)
 
     def epochs(params, opt_state: AdamState, seed: int, epoch0: int, lams: Tensor, lam2s: Tensor,
                n_active: int = epochs_per_call):
         dev = pytree.leaves(params)[0].device
+        captured = use_capture(capture, dev, mesh)
         losses = torch.full((epochs_per_call, lams.shape[0]), float("nan"), device=dev)
-        infos: Dict[str, Tensor] = {}
-        for j in range(min(n_active, epochs_per_call)):
-            gen = epoch_generator(seed, epoch0 + j, dev)
-            xb, yb = batch_fn(gen)
-            step_losses, step_infos = [], []
-            for x, y in zip(xb, yb):
-                t, eps, v = model.loss_draws(cfg, gen, x, y)
-                params, opt_state, loss, info = step(params, opt_state, lams, lam2s, x, y, t, eps, v)
-                step_losses.append(loss)
-                step_infos.append(info)
-            losses[j] = torch.stack(step_losses).mean(0)
-            for k in step_infos[0]:
-                infos.setdefault(k, torch.full_like(losses, float("nan")))[j] = torch.stack(
-                    [i[k] for i in step_infos]).mean(0)
+        inputs_of = lambda g, x, y: (lams, lam2s, x, y, *model.loss_draws(cfg, g, x, y))
+        (params, opt_state), infos = run_epochs(one_step, graph if captured else None, batch_fn, inputs_of,
+                                                (params, opt_state), seed, epoch0, min(n_active, epochs_per_call),
+                                                losses, info_names)
         return params, opt_state, losses, infos
 
+    epochs.graph = graph
     if mesh is None:
         return epochs
 

@@ -366,3 +366,60 @@ def snf_ml_loss(snf: SNF, params, x: Tensor, y: Tensor, generator: Optional[torc
     """mean(0.5 |z|^2 - logdet) on the backward pass."""
     z, jac_inv = snf.backward(params, x, y, generator, draws)
     return torch.mean(0.5 * torch.sum(z**2, dim=1) - jac_inv)
+
+
+def snf_draws(snf: SNF, generator: Optional[torch.Generator], x: Tensor) -> List[Optional[dict]]:
+    """What :func:`snf_ml_loss` draws from ``generator`` for the batch x
+    (n, d), in the layout of its ``draws=``: the backward pass runs the
+    layers last first, and each Metropolis step draws its proposal's
+    normals, then its n uniforms; a Langevin layer its ``lang_steps``
+    normals.  Handed back, they give the loss it computes from the
+    generator, bit for bit."""
+    n, d = x.shape
+    dev = generator.device if generator is not None else x.device
+
+    def draw(sample, shape):
+        return sample(shape, generator=generator, device=dev, dtype=x.dtype).to(x.device)
+
+    def normals(k: int) -> Tensor:
+        return torch.stack([draw(torch.randn, (n, d)) for _ in range(k)]) if k else x.new_empty((0, n, d))
+
+    out: List[Optional[dict]] = [None] * len(snf.layers)
+    for i in reversed(range(len(snf.layers))):
+        layer = snf.layers[i]
+        if isinstance(layer, LangevinLayer):
+            out[i] = {"eta": normals(layer.lang_steps)}
+        elif isinstance(layer, (MCMCLayer, MALALayer)):
+            noise, uniforms = [], []
+            for _ in range(layer.metr_steps_per_block):
+                noise.append(normals(layer.lang_steps) if isinstance(layer, MALALayer) else draw(torch.randn, (n, d)))
+                uniforms.append(draw(torch.rand, (n,)))
+            shape = (0, layer.lang_steps, n, d) if isinstance(layer, MALALayer) else (0, n, d)
+            out[i] = {"noise": torch.stack(noise) if noise else x.new_empty(shape),
+                      "uniforms": torch.stack(uniforms) if uniforms else x.new_empty((0, n))}
+    return out
+
+
+def snf_loss_fn(snf: SNF):
+    """The SNF's loss for the epoch engines (``train.make_epoch_fn``):
+    loss(params, generator, x, y, *, draws=None) -> (:func:`snf_ml_loss`,
+    {}), and ``loss.draws(generator, x, y)`` -> {'draws': :func:`snf_draws`},
+    so an engine can draw the layers' numbers before the step."""
+
+    def loss_fn(params, generator, x: Tensor, y: Tensor, *, draws: Draws = None):
+        return snf_ml_loss(snf, params, x, y, generator, draws), {}
+
+    loss_fn.draws = lambda generator, x, y: {"draws": snf_draws(snf, generator, x)}
+    return loss_fn
+
+
+def inn_loss_fn(inn: INN):
+    """The INN's loss for the epoch engines: loss(params, generator, x, y)
+    -> (:func:`inn_ml_loss`, {}); it draws nothing (``loss.draws`` gives
+    {})."""
+
+    def loss_fn(params, generator, x: Tensor, y: Tensor):
+        return inn_ml_loss(inn, params, x, y), {}
+
+    loss_fn.draws = lambda generator, x, y: {}
+    return loss_fn

@@ -132,7 +132,7 @@ def score_fpe_loss(
             out = torch.zeros(batch, dtype=z.dtype, device=z.device)
             for i in range(d):
                 e_i = torch.zeros_like(z)
-                e_i[:, i] = 1.0
+                e_i[:, i].fill_(1.0)  # a fill: assigning a Python number copies it from the host
                 out = out + jvp(s_of_x, (z,), (e_i,))[1][:, i]
             return out
     else:

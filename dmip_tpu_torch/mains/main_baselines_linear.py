@@ -77,11 +77,9 @@ def train_all(config: dict, models, params: tuple, batch_fn, seed: int, log_dir:
     ``save_dir/<name>``.  Returns the trained params."""
     snf, (diffusion, loss_cfg), inn = models
     runs = (
-        (float(config["lr"]), lambda p, g, x, y: (flows.snf_ml_loss(snf, p, x, y, generator=g), {}),
-         int(config["n_epochs_SNF"]), SNF_EPOCHS_PER_CALL),
+        (float(config["lr"]), flows.snf_loss_fn(snf), int(config["n_epochs_SNF"]), SNF_EPOCHS_PER_CALL),
         (float(config["lr"]), diffusion.make_loss_fn(loss_cfg), int(config["n_epochs_dsm"]), dsm_epochs_per_call),
-        (float(config["lr_INN"]), lambda p, g, x, y: (flows.inn_ml_loss(inn, p, x, y), {}),
-         int(config["n_epochs_INN"]), INN_EPOCHS_PER_CALL),
+        (float(config["lr_INN"]), flows.inn_loss_fn(inn), int(config["n_epochs_INN"]), INN_EPOCHS_PER_CALL),
     )
     trained = []
     with MetricsWriter(log_dir) as logger:

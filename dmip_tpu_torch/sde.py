@@ -12,10 +12,13 @@ their t and noise, so two implementations can be fed the same numbers.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
+
+from . import device_constant
 
 Tensor = torch.Tensor
 
@@ -72,8 +75,7 @@ class VPSDE:
         if u is None:
             gen_dev = generator.device if generator is not None else "cpu"
             u = torch.rand(shape, generator=generator, device=gen_dev)
-        u0 = self._Q(torch.tensor(self.t_epsilon, dtype=u.dtype, device=u.device))
-        u1 = self._Q(torch.tensor(self.T, dtype=u.dtype, device=u.device))
+        u0, u1 = _debias_bounds(self, u.dtype, u.device)
         b = torch.nn.functional.softplus(u0 + (u1 - u0) * u)
         bd = self.beta_max - self.beta_min
         t = (-self.beta_min + torch.sqrt(self.beta_min**2 + 2.0 * bd * b)) / bd
@@ -82,6 +84,14 @@ class VPSDE:
     def _Q(self, t: Tensor) -> Tensor:
         b = self.int_beta(t)
         return b + torch.log1p(-torch.exp(-b))
+
+
+@functools.lru_cache(maxsize=None)
+def _debias_bounds(sde: VPSDE, dtype: torch.dtype, device: torch.device) -> Tuple[Tensor, Tensor]:
+    """(Q(t_epsilon), Q(T)) of :meth:`VPSDE.sample_debiasing_t` on
+    ``device``, computed once: the sampler runs in every train step."""
+    with torch.inference_mode(False), torch.no_grad():
+        return sde._Q(device_constant(sde.t_epsilon, dtype, device)), sde._Q(device_constant(sde.T, dtype, device))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,8 +11,10 @@ Port of ``dmip_tpu/train.py``:
                             and the skip-nonfinite guard
   * ``make_epoch_fn``    -- ``epochs_per_call`` epochs per call, each
                             drawing its batches and noise from a generator
-                            seeded by (seed, global epoch index); with a
-                            mesh, data-parallel over its ranks
+                            seeded by (seed, global epoch index); on a CUDA
+                            device each step one replay of a CUDA graph
+                            (``StepGraph``, where JAX compiles a scan); with
+                            a mesh, data-parallel over its ranks, eagerly
   * ``resolve_mesh``     -- ``mesh: auto | null`` or a mesh -> a mesh or None
   * ``driver_mesh``      -- a driver's mesh: join torchrun's group, resolve
                             the config's ``mesh``
@@ -37,7 +39,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from . import pytree
+from . import device_constant, pytree
 from .models.diffusion import CDE, CDiffE, DiffusionModel, LossConfig, PosteriorDiffusionEstimator
 from .parallel.mesh import Mesh, get_mesh, init_multihost
 
@@ -84,8 +86,9 @@ class Optimizer:
         """optax.cosine_decay_schedule(lr, decay_steps, alpha=lr_min_ratio)
         at ``count``, or the constant lr."""
         if not self.decay_steps:
-            return torch.tensor(self.lr, dtype=torch.float32, device=count.device)
-        c = torch.minimum(count.to(torch.float32), torch.tensor(float(self.decay_steps), device=count.device))
+            return device_constant(self.lr, torch.float32, count.device)
+        steps = device_constant(float(self.decay_steps), torch.float32, count.device)
+        c = torch.minimum(count.to(torch.float32), steps)
         cosine = 0.5 * (1 + torch.cos(math.pi * c / float(self.decay_steps)))
         return self.lr * ((1 - self.lr_min_ratio) * cosine + self.lr_min_ratio)
 
@@ -99,8 +102,8 @@ class Optimizer:
         nu = [(1 - ADAM_B2) * (x * x) + ADAM_B2 * v for x, v in zip(g, pytree.leaves(state.nu))]
         count = _safe_increment(state.count)
         cf = count.to(torch.float32)
-        bc1 = 1 - torch.pow(torch.tensor(ADAM_B1, device=cf.device), cf)
-        bc2 = 1 - torch.pow(torch.tensor(ADAM_B2, device=cf.device), cf)
+        bc1 = 1 - torch.pow(device_constant(ADAM_B1, torch.float32, cf.device), cf)
+        bc2 = 1 - torch.pow(device_constant(ADAM_B2, torch.float32, cf.device), cf)
         step = -self.learning_rate(state.schedule_count if self.decay_steps else count)
         updates = [step * ((m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)) for m, v in zip(mu, nu)]
         sched = _safe_increment(state.schedule_count) if self.decay_steps else None
@@ -137,8 +140,10 @@ def build_optimizer(
 
 
 def make_train_step(loss_fn, optimizer: Optimizer, skip_nonfinite: bool = True, mesh: Optional[Mesh] = None):
-    """One step: (params, opt_state, generator, x, y) -> (params, opt_state,
-    loss, info), loss and info detached.
+    """One step: (params, opt_state, generator, x, y, draws=None) ->
+    (params, opt_state, loss, info), loss and info detached.  ``draws``, a
+    dict of the loss's keywords (:func:`draw_kwargs`), hands the loss its
+    random numbers; the loss draws from ``generator`` what it is not given.
 
     With ``skip_nonfinite`` a step whose gradients hold an inf or nan keeps
     the old params and the old optimizer state, counts included; the choice
@@ -157,11 +162,11 @@ def make_train_step(loss_fn, optimizer: Optimizer, skip_nonfinite: bool = True, 
     than ranks raises.
     """
 
-    def step(params, opt_state: AdamState, generator, x, y):
+    def step(params, opt_state: AdamState, generator, x, y, draws: Optional[Dict[str, Tensor]] = None):
         leaves = [t.detach().requires_grad_(True) for t in pytree.leaves(params)]
         tree = lambda flat: pytree.unflatten(params, flat)
         if mesh is None:
-            loss, info = loss_fn(tree(leaves), generator, x, y)
+            loss, info = loss_fn(tree(leaves), generator, x, y, **(draws or {}))
             grads = torch.autograd.grad(loss, leaves)
         else:
             loss, info = _shard_loss(loss_fn, mesh, tree(leaves), generator, x, y)
@@ -178,11 +183,26 @@ def make_train_step(loss_fn, optimizer: Optimizer, skip_nonfinite: bool = True, 
     return step
 
 
+def draw_kwargs(loss_fn, generator: torch.Generator, x: Tensor, y: Tensor) -> Dict[str, Tensor]:
+    """What ``loss_fn`` draws from ``generator`` for the batch (x, y), in its
+    order, as the keywords that hand the numbers to it: the diffusion
+    losses' ``draws`` give (t, eps, v), v None without a probe; another
+    loss's (the flows', ``flows.snf_loss_fn``) give the dict itself."""
+    drawn = loss_fn.draws(generator, x, y)
+    if isinstance(drawn, dict):
+        return drawn
+    t, eps, v = drawn
+    return {"t": t, "eps": eps} if v is None else {"t": t, "eps": eps, "v": v}
+
+
 def _shard_loss(loss_fn, mesh: Mesh, params, generator, x: Tensor, y: Tensor):
     """This rank's loss on its rows of the batch and of the batch's draws."""
     if x.shape[0] < mesh.size:
         raise ValueError(f"a batch of {x.shape[0]} rows cannot be split over {mesh.size} ranks")
-    t, eps, v = loss_fn.draws(generator, x, y)
+    drawn = loss_fn.draws(generator, x, y)
+    if isinstance(drawn, dict):
+        raise ValueError("only a loss whose draws are (t, eps, v), a diffusion model's, trains over a mesh")
+    t, eps, v = drawn
     draws = {"t": mesh.local(t), "eps": mesh.local(eps)}
     if v is not None:
         draws["v"] = mesh.local(v)
@@ -250,12 +270,152 @@ def _note_unused_gpus(n: int) -> None:
           f"torchrun --nproc_per_node {n} uses the others", file=sys.stderr, flush=True)
 
 
+# steps run eagerly on a side stream before a capture, their results thrown
+# away (PyTorch's recipe for capturing autograd: its first runs allocate and
+# initialise what the captured run then reuses)
+GRAPH_WARMUP = 2
+
+
+def _signature(tree) -> str:
+    """The structure of a tree of tensors with each leaf's shape, dtype and
+    device: a captured step replays only on trees of its own signature."""
+    return repr(pytree.map(lambda t: (tuple(t.shape), t.dtype, t.device), tree))
+
+
+class StepGraph:
+    """A train step captured once as a CUDA graph, then replayed.
+
+    ``step(state, inputs) -> (state, out)``: ``state`` the tree the step
+    updates (params, Adam state), ``inputs`` the tree of one step's tensors
+    (the batch and its draws), ``out`` a tensor of results.  The graph reads
+    and writes static buffers: :meth:`start` hands it a call's state,
+    each call copies one step's inputs into their buffers, replays and
+    returns the static ``out`` (overwritten by the next replay), and
+    :meth:`state` returns clones of the state buffers, so a caller who
+    keeps an earlier tree sees no aliasing.
+
+    A step whose state or inputs differ from the captured ones in structure,
+    shape, dtype or device captures anew: ``GRAPH_WARMUP`` eager runs on a
+    side stream, then the capture in a private memory pool, the state's
+    update written back into its buffers inside the graph.  The step must
+    draw nothing and wait for nothing on the host (a host sync or a copy
+    from pageable memory fails the capture); an error in capture or replay
+    raises.
+    """
+
+    def __init__(self, step: Callable):
+        self._step = step
+        self._key: Optional[str] = None
+        self._graph = None
+        self._state = self._inputs = self._out = None
+        self._pending = None
+        self.captures = 0
+
+    def start(self, state) -> None:
+        """Begin a call from ``state``: copied into the buffers at the first step."""
+        self._pending = state
+
+    def __call__(self, inputs) -> Tensor:
+        src = self._state if self._pending is None else self._pending
+        key = _signature((src, inputs))
+        if key != self._key:
+            self._capture(src, inputs)
+            self._key = key
+        elif self._pending is not None:
+            for dst, t in zip(pytree.leaves(self._state), pytree.leaves(self._pending)):
+                dst.copy_(t)
+        self._pending = None
+        for dst, t in zip(pytree.leaves(self._inputs), pytree.leaves(inputs)):
+            dst.copy_(t)
+        self._graph.replay()
+        return self._out
+
+    @property
+    def cuda_graph(self):
+        """The captured ``torch.cuda.CUDAGraph`` (None before the first
+        step): one ``replay()`` of it is one step on the static buffers."""
+        return self._graph
+
+    def state(self):
+        """The state after the call's last step: clones of the buffers (the
+        tree handed to :meth:`start` if no step ran)."""
+        if self._pending is not None:
+            return self._pending
+        return pytree.map(torch.clone, self._state)
+
+    def _capture(self, state, inputs) -> None:
+        self._graph = self._out = None  # the old graph's pool goes first
+        dev = pytree.leaves(state)[0].device
+        with torch.cuda.device(dev):
+            static_state = pytree.map(lambda t: t.detach().clone(), state)
+            static_in = pytree.map(lambda t: t.detach().clone(), inputs)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(GRAPH_WARMUP):
+                    self._step(static_state, static_in)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                new_state, out = self._step(static_state, static_in)
+                for dst, t in zip(pytree.leaves(static_state), pytree.leaves(new_state)):
+                    if t is not dst:
+                        dst.copy_(t)
+        self._graph, self._state, self._inputs, self._out = graph, static_state, static_in, out
+        self.captures += 1
+
+
+def use_capture(capture: Optional[bool], device: torch.device, mesh) -> bool:
+    """Whether an epoch engine captures its step: ``capture`` None means a
+    CUDA device and no mesh; True elsewhere raises (a step over a mesh runs
+    collectives, and the CPU has no graphs)."""
+    if capture is None:
+        return device.type == "cuda" and mesh is None
+    if capture and (device.type != "cuda" or mesh is not None):
+        where = "over a mesh" if mesh is not None else f"on {device}"
+        raise ValueError(f"capture=True needs a CUDA device and no mesh; this engine runs {where}")
+    return bool(capture)
+
+
+def run_epochs(one_step, graph: Optional[StepGraph], batch_fn, inputs_of, state, seed: int, epoch0: int,
+               n_run: int, losses: Tensor, info_names: list):
+    """Epochs epoch0 .. epoch0 + n_run - 1 of an epoch engine: epoch j's
+    generator ``epoch_generator(seed, epoch0 + j)``, its batches, and for
+    each batch the step's inputs ``inputs_of(generator, x, y)`` through
+    ``one_step(state, inputs, generator) -> (state, out)``, or through
+    replays of ``graph`` (started from ``state``) when given.  ``out`` holds
+    the step's loss, then its info terms (named by ``info_names`` once a
+    step ran); epoch j's means over its steps go to ``losses[j]`` and to the
+    info dict returned with the final state."""
+    infos: Dict[str, Tensor] = {}
+    if graph is not None:
+        graph.start(state)
+    for j in range(n_run):
+        gen = epoch_generator(seed, epoch0 + j, losses.device)
+        xb, yb = batch_fn(gen)
+        rows = None
+        for i, (x, y) in enumerate(zip(xb, yb)):
+            inputs = inputs_of(gen, x, y)
+            if graph is not None:
+                out = graph(inputs)
+            else:
+                state, out = one_step(state, inputs, gen)
+            if rows is None:
+                rows = torch.empty((out.shape[0], len(xb), *out.shape[1:]), dtype=out.dtype, device=out.device)
+            rows[:, i] = out
+        losses[j] = rows[0].mean(0)
+        for k, name in enumerate(info_names, 1):
+            infos.setdefault(name, torch.full_like(losses, float("nan")))[j] = rows[k].mean(0)
+    return (graph.state() if graph is not None else state), infos
+
+
 def make_epoch_fn(
     loss_fn,
     optimizer: Optimizer,
     batch_fn: Callable[[torch.Generator], Tuple[Tensor, Tensor]],
     epochs_per_call: int = 1,
     mesh=None,
+    capture: Optional[bool] = None,
 ):
     """The autograd epoch engine (``train_backend: xla`` in the config).
 
@@ -267,37 +427,54 @@ def make_epoch_fn(
     the params' device.  Epochs at j >= n_active are not run; their losses
     and info are nan.
 
+    A loss that exposes its draws (``loss_fn.draws``, see
+    :func:`draw_kwargs`) has them drawn by the engine before each step and
+    handed to it by keyword, the numbers it would draw itself; any other
+    loss gets the epoch's generator.  On a CUDA device with no mesh each
+    step is one replay of a CUDA graph (:class:`StepGraph`): the loss, its
+    gradient, the clip, Adam and the guard, captured at the first step.
+    ``capture``: None for that default, False for the eager step (on the
+    card: to compare), True to insist (raises on the CPU or with a mesh).
+    A captured loss must expose its draws.
+
     ``mesh``: None, 'auto' or a :class:`Mesh` (:func:`resolve_mesh`).  With
     one, every rank builds the same batches and draws, and each step is
-    data-parallel (:func:`make_train_step`); params and state must be the
-    same on every rank, as the drivers' seeded inits and checkpoints make
-    them, and stay so.  The loss must expose its draws (``loss_fn.draws``),
-    as the diffusion models' losses do.
+    data-parallel (:func:`make_train_step`), eager; params and state must be
+    the same on every rank, as the drivers' seeded inits and checkpoints
+    make them, and stay so.  The loss must expose its draws as (t, eps, v),
+    as DiffusionModel.make_loss_fn's losses do.
     """
     mesh = resolve_mesh(mesh)
     if mesh is not None and not hasattr(loss_fn, "draws"):
         raise ValueError("a loss trained over a mesh must expose its draws (loss_fn.draws), "
                          "as DiffusionModel.make_loss_fn's losses do")
     train_step = make_train_step(loss_fn, optimizer, mesh=mesh)
+    drawn = mesh is None and hasattr(loss_fn, "draws")
+    info_names: list = []
+
+    def one_step(state, inputs, generator=None):
+        (params, opt_state), (x, y, draws) = state, inputs
+        params, opt_state, loss, info = train_step(params, opt_state, None if drawn else generator, x, y,
+                                                   draws=draws)
+        info_names[:] = info
+        return (params, opt_state), torch.stack([loss, *info.values()])
+
+    graph = StepGraph(one_step)
 
     def epochs(params, opt_state: AdamState, seed: int, epoch0: int, n_active: int = epochs_per_call):
         dev = pytree.leaves(params)[0].device
+        captured = use_capture(capture, dev, mesh)
+        if captured and not drawn:
+            raise ValueError("a captured step takes its draws from the engine: the loss must expose them "
+                             "(loss_fn.draws; {} for a loss that draws nothing)")
         losses = torch.full((epochs_per_call,), float("nan"), device=dev)
-        infos: Dict[str, Tensor] = {}
-        for j in range(min(n_active, epochs_per_call)):
-            gen = epoch_generator(seed, epoch0 + j, dev)
-            xb, yb = batch_fn(gen)
-            step_losses, step_infos = [], []
-            for x, y in zip(xb, yb):
-                params, opt_state, loss, info = train_step(params, opt_state, gen, x, y)
-                step_losses.append(loss)
-                step_infos.append(info)
-            losses[j] = torch.stack(step_losses).mean()
-            for k in step_infos[0]:
-                infos.setdefault(k, torch.full_like(losses, float("nan")))[j] = torch.stack(
-                    [i[k] for i in step_infos]).mean()
+        inputs_of = lambda g, x, y: (x, y, draw_kwargs(loss_fn, g, x, y) if drawn else None)
+        (params, opt_state), infos = run_epochs(one_step, graph if captured else None, batch_fn, inputs_of,
+                                                (params, opt_state), seed, epoch0, min(n_active, epochs_per_call),
+                                                losses, info_names)
         return params, opt_state, losses, infos
 
+    epochs.graph = graph
     return epochs
 
 

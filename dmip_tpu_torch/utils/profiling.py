@@ -62,13 +62,19 @@ def timeit(fn: Callable, *args, reps: int = 3, warmup: int = 1, clock_device=Non
     return start.elapsed_time(end) / 1e3 / reps, out
 
 
+def _is_annotation(e) -> bool:
+    """A ``record_function`` span: the profiler puts one on the host's and on
+    the card's timeline, but it is neither an operation nor device work."""
+    return bool(getattr(e, "is_user_annotation", False))
+
+
 def busy_share(prof) -> dict:
     """The traced window (first to last event, host or device) and the
     union of the intervals in which the card ran a kernel or a copy:
     ``{'window_us', 'busy_us', 'share', 'kernels'}``.  Raises if the trace
     holds no device event."""
     events = prof.events()
-    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and not _is_annotation(e)]
     if not dev:
         raise RuntimeError("the profiler recorded no device activity")
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
@@ -87,7 +93,9 @@ def busy_share(prof) -> dict:
 
 def top_ops(prof, by: str = "device", n: int = 5) -> List[dict]:
     """The ``n`` operations with the most own time on the card (``by=
-    'device'``) or on the host (``by='cpu'``): name, calls, milliseconds."""
+    'device'``) or on the host (``by='cpu'``), ``record_function`` spans
+    left out: name, calls, milliseconds."""
     attr = "self_device_time_total" if by == "device" else "self_cpu_time_total"
-    rows = sorted(prof.key_averages(), key=lambda e: getattr(e, attr), reverse=True)[:n]
+    rows = sorted((e for e in prof.key_averages() if not _is_annotation(e)), key=lambda e: getattr(e, attr),
+                  reverse=True)[:n]
     return [{"name": e.key, "calls": e.count, "ms": getattr(e, attr) / 1e3} for e in rows]

@@ -952,3 +952,136 @@ def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
         assert (out["backend"], out["device"]) == ("gloo", "cuda:0")
         assert out["sum"] == [3.0] * 3 and out["mean"] == [1.5] * 3 and out["gather"] == [1.0, 1.0, 2.0, 2.0]
         assert out["broadcast"] == [1.0] * 3 and out["objects"] == [0, 1]
+
+
+# --- the captured train step (CUDA graphs) ----------------------------------
+
+# the captured step against the eager one: bit for bit unless cuBLAS picks
+# other algorithms under capture, and then the mesh parity's limits
+GRAPH_LOSS_REL, GRAPH_LEAF_REL = 1e-6, 1e-4
+
+
+def _graph_parity(eager, graph, p0) -> str:
+    """'bit for bit' when the captured run (params, state, losses) equals
+    the eager one exactly; else, having held every epoch's loss within
+    GRAPH_LOSS_REL and every parameter leaf within GRAPH_LEAF_REL of its
+    update, 'within tolerance'."""
+    from dmip_tpu_torch import pytree
+
+    (pe, se, le), (pg, sg, lg) = eager, graph
+    if torch.equal(le, lg) and all(torch.equal(a, b) for a, b in zip(pytree.leaves((pe, se)),
+                                                                      pytree.leaves((pg, sg)))):
+        return "bit for bit"
+    assert float(((lg - le).abs() / le.abs()).max()) <= GRAPH_LOSS_REL
+    for a, b, c in zip(pytree.leaves(pg), pytree.leaves(pe), pytree.leaves(p0)):
+        assert float((a - b).norm() / (b - c).norm()) <= GRAPH_LEAF_REL
+    assert torch.equal(sg.count, se.count)
+    return "within tolerance"
+
+
+def _graph_case(name, dev):
+    """(loss, params, batch_fn) at 64^3 for the captured-step tests: the
+    linear PINNLoss, the DPS PosteriorLoss through the shipped surrogate, a
+    linear SNF with Metropolis layers."""
+    from dmip_tpu_torch import data, flows, train
+
+    prob = LinearForwardProblem()
+    xs, ys = data.generate_dataset_linear(2, prob.forward, 500, torch.Generator().manual_seed(0), dev)
+    batch_fn = lambda g: data.linear_epoch_batches(g, xs, ys, prob.noise_std, 100)
+    if name == "pinn":
+        model, cfg = train.get_model_from_args({"model": "CDE", "loss_fn": "PINNLoss", "lam": 0.001, "lam2": 0.1,
+                                                "ic_metric": "L2", "hidden_layers": [64] * 3}, {"xdim": 2, "ydim": 2})
+        return model.make_loss_fn(cfg, initial_condition=prob.score_posterior), \
+            model.init(torch.Generator().manual_seed(1), device=dev), batch_fn
+    if name == "snf":
+        snf = flows.create_snf(2, 64, lambda x, c: prob.log_posterior(x, c)[:, 0], metr_steps_per_block=3,
+                               dimension=2, dimension_condition=2)
+        return flows.snf_loss_fn(snf), snf.init(torch.Generator().manual_seed(1), dev), batch_fn
+    forward, fp = scat.load_forward_model(device=dev)
+    gen = torch.Generator().manual_seed(0)
+    xs = (torch.rand(500, 3, generator=gen) * 2 - 1).to(dev)
+    ys = forward(xs) + 0.01 * torch.randn(500, 23, generator=gen).to(dev)
+    model, cfg = train.get_model_from_args({"model": "Posterior", "lam": 1.0, "hidden_layers": [64] * 3},
+                                           {"xdim": 3, "ydim": 23})
+    return model.make_loss_fn(cfg, forward_model=forward, forward_params=fp), \
+        model.init(torch.Generator().manual_seed(1), device=dev), \
+        lambda g: data.linear_epoch_batches(g, xs, ys, 0.0, 100)
+
+
+@pytest.mark.parametrize("name", ["pinn", "posterior", "snf"])
+def test_captured_step_matches_the_eager_step(cuda, name):
+    """Two epochs of 5 steps through the default engine on the card (one
+    CUDA-graph replay a step, captured once) against capture=False from
+    the same params and seed; prints which limit held."""
+    from dmip_tpu_torch import train
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        loss_fn, p0, batch_fn = _graph_case(name, cuda)
+        opt = train.build_optimizer(1e-3, grad_clip=1.0)
+        runs = {}
+        for capture in (False, None):
+            fn = train.make_epoch_fn(loss_fn, opt, batch_fn, epochs_per_call=2, capture=capture)
+            p, st, losses, _ = fn(p0, opt.init(p0), 3, 0)
+            runs[capture] = (p, st, losses)
+        assert fn.graph.captures == 1 and int(runs[None][1].count) == 10
+        assert bool(torch.isfinite(runs[None][2]).all())
+        print(f"{name}: captured against eager {_graph_parity(runs[False], runs[None], p0)}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_captured_ensemble_matches_the_eager_ensemble(cuda):
+    """A K = 4 PINNLoss ensemble at 64^3, two epochs of 5 steps, captured
+    against capture=False; prints which limit held."""
+    from dmip_tpu_torch import ensemble, train
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        prob = LinearForwardProblem()
+        _, _, batch_fn = _graph_case("pinn", cuda)
+        model, cfg = train.get_model_from_args({"model": "CDE", "loss_fn": "PINNLoss", "hidden_layers": [64] * 3},
+                                               {"xdim": 2, "ydim": 2})
+        opt = train.build_optimizer(1e-3)
+        lams, lam2s, _ = ensemble.pad_trials([1.0, 0.1, 0.01, 0.001], [1.0, 0.1, 1.0, 0.1], 1, device=cuda)
+        ens = ensemble.init_ensemble(model, torch.Generator().manual_seed(1), 4, device=cuda)
+        runs = {}
+        for capture in (False, True):
+            efn = ensemble.make_ensemble_epoch_fn(model, cfg, opt, batch_fn, 2, {"initial_condition":
+                                                                                  prob.score_posterior},
+                                                  capture=capture)
+            p, st, losses, _ = efn(ens, ensemble.init_opt_state(opt, ens), 3, 0, lams, lam2s)
+            runs[capture] = (p, st, losses)
+        assert efn.graph.captures == 1 and losses.shape == (2, 4) and bool(torch.isfinite(losses).all())
+        print(f"ensemble: captured against eager {_graph_parity(runs[False], runs[True], ens)}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_captured_step_recaptures_on_a_shape_change(cuda):
+    """A call at batch 100, then two at batch 50: the second call captures
+    anew and equals the eager engine at 50 within the limits above, the
+    third replays the same graph; the trees returned are the caller's own
+    (no aliasing of the graph's buffers)."""
+    from dmip_tpu_torch import data, pytree, train
+
+    loss_fn, p0, _ = _graph_case("pinn", cuda)
+    prob = LinearForwardProblem()
+    xs, ys = data.generate_dataset_linear(2, prob.forward, 500, torch.Generator().manual_seed(0), cuda)
+    size = {"batch": 100}
+    batch_fn = lambda g: data.linear_epoch_batches(g, xs, ys, prob.noise_std, size["batch"])
+    opt = train.build_optimizer(1e-3)
+    fn = train.make_epoch_fn(loss_fn, opt, batch_fn)
+    first = fn(p0, opt.init(p0), 3, 0)
+    size["batch"] = 50
+    second = fn(p0, opt.init(p0), 3, 0)
+    assert fn.graph.captures == 2
+    eager = train.make_epoch_fn(loss_fn, opt, batch_fn, capture=False)(p0, opt.init(p0), 3, 0)
+    _graph_parity(eager[:3], second[:3], p0)
+    kept = [t.clone() for t in pytree.leaves(second[:2])]
+    third = fn(p0, opt.init(p0), 3, 1)
+    assert fn.graph.captures == 2 and int(third[1].count) == 10
+    assert all(torch.equal(a, b) for a, b in zip(kept, pytree.leaves(second[:2])))
+    assert not torch.equal(first[2], second[2])

@@ -39,3 +39,16 @@ def test_timeit_passes_device_to_the_timed_function():
 
     sec, out = profiling.timeit(fn, 4, reps=2, warmup=1, clock_device="cpu", device="cpu")
     assert sec > 0.0 and out.shape == (4,) and seen == ["cpu"] * 3
+
+
+def test_top_ops_leave_out_record_function_spans():
+    """A ``record_function`` span around the work is not an operation: the
+    top operations are the ops inside it."""
+    a = torch.randn(256, 256)
+    with profiling.trace(device="cpu") as prof:
+        with torch.profiler.record_function("train_steps"):
+            for _ in range(3):
+                torch.tanh(a @ a)
+    assert "train_steps" in {e.name for e in prof.events()}
+    names = {t["name"] for t in profiling.top_ops(prof, "cpu", n=10)}
+    assert "train_steps" not in names and "aten::mm" in names
