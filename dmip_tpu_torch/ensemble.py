@@ -40,7 +40,7 @@ from torch.func import grad_and_value, vmap
 
 from . import pytree
 from .checkpoints import save_checkpoint
-from .models.diffusion import DiffusionModel, LossConfig
+from .models.diffusion import DiffusionModel, LossConfig, loss_keywords
 from .parallel.mesh import Mesh
 from .train import (AdamState, Optimizer, StepGraph, apply_updates, build_optimizer, make_epoch_fn, resolve_mesh,
                     run_epochs, use_capture)
@@ -98,8 +98,7 @@ def _make_trial_step(model: DiffusionModel, cfg: LossConfig, optimizer: Optimize
         if ic is not None:
             kw["initial_condition"] = lambda _x, _y: ic
         loss_fn = model.make_loss_fn(dataclasses.replace(cfg, lam=lam, lam2=lam2), **kw)
-        draws = {"t": t, "eps": eps} if v is None else {"t": t, "eps": eps, "v": v}
-        return loss_fn(params, None, x, y, **draws)
+        return loss_fn(params, None, x, y, **loss_keywords(t, eps, v))
 
     def trial_step(params, opt_state, lam, lam2, x, y, t, eps, v, ic):
         grads, (loss, info) = grad_and_value(loss_with, has_aux=True)(params, lam, lam2, x, y, t, eps, v, ic)
@@ -145,7 +144,7 @@ def make_ensemble_epoch_fn(
     epochs_per_call: int = 1,
     loss_kwargs: Optional[Dict[str, Any]] = None,
     mesh=None,
-    capture: Optional[bool] = None,
+    capture: bool = True,
 ):
     """The ``vmap`` backend: epochs(ens_params, ens_opt_state, seed, epoch0,
     lams, lam2s, n_active) -> (ens_params, ens_opt_state, losses
@@ -167,7 +166,7 @@ def make_ensemble_epoch_fn(
     step = make_ensemble_step(model, cfg, optimizer, loss_kwargs)
     info_names: list = []
 
-    def one_step(state, inputs, generator=None):
+    def one_step(state, inputs):
         params, opt_state, loss, info = step(*state, *inputs)
         info_names[:] = info
         return (params, opt_state), torch.stack([loss, *info.values()])

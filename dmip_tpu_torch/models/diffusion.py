@@ -20,7 +20,6 @@ CDE and the Posterior model also sample by ``heun`` and
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -65,6 +64,12 @@ def _expint_options(method: str) -> Tuple[bool, int]:
         else:
             raise ValueError(f"bad expint option {part!r} in method {method!r}; grammar is expint[:ode|:sde][:1|:2]")
     return ode, order
+
+
+def loss_keywords(t: Tensor, eps: Tensor, v: Optional[Tensor] = None) -> Dict[str, Tensor]:
+    """The draws (t, eps, v) of :meth:`DiffusionModel.loss_draws` as the
+    loss's keywords; v only when the loss draws a probe."""
+    return {"t": t, "eps": eps} if v is None else {"t": t, "eps": eps, "v": v}
 
 
 def _kernel_draws(generator, num_samples: int, xdim: int, mean: float, std: float, dev):
@@ -156,8 +161,9 @@ class DiffusionModel:
         probe v.  DSM draws no probe.  Passing t, eps and v (generator None)
         is the injection form the tests feed with another package's draws.
         ``loss_fn.draws(generator, x, y)`` is :meth:`loss_draws` for this
-        loss: what it would draw, for a caller that cuts the batch (the
-        data-parallel step, ``train.make_train_step``).
+        loss as its keywords (:func:`loss_keywords`): what it would draw,
+        for the epoch engines, which draw before the step
+        (``train.make_epoch_fn``).
         ``forward_model`` and ``forward_params`` are taken, as in the JAX
         package, so that every model is built alike; only the Posterior
         model's loss uses them.
@@ -187,7 +193,7 @@ class DiffusionModel:
             fn = L.pinn_loss if cfg.name == "PINNLoss" else L.pinn2_loss
             return fn(self.apply_a, params, base, x, y, z0, eps, t, v=v, **pinn_kw)
 
-        loss_fn.draws = functools.partial(self.loss_draws, cfg)
+        loss_fn.draws = lambda generator, x, y: loss_keywords(*self.loss_draws(cfg, generator, x, y))
         return loss_fn
 
     def loss_draws(self, cfg: LossConfig, generator: Optional[torch.Generator], x: Tensor, y: Tensor):
@@ -351,7 +357,7 @@ class PosteriorDiffusionEstimator(DiffusionModel):
                 base, forward_model, x, y, eps, t, a=a, b=b, lam=cfg.lam,
             )
 
-        loss_fn.draws = functools.partial(self.loss_draws, cfg)
+        loss_fn.draws = lambda generator, x, y: loss_keywords(*self.loss_draws(cfg, generator, x, y))
         return loss_fn
 
     def loss_draws(self, cfg: LossConfig, generator: Optional[torch.Generator], x: Tensor, y: Tensor):

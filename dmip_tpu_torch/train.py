@@ -141,19 +141,20 @@ def build_optimizer(
 
 def make_train_step(loss_fn, optimizer: Optimizer, skip_nonfinite: bool = True, mesh: Optional[Mesh] = None):
     """One step: (params, opt_state, generator, x, y, draws=None) ->
-    (params, opt_state, loss, info), loss and info detached.  ``draws``, a
-    dict of the loss's keywords (:func:`draw_kwargs`), hands the loss its
-    random numbers; the loss draws from ``generator`` what it is not given.
+    (params, opt_state, loss, info), loss and info detached.  ``draws``, the
+    batch's numbers as the loss's keywords (``loss_fn.draws(generator, x,
+    y)``), hands the loss its random numbers; without them the loss draws
+    from ``generator``.
 
     With ``skip_nonfinite`` a step whose gradients hold an inf or nan keeps
     the old params and the old optimizer state, counts included; the choice
     is made on the device, without a host sync.
 
     With a ``mesh`` the step is data-parallel: every rank is handed the same
-    full batch and generator, draws the batch's t, eps and probe
-    (``loss_fn.draws``, the loss's own draws in its order), and computes the
-    loss and its gradient on its :meth:`~Mesh.rows` of the batch and of
-    every draw.  Every term of the losses is a mean over rows, so the
+    full batch and its draws (or the generator, and draws them through
+    ``loss_fn.draws``), and computes the loss and its gradient on its
+    :meth:`~Mesh.rows` of the batch and of every draw, each of which has
+    the batch's rows first (the diffusion losses' t, eps and probe).  Every term of the losses is a mean over rows, so the
     ranks' means, each weighted by its share of the rows and averaged, are
     the full batch's loss, info and gradient; the clip, the guard and Adam
     then run on the same numbers on every rank, and the parameters stay
@@ -169,7 +170,9 @@ def make_train_step(loss_fn, optimizer: Optimizer, skip_nonfinite: bool = True, 
             loss, info = loss_fn(tree(leaves), generator, x, y, **(draws or {}))
             grads = torch.autograd.grad(loss, leaves)
         else:
-            loss, info = _shard_loss(loss_fn, mesh, tree(leaves), generator, x, y)
+            if draws is None:
+                draws = loss_fn.draws(generator, x, y)
+            loss, info = _shard_loss(loss_fn, mesh, tree(leaves), x, y, draws)
             grads, loss, info = _mean_over_ranks(mesh, torch.autograd.grad(loss, leaves), loss, info, x.shape[0])
         updates, new_state = optimizer.update(tree(grads), opt_state)
         new_params = apply_updates(tree([t.detach() for t in leaves]), updates)
@@ -183,30 +186,12 @@ def make_train_step(loss_fn, optimizer: Optimizer, skip_nonfinite: bool = True, 
     return step
 
 
-def draw_kwargs(loss_fn, generator: torch.Generator, x: Tensor, y: Tensor) -> Dict[str, Tensor]:
-    """What ``loss_fn`` draws from ``generator`` for the batch (x, y), in its
-    order, as the keywords that hand the numbers to it: the diffusion
-    losses' ``draws`` give (t, eps, v), v None without a probe; another
-    loss's (the flows', ``flows.snf_loss_fn``) give the dict itself."""
-    drawn = loss_fn.draws(generator, x, y)
-    if isinstance(drawn, dict):
-        return drawn
-    t, eps, v = drawn
-    return {"t": t, "eps": eps} if v is None else {"t": t, "eps": eps, "v": v}
-
-
-def _shard_loss(loss_fn, mesh: Mesh, params, generator, x: Tensor, y: Tensor):
+def _shard_loss(loss_fn, mesh: Mesh, params, x: Tensor, y: Tensor, draws: Dict[str, Tensor]):
     """This rank's loss on its rows of the batch and of the batch's draws."""
     if x.shape[0] < mesh.size:
         raise ValueError(f"a batch of {x.shape[0]} rows cannot be split over {mesh.size} ranks")
-    drawn = loss_fn.draws(generator, x, y)
-    if isinstance(drawn, dict):
-        raise ValueError("only a loss whose draws are (t, eps, v), a diffusion model's, trains over a mesh")
-    t, eps, v = drawn
-    draws = {"t": mesh.local(t), "eps": mesh.local(eps)}
-    if v is not None:
-        draws["v"] = mesh.local(v)
-    return loss_fn(params, None, mesh.local(x), mesh.local(y), **draws)
+    local = {k: mesh.local(v) for k, v in draws.items()}
+    return loss_fn(params, None, mesh.local(x), mesh.local(y), **local)
 
 
 def _mean_over_ranks(mesh: Mesh, grads, loss: Tensor, info: Dict[str, Tensor], n: int):
@@ -229,10 +214,17 @@ def _mean_over_ranks(mesh: Mesh, grads, loss: Tensor, info: Dict[str, Tensor], n
 def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
     """The generator of one epoch, seeded from (seed, global epoch index):
     the schedule does not depend on how epochs are grouped into calls, so
-    re-chunking and resuming are exact."""
+    re-chunking and resuming are exact.  The CPU's mt19937 keeps only the
+    low 32 bits of its seed, so there the seed is mixed into them (times
+    an odd constant: two seeds below 2^31 differ at every epoch); CUDA's
+    Philox takes all 64."""
     if not 0 <= epoch < 2**32:
         raise ValueError(f"epoch index {epoch} outside [0, 2^32)")
-    return torch.Generator(device=device).manual_seed((int(seed) % 2**31) * 2**32 + int(epoch))
+    seed = int(seed) % 2**31
+    gen = torch.Generator(device=device)
+    if gen.device.type == "cpu":
+        return gen.manual_seed((seed * 0x9E3779B1 + int(epoch)) % 2**32)
+    return gen.manual_seed(seed * 2**32 + int(epoch))
 
 
 def resolve_mesh(mesh) -> Optional[Mesh]:
@@ -365,16 +357,11 @@ class StepGraph:
         self.captures += 1
 
 
-def use_capture(capture: Optional[bool], device: torch.device, mesh) -> bool:
-    """Whether an epoch engine captures its step: ``capture`` None means a
-    CUDA device and no mesh; True elsewhere raises (a step over a mesh runs
-    collectives, and the CPU has no graphs)."""
-    if capture is None:
-        return device.type == "cuda" and mesh is None
-    if capture and (device.type != "cuda" or mesh is not None):
-        where = "over a mesh" if mesh is not None else f"on {device}"
-        raise ValueError(f"capture=True needs a CUDA device and no mesh; this engine runs {where}")
-    return bool(capture)
+def use_capture(capture: bool, device: torch.device, mesh) -> bool:
+    """Whether an epoch engine captures its step: when asked to, on a CUDA
+    device with no mesh (a step over a mesh runs collectives, and the CPU
+    has no graphs)."""
+    return capture and device.type == "cuda" and mesh is None
 
 
 def run_epochs(one_step, graph: Optional[StepGraph], batch_fn, inputs_of, state, seed: int, epoch0: int,
@@ -382,7 +369,7 @@ def run_epochs(one_step, graph: Optional[StepGraph], batch_fn, inputs_of, state,
     """Epochs epoch0 .. epoch0 + n_run - 1 of an epoch engine: epoch j's
     generator ``epoch_generator(seed, epoch0 + j)``, its batches, and for
     each batch the step's inputs ``inputs_of(generator, x, y)`` through
-    ``one_step(state, inputs, generator) -> (state, out)``, or through
+    ``one_step(state, inputs) -> (state, out)``, or through
     replays of ``graph`` (started from ``state``) when given.  ``out`` holds
     the step's loss, then its info terms (named by ``info_names`` once a
     step ran); epoch j's means over its steps go to ``losses[j]`` and to the
@@ -399,7 +386,7 @@ def run_epochs(one_step, graph: Optional[StepGraph], batch_fn, inputs_of, state,
             if graph is not None:
                 out = graph(inputs)
             else:
-                state, out = one_step(state, inputs, gen)
+                state, out = one_step(state, inputs)
             if rows is None:
                 rows = torch.empty((out.shape[0], len(xb), *out.shape[1:]), dtype=out.dtype, device=out.device)
             rows[:, i] = out
@@ -415,7 +402,7 @@ def make_epoch_fn(
     batch_fn: Callable[[torch.Generator], Tuple[Tensor, Tensor]],
     epochs_per_call: int = 1,
     mesh=None,
-    capture: Optional[bool] = None,
+    capture: bool = True,
 ):
     """The autograd epoch engine (``train_backend: xla`` in the config).
 
@@ -427,35 +414,32 @@ def make_epoch_fn(
     the params' device.  Epochs at j >= n_active are not run; their losses
     and info are nan.
 
-    A loss that exposes its draws (``loss_fn.draws``, see
-    :func:`draw_kwargs`) has them drawn by the engine before each step and
-    handed to it by keyword, the numbers it would draw itself; any other
-    loss gets the epoch's generator.  On a CUDA device with no mesh each
-    step is one replay of a CUDA graph (:class:`StepGraph`): the loss, its
-    gradient, the clip, Adam and the guard, captured at the first step.
-    ``capture``: None for that default, False for the eager step (on the
-    card: to compare), True to insist (raises on the CPU or with a mesh).
-    A captured loss must expose its draws.
+    The loss exposes its draws: ``loss_fn.draws(generator, x, y)`` gives
+    the batch's numbers, in the loss's order, as the keywords that hand
+    them to it ({} for a loss that draws nothing), as the losses of
+    ``DiffusionModel.make_loss_fn`` and ``flows`` do.  The engine draws
+    them before each step and hands them over, the numbers the loss would
+    draw itself.  With ``capture`` (the default) on a CUDA device with no
+    mesh each step is one replay of a CUDA graph (:class:`StepGraph`): the
+    loss, its gradient, the clip, Adam and the guard, captured at the first
+    step; ``capture=False`` runs the step eagerly there too (to compare).
 
     ``mesh``: None, 'auto' or a :class:`Mesh` (:func:`resolve_mesh`).  With
     one, every rank builds the same batches and draws, and each step is
     data-parallel (:func:`make_train_step`), eager; params and state must be
     the same on every rank, as the drivers' seeded inits and checkpoints
-    make them, and stay so.  The loss must expose its draws as (t, eps, v),
-    as DiffusionModel.make_loss_fn's losses do.
+    make them, and stay so.
     """
     mesh = resolve_mesh(mesh)
-    if mesh is not None and not hasattr(loss_fn, "draws"):
-        raise ValueError("a loss trained over a mesh must expose its draws (loss_fn.draws), "
-                         "as DiffusionModel.make_loss_fn's losses do")
+    if not hasattr(loss_fn, "draws"):
+        raise ValueError("the epoch engine draws a batch's numbers through the loss's draws "
+                         "(loss_fn.draws; {} for a loss that draws nothing)")
     train_step = make_train_step(loss_fn, optimizer, mesh=mesh)
-    drawn = mesh is None and hasattr(loss_fn, "draws")
     info_names: list = []
 
-    def one_step(state, inputs, generator=None):
+    def one_step(state, inputs):
         (params, opt_state), (x, y, draws) = state, inputs
-        params, opt_state, loss, info = train_step(params, opt_state, None if drawn else generator, x, y,
-                                                   draws=draws)
+        params, opt_state, loss, info = train_step(params, opt_state, None, x, y, draws=draws)
         info_names[:] = info
         return (params, opt_state), torch.stack([loss, *info.values()])
 
@@ -464,11 +448,8 @@ def make_epoch_fn(
     def epochs(params, opt_state: AdamState, seed: int, epoch0: int, n_active: int = epochs_per_call):
         dev = pytree.leaves(params)[0].device
         captured = use_capture(capture, dev, mesh)
-        if captured and not drawn:
-            raise ValueError("a captured step takes its draws from the engine: the loss must expose them "
-                             "(loss_fn.draws; {} for a loss that draws nothing)")
         losses = torch.full((epochs_per_call,), float("nan"), device=dev)
-        inputs_of = lambda g, x, y: (x, y, draw_kwargs(loss_fn, g, x, y) if drawn else None)
+        inputs_of = lambda g, x, y: (x, y, loss_fn.draws(g, x, y))
         (params, opt_state), infos = run_epochs(one_step, graph if captured else None, batch_fn, inputs_of,
                                                 (params, opt_state), seed, epoch0, min(n_active, epochs_per_call),
                                                 losses, info_names)

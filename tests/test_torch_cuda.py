@@ -1021,13 +1021,13 @@ def test_captured_step_matches_the_eager_step(cuda, name):
         loss_fn, p0, batch_fn = _graph_case(name, cuda)
         opt = train.build_optimizer(1e-3, grad_clip=1.0)
         runs = {}
-        for capture in (False, None):
+        for capture in (False, True):
             fn = train.make_epoch_fn(loss_fn, opt, batch_fn, epochs_per_call=2, capture=capture)
             p, st, losses, _ = fn(p0, opt.init(p0), 3, 0)
             runs[capture] = (p, st, losses)
-        assert fn.graph.captures == 1 and int(runs[None][1].count) == 10
-        assert bool(torch.isfinite(runs[None][2]).all())
-        print(f"{name}: captured against eager {_graph_parity(runs[False], runs[None], p0)}")
+        assert fn.graph.captures == 1 and int(runs[True][1].count) == 10
+        assert bool(torch.isfinite(runs[True][2]).all())
+        print(f"{name}: captured against eager {_graph_parity(runs[False], runs[True], p0)}")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
 

@@ -117,7 +117,7 @@ def _step(mesh, inputs, n=B):
     x, y, t, eps = (torch.from_numpy(inputs[k][:n]) for k in ("x", "y", "t", "eps"))
     # the meshless step hands the loss no draws, the sharded one its rows'
     loss = lambda p, g, xx, yy, **draws: base(p, None, xx, yy, **(draws or {"t": t, "eps": eps}))
-    loss.draws = lambda g, xx, yy: (t, eps, None)
+    loss.draws = lambda g, xx, yy: {"t": t, "eps": eps}
     opt = train.build_optimizer(1e-3)
     params = params_from_numpy(inputs["params"])
     p, _, value, info = train.make_train_step(loss, opt, mesh=mesh)(params, opt.init(params), None, x, y)

@@ -7,8 +7,9 @@ train, two epochs of three batches must give the params, Adam state and
 losses of ``make_train_step`` drawing inside the loss, bit for bit; a step
 must make no ``aten::lift_fresh`` (``torch.tensor`` of a Python number: on
 a card a copy from pageable memory, a stream sync, and a failed capture);
-and asking for a capture on the CPU raises.  Small nets (32 wide), 16 rows
-a batch; the graph itself runs only on the card (``tests/test_torch_cuda.py``).
+and on the CPU the engines run that step eagerly.  Small nets (32 wide), 16
+rows a batch; the graph itself runs only on the card
+(``tests/test_torch_cuda.py``).
 """
 
 import numpy as np
@@ -119,10 +120,10 @@ def test_engine_draws_the_losses_own_numbers_bit_for_bit(case):
     assert torch.equal(losses, ref[2]) and sorted(infos) == sorted(ref[3])
     assert all(torch.equal(infos[k], ref[3][k]) for k in infos)
     assert int(st.count) == EPOCHS * N_BATCHES and bool(torch.isfinite(losses).all())
-    # the draws reached the loss: other epochs give other numbers, and the
-    # INN draws none, so its batches alone move it
-    other = fn(params, opt.init(params), SEED, EPOCHS)[2]
-    assert not torch.equal(other, losses)
+    # the draws reached the loss: other epochs, and another seed, give other
+    # numbers (the INN draws none, so its batches alone move it)
+    assert not torch.equal(fn(params, opt.init(params), SEED, EPOCHS)[2], losses)
+    assert not torch.equal(fn(params, opt.init(params), SEED + 1, 0)[2], losses)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -169,26 +170,50 @@ def test_ensemble_engine_is_its_step_bit_for_bit():
     assert sorted(infos) == ["DSM-Loss", "Initial Condition", "PDE-Loss"] and infos["PDE-Loss"].shape == (EPOCHS, 2)
 
 
-def test_capture_needs_a_card_and_no_mesh():
-    """capture=True raises on the CPU (both engines), and with a mesh;
-    capture=False is the default there."""
+def test_capture_runs_eagerly_on_the_cpu_and_over_a_mesh():
+    """capture=True (the default) captures only on a CUDA device with no
+    mesh: on the CPU both engines run the eager step, equal to
+    capture=False bit for bit, and capture nothing."""
     loss_fn, params, batch_fn = CASES["dsm"]()
     opt = train.build_optimizer(1e-3)
-    with pytest.raises(ValueError, match="CUDA device"):
-        train.make_epoch_fn(loss_fn, opt, batch_fn, capture=True)(params, opt.init(params), SEED, 0)
-    prob, _ = _linear_data()
+    runs = {c: train.make_epoch_fn(loss_fn, opt, batch_fn, capture=c) for c in (True, False)}
+    out = {c: fn(params, opt.init(params), SEED, 0) for c, fn in runs.items()}
+    assert _equal(out[True][:3], out[False][:3]) and runs[True].graph.captures == 0
     model, cfg = train.get_model_from_args({"model": "CDE", "loss_fn": "DSM", "hidden_layers": [8]},
                                            {"xdim": 2, "ydim": 2})
     ens = ensemble.init_ensemble(model, torch.Generator().manual_seed(1), 2)
     lams, lam2s, _ = ensemble.pad_trials([1.0, 0.5], [1.0, 1.0], 1)
-    efn = ensemble.make_ensemble_epoch_fn(model, cfg, opt, batch_fn, capture=True)
-    with pytest.raises(ValueError, match="CUDA device"):
-        efn(ens, ensemble.init_opt_state(opt, ens), SEED, 0, lams, lam2s)
-    assert not train.use_capture(None, torch.device("cpu"), None)
-    assert train.use_capture(None, torch.device("cuda"), None)
-    with pytest.raises(ValueError, match="mesh"):
-        train.use_capture(True, torch.device("cuda"), object())
-    assert not train.use_capture(None, torch.device("cuda"), object())
+    efns = {c: ensemble.make_ensemble_epoch_fn(model, cfg, opt, batch_fn, capture=c) for c in (True, False)}
+    eout = {c: fn(ens, ensemble.init_opt_state(opt, ens), SEED, 0, lams, lam2s) for c, fn in efns.items()}
+    assert _equal(eout[True][:3], eout[False][:3]) and efns[True].graph.captures == 0
+    assert train.use_capture(True, torch.device("cuda"), None)
+    assert not train.use_capture(True, torch.device("cpu"), None)
+    assert not train.use_capture(True, torch.device("cuda"), object())
+    assert not train.use_capture(False, torch.device("cuda"), None)
+
+
+def test_engine_needs_the_losses_draws():
+    """A loss without ``draws`` is refused when the engine is built."""
+    loss_fn, _, batch_fn = CASES["dsm"]()
+    bare = lambda params, generator, x, y, **draws: loss_fn(params, generator, x, y, **draws)
+    with pytest.raises(ValueError, match="loss_fn.draws"):
+        train.make_epoch_fn(bare, train.build_optimizer(1e-3), batch_fn)
+
+
+def test_epoch_generator_takes_the_seed_on_the_cpu():
+    """The CPU's mt19937 keeps 32 bits of its seed, and the generator mixes
+    the seed into them: two seeds give other batches and draws at the same
+    epoch, two epochs other draws under one seed, and one (seed, epoch) the
+    same draws."""
+    draw = lambda seed, epoch: torch.rand(8, generator=train.epoch_generator(seed, epoch, "cpu"))
+    assert not torch.equal(draw(11, 0), draw(12, 0)) and not torch.equal(draw(11, 0), draw(11, 1))
+    assert not torch.equal(draw(2**31 - 1, 0), draw(0, 0))
+    assert torch.equal(draw(11, 3), draw(11, 3)) and torch.equal(draw(11 + 2**31, 3), draw(11, 3))
+    _, batch_fn = _linear_data()
+    xs = [batch_fn(train.epoch_generator(s, 0, "cpu"))[0] for s in (11, 12)]
+    assert not torch.equal(*xs)
+    with pytest.raises(ValueError, match="epoch index"):
+        train.epoch_generator(1, 2**32, "cpu")
 
 
 def test_snf_draws_are_what_the_loss_draws():
