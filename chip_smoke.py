@@ -32,6 +32,14 @@ width:
     against the E-M rows, with the time per 30k-sample posterior of each
     sampler beside the E-M kernel's; then a ``torch.profiler`` trace of one
     linear serving condition (the card's busy share, the top operations);
+  * the evaluation engine: B1, B4 and B5 each with its seed as an int and
+    as a tensor on the card, bit for bit (``seed_forms``); then
+    ``linear_refined_winner`` on 10 linear conditions with no chunk and in
+    one chunk of 10 (ms a condition, the two results.csv byte for byte),
+    ``cde_500k`` on 3 conditions in one chunk against ground truth drawn
+    there, and one chunk of each queued under the sync debug mode "error"
+    and traced: host syncs, the card's busy share, the top operations, and
+    the time B1's wrapper packs the weights (``eval_engine``);
   * the baselines: the committed ``baselines_{snf,dsm,inn}`` (SNF and INN,
     4 x 64 couplings; the 27 -> 512^3 -> 3 DSM CDE) served through the
     scatterometry baselines driver (``--eval_only``) on the same conditions
@@ -377,6 +385,17 @@ GRAPH_COMPARE_STEPS = 10
 GRAPH_PROFILE_STEPS = 10
 # the CUDA runtime's calls that make the host wait for the card
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy")
+# The evaluation engine (eval_engine): linear_refined_winner on
+# EVAL_LIN_CONDITIONS linear test conditions, by evaluate_linear with no
+# chunk and in one chunk of them, each twice from EVAL_SEED (the second call
+# timed); cde_500k on SCAT_CONDITIONS conditions in one chunk against GT
+# drawn in the phase.  A chunk queued under the sync debug mode "error" must
+# not raise; its trace may hold EVAL_SYNCS_MAX host syncs (the chunk's one
+# read), and the card must be busy EVAL_BUSY_MIN of a traced linear chunk.
+EVAL_LIN_CONDITIONS = 10
+EVAL_SEED = 11
+EVAL_SYNCS_MAX = 1
+EVAL_BUSY_MIN = 0.90
 
 
 class CheckFailed(Exception):
@@ -1265,6 +1284,170 @@ def profile_serve(torch, lin_cfg, gt_dir) -> dict:
     return res
 
 
+def seed_forms(torch, nets, cd_params, prior, weights, fparams, y0) -> dict:
+    """B1, B4 and B5 at the main path's shapes, each launched with an int
+    seed and with the same value as a one-element int64 tensor on the card
+    (the form the samplers now hand the kernels): bit for bit, or fail."""
+    from dmip_tpu_torch.ops import fused_em_sampler, fused_em_sampler_cdiffe, fused_guided_em_sampler
+
+    seed = 2**61 + 1234567
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x0 = torch.randn(N_SAMPLES, 3, generator=gen, device="cuda")
+    x0_lin = torch.randn(N_SAMPLES, 2, generator=gen, device="cuda")
+    lin_params, y_lin = nets["linear_refined_winner"]
+    runs = {
+        "b1_cde_500k": lambda s: fused_em_sampler(nets["cde_500k"][0], x0, y0, EM_STEPS, seed=s),
+        "b1_linear": lambda s: fused_em_sampler(lin_params, x0_lin, y_lin, EM_STEPS, seed=s),
+        "b4": lambda s: fused_em_sampler_cdiffe(cd_params, x0, y0, EM_STEPS, seed=s),
+        "b5": lambda s: fused_guided_em_sampler(prior, weights, x0, y0, a=fparams["a"], b=fparams["b"],
+                                                num_steps=EM_STEPS, seed=s),
+    }
+    out = {}
+    for name, run in runs.items():
+        a, b = run(seed), run(torch.tensor([seed], dtype=torch.int64, device="cuda"))
+        out[name] = bool(torch.equal(a, b))
+        check(out[name], f"seed_forms: {name} with a tensor seed differs from the int seed")
+        check(not torch.equal(a, run(seed + 1)), f"seed_forms: {name} ignores its seed")
+    return out
+
+
+def eval_engine(torch, lin_cfg, scat_cfg, gt_dir, seeds: dict) -> dict:
+    """The evaluation engine at full width, launch counts from zero around
+    it.  Linear: ``linear_refined_winner`` on EVAL_LIN_CONDITIONS test
+    conditions x REPEATS x N_SAMPLES x EM_STEPS through B1, by
+    evaluate_linear with chunk=None and with one chunk of all of them, each
+    called twice from EVAL_SEED (ms a condition from the second call); the
+    two results.csv must be equal byte for byte.  Scatterometry:
+    ``cde_500k`` on SCAT_CONDITIONS conditions against GT drawn here (B2),
+    chunk=SCAT_CONDITIONS, twice.  Then one chunk of each problem from the
+    same seed through make_eval_many_*: queued under the sync debug mode
+    "error" (the GT's pinned staging included) and read after it, inside a
+    trace (host syncs in the span, the card's busy share, the top eight
+    device ops); its rows must be the harness's.  Last, the time B1's
+    wrapper takes to pack each net's weights for a launch, by CUDA events
+    and as the card's busy time in a trace, beside a launch of B1 in the
+    traced chunk.  ``seeds`` (seed_forms) ride
+    along in the phase line.  Returns B1's launches a net and B2's."""
+    from dmip_tpu_torch import data, evaluate, train
+    from dmip_tpu_torch.checkpoints import load_archived_params
+    from dmip_tpu_torch.mains import eval_diffusion
+    from dmip_tpu_torch.mains import generate_scatterometry_ground_truth as gt
+    from dmip_tpu_torch.ops import em_kernel, fused_em_sampler, fused_mh_scatterometry
+    from dmip_tpu_torch.problems import LinearForwardProblem
+    from dmip_tpu_torch.problems import scatterometry as scat
+    from dmip_tpu_torch.utils import profiling
+
+    ckpt = lambda name: os.path.join(REPO, "benchmarks/checkpoints", name)
+    common = dict(n_samples_x=N_SAMPLES, n_repeats=REPEATS, num_steps=EM_STEPS, verbose=False)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(EVAL_SEED)
+    prob = LinearForwardProblem()
+    lmodel, _ = train.get_model_from_args(lin_cfg, {"xdim": prob.xdim, "ydim": prob.ydim})
+    lparams = load_archived_params(ckpt("linear_refined_winner"), device="cuda")
+    ys = eval_diffusion.linear_test_conditions(lin_cfg, prob, "cuda")[:EVAL_LIN_CONDITIONS]
+    sc = dict(scat_cfg, n_samples_y=SCAT_CONDITIONS, n_samples_x=N_SAMPLES, n_repeats=REPEATS)
+    forward_model, fparams = scat.load_forward_model(device="cuda")
+    smodel, _ = train.get_model_from_args(sc, fparams)
+    sparams = load_archived_params(ckpt("cde_500k"), device="cuda")
+    score = scat.score_posterior(forward_model, fparams["a"], fparams["b"], fparams["lambd_bd"])
+    gt_own = os.path.join(gt_dir, "engine_gt")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.time()
+        m = fn()
+        torch.cuda.synchronize()
+        return m, time.time() - t
+
+    def rows(path):
+        with open(path) as f:
+            return [[float(v) for v in ln.strip().split(",")[1:]] for ln in list(f)[1:]]
+
+    fused_em_sampler.launches = fused_mh_scatterometry.launches = 0
+    t0 = time.time()
+    lin, csv_bytes = {}, {}
+    for chunk in (None, EVAL_LIN_CONDITIONS):
+        out_dir = os.path.join(gt_dir, f"engine_lin_{chunk}")
+        run = lambda: evaluate.evaluate_linear(lmodel, lparams, prob, ys, gen(), out_dir=out_dir, chunk=chunk, **common)
+        (m, first_s), (m2, second_s) = timed(run), timed(run)
+        with open(os.path.join(out_dir, "results.csv"), "rb") as f:
+            csv_bytes[chunk] = f.read()
+        lin[f"chunk_{chunk}"] = {"KL": m2[0], "NLPD": m2[1], "score_MSE": m2[2], "first_call_s": first_s,
+                                 "ms_per_condition": 1e3 * second_s / len(ys)}
+        check(m == m2, f"eval_engine: two linear calls from one seed differ, {m} and {m2}")
+    check(csv_bytes[None] == csv_bytes[EVAL_LIN_CONDITIONS], "eval_engine: chunk=None and chunk=10 rows differ")
+    check(lin["chunk_None"]["KL"] < LIN_KL_BOUND, f"eval_engine: linear KL {lin['chunk_None']['KL']}")
+
+    t1 = time.time()
+    gt.run(sc, gt_own, device="cuda")
+    torch.cuda.synchronize()
+    gt_s = time.time() - t1
+    sys_ = gt.test_conditions(sc, forward_model, fparams, "cuda")[:SCAT_CONDITIONS]
+    loader = data.gt_loader(gt_own)
+    out_scat = os.path.join(gt_dir, "engine_scat")
+    run = lambda: evaluate.evaluate_scatterometry(smodel, sparams, forward_model, fparams, score, sys_, loader, gen(),
+                                                  out_dir=out_scat, chunk=SCAT_CONDITIONS, **common)
+    (k, first_s), (k2, second_s) = timed(run), timed(run)
+    check(k == k2, f"eval_engine: two scatterometry calls from one seed differ, {k} and {k2}")
+    check(_finite(k), f"eval_engine: scatterometry metrics {k}")
+    scat_res = {"KL": k2[0], "NLPD": k2[1], "score_MSE": k2[2], "first_call_s": first_s,
+                "ms_per_condition": 1e3 * second_s / SCAT_CONDITIONS, "gt_seconds": gt_s}
+
+    many_lin = evaluate.make_eval_many_linear(lmodel, prob, N_SAMPLES, REPEATS, EM_STEPS)
+    many_scat = evaluate.make_eval_many_scatterometry(smodel, forward_model, fparams, score, N_SAMPLES, EM_STEPS)
+    chunks = {
+        "linear": (lambda: many_lin(lparams, gen(), ys), rows(os.path.join(gt_dir, "engine_lin_None", "results.csv"))),
+        "scat": (lambda: many_scat(sparams, gen(), sys_,
+                                   evaluate.stage_ground_truth(loader, range(SCAT_CONDITIONS), REPEATS, "cuda")),
+                 rows(os.path.join(out_scat, "results.csv"))),
+    }
+    traced = {}
+    for name, (queue, want) in chunks.items():
+        got = []
+
+        def one_chunk():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = queue()
+            except RuntimeError as e:
+                raise CheckFailed(f"eval_engine: a host sync inside a {name} chunk: {e}") from e
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            got.extend(evaluate.read_stats(out))
+
+        traced[name] = host_trace(torch, one_chunk, 1)
+        traced[name]["syncs"] = traced[name].pop("syncs_per_step")
+        traced[name]["runtime_calls"] = traced[name].pop("runtime_calls_per_step")
+        if name == "linear":
+            got = [[r[0], *r[2:]] for r in got]  # results.csv has no reverse KL for linear
+        check(got == want, f"eval_engine: the traced {name} chunk's rows differ from the harness's")
+        check(traced[name]["syncs"] <= EVAL_SYNCS_MAX, f"eval_engine: {traced[name]['syncs']} host syncs in a "
+              f"traced {name} chunk")
+    n_b1, n_b2 = fused_em_sampler.launches, fused_mh_scatterometry.launches
+    n_lin = 5 * REPEATS * EVAL_LIN_CONDITIONS
+    # B1's wrapper re-packs the weights at every launch: the time it takes
+    # by CUDA events (bound by the host's launches) and the card's busy time
+    # in it, beside a launch of B1
+    b1_ms = next(op["ms"] / op["calls"] for op in traced["linear"]["top_ops"] if "em_sampler_kernel" in op["name"])
+    pack, reps = {}, 20
+    for name, params, y in (("linear_refined_winner", lparams, ys[0]), ("cde_500k", sparams, sys_[0])):
+        pack_net = lambda: em_kernel._device_net(params, params[-1][0].shape[1], y)
+        sec, _ = profiling.timeit(pack_net, reps=reps)
+        with profiling.trace() as prof:
+            for _ in range(reps):
+                pack_net()
+        card = profiling.busy_share(prof)
+        pack[name] = {"events_us": 1e6 * sec, "card_us": card["busy_us"] / reps, "kernels": card["kernels"] / reps,
+                      "card_share_of_b1_launch": card["busy_us"] / reps / 1e3 / b1_ms}
+    check(n_b1 == n_lin + 3 * REPEATS * SCAT_CONDITIONS and n_b2 == SCAT_CONDITIONS,
+          f"eval_engine: B1 {n_b1}, B2 {n_b2} launches")
+    phase("eval_engine", t0, linear_conditions=EVAL_LIN_CONDITIONS, scat_conditions=SCAT_CONDITIONS, repeats=REPEATS,
+          samples=N_SAMPLES, linear=lin, scat=scat_res, rows_equal_chunk_none_and_10=True, traced_chunk=traced,
+          seed_forms_bit_for_bit=seeds, b1_launches=n_b1, b2_launches=n_b2, b1_weight_packing=pack)
+    check(traced["linear"]["card"]["share"] >= EVAL_BUSY_MIN,
+          f"eval_engine: the card busy {traced['linear']['card']['share']:.3f} of a traced linear chunk")
+    return {"linear_refined_winner": n_lin, "cde_500k": n_b1 - n_lin, "mh": n_b2}
+
+
 def train_cdiffe(torch, gt_dir, gen) -> dict:
     """B3 against its plain version at the CDiffE's 27 -> 26 shapes (all of
     check_b3's cases), then CDiffE DSM training through the driver on the
@@ -1443,10 +1626,10 @@ def host_trace(torch, run, n_steps: int) -> dict:
     from dmip_tpu_torch.utils import profiling
 
     with profiling.trace() as prof:
-        with torch.profiler.record_function("train_steps"):
+        with torch.profiler.record_function("traced_span"):
             run()
     events = prof.events()
-    span = next(e for e in events if e.name == "train_steps").time_range
+    span = next(e for e in events if e.name == "traced_span").time_range
     calls = Counter(e.name for e in events if e.name.startswith("cuda")
                     and span.start <= e.time_range.start <= span.end)
     return {"syncs_per_step": sum(calls[n] for n in SYNC_CALLS) / n_steps,
@@ -2680,6 +2863,10 @@ def run() -> list:
         refined_launches = serve_refined(torch, served, work)
         serve_samplers(torch, lin_cfg, scat_cfg, served, work)
         profile_serve(torch, lin_cfg, work)
+        t0 = time.time()
+        seeds = seed_forms(torch, nets, cdiffe_nets["cdiffe_scat"][0], prior, weights, fparams, y0)
+        phase("seed_forms", t0, bit_for_bit=seeds)
+        engine = eval_engine(torch, lin_cfg, scat_cfg, work, seeds)
         launches.update(serve_cdiffe_dps(torch, work))
         f32_launches = serve_f32(torch, lin_cfg, scat_cfg, work)
         baseline_launches = serve_baselines_scat(torch, work)
@@ -2706,12 +2893,13 @@ def run() -> list:
     # and train_captured's evaluation of its PINN net (the linear net's shape)
     dist_linear = world1["b1"] + dist["linear"]
     em_n = {"linear_refined_winner": launches["em_linear"] + refined_launches["linear"] + grid_launches["linear"]
-            + dist_linear + captured_b1,
+            + dist_linear + captured_b1 + engine["linear_refined_winner"],
             "cde_500k": launches["em"] - launches["em_linear"] + refined_launches["cde_500k"] + baseline_launches
-            + grid_launches["cde_500k"] + dist["cde_500k"]}
+            + grid_launches["cde_500k"] + dist["cde_500k"] + engine["cde_500k"]}
     launches["em"] += (sum(refined_launches.values()) + baseline_launches + sum(grid_launches.values())
-                       + dist_linear + dist["cde_500k"] + captured_b1)
-    launches["mh"] += dist["mh"]
+                       + dist_linear + dist["cde_500k"] + captured_b1 + engine["linear_refined_winner"]
+                       + engine["cde_500k"])
+    launches["mh"] += dist["mh"] + engine["mh"]
     em_t, em_flops, em_bytes = {}, 0.0, 0.0
     for name, (params, y) in nets.items():
         x0 = torch.randn(N_SAMPLES, params[-1][0].shape[1], generator=gen, device="cuda")

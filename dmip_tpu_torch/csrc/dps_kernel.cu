@@ -106,6 +106,7 @@ struct GuidedArgs {
   int full_blocks;     // blocks of 64 rows; the others have 48
   float T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale, a2, b2, clip;
   unsigned long long seed;
+  const unsigned long long* seed_ptr;  // null, or the seed on the device, read in place of `seed`
 };
 
 // ---- copies and row access ------------------------------------------------
@@ -451,7 +452,8 @@ __device__ __forceinline__ void run_rows(const GuidedArgs& p, unsigned char* sme
   const int mask_words = (1 + Su.n_mid) * mask_layer;
   const size_t slab_layer = (size_t)P.width * R;
   float* slab = p.scratch + (size_t)row0 * (P.n_mid + 1) * P.width;
-  const uint2 key = make_uint2((uint32_t)p.seed, (uint32_t)(p.seed >> 32));
+  const unsigned long long seed = p.seed_ptr != nullptr ? __ldg(p.seed_ptr) : p.seed;
+  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
 
   if (tid < ydim) ys[tid] = p.y[tid];
   for (int i = tid; i < xdim * R; i += G_THREADS) {
@@ -669,14 +671,17 @@ const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)
 
 
 // Launch on `stream`; returns a cudaError_t.  scratch holds
-// (n + 64) x (1 + prior_mid) x prior_width floats.
+// (n + 64) x (1 + prior_mid) x prior_width floats.  seed_ptr: null, or the
+// address of the seed on the device, which the kernel reads in place of
+// `seed`.
 int guided_em_launch(const float* x0, const float* y, const unsigned long long* prior_ptrs, int prior_mid,
                      int prior_width, const unsigned long long* surr_ptrs, int surr_mid, int surr_width,
                      const float* noise, float* out, float* scratch, long long* stamps, int n, int xdim, int ydim,
                      int num_steps, int start_step, int stop_step, int pgdm, int has_clip, float T,
                      float beta_min, float bd,
                      float c_drift, float c_sigma, float delta, float sqrt_delta, float noise_scale,
-                     float a2, float b2, float clip, unsigned long long seed, void* stream) {
+                     float a2, float b2, float clip, unsigned long long seed,
+                     const unsigned long long* seed_ptr, void* stream) {
   if (n < 1 || start_step < 0 || stop_step <= start_step || stop_step > num_steps || xdim < 1 ||
       xdim > G_MAX_XDIM || ydim < 1 || ydim > G_MAX_YDIM || (pgdm && xdim != 3))
     return (int)cudaErrorInvalidValue;
@@ -690,7 +695,7 @@ int guided_em_launch(const float* x0, const float* y, const unsigned long long* 
   p.pgdm = pgdm; p.has_clip = has_clip;
   p.T = T; p.beta_min = beta_min; p.bd = bd; p.c_drift = c_drift; p.c_sigma = c_sigma;
   p.delta = delta; p.sqrt_delta = sqrt_delta; p.noise_scale = noise_scale;
-  p.a2 = a2; p.b2 = b2; p.clip = clip; p.seed = seed;
+  p.a2 = a2; p.b2 = b2; p.clip = clip; p.seed = seed; p.seed_ptr = seed_ptr;
   const int act_rows = prior_width > surr_width ? prior_width : surr_width;
   p.stages = smem_bytes(act_rows, 3, surr_mid, surr_width) <= G_SMEM_MAX ? 3 : 2;
   const size_t smem = smem_bytes(act_rows, p.stages, surr_mid, surr_width);

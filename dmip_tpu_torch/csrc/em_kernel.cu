@@ -137,7 +137,15 @@ struct EmArgs {
   int n, xdim, ydim, num_steps, hmax;
   float T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale;
   unsigned long long seed;
+  const unsigned long long* seed_ptr;  // null, or the seed on the device, read in place of `seed`
 };
+
+// The Philox key: the seed at seed_ptr when the caller gave its address
+// (a seed drawn on the device, never copied to the host), else `seed`.
+__device__ __forceinline__ uint2 philox_key(const EmArgs& p) {
+  const unsigned long long s = p.seed_ptr != nullptr ? __ldg(p.seed_ptr) : p.seed;
+  return make_uint2((uint32_t)s, (uint32_t)(s >> 32));
+}
 
 // With stamps, block 0 reads the card's clock (ns) and its SM's cycle
 // count when a phase ends.
@@ -171,7 +179,7 @@ __device__ __forceinline__ EmStep em_step(const EmArgs& p, int step) {
 template <typename Put>
 __device__ __forceinline__ void cdiffe_inputs(const EmArgs& p, int step, float s, int row0, const float* xs,
                                               float* xi, const float* y0, int tid, int nthreads, Put put) {
-  const uint2 key = make_uint2((uint32_t)p.seed, (uint32_t)(p.seed >> 32));
+  const uint2 key = philox_key(p);
   const int xdim = p.xdim, D = p.xdim + p.ydim, pairs = (D + 1) >> 1;
   const float int_beta = 0.5f * p.bd * (s * s) + p.beta_min * s;
   const float alpha = expf(-0.5f * int_beta);
@@ -224,7 +232,7 @@ __device__ __forceinline__ float em_update(const EmArgs& p, int step, int r, int
     } else if (p.noise != nullptr) {
       z = row < p.n ? p.noise_scale * p.noise[((size_t)step * p.n + row) * p.xdim + d] : 0.f;
     } else {
-      const uint2 key = make_uint2((uint32_t)p.seed, (uint32_t)(p.seed >> 32));
+      const uint2 key = philox_key(p);
       const uint4 w = philox4x32_10(make_uint4((uint32_t)row, (uint32_t)step, (uint32_t)(d >> 1), 0u), key);
       z = p.noise_scale * ((d & 1) ? normal_from_bits(w.z, w.w) : normal_from_bits(w.x, w.y));
     }
@@ -954,7 +962,7 @@ static int em_args(EmArgs& p, int cdiffe, const float* x0, const float* y, const
                    const int* widths, int n_hidden, const void* wout, const float* bout, const float* noise,
                    float* out, long long* stamps, int n, int xdim, int ydim, int num_steps, float T,
                    float beta_min, float bd, float c_drift, float c_sigma, float delta, float sqrt_delta,
-                   float noise_scale, unsigned long long seed) {
+                   float noise_scale, unsigned long long seed, const unsigned long long* seed_ptr) {
   if (n_hidden < 0 || n_hidden > EM_MAX_HIDDEN || xdim < 1 || xdim > EM_MAX_XDIM || n < 1 || num_steps < 1 ||
       ydim < 0 || (cdiffe && (ydim < 1 || xdim + ydim > EM_K1)))
     return (int)cudaErrorInvalidValue;
@@ -975,6 +983,7 @@ static int em_args(EmArgs& p, int cdiffe, const float* x0, const float* y, const
   p.n = n; p.xdim = xdim; p.ydim = ydim; p.num_steps = num_steps; p.hmax = hmax;
   p.T = T; p.beta_min = beta_min; p.bd = bd; p.c_drift = c_drift; p.c_sigma = c_sigma;
   p.delta = delta; p.sqrt_delta = sqrt_delta; p.noise_scale = noise_scale; p.seed = seed;
+  p.seed_ptr = seed_ptr;
   return (int)cudaSuccess;
 }
 
@@ -997,16 +1006,17 @@ const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)
       const unsigned long long *wh_ptrs, const unsigned long long *bh_ptrs, const int *widths, int n_hidden,      \
       const void *wout, const float *bout, const float *noise, float *out, long long *stamps, int n, int xdim,   \
       int ydim, int num_steps, float T, float beta_min, float bd, float c_drift, float c_sigma, float delta,      \
-      float sqrt_delta, float noise_scale, unsigned long long seed
+      float sqrt_delta, float noise_scale, unsigned long long seed, const unsigned long long *seed_ptr
 #define EM_ARGS                                                                                                  \
   cdiffe, x0, y, c1, w1t, w1, wh_ptrs, bh_ptrs, widths, n_hidden, wout, bout, noise, out, stamps, n, xdim, ydim, \
-      num_steps, T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale, seed
+      num_steps, T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale, seed, seed_ptr
 
 // Launch B1 (cdiffe = 0) or B4 (cdiffe = 1) with bf16 weights on `stream`.
 // wh_ptrs / bh_ptrs / widths are host arrays of n_hidden, n_hidden and
 // n_hidden + 1 entries; every width a multiple of 128, at most 512; xdim +
 // ydim <= 32 for B4.  w1, wh and wout as ops/em_kernel.py packs them for
-// this mode.  Returns a cudaError_t.
+// this mode.  seed_ptr: null, or the address of the seed on the device,
+// which the kernel reads in place of `seed`.  Returns a cudaError_t.
 int em_launch(EM_PARAMS, void* stream) {
   EmArgs p;
   const int bad = em_args(p, EM_ARGS);

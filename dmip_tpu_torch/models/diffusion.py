@@ -73,11 +73,15 @@ def loss_keywords(t: Tensor, eps: Tensor, v: Optional[Tensor] = None) -> Dict[st
 
 
 def _kernel_draws(generator, num_samples: int, xdim: int, mean: float, std: float, dev):
-    """x0 ~ N(mean, std^2) and an int seed for a kernel's Philox stream,
-    both from ``generator`` (on its device), x0 moved to ``dev``."""
-    gen_dev = generator.device if generator is not None else "cpu"
+    """x0 ~ N(mean, std^2) and the seed of a kernel's Philox stream, both
+    from ``generator`` (on its device), x0 moved to ``dev``.  The seed is an
+    int from a CPU generator, and from a CUDA one a one-element int64
+    tensor on ``dev``, which the kernel reads there: the card does not stop
+    to hand it to the host."""
+    gen_dev = torch.device(generator.device if generator is not None else "cpu")
     x0 = torch.randn(num_samples, xdim, generator=generator, device=gen_dev)
-    seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=gen_dev))
+    seed = torch.randint(0, 2**62, (1,), generator=generator, device=gen_dev)
+    seed = int(seed) if gen_dev.type == "cpu" else seed.to(dev)
     return (x0 * std + mean).to(dev), seed
 
 

@@ -16,7 +16,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -103,3 +105,17 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         msg = lib.cuda_error_string(err).decode()
         raise RuntimeError(f"{what} failed: cudaError_t {err} ({msg})")
+
+
+def seed_args(seed, device: torch.device) -> Tuple[int, Optional[int]]:
+    """A Philox seed as the launchers take it: (its 64 bits, None) for an
+    int, or (0, its address) for a one-element int64 tensor on ``device``,
+    which the kernel reads itself.  A seed drawn on the card so reaches the
+    kernel without a copy to the host, and the same 64 bits give the same
+    stream either way."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int64 or seed.numel() != 1 or seed.device != device:
+            raise ValueError(f"a tensor seed is one int64 on {device}, got {seed.dtype} of shape "
+                             f"{tuple(seed.shape)} on {seed.device}")
+        return 0, seed.data_ptr()
+    return int(seed) & (2**64 - 1), None

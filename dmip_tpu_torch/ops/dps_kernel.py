@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -285,7 +285,7 @@ _ARGTYPES = (
     + [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 8
     + [ctypes.c_float] * 11
-    + [ctypes.c_uint64, ctypes.c_void_p]
+    + [ctypes.c_uint64, ctypes.c_void_p, ctypes.c_void_p]
 )
 
 
@@ -324,6 +324,7 @@ def _launch(prior_params, surrogate_params, x0, y, a, b, guidance_clip, num_step
     pp = (ctypes.c_uint64 * len(prior))(*[t.data_ptr() for t in prior])
     sp = (ctypes.c_uint64 * len(surr))(*[t.data_ptr() for t in surr])
     delta = T / num_steps
+    seed_value, seed_ptr = build.seed_args(seed, dev)
     lib = build.load("dps_kernel")
     fn = lib.guided_em_launch
     fn.argtypes = _ARGTYPES
@@ -338,7 +339,7 @@ def _launch(prior_params, surrogate_params, x0, y, a, b, guidance_clip, num_step
             int(guidance_clip is not None),
             T, beta_min, beta_max - beta_min, 1.0 - 0.5 * lmbd, (1.0 - lmbd) ** 0.5, delta, delta**0.5,
             noise_scale, a * a, b * b, 0.0 if guidance_clip is None else float(guidance_clip),
-            seed & (2**64 - 1), torch.cuda.current_stream(dev).cuda_stream,
+            seed_value, seed_ptr, torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(lib, err, "guided_em_launch")
     fused_guided_em_sampler.launches += 1
@@ -359,7 +360,7 @@ def fused_guided_em_sampler(
     beta_min: float = 0.1,
     beta_max: float = 20.0,
     lmbd: float = 0.0,
-    seed: int = 0,
+    seed: Union[int, Tensor] = 0,
     noise_scale: float = 1.0,
     noise: Optional[Tensor] = None,
     guidance: str = "dps",
@@ -378,7 +379,9 @@ def fused_guided_em_sampler(
     and the step's index on the grid, or ``noise`` (stop_step - start_step,
     N, xdim) when given.  On a CPU tensor it runs
     :func:`guided_em_reference`, drawing noise from a generator seeded with
-    ``seed``.
+    ``seed``: an int, or a one-element int64 tensor on x0's device, which
+    the kernel reads there (``build.seed_args``), as
+    :func:`dmip_tpu_torch.ops.fused_em_sampler` takes it.
 
     stamps: None, or an int64 CUDA tensor of >= 2 x (1 + 7 x (stop_step -
     start_step)) entries: block 0 writes the card's clock (ns) and its SM's
@@ -391,7 +394,7 @@ def fused_guided_em_sampler(
     if x0.device.type == "cpu":
         if stamps is not None:
             raise ValueError("stamps are taken only by the CUDA kernel")
-        gen = torch.Generator().manual_seed(seed) if noise is None else None
+        gen = torch.Generator().manual_seed(int(seed)) if noise is None else None
         return guided_em_reference(prior_params, surrogate_params, x0, y, generator=gen, **kw)
     if x0.device.type != "cuda":
         raise ValueError(f"no kernel for device {x0.device}")

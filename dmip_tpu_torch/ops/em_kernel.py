@@ -27,7 +27,7 @@ its launches (``launches``) and, apart, each mode's (``launches_by_dtype``).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -320,7 +320,7 @@ _ARGTYPES = (
     + [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 4
     + [ctypes.c_float] * 8
-    + [ctypes.c_uint64, ctypes.c_void_p]
+    + [ctypes.c_uint64, ctypes.c_void_p, ctypes.c_void_p]
 )
 
 
@@ -335,6 +335,7 @@ def _em_launch(net: dict, cdiffe: bool, f32_mode: bool, x0, y_dev, noise, stamps
     wh, bh, widths, n_hidden = _hidden_args(net)
     delta = T / num_steps
     ptr = lambda t: None if t is None else t.data_ptr()
+    seed_value, seed_ptr = build.seed_args(seed, dev)
     lib = build.load("em_kernel")
     fn = lib.em_f32_launch if f32_mode else lib.em_launch
     fn.argtypes = _ARGTYPES
@@ -347,7 +348,7 @@ def _em_launch(net: dict, cdiffe: bool, f32_mode: bool, x0, y_dev, noise, stamps
             net["wout"].data_ptr(), net["bout"].data_ptr(), ptr(noise), out.data_ptr(), ptr(stamps),
             n, xdim, ydim, num_steps,
             T, beta_min, beta_max - beta_min, 1.0 - 0.5 * lmbd, (1.0 - lmbd) ** 0.5,
-            delta, delta**0.5, noise_scale, seed & (2**64 - 1),
+            delta, delta**0.5, noise_scale, seed_value, seed_ptr,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(lib, err, "em_f32_launch" if f32_mode else "em_launch")
@@ -397,7 +398,7 @@ def fused_em_sampler(
     beta_min: float = 0.1,
     beta_max: float = 20.0,
     lmbd: float = 0.0,
-    seed: int = 0,
+    seed: Union[int, Tensor] = 0,
     compute_dtype=torch.bfloat16,
     noise_scale: float = 1.0,
     noise: Optional[Tensor] = None,
@@ -413,7 +414,10 @@ def fused_em_sampler(
     by ``seed`` (the same normals in both modes), or ``noise`` (num_steps,
     N, xdim) when given.  On a CPU tensor it runs
     :func:`em_sampler_reference`, drawing noise from a generator seeded
-    with ``seed``.
+    with ``seed``.  ``seed`` is an int, or a one-element int64 tensor on
+    x0's device, which the kernel reads there (``build.seed_args``): a seed
+    drawn on the card needs no copy to the host, and gives the samples of
+    its value as an int.
 
     ``stamps``, taken only by the kernel, is a contiguous int64 tensor of
     >= ``stamp_entries(P, num_steps, compute_dtype)`` entries, P =
@@ -428,7 +432,7 @@ def fused_em_sampler(
     if x0.device.type == "cpu":
         if stamps is not None:
             raise ValueError("stamps are taken only by the CUDA kernel")
-        gen = torch.Generator().manual_seed(seed) if noise is None else None
+        gen = torch.Generator().manual_seed(int(seed)) if noise is None else None
         return em_sampler_reference(
             params, x0, y, num_steps, T, beta_min, beta_max, lmbd,
             compute_dtype, noise_scale, noise, gen,
@@ -536,7 +540,7 @@ def fused_em_sampler_cdiffe(
     beta_min: float = 0.1,
     beta_max: float = 20.0,
     lmbd: float = 0.0,
-    seed: int = 0,
+    seed: Union[int, Tensor] = 0,
     compute_dtype=torch.bfloat16,
     noise_scale: float = 1.0,
     noise: Optional[Tensor] = None,
@@ -549,14 +553,14 @@ def fused_em_sampler_cdiffe(
     launches that mode's B4, with Philox noise keyed by ``seed``, or
     ``noise`` (num_steps, N, xdim + ydim) when given.  On a CPU tensor it
     runs :func:`em_cdiffe_reference`, drawing noise from a generator seeded
-    with ``seed``.  ``stamps`` as :func:`fused_em_sampler`, over
+    with ``seed``.  ``seed`` and ``stamps`` as :func:`fused_em_sampler`, over
     ``phase_names(n_hidden, cdiffe=True)``.
     """
     check_compute_dtype(compute_dtype)
     if x0.device.type == "cpu":
         if stamps is not None:
             raise ValueError("stamps are taken only by the CUDA kernel")
-        gen = torch.Generator().manual_seed(seed) if noise is None else None
+        gen = torch.Generator().manual_seed(int(seed)) if noise is None else None
         return em_cdiffe_reference(
             params, x0, y, num_steps, T, beta_min, beta_max, lmbd,
             compute_dtype, noise_scale, noise, gen,

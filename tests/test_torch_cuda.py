@@ -1085,3 +1085,125 @@ def test_captured_step_recaptures_on_a_shape_change(cuda):
     assert fn.graph.captures == 2 and int(third[1].count) == 10
     assert all(torch.equal(a, b) for a, b in zip(kept, pytree.leaves(second[:2])))
     assert not torch.equal(first[2], second[2])
+
+
+def _seeded_b1(cuda, compute_dtype):
+    tp = mlp_init(27, 3, (160, 128), generator=torch.Generator().manual_seed(3), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x0, y = torch.randn(700, 3, generator=gen, device=cuda), torch.randn(23, generator=gen, device=cuda)
+    return lambda s: fused_em_sampler(tp, x0, y, 30, seed=s, compute_dtype=compute_dtype)
+
+
+def _seeded_b4(cuda, compute_dtype):
+    tp = mlp_init(27, 26, (128, 128), generator=torch.Generator().manual_seed(3), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x0, y = torch.randn(700, 3, generator=gen, device=cuda), 0.3 * torch.randn(23, generator=gen, device=cuda)
+    return lambda s: fused_em_sampler_cdiffe(tp, x0, y, 30, seed=s, compute_dtype=compute_dtype)
+
+
+def _seeded_b5(cuda, _):
+    prior = mlp_init(4, 3, (128, 128), generator=torch.Generator().manual_seed(3), device=cuda)
+    surr = mlp_init(3, 23, (64, 64), generator=torch.Generator().manual_seed(5), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x0, y = torch.randn(700, 3, generator=gen, device=cuda), torch.randn(23, generator=gen, device=cuda)
+    return lambda s: fused_guided_em_sampler(prior, surr, x0, y, a=0.2, b=0.01, num_steps=30, seed=s)
+
+
+@pytest.mark.parametrize("make,compute_dtype", [(_seeded_b1, torch.bfloat16), (_seeded_b1, torch.float32),
+                                                (_seeded_b4, torch.bfloat16), (_seeded_b4, torch.float32),
+                                                (_seeded_b5, None)],
+                         ids=["B1", "B1_f32", "B4", "B4_f32", "B5"])
+def test_a_seed_on_the_card_is_its_int(cuda, make, compute_dtype):
+    """Each kernel reads a one-element int64 seed tensor on the card in
+    place of the int it holds: the same samples bit for bit, another seed
+    other samples; a seed tensor on the CPU or of int32 is refused."""
+    run = make(cuda, compute_dtype)
+    seed = 2**62 - 12345
+    a = run(seed)
+    assert torch.equal(a, run(torch.tensor([seed], device=cuda)))
+    assert not torch.equal(a, run(torch.tensor([seed + 1], device=cuda)))
+    for bad in (torch.tensor([seed]), torch.tensor([7], dtype=torch.int32, device=cuda)):
+        with pytest.raises(ValueError, match="a tensor seed is one int64"):
+            run(bad)
+
+
+def _engine_linear(cuda):
+    from dmip_tpu_torch import train
+
+    prob = LinearForwardProblem()
+    model, _ = train.get_model_from_args({"model": "CDE", "loss_fn": "DSM", "hidden_layers": [64, 64]},
+                                         {"xdim": 2, "ydim": 2})
+    params = model.init(torch.Generator().manual_seed(0), device=cuda)
+    ys = prob.forward(torch.randn(3, 2, generator=torch.Generator().manual_seed(1)).to(cuda))
+    return model, params, prob, ys
+
+
+def test_a_chunk_queues_without_a_host_sync(cuda):
+    """A linear chunk of 3 conditions and a scatterometry chunk of 2 (its
+    GT staged in pinned memory inside the chunk), after a warm-up, queued
+    under the sync debug mode "error": nothing raises; then the one read
+    gives finite rows, equal to the warm-up's from the same seed."""
+    from dmip_tpu_torch import evaluate
+
+    model, params, prob, ys = _engine_linear(cuda)
+    lin = evaluate.make_eval_many_linear(model, prob, 2000, 2, 20, nbins=30)
+    smodel = CDE(3, 23, (64, 64))
+    sparams = smodel.init(torch.Generator().manual_seed(2), device=cuda)
+    fwd, fp = scat.load_forward_model(device=cuda)
+    score = scat.score_posterior(fwd, fp["a"], fp["b"], fp["lambd_bd"])
+    sys_ = fwd(torch.rand(2, 3, generator=torch.Generator().manual_seed(3)).to(cuda) - 0.5)
+    gt = np.random.default_rng(0).uniform(-1, 1, size=(2, 2, 2500, 3)).astype(np.float32)
+    sc = evaluate.make_eval_many_scatterometry(smodel, fwd, fp, score, 2000, 20, nbins=30)
+    chunks = [lambda: lin(params, torch.Generator(device=cuda).manual_seed(5), ys),
+              lambda: sc(sparams, torch.Generator(device=cuda).manual_seed(5), sys_,
+                         evaluate.stage_ground_truth(lambda i, j: gt[i, j], range(2), 2, cuda))]
+    for queue in chunks:
+        want = evaluate.read_stats(queue())
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = queue()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = evaluate.read_stats(out)
+        assert got == want and np.all(np.isfinite(got))
+
+
+def test_evaluate_linear_chunks_on_the_card_are_the_per_repeat_loop(cuda, tmp_path):
+    """evaluate_linear(chunk=2) on 3 conditions through B1: results.csv's
+    rows bit for bit the per-repeat loop's (the harness's body before the
+    engine: a host read a condition, the mask-and-bincount histogram) from
+    the same generator."""
+    from dmip_tpu_torch import evaluate
+
+    model, params, prob, ys = _engine_linear(cuda)
+    n, repeats, steps, nbins, (lo, hi) = 2000, 2, 20, 30, (-3.5, 3.5)
+    evaluate.evaluate_linear(model, params, prob, ys, torch.Generator(device=cuda).manual_seed(6),
+                             out_dir=str(tmp_path), n_samples_x=n, n_repeats=repeats, num_steps=steps, nbins=nbins,
+                             verbose=False, chunk=2)
+
+    def hist(x):
+        idx = torch.floor((x - lo) / ((hi - lo) / nbins)).to(torch.int64).clamp_(0, nbins - 1)
+        in_range = torch.all((x >= lo) & (x <= hi), dim=-1)
+        return torch.bincount((idx[:, 0] * nbins + idx[:, 1])[in_range], minlength=nbins**2)
+
+    generator, want = torch.Generator(device=cuda).manual_seed(6), []
+    for i in range(3):
+        y = ys[i]
+        hist_t = hist_p = 0
+        stats = []
+        for _ in range(repeats):
+            x_pred = model.sample(params, y, n, steps, generator=generator, device=cuda)
+            x_true = prob.sample_posterior(y, n, generator)
+            w2 = evaluate.sliced_w2(x_pred, x_true, generator=generator)
+            ys_tiled = y.expand(n, 2)
+            mse = evaluate._score_mse(model, params, x_true, ys_tiled, prob.score_posterior(x_true, ys_tiled))
+            hist_t, hist_p = hist_t + hist(x_true), hist_p + hist(x_pred)
+            nll_t = -torch.mean(prob.posterior_log_prob(x_true, y))
+            nll_p = -torch.mean(prob.posterior_log_prob(x_pred, y))
+            stats.append(torch.stack([nll_t, nll_p, mse, w2]))
+        kl, _ = evaluate.kl_pair(hist_t, hist_p)
+        want.append([float(kl), *torch.stack(stats).mean(0).tolist()])
+    with open(tmp_path / "results.csv") as f:
+        got = [[float(v) for v in ln.strip().split(",")[1:]] for ln in list(f)[1:]]
+    assert got == want
