@@ -51,6 +51,12 @@ width:
     scatterometry cut to 2000 epochs, each followed by evaluation through
     the E-M kernel; then the autograd engine (``train_backend: xla``) for a
     few epochs, on DSM and on the unchanged linear config (PINNLoss); then
+    the fused engine's host work at the shipped linear and scatterometry
+    configs (``train_fused_host``: the host ms to prepare a launch, one
+    replay of the captured preparation, beside the same preparation run
+    eagerly, bit for bit, and to prepare and queue it; one engine call under
+    the sync debug mode "error"; ``train.fit`` over 3 launches traced: host
+    syncs a launch, the card's busy share); then
     the CDiffE (27 -> 26) for 2 launches of the fused training kernel.  The
     autograd engine also trains ``config_linear_refined.yml`` for 2 epochs,
     whose driver then scores the refined row.  Last, both baseline drivers
@@ -288,7 +294,6 @@ TRAIN_BASELINES = {
     "linear": dict(n_epochs_SNF=6, n_epochs_dsm=26, n_epochs_INN=26, n_samples_y=2),
     "scat": dict(n_epochs_SNF=6, n_epochs_dsm=101, n_epochs_INN=26, n_samples_y=1),
 }
-BASELINE_EPOCHS_PER_CALL = {"linear": (5, 25, 25), "scat": (5, 100, 25)}
 LINEAR_EVAL_TIMING_REPEATS = 3
 # train_dps: config_scatterometry_dps.yml with its widths (prior 4 -> 512^3
 # -> 3, likelihood 27 -> 512^3 -> 3), batch 1000, lr 1e-4, lam 1.0 and
@@ -396,6 +401,19 @@ EVAL_LIN_CONDITIONS = 10
 EVAL_SEED = 11
 EVAL_SYNCS_MAX = 1
 EVAL_BUSY_MIN = 0.90
+# The fused engine's preparation (train_fused_host): the shipped linear and
+# scatterometry configs on train_backend fused_pallas at their widths,
+# batch and epochs_per_call (25 / 100).  FUSED_HOST_REPS launches time the
+# host's work to prepare a launch and to prepare and queue it, the card
+# idle; then train.fit over FUSED_TRACE_LAUNCHES launches, after a warm-up
+# launch, is traced: the card must be busy FUSED_BUSY_MIN of the window and
+# the host may wait for it FUSED_SYNCS_MAX times a launch (fit's read of
+# the losses); one engine call must raise nothing under the sync debug
+# mode "error".
+FUSED_HOST_REPS = 3
+FUSED_TRACE_LAUNCHES = 3
+FUSED_BUSY_MIN = 0.90
+FUSED_SYNCS_MAX = 1
 
 
 class CheckFailed(Exception):
@@ -1482,16 +1500,47 @@ def train_log(cfg, tag: str = "Train/Loss"):
     return [e["step"] for e in ev], [e["value"] for e in ev], [e["t"] for e in ev]
 
 
-def epochs_per_s(cfg) -> float:
-    steps, _, ts = train_log(cfg)
-    return call_rate(steps, ts, int(cfg["epochs_per_call"]))
+class FitClock:
+    """While active, ``train.fit`` records a CUDA timing event after each
+    call to its epoch engine, queued behind the call's work (no wait).
+    ``rate(i)`` is the i-th fit's steady rate: the epochs after its first
+    call over the card's time from the end of its first call to the end of
+    its last.  The log's times cannot give it: under fit's one-call-late
+    read an epoch is logged when the host gets to it, up to a call after
+    the card finished it when an engine queues more work than the launch
+    queue holds."""
 
+    def __init__(self, torch):
+        self.torch, self.fits = torch, []
 
-def call_rate(steps, ts, epc: int) -> float:
-    """Steady-state rate: epochs between the end of the first call to the
-    epoch engine and the end of the last, over the time between them."""
-    ends = [(s, t) for s, t in zip(steps, ts) if s % epc == epc - 1 or s == steps[-1]]
-    return (ends[-1][0] - ends[0][0]) / (ends[-1][1] - ends[0][1])
+    def __enter__(self):
+        from dmip_tpu_torch import train
+
+        fit = train.fit
+
+        def clocked_fit(epoch_fn, *args, **kwargs):
+            marks = []
+            self.fits.append(marks)
+
+            def epochs(params, opt_state, seed, epoch0, n_active):
+                out = epoch_fn(params, opt_state, seed, epoch0, n_active)
+                end = self.torch.cuda.Event(enable_timing=True)
+                end.record()
+                marks.append((n_active, end))
+                return out
+
+            return fit(epochs, *args, **kwargs)
+
+        self._train, self._fit, train.fit = train, fit, clocked_fit
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._train.fit = self._fit
+
+    def rate(self, i: int = 0) -> float:
+        marks = self.fits[i]
+        self.torch.cuda.synchronize()
+        return sum(n for n, _ in marks[1:]) / (marks[0][1].elapsed_time(marks[-1][1]) / 1e3)
 
 
 def train(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
@@ -1515,12 +1564,13 @@ def train(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
                n_repeats=REPEATS, **fused, **dirs("lin"))
     fused_dsm_train_epochs.launches = fused_em_sampler.launches = 0
     t0 = time.time()
-    _, lin_m = mlin.run(lin, device="cuda")
+    with FitClock(torch) as clock:
+        _, lin_m = mlin.run(lin, device="cuda")
     torch.cuda.synchronize()
     n_lin = {"dsm_train": fused_dsm_train_epochs.launches, "em": fused_em_sampler.launches}
     _, losses, _ = train_log(lin)
     phase("train_linear", t0, epochs=LIN_TRAIN_EPOCHS, launches=n_lin, first_loss=losses[0], last_loss=losses[-1],
-          epochs_per_s=epochs_per_s(lin), KL=lin_m[0], NLPD=lin_m[1], score_MSE=lin_m[2])
+          epochs_per_s=clock.rate(), KL=lin_m[0], NLPD=lin_m[1], score_MSE=lin_m[2])
     check(n_lin == {"dsm_train": LIN_TRAIN_EPOCHS // lin["epochs_per_call"], "em": REPEATS * LIN_CONDITIONS},
           f"train_linear launches {n_lin}")
     check(lin_m[0] <= TRAIN_LIN_KL_BOUND, f"trained linear KL {lin_m[0]} above {TRAIN_LIN_KL_BOUND}")
@@ -1530,12 +1580,13 @@ def train(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
               n_repeats=REPEATS, **fused, **dirs("scat"))
     fused_dsm_train_epochs.launches = fused_em_sampler.launches = 0
     t0 = time.time()
-    _, scat_m = mscat.run(sc, gt_dir, device="cuda")
+    with FitClock(torch) as clock:
+        _, scat_m = mscat.run(sc, gt_dir, device="cuda")
     torch.cuda.synchronize()
     n_scat = {"dsm_train": fused_dsm_train_epochs.launches, "em": fused_em_sampler.launches}
     _, losses, _ = train_log(sc)
     phase("train_scat", t0, epochs=SCAT_TRAIN_EPOCHS, launches=n_scat, first_loss=losses[0], last_loss=losses[-1],
-          epochs_per_s=epochs_per_s(sc), KL=scat_m[0], NLPD=scat_m[1], score_MSE=scat_m[2])
+          epochs_per_s=clock.rate(), KL=scat_m[0], NLPD=scat_m[1], score_MSE=scat_m[2])
     check(n_scat == {"dsm_train": SCAT_TRAIN_EPOCHS // sc["epochs_per_call"], "em": REPEATS * SCAT_CONDITIONS},
           f"train_scat launches {n_scat}")
     check(all(v == v and abs(v) != float("inf") for v in scat_m), f"non-finite scatterometry metrics {scat_m}")
@@ -1554,9 +1605,10 @@ def train(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
     for name, (fn, cfg) in runs.items():
         cfg = dict(cfg, **small, **dirs("plain_" + name))
         fused_dsm_train_epochs.launches = 0
-        _, m = fn(cfg, device="cuda")
+        with FitClock(torch) as clock:
+            _, m = fn(cfg, device="cuda")
         _, losses, _ = train_log(cfg)
-        plain[name] = {"losses": losses, "epochs_per_s": epochs_per_s(cfg), "KL": m[0]}
+        plain[name] = {"losses": losses, "epochs_per_s": clock.rate(), "KL": m[0]}
         check(fused_dsm_train_epochs.launches == 0, f"{name}: the autograd engine launched B3")
         check(all(v == v and abs(v) != float("inf") for v in losses) and losses[-1] < losses[0],
               f"{name}: losses not finite and falling: {losses}")
@@ -1566,6 +1618,128 @@ def train(torch, lin_cfg, scat_cfg, gt_dir) -> dict:
             check(_finite(plain[name]["refined"][tag].values()), f"{name}: refined row {plain[name]['refined']}")
     phase("train_plain", t0, loss_fn_linear_config=lin_cfg["loss_fn"], **plain)
     return {"linear": n_lin["dsm_train"], "scat": n_scat["dsm_train"]}
+
+
+def fused_engines(torch, lin_cfg, scat_cfg) -> dict:
+    """The fused DSM engine of each shipped config as its driver builds it
+    (data, init and seeds), on the card: {name: (config, model, batch_fn,
+    epoch_fn, optimizer, initial params, train seed)}."""
+    from dmip_tpu_torch import data, train
+    from dmip_tpu_torch.mains.eval_diffusion import linear_split
+    from dmip_tpu_torch.problems import LinearForwardProblem
+    from dmip_tpu_torch.problems import scatterometry as scat
+
+    fused = dict(loss_fn="DSM", train_backend="fused_pallas")
+    built = {}
+    prob = LinearForwardProblem()
+    cfg = dict(lin_cfg, **fused)
+    seed = int(cfg["random_state"])
+    x_train, _, y_train, _ = linear_split(cfg, prob, "cuda")
+    model, loss_cfg = train.get_model_from_args(cfg, {"xdim": prob.xdim, "ydim": prob.ydim})
+    lin_batch = int(cfg["batch_size"])
+    batch_fn = lambda g: data.linear_epoch_batches(g, x_train, y_train, prob.noise_std, lin_batch)
+    built["linear"] = (cfg, model, loss_cfg, batch_fn, seed + 1, seed + 2)
+    cfg = dict(scat_cfg, **fused)
+    seed = int(cfg["RANDOM_STATE"])
+    forward_model, fp = scat.load_forward_model(device="cuda")
+    model, loss_cfg = train.get_model_from_args(cfg, fp)
+    scat_batch = int(cfg["batch_size"])
+    scat_batches = lambda g: data.scatterometry_epoch_batches(g, forward_model, fp["a"], fp["b"], fp["lambd_bd"],
+                                                              scat_batch)
+    built["scat"] = (cfg, model, loss_cfg, scat_batches, seed + 2, seed + 3)
+    engines = {}
+    for name, (cfg, model, loss_cfg, batch_fn, init_seed, seed) in built.items():
+        opt = train.build_optimizer(float(cfg["lr"]))
+        fn = train.select_epoch_fn(cfg, model, model.make_loss_fn(loss_cfg), opt, batch_fn,
+                                   int(cfg["epochs_per_call"]))
+        p0 = model.init(torch.Generator().manual_seed(init_seed), device="cuda")
+        engines[name] = (cfg, model, batch_fn, fn, opt, p0, seed)
+    return engines
+
+
+def train_fused_host(torch, lin_cfg, scat_cfg) -> dict:
+    """The fused engine's host work, for the linear and the scatterometry
+    config at their shipped widths and epochs_per_call.  One warm-up launch
+    (the engine captures its preparation there); then, the card idle, the
+    host ms to prepare a launch's inputs (``epochs.prepare``, one replay)
+    and to prepare and queue the launch (the engine's call), FUSED_HOST_REPS
+    times each, beside the card's ms of the call by CUDA events and the
+    host ms of the same preparation run eagerly (``capture=False``), which
+    must give the replay's inputs bit for bit; one call under the sync
+    debug mode "error"; then ``train.fit`` over FUSED_TRACE_LAUNCHES
+    launches, timed, then traced (host syncs and runtime calls a launch,
+    the card's busy share, the top device ops).  B3's launches counted
+    from zero around each config's runs.  Returns them by config."""
+    from dmip_tpu_torch import train
+    from dmip_tpu_torch.ops import fused_dsm_train_epochs
+    from dmip_tpu_torch.ops.dsm_train_kernel import make_fused_dsm_epoch_fn
+
+    t0 = time.time()
+    res, launches = {}, {}
+    cuda = torch.device("cuda")
+    for name, (cfg, model, batch_fn, fn, opt, p0, seed) in fused_engines(torch, lin_cfg, scat_cfg).items():
+        epc = int(cfg["epochs_per_call"])
+        eager = make_fused_dsm_epoch_fn(model, float(cfg["lr"]), batch_fn, epc, capture=False)
+        s0 = opt.init(p0)
+        fused_dsm_train_epochs.launches = 0
+        fn(p0, s0, seed, 0)
+        torch.cuda.synchronize()
+        prep_ms, eager_ms, queue_ms, card_ms, same = [], [], [], [], []
+        for r in range(FUSED_HOST_REPS):
+            t = time.perf_counter()
+            replayed = fn.prepare(seed, r * epc, cuda)
+            prep_ms.append(1e3 * (time.perf_counter() - t))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ref = eager.prepare(seed, r * epc, cuda)
+            eager_ms.append(1e3 * (time.perf_counter() - t))
+            same.append(all(torch.equal(a, b) for a, b in zip(replayed, ref)))
+            nb = replayed[0].shape[1]
+            del replayed, ref
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            t = time.perf_counter()
+            fn(p0, s0, seed, r * epc)
+            queue_ms.append(1e3 * (time.perf_counter() - t))
+            end.record()
+            torch.cuda.synchronize()
+            card_ms.append(start.elapsed_time(end))
+        check(all(same), f"train_fused_host: the replayed {name} preparation is not the eager one: {same}")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn(p0, s0, seed, 0)
+        except RuntimeError as e:
+            raise CheckFailed(f"train_fused_host: a host sync inside a {name} engine call: {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(_finite(out[2].tolist()), f"train_fused_host: {name} losses {out[2].tolist()}")
+        n = FUSED_TRACE_LAUNCHES * epc
+        fit = lambda: train.fit(fn, p0, opt, seed, n, epochs_per_call=epc, log_every=0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fit()
+        fit_s = time.perf_counter() - t
+        traced = host_trace(torch, fit, FUSED_TRACE_LAUNCHES)
+        traced["syncs_per_launch"] = traced.pop("syncs_per_step")
+        traced["runtime_calls_per_launch"] = traced.pop("runtime_calls_per_step")
+        launches[name] = fused_dsm_train_epochs.launches
+        res[name] = {"epochs_per_call": epc, "batches_per_epoch": nb,
+                     "prepare_replay_host_ms": prep_ms, "prepare_eager_host_ms": eager_ms,
+                     "replay_bit_for_bit_eager": all(same), "prepare_and_queue_host_ms": queue_ms,
+                     "call_card_ms": card_ms, "captures": fn.graph.captures, "fit_seconds": fit_s,
+                     "fit_launches": FUSED_TRACE_LAUNCHES, "traced_fit": traced}
+        check(launches[name] == 2 + FUSED_HOST_REPS + 2 * FUSED_TRACE_LAUNCHES,
+              f"train_fused_host: {name} B3 launches {launches[name]}")
+        check(fn.graph.captures == 1, f"train_fused_host: the {name} engine captured {fn.graph.captures} times")
+    phase("train_fused_host", t0, **res, launches=launches)
+    for name, r in res.items():
+        tr = r["traced_fit"]
+        check(tr["syncs_per_launch"] <= FUSED_SYNCS_MAX,
+              f"train_fused_host: {tr['syncs_per_launch']} host syncs a {name} launch in a traced fit")
+        check(tr["card"]["share"] >= FUSED_BUSY_MIN,
+              f"train_fused_host: the card busy {tr['card']['share']:.3f} of a traced {name} fit")
+    return launches
 
 
 def first_batches(batch_fn, n: int):
@@ -1658,7 +1832,8 @@ def train_captured(torch, lin_cfg, gt_dir) -> int:
     """The captured train step on ``config_linear.yml`` at full width: the
     driver for CAPTURED_EPOCHS epochs (two engine calls), its evaluation
     through B1 on LIN_CONDITIONS conditions, launches counted from zero
-    around the run; epochs/s of the second call from the log.  Then one
+    around the run; epochs/s of the second call by the card's clock
+    (``FitClock``).  Then one
     epoch from the driver's init and seeds, eager against captured (ms a
     step, parity); a trace of GRAPH_PROFILE_STEPS replayed steps and of as
     many eager ones (syncs and runtime calls a step) and of one replay
@@ -1679,12 +1854,13 @@ def train_captured(torch, lin_cfg, gt_dir) -> int:
                out_dir=os.path.join(gt_dir, "out_captured"))
     fused_em_sampler.launches = fused_dsm_train_epochs.launches = 0
     t0 = time.time()
-    _, m = mlin.run(cfg, device="cuda")
+    with FitClock(torch) as clock:
+        _, m = mlin.run(cfg, device="cuda")
     torch.cuda.synchronize()
     n_b1, n_b3 = fused_em_sampler.launches, fused_dsm_train_epochs.launches
     run_s = time.time() - t0
     steps, losses, _ = train_log(cfg)
-    rate = epochs_per_s(cfg)
+    rate = clock.rate()
     check(n_b1 == REPEATS * LIN_CONDITIONS and n_b3 == 0, f"train_captured: B1 {n_b1}, B3 {n_b3} launches")
     check(_finite([*m, *losses]) and len(losses) == CAPTURED_EPOCHS, f"train_captured: losses {losses}, metrics {m}")
 
@@ -1833,17 +2009,17 @@ def serve_baselines_scat(torch, gt_dir) -> int:
     return n_b1
 
 
-def baseline_rates(cfg, problem: str) -> dict:
+def baseline_rates(cfg, clock: FitClock) -> dict:
     """Per model (the driver trains SNF, diffusion, INN in turn, each
-    logging epochs from 0): its losses and its steady epochs/s."""
-    steps, losses, ts = train_log(cfg)
+    logging epochs from 0, each through one fit): its losses and its
+    steady epochs/s by the card's clock."""
+    steps, losses, _ = train_log(cfg)
     starts = [i for i, s in enumerate(steps) if s == 0] + [len(steps)]
     out = {}
     for j, name in enumerate(("SNF", "diffusion", "INN")):
         seg = slice(starts[j], starts[j + 1])
         out[name] = {"losses_first_last": [losses[seg][0], losses[seg][-1]], "all_finite": _finite(losses[seg]),
-                     "epochs": len(steps[seg]),
-                     "epochs_per_s": call_rate(steps[seg], ts[seg], BASELINE_EPOCHS_PER_CALL[problem][j])}
+                     "epochs": len(steps[seg]), "epochs_per_s": clock.rate(j)}
     return out
 
 
@@ -1851,8 +2027,9 @@ def train_baselines(torch, gt_dir) -> None:
     """Both baseline drivers end to end on the card with their shipped
     configs (widths kept, epochs and evaluation cut): SNF, DSM CDE and INN
     through the autograd engine (no B3 launch), the evaluation's DSM rows
-    through B1 (scatterometry on serve()'s GT).  Each model's epochs/s from
-    the log, first call excluded; every loss finite; the checkpoints reload.
+    through B1 (scatterometry on serve()'s GT).  Each model's epochs/s by
+    the card's clock (``FitClock``), first call excluded; every loss
+    finite; the checkpoints reload.
     Then the linear evaluation's ms per repeat."""
     from dmip_tpu_torch import data, flows, pytree, train
     from dmip_tpu_torch.mains import main_baselines_linear as mbl
@@ -1871,10 +2048,11 @@ def train_baselines(torch, gt_dir) -> None:
                    out_dir=os.path.join(gt_dir, "out_baselines_" + problem))
         fused_em_sampler.launches = fused_dsm_train_epochs.launches = 0
         t0 = time.time()
-        m = fn(cfg)
+        with FitClock(torch) as clock:
+            m = fn(cfg)
         torch.cuda.synchronize()
         launches[problem] = fused_em_sampler.launches
-        rates = baseline_rates(cfg, problem)
+        rates = baseline_rates(cfg, clock)
         models = mbl.build_models(cfg, None, xdim, ydim)
         like = mbl.init_params(models, 0, "cuda")
         reloaded = mbl.load_params(cfg["train_dir"], like, "cuda")  # raises on another structure
@@ -2004,13 +2182,14 @@ def train_dps(torch, gt_dir) -> int:
                       "guidance_clip": 100.0, "model": "Posterior"}, f"train_dps: the shipped config changed: {shipped}")
     fused_guided_em_sampler.launches = fused_em_sampler.launches = fused_dsm_train_epochs.launches = 0
     t0 = time.time()
-    params, learned = mscat.run(cfg, gt_dir, device="cuda")
+    with FitClock(torch) as clock:
+        params, learned = mscat.run(cfg, gt_dir, device="cuda")
     torch.cuda.synchronize()
     n_b5 = fused_guided_em_sampler.launches
     other = fused_em_sampler.launches + fused_dsm_train_epochs.launches
     logs = {k: train_log(cfg, "Train/" + k)[1] for k in ("Loss", "PriorLoss", "LikelihoodLoss")}
-    steps, _, ts = train_log(cfg)
-    rate = call_rate(steps, ts, cfg["epochs_per_call"])
+    steps, _, _ = train_log(cfg)
+    rate = clock.rate()
     ckpt = os.path.join(cfg["train_dir"], "checkpoint")
     with open(os.path.join(ckpt, "manifest.json")) as f:
         manifest = json.load(f)
@@ -2871,6 +3050,8 @@ def run() -> list:
         f32_launches = serve_f32(torch, lin_cfg, scat_cfg, work)
         baseline_launches = serve_baselines_scat(torch, work)
         b3_launches = train(torch, lin_cfg, scat_cfg, work)
+        for name, n in train_fused_host(torch, lin_cfg, scat_cfg).items():
+            b3_launches[name] += n
         captured_b1 = train_captured(torch, lin_cfg, work)
         cdiffe_train = train_cdiffe(torch, work, gen)
         train_baselines(torch, work)

@@ -154,8 +154,10 @@ def make_ensemble_epoch_fn(
 
     ``lams`` / ``lam2s`` are (K,) tensors, replacing cfg's lam / lam2 per
     trial (:func:`make_ensemble_step`).  Epoch j draws its batches, then
-    each batch's draws, from ``epoch_generator(seed, epoch0 + j)`` on the
-    params' device, as :func:`dmip_tpu_torch.train.make_epoch_fn` does, and
+    each batch's draws (``model.loss_draws``, a batch at a time for every
+    loss: the grids train no DSM), from ``epoch_generator(seed, epoch0 +
+    j)`` on the params' device, as :func:`dmip_tpu_torch.train.make_epoch_fn`
+    does for every loss but DSM, and
     on a CUDA device with no mesh each K-trial step is one replay of a CUDA
     graph, as there (``capture`` as there).
 
@@ -178,8 +180,8 @@ def make_ensemble_epoch_fn(
         dev = pytree.leaves(params)[0].device
         captured = use_capture(capture, dev, mesh)
         losses = torch.full((epochs_per_call, lams.shape[0]), float("nan"), device=dev)
-        inputs_of = lambda g, x, y: (lams, lam2s, x, y, *model.loss_draws(cfg, g, x, y))
-        (params, opt_state), infos = run_epochs(one_step, graph if captured else None, batch_fn, inputs_of,
+        inputs = lambda g, xb, yb: ((lams, lam2s, x, y, *model.loss_draws(cfg, g, x, y)) for x, y in zip(xb, yb))
+        (params, opt_state), infos = run_epochs(one_step, graph if captured else None, batch_fn, inputs,
                                                 (params, opt_state), seed, epoch0, min(n_active, epochs_per_call),
                                                 losses, info_names)
         return params, opt_state, losses, infos

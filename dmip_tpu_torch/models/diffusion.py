@@ -140,11 +140,14 @@ class DiffusionModel:
 
     def _draw_t_eps(self, generator: Optional[torch.Generator], z0: Tensor, t, eps):
         """(t, eps) for a loss, each drawn from ``generator`` unless given,
-        t first (one ``torch.rand((batch, 1))`` through ``sample_t``), then
-        eps (normal, the shape of z0); both moved to z0's device."""
+        t first (one ``torch.rand((..., 1))`` of z0's leading shape through
+        ``sample_t``), then eps (normal, the shape of z0); both moved to
+        z0's device.  z0 is a batch (B, dz) or an epoch's batches (nb, B,
+        dz)."""
         gen_dev = generator.device if generator is not None else "cpu"
         if t is None:
-            t = sample_t(self.sde, z0.shape[0], generator).to(z0.device)
+            u = torch.rand((*z0.shape[:-1], 1), generator=generator, device=gen_dev)
+            t = sample_t(self.sde, z0.shape[-2], u=u).to(z0.device)
         if eps is None:
             eps = torch.randn(z0.shape, generator=generator, device=gen_dev, dtype=z0.dtype).to(z0.device)
         return t, eps
@@ -167,7 +170,10 @@ class DiffusionModel:
         ``loss_fn.draws(generator, x, y)`` is :meth:`loss_draws` for this
         loss as its keywords (:func:`loss_keywords`): what it would draw,
         for the epoch engines, which draw before the step
-        (``train.make_epoch_fn``).
+        (``train.make_epoch_fn``).  The DSM loss also has
+        ``loss_fn.epoch_draws(generator, xb, yb)``, :meth:`epoch_draws` as
+        its keywords: a whole epoch's t and eps in two calls, (nb, B, .),
+        batch i's in row i.
         ``forward_model`` and ``forward_params`` are taken, as in the JAX
         package, so that every model is built alike; only the Posterior
         model's loss uses them.
@@ -198,7 +204,19 @@ class DiffusionModel:
             return fn(self.apply_a, params, base, x, y, z0, eps, t, v=v, **pinn_kw)
 
         loss_fn.draws = lambda generator, x, y: loss_keywords(*self.loss_draws(cfg, generator, x, y))
+        if cfg.name == "DSM":
+            loss_fn.epoch_draws = lambda generator, xb, yb: loss_keywords(*self.epoch_draws(generator, xb, yb))
         return loss_fn
+
+    def epoch_draws(self, generator: torch.Generator, xb: Tensor, yb: Tensor):
+        """(t, eps) of the DSM loss for a whole epoch's batches (nb, B, .):
+        one ``torch.rand((nb, B, 1))`` through ``sample_t``, then one
+        ``torch.randn`` of z0's shape (nb, B, dz), on the generator's
+        device.  Row i holds batch i's draws: the loss handed them computes
+        its value for those draws.  This is the DSM stream of both epoch
+        engines (``train.make_epoch_fn`` and the fused engine)."""
+        z0, _ = self.diffusion_state(xb, yb)
+        return self._draw_t_eps(generator, z0, None, None)
 
     def loss_draws(self, cfg: LossConfig, generator: Optional[torch.Generator], x: Tensor, y: Tensor):
         """(t, eps, v): what the loss of :meth:`make_loss_fn` draws from
@@ -282,7 +300,7 @@ class CDiffE(DiffusionModel):
         return False
 
     def diffusion_state(self, x: Tensor, y: Tensor):
-        return torch.cat([x, y], dim=1), y
+        return torch.cat([x, y], dim=-1), y
 
     def sample(
         self,

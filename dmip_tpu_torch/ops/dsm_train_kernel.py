@@ -39,6 +39,9 @@ Pairs = Sequence[Tuple[Tensor, Tensor]]
 MAX_LAYERS = 10
 TILE = 64
 GUARDS = {False: 0, True: 1, "loss": 2}
+# side streams a preparation on a card spreads its epochs over: an epoch's
+# tensor calls are small, so a stream alone leaves the card idle between them
+PREP_STREAMS = 8
 
 
 def _check_args(params, mu, nu, h0, eps, s1, n_epochs, n_batches, batch_real, compute_dtype, skip_nonfinite):
@@ -331,6 +334,30 @@ def fused_dsm_train_epochs(
 fused_dsm_train_epochs.launches = 0
 
 
+def spread_over_streams(fn, gens, streams: dict):
+    """[fn(gen) for gen in gens]; on a card epoch j runs on side stream j
+    mod PREP_STREAMS (``streams`` caches them by device), each stream
+    starting after the current stream's work so far, and the current
+    stream waits for all of them.  The results are read on the current
+    stream only after that wait, and a side stream's next use waits for
+    the current stream again, so no block the allocator hands back is
+    reused too early."""
+    dev = gens[0].device
+    if dev.type != "cuda":
+        return [fn(gen) for gen in gens]
+    side = streams.setdefault(dev, [torch.cuda.Stream(dev) for _ in range(PREP_STREAMS)])
+    main = torch.cuda.current_stream(dev)
+    for s in side:
+        s.wait_stream(main)
+    out = []
+    for j, gen in enumerate(gens):
+        with torch.cuda.stream(side[j % len(side)]):
+            out.append(fn(gen))
+    for s in side:
+        main.wait_stream(s)
+    return out
+
+
 def make_fused_dsm_epoch_fn(
     model,
     lr: float,
@@ -338,56 +365,76 @@ def make_fused_dsm_epoch_fn(
     epochs_per_call: int = 1,
     compute_dtype=torch.bfloat16,
     skip_nonfinite=True,
+    capture: bool = True,
 ):
     """Drop-in fused replacement for ``train.make_epoch_fn`` (DSM + Adam at
     a constant lr).
 
     Returns epochs(params, opt_state, seed, epoch0, n_active) with the
     signature and results of the autograd engine.  Each epoch's generator,
-    its batches and every batch's t and eps are drawn exactly as the
-    autograd engine and the DSM branch of ``DiffusionModel.make_loss_fn``
-    draw them (same generator, same calls, same order), so both engines
-    consume the same batches and noise.  ``opt_state`` must be a plain Adam
-    state (no schedule).  For epochs >= n_active the kernel computes but
-    freezes every step, so the losses it reports there are not the
-    autograd engine's (which skips such epochs); params, optimizer state
+    its batches and their t and eps are drawn exactly as the autograd
+    engine draws them for the DSM loss (``batch_fn``, then
+    ``model.epoch_draws``: same generator, same calls, same order), so both
+    engines consume the same batches and noise.  ``opt_state`` must be a
+    plain Adam state (no schedule).  For epochs >= n_active the kernel
+    computes but freezes every step, so the losses it reports there are not
+    the autograd engine's (which skips such epochs); params, optimizer state
     and losses[:n_active] agree.
+
+    The kernel's inputs are prepared as the JAX engine's vmapped
+    ``prep_epoch`` prepares them: each epoch makes a fixed number of tensor
+    calls whatever its number of batches (``batch_fn`` and the two draws of
+    ``epoch_draws``), and the diffusion, the net inputs and std / g are
+    computed once a call on the stacked epochs (E, nb, B, .).  On a CUDA
+    device the epochs run on PREP_STREAMS side streams
+    (:func:`spread_over_streams`), and with ``capture`` (the default) the
+    whole preparation is one replay of a CUDA graph (``train.SeededGraph``,
+    captured at the first call; the epochs' generators re-seeded before
+    each replay), where JAX compiles it; ``capture=False`` runs it eagerly
+    there too (to compare).  ``batch_fn`` must give the same shapes at
+    every call.
+    ``epochs.prepare(seed, epoch0, device)`` -> (h0, eps, s1) of shape (E,
+    nb, B, .) is that preparation alone; a replay's are overwritten by the
+    next call.  Nothing in it or in the launch waits for the card.
     """
-    from ..sde import sample_t
-    from ..train import AdamState, epoch_generator
+    from ..train import AdamState, SeededGraph, epoch_generator, epoch_seed
 
     base = model.sde.base
+    streams: dict = {}
 
-    def prep_epoch(gen):
+    def draw_epoch(gen):
         xb, yb = batch_fn(gen)
-        dev = xb.device
-        z0s, ts, eps = [], [], []
-        for x, y in zip(xb, yb):
-            z0, _ = model.diffusion_state(x, y)
-            z0s.append(z0)
-            # the loss's draws, in its order: t, then eps
-            ts.append(torch.rand((z0.shape[0], 1), generator=gen, device=gen.device).to(dev))
-            eps.append(torch.randn(z0.shape, generator=gen, device=gen.device, dtype=z0.dtype).to(dev))
-        t = sample_t(model.sde, xb.shape[1], u=torch.stack(ts))
-        ep = torch.stack(eps)
-        z_t = base.diffuse(t, torch.stack(z0s), ep)
-        h0 = torch.cat([z_t, yb, t] if model.conditions_on_y else [z_t, t], dim=-1)
-        s1 = (base.std(t) / base.g(t)).expand(ep.shape)
+        return (xb, yb, *model.epoch_draws(gen, xb, yb))
+
+    def prepare_from(gens):
+        drawn = spread_over_streams(draw_epoch, gens, streams)
+        xb, yb, t, ep = (torch.stack(a) for a in zip(*drawn))  # (E, nb, B, .)
+        z0, cond = model.diffusion_state(xb, yb)
+        z_t = base.diffuse(t, z0, ep)
+        h0 = torch.cat([z_t, cond, t] if model.conditions_on_y else [z_t, t], dim=-1)
+        s1 = (base.std(t) / base.g(t)).expand(ep.shape).contiguous()
         return h0, ep, s1
+
+    graph = SeededGraph(prepare_from)
+
+    def prepare(seed: int, epoch0: int, device):
+        dev = torch.device(device)
+        if capture and dev.type == "cuda":
+            return graph([epoch_seed(seed, epoch0 + j, dev) for j in range(epochs_per_call)], dev)
+        return prepare_from([epoch_generator(seed, epoch0 + j, dev) for j in range(epochs_per_call)])
 
     def epochs(params, opt_state: AdamState, seed: int, epoch0: int, n_active: int = epochs_per_call):
         if opt_state.schedule_count is not None:
             raise ValueError("the fused engine takes a constant-lr Adam state")
-        dev = params[0][0].device
-        parts = [prep_epoch(epoch_generator(seed, epoch0 + j, dev)) for j in range(epochs_per_call)]
-        h0, ep, s1 = (torch.stack(z) for z in zip(*parts))  # (E, nb, B, .)
-        nb, bsz = h0.shape[1], h0.shape[2]
-        flat = lambda a: a.reshape(-1, a.shape[-1]).contiguous()
+        h0, ep, s1 = prepare(seed, epoch0, params[0][0].device)
+        flat = lambda a: a.view(-1, a.shape[-1])
         new_params, mu, nu, count, losses = fused_dsm_train_epochs(
             params, opt_state.mu, opt_state.nu, opt_state.count, flat(h0), flat(ep), flat(s1),
-            n_epochs=epochs_per_call, n_batches=nb, batch_real=bsz, lr=lr, n_active=n_active,
+            n_epochs=epochs_per_call, n_batches=h0.shape[1], batch_real=h0.shape[2], lr=lr, n_active=n_active,
             compute_dtype=compute_dtype, skip_nonfinite=skip_nonfinite,
         )
         return new_params, AdamState(count, mu, nu), losses, {}
 
+    epochs.prepare = prepare
+    epochs.graph = graph
     return epochs

@@ -19,7 +19,11 @@ Port of ``dmip_tpu/train.py``:
   * ``driver_mesh``      -- a driver's mesh: join torchrun's group, resolve
                             the config's ``mesh``
   * ``select_epoch_fn``  -- ``train_backend: xla | fused_pallas``
-  * ``fit``              -- the Python-level epoch driver
+  * ``SeededGraph``      -- work drawing from per-epoch generators captured
+                            as a CUDA graph, replayed with them re-seeded
+                            (the fused engine's preparation)
+  * ``fit``              -- the Python-level epoch driver, reading each
+                            call one call late
   * ``get_model_from_args`` -- config keys -> (model, loss config)
 
 Parameters and moments are trees of tensors (:mod:`dmip_tpu_torch.pytree`:
@@ -211,20 +215,25 @@ def _mean_over_ranks(mesh: Mesh, grads, loss: Tensor, info: Dict[str, Tensor], n
     return grads, loss, info
 
 
-def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
-    """The generator of one epoch, seeded from (seed, global epoch index):
-    the schedule does not depend on how epochs are grouped into calls, so
-    re-chunking and resuming are exact.  The CPU's mt19937 keeps only the
-    low 32 bits of its seed, so there the seed is mixed into them (times
-    an odd constant: two seeds below 2^31 differ at every epoch); CUDA's
-    Philox takes all 64."""
+def epoch_seed(seed: int, epoch: int, device) -> int:
+    """The seed of epoch ``epoch``'s generator on ``device``, from (seed,
+    global epoch index): the schedule does not depend on how epochs are
+    grouped into calls, so re-chunking and resuming are exact.  The CPU's
+    mt19937 keeps only the low 32 bits of its seed, so there the seed is
+    mixed into them (times an odd constant: two seeds below 2^31 differ at
+    every epoch); CUDA's Philox takes all 64."""
     if not 0 <= epoch < 2**32:
         raise ValueError(f"epoch index {epoch} outside [0, 2^32)")
     seed = int(seed) % 2**31
+    if torch.device(device).type == "cpu":
+        return (seed * 0x9E3779B1 + int(epoch)) % 2**32
+    return seed * 2**32 + int(epoch)
+
+
+def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
+    """A fresh generator on ``device`` seeded with :func:`epoch_seed`."""
     gen = torch.Generator(device=device)
-    if gen.device.type == "cpu":
-        return gen.manual_seed((seed * 0x9E3779B1 + int(epoch)) % 2**32)
-    return gen.manual_seed(seed * 2**32 + int(epoch))
+    return gen.manual_seed(epoch_seed(seed, epoch, gen.device))
 
 
 def resolve_mesh(mesh) -> Optional[Mesh]:
@@ -357,6 +366,63 @@ class StepGraph:
         self.captures += 1
 
 
+class SeededGraph:
+    """``fn(generators)`` captured once as a CUDA graph over generators of
+    its own, then replayed with them re-seeded.
+
+    ``fn`` takes a list of generators on one CUDA device and returns a tree
+    of tensors; it must draw only from those generators and wait for
+    nothing on the host (as a step of :class:`StepGraph`).  A call with
+    ``seeds`` seeds the i-th generator with seeds[i] and replays: the
+    numbers are those of ``fn`` on fresh generators of these seeds, and the
+    host's work is one replay whatever ``fn`` launches.  It returns the
+    static outputs, which the next call overwrites (on the same stream, so
+    work queued on them before it reads them first).  The first call on a
+    device, or with another number of seeds, captures: each generator
+    registered with the graph, ``GRAPH_WARMUP`` eager runs on a side
+    stream, then the capture; an error in capture or replay raises.
+    """
+
+    def __init__(self, fn: Callable):
+        self._fn = fn
+        self._key = None
+        self._graph = self._gens = self._out = None
+        self.captures = 0
+
+    def __call__(self, seeds, device):
+        dev = torch.device(device)
+        if dev.index is None:
+            dev = torch.device(dev.type, torch.cuda.current_device())
+        key = (len(seeds), dev)
+        if key != self._key:
+            self._capture(*key)
+            self._key = key
+        for gen, s in zip(self._gens, seeds):
+            gen.manual_seed(s)
+        self._graph.replay()
+        return self._out
+
+    def _capture(self, n: int, dev: torch.device) -> None:
+        self._graph = self._out = None  # the old graph's pool goes first
+        with torch.cuda.device(dev):
+            gens = [torch.Generator(device=dev) for _ in range(n)]
+            graph = torch.cuda.CUDAGraph()
+            for gen in gens:
+                graph.register_generator_state(gen)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(GRAPH_WARMUP):
+                    self._fn(gens)
+            torch.cuda.current_stream().wait_stream(side)
+            for gen in gens:
+                gen.manual_seed(0)
+            with torch.cuda.graph(graph):
+                out = self._fn(gens)
+        self._graph, self._gens, self._out = graph, gens, out
+        self.captures += 1
+
+
 def use_capture(capture: bool, device: torch.device, mesh) -> bool:
     """Whether an epoch engine captures its step: when asked to, on a CUDA
     device with no mesh (a step over a mesh runs collectives, and the CPU
@@ -364,16 +430,16 @@ def use_capture(capture: bool, device: torch.device, mesh) -> bool:
     return capture and device.type == "cuda" and mesh is None
 
 
-def run_epochs(one_step, graph: Optional[StepGraph], batch_fn, inputs_of, state, seed: int, epoch0: int,
+def run_epochs(one_step, graph: Optional[StepGraph], batch_fn, epoch_inputs, state, seed: int, epoch0: int,
                n_run: int, losses: Tensor, info_names: list):
     """Epochs epoch0 .. epoch0 + n_run - 1 of an epoch engine: epoch j's
-    generator ``epoch_generator(seed, epoch0 + j)``, its batches, and for
-    each batch the step's inputs ``inputs_of(generator, x, y)`` through
-    ``one_step(state, inputs) -> (state, out)``, or through
-    replays of ``graph`` (started from ``state``) when given.  ``out`` holds
-    the step's loss, then its info terms (named by ``info_names`` once a
-    step ran); epoch j's means over its steps go to ``losses[j]`` and to the
-    info dict returned with the final state."""
+    generator ``epoch_generator(seed, epoch0 + j)``, its batches (xb, yb),
+    and the steps' inputs ``epoch_inputs(generator, xb, yb)``, one a batch
+    in order, each through ``one_step(state, inputs) -> (state, out)``, or
+    through a replay of ``graph`` (started from ``state``) when given.
+    ``out`` holds the step's loss, then its info terms (named by
+    ``info_names`` once a step ran); epoch j's means over its steps go to
+    ``losses[j]`` and to the info dict returned with the final state."""
     infos: Dict[str, Tensor] = {}
     if graph is not None:
         graph.start(state)
@@ -381,8 +447,7 @@ def run_epochs(one_step, graph: Optional[StepGraph], batch_fn, inputs_of, state,
         gen = epoch_generator(seed, epoch0 + j, losses.device)
         xb, yb = batch_fn(gen)
         rows = None
-        for i, (x, y) in enumerate(zip(xb, yb)):
-            inputs = inputs_of(gen, x, y)
+        for i, inputs in enumerate(epoch_inputs(gen, xb, yb)):
             if graph is not None:
                 out = graph(inputs)
             else:
@@ -394,6 +459,20 @@ def run_epochs(one_step, graph: Optional[StepGraph], batch_fn, inputs_of, state,
         for k, name in enumerate(info_names, 1):
             infos.setdefault(name, torch.full_like(losses, float("nan")))[j] = rows[k].mean(0)
     return (graph.state() if graph is not None else state), infos
+
+
+def loss_inputs(loss_fn):
+    """``epoch_inputs(generator, xb, yb)`` of :func:`run_epochs` for a loss
+    of the autograd engine: each step's (x, y, draws).  A loss with
+    ``epoch_draws`` (DSM) draws its epoch's numbers at once, right after
+    the batches, and step i takes row i of each; any other draws a batch's
+    numbers through ``draws`` just before its step."""
+    if hasattr(loss_fn, "epoch_draws"):
+        def epoch_inputs(gen, xb, yb):
+            draws = loss_fn.epoch_draws(gen, xb, yb)
+            return [(x, y, {k: v[i] for k, v in draws.items()}) for i, (x, y) in enumerate(zip(xb, yb))]
+        return epoch_inputs
+    return lambda gen, xb, yb: ((x, y, loss_fn.draws(gen, x, y)) for x, y in zip(xb, yb))
 
 
 def make_epoch_fn(
@@ -419,7 +498,9 @@ def make_epoch_fn(
     them to it ({} for a loss that draws nothing), as the losses of
     ``DiffusionModel.make_loss_fn`` and ``flows`` do.  The engine draws
     them before each step and hands them over, the numbers the loss would
-    draw itself.  With ``capture`` (the default) on a CUDA device with no
+    draw itself; for a loss with ``epoch_draws`` (DSM) it draws the whole
+    epoch's at once after its batches and hands step i row i
+    (:func:`loss_inputs`).  With ``capture`` (the default) on a CUDA device with no
     mesh each step is one replay of a CUDA graph (:class:`StepGraph`): the
     loss, its gradient, the clip, Adam and the guard, captured at the first
     step; ``capture=False`` runs the step eagerly there too (to compare).
@@ -435,6 +516,7 @@ def make_epoch_fn(
         raise ValueError("the epoch engine draws a batch's numbers through the loss's draws "
                          "(loss_fn.draws; {} for a loss that draws nothing)")
     train_step = make_train_step(loss_fn, optimizer, mesh=mesh)
+    epoch_inputs = loss_inputs(loss_fn)
     info_names: list = []
 
     def one_step(state, inputs):
@@ -449,8 +531,7 @@ def make_epoch_fn(
         dev = pytree.leaves(params)[0].device
         captured = use_capture(capture, dev, mesh)
         losses = torch.full((epochs_per_call,), float("nan"), device=dev)
-        inputs_of = lambda g, x, y: (x, y, loss_fn.draws(g, x, y))
-        (params, opt_state), infos = run_epochs(one_step, graph if captured else None, batch_fn, inputs_of,
+        (params, opt_state), infos = run_epochs(one_step, graph if captured else None, batch_fn, epoch_inputs,
                                                 (params, opt_state), seed, epoch0, min(n_active, epochs_per_call),
                                                 losses, info_names)
         return params, opt_state, losses, infos
@@ -528,30 +609,64 @@ def fit(
     """Run epochs start_epoch .. num_epochs - 1 through ``epoch_fn`` (built
     with the same ``epochs_per_call``); the last call masks the epochs past
     num_epochs.  ``logger``: an optional :class:`MetricsWriter`.  Returns
-    (params, opt_state, last epoch's info)."""
+    (params, opt_state, last epoch's info).
+
+    Each call is read one call late: call k's losses and info are copied
+    to pinned host memory behind its work, call k + 1 is queued, and only
+    then does the host wait for the copy (an event, the one wait for the
+    card a call: not the stream, which holds call k + 1 by then) and log
+    call k, so the host prepares a call while the card runs the one before.
+    The last call is read before returning.  What is logged and printed is
+    the order of reading at once."""
     if opt_state is None:
         opt_state = optimizer.init(params)
     last_info: Dict[str, float] = {}
     t0 = time.time()
     n_calls = -(-max(num_epochs - start_epoch, 0) // epochs_per_call)
-    epoch = start_epoch
+    every = max(log_every // epochs_per_call, 1) if log_every else 0
+
+    def read(c: int, epoch: int, n_active: int, names: list, host: list, done):
+        if done is not None:
+            done.synchronize()
+        losses, *rows = [t.tolist() for t in host]
+        infos = dict(zip(names, rows))
+        for j in range(n_active):
+            if logger is not None:
+                logger.scalar("Train/Loss", float(losses[j]), epoch + j)
+                for k, v in infos.items():
+                    logger.scalar("Train/" + k, float(v[j]), epoch + j)
+        if every and (c % every == 0 or c == n_calls - 1):
+            rate = (epoch + n_active - start_epoch) / (time.time() - t0)
+            print(f"[{desc}] epoch {epoch + n_active}/{num_epochs} loss={float(losses[n_active - 1]):.4f} "
+                  f"({rate:.1f} epochs/s)", flush=True)
+        return {k: float(v[n_active - 1]) for k, v in infos.items()}
+
+    epoch, pending = start_epoch, None
     for c in range(n_calls):
         n_active = min(epochs_per_call, num_epochs - epoch)
         params, opt_state, losses, infos = epoch_fn(params, opt_state, seed, epoch, n_active)
-        losses = losses.tolist()
-        infos = {k: v.tolist() for k, v in infos.items()}
-        for j in range(n_active):
-            if logger is not None:
-                logger.scalar("Train/Loss", float(losses[j]), epoch)
-                for k, v in infos.items():
-                    logger.scalar("Train/" + k, float(v[j]), epoch)
-            epoch += 1
-        if log_every and (c % max(log_every // epochs_per_call, 1) == 0 or c == n_calls - 1):
-            rate = (epoch - start_epoch) / (time.time() - t0)
-            print(f"[{desc}] epoch {epoch}/{num_epochs} loss={float(losses[n_active - 1]):.4f} "
-                  f"({rate:.1f} epochs/s)", flush=True)
-        last_info = {k: float(v[n_active - 1]) for k, v in infos.items()}
+        staged = (c, epoch, n_active, list(infos), *_queue_to_host([losses, *infos.values()]))
+        if pending is not None:
+            last_info = read(*pending)
+        pending = staged
+        epoch += n_active
+    if pending is not None:
+        last_info = read(*pending)
     return params, opt_state, last_info
+
+
+def _queue_to_host(tensors: list):
+    """(host copies of ``tensors``, the event that follows the copies): on
+    a card the copies go to pinned memory, queued behind the work that
+    makes the tensors, and the event says when they have landed; off the
+    card clones, and no event."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        return [t.clone() for t in tensors], None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True) for t in tensors]
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dev))
+    return host, done
 
 
 _MODELS = {"CDE": CDE, "CDiffE": CDiffE, "Posterior": PosteriorDiffusionEstimator}

@@ -1087,6 +1087,79 @@ def test_captured_step_recaptures_on_a_shape_change(cuda):
     assert not torch.equal(first[2], second[2])
 
 
+def test_fused_engine_replays_its_preparation(cuda):
+    """The fused DSM engine's preparation captured as a CUDA graph (the
+    default on the card) against capture=False on linear data, 6 batches
+    of 100 and 3 epochs a call: the same (h0, eps, s1) bit for bit at two
+    calls (the epochs' generators re-seeded between replays), one capture,
+    the same params, state and losses from a call; a call raises nothing
+    under the sync debug mode "error"."""
+    from dmip_tpu_torch import data, pytree, train
+    from dmip_tpu_torch.ops.dsm_train_kernel import make_fused_dsm_epoch_fn
+
+    prob = LinearForwardProblem()
+    xs, ys = data.generate_dataset_linear(2, prob.forward, 600, torch.Generator().manual_seed(0), cuda)
+    batch_fn = lambda g: data.linear_epoch_batches(g, xs, ys, prob.noise_std, 100)
+    model, _ = train.get_model_from_args({"model": "CDE", "loss_fn": "DSM", "hidden_layers": [64, 64]},
+                                         {"xdim": 2, "ydim": 2})
+    p0 = model.init(torch.Generator().manual_seed(1), device=cuda)
+    opt = train.build_optimizer(1e-3)
+    fns = {c: make_fused_dsm_epoch_fn(model, 1e-3, batch_fn, 3, capture=c) for c in (True, False)}
+    for epoch0 in (0, 3):
+        got = [t.clone() for t in fns[True].prepare(5, epoch0, cuda)]
+        want = fns[False].prepare(5, epoch0, cuda)
+        assert got[0].shape == (3, 6, 100, 5) and all(torch.equal(a, b) for a, b in zip(got, want))
+    runs = {c: fn(p0, opt.init(p0), 5, 3) for c, fn in fns.items()}
+    assert _equal_trees(runs[True][:3], runs[False][:3]) and fns[True].graph.captures == 1
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fns[True](p0, opt.init(p0), 5, 6)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(out[2]).all()) and fns[True].graph.captures == 1
+    assert not torch.equal(out[2], runs[True][2])
+    assert all(t.device.type == "cuda" for t in pytree.leaves(out[:2]))
+
+
+def test_fit_waits_for_each_call_on_its_own_event(cuda):
+    """fit reads a card engine's call one call late through an event
+    recorded after its pinned copy: a traced fit of 3 calls of a stub
+    engine waits 3 times on an event and never on the stream, and logs
+    the stub's values."""
+    from dmip_tpu_torch import train
+
+    def epochs(params, opt_state, seed, epoch0, n_active):
+        torch.cuda._sleep(1_000_000)  # the card busy ~0.5 ms, as a launch would keep it
+        losses = torch.arange(epoch0, epoch0 + 2, dtype=torch.float32, device=cuda) + seed
+        return params, opt_state, losses, {"A": -losses}
+
+    class Log:
+        values = []
+
+        def scalar(self, tag, value, step):
+            self.values.append((tag, value, step))
+
+    train.fit(epochs, 0, None, 1, 6, epochs_per_call=2, log_every=0, opt_state=0)  # pinned blocks made
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("fit_span"):
+            train.fit(epochs, 0, None, 1, 6, epochs_per_call=2, log_every=0, logger=Log(), opt_state=0)
+    events = prof.events()
+    span = next(e for e in events if e.name == "fit_span").time_range
+    names = [e.name for e in events if e.name.startswith("cuda") and span.start <= e.time_range.start <= span.end]
+    assert names.count("cudaEventSynchronize") == 3
+    assert names.count("cudaStreamSynchronize") == 0 and names.count("cudaDeviceSynchronize") == 0
+    assert Log.values == [(tag, float(e + 1) * (1 if tag == "Train/Loss" else -1), e)
+                          for e in range(6) for tag in ("Train/Loss", "Train/A")]
+
+
+def _equal_trees(a, b) -> bool:
+    from dmip_tpu_torch import pytree
+
+    la, lb = pytree.leaves(a), pytree.leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
 def _seeded_b1(cuda, compute_dtype):
     tp = mlp_init(27, 3, (160, 128), generator=torch.Generator().manual_seed(3), device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(4)

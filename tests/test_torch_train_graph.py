@@ -89,17 +89,21 @@ def _equal(a, b) -> bool:
 
 def _reference(loss_fn, opt, batch_fn, params):
     """make_train_step with the loss drawing from the epoch's generator, as
-    the engine ran before its draws left the loss; the epochs' mean losses
-    and info as it reduced them."""
+    the engine ran before its draws left the loss, but for a loss with
+    ``epoch_draws`` (DSM): that one draws its whole epoch's numbers after
+    the batches and batch i takes row i; the epochs' mean losses and info
+    as the engine reduced them."""
     step = train.make_train_step(loss_fn, opt)
     state = opt.init(params)
     losses, infos = [], {}
     for e in range(EPOCHS):
         gen = train.epoch_generator(SEED, e, "cpu")
         xb, yb = batch_fn(gen)
+        rows = loss_fn.epoch_draws(gen, xb, yb) if hasattr(loss_fn, "epoch_draws") else None
         ls, ins = [], []
-        for x, y in zip(xb, yb):
-            params, state, loss, info = step(params, state, gen, x, y)
+        for i, (x, y) in enumerate(zip(xb, yb)):
+            draws = None if rows is None else {k: v[i] for k, v in rows.items()}
+            params, state, loss, info = step(params, state, gen, x, y, draws)
             ls.append(loss)
             ins.append(info)
         losses.append(torch.stack(ls).mean())
