@@ -84,16 +84,21 @@ width:
     (``grid_scat``).  Epochs and evaluation are cut, widths kept;
   * the multi-GPU layer (``dmip_tpu_torch.parallel``): a world of one NCCL
     rank in this process (``dist_world1``: ``config_linear.yml``'s PINN
-    net at full width for 10 data-parallel steps, bit for bit against the
-    meshless engine, and the linear evaluation with the mesh through B1),
-    then two spawned ranks sharing the card over gloo (``dist_two_ranks``:
-    the same steps against the world of one, the evaluation's rows against
-    it bit for bit, the GT driver's ``--devices 2`` at 300k chains x 1000
-    steps against a meshless GT in distribution, the small linear grid
-    pinned against each trial's sequential run bit for bit, the small
-    scatterometry grid's group as a sharded vmap ensemble against
-    ``grid_scat``'s, every trial through B1 split over the ranks, and B1's
-    and B2's times with two ranks on the card).
+    net at full width for 10 data-parallel steps, each two CUDA-graph
+    replays around the all-reduce, bit for bit against the same engine run
+    eagerly and against the meshless engine, ms a step of a first and a
+    warm call of each, a traced warm call's host syncs, a call under the
+    sync debug mode "error", and the linear evaluation with the mesh
+    through B1), then two spawned ranks sharing the card over gloo
+    (``dist_two_ranks``: the same three engines on each rank, its captured
+    step bit for bit its eager one, against the world of one, the
+    evaluation's rows against it bit for bit, the GT driver's ``--devices
+    2`` at 300k chains x 1000 steps against a meshless GT in distribution,
+    the small linear grid pinned (two calls a trial, one capture a trial)
+    against each trial's sequential run bit for bit, the small
+    scatterometry grid's group as a sharded vmap ensemble (one capture a
+    rank) against ``grid_scat``'s, every trial through B1 split over the
+    ranks, and B1's and B2's times with two ranks on the card).
 
 Every config handed to a driver has ``plot_ys: []`` (``card_config``): the
 drivers' corner plots need matplotlib, which this script does not require
@@ -354,11 +359,17 @@ GRID_LEAF_REL_TOL = 1e-3
 # (6 trials in one group of 6) on serve()'s GT and conditions.  The cuts:
 GRID_LINEAR_CUTS = dict(n_epochs=1, epochs_per_call=1, n_samples_y=2, eval_n_repeats=1)
 GRID_SCAT_CUTS = dict(n_epochs=2, epochs_per_call=1, n_samples_y=SCAT_CONDITIONS, eval_n_repeats=2)
+# the pinned grid of dist_two_ranks: two calls a trial, which share its engine
+DIST_GRID_LINEAR_CUTS = dict(GRID_LINEAR_CUTS, n_epochs=2)
 GRID_FLOOR_REPEATS = REPEATS    # gt_floor_scatterometry: 5 GT repeats against the other 5
 # The multi-GPU layer (dmip_tpu_torch.parallel).  dist_world1: a world of one
 # NCCL rank in this process; dist_two_ranks: two spawned ranks sharing the
 # card over gloo.  Training: config_linear.yml's PINN net (512^3, batch 1000)
-# for DIST_STEPS steps, the first DIST_STEPS batches of its first epoch.
+# for DIST_STEPS steps, the first DIST_STEPS batches of its first epoch,
+# through the meshed engine captured and eager and the meshless one, each a
+# first call and DIST_TIMING_REPS warm ones.  The captured meshed step must
+# be its eager one bit for bit on every rank, and over one NCCL rank the
+# meshless one too, with no host sync in a traced warm call.
 DIST_STEPS = 10
 DIST_LIN_CONDITIONS = (3, 4)     # evaluate_linear's conditions: world of one, two ranks
 DIST_REPEATS = 2
@@ -375,7 +386,7 @@ DIST_LEAF_REL_TOL = 1e-4
 # meshless GT's first half: histogram KL at most this times the meshless
 # GT's own floor, its first half against its second (the same sizes).
 DIST_GT_KL_FACTOR = 1.5
-DIST_TIMING_REPS = 3
+DIST_TIMING_REPS = 3             # warm training calls; B1 launches timed with two ranks
 # The captured train step (train.StepGraph; train_captured): config_linear.yml
 # as shipped (PINNLoss, 512^3, batch 1000, 90 steps an epoch, 25 epochs a
 # call), cut to two engine calls and LIN_CONDITIONS conditions of its
@@ -1888,7 +1899,7 @@ def train_captured(torch, lin_cfg, gt_dir) -> int:
         fn(p0, opt.init(p0), seed + 2, 0)  # the captured engine captures here
     traces = {("captured" if c else "eager"): host_trace(torch, lambda: fn(p0, opt.init(p0), seed + 2, 1),
                                                          GRAPH_PROFILE_STEPS) for c, fn in short.items()}
-    replay = replay_trace(torch, short[True].graph.cuda_graph)
+    replay = replay_trace(torch, short[True].graph.cuda_graphs[0])
     phase("train_captured", t0, epochs=CAPTURED_EPOCHS, epochs_per_call=cfg["epochs_per_call"],
           steps_per_epoch=n_steps, run_seconds=run_s, epochs_per_s_second_call=rate,
           ms_per_step_second_call=1e3 / (rate * n_steps), first_last_loss=[losses[0], losses[-1]],
@@ -2470,12 +2481,18 @@ def grid_scat(torch, gt_dir) -> int:
     return n_b1
 
 
-def dist_train(torch, cfg, mesh, steps=DIST_STEPS):
+def dist_train(torch, cfg, mesh, capture: bool = True, steps=DIST_STEPS) -> dict:
     """``steps`` steps of ``cfg``'s net through the autograd engine (``mesh``:
-    a Mesh or None), on the first ``steps`` batches of epoch 0 from the
-    driver's seeds.  Returns (the loss of step 1 alone, params after
-    ``steps``, the init, ms a step)."""
-    from dmip_tpu_torch import data, train
+    a Mesh or None; ``capture`` as the engine's), on the first ``steps``
+    batches of epoch 0 from the driver's seeds, called from the same init:
+    the first call (which captures) and DIST_TIMING_REPS warm ones, each
+    timed.  Returns the loss of step 1 alone (an engine of one step), the
+    first call's (params, state, losses), the init, ms a step of the first
+    call and of the warm ones (and their median), whether every warm call
+    repeated the first bit for bit, the engine's
+    StepGraph, ``call``, one more warm call (to trace), and the length of
+    the meshed step's all-reduced buffer (gradient, loss, info)."""
+    from dmip_tpu_torch import data, pytree, train
     from dmip_tpu_torch.mains.eval_diffusion import linear_split
     from dmip_tpu_torch.problems import LinearForwardProblem
 
@@ -2485,24 +2502,66 @@ def dist_train(torch, cfg, mesh, steps=DIST_STEPS):
     model, loss_cfg = train.get_model_from_args(cfg, {"xdim": prob.xdim, "ydim": prob.ydim})
     loss_fn = model.make_loss_fn(loss_cfg, initial_condition=prob.score_posterior)
     opt = train.build_optimizer(float(cfg["lr"]), cfg.get("grad_clip"))
-    init = lambda: model.init(torch.Generator().manual_seed(seed + 1), device="cuda")
+    batch_fn = lambda g: data.linear_epoch_batches(g, x_train, y_train, prob.noise_std, int(cfg["batch_size"]))
+    p0 = model.init(torch.Generator().manual_seed(seed + 1), device="cuda")
+    s0 = opt.init(p0)
 
-    def run(n):
-        def batch_fn(g):
-            xb, yb = data.linear_epoch_batches(g, x_train, y_train, prob.noise_std, int(cfg["batch_size"]))
-            return xb[:n], yb[:n]
-
-        fn = train.make_epoch_fn(loss_fn, opt, batch_fn, mesh=mesh)
-        p = init()
+    def timed(fn, n):
         torch.cuda.synchronize()
         t0 = time.time()
-        p, _, losses, _ = fn(p, opt.init(p), seed + 2, 0)
+        out = fn(p0, s0, seed + 2, 0)
         torch.cuda.synchronize()
-        return float(losses[0]), p, 1e3 * (time.time() - t0) / n
+        return out, 1e3 * (time.time() - t0) / n
 
-    first = run(1)[0]
-    _, params, ms = run(steps)
-    return first, params, init(), ms
+    first = float(timed(train.make_epoch_fn(loss_fn, opt, first_batches(batch_fn, 1), mesh=mesh,
+                                            capture=capture), 1)[0][2][0])
+    fn = train.make_epoch_fn(loss_fn, opt, first_batches(batch_fn, steps), mesh=mesh, capture=capture)
+    (*run, infos), ms_first = timed(fn, steps)
+    warm = [timed(fn, steps) for _ in range(DIST_TIMING_REPS)]
+    same = all(torch.equal(a, b) for again, _ in warm for a, b in zip(pytree.leaves(run), pytree.leaves(again[:3])))
+    return {"first": first, "run": run, "params": run[0], "p0": p0, "ms_first": ms_first,
+            "ms_warm": sorted(ms for _, ms in warm)[len(warm) // 2], "ms_warm_all": [ms for _, ms in warm],
+            "warm_repeats_first": same, "graph": fn.graph, "call": lambda: fn(p0, s0, seed + 2, 0),
+            "flat_numel": sum(t.numel() for t in pytree.leaves(p0)) + 1 + len(infos)}
+
+
+def dist_variants(torch, cfg, mesh) -> dict:
+    """dist_train's three engines: the data-parallel one over ``mesh``
+    captured ('meshed') and eager ('meshed_eager'), and the meshless one
+    captured ('meshless')."""
+    return {name: dist_train(torch, cfg, m, capture=c)
+            for name, m, c in (("meshed", mesh, True), ("meshed_eager", mesh, False), ("meshless", None, True))}
+
+
+def allreduce_ms(torch, mesh, n: int, reps: int = 20) -> float:
+    """ms a call of the in-place all-reduce of an n-float buffer on the
+    card, as the meshed step calls it between its replays: ``reps`` calls
+    after 3 untimed ones, ended by a synchronize, by the host's clock."""
+    buf = torch.zeros(n, device=mesh.device)
+    for _ in range(3):
+        mesh.all_reduce_(buf)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        mesh.all_reduce_(buf)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t) / reps
+
+
+def variant_fields(v: dict) -> dict:
+    """What a phase prints of dist_variants: ms a step (first call, the
+    warm calls and their median), captures and graphs of each engine, and the pairs bit for bit
+    (params, state, losses)."""
+    from dmip_tpu_torch import pytree
+
+    same = lambda a, b: all(x.equal(y) for x, y in zip(pytree.leaves(v[a]["run"]), pytree.leaves(v[b]["run"])))
+    return {"ms_per_step": {k: {"first_call": r["ms_first"], "warm": r["ms_warm"], "warm_calls": r["ms_warm_all"]}
+                            for k, r in v.items()},
+            "captures": {k: r["graph"].captures for k, r in v.items()},
+            "graphs": {k: len(r["graph"].cuda_graphs) for k, r in v.items()},
+            "warm_repeats_first": {k: r["warm_repeats_first"] for k, r in v.items()},
+            "bit_for_bit": {"meshed_vs_meshed_eager": same("meshed", "meshed_eager"),
+                            "meshed_vs_meshless": same("meshed", "meshless")}}
 
 
 def dist_eval(torch, mesh, n_conditions: int, out_dir: str):
@@ -2536,11 +2595,14 @@ def _leaf_rel(p, ref, p0) -> float:
 def dist_world1(torch, work) -> dict:
     """A world of one rank over NCCL on a free local port, in this process:
     config_linear.yml's PINN net at full width for DIST_STEPS steps through
-    the data-parallel engine, held bit for bit against the meshless engine;
-    then evaluate_linear with the mesh on DIST_LIN_CONDITIONS[0] conditions
-    x DIST_REPEATS repeats through B1.  Returns what dist_two_ranks holds
-    against: the first step's loss, the params, the init and the rows."""
-    from dmip_tpu_torch import pytree
+    the data-parallel engine captured (two graphs around the all-reduce)
+    and eager, and the meshless engine captured, each a first call and a
+    warm one; the captured meshed run held bit for bit against the other
+    two; a warm meshed call traced (host syncs a step) and one run under
+    the sync debug mode "error"; then evaluate_linear with the mesh on
+    DIST_LIN_CONDITIONS[0] conditions x DIST_REPEATS repeats through B1.
+    Returns what dist_two_ranks holds against: the first step's loss, the
+    params, the init, the rows, and the meshless warm ms a step."""
     from dmip_tpu_torch.ops import fused_em_sampler
     from dmip_tpu_torch.parallel import get_mesh, init_multihost, local_address
 
@@ -2551,10 +2613,22 @@ def dist_world1(torch, work) -> dict:
     cfg = card_config("config_linear.yml")
     check(cfg["loss_fn"] == "PINNLoss" and cfg["hidden_layers"] == [512] * 3 and cfg["batch_size"] == 1000,
           f"dist_world1: config_linear.yml changed: {cfg['loss_fn']} {cfg['hidden_layers']} {cfg['batch_size']}")
-    first, params, p0, ms = dist_train(torch, cfg, mesh)
-    ref_first, ref_params, _, ref_ms = dist_train(torch, cfg, None)
-    same = first == ref_first and all(torch.equal(a, b) for a, b in
-                                      zip(pytree.leaves(params), pytree.leaves(ref_params)))
+    v = dist_variants(torch, cfg, mesh)
+    fields = variant_fields(v)
+    meshed = v["meshed"]
+    fields["allreduce_ms"] = allreduce_ms(torch, mesh, meshed["flat_numel"])
+    fields["allreduce_floats"] = meshed["flat_numel"]
+    traced = host_trace(torch, meshed["call"], DIST_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        meshed["call"]()
+    except RuntimeError as e:
+        raise CheckFailed(f"dist_world1: a host sync inside a meshed engine call: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    fields["meshed_captures_after_trace"] = meshed["graph"].captures
     t_train = time.time() - t0
     t1 = time.time()
     fused_em_sampler.launches = 0
@@ -2562,12 +2636,43 @@ def dist_world1(torch, work) -> dict:
     torch.cuda.synchronize()
     n_b1 = fused_em_sampler.launches
     torch.distributed.destroy_process_group()
-    phase("dist_world1", t0, backend=mesh.backend, steps=DIST_STEPS, first_loss=first, bit_for_bit=same,
-          ms_per_step=ms, meshless_ms_per_step=ref_ms, train_seconds=t_train, eval_seconds=time.time() - t1,
-          b1_launches=n_b1, rows=rows)
-    check(same, "dist_world1: the mesh of one differs from the meshless engine")
+    phase("dist_world1", t0, backend=mesh.backend, steps=DIST_STEPS, first_loss=meshed["first"], **fields,
+          trace=traced, train_seconds=t_train, eval_seconds=time.time() - t1, b1_launches=n_b1, rows=rows)
+    bits = fields["bit_for_bit"]
+    check(bits["meshed_vs_meshed_eager"], "dist_world1: the captured meshed step differs from the eager one")
+    check(bits["meshed_vs_meshless"], "dist_world1: the mesh of one differs from the meshless engine")
+    check(all(fields["warm_repeats_first"].values()), f"dist_world1: a warm call differs: {fields}")
+    check(fields["captures"] == {"meshed": 1, "meshed_eager": 0, "meshless": 1}
+          and fields["meshed_captures_after_trace"] == 1 and fields["graphs"] == {"meshed": 2, "meshed_eager": 0, "meshless": 1},
+          f"dist_world1: captures {fields['captures']}, graphs {fields['graphs']}")
+    check(traced["syncs_per_step"] == 0, f"dist_world1: host syncs in a traced meshed step: {traced}")
     check(n_b1 == DIST_LIN_CONDITIONS[0] * DIST_REPEATS, f"dist_world1: {n_b1} B1 launches")
-    return {"first": first, "params": params, "p0": p0, "rows": rows, "b1": n_b1}
+    return {"first": meshed["first"], "params": meshed["params"], "p0": meshed["p0"], "rows": rows, "b1": n_b1,
+            "meshless_warm_ms": v["meshless"]["ms_warm"]}
+
+
+class CaptureCount:
+    """While active, counts the captures of every ``train.StepGraph`` in
+    this process (``n``; patches its capture, as FitClock patches
+    ``train.fit``): the grid drivers build their engines out of reach."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __enter__(self):
+        from dmip_tpu_torch import train
+
+        capture = train.StepGraph._capture
+
+        def counted(graph, *args):
+            self.n += 1
+            return capture(graph, *args)
+
+        self._train, self._capture, train.StepGraph._capture = train, capture, counted
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._train.StepGraph._capture = self._capture
 
 
 def _two_rank_child(rank: int, address: str, work: str) -> None:
@@ -2586,26 +2691,31 @@ def _two_rank_child(rank: int, address: str, work: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     init_multihost(address, 2, rank)
     mesh = get_mesh()
-    out = {"backend": mesh.backend, "device": str(mesh.device), "seconds": {}, "b1": {}, "b2": {}}
+    out = {"backend": mesh.backend, "device": str(mesh.device), "seconds": {}, "b1": {}, "b2": {}, "captures": {}}
 
     def sub(name, fn):
         fused_em_sampler.launches = fused_mh_scatterometry.launches = 0
         mesh.barrier()
         t0 = time.time()
-        res = fn()
+        with CaptureCount() as captures:
+            res = fn()
         torch.cuda.synchronize()
         mesh.barrier()
         out["seconds"][name] = time.time() - t0
         out["b1"][name], out["b2"][name] = fused_em_sampler.launches, fused_mh_scatterometry.launches
+        out["captures"][name] = captures.n
         return res
 
-    first, params, _, ms = sub("train", lambda: dist_train(torch, card_config("config_linear.yml"), mesh))
-    out["train"] = {"first": first, "params": [t.cpu() for t in pytree.leaves(params)], "ms_per_step": ms}
+    v = sub("train", lambda: dist_variants(torch, card_config("config_linear.yml"), mesh))
+    out["train"] = {"first": v["meshed"]["first"], "params": [t.cpu() for t in pytree.leaves(v["meshed"]["params"])],
+                    **variant_fields(v), "allreduce_ms": allreduce_ms(torch, mesh, v["meshed"]["flat_numel"]),
+                    "trace": host_trace(torch, v["meshed"]["call"], DIST_STEPS)}
+    del v  # the engines' graphs and their pools
     sub("eval", lambda: dist_eval(torch, mesh, DIST_LIN_CONDITIONS[1], os.path.join(work, "dist_two_lin")))
     gt_cfg = dict(card_config("config_scatterometry.yml"), n_samples_y=DIST_GT_CONDITIONS, n_samples_x=N_SAMPLES,
                   n_repeats=REPEATS)
     sub("gt", lambda: gt.run(gt_cfg, os.path.join(work, "dist_two_gt"), device="cuda", devices=2))
-    lin = dict(card_config("config_gridsearch_linear_small.yml"), **GRID_LINEAR_CUTS, ensemble_backend="pinned",
+    lin = dict(card_config("config_gridsearch_linear_small.yml"), **DIST_GRID_LINEAR_CUTS, ensemble_backend="pinned",
                src_dir=os.path.join(work, "dist_grid_pinned"))
     out["grid_pinned"] = sub("grid_pinned", lambda: run_grid_search_linear.run(lin, device="cuda"))["results"]
     sc = dict(card_config("config_gridsearch_scatterometry_small.yml"), **GRID_SCAT_CUTS, ensemble_backend="vmap",
@@ -2666,17 +2776,22 @@ def _sequential_trials(torch, cfg) -> dict:
 
 def dist_two_ranks(torch, work, world1) -> dict:
     """Two spawned ranks sharing the card over gloo (``_two_rank_child``),
-    each sub-phase's launches counted from zero on each rank: (a) the
-    DIST_STEPS data-parallel steps, held against dist_world1 (the first
-    step's loss, every leaf against its update, the ranks bit for bit); (b)
+    each sub-phase's launches and StepGraph captures counted from zero on
+    each rank: (a) the DIST_STEPS data-parallel steps (dist_variants: each
+    rank's captured step bit for bit its eager one, ms a step of a first
+    and a warm call beside the meshless engine's on the shared card), held
+    against dist_world1 (the first step's loss, every leaf against its
+    update, the ranks bit for bit); (b)
     evaluate_linear on DIST_LIN_CONDITIONS[1] conditions, whose rows must
     equal dist_world1's bit for bit; (c) the GT driver with --devices 2 on
     DIST_GT_CONDITIONS conditions at MH_CHAINS x MH_STEPS, against a
     meshless GT of the same conditions (run here) in distribution; (d)
-    config_gridsearch_linear_small.yml through the grid driver, pinned, each
+    config_gridsearch_linear_small.yml through the grid driver, pinned, for
+    two epochs of one call each, one capture a trial on each rank, each
     trial against its sequential run (here) bit for bit, and
-    config_gridsearch_scatterometry_small.yml's group, vmap sharded, each
-    trial against grid_scat's meshless ensemble by DIST_LEAF_REL_TOL.  Every
+    config_gridsearch_scatterometry_small.yml's group, vmap sharded, one
+    capture a rank, each trial against grid_scat's meshless ensemble by
+    DIST_LEAF_REL_TOL.  Every
     trial is evaluated through B1, split over the ranks.  Returns the B1
     launches by net shape and B2's, summed over the ranks, and the ranks'
     B1 and B2 times on the shared card."""
@@ -2728,7 +2843,7 @@ def dist_two_ranks(torch, work, world1) -> dict:
 
     # (d) the pinned trials against their sequential runs, the sharded vmap
     # trials against grid_scat's meshless ensemble
-    lin = dict(card_config("config_gridsearch_linear_small.yml"), **GRID_LINEAR_CUTS,
+    lin = dict(card_config("config_gridsearch_linear_small.yml"), **DIST_GRID_LINEAR_CUTS,
                src_dir=os.path.join(work, "dist_grid_pinned"))
     pinned_equal = []
     for tdir, (model, p) in _sequential_trials(torch, lin).items():
@@ -2746,16 +2861,33 @@ def dist_two_ranks(torch, work, world1) -> dict:
         ref_dir = os.path.join(work, "grid_scat", os.path.relpath(tdir, sc["src_dir"]), "checkpoint")
         vmap_leaf.append(_leaf_rel(mine, load_checkpoint(ref_dir, p0, device="cuda")["params"], p0))
 
-    per_rank = [{k: r[k] for k in ("backend", "device", "seconds", "b1", "b2", "b1_ms", "b2_ms")} for r in ranks]
+    # the grids' captures on each rank: one a trial in every pinned wave, one
+    # a group for the sharded vmap ensemble
+    want_captures = {"grid_pinned": sum(-(-len(g) // 2) for g in _grid_trials(lin)),
+                     "grid_vmap": len(_grid_trials(sc))}
+    per_rank = [{k: r[k] for k in ("backend", "device", "seconds", "b1", "b2", "captures", "b1_ms", "b2_ms")}
+                for r in ranks]
+    train_fields = ("ms_per_step", "captures", "graphs", "warm_repeats_first", "bit_for_bit", "allreduce_ms", "trace")
     phase("dist_two_ranks", t0, spawn_and_run_seconds=spawn_s, check_seconds=time.time() - t1, ranks=per_rank,
           first_loss=tr[0]["first"], first_loss_rel_err=loss_rel, leaf_rel_err_max=leaf, ranks_bit_for_bit=ranks_equal,
-          ms_per_step=[t["ms_per_step"] for t in tr], eval_rows_equal=rows_equal, gt_floor_kl=floor,
+          train_by_rank=[{k: t[k] for k in train_fields} for t in tr],
+          meshless_one_rank_warm_ms_per_step=world1["meshless_warm_ms"], grid_captures_expected=want_captures,
+          eval_rows_equal=rows_equal, gt_floor_kl=floor,
           gt_kl_by_rank=gt_kl, gt_chains_differ=differ, pinned_trials_bit_for_bit=sum(pinned_equal),
           pinned_trials=len(pinned_equal), vmap_leaf_rel_err=vmap_leaf,
           tolerance={"first_loss": DIST_LOSS_REL_TOL, "leaf": DIST_LEAF_REL_TOL, "gt_kl_factor": DIST_GT_KL_FACTOR})
     check(all(r["backend"] == "gloo" and r["device"] == "cuda:0" for r in ranks), f"dist_two_ranks: {per_rank}")
     check(loss_rel <= DIST_LOSS_REL_TOL and leaf <= DIST_LEAF_REL_TOL and ranks_equal,
           f"dist_two_ranks: training against the world of one: loss {loss_rel}, leaf {leaf}, ranks {ranks_equal}")
+    for r, t in enumerate(tr):
+        check(t["bit_for_bit"]["meshed_vs_meshed_eager"] and all(t["warm_repeats_first"].values()),
+              f"dist_two_ranks: rank {r}'s captured meshed step against its eager one: {t['bit_for_bit']}, "
+              f"warm calls {t['warm_repeats_first']}")
+        check(t["captures"] == {"meshed": 1, "meshed_eager": 0, "meshless": 1}
+              and t["graphs"] == {"meshed": 2, "meshed_eager": 0, "meshless": 1},
+              f"dist_two_ranks: rank {r}'s captures {t['captures']}, graphs {t['graphs']}")
+    for name, want in want_captures.items():
+        check([r["captures"][name] for r in ranks] == [want] * 2, f"dist_two_ranks: captures in {name} {per_rank}")
     check(rows_equal, f"dist_two_ranks: evaluation rows {rows[:n1]} against {world1['rows']}")
     check(gt_ok and differ, f"dist_two_ranks: sharded GT shapes {set(shapes)}, chains differ {differ}")
     check(all(k <= DIST_GT_KL_FACTOR * f for kls in gt_kl for k, f in zip(kls, floor)),

@@ -158,12 +158,13 @@ def make_ensemble_epoch_fn(
     loss: the grids train no DSM), from ``epoch_generator(seed, epoch0 +
     j)`` on the params' device, as :func:`dmip_tpu_torch.train.make_epoch_fn`
     does for every loss but DSM, and
-    on a CUDA device with no mesh each K-trial step is one replay of a CUDA
-    graph, as there (``capture`` as there).
+    on a CUDA device each K-trial step is one replay of a CUDA graph, as
+    there (``capture`` as there).
 
     ``mesh`` (None, 'auto' or a Mesh): each rank trains its block of the K
     trials (K a multiple of the size: :func:`pad_trials`) on the same
-    batches and draws, eagerly, and returns every trial's state, gathered."""
+    batches and draws, a step one replay with no collective inside, and
+    returns every trial's state, gathered at the end of the call."""
     mesh = resolve_mesh(mesh)
     step = make_ensemble_step(model, cfg, optimizer, loss_kwargs)
     info_names: list = []
@@ -178,7 +179,7 @@ def make_ensemble_epoch_fn(
     def epochs(params, opt_state: AdamState, seed: int, epoch0: int, lams: Tensor, lam2s: Tensor,
                n_active: int = epochs_per_call):
         dev = pytree.leaves(params)[0].device
-        captured = use_capture(capture, dev, mesh)
+        captured = use_capture(capture, dev)
         losses = torch.full((epochs_per_call, lams.shape[0]), float("nan"), device=dev)
         inputs = lambda g, xb, yb: ((lams, lam2s, x, y, *model.loss_draws(cfg, g, x, y)) for x, y in zip(xb, yb))
         (params, opt_state), infos = run_epochs(one_step, graph if captured else None, batch_fn, inputs,
@@ -198,6 +199,7 @@ def make_ensemble_epoch_fn(
         out = epochs(cut(params), cut(opt_state), seed, epoch0, mesh.local(lams), mesh.local(lam2s), n_active)
         return _gather_trials(mesh, *out)
 
+    sharded.graph = graph
     return sharded
 
 
@@ -217,8 +219,15 @@ def make_pinned_ensemble_epoch_fn(
     lam2s[r], with no trial axis), so the trial equals its sequential run;
     then every rank gets the wave's state, gathered.  For losses whose one
     trial already fills the card, where stacking trials into every product
-    would not pay."""
+    would not pay.
+
+    A wave is a run of calls with the same ``lams`` / ``lam2s`` tensors:
+    its first call reads rank r's lam and lam2 (one host read a wave) and,
+    for a trial other than the last wave's, builds the trial's engine,
+    which the wave's calls share, so on a card its step captures once a
+    trial.  ``epochs.engines`` counts the engines built."""
     kw = dict(loss_kwargs or {})
+    wave: Dict[str, Any] = {}  # the wave's lams and lam2s, its trial and rank r's engine for it
 
     def epochs(params, opt_state: AdamState, seed: int, epoch0: int, lams: Tensor, lam2s: Tensor,
                n_active: int = epochs_per_call):
@@ -226,14 +235,22 @@ def make_pinned_ensemble_epoch_fn(
         if lams.shape[0] != mesh.size:
             raise ValueError(f"the pinned ensemble needs n_trials == mesh.size ({lams.shape[0]} != {mesh.size}); "
                              "pad with pad_trials()")
-        trial_cfg = dataclasses.replace(cfg, lam=lams[r].item(), lam2=lam2s[r].item())
-        run = make_epoch_fn(model.make_loss_fn(trial_cfg, **kw), optimizer, batch_fn, epochs_per_call)
+        if wave.get("lams") is not lams or wave.get("lam2s") is not lam2s:
+            trial = (lams[r].item(), lam2s[r].item())
+            if trial != wave.get("trial"):
+                trial_cfg = dataclasses.replace(cfg, lam=trial[0], lam2=trial[1])
+                wave["run"] = make_epoch_fn(model.make_loss_fn(trial_cfg, **kw), optimizer, batch_fn,
+                                            epochs_per_call)
+                epochs.engines += 1
+            wave.update(lams=lams, lam2s=lam2s, trial=trial)
+        run = wave["run"]
         mine = lambda tree: pytree.map(lambda a: a[r], tree)
         p, st, losses, infos = run(mine(params), mine(opt_state), seed, epoch0, n_active)
         one = lambda tree: pytree.map(lambda a: a.unsqueeze(0), tree)
         out = (one(p), one(st), losses[:, None], {k: v[:, None] for k, v in infos.items()})
         return _gather_trials(mesh, *out)
 
+    epochs.engines = 0
     return epochs
 
 

@@ -404,12 +404,20 @@ def snf_loss_fn(snf: SNF):
     """The SNF's loss for the epoch engines (``train.make_epoch_fn``):
     loss(params, generator, x, y, *, draws=None) -> (:func:`snf_ml_loss`,
     {}), and ``loss.draws(generator, x, y)`` -> {'draws': :func:`snf_draws`},
-    so an engine can draw the layers' numbers before the step."""
+    so an engine can draw the layers' numbers before the step.
+    ``loss.local_draws(mesh, draws)`` cuts them to a rank's rows of the
+    batch for the data-parallel step: a draw's rows are its axis -2 (the
+    last is the dimension), the uniforms' its last axis."""
 
     def loss_fn(params, generator, x: Tensor, y: Tensor, *, draws: Draws = None):
         return snf_ml_loss(snf, params, x, y, generator, draws), {}
 
+    def local_draws(mesh, draws):
+        rows = lambda k, v: mesh.local(v, axis=v.ndim - (1 if k == "uniforms" else 2))
+        return {"draws": [None if d is None else {k: rows(k, v) for k, v in d.items()} for d in draws["draws"]]}
+
     loss_fn.draws = lambda generator, x, y: {"draws": snf_draws(snf, generator, x)}
+    loss_fn.local_draws = local_draws
     return loss_fn
 
 

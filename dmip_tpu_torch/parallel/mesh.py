@@ -4,14 +4,17 @@ Port of ``dmip_tpu/parallel/mesh.py``.  The JAX package is one process
 over every local chip: a ``Mesh`` of devices, arrays placed on it by
 ``NamedSharding``, and XLA inserting the collectives.  Here a mesh is the
 process group that ``torchrun --nproc_per_node N`` starts: every rank runs
-the same program on its own device and host thread (the port's training
-steps are bound by host work, so one thread issuing to N cards would wait
-on N times that work), and the code calls the collectives itself:
+the same program on its own device and host thread (each training step is
+two CUDA-graph replays around an all-reduce, but the batches, the draws
+and the evaluation's scoring are host work, which one thread issuing to N
+cards would do N times in turn), and the code calls the collectives
+itself:
 
   * :meth:`Mesh.rows` / :meth:`Mesh.local` -- this rank's part of an axis
     (``batch_sharding`` / ``shard_batch``);
-  * :meth:`Mesh.all_reduce` -- sum or mean over the ranks (the gradient
-    all-reduce of data parallelism);
+  * :meth:`Mesh.all_reduce` / :meth:`Mesh.all_reduce_` -- sum or mean
+    over the ranks, the second in place (the gradient all-reduce of data
+    parallelism);
   * :meth:`Mesh.all_gather` / :meth:`Mesh.all_gather_objects` -- every
     rank's part, in rank order, on every rank;
   * :meth:`Mesh.broadcast` -- rank 0's value (``replicate``).
@@ -141,9 +144,16 @@ class Mesh:
     def all_reduce(self, t: Tensor, mean: bool = False) -> Tensor:
         """The sum over the ranks of ``t`` (or the mean: the sum divided by
         the size, so a world of one gives ``t`` bit for bit)."""
-        out = t.clone()
-        dist.all_reduce(out)
+        out = self.all_reduce_(t.clone())
         return out / self.size if mean else out
+
+    def all_reduce_(self, t: Tensor) -> Tensor:
+        """``t`` replaced by the sum over the ranks, in place (a world of
+        one leaves it as it was); returns ``t``.  Under NCCL the sum is
+        queued on the current stream with no host wait, so a captured step
+        reduces its static buffer between two replays."""
+        dist.all_reduce(t)
+        return t
 
     def all_gather(self, t: Tensor, axis: int = 0) -> Tensor:
         """Every rank's ``t`` (equal shapes) concatenated along ``axis`` in

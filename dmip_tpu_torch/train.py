@@ -14,7 +14,8 @@ Port of ``dmip_tpu/train.py``:
                             seeded by (seed, global epoch index); on a CUDA
                             device each step one replay of a CUDA graph
                             (``StepGraph``, where JAX compiles a scan); with
-                            a mesh, data-parallel over its ranks, eagerly
+                            a mesh, data-parallel over its ranks, two replays
+                            around the all-reduce (``SplitStep``)
   * ``resolve_mesh``     -- ``mesh: auto | null`` or a mesh -> a mesh or None
   * ``driver_mesh``      -- a driver's mesh: join torchrun's group, resolve
                             the config's ``mesh``
@@ -34,8 +35,10 @@ leaves its arguments as they were.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import gc
 import math
 import sys
 import time
@@ -156,63 +159,105 @@ def make_train_step(loss_fn, optimizer: Optimizer, skip_nonfinite: bool = True, 
 
     With a ``mesh`` the step is data-parallel: every rank is handed the same
     full batch and its draws (or the generator, and draws them through
-    ``loss_fn.draws``), and computes the loss and its gradient on its
-    :meth:`~Mesh.rows` of the batch and of every draw, each of which has
-    the batch's rows first (the diffusion losses' t, eps and probe).  Every term of the losses is a mean over rows, so the
-    ranks' means, each weighted by its share of the rows and averaged, are
-    the full batch's loss, info and gradient; the clip, the guard and Adam
-    then run on the same numbers on every rank, and the parameters stay
-    replicated.  A batch that the size does not divide is split into parts
-    one row apart, each weighted by its true count; a batch with fewer rows
-    than ranks raises.
+    ``loss_fn.draws``), and runs :func:`data_parallel_parts` around one
+    all-reduce: its loss and gradient on its :meth:`~Mesh.rows` of the
+    batch and of every draw, the ranks' sum of them in place, then the
+    update.  The parameters stay replicated.
     """
+    if mesh is not None:
+        first, second = data_parallel_parts(loss_fn, optimizer, mesh, skip_nonfinite)
+
+        def meshed_step(params, opt_state: AdamState, generator, x, y, draws: Optional[Dict[str, Tensor]] = None):
+            if draws is None:
+                draws = loss_fn.draws(generator, x, y)
+            flat = first(params, x, y, draws)
+            mesh.all_reduce_(flat)
+            return second(params, opt_state, flat)
+
+        return meshed_step
 
     def step(params, opt_state: AdamState, generator, x, y, draws: Optional[Dict[str, Tensor]] = None):
         leaves = [t.detach().requires_grad_(True) for t in pytree.leaves(params)]
-        tree = lambda flat: pytree.unflatten(params, flat)
-        if mesh is None:
-            loss, info = loss_fn(tree(leaves), generator, x, y, **(draws or {}))
-            grads = torch.autograd.grad(loss, leaves)
-        else:
-            if draws is None:
-                draws = loss_fn.draws(generator, x, y)
-            loss, info = _shard_loss(loss_fn, mesh, tree(leaves), x, y, draws)
-            grads, loss, info = _mean_over_ranks(mesh, torch.autograd.grad(loss, leaves), loss, info, x.shape[0])
-        updates, new_state = optimizer.update(tree(grads), opt_state)
-        new_params = apply_updates(tree([t.detach() for t in leaves]), updates)
-        if skip_nonfinite:
-            finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-            keep = lambda new, old: torch.where(finite, new, old)
-            new_params = pytree.map(keep, new_params, params)
-            new_state = pytree.map(keep, new_state, opt_state)
-        return new_params, new_state, loss.detach(), {k: v.detach() for k, v in info.items()}
+        loss, info = loss_fn(pytree.unflatten(params, leaves), generator, x, y, **(draws or {}))
+        grads = torch.autograd.grad(loss, leaves)
+        return _update(optimizer, skip_nonfinite, params, opt_state, grads, loss, info)
 
     return step
 
 
+def _update(optimizer: Optimizer, skip_nonfinite: bool, params, opt_state: AdamState, grads, loss: Tensor,
+            info: Dict[str, Tensor]):
+    """A step's end from its gradient (a sequence in the params' leaf
+    order): the clip and Adam, the skip-nonfinite guard, loss and info
+    detached."""
+    tree = lambda flat: pytree.unflatten(params, flat)
+    updates, new_state = optimizer.update(tree(grads), opt_state)
+    new_params = apply_updates(tree([t.detach() for t in pytree.leaves(params)]), updates)
+    if skip_nonfinite:
+        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        keep = lambda new, old: torch.where(finite, new, old)
+        new_params = pytree.map(keep, new_params, params)
+        new_state = pytree.map(keep, new_state, opt_state)
+    return new_params, new_state, loss.detach(), {k: v.detach() for k, v in info.items()}
+
+
+def data_parallel_parts(loss_fn, optimizer: Optimizer, mesh: Mesh, skip_nonfinite: bool = True):
+    """The data-parallel step as its two parts around the all-reduce,
+    (first, second):
+
+      * ``first(params, x, y, draws) -> flat``: this rank's loss on its
+        rows of the batch and of every draw (the rows first, as the
+        diffusion losses' t, eps and probe, or where the loss's
+        ``local_draws`` finds them), its gradient, and
+        the flat vector (gradient, loss, info) times the rows' share, the
+        buffer that ``mesh.all_reduce_`` sums over the ranks in place;
+      * ``second(params, opt_state, flat) -> (params, opt_state, loss,
+        info)``: the sum divided by the size, split back, then the clip,
+        Adam and the guard (:func:`make_train_step`), the same numbers on
+        every rank.
+
+    Every term of the losses is a mean over rows, so the ranks' means, each
+    weighted by its share of the rows and averaged, are the full batch's
+    loss, info and gradient.  A batch that the size does not divide is
+    split into parts one row apart, each weighted by its true count (a
+    Python number, fixed when a graph captures the part: another batch size
+    is another signature); a batch with fewer rows than ranks raises.  The
+    engines run the three pieces in this order whether or not they capture
+    the parts (:class:`SplitStep`)."""
+    names: list = []  # the info's keys, in order, from the last run of first
+
+    def first(params, x: Tensor, y: Tensor, draws: Dict[str, Tensor]) -> Tensor:
+        leaves = [t.detach().requires_grad_(True) for t in pytree.leaves(params)]
+        loss, info = _shard_loss(loss_fn, mesh, pytree.unflatten(params, leaves), x, y, draws)
+        grads = torch.autograd.grad(loss, leaves)
+        names[:] = info
+        rows = mesh.rows(x.shape[0])
+        weight = (rows.stop - rows.start) * mesh.size / x.shape[0]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)]
+                         + [v.detach().reshape(1) for v in info.values()])
+        return flat * weight if weight != 1 else flat
+
+    def second(params, opt_state: AdamState, flat: Tensor):
+        leaves = pytree.leaves(params)
+        parts = (flat / mesh.size).split([t.numel() for t in leaves] + [1] * (1 + len(names)))
+        grads = [g.view_as(t) for g, t in zip(parts, leaves)]
+        info = {k: v.reshape(()) for k, v in zip(names, parts[len(leaves) + 1:])}
+        return _update(optimizer, skip_nonfinite, params, opt_state, grads, parts[len(leaves)].reshape(()), info)
+
+    return first, second
+
+
 def _shard_loss(loss_fn, mesh: Mesh, params, x: Tensor, y: Tensor, draws: Dict[str, Tensor]):
-    """This rank's loss on its rows of the batch and of the batch's draws."""
+    """This rank's loss on its rows of the batch and of the batch's draws:
+    each draw's first axis, or the loss's own cut where its draws are laid
+    out otherwise (``loss_fn.local_draws(mesh, draws)``, the SNF's)."""
     if x.shape[0] < mesh.size:
         raise ValueError(f"a batch of {x.shape[0]} rows cannot be split over {mesh.size} ranks")
-    local = {k: mesh.local(v) for k, v in draws.items()}
+    if hasattr(loss_fn, "local_draws"):
+        local = loss_fn.local_draws(mesh, draws)
+    else:
+        local = {k: mesh.local(v) for k, v in draws.items()}
     return loss_fn(params, None, mesh.local(x), mesh.local(y), **local)
-
-
-def _mean_over_ranks(mesh: Mesh, grads, loss: Tensor, info: Dict[str, Tensor], n: int):
-    """The batch's gradient, loss and info from every rank's mean over its
-    rows: each weighted by its rows' share (1 when the parts are equal) and
-    averaged over the ranks, in one all-reduce."""
-    rows = mesh.rows(n)
-    weight = (rows.stop - rows.start) * mesh.size / n
-    parts = [g.reshape(-1) for g in grads] + [loss.detach().reshape(1)] + [v.detach().reshape(1) for v in info.values()]
-    flat = torch.cat(parts)
-    if weight != 1:
-        flat = flat * weight
-    flat = list(mesh.all_reduce(flat, mean=True).split([p.numel() for p in parts]))
-    grads = [g.view_as(like) for g, like in zip(flat, grads)]
-    loss = flat[len(grads)].reshape(())
-    info = {k: v.reshape(()) for k, v in zip(info, flat[len(grads) + 1:])}
-    return grads, loss, info
 
 
 def epoch_seed(seed: int, epoch: int, device) -> int:
@@ -283,6 +328,25 @@ def _signature(tree) -> str:
     return repr(pytree.map(lambda t: (tuple(t.shape), t.dtype, t.device), tree))
 
 
+@dataclasses.dataclass(frozen=True)
+class SplitStep:
+    """A train step in two parts around an eager call: ``first(state,
+    inputs) -> carry``, a tensor; ``between(carry)``, which changes it in
+    place (the data-parallel step's all-reduce); ``second(state, inputs,
+    carry) -> (state, out)``.  Called, it runs the three in that order: the
+    eager step.  :class:`StepGraph` captures each part as a graph of its own
+    and calls ``between`` between their replays."""
+
+    first: Callable
+    between: Callable
+    second: Callable
+
+    def __call__(self, state, inputs):
+        carry = self.first(state, inputs)
+        self.between(carry)
+        return self.second(state, inputs, carry)
+
+
 class StepGraph:
     """A train step captured once as a CUDA graph, then replayed.
 
@@ -295,20 +359,27 @@ class StepGraph:
     :meth:`state` returns clones of the state buffers, so a caller who
     keeps an earlier tree sees no aliasing.
 
+    A :class:`SplitStep` is captured as two graphs in one memory pool: the
+    first part's output ``carry`` is a static buffer of that pool, which
+    ``between`` changes in place between the two replays of a call (under
+    NCCL a collective queued on the stream, so the second replay follows it
+    with no host wait) and the second part reads.
+
     A step whose state or inputs differ from the captured ones in structure,
-    shape, dtype or device captures anew: ``GRAPH_WARMUP`` eager runs on a
-    side stream, then the capture in a private memory pool, the state's
-    update written back into its buffers inside the graph.  The step must
-    draw nothing and wait for nothing on the host (a host sync or a copy
-    from pageable memory fails the capture); an error in capture or replay
-    raises.
+    shape, dtype or device captures anew: ``GRAPH_WARMUP`` eager runs of
+    the whole step on a side stream, then the capture in a private memory
+    pool, the state's update written back into its buffers inside the
+    (last) graph.  Every rank of a mesh captures at the same steps, as its
+    warm-up runs the same collectives.  The step must draw nothing and wait
+    for nothing on the host (a host sync or a copy from pageable memory
+    fails the capture); an error in capture or replay raises.
     """
 
     def __init__(self, step: Callable):
         self._step = step
         self._key: Optional[str] = None
-        self._graph = None
-        self._state = self._inputs = self._out = None
+        self._graphs: list = []
+        self._state = self._inputs = self._carry = self._out = None
         self._pending = None
         self.captures = 0
 
@@ -328,14 +399,18 @@ class StepGraph:
         self._pending = None
         for dst, t in zip(pytree.leaves(self._inputs), pytree.leaves(inputs)):
             dst.copy_(t)
-        self._graph.replay()
+        self._graphs[0].replay()
+        if len(self._graphs) == 2:
+            self._step.between(self._carry)
+            self._graphs[1].replay()
         return self._out
 
     @property
-    def cuda_graph(self):
-        """The captured ``torch.cuda.CUDAGraph`` (None before the first
-        step): one ``replay()`` of it is one step on the static buffers."""
-        return self._graph
+    def cuda_graphs(self) -> list:
+        """The captured ``torch.cuda.CUDAGraph``s (none before the first
+        step): one, or a :class:`SplitStep`'s two, whose replays around
+        ``between`` are one step on the static buffers."""
+        return list(self._graphs)
 
     def state(self):
         """The state after the call's last step: clones of the buffers (the
@@ -345,7 +420,7 @@ class StepGraph:
         return pytree.map(torch.clone, self._state)
 
     def _capture(self, state, inputs) -> None:
-        self._graph = self._out = None  # the old graph's pool goes first
+        self._graphs, self._carry, self._out = [], None, None  # the old graphs' pool goes first
         dev = pytree.leaves(state)[0].device
         with torch.cuda.device(dev):
             static_state = pytree.map(lambda t: t.detach().clone(), state)
@@ -356,14 +431,39 @@ class StepGraph:
                 for _ in range(GRAPH_WARMUP):
                     self._step(static_state, static_in)
             torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                new_state, out = self._step(static_state, static_in)
+            if isinstance(self._step, SplitStep):
+                graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
+                with _capturing(graphs[0]):
+                    carry = self._step.first(static_state, static_in)
+                pool, last = graphs[0].pool(), lambda: self._step.second(static_state, static_in, carry)
+            else:
+                graphs, pool, carry = [torch.cuda.CUDAGraph()], None, None
+                last = lambda: self._step(static_state, static_in)
+            with _capturing(graphs[-1], pool):
+                new_state, out = last()
                 for dst, t in zip(pytree.leaves(static_state), pytree.leaves(new_state)):
                     if t is not dst:
                         dst.copy_(t)
-        self._graph, self._state, self._inputs, self._out = graph, static_state, static_in, out
+        self._graphs, self._state, self._inputs, self._carry, self._out = graphs, static_state, static_in, carry, out
         self.captures += 1
+
+
+@contextlib.contextmanager
+def _capturing(graph, pool=None):
+    """``torch.cuda.graph`` with the cyclic garbage collector off, in the
+    thread-local capture mode.  A collection inside a capture may free an
+    unreachable engine of earlier calls (a PINN loss's closures hold a
+    cycle), and destroying its graph there fails the capture; and the
+    capture fails on what this thread does, not on what a process group's
+    watchdog thread queries meanwhile."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class SeededGraph:
@@ -417,17 +517,16 @@ class SeededGraph:
             torch.cuda.current_stream().wait_stream(side)
             for gen in gens:
                 gen.manual_seed(0)
-            with torch.cuda.graph(graph):
+            with _capturing(graph):
                 out = self._fn(gens)
         self._graph, self._gens, self._out = graph, gens, out
         self.captures += 1
 
 
-def use_capture(capture: bool, device: torch.device, mesh) -> bool:
+def use_capture(capture: bool, device: torch.device) -> bool:
     """Whether an epoch engine captures its step: when asked to, on a CUDA
-    device with no mesh (a step over a mesh runs collectives, and the CPU
-    has no graphs)."""
-    return capture and device.type == "cuda" and mesh is None
+    device, with or without a mesh (the CPU has no graphs)."""
+    return capture and device.type == "cuda"
 
 
 def run_epochs(one_step, graph: Optional[StepGraph], batch_fn, epoch_inputs, state, seed: int, epoch0: int,
@@ -500,36 +599,46 @@ def make_epoch_fn(
     them before each step and hands them over, the numbers the loss would
     draw itself; for a loss with ``epoch_draws`` (DSM) it draws the whole
     epoch's at once after its batches and hands step i row i
-    (:func:`loss_inputs`).  With ``capture`` (the default) on a CUDA device with no
-    mesh each step is one replay of a CUDA graph (:class:`StepGraph`): the
-    loss, its gradient, the clip, Adam and the guard, captured at the first
-    step; ``capture=False`` runs the step eagerly there too (to compare).
+    (:func:`loss_inputs`).  With ``capture`` (the default) on a CUDA device
+    each step is one replay of a CUDA graph (:class:`StepGraph`): the loss,
+    its gradient, the clip, Adam and the guard, captured at the first step;
+    ``capture=False`` runs the step eagerly there too (to compare).
 
     ``mesh``: None, 'auto' or a :class:`Mesh` (:func:`resolve_mesh`).  With
     one, every rank builds the same batches and draws, and each step is
-    data-parallel (:func:`make_train_step`), eager; params and state must be
-    the same on every rank, as the drivers' seeded inits and checkpoints
-    make them, and stay so.
+    data-parallel (:func:`data_parallel_parts`): on a card two replays, the
+    rank's loss and gradient, then the update, around one eager all-reduce
+    of the first's output (a :class:`SplitStep`; eagerly the same three
+    pieces in the same order).  Params and state must be the same on every
+    rank, as the drivers' seeded inits and checkpoints make them, and stay
+    so.
     """
     mesh = resolve_mesh(mesh)
     if not hasattr(loss_fn, "draws"):
         raise ValueError("the epoch engine draws a batch's numbers through the loss's draws "
                          "(loss_fn.draws; {} for a loss that draws nothing)")
-    train_step = make_train_step(loss_fn, optimizer, mesh=mesh)
     epoch_inputs = loss_inputs(loss_fn)
     info_names: list = []
 
-    def one_step(state, inputs):
-        (params, opt_state), (x, y, draws) = state, inputs
-        params, opt_state, loss, info = train_step(params, opt_state, None, x, y, draws=draws)
+    def result(params, opt_state, loss, info):
         info_names[:] = info
         return (params, opt_state), torch.stack([loss, *info.values()])
 
+    if mesh is None:
+        train_step = make_train_step(loss_fn, optimizer)
+
+        def one_step(state, inputs):
+            (params, opt_state), (x, y, draws) = state, inputs
+            return result(*train_step(params, opt_state, None, x, y, draws=draws))
+    else:
+        first, second = data_parallel_parts(loss_fn, optimizer, mesh)
+        one_step = SplitStep(lambda state, inputs: first(state[0], *inputs), mesh.all_reduce_,
+                             lambda state, inputs, flat: result(*second(*state, flat)))
     graph = StepGraph(one_step)
 
     def epochs(params, opt_state: AdamState, seed: int, epoch0: int, n_active: int = epochs_per_call):
         dev = pytree.leaves(params)[0].device
-        captured = use_capture(capture, dev, mesh)
+        captured = use_capture(capture, dev)
         losses = torch.full((epochs_per_call,), float("nan"), device=dev)
         (params, opt_state), infos = run_epochs(one_step, graph if captured else None, batch_fn, epoch_inputs,
                                                 (params, opt_state), seed, epoch0, min(n_active, epochs_per_call),

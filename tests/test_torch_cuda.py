@@ -981,8 +981,9 @@ def _graph_parity(eager, graph, p0) -> str:
 
 def _graph_case(name, dev):
     """(loss, params, batch_fn) at 64^3 for the captured-step tests: the
-    linear PINNLoss, the DPS PosteriorLoss through the shipped surrogate, a
-    linear SNF with Metropolis layers."""
+    linear PINNLoss, the linear DSM (drawing an epoch at once), the DPS
+    PosteriorLoss through the shipped surrogate, a linear SNF with
+    Metropolis layers."""
     from dmip_tpu_torch import data, flows, train
 
     prob = LinearForwardProblem()
@@ -993,6 +994,10 @@ def _graph_case(name, dev):
                                                 "ic_metric": "L2", "hidden_layers": [64] * 3}, {"xdim": 2, "ydim": 2})
         return model.make_loss_fn(cfg, initial_condition=prob.score_posterior), \
             model.init(torch.Generator().manual_seed(1), device=dev), batch_fn
+    if name == "dsm":
+        model, cfg = train.get_model_from_args({"model": "CDE", "loss_fn": "DSM", "hidden_layers": [64] * 3},
+                                               {"xdim": 2, "ydim": 2})
+        return model.make_loss_fn(cfg), model.init(torch.Generator().manual_seed(1), device=dev), batch_fn
     if name == "snf":
         snf = flows.create_snf(2, 64, lambda x, c: prob.log_posterior(x, c)[:, 0], metr_steps_per_block=3,
                                dimension=2, dimension_condition=2)
@@ -1085,6 +1090,141 @@ def test_captured_step_recaptures_on_a_shape_change(cuda):
     assert fn.graph.captures == 2 and int(third[1].count) == 10
     assert all(torch.equal(a, b) for a, b in zip(kept, pytree.leaves(second[:2])))
     assert not torch.equal(first[2], second[2])
+
+
+# --- the captured step over a mesh -------------------------------------------
+
+
+@pytest.fixture
+def nccl_rank(cuda):
+    """A world of one NCCL rank in this process, torn down after the test."""
+    from dmip_tpu_torch.parallel import get_mesh, init_multihost, local_address
+
+    assert init_multihost(local_address(), 1, 0)
+    try:
+        yield get_mesh()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _engine_variants(name, dev, mesh):
+    """The engine on ``_graph_case(name)`` for two epochs of 5 steps, from
+    the same params and seed: {'meshed', 'meshed_eager', 'meshless'} ->
+    ((params, state, losses), captures), the first two over ``mesh``,
+    captured and with capture=False, the third captured with no mesh."""
+    from dmip_tpu_torch import train
+
+    loss_fn, p0, batch_fn = _graph_case(name, dev)
+    opt = train.build_optimizer(1e-3, grad_clip=1.0)
+    out = {}
+    for key, m, capture in (("meshed", mesh, True), ("meshed_eager", mesh, False), ("meshless", None, True)):
+        fn = train.make_epoch_fn(loss_fn, opt, batch_fn, epochs_per_call=2, mesh=m, capture=capture)
+        out[key] = (fn(p0, opt.init(p0), 3, 0)[:3], fn.graph.captures)
+    return out
+
+
+@pytest.mark.parametrize("name", ["pinn", "dsm", "posterior", "snf"])
+def test_one_nccl_rank_captures_the_meshed_step(cuda, nccl_rank, name):
+    """Over one NCCL rank the data-parallel engine captures its step (two
+    graphs around the all-reduce, once) and gives, bit for bit, both its
+    eager run and the meshless captured engine's."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = _engine_variants(name, cuda, nccl_rank)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert {k: c for k, (_, c) in runs.items()} == {"meshed": 1, "meshed_eager": 0, "meshless": 1}
+    assert bool(torch.isfinite(runs["meshed"][0][2]).all())
+    assert _equal_trees(runs["meshed"][0], runs["meshed_eager"][0])
+    assert _equal_trees(runs["meshed"][0], runs["meshless"][0])
+
+
+def test_meshed_engine_call_waits_for_nothing(cuda, nccl_rank):
+    """A second call of the captured data-parallel engine over one NCCL rank
+    raises nothing under the sync debug mode "error" (the all-reduce queued
+    between the replays), replays the first call's graphs and repeats its
+    numbers."""
+    from dmip_tpu_torch import train
+
+    loss_fn, p0, batch_fn = _graph_case("pinn", cuda)
+    opt = train.build_optimizer(1e-3)
+    fn = train.make_epoch_fn(loss_fn, opt, batch_fn, mesh=nccl_rank)
+    s0 = opt.init(p0)
+    first = fn(p0, s0, 3, 0)
+    assert len(fn.graph.cuda_graphs) == 2
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = fn(p0, s0, 3, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fn.graph.captures == 1 and _equal_trees(first[:3], second[:3])
+
+
+def _capturing_ranks(rank, address, out_dir):
+    """One of two ranks on the host's cards: the data-parallel engine and
+    the sharded ``vmap`` ensemble (K = 4, two trials a rank), each captured
+    and with capture=False, saved with their capture counts."""
+    from dmip_tpu_torch import ensemble, pytree, train
+    from dmip_tpu_torch.parallel import get_mesh, init_multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_multihost(address, 2, rank)
+    mesh = get_mesh()
+    cpu = lambda tree: [t.cpu() for t in pytree.leaves(tree)]
+    out = {"backend": mesh.backend, "step": {}, "vmap": {}}
+    loss_fn, p0, batch_fn = _graph_case("pinn", mesh.device)
+    opt = train.build_optimizer(1e-3, grad_clip=1.0)
+    for capture in (True, False):
+        fn = train.make_epoch_fn(loss_fn, opt, batch_fn, epochs_per_call=2, mesh=mesh, capture=capture)
+        out["step"][capture] = (cpu(fn(p0, opt.init(p0), 3, 0)[:3]), fn.graph.captures)
+    model, cfg = train.get_model_from_args({"model": "CDE", "loss_fn": "PINNLoss", "hidden_layers": [64] * 3},
+                                           {"xdim": 2, "ydim": 2})
+    lams, lam2s, _ = ensemble.pad_trials([1.0, 0.1, 0.01, 0.001], [1.0, 0.1, 1.0, 0.1], 2, device=mesh.device)
+    ens = ensemble.init_ensemble(model, torch.Generator().manual_seed(1), 4, device=mesh.device)
+    kw = {"initial_condition": LinearForwardProblem().score_posterior}
+    for capture in (True, False):
+        efn = ensemble.make_ensemble_epoch_fn(model, cfg, opt, batch_fn, 2, kw, mesh=mesh, capture=capture)
+        out["vmap"][capture] = (cpu(efn(ens, ensemble.init_opt_state(opt, ens), 3, 0, lams, lam2s)[:3]),
+                                efn.graph.captures)
+    mesh.barrier()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def two_capturing_ranks(tmp_path_factory):
+    """_capturing_ranks on two spawned ranks (gloo when they share a card)."""
+    import torch.multiprocessing as mp
+
+    from dmip_tpu_torch.parallel import local_address
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the captured step has no CPU mode")
+    root = tmp_path_factory.mktemp("capturing_ranks")
+    mp.spawn(_capturing_ranks, args=(local_address(), str(root)), nprocs=2, join=True)
+    return [torch.load(root / f"rank{r}.pt") for r in range(2)]
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+
+
+@pytest.mark.parametrize("engine", ["step", "vmap"])
+def test_two_ranks_capture_what_they_ran_eagerly(two_capturing_ranks, engine):
+    """On each of two ranks the data-parallel engine (two graphs around the
+    all-reduce) and the sharded vmap ensemble (one graph, no collective
+    inside) capture once and give their eager run bit for bit; the ranks
+    agree bit for bit."""
+    ranks = two_capturing_ranks
+    if torch.cuda.device_count() == 1:
+        assert all(r["backend"] == "gloo" for r in ranks)
+    for r in ranks:
+        (captured, n_captured), (eager, n_eager) = r[engine][True], r[engine][False]
+        assert (n_captured, n_eager) == (1, 0) and _same(captured, eager)
+        assert all(bool(torch.isfinite(t).all()) for t in captured)
+    assert _same(ranks[0][engine][True][0], ranks[1][engine][True][0])
 
 
 def test_fused_engine_replays_its_preparation(cuda):

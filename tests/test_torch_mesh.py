@@ -24,7 +24,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 import yaml
 
-from dmip_tpu_torch import data, ensemble, evaluate, pytree, train
+from dmip_tpu_torch import data, ensemble, evaluate, flows, pytree, train
 from dmip_tpu_torch.checkpoints import load_checkpoint, params_from_numpy
 from dmip_tpu_torch.mains import generate_scatterometry_ground_truth as gt
 from dmip_tpu_torch.mains import run_grid_search_linear
@@ -370,6 +370,81 @@ def mesh_of_one(one_thread):
         yield pmesh.get_mesh()
     finally:
         dist.destroy_process_group()
+
+
+def _split_case(name):
+    """(loss, params) for the two-rank split: the PINNLoss net, an SNF with
+    Metropolis layers, an SNF with Langevin and MALA layers (their draws
+    are not batch-first)."""
+    prob = LinearForwardProblem()
+    if name == "pinn":
+        model, cfg = _model()
+        return model.make_loss_fn(cfg, initial_condition=prob.score_posterior), \
+            model.init(torch.Generator().manual_seed(3))
+    kw = dict(metr_steps_per_block=2, dimension=2, dimension_condition=2)
+    if name == "snf_mala":
+        kw.update(lang_steps=2, langevin_prop=True, lang_steps_prop=2)
+    snf = flows.create_snf(2, 16, lambda x, c: prob.log_posterior(x, c)[:, 0], **kw)
+    return flows.snf_loss_fn(snf), snf.init(torch.Generator().manual_seed(3), "cpu")
+
+
+@pytest.mark.parametrize("name", ["pinn", "snf", "snf_mala"])
+def test_two_ranks_first_parts_sum_to_the_full_batch(one_thread, name):
+    """The data-parallel step's first part on each rank of a world of two
+    (Mesh objects alone: rows and cuts need no process group), summed as
+    the all-reduce sums them, gives the full batch's gradient, loss and info
+    (a mesh of one's part) within SPLIT_REL, for a ragged batch of 31 rows:
+    every draw is cut along its own rows."""
+    loss, params = _split_case(name)
+    opt = train.build_optimizer(1e-3)
+    _, batch_fn = _batch_fn()
+    gen = torch.Generator().manual_seed(4)
+    xb, yb = batch_fn(gen)
+    x, y = xb[0][:31], yb[0][:31]
+    draws = loss.draws(gen, x, y)
+    cpu = torch.device("cpu")
+    part = lambda size, rank: train.data_parallel_parts(loss, opt, pmesh.Mesh(size, rank, cpu, "gloo"))[0]
+    summed = (part(2, 0)(params, x, y, draws) + part(2, 1)(params, x, y, draws)) / 2
+    assert _rel(summed, part(1, 0)(params, x, y, draws)) < SPLIT_REL
+
+
+def test_meshed_engine_runs_two_parts_around_one_all_reduce(mesh_of_one, monkeypatch):
+    """The data-parallel engine over a world of one, eagerly (the CPU): its
+    step is the two parts around one in-place all-reduce a step (six over
+    two epochs of three), and it equals the meshless engine bit for bit."""
+    reduced = []
+    all_reduce_ = pmesh.Mesh.all_reduce_
+    monkeypatch.setattr(pmesh.Mesh, "all_reduce_", lambda self, t: reduced.append(t.shape) or all_reduce_(self, t))
+    got = _engine(mesh_of_one)
+    n_params = sum(t.numel() for t in pytree.leaves(got))
+    # the buffer: the gradient, the loss and PINNLoss's three info terms
+    assert reduced == [(n_params + 4,)] * 6
+    assert all(torch.equal(a, b) for a, b in zip(pytree.leaves(got), pytree.leaves(_engine(None))))
+
+
+def test_pinned_ensemble_builds_one_engine_a_trial(mesh_of_one):
+    """The pinned backend over a world of one: a wave of two calls (its
+    lams read once) builds one engine and gives the trial's sequential run
+    bit for bit; a wave of another trial builds a second, and a wave whose
+    tensors are new but whose trial is the last one's builds none."""
+    prob, batch_fn = _batch_fn()
+    model, cfg = _model()
+    opt = train.build_optimizer(1e-3)
+    fn = ensemble.make_pinned_ensemble_epoch_fn(model, cfg, opt, batch_fn, mesh_of_one,
+                                                loss_kwargs={"initial_condition": prob.score_posterior})
+
+    def wave(i):
+        lams, lam2s, _ = ensemble.pad_trials([LAMS[i]], [LAM2S[i]], 1)
+        ens = ensemble.init_ensemble(model, torch.Generator().manual_seed(1), 1)
+        return ensemble.ensemble_fit(fn, ens, opt, 2, 2, lams, lam2s, log_every=0)[0]
+
+    got = ensemble.trial_params(wave(0), 0)
+    assert fn.engines == 1
+    assert all(torch.equal(a, b) for a, b in zip(pytree.leaves(got), pytree.leaves(_sequential(LAMS[0], LAM2S[0]))))
+    wave(1)
+    assert fn.engines == 2
+    wave(1)
+    assert fn.engines == 2
 
 
 def test_sharded_evaluation_rows_equal_a_mesh_of_one(served, mesh_of_one, tmp_path):

@@ -175,9 +175,10 @@ def test_ensemble_engine_is_its_step_bit_for_bit():
 
 
 def test_capture_runs_eagerly_on_the_cpu_and_over_a_mesh():
-    """capture=True (the default) captures only on a CUDA device with no
-    mesh: on the CPU both engines run the eager step, equal to
-    capture=False bit for bit, and capture nothing."""
+    """capture=True (the default) captures only on a CUDA device, with or
+    without a mesh: on the CPU both engines run the eager step, equal to
+    capture=False bit for bit, and capture nothing (a mesh on the CPU runs
+    eagerly too: tests/test_torch_mesh.py)."""
     loss_fn, params, batch_fn = CASES["dsm"]()
     opt = train.build_optimizer(1e-3)
     runs = {c: train.make_epoch_fn(loss_fn, opt, batch_fn, capture=c) for c in (True, False)}
@@ -190,10 +191,9 @@ def test_capture_runs_eagerly_on_the_cpu_and_over_a_mesh():
     efns = {c: ensemble.make_ensemble_epoch_fn(model, cfg, opt, batch_fn, capture=c) for c in (True, False)}
     eout = {c: fn(ens, ensemble.init_opt_state(opt, ens), SEED, 0, lams, lam2s) for c, fn in efns.items()}
     assert _equal(eout[True][:3], eout[False][:3]) and efns[True].graph.captures == 0
-    assert train.use_capture(True, torch.device("cuda"), None)
-    assert not train.use_capture(True, torch.device("cpu"), None)
-    assert not train.use_capture(True, torch.device("cuda"), object())
-    assert not train.use_capture(False, torch.device("cuda"), None)
+    assert train.use_capture(True, torch.device("cuda"))
+    assert not train.use_capture(True, torch.device("cpu"))
+    assert not train.use_capture(False, torch.device("cuda"))
 
 
 def test_engine_needs_the_losses_draws():
