@@ -9,11 +9,16 @@ Entry points run on the GPU (``device="cuda"``) unless the caller passes
 ``device="cpu"``; on a host without a card they raise instead of falling
 back.  The hot loops are hand-written CUDA kernels (``ops/``, sources in
 ``csrc/``), each with a plain PyTorch version beside it.
+
+``DMIP_TRACE=<file>`` in the environment at import turns the recorder of
+:mod:`dmip_tpu_torch.utils.profiling` on and writes its spans and counters
+to ``<file>`` (JSON lines) at exit.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 
@@ -41,3 +46,9 @@ def device_constant(value: float, dtype: torch.dtype, device: torch.device) -> t
     graph: a train step takes its constants from here instead."""
     with torch.inference_mode(False), torch.no_grad():
         return torch.tensor(value, dtype=dtype, device=device)
+
+
+if os.environ.get("DMIP_TRACE"):
+    from .utils.profiling import record_to
+
+    record_to(os.environ["DMIP_TRACE"])

@@ -52,6 +52,7 @@ import torch
 from .models.diffusion import DiffusionModel
 from .parallel.mesh import Mesh, barrier, fold_in, is_writer
 from .train import resolve_mesh
+from .utils import profiling
 
 Tensor = torch.Tensor
 
@@ -246,18 +247,20 @@ def _eval_many(mesh: Optional[Mesh], n: int, generators, one: Callable[[int, tor
         if n % mesh.size:
             raise ValueError(f"a chunk of {n} conditions does not split over {mesh.size} ranks")
         rows = range(n)[mesh.rows(n)]
-    stats = {k: [] for k in STATS}
-    samples = {}
-    for i in rows:
-        out = one(i, gens[i])
-        for k in STATS:
-            stats[k].append(out[k])
-        if i in keep:
-            samples[i] = {k: out[k] for k in ("x_pred_last", "x_true_last")}
-    stacked = {k: torch.stack(v) for k, v in stats.items()}
-    if mesh is not None:
-        stacked = {k: mesh.all_gather(v) for k, v in stacked.items()}
-    return dict(stacked, samples=samples)
+    with profiling.span("eval.chunk"):
+        stats = {k: [] for k in STATS}
+        samples = {}
+        for i in rows:
+            with profiling.span("eval.condition"):
+                out = one(i, gens[i])
+            for k in STATS:
+                stats[k].append(out[k])
+            if i in keep:
+                samples[i] = {k: out[k] for k in ("x_pred_last", "x_true_last")}
+        stacked = {k: torch.stack(v) for k, v in stats.items()}
+        if mesh is not None:
+            stacked = {k: mesh.all_gather(v) for k, v in stacked.items()}
+        return dict(stacked, samples=samples)
 
 
 def make_eval_many_linear(
@@ -331,8 +334,10 @@ def stage_ground_truth(gt_loader: Callable[[int, int], np.ndarray], conditions: 
 
 def read_stats(out: Dict[str, Tensor]) -> List[List[float]]:
     """The chunk's statistics on the host, one row of STATS a condition: the
-    chunk's one read."""
-    return torch.stack([out[k] for k in STATS], dim=1).tolist()
+    chunk's one read, the one wait for the card (``host_waits``)."""
+    with profiling.span("eval.read"):
+        profiling.count("host_waits")
+        return torch.stack([out[k] for k in STATS], dim=1).tolist()
 
 
 def require_plotting(plot_ys: Sequence[int]) -> None:

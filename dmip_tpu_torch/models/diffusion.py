@@ -27,6 +27,7 @@ import torch
 from .. import losses as L
 from .. import nets, samplers
 from ..sde import ReverseSDE, sample_t
+from ..utils import profiling
 
 Tensor = torch.Tensor
 
@@ -269,13 +270,15 @@ class DiffusionModel:
             return samplers.euler_maruyama(self.sde, drift, y, num_samples, self.xdim, num_steps, **common)
         from ..ops.em_kernel import fused_em_sampler
 
-        x0, seed = _kernel_draws(generator, num_samples, self.xdim, mean, std, dev)
-        base = self.sde.base
-        return fused_em_sampler(
-            params, x0, y, num_steps, T=self.sde.T, beta_min=base.beta_min,
-            beta_max=base.beta_max, seed=seed,
-            compute_dtype=torch.bfloat16 if compute_dtype == "auto" else compute_dtype,
-        )
+        with profiling.span("sample"):
+            with profiling.span("sample.draws"):
+                x0, seed = _kernel_draws(generator, num_samples, self.xdim, mean, std, dev)
+            base = self.sde.base
+            return fused_em_sampler(
+                params, x0, y, num_steps, T=self.sde.T, beta_min=base.beta_min,
+                beta_max=base.beta_max, seed=seed,
+                compute_dtype=torch.bfloat16 if compute_dtype == "auto" else compute_dtype,
+            )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,6 +33,7 @@ import torch
 
 from ..samplers import euler_maruyama, euler_maruyama_cdiffe
 from ..sde import ReverseSDE, VPSDE
+from ..utils import profiling
 from . import build
 from .mh_kernel import tf32_rna
 
@@ -382,9 +383,11 @@ def _launch(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, 
     f32_mode = compute_dtype == torch.float32
     _check_launch(params, x0, noise, num_steps, xdim)
     _check_stamps(stamps, len(phase_names(len(params) - 2)), num_steps, dev, compute_dtype)
-    net = _device_net(params, xdim, y, f32_mode)
-    out = _em_launch(net, False, f32_mode, x0, None, noise, stamps, net["ydim"], num_steps, T, beta_min, beta_max,
-                     lmbd, noise_scale, seed)
+    with profiling.span("b1.pack"):
+        net = _device_net(params, xdim, y, f32_mode)
+    with profiling.span("b1.launch"):
+        out = _em_launch(net, False, f32_mode, x0, None, noise, stamps, net["ydim"], num_steps, T, beta_min,
+                         beta_max, lmbd, noise_scale, seed)
     _count(fused_em_sampler, compute_dtype)
     return out
 

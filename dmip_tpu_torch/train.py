@@ -49,6 +49,7 @@ import torch
 from . import device_constant, pytree
 from .models.diffusion import CDE, CDiffE, DiffusionModel, LossConfig, PosteriorDiffusionEstimator
 from .parallel.mesh import Mesh, get_mesh, init_multihost
+from .utils import profiling
 
 Tensor = torch.Tensor
 Tree = Any  # a tree of tensors, see dmip_tpu_torch.pytree
@@ -379,7 +380,7 @@ class StepGraph:
         self._step = step
         self._key: Optional[str] = None
         self._graphs: list = []
-        self._state = self._inputs = self._carry = self._out = None
+        self._state = self._inputs = self._carry = self._out = self._dev = None
         self._pending = None
         self.captures = 0
 
@@ -390,19 +391,23 @@ class StepGraph:
     def __call__(self, inputs) -> Tensor:
         src = self._state if self._pending is None else self._pending
         key = _signature((src, inputs))
-        if key != self._key:
-            self._capture(src, inputs)
+        captured = key != self._key
+        if captured:
+            with profiling.span("train.capture"):
+                self._capture(src, inputs)
             self._key = key
-        elif self._pending is not None:
-            for dst, t in zip(pytree.leaves(self._state), pytree.leaves(self._pending)):
+        with profiling.device_span("train.inputs", self._dev):
+            if not captured and self._pending is not None:
+                for dst, t in zip(pytree.leaves(self._state), pytree.leaves(self._pending)):
+                    dst.copy_(t)
+            self._pending = None
+            for dst, t in zip(pytree.leaves(self._inputs), pytree.leaves(inputs)):
                 dst.copy_(t)
-        self._pending = None
-        for dst, t in zip(pytree.leaves(self._inputs), pytree.leaves(inputs)):
-            dst.copy_(t)
-        self._graphs[0].replay()
-        if len(self._graphs) == 2:
-            self._step.between(self._carry)
-            self._graphs[1].replay()
+        with profiling.device_span("train.replay", self._dev):
+            self._graphs[0].replay()
+            if len(self._graphs) == 2:
+                self._step.between(self._carry)
+                self._graphs[1].replay()
         return self._out
 
     @property
@@ -422,6 +427,7 @@ class StepGraph:
     def _capture(self, state, inputs) -> None:
         self._graphs, self._carry, self._out = [], None, None  # the old graphs' pool goes first
         dev = pytree.leaves(state)[0].device
+        keep = profiling.enabled()  # the recorder counts the graphs' kernels before they are instantiated
         with torch.cuda.device(dev):
             static_state = pytree.map(lambda t: t.detach().clone(), state)
             static_in = pytree.map(lambda t: t.detach().clone(), inputs)
@@ -432,19 +438,24 @@ class StepGraph:
                     self._step(static_state, static_in)
             torch.cuda.current_stream().wait_stream(side)
             if isinstance(self._step, SplitStep):
-                graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
+                graphs = [torch.cuda.CUDAGraph(keep_graph=keep), torch.cuda.CUDAGraph(keep_graph=keep)]
                 with _capturing(graphs[0]):
                     carry = self._step.first(static_state, static_in)
                 pool, last = graphs[0].pool(), lambda: self._step.second(static_state, static_in, carry)
             else:
-                graphs, pool, carry = [torch.cuda.CUDAGraph()], None, None
+                graphs, pool, carry = [torch.cuda.CUDAGraph(keep_graph=keep)], None, None
                 last = lambda: self._step(static_state, static_in)
             with _capturing(graphs[-1], pool):
                 new_state, out = last()
                 for dst, t in zip(pytree.leaves(static_state), pytree.leaves(new_state)):
                     if t is not dst:
                         dst.copy_(t)
+            if keep:
+                profiling.count("graph_kernels", sum(profiling.graph_kernels(g) for g in graphs))
+                for g in graphs:
+                    g.instantiate()
         self._graphs, self._state, self._inputs, self._carry, self._out = graphs, static_state, static_in, carry, out
+        self._dev = dev
         self.captures += 1
 
 
@@ -538,26 +549,36 @@ def run_epochs(one_step, graph: Optional[StepGraph], batch_fn, epoch_inputs, sta
     through a replay of ``graph`` (started from ``state``) when given.
     ``out`` holds the step's loss, then its info terms (named by
     ``info_names`` once a step ran); epoch j's means over its steps go to
-    ``losses[j]`` and to the info dict returned with the final state."""
+    ``losses[j]`` and to the info dict returned with the final state.
+
+    With the recorder on (:mod:`dmip_tpu_torch.utils.profiling`) a call is
+    the span ``train.call``, an epoch's batches ``train.batches``, the
+    draws ``train.draws``, and a replay's input copies and replays
+    ``train.inputs`` and ``train.replay``, each also timed on the card;
+    a capture is ``train.capture`` and counts its graphs' kernels
+    (``graph_kernels``)."""
     infos: Dict[str, Tensor] = {}
-    if graph is not None:
-        graph.start(state)
-    for j in range(n_run):
-        gen = epoch_generator(seed, epoch0 + j, losses.device)
-        xb, yb = batch_fn(gen)
-        rows = None
-        for i, inputs in enumerate(epoch_inputs(gen, xb, yb)):
-            if graph is not None:
-                out = graph(inputs)
-            else:
-                state, out = one_step(state, inputs)
-            if rows is None:
-                rows = torch.empty((out.shape[0], len(xb), *out.shape[1:]), dtype=out.dtype, device=out.device)
-            rows[:, i] = out
-        losses[j] = rows[0].mean(0)
-        for k, name in enumerate(info_names, 1):
-            infos.setdefault(name, torch.full_like(losses, float("nan")))[j] = rows[k].mean(0)
-    return (graph.state() if graph is not None else state), infos
+    dev = losses.device
+    with profiling.device_span("train.call", dev):
+        if graph is not None:
+            graph.start(state)
+        for j in range(n_run):
+            gen = epoch_generator(seed, epoch0 + j, dev)
+            with profiling.device_span("train.batches", dev):
+                xb, yb = batch_fn(gen)
+            rows = None
+            for i, inputs in enumerate(epoch_inputs(gen, xb, yb)):
+                if graph is not None:
+                    out = graph(inputs)
+                else:
+                    state, out = one_step(state, inputs)
+                if rows is None:
+                    rows = torch.empty((out.shape[0], len(xb), *out.shape[1:]), dtype=out.dtype, device=out.device)
+                rows[:, i] = out
+            losses[j] = rows[0].mean(0)
+            for k, name in enumerate(info_names, 1):
+                infos.setdefault(name, torch.full_like(losses, float("nan")))[j] = rows[k].mean(0)
+        return (graph.state() if graph is not None else state), infos
 
 
 def loss_inputs(loss_fn):
@@ -568,10 +589,18 @@ def loss_inputs(loss_fn):
     numbers through ``draws`` just before its step."""
     if hasattr(loss_fn, "epoch_draws"):
         def epoch_inputs(gen, xb, yb):
-            draws = loss_fn.epoch_draws(gen, xb, yb)
+            with profiling.device_span("train.draws", xb.device):
+                draws = loss_fn.epoch_draws(gen, xb, yb)
             return [(x, y, {k: v[i] for k, v in draws.items()}) for i, (x, y) in enumerate(zip(xb, yb))]
         return epoch_inputs
-    return lambda gen, xb, yb: ((x, y, loss_fn.draws(gen, x, y)) for x, y in zip(xb, yb))
+
+    def batch_inputs(gen, xb, yb):
+        dev = xb.device
+        for x, y in zip(xb, yb):
+            with profiling.device_span("train.draws", dev):
+                draws = loss_fn.draws(gen, x, y)
+            yield x, y, draws
+    return batch_inputs
 
 
 def make_epoch_fn(
@@ -735,9 +764,11 @@ def fit(
     every = max(log_every // epochs_per_call, 1) if log_every else 0
 
     def read(c: int, epoch: int, n_active: int, names: list, host: list, done):
-        if done is not None:
-            done.synchronize()
-        losses, *rows = [t.tolist() for t in host]
+        with profiling.span("train.read"):
+            profiling.count("host_waits")
+            if done is not None:
+                done.synchronize()
+            losses, *rows = [t.tolist() for t in host]
         infos = dict(zip(names, rows))
         for j in range(n_active):
             if logger is not None:

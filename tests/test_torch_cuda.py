@@ -1420,3 +1420,127 @@ def test_evaluate_linear_chunks_on_the_card_are_the_per_repeat_loop(cuda, tmp_pa
     with open(tmp_path / "results.csv") as f:
         got = [[float(v) for v in ln.strip().split(",")[1:]] for ln in list(f)[1:]]
     assert got == want
+
+
+# --- the recorder on the card ---------------------------------------------------
+
+
+@pytest.fixture
+def recorder():
+    """The recorder on and empty for one test; off and empty after it."""
+    profiling.reset()
+    profiling.enable()
+    try:
+        yield profiling
+    finally:
+        profiling.disable()
+        profiling.reset()
+
+
+def _pinn_engine(cuda, epochs_per_call=2):
+    from dmip_tpu_torch import train
+
+    loss_fn, p0, batch_fn = _graph_case("pinn", cuda)
+    opt = train.build_optimizer(1e-3)
+    return train.make_epoch_fn(loss_fn, opt, batch_fn, epochs_per_call=epochs_per_call), p0, opt
+
+
+def test_recorder_times_each_replay_on_the_card(cuda, recorder):
+    """One captured call of 2 epochs of 5 steps with the recorder on: a
+    device span ``train.replay`` (and ``train.inputs``, ``train.draws``) a
+    step, ``train.batches`` an epoch, ``train.call`` around them all on the
+    card's timeline, each resolved to a positive card time; the capture
+    counted the graph's kernels."""
+    fn, p0, opt = _pinn_engine(cuda)
+    fn(p0, opt.init(p0), 3, 0)
+    torch.cuda.synchronize()
+    rec = recorder.records()
+    counts = {k: v["count"] for k, v in rec["device"].items()}
+    assert counts == {"train.call": 1, "train.batches": 2, "train.draws": 10, "train.inputs": 10,
+                      "train.replay": 10}
+    assert rec["spans"]["train.capture"]["count"] == 1 and rec["pending"] == rec["dropped"] == 0
+    (call,) = [r for r in rec["device_rows"] if r["name"] == "train.call"]
+    for r in rec["device_rows"]:
+        assert 0 <= r["end_ms"] - r["start_ms"] and call["start_ms"] <= r["start_ms"] <= r["end_ms"] <= call["end_ms"]
+    assert all(r["end_ms"] > r["start_ms"] for r in rec["device_rows"] if r["name"] == "train.replay")
+    assert recorder.counters()["graph_kernels"] > 0
+
+
+# one replay of a captured 64-wide PINN step traced in a fresh process
+_ONE_REPLAY = """
+import collections, json, torch
+from test_torch_cuda import _pinn_engine
+from dmip_tpu_torch.utils import profiling
+
+profiling.enable()
+fn, p0, opt = _pinn_engine(torch.device("cuda"))
+fn(p0, opt.init(p0), 3, 0, 1)
+(graph,) = fn.graph.cuda_graphs
+torch.cuda.synchronize()
+with profiling.trace() as prof:
+    graph.replay()
+names = collections.Counter(e.name() for e in prof.profiler.kineto_results.events()
+                            if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation())
+print(json.dumps({"graph_kernels": profiling.counters()["graph_kernels"], "names": names}))
+"""
+
+
+def test_graph_kernels_is_cuptis_kernel_count_of_a_replay(cuda):
+    """The kernel nodes counted at capture equal the kernels CUPTI records
+    in one replay of the captured step, copies and sets left out: those
+    CUPTI names ``Memcpy``/``Memset`` and ``memcpy32_post``, the CUDA
+    kernel behind a graph's memcpy node.  In a fresh process: in one that
+    had run the other card tests, CUPTI showed the same graph's 53 memcpy
+    nodes as copies and 845 of its 848 kernels (H100, torch 2.11)."""
+    import json
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests")]))
+    run = subprocess.run([sys.executable, "-c", _ONE_REPLAY], cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=600, check=True)
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    copies = {n: c for n, c in got["names"].items() if n.startswith(("Memcpy", "Memset", "memcpy32_post"))}
+    kernels = sum(got["names"].values()) - sum(copies.values())
+    print(f"graph_kernels {got['graph_kernels']}, CUPTI {kernels} kernels and {copies}")
+    assert got["graph_kernels"] == kernels > 0
+
+
+def test_recorder_on_waits_for_nothing_in_a_step_a_chunk_or_a_request(cuda, recorder):
+    """With the recorder on, a warm captured call, a chunk of the evaluation
+    engine and a posterior request through B1 raise nothing under the sync
+    debug mode "error": events are recorded and queried, never waited for."""
+    from dmip_tpu_torch import evaluate
+
+    fn, p0, opt = _pinn_engine(cuda)
+    s0 = opt.init(p0)
+    model, params, prob, ys = _engine_linear(cuda)
+    chunk = evaluate.make_eval_many_linear(model, prob, 2000, 2, 20, nbins=30)
+    work = [lambda: fn(p0, s0, 3, 0),
+            lambda: chunk(params, torch.Generator(device=cuda).manual_seed(5), ys),
+            lambda: model.sample(params, ys[0], 2000, 20, generator=torch.Generator(device=cuda).manual_seed(6))]
+    for run in work:
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    rec = recorder.records()
+    assert rec["spans"]["sample"]["count"] == 2 + 2 * 2 * 3  # the requests, and a sample a repeat in the chunks
+    assert rec["spans"]["b1.pack"]["count"] == rec["spans"]["b1.launch"]["count"] == rec["spans"]["sample"]["count"]
+    assert rec["device"]["train.replay"]["count"] == 20 and rec["pending"] == 0
+
+
+def test_a_device_span_inside_a_capture_raises(cuda, recorder):
+    """A timing event cannot be captured: the span says so before CUDA does."""
+    x = torch.ones(4, device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        with pytest.raises(RuntimeError, match="inside a CUDA-graph capture"):
+            with torch.cuda.graph(graph):
+                with profiling.device_span("inside", cuda):
+                    x.add_(1)
