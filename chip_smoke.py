@@ -126,8 +126,15 @@ timing phase also splits the E-M kernel's step over its phases at both nets
 kernel's (``b2_phase_us``), the training kernel's
 (``b3_phase_us_by_net``), the CDiffE kernel's (``b4_phase_us``)
 and the guided kernel's, in both guidance modes
-(``b5_phase_us_by_guidance``).  The MH kernel's one-step check also holds
-the energies it carries against the plain energy in float64.
+(``b5_phase_us_by_guidance``).  The bf16 E-M and CDiffE splits carry the
+ring's waits of block 0 and of the launch's last block, the weight bytes a
+block reads from L2 a step and the clusters the card holds at once.  The
+MH kernel's one-step check also holds the energies it carries against the
+plain energy in float64.  The ``em_digests`` phase prints a SHA-256 of
+the bf16 E-M kernel's samples at both served nets and of the CDiffE
+kernel's at ``cdiffe_scat``; ``--em_digests --against <checkout>`` prints
+only those, of this checkout's kernels and of another's on the same
+inputs, and exits non-zero if they differ.
 
 Launch counts are zeroed just before each path and read just after; the
 plain serving path then reruns the same conditions for comparison.  Prints one
@@ -136,6 +143,7 @@ line per phase with its seconds, the card's name and power limit, a
 Any failed check exits non-zero.  Run from the repository root:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --em_digests --against proof_tree/<parent checkout>
 """
 
 from __future__ import annotations
@@ -2974,24 +2982,82 @@ def em_phase_split(torch, fn, names, params, y, x0, label: str, f32: bool = Fals
     """An E-M sampler's time per step split over its phases at the main
     path's shape: one launch whose block 0 reads the card's clock at the
     end of each phase, after one without, which it must match bit for bit.
-    In the f32 template (``f32``) the stamps also carry the cycles each of
-    block 0's four warpgroups waited for weight tiles: ``ring_wait_us``,
+    The stamps also carry the cycles each of block 0's consumer warpgroups
+    (four in f32, two in bf16) waited for weight tiles: ``ring_wait_us``,
     each phase's mean wait per step for each warpgroup at the launch's SM
-    clock."""
+    clock.  In bf16 the launch's last block (one of its last wave) records
+    the same: ``last_block``."""
     from dmip_tpu_torch.ops.em_kernel import stamp_entries
 
-    pairs = 2 * (1 + len(names) * EM_STEPS)
+    pairs, wgs = 2 * (1 + len(names) * EM_STEPS), 4 if f32 else 2
     stamps = torch.zeros(stamp_entries(len(names), EM_STEPS, torch.float32 if f32 else torch.bfloat16),
                          dtype=torch.int64, device="cuda")
     plain = fn(params, x0, y, EM_STEPS, seed=7)
     stamped = fn(params, x0, y, EM_STEPS, seed=7, stamps=stamps)
     torch.cuda.synchronize()
     check(torch.equal(plain, stamped), f"{label} with stamps differs from the run without")
-    split = stamp_split(torch, stamps[:pairs], EM_STEPS, names)
-    if f32:
-        cycles = stamps[pairs:].view(EM_STEPS, len(names), 4).double().mean(0)
+    splits = []
+    for rec in ([stamps] if f32 else stamps.view(2, -1)):
+        split = stamp_split(torch, rec[:pairs], EM_STEPS, names)
+        cycles = rec[pairs:pairs + wgs * len(names) * EM_STEPS].view(EM_STEPS, len(names), wgs).double().mean(0)
         split["ring_wait_us"] = {n: [float(c) / split["sm_mhz"] for c in wg] for n, wg in zip(names, cycles)}
-    return split
+        splits.append(split)
+    if not f32:
+        splits[0]["last_block"] = splits[1]
+    return splits[0]
+
+
+def em_geometry(params, cdiffe: bool = False) -> dict:
+    """The bf16 template's cluster at a net's widths: the weight bytes a
+    block reads from L2 a step (from the layout) and the most clusters the
+    card holds at once (so the waves of a 30k-row launch)."""
+    from dmip_tpu_torch.ops.em_kernel import (CLUSTER, launch_blocks, max_active_clusters,
+                                              ring_bytes_per_block_step)
+
+    widths = [w.shape[1] for w, _ in params[:-1]]
+    clusters = max_active_clusters(widths, cdiffe=cdiffe)
+    return {"cluster": CLUSTER, "ring_bytes_per_block_step": ring_bytes_per_block_step(widths),
+            "max_active_clusters": clusters, "blocks": launch_blocks(N_SAMPLES),
+            "waves": -(-launch_blocks(N_SAMPLES) // (CLUSTER * clusters))}
+
+
+DIGEST_NETS = (("cde_500k", False), ("linear_refined_winner", False), ("cdiffe_scat", True))
+
+
+def em_digests(torch) -> dict:
+    """SHA-256 of the bf16 samples of B1 at both served nets and of B4 at
+    ``cdiffe_scat``: 30k rows x 200 steps from seeded x0 and y, seed 7.  Two
+    checkouts whose kernels compute the same samples give the same digests
+    (``--em_digests --against <checkout>``)."""
+    import hashlib
+
+    from dmip_tpu_torch.checkpoints import load_archived_params
+    from dmip_tpu_torch.ops import fused_em_sampler, fused_em_sampler_cdiffe
+
+    out = {}
+    for name, cdiffe in DIGEST_NETS:
+        params = load_archived_params(os.path.join(REPO, "benchmarks/checkpoints", name), device="cuda")
+        xdim = 3 if cdiffe else params[-1][0].shape[1]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x0 = torch.randn(N_SAMPLES, xdim, generator=gen, device="cuda")
+        y = 0.3 * torch.randn(params[0][0].shape[0] - 1 - xdim, generator=gen, device="cuda")
+        fn = fused_em_sampler_cdiffe if cdiffe else fused_em_sampler
+        samples = fn(params, x0, y, EM_STEPS, seed=7)
+        out[f"{'b4' if cdiffe else 'b1'}.{name}"] = hashlib.sha256(samples.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def digests_against(other: str) -> int:
+    """This checkout's E-M digests and ``other``'s (its package, this
+    checkout's inputs), each in a process of its own; 0 if they agree."""
+    runs = {}
+    for label, root in (("this", REPO), ("other", os.path.abspath(other))):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--em_digests", "--package", root],
+                             capture_output=True, text=True, check=True).stdout
+        runs[label] = json.loads(out.strip().splitlines()[-1])["em_digests"]
+    equal = runs["this"] == runs["other"]
+    print(json.dumps({"em_digests": runs, "against": os.path.abspath(other), "equal": equal}), flush=True)
+    return 0 if equal else 1
 
 
 def b5_phase_split(torch, prior, weights, y, x0, fparams) -> dict:
@@ -3168,6 +3234,8 @@ def run() -> list:
     t0 = time.time()
     b5 = check_b5(torch, prior, weights, ys, gen)
     phase("b5_vs_plain", t0, samples=N_SAMPLES, **b5)
+    t0 = time.time()
+    phase("em_digests", t0, em_digests=em_digests(torch))
 
     with tempfile.TemporaryDirectory(prefix="dmip_gt_", dir=REPO) as work:
         launches, served = serve(torch, lin_cfg, scat_cfg, work)
@@ -3229,6 +3297,7 @@ def run() -> list:
         x0 = torch.randn(N_SAMPLES, params[-1][0].shape[1], generator=gen, device="cuda")
         b1_split[name] = em_phase_split(torch, fused_em_sampler, em_phase_names(len(params) - 2),
                                         params, y, x0, f"B1 ({name})")
+        b1_split[name].update(em_geometry(params))
     c0 = torch.rand(MH_CHAINS, 3, generator=gen, device="cuda") * 2 - 1
     mh_ms = cuda_ms(lambda: fused_mh_scatterometry(weights, c0, y0, MH_STEPS, seed=7, **kw), 3)
     mh_plain_ms = cuda_ms(lambda: mh_chains_reference(weights, c0, y0, MH_STEPS, generator=gen, **kw), 1)
@@ -3262,6 +3331,7 @@ def run() -> list:
     b4_bound, b4_by = bound_ms(*cdiffe_work(cd_params, 3, N_SAMPLES, EM_STEPS), H100_BF16_FLOPS)
     b4_split = em_phase_split(torch, fused_em_sampler_cdiffe, em_phase_names(len(cd_params) - 2, cdiffe=True),
                               cd_params, y0, x0, "B4")
+    b4_split.update(em_geometry(cd_params, cdiffe=True))
     f32_t = em_f32_timing(torch, nets, cd_params, y0, f32_launches, gen)
     b5_t = {}
     for guidance in ("dps", "pgdm"):
@@ -3326,7 +3396,14 @@ def run() -> list:
 
 
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--em_digests", action="store_true",
+                    help="print only the E-M digests (em_digests) of --package's kernels and stop")
+    ap.add_argument("--package", default=REPO, help="the checkout whose dmip_tpu_torch --em_digests runs")
+    ap.add_argument("--against", help="with --em_digests: compare with this checkout's kernels; exit 1 if they differ")
+    args = ap.parse_args(argv)
+    if args.em_digests and args.against:
+        return digests_against(args.against)
     import torch
 
     if not torch.cuda.is_available():
@@ -3335,6 +3412,10 @@ def main(argv=None) -> int:
     if not os.path.isdir(os.path.join(REPO, "dmip_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
+    if args.em_digests:
+        sys.path.insert(0, os.path.abspath(args.package))
+        print(json.dumps({"em_digests": em_digests(torch)}), flush=True)
+        return 0
     sys.path.insert(0, REPO)
     card = card_line()
     print(f"card: {card}", flush=True)

@@ -30,27 +30,43 @@
 // ~1.08 (B4) MFLOP per sample-step in bf16, ~6.4 / 6.5 ms per 30k x 200
 // posterior at the 989 TFLOP/s dense bf16 peak; ~9 us a step for a block of
 // 64 rows on one SM.  Device-memory bytes are negligible (x0 in, x out, ~1 MB
-// of weights), but the weights do not fit in shared memory, so each block
-// reads all ~1 MB of hidden weights from L2 every step.
+// of weights), but the weights do not fit in shared memory, so they stream
+// from L2 every step, 1.08 MB a block-step at 512 wide: each weight byte
+// carries only 64 MACs, written into and read from shared memory once each.
+// With both warpgroups on the products at once, the products waited on the
+// ring, and every epilogue (the SFU's tanh) left the tensor cores idle.
+// So the two warpgroups take turns on the products, each one's epilogue
+// beside the other's products, and one warpgroup alone then draws tiles at
+// the tensor cores' rate, which the L2 does not deliver to every SM at once;
+// so blocks also run in clusters of EM_CLUSTER = 2 on neighbouring SMs that
+// share every weight tile: each block's producer fetches half of it and
+// multicasts that half into both blocks' rings, halving the L2 bytes a
+// block-step.
 //
 // Design.  A block owns 64 rows for all steps: 2 consumer warpgroups and a
 // producer warpgroup, of which one thread works.  The activations live in
 // shared memory as K-major 64 x 64 bf16 slots with the 128-byte swizzle, the
 // operand layout wgmma reads.  The wrapper packs every weight the steps read
-// into the exact shared-memory image of its ring tiles, in the order the
-// consumers take them: per step the first layer's 32 x h1 mma.sync
-// fragments (a half for each warpgroup), then each hidden layer's 64-deep K
-// slices of N/2 columns (K-major, swizzled).  The producer moves one tile at
-// a time with one 1-D bulk copy into a ring of four 32 KB stages, completing
-// on the stage's mbarrier, and so runs ahead across layers and steps while
-// the consumers compute.  Warpgroup h computes columns [h N/2, (h + 1) N/2)
-// of every layer:
+// into the exact shared-memory image of its ring tiles: the first layer's
+// 32 x h1 mma.sync fragments (a half for each warpgroup), then each hidden
+// layer's 64-deep K slices of N/2 columns (K-major, swizzled).  The
+// producer takes them in the order the consumers do (Ring), moving its
+// part of one tile at a time with one 1-D multicast bulk copy into a ring
+// of four 32 KB stages in every block of the cluster, completing on each
+// block's barrier of the warpgroup that takes the tile, and so runs ahead
+// across layers and steps while the consumers compute; a stage is refilled
+// once the consumers of every block of the cluster have given it back.  The
+// blocks' rows and arithmetic are their own: a launch's samples do not
+// depend on the cluster or on the turns.  Warpgroup h computes columns
+// [h N/2, (h + 1) N/2) of every layer:
 //   layer 0    the bf16 [x] (B1) or [x, y_t] (B4) tile, 64 x 32, times its
 //              half of W1 by mma.sync (K = 32), + (s w1t + cy) or (s w1t + b1);
 //   hidden     wgmma m64n{N/2}k16 over the ring's slices, bf16 -> f32
 //              accumulators in registers, one slice in flight behind the
-//              one being issued; once both warpgroups are done reading the
-//              layer's input, each writes its output over it in place;
+//              one being issued; warpgroup 1 starts once warpgroup 0's
+//              products are done, and each writes its output over its half
+//              of act once the other has read those slots of the input
+//              (named barriers, hidden_layer);
 //   output     wgmma m64n8k16 over half of K each, against the output
 //              weights' x block (xdim <= 4 columns, padded to 8), resident
 //              in shared memory; the two halves meet in the update.
@@ -58,9 +74,10 @@
 // ~2^-11 relative error sits under the bf16 rounding that follows, and
 // chip_smoke.py holds the samples against a float64 run of the plain
 // version), rounds to bf16 and stores.  Widths are zero-padded to multiples
-// of 128 by the wrapper (exact) and are at most 512.  The ragged last block
-// runs its missing rows on zeros and does not store them.  PERF.md has the
-// phase times.
+// of 128 by the wrapper (exact) and are at most 512.  The ragged last block,
+// and the block that rounds the grid up to whole clusters, run their missing
+// rows on zeros and do not store them.  PERF.md has the phase times and the
+// ring's waits.
 //
 // The f32-weight mode (compute_dtype=float32, as the TPU kernels take it):
 // every product's inputs and every activation f32, tanh accurate (tanhf),
@@ -113,6 +130,7 @@
 #define EM_MAX_WIDTH 512
 #define EM_STAGES 4
 #define EM_TILE_BYTES 32768              // a ring stage: up to 256 weight columns x 64 K
+#define EM_CLUSTER 2                     // blocks a cluster, each fetching 1/EM_CLUSTER of every ring tile
 #define EM_SLOT_BYTES (EM_ROWS * 128)    // 64 activation rows x 64 K
 #define EM_K1 32                         // the first layer's K: [x] or [x, y], zero-padded
 #define EM_ZSTRIDE (EM_K1 + 8)
@@ -132,8 +150,8 @@ struct EmArgs {
   const float* bout;   // (xdim,)
   const float* noise;  // B1 (num_steps, n, xdim), B4 (num_steps, n, xdim + ydim), or null
   float* out;          // (n, xdim)
-  long long* stamps;   // null, or 1 + (n_hidden + 3 (B1) or 4 (B4)) x num_steps (%globaltimer, clock64) pairs;
-                       // f32: then 4 ring-wait cycle counts a phase (em_f32_launch)
+  long long* stamps;   // null, or 1 + (n_hidden + 3 (B1) or 4 (B4)) x num_steps (%globaltimer, clock64) pairs,
+                       // then ring-wait cycle counts, 2 a phase (bf16, two blocks' records: em_launch) or 4 (f32)
   int n, xdim, ydim, num_steps, hmax;
   float T, beta_min, bd, c_drift, c_sigma, delta, sqrt_delta, noise_scale;
   unsigned long long seed;
@@ -147,15 +165,43 @@ __device__ __forceinline__ uint2 philox_key(const EmArgs& p) {
   return make_uint2((uint32_t)s, (uint32_t)(s >> 32));
 }
 
-// With stamps, block 0 reads the card's clock (ns) and its SM's cycle
-// count when a phase ends.
+// The card's clock (ns) and this SM's cycle count, as pair i of `stamps`.
+__device__ __forceinline__ void stamp_pair(long long* stamps, long long i) {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  stamps[2 * i] = t;
+  stamps[2 * i + 1] = clock64();
+}
+
+// With stamps, block 0 reads the clocks when a phase ends.
 __device__ __forceinline__ void stamp(long long* stamps, long long i) {
-  if (stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
-    long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    stamps[2 * i] = t;
-    stamps[2 * i + 1] = clock64();
-  }
+  if (stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) stamp_pair(stamps, i);
+}
+
+// The bf16 template's stamps: block 0 and the launch's last block (one of
+// its last wave) each fill a record, the
+// pairs of `stamp` and then, per phase of each step, the cycles each
+// consumer warpgroup waited for ring tiles in it.  This block's record, or
+// null.
+template <bool CD>
+__device__ __forceinline__ long long* em_record(const EmArgs& p) {
+  if (p.stamps == nullptr) return nullptr;
+  if (blockIdx.x == 0) return p.stamps;
+  if (blockIdx.x == gridDim.x - 1) return p.stamps + 2 + 4LL * (p.n_hidden + (CD ? 4 : 3)) * p.num_steps;
+  return nullptr;
+}
+
+// Stamp i of this block's record, the end of phase i (i = 0: the start):
+// thread 0 the pair, each warpgroup's first thread its waits since the
+// stamp before.
+template <bool CD>
+__device__ __forceinline__ void stamp_em(const EmArgs& p, long long i, long long* waits) {
+  long long* r = em_record<CD>(p);
+  if (r == nullptr || (threadIdx.x & 127)) return;
+  const int h = threadIdx.x >> 7;
+  if (h == 0) stamp_pair(r, i);
+  if (i > 0) r[2 + 2LL * (p.n_hidden + (CD ? 4 : 3)) * p.num_steps + 2 * (i - 1) + h] = waits[h];
+  waits[h] = 0;
 }
 
 // Step `step` of the grid: s = T - step/N T, beta(s) and g(s) = sqrt(beta).
@@ -258,7 +304,7 @@ __device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uin
 
 // Byte offsets in the block's shared memory (from a 1024-byte boundary).
 struct EmLayout {
-  int ring, act, wout, zt, f32, bars, bytes;
+  int ring, act, wout, zt, f32, bars, waits, bytes;
 };
 
 __host__ __device__ inline EmLayout em_layout(int h1, int hl, int hmax) {
@@ -271,7 +317,8 @@ __host__ __device__ inline EmLayout em_layout(int h1, int hl, int hmax) {
   // w1t, c1, bias1 [h1]; xs, xi [EM_ROWS][EM_MAX_XDIM]; opart [2][EM_ROWS][EM_MAX_XDIM]; y0 [EM_K1]
   const int nf = 3 * h1 + 4 * EM_ROWS * EM_MAX_XDIM + EM_K1;
   L.bars = (L.f32 + 4 * nf + 7) & ~7;
-  L.bytes = L.bars + 2 * EM_STAGES * 8 + 1024;  // + slack to align the base
+  L.waits = L.bars + 3 * EM_STAGES * 8;  // with stamps: each consumer warpgroup's ring waits in this phase
+  L.bytes = L.waits + 2 * 8 + 1024;      // + slack to align the base
   return L;
 }
 
@@ -314,22 +361,41 @@ __device__ __forceinline__ void epilogue(Pre pre, const float* bias, uint8_t* ac
   }
 }
 
-// The consumers' view of the ring: warpgroup h takes ring tiles 2 j + h,
-// j = 0, 1, ..., which the producer fills in that order.
+// The consumers' view of the ring.  The producer fills the stream's tiles
+// in order, tile g into stage g % EM_STAGES: per step the two W1 tiles
+// (warpgroup 0's, then 1's), then per hidden layer warpgroup 0's K slices
+// and then warpgroup 1's.  A stage's successive tiles may go
+// to either warpgroup, so each tile completes on a barrier of the
+// warpgroup that takes it, full[h][stage], whose phases are that
+// warpgroup's tiles in that stage in order: `parity` holds, bit by stage,
+// the parity of the warpgroup's next wait.  `g0` is the stream index of
+// the current layer's first tile.  `waits` (a stamped block's, else null)
+// holds the cycles each warpgroup's first thread has waited for tiles
+// since the last stamp.
 struct Ring {
   uint8_t* base;
-  uint64_t *full, *empty;
-  uint32_t j;
-  __device__ __forceinline__ uint32_t g(uint32_t jj) const { return 2 * jj + (threadIdx.x >> 7); }
-  // Wait for this warpgroup's tile jj; returns its stage.
-  __device__ __forceinline__ uint8_t* take(uint32_t jj) {
-    const uint32_t gg = g(jj);
-    mbar_wait(&full[gg % EM_STAGES], (gg / EM_STAGES) & 1);
-    return base + (gg % EM_STAGES) * EM_TILE_BYTES;
+  uint64_t *full, *empty;  // full [2][EM_STAGES], empty [EM_STAGES]
+  long long* waits;
+  uint32_t g0, parity;
+  // Wait for stream tile g, this warpgroup's; returns its stage.
+  __device__ __forceinline__ uint8_t* take(uint32_t g) {
+    const uint32_t st = g % EM_STAGES;
+    uint64_t* bar = &full[(threadIdx.x >> 7) * EM_STAGES + st];
+    if (waits != nullptr) {
+      const long long t0 = clock64();
+      mbar_wait(bar, (parity >> st) & 1);
+      if ((threadIdx.x & 127) == 0) waits[threadIdx.x >> 7] += clock64() - t0;
+    } else {
+      mbar_wait(bar, (parity >> st) & 1);
+    }
+    parity ^= 1u << st;
+    return base + st * EM_TILE_BYTES;
   }
-  // Give tile jj's stage back to the producer (one thread a warpgroup).
-  __device__ __forceinline__ void give(uint32_t jj) {
-    if ((threadIdx.x & 127) == 0) mbar_arrive(&empty[g(jj) % EM_STAGES]);
+  // Give tile g's stage back to the producers of every block of the
+  // cluster, which all write into it (one thread a warpgroup).
+  __device__ __forceinline__ void give(uint32_t g) {
+    if ((threadIdx.x & 127) == 0)
+      for (uint32_t r = 0; r < EM_CLUSTER; ++r) mbar_arrive_cluster(&empty[g % EM_STAGES], r);
   }
 };
 
@@ -357,7 +423,7 @@ __device__ __forceinline__ void layer0(Ring& ring, const __nv_bfloat16* zt, cons
     a[kt][2] = *reinterpret_cast<const uint32_t*>(q0 + 8);
     a[kt][3] = *reinterpret_cast<const uint32_t*>(q8 + 8);
   }
-  const uint4* w1 = reinterpret_cast<const uint4*>(ring.take(ring.j)) + (threadIdx.x & 31);
+  const uint4* w1 = reinterpret_cast<const uint4*>(ring.take(ring.g0 + (threadIdx.x >> 7))) + (threadIdx.x & 31);
   epilogue<NW>(
       [&](int j, float (&v)[4]) {
         const uint4 b = w1[j * 32];
@@ -369,18 +435,38 @@ __device__ __forceinline__ void layer0(Ring& ring, const __nv_bfloat16* zt, cons
       bias1, act);
 }
 
+// The named barriers between the consumer warpgroups (1: all of them;
+// 2 + h: warpgroup h's own) that let one warpgroup's epilogue run beside
+// the other's products, in turns: warpgroup 1 starts a hidden layer's
+// products once warpgroup 0's are done (P0), warpgroup 0 writes its
+// epilogue over act once warpgroup 1 has read the slots it overwrites
+// (R1), and warpgroup 0 reads warpgroup 1's half of a layer's output once
+// it is written (W1).  Each completes once a layer: one warpgroup arrives,
+// the other syncs.
+#define EM_BAR_P0 4
+#define EM_BAR_R1 5
+#define EM_BAR_W1 6
+
 // One hidden layer (K = kc_n x 64 -> N = 2 NW) of this warpgroup: the
 // products over the ring's tiles into registers, one slice in flight behind
-// the one being issued, then, once both warpgroups are done reading act,
-// the epilogue in place.
+// the one being issued, then the epilogue in place over this warpgroup's
+// half of act's N columns.  Warpgroup 0 reads warpgroup 1's half of the
+// input (slots kc_n / 2 on) only once it is written, unless a full sync
+// came before the layer (`synced`).
 template <int NW>
-__device__ __forceinline__ void hidden_layer(Ring& ring, uint8_t* act, int kc_n, const float* bias) {
+__device__ __forceinline__ void hidden_layer(Ring& ring, uint8_t* act, int kc_n, const float* bias, bool synced) {
+  const int h = threadIdx.x >> 7;
+  const int overwritten = (NW / 64 < kc_n ? NW / 64 : kc_n) - 1;  // warpgroup 0 overwrites input slots 0..this
+  const uint32_t g = ring.g0 + h * kc_n;  // the stream index of this warpgroup's first tile of the layer
   float acc[NW / 2];
 #pragma unroll
   for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
   fence_acc(acc);
+  if (h == 1) named_sync(EM_BAR_P0, EM_CONSUMERS);
   for (int kc = 0; kc < kc_n; ++kc) {
-    const uint64_t da = wg_desc(act + kc * EM_SLOT_BYTES), db = wg_desc(ring.take(ring.j + kc));
+    if (h == 0 && !synced && kc == kc_n / 2) named_sync(EM_BAR_W1, EM_CONSUMERS);
+    const uint64_t da = wg_desc(act + kc * EM_SLOT_BYTES);
+    const uint64_t db = wg_desc(ring.take(g + kc));
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) Wgmma<NW>::mma(acc, da + 2 * ks, db + 2 * ks, 1);
@@ -389,20 +475,28 @@ __device__ __forceinline__ void hidden_layer(Ring& ring, uint8_t* act, int kc_n,
     if (kc > 0) {
       wgmma_wait<1>();  // the slice before this one is done: its stage goes back to the producer
       fence_acc(acc);
-      ring.give(ring.j + kc - 1);
+      ring.give(g + kc - 1);
+      if (h == 1 && kc - 1 == overwritten) named_arrive(EM_BAR_R1, EM_CONSUMERS);
     }
   }
   wgmma_wait<0>();
   fence_acc(acc);
-  ring.give(ring.j + kc_n - 1);
-  ring.j += kc_n;
-  named_sync(1, EM_CONSUMERS);  // both warpgroups have read act
+  ring.give(g + kc_n - 1);
+  ring.g0 += 2 * kc_n;
+  if (h == 1 && kc_n - 1 == overwritten) named_arrive(EM_BAR_R1, EM_CONSUMERS);
+  if (h == 0) {
+    named_arrive(EM_BAR_P0, EM_CONSUMERS);
+    named_sync(EM_BAR_R1, EM_CONSUMERS);
+  }
   epilogue<NW>(
       [&](int j, float (&v)[4]) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) v[e] = acc[4 * j + e];
       },
       bias, act);
+  fence_async();
+  if (h == 1) named_arrive(EM_BAR_W1, EM_CONSUMERS);
+  named_sync(2 + h, 128);  // this warpgroup's half of the output is in act for its own products
 }
 
 // The output layer's x block, this warpgroup's half of K (kc_n slices):
@@ -440,25 +534,34 @@ __device__ __forceinline__ void output_layer(const uint8_t* act, const uint8_t* 
     default: { constexpr int NW = 256; CALL; } break;  \
   }
 
-// The producer: every ring tile of every step, in the consumers' order,
-// each as one bulk copy once its stage is free.
+// The producer: every ring tile of every step, in the consumers' order.
+// Once a stage is free in every block of the cluster (its `empty` has the
+// consumers' arrivals of all EM_CLUSTER blocks), the producer of block r
+// bulk-copies part r of the tile's EM_CLUSTER parts into that stage of
+// each block, completing on each block's `full`, which expects the whole
+// tile: the cluster reads every tile from L2 once.
 __device__ __forceinline__ void produce(const EmArgs& p, uint8_t* ring, uint64_t* full, uint64_t* empty) {
+  const uint32_t rank = cluster_rank();
   uint32_t g = 0;
-  auto put = [&](const uint8_t* src, uint32_t bytes) {
-    const uint32_t st = g % EM_STAGES;
+  // tile g for warpgroup h
+  auto put = [&](const uint8_t* src, uint32_t bytes, int h) {
+    const uint32_t st = g % EM_STAGES, part = bytes / EM_CLUSTER;
+    uint64_t* bar = &full[h * EM_STAGES + st];
     mbar_wait(&empty[st], ((g / EM_STAGES) & 1) ^ 1);
-    mbar_expect_tx(&full[st], bytes);
-    bulk_copy(ring + st * EM_TILE_BYTES, src, bytes, &full[st]);
+    mbar_expect_tx(bar, bytes);
+    bulk_copy_multicast(ring + st * EM_TILE_BYTES + rank * part, src + rank * part, part, bar,
+                        (1u << EM_CLUSTER) - 1);
     ++g;
   };
   const uint32_t w1_bytes = (uint32_t)p.width[0] * 32;  // half of (32, h1) bf16
   for (int step = 0; step < p.num_steps; ++step) {
-    put(p.w1, w1_bytes);
-    put(p.w1 + w1_bytes, w1_bytes);
+    put(p.w1, w1_bytes, 0);
+    put(p.w1 + w1_bytes, w1_bytes, 1);
     for (int l = 0; l < p.n_hidden; ++l) {
       const uint32_t bytes = (uint32_t)p.width[l + 1] * 64;  // N/2 columns x 128 bytes
-      const int tiles = 2 * (p.width[l] >> 6);
-      for (int i = 0; i < tiles; ++i) put(p.wh[l] + (size_t)i * bytes, bytes);
+      const int kc_n = p.width[l] >> 6;  // the packed tiles are [kc][h]
+      for (int h = 0; h < 2; ++h)
+        for (int kc = 0; kc < kc_n; ++kc) put(p.wh[l] + (size_t)(2 * kc + h) * bytes, bytes, h);
     }
   }
 }
@@ -483,7 +586,8 @@ __global__ void __launch_bounds__(EM_THREADS, 1) em_sampler_kernel(const EmArgs 
   float* opart = xi + EM_ROWS * EM_MAX_XDIM;       // [2][EM_ROWS][EM_MAX_XDIM]
   float* y0 = opart + 2 * EM_ROWS * EM_MAX_XDIM;   // [EM_K1]
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bars);
-  uint64_t* empty = full + EM_STAGES;
+  uint64_t* empty = full + 2 * EM_STAGES;
+  long long* waits = em_record<CD>(p) != nullptr ? reinterpret_cast<long long*>(sm + L.waits) : nullptr;
 
   for (int j = tid; j < h1; j += EM_THREADS) {
     w1t[j] = p.w1t[j];
@@ -500,12 +604,14 @@ __global__ void __launch_bounds__(EM_THREADS, 1) em_sampler_kernel(const EmArgs 
   if (tid == 0) {
     for (int s = 0; s < EM_STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 1);
+      mbar_init(&full[EM_STAGES + s], 1);
+      mbar_init(&empty[s], EM_CLUSTER);
     }
     mbar_init_fence();
   }
+  if (waits != nullptr && tid < 2) waits[tid] = 0;
   fence_async();  // wout, written above, is read by wgmma
-  __syncthreads();
+  cluster_sync();  // every block's barriers are set before any block's producer copies into them
 
   // the producer's warpgroup gives its registers to the consumers: 2 x 128
   // x 232 + 128 x 40 of the SM's 65536
@@ -516,9 +622,9 @@ __global__ void __launch_bounds__(EM_THREADS, 1) em_sampler_kernel(const EmArgs 
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
 
-  Ring ring{sm + L.ring, full, empty, 0u};
+  Ring ring{sm + L.ring, full, empty, waits, 0u, 0u};
   const int n_phases = p.n_hidden + (CD ? 4 : 3);
-  stamp(p.stamps, 0);
+  stamp_em<CD>(p, 0, waits);
   for (int step = 0; step < p.num_steps; ++step) {
     long long ph = 1 + (long long)step * n_phases;
     const EmStep st = em_step(p, step);
@@ -534,24 +640,27 @@ __global__ void __launch_bounds__(EM_THREADS, 1) em_sampler_kernel(const EmArgs 
     }
     for (int j = tid; j < h1; j += EM_CONSUMERS) bias1[j] = st.s * w1t[j] + c1[j];
     named_sync(1, EM_CONSUMERS);
-    if (CD) stamp(p.stamps, ph++);
+    if (CD) stamp_em<CD>(p, ph++, waits);
 
     EM_DISPATCH(h1 / 2, layer0<NW>(ring, zt, bias1, act));
     fence_async();
     named_sync(1, EM_CONSUMERS);  // also: both warpgroups are done with their W1 tiles
-    ring.give(ring.j++);
-    stamp(p.stamps, ph++);
+    ring.give(ring.g0 + (tid >> 7));
+    ring.g0 += 2;
+    stamp_em<CD>(p, ph++, waits);
 
+    // each hidden layer's stamp at warpgroup 0's end of it
     for (int l = 0; l < p.n_hidden; ++l) {
-      EM_DISPATCH(p.width[l + 1] / 2, hidden_layer<NW>(ring, act, p.width[l] >> 6, p.bh[l]));
-      fence_async();
-      named_sync(1, EM_CONSUMERS);
-      stamp(p.stamps, ph++);
+      EM_DISPATCH(p.width[l + 1] / 2, hidden_layer<NW>(ring, act, p.width[l] >> 6, p.bh[l], l == 0));
+      stamp_em<CD>(p, ph++, waits);
     }
-
+    // the output layer reads this warpgroup's own half of act; warpgroup 0
+    // then takes the last layer's W1 all the same, so the barrier completes
+    // once a layer
     output_layer(act, wout, hl >> 7, xdim, opart);
+    if (p.n_hidden > 0 && tid < 128) named_sync(EM_BAR_W1, EM_CONSUMERS);
     named_sync(1, EM_CONSUMERS);
-    stamp(p.stamps, ph++);
+    stamp_em<CD>(p, ph++, waits);
 
     // integrator update, one thread per (row, coordinate)
     if (tid < EM_ROWS * xdim) {
@@ -560,13 +669,14 @@ __global__ void __launch_bounds__(EM_THREADS, 1) em_sampler_kernel(const EmArgs 
       xs[r * EM_MAX_XDIM + d] = em_update<CD>(p, step, r, d, row0 + r, a, xs[r * EM_MAX_XDIM + d], st, xi);
     }
     named_sync(1, EM_CONSUMERS);
-    stamp(p.stamps, ph++);
+    stamp_em<CD>(p, ph++, waits);
   }
 
   for (int i = tid; i < EM_ROWS * xdim; i += EM_CONSUMERS) {
     const int rr = i / xdim, dd = i - rr * xdim, row = row0 + rr;
     if (row < p.n) p.out[(size_t)row * xdim + dd] = xs[rr * EM_MAX_XDIM + dd];
   }
+  cluster_sync();  // the other blocks' consumers have made their last arrivals on this block's barriers
 }
 
 // ---- The f32-weight mode: em_sampler_f32_kernel (see the note at the top) ----
@@ -987,6 +1097,31 @@ static int em_args(EmArgs& p, int cdiffe, const float* x0, const float* y, const
   return (int)cudaSuccess;
 }
 
+// The bf16 template's launch: `blocks` rounded up to whole clusters of
+// EM_CLUSTER (a block past the rows runs on zeros and stores nothing), its
+// shared memory allowed.
+static cudaError_t em_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& cluster, int cdiffe, const int* widths,
+                             int n_hidden, int blocks, cudaStream_t stream) {
+  int hmax = 0;
+  for (int l = 0; l <= n_hidden; ++l) hmax = widths[l] > hmax ? widths[l] : hmax;
+  const EmLayout L = em_layout(widths[0], widths[n_hidden], hmax);
+  const void* fn = cdiffe ? (const void*)em_sampler_kernel<true> : (const void*)em_sampler_kernel<false>;
+  const cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+  if (err != cudaSuccess) return err;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = EM_CLUSTER;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((blocks + EM_CLUSTER - 1) / EM_CLUSTER * EM_CLUSTER);
+  cfg.blockDim = dim3(EM_THREADS);
+  cfg.dynamicSmemBytes = L.bytes;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
 template <bool CD>
 static int em_f32_start(const EmArgs& p, int blocks, size_t bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(em_sampler_f32_kernel<CD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1016,21 +1151,36 @@ const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)
 // n_hidden + 1 entries; every width a multiple of 128, at most 512; xdim +
 // ydim <= 32 for B4.  w1, wh and wout as ops/em_kernel.py packs them for
 // this mode.  seed_ptr: null, or the address of the seed on the device,
-// which the kernel reads in place of `seed`.  Returns a cudaError_t.
+// which the kernel reads in place of `seed`.  stamps: null, or two records
+// (block 0's, then the launch's last block's), each the pairs followed by 2
+// x P x num_steps entries (P phases a step): the cycles each consumer
+// warpgroup waited for ring tiles in each phase of each step,
+// [step][phase][warpgroup].  Launches clusters of EM_CLUSTER blocks.
+// Returns a cudaError_t.
 int em_launch(EM_PARAMS, void* stream) {
   EmArgs p;
   const int bad = em_args(p, EM_ARGS);
   if (bad) return bad;
-  const EmLayout L = em_layout(widths[0], widths[n_hidden], p.hmax);
-  const void* fn = cdiffe ? (const void*)em_sampler_kernel<true> : (const void*)em_sampler_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
-  if (err != cudaSuccess) return (int)err;
   const int blocks = (n + EM_ROWS - 1) / EM_ROWS;
-  if (cdiffe)
-    em_sampler_kernel<true><<<blocks, EM_THREADS, L.bytes, (cudaStream_t)stream>>>(p);
-  else
-    em_sampler_kernel<false><<<blocks, EM_THREADS, L.bytes, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute cluster;
+  const cudaError_t err = em_config(cfg, cluster, cdiffe, widths, n_hidden, blocks, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)(cdiffe ? cudaLaunchKernelEx(&cfg, em_sampler_kernel<true>, p)
+                      : cudaLaunchKernelEx(&cfg, em_sampler_kernel<false>, p));
+}
+
+// The most clusters of B1 (cdiffe = 0) or B4 (cdiffe = 1) with bf16
+// weights at these widths that the card holds at once, into *clusters.
+// Returns a cudaError_t.
+int em_max_active_clusters(int cdiffe, const int* widths, int n_hidden, int* clusters) {
+  if (n_hidden < 0 || n_hidden > EM_MAX_HIDDEN) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute cluster;
+  const cudaError_t err = em_config(cfg, cluster, cdiffe, widths, n_hidden, EM_CLUSTER, 0);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveClusters(
+      clusters, cdiffe ? (const void*)em_sampler_kernel<true> : (const void*)em_sampler_kernel<false>, &cfg);
 }
 
 // Launch B1 or B4 with f32 weights (em_sampler_f32_kernel): the same

@@ -156,6 +156,12 @@ template <> struct Wgmma<256> {
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+// Arrive on barrier `id`, which completes once `threads` threads have
+// arrived or synced on it, without waiting: the threads that sync on it
+// see this thread's prior shared-memory writes.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
@@ -189,4 +195,43 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
                    smem_u32(dst)),
                "l"(src), "r"(bytes), "r"(smem_u32(bar))
                : "memory");
+}
+
+// ---- Thread block clusters ----
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every non-exited thread of the cluster's blocks meets here; shared-memory
+// writes before it (barrier initialisations included) are seen after it.
+// All threads of a warp that reach it execute it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// Arrive on the barrier at `bar`'s offset in the shared memory of block
+// `rank` of the cluster (this block's own included).  The arrive's default
+// semantics (release at CTA scope) suffice to hand back a ring stage whose
+// reads are done (wgmma waited for, loaded values used): a release at
+// cluster scope waits for this thread's writes to reach the cluster, ~0.5 us
+// an arrive on an H100.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+// bulk_copy into the same offset of `dst` in each block of the cluster
+// that `mask` names (bit r: rank r), each completing on the barrier at
+// `bar`'s offset in that block.
+__device__ __forceinline__ void bulk_copy_multicast(void* dst, const void* src, uint32_t bytes, uint64_t* bar,
+                                                    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1], %2, [%3], "
+      "%4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
 }

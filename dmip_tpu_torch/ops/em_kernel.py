@@ -19,9 +19,13 @@ shared memory (:func:`pack_mma_b` for the first layer,
 runs the first and the hidden layers' products in split TF32 on wgmma,
 every weight split once by the wrapper into a TF32 hi and a lo part and
 packed as the image of its ring tiles (:func:`pack_tf32_tiles`), the
-output layer in f32.  A wrapper takes the plain version only for CPU
-tensors; for a CUDA tensor it launches the kernel or raises.  Each counts
-its launches (``launches``) and, apart, each mode's (``launches_by_dtype``).
+output layer in f32.  The bf16 template runs as clusters of
+:data:`CLUSTER` blocks that share every weight tile
+(:func:`launch_blocks`, :func:`ring_bytes_per_block_step`).  A wrapper
+takes the plain version only for CPU tensors; for a CUDA tensor it launches
+the kernel or raises.  Each counts its launches (``launches``) and, apart,
+each mode's (``launches_by_dtype``) and each cluster size's
+(``launches_by_cluster``).
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ MAX_HIDDEN = 8
 MAX_XDIM = 4
 MAX_WIDTH = 512  # every width, after padding to a multiple of 128
 K1 = 32  # the first layer's [x] (B1) or [x, y] (B4) rows, zero-padded: one 32-deep mma.sync slice
+ROWS = 64  # sample rows a block
+CLUSTER = 2  # blocks a cluster of the bf16 template (csrc/em_kernel.cu EM_CLUSTER); the f32 one runs alone
 # the kernels' two modes, as ``compute_dtype``: bf16 or f32 weights and activations
 COMPUTE_DTYPES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 
@@ -356,13 +362,62 @@ def _em_launch(net: dict, cdiffe: bool, f32_mode: bool, x0, y_dev, noise, stamps
     return out
 
 
+def cluster_size(compute_dtype) -> int:
+    """The blocks a cluster of the mode's template."""
+    return CLUSTER if compute_dtype == torch.bfloat16 else 1
+
+
+def launch_blocks(n: int, compute_dtype=torch.bfloat16) -> int:
+    """The blocks a launch on ``n`` rows runs: one per ``ROWS`` rows,
+    rounded up to whole clusters (a block past the rows runs on zeros and
+    stores nothing)."""
+    c = cluster_size(compute_dtype)
+    return -(-n // (ROWS * c)) * c
+
+
+def ring_bytes_per_block_step(widths: Sequence[int], cluster: int = CLUSTER) -> int:
+    """The weight bytes one block of the bf16 template reads from L2 a step:
+    its share of every ring tile its cluster of ``cluster`` blocks fetches
+    once, the first layer's (K1, h1) and each hidden layer's (K, N) bf16,
+    ``widths`` the hidden layers' (padded to multiples of 128).  The output
+    layer's weights stay in shared memory."""
+    w = [_ceil128(v) for v in widths]
+    return 2 * (K1 * w[0] + sum(a * b for a, b in zip(w[:-1], w[1:]))) // cluster
+
+
+_max_clusters = {}
+
+
+def max_active_clusters(widths: Sequence[int], cdiffe: bool = False) -> int:
+    """The most clusters of B1 (or B4, with ``cdiffe``) in bf16 at these
+    hidden widths that the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``), asked once per shape and card."""
+    padded = tuple(_ceil128(v) for v in widths)
+    key = (padded, bool(cdiffe), torch.cuda.current_device())
+    if key not in _max_clusters:
+        lib = build.load("em_kernel")
+        lib.em_max_active_clusters.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                                                ctypes.POINTER(ctypes.c_int)]
+        lib.em_max_active_clusters.restype = ctypes.c_int
+        out = ctypes.c_int(0)
+        err = lib.em_max_active_clusters(int(cdiffe), (ctypes.c_int * len(padded))(*padded), len(padded) - 1,
+                                         ctypes.byref(out))
+        build.check(lib, err, "em_max_active_clusters")
+        _max_clusters[key] = out.value
+    return _max_clusters[key]
+
+
 def stamp_entries(n_phases: int, num_steps: int, compute_dtype=torch.bfloat16) -> int:
     """The int64 entries a ``stamps`` tensor needs: a (clock, cycles) pair
     before the first step and at the end of each of the ``n_phases`` phases
-    of each step; with f32 weights then the ring's waits, one count for
-    each of the four warpgroups in each phase of each step."""
+    of each step, then the ring's waits, one count for each consumer
+    warpgroup in each phase of each step (four with f32 weights; two with
+    bf16, whose two records, block 0's and the launch's last block's, each
+    hold pairs and waits)."""
     pairs = 2 * (1 + n_phases * num_steps)
-    return pairs + 4 * n_phases * num_steps if compute_dtype == torch.float32 else pairs
+    if compute_dtype == torch.float32:
+        return pairs + 4 * n_phases * num_steps
+    return 2 * (pairs + 2 * n_phases * num_steps)
 
 
 def _check_stamps(stamps: Optional[Tensor], n_phases: int, num_steps: int, dev, compute_dtype) -> None:
@@ -375,6 +430,7 @@ def _check_stamps(stamps: Optional[Tensor], n_phases: int, num_steps: int, dev, 
 def _count(fn, compute_dtype) -> None:
     fn.launches += 1
     fn.launches_by_dtype[COMPUTE_DTYPES[compute_dtype]] += 1
+    fn.launches_by_cluster[cluster_size(compute_dtype)] += 1
 
 
 def _launch(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, noise, seed, stamps, compute_dtype):
@@ -426,10 +482,14 @@ def fused_em_sampler(
     >= ``stamp_entries(P, num_steps, compute_dtype)`` entries, P =
     len(phase_names(n_hidden)): it receives block 0's clock (ns) and its
     SM's cycle count, a pair, once before the first step and then at the
-    end of each phase of each step; with f32 weights these 2 (1 + P x
-    num_steps) entries are followed by P x num_steps x 4 more,
-    [step][phase][warpgroup]: the cycles each of block 0's four warpgroups
-    waited for weight tiles in that phase.  The samples do not change.
+    end of each phase of each step; these 2 (1 + P x num_steps) entries are
+    followed by P x num_steps x W more, [step][phase][warpgroup]: the
+    cycles each of block 0's W consumer warpgroups (4 with f32 weights, 2
+    with bf16) waited for weight tiles in that phase.  With bf16 weights a
+    second record of the same form follows, from the launch's last block
+    (one of its last wave); the two warpgroups there take turns on each
+    hidden layer's products, and a phase's pair is read when warpgroup 0
+    ends it.  The samples do not change.
     """
     check_compute_dtype(compute_dtype)
     if x0.device.type == "cpu":
@@ -448,6 +508,7 @@ def fused_em_sampler(
 
 fused_em_sampler.launches = 0
 fused_em_sampler.launches_by_dtype = dict.fromkeys(COMPUTE_DTYPES.values(), 0)
+fused_em_sampler.launches_by_cluster = {1: 0, CLUSTER: 0}
 
 
 def em_cdiffe_reference(
@@ -576,3 +637,4 @@ def fused_em_sampler_cdiffe(
 
 fused_em_sampler_cdiffe.launches = 0
 fused_em_sampler_cdiffe.launches_by_dtype = dict.fromkeys(COMPUTE_DTYPES.values(), 0)
+fused_em_sampler_cdiffe.launches_by_cluster = {1: 0, CLUSTER: 0}

@@ -327,15 +327,17 @@ def reset() -> None:
 
 def counters() -> Dict[str, object]:
     """The recorder's counters, and the kernels' own launch counts where they
-    live (``<wrapper>.launches``, ``<wrapper>.launches_by_dtype``)."""
+    live (``<wrapper>.launches``, ``<wrapper>.launches_by_dtype``,
+    ``<wrapper>.launches_by_cluster``)."""
     from .. import ops
 
     out: Dict[str, object] = dict(_REC.counts)
     for fn in (ops.fused_em_sampler, ops.fused_em_sampler_cdiffe, ops.fused_mh_scatterometry,
                ops.fused_dsm_train_epochs, ops.fused_guided_em_sampler):
         out[f"{fn.__name__}.launches"] = fn.launches
-        if hasattr(fn, "launches_by_dtype"):
-            out[f"{fn.__name__}.launches_by_dtype"] = dict(fn.launches_by_dtype)
+        for by in ("launches_by_dtype", "launches_by_cluster"):
+            if hasattr(fn, by):
+                out[f"{fn.__name__}.{by}"] = dict(getattr(fn, by))
     return out
 
 

@@ -20,7 +20,7 @@ from dmip_tpu_torch.ops.dsm_train_kernel import dsm_train_epochs_reference, fuse
 from dmip_tpu_torch.ops.dps_kernel import fused_guided_em_sampler, guided_em_reference
 from dmip_tpu_torch.ops import build
 from dmip_tpu_torch.ops.em_kernel import (em_cdiffe_reference, em_sampler_reference, fused_em_sampler,
-                                          fused_em_sampler_cdiffe, stamp_entries)
+                                          fused_em_sampler_cdiffe, max_active_clusters, stamp_entries)
 from dmip_tpu_torch.ops.em_kernel import CDIFFE_PHASES as EM_CDIFFE_PHASES
 from dmip_tpu_torch.ops.em_kernel import PHASES as EM_PHASES
 from dmip_tpu_torch.ops.mh_kernel import PHASES as MH_PHASES
@@ -231,6 +231,76 @@ def test_em_kernel_stamps(cuda, cdiffe, compute_dtype):
         assert not w[:, idle].any()
     with pytest.raises(ValueError, match="stamps"):
         fn(tp, x0, y, steps, seed=11, stamps=stamps[:-1])
+
+
+def _served_shape(cuda, cdiffe, n, seed=3):
+    """A net of the served shape (27 -> 512^3 -> 3, or 26 for B4), n rows
+    of x0 and a condition."""
+    tp = mlp_init(27, 26 if cdiffe else 3, (512, 512, 512), generator=torch.Generator().manual_seed(seed),
+                  device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return tp, torch.randn(n, 3, generator=gen, device=cuda), 0.3 * torch.randn(23, generator=gen, device=cuda)
+
+
+@pytest.mark.parametrize("cdiffe", [False, True], ids=["b1", "b4"])
+def test_em_rows_do_not_depend_on_the_grid(cuda, cdiffe):
+    """B1 and B4 in bf16 on the first n rows of one x0 give the first n rows
+    of the 30000-row run bit for bit: one block padded to a cluster (40,
+    64), two blocks (65, 128), an odd block count (777: 13 blocks, 14
+    launched) and the full 470-block launch."""
+    fn = fused_em_sampler_cdiffe if cdiffe else fused_em_sampler
+    tp, x0, y = _served_shape(cuda, cdiffe, 30000)
+    full = fn(tp, x0, y, 20, seed=9)
+    for n in (40, 64, 65, 128, 777):
+        part = fn(tp, x0[:n].contiguous(), y, 20, seed=9)
+        torch.cuda.synchronize()
+        assert torch.equal(part, full[:n]), n
+    assert bool(torch.isfinite(full).all())
+
+
+@pytest.mark.parametrize("cdiffe", [False, True], ids=["b1", "b4"])
+def test_em_bf16_stamps_record_ring_waits_of_two_blocks(cuda, cdiffe):
+    """The bf16 stamps hold two records, block 0's and the launch's last
+    block's: each one's clocks rise through the launch, and each consumer
+    warpgroup's ring waits lie within its phase's cycles, some in every
+    step's products and none in the phases that take no weight tile.  The
+    stamped launch gives the unstamped one's samples bit for bit."""
+    fn = fused_em_sampler_cdiffe if cdiffe else fused_em_sampler
+    tp, x0, y = _served_shape(cuda, cdiffe, 3000, seed=4)
+    steps, names = 12, EM_CDIFFE_PHASES if cdiffe else EM_PHASES
+    pairs, waits = 2 * (1 + len(names) * steps), 2 * len(names) * steps
+    stamps = torch.full((stamp_entries(len(names), steps),), -1, dtype=torch.int64, device=cuda)
+    assert stamps.numel() == 2 * (pairs + waits)
+    plain = fn(tp, x0, y, steps, seed=11)
+    stamped = fn(tp, x0, y, steps, seed=11, stamps=stamps)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, stamped)
+    records = stamps.view(2, pairs + waits)
+    assert not torch.equal(records[0, :pairs], records[1, :pairs])
+    for rec in records:
+        clock, cyc = rec[0:pairs:2], rec[1:pairs:2]
+        assert bool((clock > 0).all()) and bool((clock[1:] >= clock[:-1]).all())
+        spans = (cyc[1:] - cyc[:-1]).reshape(steps, len(names), 1)
+        w = rec[pairs:].reshape(steps, len(names), 2)
+        assert bool((w >= 0).all()) and bool((w <= spans).all())
+        idle = [i for i, n in enumerate(names) if n in ("noise", "output", "update")]
+        assert not w[:, idle].any()
+        assert bool((w.sum((1, 2)) > 0).all())
+
+
+def test_bf16_launches_count_clusters_of_two(cuda):
+    """Every bf16 launch of B1 and B4 counts under cluster size 2, every f32
+    launch under 1; at the served widths the card holds at least 59
+    clusters at once, so 470 blocks still take four waves."""
+    for cdiffe, fn in ((False, fused_em_sampler), (True, fused_em_sampler_cdiffe)):
+        tp, x0, y = _served_shape(cuda, cdiffe, 700)
+        before = dict(fn.launches_by_cluster)
+        fn(tp, x0, y, 4, seed=1)
+        fn(tp, x0, y, 4, seed=2)
+        fn(tp, x0, y, 4, seed=1, compute_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert fn.launches_by_cluster == {1: before[1] + 1, 2: before[2] + 2}
+        assert max_active_clusters([512, 512, 512], cdiffe=cdiffe) >= 59
 
 
 def test_mh_kernel_matches_plain(cuda):

@@ -91,9 +91,54 @@ def test_cpu_wrapper_runs_plain_version_seeded():
         stamps = torch.zeros(em_kernel.stamp_entries(4, 10, dtype), dtype=torch.int64)
         with pytest.raises(ValueError, match="stamps"):
             fused_em_sampler(tp, x0, y, 10, stamps=stamps, compute_dtype=dtype)
-    # the f32 kernel's stamps carry the ring's waits after the pairs: four a phase
-    assert em_kernel.stamp_entries(4, 10) == 2 * (1 + 4 * 10)
+    # the stamps carry the ring's waits after the pairs: four a phase in f32;
+    # two in bf16, whose records are two (block 0's and the last block's)
+    assert em_kernel.stamp_entries(4, 10) == 2 * (2 * (1 + 4 * 10) + 2 * 4 * 10)
     assert em_kernel.stamp_entries(4, 10, torch.float32) == 2 * (1 + 4 * 10) + 4 * 4 * 10
+
+
+@pytest.mark.parametrize("n,blocks", [(1, 2), (40, 2), (64, 2), (65, 2), (128, 2), (129, 4), (777, 14),
+                                      (30000, 470)])
+def test_bf16_launch_rounds_its_blocks_up_to_whole_clusters(n, blocks):
+    """The bf16 template runs a block per 64 rows, rounded up to whole
+    clusters of two (30000 rows: 469 blocks and one on zeros); the f32
+    template runs alone, a block per 64 rows."""
+    assert em_kernel.CLUSTER == 2 and em_kernel.cluster_size(torch.bfloat16) == 2
+    assert em_kernel.launch_blocks(n) == blocks
+    assert em_kernel.launch_blocks(n, torch.float32) == -(-n // 64)
+
+
+@pytest.mark.parametrize("xdim,ydim,hidden,by_hand", [
+    # the linear net, 5 -> 512^3 -> 2: W1's two 16 KB tiles (32 x 512 bf16), two 512 x 512 bf16 layers
+    (2, 2, (512, 512, 512), 2 * 16384 + 2 * 512 * 512 * 2),
+    # the scatterometry net, 27 -> 512^3 -> 3: B1 takes only x into W1, padded to the same 32 rows
+    (3, 23, (512, 512, 512), 2 * 16384 + 2 * 512 * 512 * 2),
+    # widths padded to 128: W1 32 x 128, two 128 x 128 layers
+    (3, 23, (96, 80, 64), 2 * (32 * 128 + 2 * 128 * 128)),
+])
+def test_ring_bytes_per_block_step_by_hand(xdim, ydim, hidden, by_hand):
+    """The weight bytes a block of the bf16 template reads from L2 a step,
+    from the widths: 1,081,344 for a block alone at 512^3 and half of it,
+    540,672, for each block of a cluster of two."""
+    tp = nets.mlp_init(xdim + ydim + 1, xdim, hidden, generator=torch.Generator().manual_seed(0))
+    widths = [w.shape[1] for w, _ in tp[:-1]]
+    assert em_kernel.ring_bytes_per_block_step(widths, cluster=1) == by_hand
+    assert em_kernel.ring_bytes_per_block_step(widths) == by_hand // 2
+    if hidden[0] == 512:
+        assert by_hand == 1_081_344 and by_hand // 2 == 540_672
+
+
+def test_cpu_wrappers_count_no_cluster_launch():
+    """Both wrappers count launches by cluster size (the bf16 template's 2,
+    the f32 one's 1); the plain version on the CPU counts none."""
+    _, tp = _net(seed=2)
+    x0 = torch.randn(64, 2, generator=torch.Generator().manual_seed(0))
+    for fn in (fused_em_sampler, fused_em_sampler_cdiffe):
+        assert set(fn.launches_by_cluster) == {1, 2}
+    before = dict(fused_em_sampler.launches_by_cluster)
+    for dtype in (torch.bfloat16, torch.float32):
+        fused_em_sampler(tp, x0, torch.tensor([0.2, 0.1]), 4, seed=5, compute_dtype=dtype)
+    assert fused_em_sampler.launches_by_cluster == before
 
 
 @pytest.mark.parametrize("noise_scale", [0.0, 1.0])
