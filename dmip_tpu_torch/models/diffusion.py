@@ -489,11 +489,13 @@ class AnalyticGuidanceDPS:
             )
         from ..ops.dps_kernel import fused_guided_em_sampler
 
-        x0, seed = _kernel_draws(generator, num_samples, self.xdim, mean, std, dev)
-        base = self.sde.base
-        fp = self.forward_params
-        return fused_guided_em_sampler(
-            params["prior"], self.surrogate_weights, x0, y, a=fp["a"], b=fp["b"],
-            guidance_clip=self.guidance_clip, num_steps=num_steps, T=self.sde.T,
-            beta_min=base.beta_min, beta_max=base.beta_max, seed=seed, guidance=self.guidance,
-        )
+        with profiling.span("sample"):
+            with profiling.span("sample.draws"):
+                x0, seed = _kernel_draws(generator, num_samples, self.xdim, mean, std, dev)
+            base = self.sde.base
+            fp = self.forward_params
+            return fused_guided_em_sampler(
+                params["prior"], self.surrogate_weights, x0, y, a=fp["a"], b=fp["b"],
+                guidance_clip=self.guidance_clip, num_steps=num_steps, T=self.sde.T,
+                beta_min=base.beta_min, beta_max=base.beta_max, seed=seed, guidance=self.guidance,
+            )

@@ -37,6 +37,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..utils import profiling
 from . import build
 
 Tensor = torch.Tensor
@@ -315,33 +316,35 @@ def _launch(prior_params, surrogate_params, x0, y, a, b, guidance_clip, num_step
         need = 2 * (1 + len(PHASES) * len(steps))
         if stamps.dtype != torch.int64 or stamps.device != dev or stamps.numel() < need:
             raise ValueError(f"stamps must be an int64 tensor of >= {need} entries on {dev}")
-    prior, surr, H, S = _device_nets(prior_params, surrogate_params, xdim)
-    y_dev = y.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
-    # per row (and up to a block of rows past the last), the tanh-derivative
-    # factors 1 - h^2 of every prior hidden layer
-    scratch = torch.empty((n + ROWS) * (len(prior_params) - 1) * H, dtype=torch.float32, device=dev)
-    out = torch.empty_like(x0)
-    pp = (ctypes.c_uint64 * len(prior))(*[t.data_ptr() for t in prior])
-    sp = (ctypes.c_uint64 * len(surr))(*[t.data_ptr() for t in surr])
-    delta = T / num_steps
-    seed_value, seed_ptr = build.seed_args(seed, dev)
-    lib = build.load("dps_kernel")
-    fn = lib.guided_em_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    # the launcher sets attributes and launches on the current device
-    with torch.cuda.device(dev):
-        err = fn(
-            x0.data_ptr(), y_dev.data_ptr(), pp, len(prior_params) - 2, H, sp, len(surrogate_params) - 2, S,
-            None if noise is None else noise.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            None if stamps is None else stamps.data_ptr(),
-            n, xdim, ydim, num_steps, steps.start, steps.stop, int(guidance == "pgdm"),
-            int(guidance_clip is not None),
-            T, beta_min, beta_max - beta_min, 1.0 - 0.5 * lmbd, (1.0 - lmbd) ** 0.5, delta, delta**0.5,
-            noise_scale, a * a, b * b, 0.0 if guidance_clip is None else float(guidance_clip),
-            seed_value, seed_ptr, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    build.check(lib, err, "guided_em_launch")
+    with profiling.span("b5.pack"):
+        prior, surr, H, S = _device_nets(prior_params, surrogate_params, xdim)
+    with profiling.span("b5.launch"):
+        y_dev = y.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
+        # per row (and up to a block of rows past the last), the tanh-derivative
+        # factors 1 - h^2 of every prior hidden layer
+        scratch = torch.empty((n + ROWS) * (len(prior_params) - 1) * H, dtype=torch.float32, device=dev)
+        out = torch.empty_like(x0)
+        pp = (ctypes.c_uint64 * len(prior))(*[t.data_ptr() for t in prior])
+        sp = (ctypes.c_uint64 * len(surr))(*[t.data_ptr() for t in surr])
+        delta = T / num_steps
+        seed_value, seed_ptr = build.seed_args(seed, dev)
+        lib = build.load("dps_kernel")
+        fn = lib.guided_em_launch
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        # the launcher sets attributes and launches on the current device
+        with torch.cuda.device(dev):
+            err = fn(
+                x0.data_ptr(), y_dev.data_ptr(), pp, len(prior_params) - 2, H, sp, len(surrogate_params) - 2, S,
+                None if noise is None else noise.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                None if stamps is None else stamps.data_ptr(),
+                n, xdim, ydim, num_steps, steps.start, steps.stop, int(guidance == "pgdm"),
+                int(guidance_clip is not None),
+                T, beta_min, beta_max - beta_min, 1.0 - 0.5 * lmbd, (1.0 - lmbd) ** 0.5, delta, delta**0.5,
+                noise_scale, a * a, b * b, 0.0 if guidance_clip is None else float(guidance_clip),
+                seed_value, seed_ptr, torch.cuda.current_stream(dev).cuda_stream,
+            )
+        build.check(lib, err, "guided_em_launch")
     fused_guided_em_sampler.launches += 1
     return out
 

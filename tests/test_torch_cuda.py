@@ -1604,6 +1604,32 @@ def test_recorder_on_waits_for_nothing_in_a_step_a_chunk_or_a_request(cuda, reco
     assert rec["device"]["train.replay"]["count"] == 20 and rec["pending"] == 0
 
 
+def test_recorder_spans_a_guided_request(cuda, recorder):
+    """One analytic-guidance request through B5: off, the recorder records
+    nothing; on, ``sample``, ``sample.draws``, ``b5.pack`` and ``b5.launch``
+    once each, and B5's launch count rises by one."""
+    from dmip_tpu_torch.mains.eval_diffusion import analytic_row
+    from dmip_tpu_torch.models import PosteriorDiffusionEstimator
+
+    base = PosteriorDiffusionEstimator(xdim=3, ydim=23, hidden_layers=(64, 64))
+    forward_model, fparams = scat.load_forward_model(device=cuda)
+    guided, _ = analytic_row(base, forward_model, fparams, {"guidance_clip": 100.0})
+    params = base.init(torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    y = forward_model(torch.tensor([[0.3, -0.5, 0.1]], device=cuda))[0]
+    request = lambda: guided.sample(params, y, 500, 20, generator=torch.Generator(device=cuda).manual_seed(4))
+    recorder.disable()
+    request()
+    assert recorder.records()["rows"] == []
+    recorder.enable()
+    before = fused_guided_em_sampler.launches
+    request()
+    torch.cuda.synchronize()
+    rec = recorder.records()
+    assert {n: v["count"] for n, v in rec["spans"].items()} == {"sample": 1, "sample.draws": 1, "b5.pack": 1,
+                                                               "b5.launch": 1}
+    assert rec["counters"]["fused_guided_em_sampler.launches"] == before + 1
+
+
 def test_a_device_span_inside_a_capture_raises(cuda, recorder):
     """A timing event cannot be captured: the span says so before CUDA does."""
     x = torch.ones(4, device=cuda)
