@@ -25,12 +25,16 @@ output layer in f32.  The bf16 template runs as clusters of
 takes the plain version only for CPU tensors; for a CUDA tensor it launches
 the kernel or raises.  Each counts its launches (``launches``) and, apart,
 each mode's (``launches_by_dtype``) and each cluster size's
-(``launches_by_cluster``).
+(``launches_by_cluster``).  B1 packs a net's layers once per params and
+reuses them while the params are unchanged (:class:`NetCache`), counting
+``packs`` and ``pack_hits``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import weakref
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -244,24 +248,103 @@ def _first_layer(w: Tensor, h1: int, f32_mode: bool) -> Tensor:
     return pack_mma_b(_pad2(w, K1, h1))
 
 
-def _device_net(params, xdim: int, y: Optional[Tensor], f32_mode: bool = False):
-    """B1's layout of the net for the condition y: widths zero-padded to
-    multiples of 128 (exact: a padded unit has zero weights in and out),
-    W1x in the mode's first-layer layout (:func:`_first_layer`), the
-    condition folded into c1 = cy = y . W1y + b1 (f32, as the plain version
-    computes it), the layers after as :func:`_add_hidden_and_out`."""
-    w1x, w1y, w1t, b1, ydim = _split_first_layer(params, xdim)
+def _c1(params, xdim: int, y: Optional[Tensor]) -> Tensor:
+    """The condition folded into B1's first layer: c1 = cy = y . W1y + b1
+    (f32, as the plain version computes it), zero-padded to the first
+    layer's padded width."""
+    _, w1y, _, b1, ydim = _split_first_layer(params, xdim)
     _check_y(y, ydim)
     f32 = lambda t: t.to(torch.float32)
     cy = f32(b1) if ydim == 0 else y.reshape(1, ydim).to(device=b1.device, dtype=torch.float32) @ f32(w1y) + f32(b1)
+    return _pad1(cy.reshape(-1), _ceil128(params[0][0].shape[1]))
+
+
+def _packed_net(params, xdim: int, f32_mode: bool = False) -> dict:
+    """What of B1's layout does not depend on the condition: widths
+    zero-padded to multiples of 128 (exact: a padded unit has zero weights
+    in and out), W1x in the mode's first-layer layout
+    (:func:`_first_layer`), the padded t row, the layers after as
+    :func:`_add_hidden_and_out`."""
+    w1x, _, w1t, _, ydim = _split_first_layer(params, xdim)
+    f32 = lambda t: t.to(torch.float32)
     h1 = _ceil128(w1x.shape[1])
-    net = {
-        "w1": _first_layer(f32(w1x), h1, f32_mode),
-        "w1t": _pad1(f32(w1t), h1),
-        "c1": _pad1(cy.reshape(-1), h1),
-        "ydim": ydim,
-    }
+    net = {"w1": _first_layer(f32(w1x), h1, f32_mode), "w1t": _pad1(f32(w1t), h1), "ydim": ydim}
     return _add_hidden_and_out(net, params, h1, xdim, f32_mode)
+
+
+def _device_net(params, xdim: int, y: Optional[Tensor], f32_mode: bool = False):
+    """B1's layout of the net for the condition y, packed anew:
+    :func:`_packed_net` and c1 (:func:`_c1`)."""
+    c1 = _c1(params, xdim, y)
+    return {**_packed_net(params, xdim, f32_mode), "c1": c1}
+
+
+PACKED_NETS_KEPT = 4
+
+
+class NetCache:
+    """B1's packed layouts (:func:`_packed_net`) of the nets it was handed
+    last, at most ``size``, the least recently used dropped first.
+
+    An entry holds for one mode, ``xdim``, device and (on a card) stream,
+    and for the params' leaves as they were: each tensor itself (held by a
+    weak reference, compared by identity), its ``_version``, shape, dtype
+    and data_ptr.  Every in-place write through PyTorch bumps ``_version``
+    (an optimizer step, a ``copy_`` or ``add_`` under ``no_grad``), and a new
+    tree of equal values holds other tensors, so either misses; nothing is
+    read from the card.  An entry one of whose leaves has died is dropped
+    at the next lookup.  A write PyTorch does not see (through ``.data``,
+    or a raw pointer into a leaf) is not seen here either: hand B1 a new
+    tree after one.  Inference tensors track no version and are packed at
+    every call.  A hit on another stream than the pack's would let the
+    caching allocator reuse an evicted entry's memory on the pack's stream
+    while the other stream's launch still reads it, so a stream keys its
+    own entry."""
+
+    def __init__(self, size: int = PACKED_NETS_KEPT):
+        self.size = size
+        self._entries = collections.OrderedDict()  # key -> (weak references to the leaves, packed net)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def get(self, params, xdim: int, f32_mode: bool = False) -> Tuple[dict, bool]:
+        """(the packed net of ``params``, whether it was kept from an
+        earlier call)."""
+        leaves = [t for pair in params for t in pair]
+        if any(t.is_inference() for t in leaves):
+            return _packed_net(params, xdim, f32_mode), False
+        dev = leaves[0].device
+        stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+        # an id() names one live tensor: dropping the entries of dead leaves first makes it an identity
+        for k in [k for k, (refs, _) in self._entries.items() if any(r() is None for r in refs)]:
+            del self._entries[k]
+        key = (f32_mode, xdim, dev, stream,
+               tuple((id(t), t._version, tuple(t.shape), t.dtype, t.data_ptr()) for t in leaves))
+        if key in self._entries:
+            self._entries.move_to_end(key)
+            return self._entries[key][1], True
+        with torch.no_grad():  # a packed tensor holding a leaf's autograd graph would keep the leaf alive
+            net = _packed_net(params, xdim, f32_mode)
+        self._entries[key] = ([weakref.ref(t) for t in leaves], net)
+        while len(self._entries) > self.size:
+            self._entries.popitem(last=False)
+        return net, False
+
+
+_B1_NETS = NetCache()
+
+
+def _b1_net(params, xdim: int, y: Optional[Tensor], f32_mode: bool = False) -> dict:
+    """B1's layout of the net for y: the packed layers kept in
+    ``_B1_NETS`` for these params, or packed now (counted in
+    ``fused_em_sampler.pack_hits`` and ``.packs``), and c1 computed anew.
+    Equal, tensor for tensor, to :func:`_device_net`."""
+    c1 = _c1(params, xdim, y)
+    net, hit = _B1_NETS.get(params, xdim, f32_mode)
+    fused_em_sampler.pack_hits += hit
+    fused_em_sampler.packs += not hit
+    return {**net, "c1": c1}
 
 
 def _add_hidden_and_out(net: dict, params, h1: int, xdim: int, f32_mode: bool = False) -> dict:
@@ -284,7 +367,8 @@ def _add_hidden_and_out(net: dict, params, h1: int, xdim: int, f32_mode: bool = 
         net["wout"] = _pad2(f32(w_out[:, :xdim]), net["widths"][-1], 4)
     else:
         net["wout"] = pack_wgmma_tiles(_pad2(f32(w_out[:, :xdim]), net["widths"][-1], 8), parts=1)
-    net["bout"] = f32(b_out[:xdim]).contiguous()
+    net["bout"] = f32(b_out[:xdim]).clone(memory_format=torch.contiguous_format)  # no view of a caller's leaf
+    net["hidden_args"] = _hidden_args(net)
     return net
 
 
@@ -339,7 +423,7 @@ def _em_launch(net: dict, cdiffe: bool, f32_mode: bool, x0, y_dev, noise, stamps
     n, xdim = x0.shape
     dev = x0.device
     out = torch.empty_like(x0)
-    wh, bh, widths, n_hidden = _hidden_args(net)
+    wh, bh, widths, n_hidden = net["hidden_args"]
     delta = T / num_steps
     ptr = lambda t: None if t is None else t.data_ptr()
     seed_value, seed_ptr = build.seed_args(seed, dev)
@@ -440,7 +524,7 @@ def _launch(params, x0, y, num_steps, T, beta_min, beta_max, lmbd, noise_scale, 
     _check_launch(params, x0, noise, num_steps, xdim)
     _check_stamps(stamps, len(phase_names(len(params) - 2)), num_steps, dev, compute_dtype)
     with profiling.span("b1.pack"):
-        net = _device_net(params, xdim, y, f32_mode)
+        net = _b1_net(params, xdim, y, f32_mode)
     with profiling.span("b1.launch"):
         out = _em_launch(net, False, f32_mode, x0, None, noise, stamps, net["ydim"], num_steps, T, beta_min,
                          beta_max, lmbd, noise_scale, seed)
@@ -509,6 +593,8 @@ def fused_em_sampler(
 fused_em_sampler.launches = 0
 fused_em_sampler.launches_by_dtype = dict.fromkeys(COMPUTE_DTYPES.values(), 0)
 fused_em_sampler.launches_by_cluster = {1: 0, CLUSTER: 0}
+fused_em_sampler.packs = 0  # launches that packed the net's layers
+fused_em_sampler.pack_hits = 0  # launches that found them packed (NetCache)
 
 
 def em_cdiffe_reference(

@@ -328,7 +328,8 @@ def reset() -> None:
 def counters() -> Dict[str, object]:
     """The recorder's counters, and the kernels' own launch counts where they
     live (``<wrapper>.launches``, ``<wrapper>.launches_by_dtype``,
-    ``<wrapper>.launches_by_cluster``)."""
+    ``<wrapper>.launches_by_cluster``, and B1's ``<wrapper>.packs`` and
+    ``<wrapper>.pack_hits``)."""
     from .. import ops
 
     out: Dict[str, object] = dict(_REC.counts)
@@ -338,6 +339,9 @@ def counters() -> Dict[str, object]:
         for by in ("launches_by_dtype", "launches_by_cluster"):
             if hasattr(fn, by):
                 out[f"{fn.__name__}.{by}"] = dict(getattr(fn, by))
+        for n in ("packs", "pack_hits"):
+            if hasattr(fn, n):
+                out[f"{fn.__name__}.{n}"] = getattr(fn, n)
     return out
 
 

@@ -303,6 +303,36 @@ def test_bf16_launches_count_clusters_of_two(cuda):
         assert max_active_clusters([512, 512, 512], cdiffe=cdiffe) >= 59
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_b1_launches_from_kept_layers_as_from_a_fresh_pack(cuda, recorder, dtype):
+    """B1 keeps a net's packed layers while its params are unchanged: the
+    launches that find them (for the same y and for another) give the
+    samples of a fresh pack (a tree of clones) by SHA-256; after an
+    in-place change to one hidden weight the next launch packs anew and
+    gives the changed net's samples, not the kept ones; ``b1.pack`` spans
+    every launch."""
+    import hashlib
+
+    tp, x0, y = _served_shape(cuda, False, 2000)
+    clone = lambda t: tuple((w.clone(), b.clone()) for w, b in t)
+    run = lambda p, c: fused_em_sampler(p, x0, c, 50, seed=9, compute_dtype=dtype)
+    digest = lambda t: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+    packs, hits, launches = fused_em_sampler.packs, fused_em_sampler.pack_hits, fused_em_sampler.launches
+    first = run(tp, y)
+    kept, kept_y2 = run(tp, y), run(tp, y.flip(0))
+    assert (fused_em_sampler.packs, fused_em_sampler.pack_hits) == (packs + 1, hits + 2)
+    assert digest(kept) == digest(first) == digest(run(clone(tp), y))
+    assert digest(kept_y2) == digest(run(clone(tp), y.flip(0))) != digest(kept)
+    with torch.no_grad():
+        tp[1][0].mul_(1.01)
+    changed = run(tp, y)
+    assert digest(changed) == digest(run(clone(tp), y)) != digest(kept)
+    assert (fused_em_sampler.packs, fused_em_sampler.pack_hits) == (packs + 5, hits + 2)
+    torch.cuda.synchronize()
+    spans = recorder.records()["spans"]
+    assert spans["b1.pack"]["count"] == spans["b1.launch"]["count"] == fused_em_sampler.launches - launches == 7
+
+
 def test_mh_kernel_matches_plain(cuda):
     """Same randomness, 4096 chains x 200 steps: at most 1% of chains end
     elsewhere (an f32 sum-order flip of an accept on its threshold); the

@@ -366,6 +366,137 @@ def test_f32_device_net_layout_computes_the_same_sampler():
     torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
+def _assert_same_net(a, b):
+    """Two of B1's layouts hold the same tensors bit for bit (dtype, shape
+    and value) and the same widths."""
+    assert a.keys() - {"hidden_args"} == b.keys() - {"hidden_args"}
+    for k in a.keys() - {"hidden_args"}:
+        x, y = (a[k], b[k]) if isinstance(a[k], list) else ([a[k]], [b[k]])
+        for s, t in zip(x, y, strict=True):
+            if isinstance(s, torch.Tensor):
+                assert s.dtype == t.dtype and torch.equal(s, t), k
+            else:
+                assert s == t, k
+
+
+@pytest.mark.parametrize("f32_mode", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("hidden", [(40, 200), (512, 512, 512)])
+def test_kept_layout_is_the_device_net_bit_for_bit(f32_mode, hidden):
+    """The layout B1 launches from (:func:`_b1_net`: the packed layers from
+    the cache and c1 computed anew) equals :func:`_device_net`'s, packed
+    and kept (a miss) and found again (a hit), in both modes and at a
+    padded and the served width."""
+    _, tp = _net(hidden=hidden, xdim=3, ydim=5, seed=6)
+    y = torch.randn(5, generator=torch.Generator().manual_seed(3))
+    ref = em_kernel._device_net(tp, 3, y, f32_mode)
+    for _ in range(2):
+        _assert_same_net(em_kernel._b1_net(tp, 3, y, f32_mode), ref)
+    net, hit = em_kernel.NetCache().get(tp, 3, f32_mode)
+    assert not hit
+    _assert_same_net({**net, "c1": ref["c1"]}, ref)
+
+
+def test_a_hit_reuses_the_packed_tensors_and_computes_c1_anew():
+    """A second lookup of the same params returns the very tensors the
+    first packed; c1 follows y, equal to a fresh pack's for the new y."""
+    _, tp = _net(hidden=(64, 64), xdim=3, ydim=5, seed=7)
+    cache = em_kernel.NetCache()
+    (first, hit0), (second, hit1) = cache.get(tp, 3), cache.get(tp, 3)
+    assert (hit0, hit1) == (False, True)
+    assert all(first[k] is second[k] for k in first)
+    ys = torch.randn(2, 5, generator=torch.Generator().manual_seed(4))
+    c1 = [em_kernel._b1_net(tp, 3, y)["c1"] for y in ys]
+    for y, c in zip(ys, c1):
+        assert torch.equal(c, em_kernel._device_net(tp, 3, y)["c1"])
+    assert not torch.equal(c1[0], c1[1])
+
+
+def _in_place_add(tp):
+    with torch.no_grad():
+        tp[1][0].add_(1e-3)
+    return tp
+
+
+def _adam_step(tp, in_place):
+    from dmip_tpu_torch import pytree, train
+
+    opt = train.build_optimizer(1e-3)
+    grads = pytree.map(lambda t: torch.full_like(t, 0.5), tp)
+    updates, _ = opt.update(grads, opt.init(tp))
+    if not in_place:
+        return train.apply_updates(tp, updates)
+    with torch.no_grad():
+        for p, u in zip(pytree.leaves(tp), pytree.leaves(updates)):
+            p.add_(u)
+    return tp
+
+
+@pytest.mark.parametrize("change", [_in_place_add, lambda tp: _adam_step(tp, True), lambda tp: _adam_step(tp, False)],
+                         ids=["add_under_no_grad", "adam_step_in_place", "adam_step"])
+def test_changed_params_miss_and_pack_the_changed_net(change):
+    """An in-place write (``add_`` under ``no_grad``, one Adam step added
+    in place) bumps a leaf's version, and an Adam step's new tree holds new
+    tensors: either misses, and the net packed then is the changed one."""
+    _, tp = _net(hidden=(64, 64), xdim=3, ydim=5, seed=8)
+    cache = em_kernel.NetCache()
+    stale, _ = cache.get(tp, 3)
+    tp = change(tp)
+    net, hit = cache.get(tp, 3)
+    assert not hit
+    fresh = em_kernel._packed_net(tp, 3)
+    _assert_same_net(net, fresh)
+    assert not all(torch.equal(a, b) for a, b in zip(net["wh"] + [net["w1"]], stale["wh"] + [stale["w1"]]))
+
+
+def test_equal_clones_miss_dead_leaves_drop_and_inference_tensors_are_packed_each_call():
+    """A tree of equal clones misses; once it is freed its entry goes at
+    the next lookup (no packed tensor views a leaf, so the cache holds no
+    leaf alive); the mode and xdim key
+    entries of their own; inference tensors, which track no version, are
+    packed at every call and kept nowhere."""
+    _, tp = _net(hidden=(64, 64), xdim=3, ydim=5, seed=9)
+    cache = em_kernel.NetCache()
+    net, hit = cache.get(tp, 3)
+    leaf_memory = {t.untyped_storage().data_ptr() for pair in tp for t in pair}
+    packed = [t for v in net.values() for t in (v if isinstance(v, list) else [v]) if isinstance(t, torch.Tensor)]
+    assert not hit and not any(t.untyped_storage().data_ptr() in leaf_memory for t in packed)
+    clones = tuple((w.clone(), b.clone()) for w, b in tp)
+    assert not cache.get(clones, 3)[1] and len(cache) == 2
+    assert not cache.get(tp, 3, f32_mode=True)[1] and not cache.get(tp, 2)[1] and len(cache) == 4
+    del clones
+    assert cache.get(tp, 3)[1] and len(cache) == 3
+    with torch.inference_mode():
+        frozen = tuple((w.clone(), b.clone()) for w, b in tp)
+    assert not cache.get(frozen, 3)[1] and not cache.get(frozen, 3)[1] and len(cache) == 3
+
+
+def test_the_least_recently_used_net_goes_first():
+    """At the bound the least recently used entry is dropped: with room for
+    two, a, b, a, c leaves a and c, so b misses again and a hits."""
+    trees = {k: _net(hidden=(64, 64), seed=s)[1] for k, s in zip("abc", (10, 11, 12))}
+    cache = em_kernel.NetCache(size=2)
+    assert [cache.get(trees[k], 2)[1] for k in "abac"] == [False, False, True, False]
+    assert len(cache) == 2
+    assert cache.get(trees["a"], 2)[1] and not cache.get(trees["b"], 2)[1]
+    assert cache.get(trees["a"], 2)[1] and not cache.get(trees["c"], 2)[1]
+
+
+def test_pack_counters_move_and_are_listed():
+    """``fused_em_sampler.packs`` counts the layouts packed and
+    ``.pack_hits`` those found kept; ``profiling.counters()`` lists both,
+    and no such counter for B4, which packs at every launch."""
+    from dmip_tpu_torch.utils import profiling
+
+    _, tp = _net(hidden=(64, 64), xdim=2, ydim=2, seed=13)
+    before = fused_em_sampler.packs, fused_em_sampler.pack_hits
+    for y in torch.randn(3, 2, generator=torch.Generator().manual_seed(5)):
+        em_kernel._b1_net(tp, 2, y)
+    assert (fused_em_sampler.packs, fused_em_sampler.pack_hits) == (before[0] + 1, before[1] + 2)
+    c = profiling.counters()
+    assert (c["fused_em_sampler.packs"], c["fused_em_sampler.pack_hits"]) == (before[0] + 1, before[1] + 2)
+    assert "fused_em_sampler_cdiffe.packs" not in c
+
+
 def test_model_sample_f32_kernel_method_on_cpu_is_the_f32_plain_version():
     """CDE.sample(method='kernel', compute_dtype=torch.float32) on the CPU
     is the f32 plain version on the sampler's own draws (x0, then the
